@@ -1,7 +1,8 @@
 """Tool dispatcher: ``python -m bbmap_tpu_torch <tool> key=value ...``
 
-The port's counterpart of ``python -m bbmap_tpu``. Only the ``bbmap``
-mapper is ported so far; each tool is a module with main(argv).
+The port's counterpart of ``python -m bbmap_tpu``. The ported tools are
+the short-read mapper ``bbmap`` and the long-read mappers ``mappacbio``
+and ``mappacbioskimmer``. Each entry names a module and its entry point.
 """
 
 from __future__ import annotations
@@ -10,7 +11,9 @@ import importlib
 import sys
 
 TOOLS = {
-    "bbmap": "bbmap_tpu_torch.tools.bbmap",
+    "bbmap": ("bbmap_tpu_torch.tools.bbmap", "main"),
+    "mappacbio": ("bbmap_tpu_torch.tools.mappacbio", "main"),
+    "mappacbioskimmer": ("bbmap_tpu_torch.tools.mappacbio", "skimmer_main"),
 }
 
 
@@ -21,8 +24,8 @@ def main() -> int:
         return 0
     tool = sys.argv[1].lower()
     if tool in TOOLS:
-        mod = importlib.import_module(TOOLS[tool])
-        return mod.main(sys.argv[2:])
+        module, entry = TOOLS[tool]
+        return getattr(importlib.import_module(module), entry)(sys.argv[2:])
     print(f"unknown tool {tool!r}; available: " + ", ".join(sorted(TOOLS)))
     return 1
 

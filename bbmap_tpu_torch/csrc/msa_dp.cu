@@ -2,30 +2,56 @@
 //
 // Replaces the Pallas TPU kernels msa_score_pallas_t and msa_fill_pallas_t
 // (bbmap_tpu/ops/msa_pallas.py:577 and :588, kernel body _make_kernel_t
-// at :313). Same cell semantics: packed ``score << SCOREOFFSET | streak``
-// int32 cells, streak-dependent sub / ins / del tiers, barrier rows, N and
-// gap-column handling, per-job row counts, a running last-row best per
-// state and the first maximum in MS > DEL > INS order. The fill variant
-// also emits one byte of packed prev-state codes (ms | del << 2 | ins << 4)
-// per cell, job-major (B, R+C, R+1), for the traceback walk.
+// at :313) and msa_score_pallas (:243, kernel _make_kernel at :92). Same
+// cell semantics: packed ``score << SCOREOFFSET | streak`` int32 cells,
+// streak-dependent sub / ins / del tiers, barrier rows, N and gap-column
+// handling, per-job row counts, a running last-row best per state and the
+// first maximum in MS > DEL > INS order. The fill variant also emits one
+// byte of packed prev-state codes (ms | del << 2 | ins << 4) per cell,
+// job-major (B, R+C, R+1), for the traceback walk.
 //
-// Mapping: one block per job, thread r owns DP row r, and the block sweeps
-// the R+C anti-diagonals in order. A thread keeps its own row's previous
-// cell and its upper neighbour's wave d-2 cell in registers, so the only
-// exchange is the upper neighbour's wave d-1 cell, read from one of two
-// shared-memory wave slots (3 ints per row) and followed by one
-// __syncthreads() per wave.
+// Operands. Two readers feed the same kernels: RawOps takes raw ASCII
+// reads (B, R) and windows (B, C) (msa_score_pallas_t / msa_fill_pallas_t
+// callers); RowOps reads msa_score_pallas's operands as they are: read1 /
+// read0 (B, R+1) int32 and the reversed, padded window refpad (B, C+2R+2)
+// int32, pre-rotated so that cell (r, c) on wave d reads
+// refpad[(r - d + 1) mod (C+2R+2)] (ref1) and the lane after it (ref0).
+//
+// Two mappings, chosen by the caller (ops/msa_kernels.launch_shape):
+//
+// * rows_per_thread == 1 (R <= 1023): one block per job, thread r owns DP
+//   row r, and the block sweeps the R+C anti-diagonals in order. A thread
+//   keeps its own row's previous cell and its upper neighbour's wave d-2
+//   cell in registers, so the only exchange is the upper neighbour's wave
+//   d-1 cell, read from one of two shared-memory wave slots (3 ints per
+//   row) and followed by one __syncthreads() per wave.
+// * rows_per_thread == J in {2, 4, 8} (R up to 8,191, long reads): rows
+//   are strided over the block, r = t + j * blockDim.x. Both wave slots
+//   live in shared memory (24 * (R+1) bytes: 144 KB at R = 6,000, above
+//   48 KB only after cudaFuncSetAttribute), the window and the read are
+//   staged there too (C + R bytes), and each owned row's diagonal carry
+//   (its upper neighbour's wave d-2 cell, 3 ints) sits in a register
+//   array of J entries. Wave d writes slot d & 1 and reads only slot
+//   (d-1) & 1, so one __syncthreads() per wave still suffices. Cells off
+//   the window (c < 0 or c > C) are BAD by definition and no valid cell
+//   reads them, so they are skipped: their slot entries and prev codes
+//   are not written, and about half the (R+1) x (R+C) sweep is saved.
 //
 // What bounds it on this card: the sweep is serial in the waves. Every
 // wave costs one barrier and about three ints read and three written per
 // cell from shared memory, against roughly sixty integer operations; no
 // work is shared between jobs, and device memory sees only the inputs,
 // three ints out per job, and (fill) one byte per cell, written by
-// neighbouring threads to neighbouring bytes. One block per job is the
-// simple correct start: jobs are independent, a block of R+1 threads
-// matches the wave width exactly, and tens of thousands of jobs keep all
-// SMs busy without any cross-block scheduling. Packing several jobs per
-// block or per warp, to cut the barrier cost, is later work.
+// neighbouring threads to neighbouring bytes. The long mapping is bound
+// by registers and shared memory: 65,536 registers per SM give 64 a
+// thread at 1,024 threads (__launch_bounds__), which holds J = 8 carries
+// of 3 ints but not the own-row cells as well, so those are read back
+// from the wave slot (ptxas at J = 8: 63 registers for the score, 64 and
+// a 24-byte spill for the fill); the slots take one block per SM at
+// R = 6,000.
+// One block per job is the simple correct start: jobs are independent
+// and hundreds of jobs keep all SMs busy. Packing several jobs per block,
+// or tiling long jobs across blocks, is later work.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -43,6 +69,8 @@ struct Prof {
 };
 constexpr int kProfInts = 28;
 constexpr int NEG_INF = -2147483646;  // -(2**31) + 2
+constexpr int kMaxThreads = 1024;
+constexpr size_t kMaxSmem = 232448;   // 227 KB a block on sm_90
 
 // int32 addition with two's-complement wrap (signed overflow is undefined
 // in C++; the reference wraps like JAX int32).
@@ -70,11 +98,200 @@ __device__ __forceinline__ int del_ext(int s, const Prof& P) {
   return (s & P.MASK5) == 0 ? P.DEL5 : 0;
 }
 
+// Raw ASCII operands: reads (B, R) uint8, windows (B, C) uint8, out (3, B).
+struct RawOps {
+  const uint8_t* reads;
+  const uint8_t* refs;
+  static constexpr bool kJobMajorOut = false;
+
+  struct Job {
+    const uint8_t* read;  // the job's read (device or shared memory)
+    const uint8_t* ref;   // the job's window, staged in shared memory
+    int C;
+    __device__ int read1(int r) const { return r >= 1 ? read[r - 1] : '?'; }
+    __device__ int read0(int r) const { return r >= 2 ? read[r - 2] : '?'; }
+    __device__ int ref1(int, int, int c) const {
+      return (c >= 1 && c <= C) ? ref[c - 1] : '!';
+    }
+    __device__ int ref0(int, int, int c) const {
+      return (c >= 2 && c <= C + 1) ? ref[c - 2] : '!';
+    }
+  };
+
+  // Stages the window (C bytes) and, with stage_read, the read (R more
+  // bytes) into shared memory at s. The caller synchronises.
+  __device__ Job job(int b, int R, int C, uint8_t* s, bool stage_read,
+                     int tid, int nt) const {
+    const uint8_t* rf = refs + static_cast<size_t>(b) * C;
+    for (int i = tid; i < C; i += nt) s[i] = rf[i];
+    const uint8_t* rd = reads + static_cast<size_t>(b) * R;
+    if (stage_read) {
+      for (int i = tid; i < R; i += nt) s[C + i] = rd[i];
+      rd = s + C;
+    }
+    return Job{rd, s, C};
+  }
+};
+
+// msa_score_pallas's operands, read in place: read1 / read0 (B, R+1)
+// int32, refpad (B, W = C+2R+2) int32 pre-rotated by -(C+R), out (B, 3).
+struct RowOps {
+  const int* read1;
+  const int* read0;
+  const int* refpad;
+  static constexpr bool kJobMajorOut = true;
+
+  struct Job {
+    const int* r1;
+    const int* r0;
+    const int* rp;
+    int W;
+    __device__ int read1(int r) const { return r1[r]; }
+    __device__ int read0(int r) const { return r0[r]; }
+    // (r - d + 1) lies in (-W, W): one conditional add is the modulo
+    __device__ int ref1(int r, int d, int) const {
+      const int i = r - d + 1;
+      return rp[i < 0 ? i + W : i];
+    }
+    __device__ int ref0(int r, int d, int) const {
+      const int i = r - d + 2;
+      return rp[i < 0 ? i + W : i];
+    }
+  };
+
+  __device__ Job job(int b, int R, int C, uint8_t*, bool, int, int) const {
+    const int W = C + 2 * R + 2;
+    const size_t rb = static_cast<size_t>(b) * (R + 1);
+    return Job{read1 + rb, read0 + rb, refpad + static_cast<size_t>(b) * W,
+               W};
+  }
+};
+
+// One DP cell (r, c) on wave d from its neighbours: dd = (r-1, c-1) on
+// wave d-2, own = (r, c-1) and up = (r-1, c) on wave d-1. ins0 is the
+// column-0 boundary of row r. Writes the new MS / DEL / INS cells and,
+// with WANT_PREVS, the packed prev-state code.
 template <bool WANT_PREVS>
-__global__ void msa_dp_kernel(const uint8_t* __restrict__ reads,
-                              const uint8_t* __restrict__ refs,
-                              const int* __restrict__ rows_in, int B, int R,
-                              int C, Prof P, int* __restrict__ out,
+__device__ __forceinline__ void dp_cell(
+    int r, int c, int C, int rows, int read1, int read0, int ref1, int ref0,
+    int dd_ms, int dd_del, int dd_ins, int own_ms, int own_del, int up_ms,
+    int up_ins, int ins0, int subfloor, const Prof& P, int& ms_out,
+    int& del_out, int& ins_out, uint8_t& code) {
+  const int SM = ~P.TIMEMASK;
+  const int TM = P.TIMEMASK;
+  const bool match = read1 == ref1 && ref1 != 'N';
+  const bool pm = read0 == ref0 && ref0 != 'N';
+  const bool gap = ref1 == '-';
+
+  // ---- MS (diagonal predecessors: wave d-2, row r-1)
+  const int s_diag = dd_ms & SM, s_del = dd_del & SM, s_ins = dd_ins & SM;
+  const int streak = dd_ms & TM;
+  const int m_ms = wadd(s_diag, pm ? P.MATCH2 : P.MATCH);
+  const int m_d = wadd(s_del, P.MATCH);
+  const int m_i = wadd(s_ins, P.MATCH);
+  const int m_best = max(m_ms, max(m_d, m_i));
+  const bool m_from_ms = m_ms >= m_d && m_ms >= m_i;
+  const int m_time = (m_from_ms && pm) ? streak + 1 : 1;
+  const int sub_pen = pm ? (streak <= 1 ? P.SUBR : P.SUB)
+                         : sub_array(streak + 1, P);
+  const int x_ms = (ref1 != 'N' && read1 != 'N') ? wadd(s_diag, sub_pen)
+                                                 : wadd(s_diag, P.NOCALL);
+  const int x_d = wadd(s_del, P.SUB);
+  const int x_i = wadd(s_ins, P.SUB);
+  const int x_best = max(x_ms, max(x_d, x_i));
+  const bool x_from_ms = x_ms >= x_d && x_ms >= x_i;
+  const int x_time = x_from_ms ? (pm ? 1 : streak + 1) : 1;
+  const int ms_score = match ? m_best : x_best;
+  const int ms_time = clamp_time(match ? m_time : x_time, P);
+  int ms_val = gap ? subfloor : (ms_score | ms_time);
+
+  // ---- DEL (left: own row, wave d-1)
+  const int dstreak = own_del & TM;
+  const int refn_adj = ref1 == 'N' ? P.DEL_REF_N : (gap ? P.GAP : 0);
+  const int d_ms = wadd(wadd(own_ms & SM, P.DEL), refn_adj);
+  const int d_d = wadd(wadd(own_del & SM, del_ext(dstreak, P)), refn_adj);
+  const int del_score = max(d_ms, d_d);
+  const int del_time = clamp_time(d_ms >= d_d ? 1 : dstreak + 1, P);
+  const bool del_barrier = r < P.BARRIER_D1 || r > rows - P.BARRIER_D1;
+  int del_val = del_barrier ? subfloor : (del_score | del_time);
+
+  // ---- INS (up: row r-1, wave d-1)
+  const int istreak = up_ins & TM;
+  const int i_ms = wadd(up_ms & SM, P.INS);
+  const int i_i = wadd(up_ins & SM, ins_array(istreak + 1, P));
+  const int ins_score = max(i_ms, i_i);
+  const int ins_time = clamp_time(i_ms >= i_i ? 1 : istreak + 1, P);
+  const bool ins_barrier = gap || (r < P.BARRIER_I1 && c > 1) ||
+                           (r > rows - P.BARRIER_I1 && c < C - 1);
+  int ins_val = ins_barrier ? subfloor : (ins_score | ins_time);
+
+  // boundaries: row 0 is free (0), column 0 carries ins0; cells off
+  // the window or below the job's last row are BAD
+  if (r == 0) {
+    ms_val = del_val = ins_val = 0;
+  } else if (c == 0) {
+    ms_val = del_val = ins_val = ins0;
+  }
+  if (c < 0 || c > C || r > rows) ms_val = del_val = ins_val = P.BADoff;
+
+  if (WANT_PREVS) {
+    const int ms_arg = (s_diag >= s_del && s_diag >= s_ins)
+                           ? 0 : (s_del >= s_ins ? 1 : 2);
+    const int ms_prev = ms_time > 1 ? 0 : ms_arg;
+    const int del_prev = del_time > 1 ? 1
+                       : ((own_ms & SM) >= (own_del & SM) ? 0 : 1);
+    const int ins_prev = ins_time > 1 ? 2
+                       : ((up_ms & SM) >= (up_ins & SM) ? 0 : 2);
+    code = static_cast<uint8_t>(ms_prev | (del_prev << 2) | (ins_prev << 4));
+  }
+  ms_out = ms_val;
+  del_out = del_val;
+  ins_out = ins_val;
+}
+
+__device__ __forceinline__ int max_gain(int rows, const Prof& P) {
+  return wadd(static_cast<int>(static_cast<uint32_t>(rows - 1) *
+                               static_cast<uint32_t>(P.MATCH2)), P.MATCH);
+}
+
+__device__ __forceinline__ int sub_floor(int gain) {
+  return static_cast<int>(static_cast<uint32_t>(gain) *
+                          static_cast<uint32_t>(-2));
+}
+
+// Last-row best of one state: strictly greater keeps the first column.
+__device__ __forceinline__ void track(int v, int c, int& best, int& col) {
+  if (v > best) { best = v; col = c; }
+}
+
+template <class Ops>
+__device__ __forceinline__ void store_out(int* out, int B, int b, int best0,
+                                          int best1, int best2, int col0,
+                                          int col1, int col2, const Prof& P) {
+  int state, score, col;
+  if (best0 >= best1 && best0 >= best2) {
+    state = 0; score = best0; col = col0;
+  } else if (best1 >= best2) {
+    state = 1; score = best1; col = col1;
+  } else {
+    state = 2; score = best2; col = col2;
+  }
+  if (Ops::kJobMajorOut) {
+    out[3 * b] = score >> P.SCOREOFFSET;
+    out[3 * b + 1] = col;
+    out[3 * b + 2] = state;
+  } else {
+    out[b] = score >> P.SCOREOFFSET;
+    out[B + b] = col;
+    out[2 * B + b] = state;
+  }
+}
+
+// One row per thread (R <= 1023).
+template <class Ops, bool WANT_PREVS>
+__global__ void msa_dp_kernel(Ops ops, const int* __restrict__ rows_in,
+                              int B, int R, int C, Prof P,
+                              int* __restrict__ out,
                               uint8_t* __restrict__ prevs) {
   extern __shared__ int smem[];
   const int Rp1 = R + 1;
@@ -85,14 +302,12 @@ __global__ void msa_dp_kernel(const uint8_t* __restrict__ reads,
   const bool live = r <= R;
   const int rows = rows_in[b];
   const int SM = ~P.TIMEMASK;
-  const int TM = P.TIMEMASK;
   const int BAD = P.BADoff;
 
-  const uint8_t* ref_g = refs + static_cast<size_t>(b) * C;
-  for (int i = r; i < C; i += blockDim.x) ref_s[i] = ref_g[i];
-  const uint8_t* read_g = reads + static_cast<size_t>(b) * R;
-  const int read1 = (live && r >= 1) ? read_g[r - 1] : '?';
-  const int read0 = (live && r >= 2) ? read_g[r - 2] : '?';
+  const typename Ops::Job job =
+      ops.job(b, R, C, ref_s, false, r, blockDim.x);
+  const int read1 = live ? job.read1(r) : '?';
+  const int read0 = live ? job.read0(r) : '?';
 
   // column-0 boundary: cumulative insertion penalty of row r
   long long ins0_acc = 0;
@@ -104,10 +319,7 @@ __global__ void msa_dp_kernel(const uint8_t* __restrict__ reads,
     }
   }
   const int ins0 = static_cast<int>(ins0_acc);
-  const int maxGain = wadd(static_cast<int>(
-      static_cast<uint32_t>(rows - 1) * static_cast<uint32_t>(P.MATCH2)), P.MATCH);
-  const int subfloor = static_cast<int>(
-      static_cast<uint32_t>(maxGain) * static_cast<uint32_t>(-2));
+  const int subfloor = sub_floor(max_gain(rows, P));
 
   // own row's cell on wave d-1, upper neighbour's cell on wave d-2
   int own_ms = r == 0 ? 0 : BAD, own_del = own_ms, own_ins = own_ms;
@@ -132,80 +344,19 @@ __global__ void msa_dp_kernel(const uint8_t* __restrict__ reads,
         up_ins = rd[2 * Rp1 + r - 1];
       }
       const int c = d - r;
-      const int ref1 = (c >= 1 && c <= C) ? ref_s[c - 1] : '!';
-      const int ref0 = (c >= 2 && c <= C + 1) ? ref_s[c - 2] : '!';
-      const bool match = read1 == ref1 && ref1 != 'N';
-      const bool pm = read0 == ref0 && ref0 != 'N';
-      const bool gap = ref1 == '-';
-
-      // ---- MS (diagonal predecessors: wave d-2, row r-1)
-      const int s_diag = dd_ms & SM, s_del = dd_del & SM, s_ins = dd_ins & SM;
-      const int streak = dd_ms & TM;
-      const int m_ms = wadd(s_diag, pm ? P.MATCH2 : P.MATCH);
-      const int m_d = wadd(s_del, P.MATCH);
-      const int m_i = wadd(s_ins, P.MATCH);
-      const int m_best = max(m_ms, max(m_d, m_i));
-      const bool m_from_ms = m_ms >= m_d && m_ms >= m_i;
-      const int m_time = (m_from_ms && pm) ? streak + 1 : 1;
-      const int sub_pen = pm ? (streak <= 1 ? P.SUBR : P.SUB)
-                             : sub_array(streak + 1, P);
-      const int x_ms = (ref1 != 'N' && read1 != 'N') ? wadd(s_diag, sub_pen)
-                                                     : wadd(s_diag, P.NOCALL);
-      const int x_d = wadd(s_del, P.SUB);
-      const int x_i = wadd(s_ins, P.SUB);
-      const int x_best = max(x_ms, max(x_d, x_i));
-      const bool x_from_ms = x_ms >= x_d && x_ms >= x_i;
-      const int x_time = x_from_ms ? (pm ? 1 : streak + 1) : 1;
-      const int ms_score = match ? m_best : x_best;
-      const int ms_time = clamp_time(match ? m_time : x_time, P);
-      int ms_val = gap ? subfloor : (ms_score | ms_time);
-
-      // ---- DEL (left: own row, wave d-1)
-      const int dstreak = own_del & TM;
-      const int refn_adj = ref1 == 'N' ? P.DEL_REF_N : (gap ? P.GAP : 0);
-      const int d_ms = wadd(wadd(own_ms & SM, P.DEL), refn_adj);
-      const int d_d = wadd(wadd(own_del & SM, del_ext(dstreak, P)), refn_adj);
-      const int del_score = max(d_ms, d_d);
-      const int del_time = clamp_time(d_ms >= d_d ? 1 : dstreak + 1, P);
-      const bool del_barrier = r < P.BARRIER_D1 || r > rows - P.BARRIER_D1;
-      int del_val = del_barrier ? subfloor : (del_score | del_time);
-
-      // ---- INS (up: row r-1, wave d-1)
-      const int istreak = up_ins & TM;
-      const int i_ms = wadd(up_ms & SM, P.INS);
-      const int i_i = wadd(up_ins & SM, ins_array(istreak + 1, P));
-      const int ins_score = max(i_ms, i_i);
-      const int ins_time = clamp_time(i_ms >= i_i ? 1 : istreak + 1, P);
-      const bool ins_barrier = gap || (r < P.BARRIER_I1 && c > 1) ||
-                               (r > rows - P.BARRIER_I1 && c < C - 1);
-      int ins_val = ins_barrier ? subfloor : (ins_score | ins_time);
-
-      // boundaries: row 0 is free (0), column 0 carries ins0; cells off
-      // the window or below the job's last row are BAD
-      if (r == 0) {
-        ms_val = del_val = ins_val = 0;
-      } else if (c == 0) {
-        ms_val = del_val = ins_val = ins0;
-      }
-      if (c < 0 || c > C || r > rows) ms_val = del_val = ins_val = BAD;
-
-      if (WANT_PREVS) {
-        const int ms_arg = (s_diag >= s_del && s_diag >= s_ins)
-                               ? 0 : (s_del >= s_ins ? 1 : 2);
-        const int ms_prev = ms_time > 1 ? 0 : ms_arg;
-        const int del_prev = del_time > 1 ? 1
-                           : ((own_ms & SM) >= (own_del & SM) ? 0 : 1);
-        const int ins_prev = ins_time > 1 ? 2
-                           : ((up_ms & SM) >= (up_ins & SM) ? 0 : 2);
-        prevs[(static_cast<size_t>(b) * n_waves + (d - 1)) * Rp1 + r] =
-            static_cast<uint8_t>(ms_prev | (del_prev << 2) | (ins_prev << 4));
-      }
+      int ms_val, del_val, ins_val;
+      uint8_t code = 0;
+      dp_cell<WANT_PREVS>(r, c, C, rows, read1, read0, job.ref1(r, d, c),
+                          job.ref0(r, d, c), dd_ms, dd_del, dd_ins, own_ms,
+                          own_del, up_ms, up_ins, ins0, subfloor, P, ms_val,
+                          del_val, ins_val, code);
+      if (WANT_PREVS)
+        prevs[(static_cast<size_t>(b) * n_waves + (d - 1)) * Rp1 + r] = code;
 
       if (r == rows && c >= 1 && c <= C) {
-        const int v0 = ms_val & SM, v1 = del_val & SM, v2 = ins_val & SM;
-        if (v0 > best0) { best0 = v0; col0 = c; }
-        if (v1 > best1) { best1 = v1; col1 = c; }
-        if (v2 > best2) { best2 = v2; col2 = c; }
+        track(ms_val & SM, c, best0, col0);
+        track(del_val & SM, c, best1, col1);
+        track(ins_val & SM, c, best2, col2);
       }
 
       int* wr = wave + (d & 1) * 3 * Rp1;
@@ -222,61 +373,204 @@ __global__ void msa_dp_kernel(const uint8_t* __restrict__ reads,
     __syncthreads();
   }
 
-  if (live && r == rows) {
-    int state, score, col;
-    if (best0 >= best1 && best0 >= best2) {
-      state = 0; score = best0; col = col0;
-    } else if (best1 >= best2) {
-      state = 1; score = best1; col = col1;
-    } else {
-      state = 2; score = best2; col = col2;
-    }
-    out[b] = score >> P.SCOREOFFSET;
-    out[B + b] = col;
-    out[2 * B + b] = state;
-  }
+  if (live && r == rows)
+    store_out<Ops>(out, B, b, best0, best1, best2, col0, col1, col2, P);
 }
 
-template <bool WANT_PREVS>
-cudaError_t launch(const uint8_t* reads, const uint8_t* refs, const int* rows,
-                   int B, int R, int C, const int* prof, int* out,
-                   uint8_t* prevs, cudaStream_t stream) {
+// J rows per thread, strided (R up to J * 1024 - 1).
+template <class Ops, bool WANT_PREVS, int J>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+msa_dp_long_kernel(Ops ops, const int* __restrict__ rows_in,
+                   const int* __restrict__ ins0_col, int B, int R, int C,
+                   Prof P, int* __restrict__ out,
+                   uint8_t* __restrict__ prevs) {
+  extern __shared__ int smem[];
+  const int Rp1 = R + 1;
+  int* wave = smem;  // [2 slots][3 states][R+1]
+  uint8_t* stage = reinterpret_cast<uint8_t*>(smem + 6 * Rp1);  // C + R
+  const int b = blockIdx.x;
+  const int t = threadIdx.x;
+  const int T = blockDim.x;
+  const int rows = rows_in[b];
+  const int SM = ~P.TIMEMASK;
+  const int BAD = P.BADoff;
+  const typename Ops::Job job = ops.job(b, R, C, stage, true, t, T);
+  const int subfloor = sub_floor(max_gain(rows, P));
+
+  // diagonal carry of each owned row: upper neighbour's wave d-2 cell
+  int dd_ms[J], dd_del[J], dd_ins[J];
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    dd_ms[j] = dd_del[j] = dd_ins[j] = BAD;
+    const int r = t + j * T;
+    if (r <= R) {
+      const int w0 = r == 0 ? 0 : BAD;
+      wave[r] = w0;
+      wave[Rp1 + r] = w0;
+      wave[2 * Rp1 + r] = w0;
+    }
+  }
+  int best0 = NEG_INF, best1 = NEG_INF, best2 = NEG_INF;
+  int col0 = 0, col1 = 0, col2 = 0;
+  __syncthreads();
+
+  const int n_waves = R + C;
+  for (int d = 1; d <= n_waves; ++d) {
+    const int* rd = wave + ((d - 1) & 1) * 3 * Rp1;
+    int* wr = wave + (d & 1) * 3 * Rp1;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int r = t + j * T;
+      const int c = d - r;
+      if (r > R || c < 0 || c > C) continue;
+      int up_ms = BAD, up_del = BAD, up_ins = BAD;
+      if (r >= 1) {
+        up_ms = rd[r - 1];
+        up_del = rd[Rp1 + r - 1];
+        up_ins = rd[2 * Rp1 + r - 1];
+      }
+      const int ins0 = c == 0 ? ins0_col[r] : 0;
+      int ms_val, del_val, ins_val;
+      uint8_t code = 0;
+      dp_cell<WANT_PREVS>(r, c, C, rows, job.read1(r), job.read0(r),
+                          job.ref1(r, d, c), job.ref0(r, d, c), dd_ms[j],
+                          dd_del[j], dd_ins[j], rd[r], rd[Rp1 + r], up_ms,
+                          up_ins, ins0, subfloor, P, ms_val, del_val,
+                          ins_val, code);
+      if (WANT_PREVS)
+        prevs[(static_cast<size_t>(b) * n_waves + (d - 1)) * Rp1 + r] = code;
+      if (r == rows && c >= 1) {
+        track(ms_val & SM, c, best0, col0);
+        track(del_val & SM, c, best1, col1);
+        track(ins_val & SM, c, best2, col2);
+      }
+      wr[r] = ms_val;
+      wr[Rp1 + r] = del_val;
+      wr[2 * Rp1 + r] = ins_val;
+      dd_ms[j] = up_ms;
+      dd_del[j] = up_del;
+      dd_ins[j] = up_ins;
+    }
+    __syncthreads();
+  }
+
+  const int jr = rows - t;
+  if (jr >= 0 && jr % T == 0 && jr / T < J && rows <= R)
+    store_out<Ops>(out, B, b, best0, best1, best2, col0, col1, col2, P);
+}
+
+// Shared memory of each mapping; must agree with launch_shape in
+// ops/msa_kernels.py, which picks the mapping.
+size_t smem_bytes(int rows_per_thread, int R, int C) {
+  const size_t wave = 6 * static_cast<size_t>(R + 1) * sizeof(int);
+  return rows_per_thread == 1 ? wave + C : wave + C + R;
+}
+
+template <class K>
+cudaError_t raise_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+template <class Ops, bool WANT_PREVS, int J>
+cudaError_t launch_long(Ops ops, const int* rows, const int* ins0, int B,
+                        int R, int C, const Prof& P, int* out,
+                        uint8_t* prevs, int threads, size_t smem,
+                        cudaStream_t stream) {
+  auto kernel = msa_dp_long_kernel<Ops, WANT_PREVS, J>;
+  cudaError_t e = raise_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<B, threads, smem, stream>>>(ops, rows, ins0, B, R, C, P, out,
+                                       prevs);
+  return cudaGetLastError();
+}
+
+// rows_per_thread, threads and smem come from launch_shape; they are
+// checked here against R and C so that a disagreement never launches.
+template <class Ops, bool WANT_PREVS>
+cudaError_t launch(Ops ops, const int* rows, const int* ins0, int B, int R,
+                   int C, const int* prof, int* out, uint8_t* prevs,
+                   int rows_per_thread, int threads, int smem_in,
+                   cudaStream_t stream) {
   if (B <= 0) return cudaSuccess;
+  if (R < 0 || C < 0 || threads <= 0 || threads > kMaxThreads ||
+      threads % 32 != 0 ||
+      static_cast<long long>(threads) * rows_per_thread < R + 1)
+    return cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(rows_per_thread, R, C);
+  if (smem != static_cast<size_t>(smem_in) || smem > kMaxSmem)
+    return cudaErrorInvalidValue;
   Prof P;
   static_assert(sizeof(Prof) == kProfInts * sizeof(int), "Prof layout");
   int* pp = reinterpret_cast<int*>(&P);
   for (int i = 0; i < kProfInts; ++i) pp[i] = prof[i];
-  const int threads = ((R + 1 + 31) / 32) * 32;
-  const size_t smem = 6 * static_cast<size_t>(R + 1) * sizeof(int) + C;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        msa_dp_kernel<WANT_PREVS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
+  switch (rows_per_thread) {
+    case 1: {
+      auto kernel = msa_dp_kernel<Ops, WANT_PREVS>;
+      cudaError_t e = raise_smem(kernel, smem);
+      if (e != cudaSuccess) return e;
+      kernel<<<B, threads, smem, stream>>>(ops, rows, B, R, C, P, out,
+                                           prevs);
+      return cudaGetLastError();
+    }
+    case 2:
+      return launch_long<Ops, WANT_PREVS, 2>(ops, rows, ins0, B, R, C, P,
+                                             out, prevs, threads, smem,
+                                             stream);
+    case 4:
+      return launch_long<Ops, WANT_PREVS, 4>(ops, rows, ins0, B, R, C, P,
+                                             out, prevs, threads, smem,
+                                             stream);
+    case 8:
+      return launch_long<Ops, WANT_PREVS, 8>(ops, rows, ins0, B, R, C, P,
+                                             out, prevs, threads, smem,
+                                             stream);
+    default:
+      return cudaErrorInvalidValue;
   }
-  msa_dp_kernel<WANT_PREVS><<<B, threads, smem, stream>>>(
-      reads, refs, rows, B, R, C, P, out, prevs);
-  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// reads (B, R) uint8, refs (B, C) uint8, rows (B,) int32, prof: host
+// reads (B, R) uint8, refs (B, C) uint8, rows (B,) int32, ins0 (R+1,)
+// int32 column-0 boundary (read by the long mapping only), prof: host
 // int32[28]; out (3, B) int32 = [score >> SCOREOFFSET, col, state].
 cudaError_t msa_score_launch(const uint8_t* reads, const uint8_t* refs,
-                             const int* rows, int B, int R, int C,
-                             const int* prof, int* out, cudaStream_t stream) {
-  return launch<false>(reads, refs, rows, B, R, C, prof, out, nullptr, stream);
+                             const int* rows, const int* ins0, int B, int R,
+                             int C, const int* prof, int* out,
+                             int rows_per_thread, int threads, int smem,
+                             cudaStream_t stream) {
+  return launch<RawOps, false>(RawOps{reads, refs}, rows, ins0, B, R, C,
+                               prof, out, nullptr, rows_per_thread, threads,
+                               smem, stream);
 }
 
 // As msa_score_launch, plus prevs (B, R+C, R+1) uint8 prev-state codes.
 cudaError_t msa_fill_launch(const uint8_t* reads, const uint8_t* refs,
-                            const int* rows, int B, int R, int C,
-                            const int* prof, int* out, uint8_t* prevs,
+                            const int* rows, const int* ins0, int B, int R,
+                            int C, const int* prof, int* out, uint8_t* prevs,
+                            int rows_per_thread, int threads, int smem,
                             cudaStream_t stream) {
-  return launch<true>(reads, refs, rows, B, R, C, prof, out, prevs, stream);
+  return launch<RawOps, true>(RawOps{reads, refs}, rows, ins0, B, R, C, prof,
+                              out, prevs, rows_per_thread, threads, smem,
+                              stream);
+}
+
+// msa_score_pallas's operands: read1, read0 (B, R+1) int32, refpad
+// (B, C+2R+2) int32, rows (B, 1) int32; out (B, 3) int32.
+cudaError_t msa_score_rows_launch(const int* read1, const int* read0,
+                                  const int* refpad, const int* rows,
+                                  const int* ins0, int B, int R, int C,
+                                  const int* prof, int* out,
+                                  int rows_per_thread, int threads, int smem,
+                                  cudaStream_t stream) {
+  return launch<RowOps, false>(RowOps{read1, read0, refpad}, rows, ins0, B,
+                               R, C, prof, out, nullptr, rows_per_thread,
+                               threads, smem, stream);
 }
 
 }  // extern "C"

@@ -11,28 +11,45 @@ Phases, each timed on its own line:
 2. build: nvcc builds ``bbmap_tpu_torch/csrc/msa_dp.cu`` into
    ``build/torch_kernels/`` (skipped when a library of the same source
    hash is there);
-3. kernel vs plain: the DP score and fill kernels against their plain
-   PyTorch versions on the card, bit-equal (tolerance 0: the DP is
-   integer arithmetic), at the main path's shapes and at the wide window,
-   for the short-read and PacBio profiles; kernel and plain times;
-4. main path: the bench workload (4.6 Mbp genome with repeat families,
-   k=13 index, 2x150 bp pairs with quality, 32,768 pairs a batch) through
-   ``BBMapAligner.map_pairs_columnar`` (one warmup batch) and
-   ``map_pairs_columnar_stream`` (3 steady batches), graded against the
-   simulated origins; fails below sensitivity 0.997, mapped fraction
-   0.999 or pair rate 0.997, or when either kernel was never launched;
-5. SAM: ``emit_sam`` on the first 1,000 pairs.
+3. kernel vs plain: the DP kernels against their plain PyTorch versions
+   on the card, bit-equal (tolerance 0: the DP is integer arithmetic):
+   K2 score and K3 fill at the short path's shapes (one row per thread),
+   PACBIO at (1,100, 1,200) and at the long-read shapes (6,000, 6,456)
+   and (6,000, 8,192) (rows strided over the block), and K1 on its own
+   operands at (150, 174); kernel and plain times at the shapes the
+   paths use;
+4. K1 entry point: ``msa_kernels.score_batch`` on 32,768 jobs, counted;
+5. main path: ``make -C csrc`` once (its return code is reported next
+   to the quality-offset route), then the bench workload (4.6 Mbp genome
+   with repeat families, k=13 index, 2x150 bp pairs with quality, 32,768
+   pairs a batch) through ``BBMapAligner.map_pairs_columnar`` (one warmup
+   batch) and ``map_pairs_columnar_stream`` (3 steady batches), graded
+   against the simulated origins; fails below sensitivity 0.997, mapped
+   fraction 0.999 or pair rate 0.997, or when K2 or K3 was never
+   launched;
+6. SAM: ``emit_sam`` on the first 1,000 pairs;
+7. long reads: bench_tools.bench_mappacbio's inputs (400 PacBio-model
+   reads of 6 kbp at 12 % error on the same genome) through the port's
+   ``mappacbio`` CLI on the card, graded by gradesam (strict = within
+   400 bp); fails below mapped 0.98 or strict 0.65, or when the
+   strided-row K2 or K3 was never launched.
 
-Any failure raises and exits non-zero without the final ``ok`` line. It
-exits 2 when no CUDA device is available or when it is not run from a
-checkout of the repository.
+Each path's launch counts are set to 0 just before it and read just
+after. Any failure raises and exits non-zero without the final ``ok``
+line. It exits 2 when no CUDA device is available or when it is not run
+from a checkout of the repository.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -41,7 +58,11 @@ L = 150
 N_PAIRS = 32768
 N_STEADY = 3
 SENS_MIN, MAPPED_MIN, PAIR_MIN = 0.997, 0.999, 0.997
-REPLACES = {"msa_score": "bbmap_tpu/ops/msa_pallas.py:577",
+N_LONG, L_LONG = 400, 6000
+LONG_MAPPED_MIN, LONG_STRICT_MIN = 0.98, 0.65
+K1_JOBS = 32768
+REPLACES = {"msa_score_rows": "bbmap_tpu/ops/msa_pallas.py:243",
+            "msa_score": "bbmap_tpu/ops/msa_pallas.py:577",
             "msa_fill": "bbmap_tpu/ops/msa_pallas.py:588"}
 SOURCE = "bbmap_tpu_torch/csrc/msa_dp.cu"
 
@@ -56,24 +77,48 @@ def _sync(device) -> None:
         torch.cuda.synchronize()
 
 
-def _cuda_ms(fn, reps: int) -> float:
+def _cuda_ms(fn, reps: int, warm: bool = True):
+    """Mean milliseconds of ``reps`` calls of fn between CUDA events
+    (after one warmup call when ``warm``), and the last call's result."""
     import torch
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
     e0.record()
     for _ in range(reps):
-        fn()
+        out = fn()
     e1.record()
     torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / reps
+    return e0.elapsed_time(e1) / reps, out
+
+
+def _pb_errors(rng, src, n: int, err: float):
+    """PacBio-model errors at rate ``err`` per source base (60 %
+    insertions, 25 % deletions, 15 % substitutions, as tests/test_pacbio.py
+    draws them); the first n bases of the result."""
+    import numpy as np
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    u = rng.random(len(src))
+    ins = u < 0.60 * err
+    sub = (u >= 0.85 * err) & (u < err)
+    keep = ~((u >= 0.60 * err) & (u < 0.85 * err))
+    src = src.copy()
+    src[sub] = bases[rng.integers(0, 4, int(sub.sum()))]
+    counts = keep.astype(np.int64) + ins
+    pos = np.cumsum(counts) - 1                 # where each kept base lands
+    out = np.empty(int(counts.sum()), np.uint8)
+    out[pos[keep]] = src[keep]
+    out[pos[ins] - 1] = bases[rng.integers(0, 4, int(ins.sum()))]
+    return out[:n]
 
 
 def dp_jobs(genome, n: int, R: int, C: int, seed: int, device,
-            var_rows: bool = True):
+            var_rows: bool = True, pb_err: float = 0.0):
     """Bench-like DP jobs: reads sampled from the genome with 1-3
-    substitutions or one 1-10 bp insertion/deletion, windows around the
+    substitutions or one 1-10 bp insertion/deletion (or, with
+    ``pb_err``, PacBio-model errors at that rate), windows around the
     origin as the fused program cuts them (start - 4), and, when
     ``var_rows``, a quarter of the jobs with 1-8 fewer rows (the read
     padded with N)."""
@@ -82,10 +127,14 @@ def dp_jobs(genome, n: int, R: int, C: int, seed: int, device,
     rng = np.random.default_rng(seed)
     bases = np.frombuffer(b"ACGT", np.uint8)
     G = len(genome)
-    starts = rng.integers(8, G - C - R - 32, n)
+    starts = rng.integers(8, G - C - (2 if pb_err else 1) * R - 32, n)
     reads = np.empty((n, R), np.uint8)
     refs = np.empty((n, C), np.uint8)
     for i, s in enumerate(starts):
+        refs[i] = genome[s - 4:s - 4 + C]
+        if pb_err:
+            reads[i] = _pb_errors(rng, genome[s:s + 2 * R], R, pb_err)
+            continue
         src = genome[s:s + R + 16].copy()
         kind = rng.random()
         if kind < 0.4:
@@ -99,7 +148,6 @@ def dp_jobs(genome, n: int, R: int, C: int, seed: int, device,
             src = np.concatenate([src[:p], bases[rng.integers(0, 4, d)],
                                   src[p:]])
         reads[i] = src[:R]
-        refs[i] = genome[s - 4:s - 4 + C]
     rows = np.full(n, R, np.int32)
     if var_rows:
         short = rng.random(n) < 0.25
@@ -123,66 +171,146 @@ def valid_cells(rows, R: int, C: int):
 
 def kernel_phase(genome, device) -> dict:
     """Kernels against their plain versions on the card; returns per
-    kernel {max_abs_err, ms, plain_ms}."""
+    kernel variant {max_abs_err, ms, plain_ms}: "msa_score_rows" (K1),
+    "msa_score" / "msa_fill" (one row per thread) and "msa_score_long" /
+    "msa_fill_long" (rows strided over the block)."""
     import torch
     from bbmap_tpu.core.constants import PACBIO_PROFILE, SHORT_PROFILE
     from bbmap_tpu_torch.ops import msa_kernels as mk
 
-    err = {"msa_score": 0, "msa_fill": 0}
+    err = {}
 
-    def cmp_score(tag, P, n, R, C, seed):
-        rd, rf, rw = dp_jobs(genome, n, R, C, seed, device)
-        k = mk.msa_score(rd, rf, rw, P)
-        p = mk.msa_score_plain(rd, rf, rw, P)
-        _sync(device)
-        e = int((k.long() - p.long()).abs().max())
-        err["msa_score"] = max(err["msa_score"], e)
-        say(f"kernel msa_score {tag}: {n} jobs (R, C) = ({R}, {C}) "
-            f"max_abs_err {e}")
+    def record(name, tag, n, R, C, e, what=""):
+        key = name + ("_long" if mk.launch_shape(R, C).long else "")
+        err[key] = max(err.get(key, 0), e)
+        say(f"kernel {key} {tag}: {n} jobs (R, C) = ({R}, {C}) "
+            f"max_abs_err {e}{what}")
         if e != 0:
-            raise AssertionError(f"msa_score disagrees with its plain "
-                                 f"version ({tag})")
+            raise AssertionError(f"{key} disagrees with its plain version "
+                                 f"({tag})")
 
-    def cmp_fill(tag, P, n, R, C, seed):
-        rd, rf, rw = dp_jobs(genome, n, R, C, seed, device)
-        k, kp = mk.msa_fill(rd, rf, rw, P)
-        p, pp = mk.msa_fill_plain(rd, rf, rw, P)
+    def jobs(n, R, C, seed, pb_err=0.0):
+        return dp_jobs(genome, n, R, C, seed, device, pb_err=pb_err)
+
+    def cmp_score(tag, P, job, k=None, p=None):
+        rd, rf, rw = job
+        k = mk.msa_score(rd, rf, rw, P) if k is None else k
+        p = mk.msa_score_plain(rd, rf, rw, P) if p is None else p
         _sync(device)
+        record("msa_score", tag, *rd.shape, rf.shape[1],
+               int((k.long() - p.long()).abs().max()))
+
+    def cmp_fill(tag, P, job, k=None, p=None):
+        rd, rf, rw = job
+        k, kp = mk.msa_fill(rd, rf, rw, P) if k is None else k
+        p, pp = mk.msa_fill_plain(rd, rf, rw, P) if p is None else p
+        _sync(device)
+        R, C = rd.shape[1], rf.shape[1]
         valid = valid_cells(rw, R, C)
         e = max(int((k.long() - p.long()).abs().max()),
                 int(((kp.short() - pp.short()).abs() * valid).max()))
-        err["msa_fill"] = max(err["msa_fill"], e)
-        say(f"kernel msa_fill {tag}: {n} jobs (R, C) = ({R}, {C}) "
-            f"max_abs_err {e} (out and prev codes on valid cells)")
-        if e != 0:
-            raise AssertionError(f"msa_fill disagrees with its plain "
-                                 f"version ({tag})")
+        record("msa_fill", tag, len(rw), R, C, e,
+               " (out and prev codes on valid cells)")
+
+    def cmp_rows(tag, job):
+        rd, rf, rw = job
+        R, C = rd.shape[1], rf.shape[1]
+        r1, r0, rp, rows = mk.prep_operands(rd, rf, rw)
+        k = mk.msa_score_rows(r1, r0, (rp, rows), R, C, 64)
+        p = mk.msa_score_rows_plain(r1, r0, (rp, rows), R, C, 64)
+        _sync(device)
+        record("msa_score_rows", tag, len(rw), R, C,
+               int((k.long() - p.long()).abs().max()))
 
     S, PB = SHORT_PROFILE, PACBIO_PROFILE
-    cmp_score("short narrow", S, 4096, L, L + 24, 1)
-    cmp_score("short wide", S, 512, L, L + 456, 2)
-    cmp_score("pacbio", PB, 256, 300, 360, 3)
-    cmp_fill("short narrow", S, 1024, L, L + 24, 4)
-    cmp_fill("short wide", S, 64, L, L + 456, 5)
-    cmp_fill("pacbio", PB, 256, 300, 360, 6)
+    cmp_score("short narrow", S, jobs(4096, L, L + 24, 1))
+    cmp_score("short wide", S, jobs(512, L, L + 456, 2))
+    cmp_score("pacbio", PB, jobs(256, 300, 360, 3))
+    cmp_fill("short narrow", S, jobs(1024, L, L + 24, 4))
+    cmp_fill("short wide", S, jobs(64, L, L + 456, 5))
+    cmp_fill("pacbio", PB, jobs(256, 300, 360, 6))
+    cmp_rows("short narrow", jobs(4096, L, L + 24, 12))
+    # rows strided over the block: just past the old 1,023-row limit and
+    # at the long-indel pass's widest window (the long-read escalation
+    # window is compared on its timing runs below)
+    cmp_score("pacbio past 1,023 rows", PB, jobs(8, 1100, 1200, 13, 0.12))
+    cmp_fill("pacbio past 1,023 rows", PB, jobs(8, 1100, 1200, 14, 0.12))
+    cmp_score("pacbio long-indel width", PB, jobs(2, L_LONG, 8192, 15, 0.12))
+    cmp_fill("pacbio long-indel width", PB, jobs(2, L_LONG, 8192, 16, 0.12))
 
-    # times at the main path's shapes: 2E = 32,768 score jobs and
-    # T = 8,192 fill jobs at (R, C) = (150, 174)
+    # times at the paths' shapes: the short path's 2E = 32,768 score
+    # jobs and T = 8,192 fill jobs at (R, C) = (150, 174), K1 at its
+    # entry point's 32,768 jobs, and the long-read wide escalation
+    # window (6,000, 6,456): 256 score jobs and 16 fill jobs, whose
+    # kernel and plain results are compared as well
     out = {}
+
+    def timed(name, kern, plain, reps, plain_warm=True):
+        ms, k = _cuda_ms(kern, reps)
+        plain_ms, p = _cuda_ms(plain, 1, warm=plain_warm)
+        out[name] = {"ms": ms, "plain_ms": plain_ms}
+        return k, p
+
     rd, rf, rw = dp_jobs(genome, 2 * 16384, L, L + 24, 7, device,
                          var_rows=False)
-    out["msa_score"] = {
-        "ms": _cuda_ms(lambda: mk.msa_score(rd, rf, rw, S), 10),
-        "plain_ms": _cuda_ms(lambda: mk.msa_score_plain(rd, rf, rw, S), 1)}
+    timed("msa_score", lambda: mk.msa_score(rd, rf, rw, S),
+          lambda: mk.msa_score_plain(rd, rf, rw, S), 10)
+    r1, r0, rp, rows = mk.prep_operands(rd, rf, rw)
+    R, C = rd.shape[1], rf.shape[1]
+    timed("msa_score_rows",
+          lambda: mk.msa_score_rows(r1, r0, (rp, rows), R, C, 64),
+          lambda: mk.msa_score_rows_plain(r1, r0, (rp, rows), R, C, 64), 10)
     rd, rf, rw = rd[:8192], rf[:8192], rw[:8192]
-    out["msa_fill"] = {
-        "ms": _cuda_ms(lambda: mk.msa_fill(rd, rf, rw, S), 10),
-        "plain_ms": _cuda_ms(lambda: mk.msa_fill_plain(rd, rf, rw, S), 1)}
+    timed("msa_fill", lambda: mk.msa_fill(rd, rf, rw, S),
+          lambda: mk.msa_fill_plain(rd, rf, rw, S), 10)
+    job = rd, rf, rw = jobs(256, L_LONG, L_LONG + 456, 19, 0.12)
+    k, p = timed("msa_score_long", lambda: mk.msa_score(rd, rf, rw, PB),
+                 lambda: mk.msa_score_plain(rd, rf, rw, PB), 2, False)
+    cmp_score("pacbio long read", PB, job, k, p)
+    job = rd, rf, rw = jobs(16, L_LONG, L_LONG + 456, 20, 0.12)
+    k, p = timed("msa_fill_long", lambda: mk.msa_fill(rd, rf, rw, PB),
+                 lambda: mk.msa_fill_plain(rd, rf, rw, PB), 2, False)
+    cmp_fill("pacbio long read", PB, job, k, p)
+    # 28 jobs: the pipeline's chunk cap at this window; the prev-code
+    # block is 28 x 12,456 x 6,001 = 2.09e9 bytes, past 2**31, so the
+    # last jobs check the kernel's 64-bit indexing
+    rd, rf, rw = jobs(28, L_LONG, L_LONG + 456, 22, 0.12)
+    k, kp = mk.msa_fill(rd, rf, rw, PB)
+    cmp_fill("pacbio long read, last 2 of 28 jobs (prev codes past 2**31 "
+             "bytes)", PB, (rd[26:], rf[26:], rw[26:]),
+             (k[:, 26:], kp[26:]))
+    del k, kp
+    shapes = {"msa_score": "32,768 x (150, 174)",
+              "msa_score_rows": "32,768 x (150, 174)",
+              "msa_fill": "8,192 x (150, 174)",
+              "msa_score_long": "256 x (6,000, 6,456) PACBIO",
+              "msa_fill_long": "16 x (6,000, 6,456) PACBIO"}
     for name, t in out.items():
         t["max_abs_err"] = err[name]
-        say(f"time {name} at the main-path shape: kernel {t['ms']:.3f} ms, "
+        say(f"time {name} at {shapes[name]}: kernel {t['ms']:.3f} ms, "
             f"plain {t['plain_ms']:.3f} ms")
     return out
+
+
+def k1_entry(genome, device) -> int:
+    """K1's own entry point, ``score_batch``, on the card at 32,768 jobs
+    of (150, 174), counted; held equal to K2 on the same jobs. Returns
+    K1's launch count."""
+    from bbmap_tpu.core.constants import SHORT_PROFILE
+    from bbmap_tpu_torch.ops import msa_kernels as mk
+    rd, rf, rw = dp_jobs(genome, K1_JOBS, L, L + 24, 21, device)
+    mk.reset_launches()
+    got = mk.score_batch(rd, rf, rw, BB=64)
+    _sync(device)
+    n = mk.msa_score_rows.launches
+    want = mk.msa_score_plain(rd, rf, rw, SHORT_PROFILE)
+    e = max(int((g.long() - w.long()).abs().max())
+            for g, w in zip(got, want))
+    say(f"K1 entry point score_batch: {K1_JOBS} jobs, launches {n}, "
+        f"max_abs_err vs plain {e}")
+    if e != 0 or n == 0:
+        raise AssertionError("score_batch did not run K1 or disagrees")
+    return n
 
 
 def grade(aligner, graded, t1, t2, n_pairs: int) -> dict:
@@ -205,8 +333,33 @@ def grade(aligner, graded, t1, t2, n_pairs: int) -> dict:
             "pair_rate": n_paired / (len(graded) * n_pairs)}
 
 
+def launch_counts() -> dict:
+    """Each kernel wrapper's launches since the last reset, with the
+    strided-row launches as "<name>_long"."""
+    from bbmap_tpu_torch.ops import msa_kernels
+    out = {}
+    for k in msa_kernels.KERNELS:
+        out[k.__name__] = k.launches
+        out[k.__name__ + "_long"] = k.long_launches
+    return out
+
+
+def make_csrc() -> str:
+    """``make -C csrc`` (the JAX package's native host library, which
+    sets the quality-offset route): return code and the last lines of
+    its stderr, on one line."""
+    try:
+        p = subprocess.run(["make", "-C", str(ROOT / "csrc")],
+                           capture_output=True, text=True, timeout=300)
+        rc, tail = p.returncode, p.stderr.strip().splitlines()[-3:]
+    except (OSError, subprocess.TimeoutExpired) as e:
+        rc, tail = None, [f"{type(e).__name__}: {e}"]
+    return f"make -C csrc: rc={rc} stderr: {' | '.join(tail) or '(none)'}"
+
+
 def main_path(device, n_pairs: int = N_PAIRS, n_steady: int = N_STEADY,
-              genome_bases=None, check: bool = True):
+              genome_bases=None, check: bool = True,
+              make_report: str = "not run"):
     """The bench workload through the port's aligner. Returns (summary
     dict, (batch1, batch2, (mb1, mb2), aligner) of the warmup batch)."""
     import numpy as np
@@ -254,7 +407,7 @@ def main_path(device, n_pairs: int = N_PAIRS, n_steady: int = N_STEADY,
         (mk(r1, q1, b), mk(r2, q2, b)) for b in range(1, n_batches)))
     _sync(device)
     dt = time.time() - ts
-    launches = {k.__name__: k.launches for k in msa_kernels.KERNELS}
+    launches = launch_counts()
     res = grade(aligner, [(0, out0)] + [(b + 1, o)
                                         for b, o in enumerate(outs)],
                 t1, t2, n_pairs)
@@ -271,6 +424,7 @@ def main_path(device, n_pairs: int = N_PAIRS, n_steady: int = N_STEADY,
     from bbmap_tpu.io import native
     res["quality_offsets"] = "host" if native.get_lib() is not None \
         else "device"
+    res["make_csrc"] = make_report
 
     # per-stage decomposition on one more batch, stage by stage
     b1x, b2x = mk(r1, q1, 1), mk(r2, q2, 1)
@@ -299,7 +453,7 @@ def main_path(device, n_pairs: int = N_PAIRS, n_steady: int = N_STEADY,
             raise AssertionError(
                 f"accuracy below the bar (sensitivity >= {SENS_MIN}, "
                 f"mapped >= {MAPPED_MIN}, pair rate >= {PAIR_MIN})")
-        if not all(v > 0 for v in launches.values()):
+        if not (launches["msa_score"] and launches["msa_fill"]):
             raise AssertionError(f"a kernel of the path never launched: "
                                  f"{launches}")
     return res, (mk(r1, q1, 0), mk(r2, q2, 0), out0, aligner)
@@ -333,6 +487,113 @@ def sam_phase(first, n: int = 1000) -> int:
     return len(lines)
 
 
+@contextlib.contextmanager
+def gpu_util_sampler(samples: list):
+    """Sample the card's utilization.gpu (the share of time a kernel was
+    running) every 200 ms while the block runs; the samples land in
+    ``samples`` and the sampler process is stopped on exit."""
+    p = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=utilization.gpu",
+         "--format=csv,noheader,nounits", "-lms", "200"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        yield
+    finally:
+        p.terminate()
+        try:
+            out = p.communicate(timeout=30)[0]
+        except subprocess.TimeoutExpired:
+            p.kill()
+            out = p.communicate()[0]
+        samples.extend(float(x) for x in out.split() if x.isdigit())
+
+
+def write_fasta(path: str, name: str, bases) -> None:
+    with open(path, "w") as fh:
+        fh.write(f">{name}\n")
+        for a in range(0, len(bases), 80):
+            fh.write(bases[a:a + 80].tobytes().decode() + "\n")
+
+
+def long_phase(device, genome_bases, n_reads: int = N_LONG,
+               L_read: int = L_LONG, check: bool = True) -> dict:
+    """bench_tools.bench_mappacbio's inputs, built the same way, through
+    the port's ``mappacbio`` CLI: the genome as FASTA, ``randomreads
+    pacbio=t pbmin=pbmax=L pberror=0.12 seed=19``, mapped with
+    ``device=``, graded with ``gradesam.grade(out, 400)``. The wall time
+    covers the CLI's index build and mapping; the CLI's own mapping time
+    is read from its report."""
+    import re
+
+    import torch
+    from bbmap_tpu.tools import gradesam, randomreads
+    from bbmap_tpu_torch.ops import msa_kernels
+    from bbmap_tpu_torch.tools import mappacbio
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pb")
+    try:
+        ref = os.path.join(tmp, "ref.fa")
+        reads = os.path.join(tmp, "reads.fq")
+        out = os.path.join(tmp, "mapped.sam")
+        write_fasta(ref, "ecoli_like", genome_bases)
+        if randomreads.main([
+                f"ref={ref}", f"out={reads}", f"reads={n_reads}",
+                "pacbio=t", f"pbmin={L_read}", f"pbmax={L_read}",
+                "pberror=0.12", "seed=19"]) != 0:
+            raise AssertionError("randomreads failed")
+        on_card = torch.device(device).type == "cuda"
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        log = io.StringIO()
+        util = []
+        sampler = gpu_util_sampler(util) if on_card \
+            else contextlib.nullcontext()
+        msa_kernels.reset_launches()
+        t0 = time.time()
+        try:
+            with sampler, contextlib.redirect_stderr(log):
+                rc = mappacbio.main([f"ref={ref}", f"in={reads}",
+                                     f"out={out}", "nodisk",
+                                     f"device={device}"])
+                _sync(device)
+        finally:
+            for ln in log.getvalue().strip().splitlines()[-6:]:
+                say(f"  mappacbio: {ln}")
+        wall = time.time() - t0
+        launches = launch_counts()
+        if rc != 0:
+            raise AssertionError(f"mappacbio exited {rc}")
+        s = gradesam.grade(out, 400)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    n = max(1, s["primary"] - s["unparsed"])
+    m = re.search(r"Time:\s*([0-9.]+) seconds", log.getvalue())
+    if m is None:
+        raise AssertionError("the CLI reported no mapping time")
+    map_s = float(m.group(1))
+    res = {"reads": n_reads, "read_len": L_read,
+           "strict_correct": s["strict"] / n,
+           "mapped_fraction": s["mapped"] / n,
+           "wall_s": wall, "map_s": map_s,
+           "reads_per_s": n_reads / map_s,
+           "bases_per_s": n_reads * L_read / map_s,
+           "launches": launches,
+           "gpu_util_mean_pct": sum(util) / len(util) if util else None,
+           "max_memory_allocated":
+               torch.cuda.max_memory_allocated() if on_card else None}
+    say("long reads: " + json.dumps(res))
+    if check:
+        if res["mapped_fraction"] < LONG_MAPPED_MIN or \
+                res["strict_correct"] < LONG_STRICT_MIN:
+            raise AssertionError(
+                f"long-read accuracy below the bar (mapped >= "
+                f"{LONG_MAPPED_MIN}, strict >= {LONG_STRICT_MIN})")
+        if not (launches["msa_score_long"] and launches["msa_fill_long"]):
+            raise AssertionError(f"the strided-row kernels never launched "
+                                 f"on the long-read path: {launches}")
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -360,7 +621,7 @@ def main() -> int:
     say(smi)
     say(f"phase device facts: {time.time() - t:.2f} s")
 
-    from bbmap_tpu_torch.ops import _build, msa_kernels
+    from bbmap_tpu_torch.ops import _build
     t = time.time()
     _build.load("msa_dp")
     say(f"phase build: {time.time() - t:.2f} s "
@@ -373,26 +634,47 @@ def main() -> int:
     say(f"phase kernel vs plain: {time.time() - t:.1f} s")
 
     t = time.time()
-    res, first = main_path(device, genome_bases=gbases)
+    k1_launches = k1_entry(gbases, device)
+    say(f"phase K1 entry point: {time.time() - t:.1f} s")
+
+    t = time.time()
+    made = make_csrc()
+    res, first = main_path(device, genome_bases=gbases, make_report=made)
     say(f"phase main path: {time.time() - t:.1f} s; reads/s "
         f"{res['reads_per_s']:.1f} over {N_STEADY} steady batches of "
         f"{N_PAIRS} pairs; sensitivity {res['sensitivity']:.4f}, mapped "
         f"{res['mapped_fraction']:.4f}, pair rate {res['pair_rate']:.4f}; "
-        f"launches {res['launches']}; card {smi}")
+        f"launches {res['launches']}; quality offsets "
+        f"{res['quality_offsets']} ({made}); card {smi}")
 
     t = time.time()
     n_lines = sam_phase(first)
     say(f"phase SAM: {n_lines} lines, {time.time() - t:.2f} s")
 
+    t = time.time()
+    lres = long_phase(device, gbases)
+    say(f"phase long reads: {time.time() - t:.1f} s; {N_LONG} reads of "
+        f"{L_LONG} bp: reads/s {lres['reads_per_s']:.3f}, bases/s "
+        f"{lres['bases_per_s']:.1f} (mapping {lres['map_s']:.1f} s, wall "
+        f"with index build {lres['wall_s']:.1f} s); mapped "
+        f"{lres['mapped_fraction']:.4f}, strict "
+        f"{lres['strict_correct']:.4f}; launches {lres['launches']}; "
+        f"peak memory {lres['max_memory_allocated']} B; card {smi}")
+
+    if "jax" in sys.modules:
+        raise AssertionError("jax was imported")
+    launches = {"msa_score_rows": k1_launches,
+                "msa_score": res["launches"]["msa_score"],
+                "msa_fill": res["launches"]["msa_fill"],
+                "msa_score_long": lres["launches"]["msa_score_long"],
+                "msa_fill_long": lres["launches"]["msa_fill_long"]}
     kernels = []
-    for k in msa_kernels.KERNELS:
-        name = k.__name__
+    for name, n in launches.items():
         kt = ktimes[name]
         kernels.append({"name": name, "route": "cuda", "source": SOURCE,
-                        "replaces": REPLACES[name],
-                        "launches": res["launches"][name],
-                        "max_abs_err": kt["max_abs_err"], "ms": kt["ms"],
-                        "plain_ms": kt["plain_ms"]})
+                        "replaces": REPLACES[name.replace("_long", "")],
+                        "launches": n, "max_abs_err": kt["max_abs_err"],
+                        "ms": kt["ms"], "plain_ms": kt["plain_ms"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

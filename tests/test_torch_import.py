@@ -66,8 +66,10 @@ def test_cpu_wrappers_do_not_count_launches():
     out = msa_kernels.msa_score(reads, refs, rows, SHORT_PROFILE)
     out2, prevs = msa_kernels.msa_fill(reads, refs, rows, SHORT_PROFILE)
     assert torch.equal(out, out2) and prevs.shape == (6, 52, 21)
-    assert msa_kernels.msa_score.launches == 0
-    assert msa_kernels.msa_fill.launches == 0
+    s, c, st = msa_kernels.score_batch(reads, refs, rows, BB=4)
+    assert torch.equal(torch.stack([s, c, st]), out)
+    for k in msa_kernels.KERNELS:
+        assert k.launches == 0 and k.long_launches == 0, k.__name__
 
 
 @pytest.fixture(scope="module")

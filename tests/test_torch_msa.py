@@ -222,3 +222,126 @@ def test_wrapper_checks_inputs():
                               SHORT_PROFILE)
     with pytest.raises(ValueError):
         msa_kernels.msa_fill(t(reads), t(refs[:3]), t(rows), SHORT_PROFILE)
+
+
+# ---- K1: msa_score_pallas's operands and entry point ---------------------
+
+@pytest.fixture
+def pallas_interpret(monkeypatch):
+    """msa_score_pallas has no interpret switch: run its pallas_call in
+    interpret mode, as tests/test_msa.py does."""
+    orig = msa_pallas.pl.pallas_call
+
+    def interp_call(*a, **k):
+        k["interpret"] = True
+        return orig(*a, **k)
+    monkeypatch.setattr(msa_pallas.pl, "pallas_call", interp_call)
+
+
+def k1_case(seed, B, R, C):
+    """tests/test_msa.py's K1 case: reads of 12..R bases copied from
+    their windows (plus a substitution), padded with N past rows."""
+    rng = np.random.default_rng(seed)
+    reads = np.full((B, R), ord("N"), np.uint8)
+    refs = rng.choice(BASES, size=(B, C)).astype(np.uint8)
+    rows = np.zeros(B, np.int32)
+    for i in range(B):
+        L = int(rng.integers(max(12, R - 12), R + 1))
+        rows[i] = L
+        off = int(rng.integers(0, C - L))
+        reads[i, :L] = refs[i, off:off + L]
+        reads[i, rng.integers(0, L)] = BASES[rng.integers(0, 4)]
+    return reads, refs, rows
+
+
+@pytest.mark.parametrize("shape", [(24, 40, 8, 8), (150, 174, 8, 4),
+                                   (150, 174, 6, 4)])
+def test_k1_score_batch_matches_pallas(pallas_interpret, shape):
+    """The port's score_batch (K1's plain version on the CPU) against
+    msa_pallas.score_batch in interpret mode, bit-equal; (150, 174, 6, 4)
+    pads the batch to a multiple of BB."""
+    R, C, B, BB = shape
+    reads, refs, rows = k1_case(R + B, B, R, C)
+    want = msa_pallas.score_batch(reads, refs, rows, BB=BB)
+    got = msa_kernels.score_batch(t(reads), t(refs), t(rows), BB=BB)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_k1_prep_operands_match():
+    reads, refs, rows = k1_case(2, 5, 30, 47)
+    want = msa_pallas.prep_operands(reads, refs, rows)
+    got = msa_kernels.prep_operands(t(reads), t(refs), t(rows))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
+def test_k1_matches_k2_and_checks_inputs():
+    """K1 on its operands equals K2 on the raw jobs (SHORT profile), and
+    the wrapper refuses what msa_score_pallas refuses."""
+    R, C, B = 40, 64, 8
+    reads, refs, rows = k1_case(4, B, R, C)
+    r1, r0, rp, rw = msa_kernels.prep_operands(t(reads), t(refs), t(rows))
+    out = msa_kernels.msa_score_rows(r1, r0, (rp, rw), R, C, 4)
+    k2 = msa_kernels.msa_score(t(reads), t(refs), t(rows), SHORT_PROFILE)
+    np.testing.assert_array_equal(out.numpy(), k2.numpy().T)
+    with pytest.raises(ValueError):
+        msa_kernels.msa_score_rows(r1, r0, (rp, rw), R, C, 3)
+    with pytest.raises(ValueError):
+        msa_kernels.msa_score_rows(r1, r0, (rp[:, 1:], rw), R, C, 4)
+    with pytest.raises(TypeError):
+        msa_kernels.msa_score_rows(r1.long(), r0, (rp, rw), R, C, 4)
+
+
+# ---- past 1,023 rows: the long-read DP shapes ------------------------------
+
+def test_plain_past_1023_rows_matches_scan():
+    """The plain DP (what the strided-row kernels are held against on
+    the card) against msa_jax's scan, PACBIO profile, R = 1,100: out and
+    prev codes on the valid cells."""
+    R, C, B = 1100, 1150, 3
+    P = PACBIO_PROFILE
+    reads, refs, rows = batch_of(17, B, R, C, gap=True)
+    out, prevs = msa_kernels.msa_fill(t(reads), t(refs), t(rows), P)
+    pv_x, sc, col, st = msa_jax.msa_trace_batch_var(
+        jnp.asarray(reads), jnp.asarray(refs), jnp.asarray(rows), R, C, P)
+    np.testing.assert_array_equal(out.numpy(), np.stack([sc, col, st]))
+    m = valid_mask(rows, R, C)
+    np.testing.assert_array_equal(prevs.numpy()[m], np.asarray(pv_x)[m])
+    score = msa_kernels.msa_score(t(reads), t(refs), t(rows), P)
+    np.testing.assert_array_equal(score.numpy(), out.numpy())
+
+
+@pytest.mark.parametrize("R, C, want", [
+    (0, 8, (1, 32, 24 + 8)),
+    (150, 174, (1, 160, 24 * 151 + 174)),
+    (1023, 1100, (1, 1024, 24 * 1024 + 1100)),
+    (1024, 1100, (2, 544, 24 * 1025 + 1100 + 1024)),
+    (1100, 1200, (2, 576, 24 * 1101 + 1200 + 1100)),
+    (4095, 4200, (4, 1024, 24 * 4096 + 4200 + 4095)),
+    (6000, 6024, (8, 768, 24 * 6001 + 6024 + 6000)),
+    (6000, 6456, (8, 768, 24 * 6001 + 6456 + 6000)),
+    (6000, 8192, (8, 768, 24 * 6001 + 8192 + 6000)),
+    (8191, 8192, (8, 1024, 24 * 8192 + 8192 + 8191)),
+])
+def test_launch_shape_rules(R, C, want):
+    s = msa_kernels.launch_shape(R, C)
+    assert tuple(s) == want
+    assert s.long == (R > 1023)
+    assert s.threads % 32 == 0 and s.threads <= 1024
+    assert s.threads * s.rows_per_thread >= R + 1
+    assert s.smem_bytes <= 232_448
+
+
+def test_launch_shape_limits():
+    for R in range(0, 8192, 97):
+        s = msa_kernels.launch_shape(R, R + 456)
+        assert s.threads * s.rows_per_thread >= R + 1
+        assert (s.threads - 32) * s.rows_per_thread < R + 1
+    with pytest.raises(ValueError):
+        msa_kernels.launch_shape(8192, 8192)          # rows
+    with pytest.raises(ValueError):
+        msa_kernels.launch_shape(6000, 90_000)        # shared memory
+    with pytest.raises(ValueError):
+        msa_kernels.launch_shape(-1, 10)

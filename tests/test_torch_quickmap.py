@@ -243,3 +243,49 @@ def test_quickmap_run_host_dict(setup):
     for k in dj:
         assert dt[k].dtype == dj[k].dtype, k
         np.testing.assert_array_equal(dt[k], dj[k], err_msg=k)
+
+
+def long_reads(index, n, LL, seed):
+    """Reads of length LL > 600 (the long-read configuration: slot
+    budget 512, hundreds of seed keys) with ~10 % substitutions, indels
+    and both strands."""
+    gc = index.genome_codes
+    A = np.frombuffer(b"ACGTN", np.uint8)
+    rng = np.random.default_rng(seed)
+    out = np.empty((n, LL), np.uint8)
+    for i in range(n):
+        s = int(rng.integers(0, len(gc) - 2 * LL))
+        src = A[np.minimum(gc[s:s + 2 * LL], 4)].copy()
+        keep = rng.random(len(src)) >= 0.03             # deletions
+        src = src[keep]
+        ins = rng.random(len(src)) < 0.03
+        src = np.insert(src, np.nonzero(ins)[0],
+                        BASES[rng.integers(0, 4, int(ins.sum()))])
+        sub = rng.random(LL) < 0.04
+        rd = src[:LL].copy()
+        rd[sub] = BASES[rng.integers(0, 4, int(sub.sum()))]
+        out[i] = COMP_ASCII[rd][::-1] if rng.random() < 0.5 else rd
+    return out
+
+
+@pytest.mark.parametrize("with_quality", [False, True])
+def test_quickmap_long_reads_host_dict(setup, with_quality):
+    """L = 700 (> 600): slot_budget 512 and the nk > 64 branches of the
+    candidate stage (weights compaction, list-position weights, the
+    shortest-first admission and the slot->key assignment), end to end
+    through build_quickmap; the .host() dicts agree key by key."""
+    index, dix = setup
+    LL = 700
+    assert tqd.make_config(dix, LL).slot_budget == 512
+    bases = long_reads(index, 12, LL, seed=31)
+    q = None
+    if with_quality:
+        rng = np.random.default_rng(5)
+        q = rng.integers(8, 40, (12, LL)).astype(np.int8)
+        q[::3, 100:160] = 2
+    dj = jqd.build_quickmap(index, LL)(bases, q).host()
+    dt = tqd.build_quickmap(dix, LL)(bases, q).host()
+    assert set(dj) == set(dt)
+    for k in dj:
+        assert dt[k].dtype == dj[k].dtype, k
+        np.testing.assert_array_equal(dt[k], dj[k], err_msg=k)
