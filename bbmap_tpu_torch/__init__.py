@@ -1,9 +1,12 @@
-"""PyTorch + CUDA port of the paired short-read mapper.
+"""PyTorch + CUDA port of the paired short-read mapper and the long-read
+mapper.
 
 Mirrors the layout of the JAX package ``bbmap_tpu`` (the reference it is
-held against) and reuses its jax-free host modules (``bbmap_tpu.core``,
-``bbmap_tpu.io``, ``bbmap_tpu.index.build``, ``bbmap_tpu.align.seed`` ...).
-The DP score and fill passes run as hand-written CUDA kernels
-(``csrc/msa_dp.cu``) on the card; everything else on the device path is
-PyTorch tensor code. This package never imports jax.
+held against) module by module, and keeps its own copies of the host
+modules it needs (``core``, ``io``, ``index.build``, ``align.seed``,
+``ops.msa_ref``, ``ops.gref``, ``utils``): nothing here imports jax or
+``bbmap_tpu``. ``convert`` carries the reference's state objects into the
+port's classes. The DP score and fill passes and the traceback walk run as
+hand-written CUDA kernels (``csrc/``) on the card; everything else on the
+device path is PyTorch tensor code.
 """

@@ -1,8 +1,10 @@
 """Tool dispatcher: ``python -m bbmap_tpu_torch <tool> key=value ...``
 
 The port's counterpart of ``python -m bbmap_tpu``. The ported tools are
-the short-read mapper ``bbmap`` and the long-read mappers ``mappacbio``
-and ``mappacbioskimmer``. Each entry names a module and its entry point.
+the short-read mapper ``bbmap``, the long-read mappers ``mappacbio`` and
+``mappacbioskimmer``, and the read simulator and SAM grader the smoke run
+uses (``randomreads``, ``gradesam``). Each entry names a module and its
+entry point.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ TOOLS = {
     "bbmap": ("bbmap_tpu_torch.tools.bbmap", "main"),
     "mappacbio": ("bbmap_tpu_torch.tools.mappacbio", "main"),
     "mappacbioskimmer": ("bbmap_tpu_torch.tools.mappacbio", "skimmer_main"),
+    "randomreads": ("bbmap_tpu_torch.tools.randomreads", "main"),
+    "gradesam": ("bbmap_tpu_torch.tools.gradesam", "main"),
 }
 
 

@@ -60,7 +60,7 @@ def make_programs(L: int, dindex: DeviceIndex, profile=None):
     'trace_n', 'trace_w', each taking (reads (J, L) uint8 ASCII numpy,
     wstart (J,) int32 numpy) and returning device tensors."""
     if profile is None:
-        from bbmap_tpu.core.constants import SHORT_PROFILE
+        from ..core.constants import SHORT_PROFILE
         profile = SHORT_PROFILE
     dev = dindex.device
 

@@ -30,9 +30,9 @@ from typing import Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
-from bbmap_tpu.align import seed as seed_host
-from bbmap_tpu.core.constants import MINGAP, SHORT_PROFILE
-from bbmap_tpu.io import native
+from . import seed as seed_host
+from ..core.constants import MINGAP, SHORT_PROFILE
+from ..io import native
 
 from ..ops import msa, msa_kernels
 from . import quickmap_device as qd

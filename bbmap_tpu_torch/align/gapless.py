@@ -20,7 +20,7 @@ from typing import Tuple
 
 import numpy as np
 
-from bbmap_tpu.core.constants import (POINTS_MATCH, POINTS_MATCH2,
+from ..core.constants import (POINTS_MATCH, POINTS_MATCH2,
                                       POINTS_NOCALL, POINTS_NOREF,
                                       POINTS_SUB, POINTS_SUB2, POINTS_SUB3,
                                       POINTS_SUB_ARRAY)
@@ -140,7 +140,7 @@ def gen_match_no_indels_batch(reads: np.ndarray,
 
 import torch  # noqa: E402
 
-from bbmap_tpu.core.constants import LIMIT_FOR_COST_3 as _LIM3  # noqa: E402
+from ..core.constants import LIMIT_FOR_COST_3 as _LIM3  # noqa: E402
 
 _MODE_NONE, _MODE_MS, _MODE_SUB = 0, 1, 2
 

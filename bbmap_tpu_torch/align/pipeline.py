@@ -34,12 +34,12 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from bbmap_tpu.align import seed
-from bbmap_tpu.core import constants as K
-from bbmap_tpu.core.batch import ReadBatch
-from bbmap_tpu.core.genome import Genome
-from bbmap_tpu.index.build import KmerIndex
-from bbmap_tpu.io import sam as samio
+from . import seed
+from ..core import constants as K
+from ..core.batch import ReadBatch
+from ..core.genome import Genome
+from ..index.build import KmerIndex
+from ..io import sam as samio
 
 from ..backend import DeviceLike, resolve_device
 from ..ops import msa
@@ -334,7 +334,7 @@ class BBMapAligner:
 
     def _genome_ascii(self) -> np.ndarray:
         """Concatenated genome as ASCII (for DP windows and traceback)."""
-        from bbmap_tpu.core.bases import codes_to_ascii
+        from ..core.bases import codes_to_ascii
         return codes_to_ascii(self.index.genome_codes)
 
     # ---- window extraction ----
@@ -458,7 +458,7 @@ class BBMapAligner:
         """Recompute m/S/N match rows on host for reads whose pair-boost
         re-pick changed the best site (the device match block covers the
         device-selected best only)."""
-        from bbmap_tpu.core.bases import COMP_ASCII
+        from ..core.bases import COMP_ASCII
         from . import gapless
         diags = d["best_diag"][rows].astype(np.int64)
         refs = gapless.gather_ref_rows(self.codes_ascii, diags, L)
@@ -710,7 +710,7 @@ class BBMapAligner:
 
         gl = keep & ~dp_beat
         if gl.any():
-            from bbmap_tpu.core.bases import COMP_ASCII
+            from ..core.bases import COMP_ASCII
             from . import gapless
             gdiag = esc["wdiag"][gl].astype(np.int64)
             chroms = np.clip(np.searchsorted(self.chrom_offsets, gdiag,
@@ -744,7 +744,7 @@ class BBMapAligner:
         tsel = t_valid & keep[np.clip(tloc, 0, E - 1)] \
             & ~t_over[np.clip(tloc, 0, E - 1)]
         if tsel.any():
-            from bbmap_tpu.core.bases import COMP_ASCII
+            from ..core.bases import COMP_ASCII
             erow = tloc[tsel]
             rows_g = eidx[erow]
             wstrand = esc["wstrand"][erow]
@@ -819,7 +819,7 @@ class BBMapAligner:
         beat their gapless alignment (reference:
         align2/BBMapThread.scoreSlow:252-345 scores all retained sites,
         traceback :309-345 runs on kept sites only)."""
-        from bbmap_tpu.core.bases import COMP_ASCII
+        from ..core.bases import COMP_ASCII
         from . import escalate_device as esc
         from . import gapless
 
@@ -1149,7 +1149,7 @@ class BBMapAligner:
                        d: dict) -> Optional[dict]:
         """Group-scoring dict for escalated reads built from the device
         quickmap candidates (seeding + gapless already done on device)."""
-        from bbmap_tpu.core.bases import COMP_ASCII
+        from ..core.bases import COMP_ASCII
 
         cs, _gapless_scores = self._cs_from_device(d, idxs, L)
         if cs is None:
@@ -1678,7 +1678,7 @@ class BBMapAligner:
         pending state for :meth:`_rescue_apply` (or None). Semantics
         mirror ``_rescue`` (reference:
         AbstractMapThread.rescue:1144-1250)."""
-        from bbmap_tpu.core.bases import COMP_ASCII
+        from ..core.bases import COMP_ASCII
 
         if self._mapped_retained > 1000 and \
                 self._num_mated * 20 < self._mapped_retained:
@@ -2120,7 +2120,7 @@ class BBMapAligner:
         pair-distance model, disabled when pairing is failing (<5%
         mated, :1146), gapless re-score + DP escalation of the rescued
         site (slowRescue), retain thresholds 0.4/0.55 of max score."""
-        from bbmap_tpu.core.bases import COMP_ASCII
+        from ..core.bases import COMP_ASCII
         from . import gapless
 
         # skip rescue when mating is not working (reference: :1146)
@@ -2193,7 +2193,7 @@ class BBMapAligner:
                 C = Lm + 2 * pad
                 ref = self._window(diag - pad, C)
                 msc, mstart, mmatch = 0, 0, None
-                from bbmap_tpu.ops import msa_ref as _mref
+                from ..ops import msa_ref as _mref
                 msc, mstart, mmatch = _mref.align(mate_read, ref,
                                                   self.profile)
                 if msc > score:
@@ -2252,8 +2252,8 @@ class BBMapAligner:
         SiteScore.gaps; SURVEY §5.7). Chains to ±maxindel, compresses gap
         interiors to GAPC symbols, aligns, and translates coordinates
         back through the column map."""
-        from bbmap_tpu.core.bases import COMP_ASCII
-        from bbmap_tpu.ops import gref as grefmod
+        from ..core.bases import COMP_ASCII
+        from ..ops import gref as grefmod
 
         k = self.index.k
         offsets = seed.make_offsets(L, k)
@@ -2262,7 +2262,7 @@ class BBMapAligner:
         max_sw = self.profile.max_quality(L)
         min_score = int(max_sw * self.min_ratio)
 
-        from bbmap_tpu.index.build import reverse_complement_key
+        from ..index.build import reverse_complement_key
 
         def local_diags(i):
             """Both strands' seed diagonals from the CSR."""
@@ -2386,7 +2386,7 @@ class BBMapAligner:
 
     def _score_candidates(self, batch: ReadBatch, L: int,
                           idxs: np.ndarray) -> Optional[dict]:
-        from bbmap_tpu.core.bases import COMP_ASCII
+        from ..core.bases import COMP_ASCII
         from . import gapless
 
         sub = batch.bases[idxs][:, :L]

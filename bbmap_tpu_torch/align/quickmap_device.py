@@ -35,9 +35,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from bbmap_tpu.align import seed as seed_host
-from bbmap_tpu.core import constants as K
-from bbmap_tpu.index.build import KmerIndex
+from . import seed as seed_host
+from ..core import constants as K
+from ..index.build import KmerIndex
 
 from ..backend import DeviceLike, resolve_device
 from .gapless import score_match_sub_vec

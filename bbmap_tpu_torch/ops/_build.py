@@ -3,10 +3,11 @@
 Each ``csrc/<name>.cu`` compiles with nvcc for ``sm_90a`` into a shared
 library with a plain C interface under ``build/torch_kernels/`` at the
 repository root (listed in ``.gitignore``). The library's file name
-carries a hash of its source, so an edited source rebuilds and an
-unchanged one loads the library already built. Nothing is downloaded:
-the build uses the sources in this checkout and the installed CUDA
-toolkit.
+carries a hash of its source and of the headers beside it
+(``csrc/*.cuh``), so an edited source rebuilds and an unchanged one loads
+the library already built. ``build_all`` starts one nvcc for each source
+at once. Nothing is downloaded: the build uses the sources in this
+checkout and the installed CUDA toolkit.
 """
 
 from __future__ import annotations
@@ -18,12 +19,13 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+SOURCES = ("msa_dp", "msa_dp_warp", "msa_walk")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -42,25 +44,43 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def build_all(names: Iterable[str] = SOURCES) -> List[Path]:
+    """Compile every ``csrc/<name>.cu`` that has no library of the same
+    source hash yet, one nvcc process each, all started together.
+    Returns the library paths."""
+    outs = [library_path(n) for n in names]
+    procs = []
+    for name, out in zip(names, outs):
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        procs.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for name, out, tmp, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}.cu:\n{err}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
 
 
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless a library of the same source
     hash exists. Returns the library path."""
-    out = library_path(name)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out
+    return build_all([name])[0]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -13,9 +13,10 @@ cells (r, c = d - r) for r in [0, R]:
 
 ``dp_plain`` sweeps the waves with one batched tensor step per wave; it is
 the plain version of the hand-written CUDA kernels in
-``ops/msa_kernels.py`` (score and fill). The entry points here
-(``msa_score_batch``, ``msa_align_batch``) always go through those
-kernel wrappers, which run ``dp_plain`` only for tensors on the CPU.
+``ops/msa_kernels.py`` (score and fill), as ``walk_plain`` is of the walk
+kernel. The entry points here (``msa_score_batch``, ``msa_align_batch``,
+``walk``) always go through those kernel wrappers, which run the plain
+versions only for tensors on the CPU.
 Prev-state codes are job-major, (B, R+C, R+1): ``prevs[b, d-1, r]`` holds
 the packed codes ``ms | del << 2 | ins << 4`` of cell (r, d - r).
 """
@@ -28,7 +29,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from bbmap_tpu.core.constants import (GAPC, GAPLEN, MODE_DEL, MODE_INS,
+from ..core.constants import (GAPC, GAPLEN, MODE_DEL, MODE_INS,
                                       MODE_MS, SHORT_PROFILE, ScoringProfile)
 
 _N = ord("N")
@@ -247,11 +248,12 @@ for _c in b"ACGTU":
     _DEFINED_TABLE[_c] = True
 
 
-def walk(prevs: torch.Tensor, reads: torch.Tensor, refs: torch.Tensor,
-         col0: torch.Tensor, st0: torch.Tensor, R: int, C: int,
-         steps: int = 0):
-    """Batched traceback walk over job-major prev codes (port of
-    msa_jax._walk_device). prevs (B, R+C, R+1) uint8. Returns (symbols
+def walk_plain(prevs: torch.Tensor, reads: torch.Tensor,
+               refs: torch.Tensor, col0: torch.Tensor, st0: torch.Tensor,
+               R: int, C: int, steps: int = 0):
+    """Batched traceback walk over job-major prev codes, one tensor step
+    per walk step (port of msa_jax._walk_device); the plain version of
+    the walk kernel. prevs (B, R+C, R+1) uint8. Returns (symbols
     (B, steps) uint8 in reverse order, out_len (B,), gaps (B,), row_end
     (B,)), all int32 but the symbols. ``steps`` (default R + C, the hard
     maximum) bounds the serial loop; a walk with row_end > 0 was cut."""
@@ -304,6 +306,15 @@ def walk(prevs: torch.Tensor, reads: torch.Tensor, refs: torch.Tensor,
         col = col - dcol
     outpos = (syms != 0).sum(dim=1).to(I32)
     return syms, outpos, gaps, row
+
+
+def walk(prevs: torch.Tensor, reads: torch.Tensor, refs: torch.Tensor,
+         col0: torch.Tensor, st0: torch.Tensor, R: int, C: int,
+         steps: int = 0):
+    """Batched traceback walk (``msa_kernels.msa_walk``): the walk kernel
+    on CUDA tensors, ``walk_plain`` on CPU tensors. Same returns."""
+    from . import msa_kernels
+    return msa_kernels.msa_walk(prevs, reads, refs, col0, st0, R, C, steps)
 
 
 def _full_rows(B: int, R: int, dev) -> torch.Tensor:

@@ -1,5 +1,6 @@
-"""The DP kernels (``csrc/msa_dp.cu``), their wrappers, launch counters
-and plain PyTorch versions.
+"""The DP kernels (``csrc/msa_dp.cu``, ``csrc/msa_dp_warp.cu``) and the
+traceback walk kernel (``csrc/msa_walk.cu``), their wrappers, launch
+counters and plain PyTorch versions.
 
 - ``msa_score`` (K2) and ``msa_fill`` (K3) replace the Pallas kernels
   ``msa_score_pallas_t`` and ``msa_fill_pallas_t``
@@ -15,13 +16,20 @@ and plain PyTorch versions.
   int32 and rows (B, 1) int32 (``prep_operands``); out (B, 3) int32,
   SHORT profile. ``score_batch`` is its convenience entry point.
 
-``launch_shape`` picks the kernel's mapping from R: one DP row per
-thread up to R = 1,023, rows strided over the block (2, 4 or 8 a thread)
-up to R = 8,191.
+- ``msa_walk`` replaces the device walk ``_walk_device``
+  (bbmap_tpu/ops/msa_jax.py:451, a compiled scan): one launch walks every
+  job's prev codes from (R, col0, st0) and writes the symbols, their
+  count, the gap count and the row the walk ended on.
 
-A wrapper given CPU tensors runs the plain version (``ops/msa.dp_plain``)
-and counts nothing. Given CUDA tensors it launches the kernel, adds one
-to its ``launches`` count (and to ``long_launches`` for the strided
+``launch_shape`` picks a DP kernel's mapping: a warp a job ("warp", 1 to
+10 rows a lane) for score passes of 2,048 jobs or more up to R = 319, one
+DP row per thread ("row") up to R = 1,023, rows strided over the block
+("strided", 2, 4 or 8 a thread) up to R = 8,191.
+
+A wrapper given CPU tensors runs the plain version (``ops/msa.dp_plain``,
+``ops/msa.walk_plain``) and counts nothing. Given CUDA tensors it
+launches the kernel, adds one to its ``launches`` count (to
+``launches_by[mapping]`` as well, and to ``long_launches`` for the strided
 mapping), or raises.
 """
 
@@ -29,17 +37,21 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from bbmap_tpu.core.constants import SHORT_PROFILE, ScoringProfile
+from ..core.constants import SHORT_PROFILE, ScoringProfile
 
 from . import _build
-from .msa import _ins0_np, dp_plain
+from .msa import _ins0_np, dp_plain, walk_plain
 
 I32 = torch.int32
+WARP_MAX_ROWS_PER_LANE = 10    # a warp a job: R + 1 <= 320 rows
+WARP_MAX_ROWS = 32 * WARP_MAX_ROWS_PER_LANE - 1
+WARP_THREADS = 128             # four jobs a block
+WARP_MIN_JOBS = 2048           # below it a score pass takes the one-row mapping
 SHORT_MAX_ROWS = 1023          # one thread per DP row, 1,024 threads a block
 LONG_ROWS_PER_THREAD = (2, 4, 8)
 MAX_THREADS = 1024
@@ -64,27 +76,59 @@ def prof_array(P: ScoringProfile) -> np.ndarray:
 
 
 class LaunchShape(NamedTuple):
-    rows_per_thread: int    # 1: one row a thread; 2, 4, 8: strided rows
+    rows_per_thread: int    # warp: rows a lane; row: 1; strided: 2, 4, 8
     threads: int
     smem_bytes: int
+    mapping: str            # "warp", "row" or "strided"
 
     @property
     def long(self) -> bool:
-        return self.rows_per_thread > 1
+        return self.mapping == "strided"
 
 
-def launch_shape(R: int, C: int) -> LaunchShape:
-    """The kernel mapping for a DP of R rows and a window of C columns.
-    Both wave slots take 24 * (R+1) bytes of shared memory, the window C
-    more, and the strided mapping stages the read as well (R bytes).
-    Raises above R = 8,191 or when the shared memory would exceed 227 KB.
-    ``smem_bytes`` must agree with ``smem_bytes`` in the kernel source,
-    which refuses a launch that disagrees."""
+MAPPINGS = ("warp", "row", "strided")
+
+
+def launch_shape(R: int, C: int, mapping: Optional[str] = None,
+                 jobs: Optional[int] = None, fill: bool = False
+                 ) -> LaunchShape:
+    """The kernel mapping for ``jobs`` DP jobs of R rows and a window of C
+    columns (``fill``: with prev codes).
+
+    - "warp" (R <= 319): a warp a job, lane l owns the ceil((R+1)/32)
+      rows from l * J on; four jobs a block (one below 2,048 jobs), no
+      shared memory. The default for score passes of 2,048 jobs or more
+      (``jobs=None`` counts as many): fewer jobs leave most of the card's
+      warp slots empty, and a fill's prev codes become scattered
+      single-byte stores that cost more than the sweep saves (times in
+      PERF.md), so those take the one-row mapping.
+    - "row" (R <= 1,023): a block a job, one row a thread. Both wave
+      slots take 24 * (R+1) bytes of shared memory, the window C more.
+    - "strided" (R <= 8,191): a block a job, 2, 4 or 8 rows a thread,
+      strided; the read is staged as well (R bytes).
+
+    ``mapping`` forces "warp" or "row" where that mapping holds R (for a
+    comparison on the card); "strided" cannot be forced. Raises above
+    R = 8,191 or when the shared memory would exceed 227 KB. The
+    launchers in the kernel sources recompute the shape and refuse a
+    launch that disagrees."""
     if R < 0 or C < 0:
         raise ValueError(f"R={R}, C={C}: both must be >= 0")
+    many = jobs is None or jobs >= WARP_MIN_JOBS
+    if mapping is None:
+        if R <= WARP_MAX_ROWS and many and not fill:
+            mapping = "warp"
+        else:
+            mapping = "row" if R <= SHORT_MAX_ROWS else "strided"
+    elif not ((mapping == "warp" and R <= WARP_MAX_ROWS)
+              or (mapping == "row" and R <= SHORT_MAX_ROWS)):
+        raise ValueError(f"mapping {mapping!r} cannot be forced at R={R}")
     wave = 24 * (R + 1)
-    if R <= SHORT_MAX_ROWS:
-        shape = LaunchShape(1, (R + 1 + 31) // 32 * 32, wave + C)
+    if mapping == "warp":
+        shape = LaunchShape(-(-(R + 1) // 32), WARP_THREADS if many else 32,
+                            0, mapping)
+    elif mapping == "row":
+        shape = LaunchShape(1, (R + 1 + 31) // 32 * 32, wave + C, mapping)
     else:
         J = next((j for j in LONG_ROWS_PER_THREAD
                   if j * MAX_THREADS >= R + 1), None)
@@ -92,51 +136,71 @@ def launch_shape(R: int, C: int) -> LaunchShape:
             raise ValueError(f"R={R}: the DP kernels hold at most "
                              f"{MAX_ROWS} rows")
         threads = (-(-(R + 1) // J) + 31) // 32 * 32
-        shape = LaunchShape(J, threads, wave + C + R)
+        shape = LaunchShape(J, threads, wave + C + R, mapping)
     if shape.smem_bytes > SMEM_MAX:
         raise ValueError(f"(R, C) = ({R}, {C}) needs {shape.smem_bytes} B "
                          f"of shared memory, more than {SMEM_MAX}")
     return shape
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("msa_dp")
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
+_TAIL = [_CI, _CI, _CI, _VP]       # rows a thread, threads, smem, stream
+_SCORE_ARGS = [_VP, _VP, _VP, _VP, _CI, _CI, _CI, _VP, _VP, *_TAIL]
+_FILL_ARGS = [_VP, _VP, _VP, _VP, _CI, _CI, _CI, _VP, _VP, _VP, *_TAIL]
+_ROWS_ARGS = [_VP, _VP, _VP, _VP, _VP, _CI, _CI, _CI, _VP, _VP, *_TAIL]
+# library -> {C function: argument types}
+_INTERFACE = {
+    "msa_dp": {"msa_score_launch": _SCORE_ARGS,
+               "msa_fill_launch": _FILL_ARGS,
+               "msa_score_rows_launch": _ROWS_ARGS},
+    "msa_dp_warp": {"msa_score_warp_launch": _SCORE_ARGS,
+                    "msa_fill_warp_launch": _FILL_ARGS,
+                    "msa_score_rows_warp_launch": _ROWS_ARGS},
+    "msa_walk": {"msa_walk_launch": [_VP, _VP, _VP, _VP, _VP, _CI, _CI, _CI,
+                                     _CI, _VP, _VP, _VP, _VP, _VP]},
+}
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    lib = _build.load(name)
     if not getattr(lib, "_bbmap_typed", False):
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        tail = [ci, ci, ci, vp]     # rows_per_thread, threads, smem, stream
-        lib.msa_score_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp, vp,
-                                         *tail]
-        lib.msa_fill_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp, vp,
-                                        vp, *tail]
-        lib.msa_score_rows_launch.argtypes = [vp, vp, vp, vp, vp, ci, ci,
-                                              ci, vp, vp, *tail]
-        for fn in (lib.msa_score_launch, lib.msa_fill_launch,
-                   lib.msa_score_rows_launch):
-            fn.restype = ci
+        for fn, argtypes in _INTERFACE[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = _CI
         lib._bbmap_typed = True
     return lib
 
 
+def _dp_fn(kind: str, shape: LaunchShape):
+    """The C launcher of a DP kernel (kind: "score", "fill" or
+    "score_rows") in the mapping's library."""
+    if shape.mapping == "warp":
+        return getattr(_lib("msa_dp_warp"), f"msa_{kind}_warp_launch")
+    return getattr(_lib("msa_dp"), f"msa_{kind}_launch")
+
+
 @functools.lru_cache(maxsize=16)
 def _ins0_on(R: int, P: ScoringProfile, dev: torch.device) -> torch.Tensor:
-    """Column-0 boundary (R+1,) int32 on the card, read by the strided
-    mapping."""
+    """Column-0 boundary (R+1,) int32 on the card, read by the warp and
+    the strided mappings."""
     return torch.as_tensor(_ins0_np(R, P), device=dev)
 
 
-def _launch(wrapper, fn, inputs, outputs, B: int, R: int, C: int,
-            P: ScoringProfile) -> None:
-    """Launch one kernel of the library with the mapping launch_shape
-    picks; raise on a non-zero CUDA error, else count the launch."""
-    shape = launch_shape(R, C)
+def _launch(wrapper, kind: str, inputs, outputs, B: int, R: int, C: int,
+            P: ScoringProfile, mapping: Optional[str] = None) -> None:
+    """Launch one DP kernel with the mapping launch_shape picks; raise on
+    a non-zero CUDA error, else count the launch."""
+    shape = launch_shape(R, C, mapping, jobs=B, fill=kind == "fill")
+    fn = _dp_fn(kind, shape)
     dev = outputs[0].device
     prof = prof_array(P)
     err = fn(*(x.data_ptr() for x in inputs), _ins0_on(R, P, dev).data_ptr(),
              B, R, C, prof.ctypes.data, *(x.data_ptr() for x in outputs),
-             *shape, torch.cuda.current_stream(dev).cuda_stream)
+             *shape[:3], torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{fn.__name__} failed: cudaError {err}")
     wrapper.launches += 1
+    wrapper.launches_by[shape.mapping] += 1
     if shape.long:
         wrapper.long_launches += 1
 
@@ -176,7 +240,7 @@ def msa_fill_plain(reads: torch.Tensor, refs: torch.Tensor,
 
 
 def _raw_dp(wrapper, reads, refs, rows, P: ScoringProfile,
-            want_prevs: bool):
+            want_prevs: bool, mapping: Optional[str] = None):
     """K2 / K3 on raw jobs: the plain version on CPU tensors, the kernel
     on CUDA tensors. Returns (out (3, B), prevs or None)."""
     _check(reads, refs, rows)
@@ -190,25 +254,29 @@ def _raw_dp(wrapper, reads, refs, rows, P: ScoringProfile,
     prevs = torch.empty((B, R + C, R + 1), dtype=torch.uint8,
                         device=reads.device) if want_prevs else None
     if B:
-        lib = _lib()
-        fn = lib.msa_fill_launch if want_prevs else lib.msa_score_launch
-        _launch(wrapper, fn, (reads, refs, rows),
-                (out, prevs) if want_prevs else (out,), B, R, C, P)
+        _launch(wrapper, "fill" if want_prevs else "score",
+                (reads, refs, rows), (out, prevs) if want_prevs else (out,),
+                B, R, C, P, mapping)
     return out, prevs
 
 
 def msa_score(reads: torch.Tensor, refs: torch.Tensor, rows: torch.Tensor,
-              P: ScoringProfile) -> torch.Tensor:
+              P: ScoringProfile, mapping: Optional[str] = None
+              ) -> torch.Tensor:
     """DP score pass (K2). CPU tensors: plain version. CUDA tensors:
-    the hand-written kernel, or an exception."""
-    return _raw_dp(msa_score, reads, refs, rows, P, want_prevs=False)[0]
+    the hand-written kernel, or an exception. ``mapping`` ("warp" or "row")
+    overrides ``launch_shape``'s choice for a comparison on the card; no
+    caller of the package passes it."""
+    return _raw_dp(msa_score, reads, refs, rows, P, False, mapping)[0]
 
 
 def msa_fill(reads: torch.Tensor, refs: torch.Tensor, rows: torch.Tensor,
-             P: ScoringProfile):
+             P: ScoringProfile, mapping: Optional[str] = None):
     """DP fill pass (K3): score plus prev-state codes. CPU tensors: plain
-    version. CUDA tensors: the hand-written kernel, or an exception."""
-    return _raw_dp(msa_fill, reads, refs, rows, P, want_prevs=True)
+    version. CUDA tensors: the hand-written kernel, or an exception.
+    ``mapping`` as for ``msa_score``. The warp and the strided mappings
+    leave the prev codes of cells off the window unwritten."""
+    return _raw_dp(msa_fill, reads, refs, rows, P, True, mapping)
 
 
 # --------------------------------------------------------------------------
@@ -270,10 +338,12 @@ def msa_score_rows_plain(read1: torch.Tensor, read0: torch.Tensor,
 
 
 def msa_score_rows(read1: torch.Tensor, read0: torch.Tensor, refpad_rows,
-                   R: int, C: int, BB: int) -> torch.Tensor:
+                   R: int, C: int, BB: int, mapping: Optional[str] = None
+                   ) -> torch.Tensor:
     """DP score pass with K1's operands (msa_score_pallas): returns
     (B, 3) int32 [score, col, state]. CPU tensors: plain version. CUDA
-    tensors: the hand-written kernel, or an exception."""
+    tensors: the hand-written kernel, or an exception. ``mapping`` as
+    for ``msa_score``."""
     refpad, rows = refpad_rows
     _check_rows_operands(read1, read0, refpad, rows, R, C, BB)
     if read1.device.type == "cpu":
@@ -284,9 +354,8 @@ def msa_score_rows(read1: torch.Tensor, read0: torch.Tensor, refpad_rows,
     B = read1.shape[0]
     out = torch.empty((B, 3), dtype=I32, device=read1.device)
     if B:
-        _launch(msa_score_rows, _lib().msa_score_rows_launch,
-                (read1, read0, refpad, rows), (out,), B, R, C,
-                SHORT_PROFILE)
+        _launch(msa_score_rows, "score_rows", (read1, read0, refpad, rows),
+                (out,), B, R, C, SHORT_PROFILE, mapping)
     return out
 
 
@@ -311,13 +380,79 @@ def score_batch(reads: torch.Tensor, refs: torch.Tensor, rows: torch.Tensor,
     return out[:, 0], out[:, 1], out[:, 2]
 
 
-KERNELS = (msa_score_rows, msa_score, msa_fill)
+# --------------------------------------------------------------------------
+# The traceback walk over K3's prev codes.
+# --------------------------------------------------------------------------
+
+def _check_walk(prevs, reads, refs, col0, st0, R: int, C: int, steps: int):
+    B = prevs.shape[0]
+    want = {"prevs": (prevs, (B, R + C, R + 1)), "reads": (reads, (B, R)),
+            "refs": (refs, (B, C)), "col0": (col0, (B,)), "st0": (st0, (B,))}
+    for name, (x, shape) in want.items():
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(x.shape)}, "
+                             f"expected {shape}")
+        if x.device != prevs.device:
+            raise ValueError("the walk's operands must share one device")
+    for name in ("prevs", "reads", "refs"):
+        if want[name][0].dtype != torch.uint8:
+            raise TypeError(f"{name} must be uint8")
+    if R < 1 or C < 1 or steps < 0:
+        raise ValueError(f"R={R}, C={C}, steps={steps}: R and C must be "
+                         f">= 1 and steps >= 0")
+
+
+def msa_walk_plain(prevs: torch.Tensor, reads: torch.Tensor,
+                   refs: torch.Tensor, col0: torch.Tensor,
+                   st0: torch.Tensor, R: int, C: int, steps: int = 0):
+    """Plain version of the walk kernel (``ops/msa.walk_plain``, one
+    tensor step per walk step): (symbols (B, steps) uint8, out_len, gaps,
+    row_end), the last three (B,) int32."""
+    _check_walk(prevs, reads, refs, col0, st0, R, C, steps)
+    return walk_plain(prevs, reads, refs, col0, st0, R, C, steps)
+
+
+def msa_walk(prevs: torch.Tensor, reads: torch.Tensor, refs: torch.Tensor,
+             col0: torch.Tensor, st0: torch.Tensor, R: int, C: int,
+             steps: int = 0):
+    """Traceback walk over prev codes (B, R+C, R+1) from (R, col0, st0),
+    at most ``steps`` symbols (0: R + C, the hard maximum). Returns
+    (symbols (B, steps) uint8 in walk order, zero after the last,
+    out_len, gaps, row_end); row_end > 0 marks a walk that was cut. CPU
+    tensors: plain version. CUDA tensors: the hand-written kernel, one
+    launch, or an exception."""
+    _check_walk(prevs, reads, refs, col0, st0, R, C, steps)
+    if prevs.device.type == "cpu":
+        return walk_plain(prevs, reads, refs, col0, st0, R, C, steps)
+    _on_cuda(prevs)
+    n = steps if steps else R + C
+    prevs, reads, refs = (x.contiguous() for x in (prevs, reads, refs))
+    col0, st0 = (x.to(I32).contiguous() for x in (col0, st0))
+    B, dev = prevs.shape[0], prevs.device
+    syms = torch.empty((B, n), dtype=torch.uint8, device=dev)
+    out_len, gaps, row_end = (torch.empty(B, dtype=I32, device=dev)
+                              for _ in range(3))
+    if B:
+        fn = _lib("msa_walk").msa_walk_launch
+        err = fn(prevs.data_ptr(), reads.data_ptr(), refs.data_ptr(),
+                 col0.data_ptr(), st0.data_ptr(), B, R, C, n,
+                 syms.data_ptr(), out_len.data_ptr(), gaps.data_ptr(),
+                 row_end.data_ptr(),
+                 torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"msa_walk_launch failed: cudaError {err}")
+        msa_walk.launches += 1
+    return syms, out_len, gaps, row_end
+
+
+KERNELS = (msa_score_rows, msa_score, msa_fill, msa_walk)
 
 
 def reset_launches() -> None:
     for k in KERNELS:
         k.launches = 0
         k.long_launches = 0
+        k.launches_by = dict.fromkeys(MAPPINGS, 0)
 
 
 reset_launches()

@@ -17,13 +17,13 @@ from typing import List
 
 import numpy as np
 
-from bbmap_tpu.core.batch import ReadBatch, batched
-from bbmap_tpu.core.genome import build_genome, genome_hash
-from bbmap_tpu.index.build import (analyze_index, build_index, load_index,
+from ..core.batch import ReadBatch, batched
+from ..core.genome import build_genome, genome_hash
+from ..index.build import (analyze_index, build_index, load_index,
                                    save_index, set_fraction_to_exclude)
-from bbmap_tpu.io import fastx
-from bbmap_tpu.io import sam as samio
-from bbmap_tpu.utils.args import Args
+from ..io import fastx
+from ..io import sam as samio
+from ..utils.args import Args
 
 from ..align.pipeline import BBMapAligner, emit_sam
 
@@ -79,7 +79,7 @@ def main(argv: List[str]) -> int:
     min_ratio = args.get_float("minratio", default=0.56)
     minid = args.get("minid", "minidentity")
     if minid is not None:
-        from bbmap_tpu.core.constants import min_id_to_min_ratio
+        from ..core.constants import min_id_to_min_ratio
         min_ratio = min_id_to_min_ratio(float(minid))
     # excludefraction= overrides the genome-size-scaled quantile
     # (reference: BBIndex.setFractionToExclude, preset-adjusted)
@@ -155,7 +155,7 @@ def main(argv: List[str]) -> int:
     # (reference: align2/BBMapPacBio.java MSA_TYPE, BBMapThreadPacBio)
     profile = None
     if (args.get("profile") or "").lower() in ("pacbio", "pb"):
-        from bbmap_tpu.core.constants import PACBIO_PROFILE
+        from ..core.constants import PACBIO_PROFILE
         profile = PACBIO_PROFILE
     aligner = BBMapAligner(genome, index, device, min_ratio=min_ratio,
                            ambig_mode=ambig,
@@ -171,7 +171,7 @@ def main(argv: List[str]) -> int:
 
     # histogram battery (reference: align2/ReadStats flags,
     # docs/UsageGuide.txt:277-283) + per-scaffold stats
-    from bbmap_tpu.utils.readstats import ReadStats
+    from ..utils.readstats import ReadStats
     hist_flags = {h: args.get(h) for h in
                   ("qhist", "lhist", "gchist", "ihist", "idhist",
                    "indelhist", "mhist", "ehist", "bqhist", "timehist")}
@@ -204,7 +204,7 @@ def main(argv: List[str]) -> int:
         untrim restores bases and adjusts SAM pos with soft-clips)."""
         if not do_qtrim:
             return recs, None
-        from bbmap_tpu.tools.bbduk import optimal_trim_points
+        from ..utils.qtrim import optimal_trim_points
         out = []
         info = []
         for r in recs:
@@ -255,7 +255,7 @@ def main(argv: List[str]) -> int:
     # hung-run watchdog: aborts if no batch completes for 30 min
     # (reference: stream/KillSwitch.java:17 kill timer around the
     # map/print loop)
-    from bbmap_tpu.utils.watchdog import Watchdog
+    from ..utils.watchdog import Watchdog
     dog = Watchdog(max_seconds=float(
         args.get_int("watchdogsecs", default=1800))).start()
     reader = fastx.PairedReader(in1, in2, interleaved,
@@ -265,7 +265,7 @@ def main(argv: List[str]) -> int:
     # stream/ConcurrentGenericReadInputStream.java:122-166)
     from collections import deque
 
-    from bbmap_tpu.core.batch import prefetch
+    from ..core.batch import prefetch
     batches = enumerate(batched(iter(reader), batch_size))
 
     # producer prepares batch N+1 (decode + trim) and queues its

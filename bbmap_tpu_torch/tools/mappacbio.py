@@ -22,8 +22,8 @@ import sys
 import tempfile
 from typing import Dict, List
 
-from bbmap_tpu.io import fastx
-from bbmap_tpu.utils.args import Args
+from ..io import fastx
+from ..utils.args import Args
 
 from . import bbmap as bbmap_tool
 

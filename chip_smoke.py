@@ -8,16 +8,25 @@ Run from the root of a checkout, on a machine with one NVIDIA card:
 Phases, each timed on its own line:
 
 1. device facts: the card's name and power limit;
-2. build: nvcc builds ``bbmap_tpu_torch/csrc/msa_dp.cu`` into
-   ``build/torch_kernels/`` (skipped when a library of the same source
-   hash is there);
-3. kernel vs plain: the DP kernels against their plain PyTorch versions
-   on the card, bit-equal (tolerance 0: the DP is integer arithmetic):
-   K2 score and K3 fill at the short path's shapes (one row per thread),
-   PACBIO at (1,100, 1,200) and at the long-read shapes (6,000, 6,456)
-   and (6,000, 8,192) (rows strided over the block), and K1 on its own
-   operands at (150, 174); kernel and plain times at the shapes the
-   paths use;
+2. build: one nvcc for each source in ``bbmap_tpu_torch/csrc/``
+   (``msa_dp.cu``, ``msa_dp_warp.cu``, ``msa_walk.cu``), all started
+   together, into ``build/torch_kernels/`` (a source whose library is
+   there is skipped); ``cuobjdump -sass`` of the libraries gives each
+   kernel's instructions a cell (the main loop's length over the cells
+   one pass of it evaluates);
+3. kernel vs plain: every kernel against its plain PyTorch version on
+   the card, bit-equal (tolerance 0: the DP and the walk are integer
+   arithmetic): K2 score and K3 fill at the short path's shapes
+   (150, 174), (150, 606) and PACBIO (300, 360) in the warp-a-job
+   mapping and in the one-row mapping, PACBIO at (1,100, 1,200) and at
+   the long-read shapes (6,000, 6,456) and (6,000, 8,192) (rows strided
+   over the block), K1 on its own operands at (150, 174) in both
+   mappings, and the walk kernel at 8,192 x (150, 174) bounded to 190
+   steps, at (150, 606) full length, at (6,000, 6,456) and on the last
+   jobs of a 28-job fill whose prev codes pass 2**31 bytes, from the
+   fill's own columns and states and from shifted ones, so that cut
+   walks are among them; kernel, plain and (short shapes) one-row
+   mapping times at the shapes the paths use, and each kernel's bound;
 4. K1 entry point: ``msa_kernels.score_batch`` on 32,768 jobs, counted;
 5. main path: ``make -C csrc`` once (its return code is reported next
    to the quality-offset route), then the bench workload (4.6 Mbp genome
@@ -25,19 +34,23 @@ Phases, each timed on its own line:
    pairs a batch) through ``BBMapAligner.map_pairs_columnar`` (one warmup
    batch) and ``map_pairs_columnar_stream`` (3 steady batches), graded
    against the simulated origins; fails below sensitivity 0.997, mapped
-   fraction 0.999 or pair rate 0.997, or when K2 or K3 was never
-   launched;
+   fraction 0.999 or pair rate 0.997, or when K2, K3 or the walk kernel
+   was never launched;
 6. SAM: ``emit_sam`` on the first 1,000 pairs;
-7. long reads: bench_tools.bench_mappacbio's inputs (400 PacBio-model
-   reads of 6 kbp at 12 % error on the same genome) through the port's
-   ``mappacbio`` CLI on the card, graded by gradesam (strict = within
-   400 bp); fails below mapped 0.98 or strict 0.65, or when the
-   strided-row K2 or K3 was never launched.
+7. long reads: 400 PacBio-model reads of 6 kbp at 12 % error on the same
+   genome (``randomreads pacbio=t``) through the port's ``mappacbio``
+   CLI on the card, graded by gradesam (strict = within 400 bp); fails
+   below mapped 0.98 or strict 0.65, or when the strided-row K2 or K3 or
+   the walk kernel was never launched.
 
 Each path's launch counts are set to 0 just before it and read just
 after. Any failure raises and exits non-zero without the final ``ok``
 line. It exits 2 when no CUDA device is available or when it is not run
 from a checkout of the repository.
+
+``python3 chip_smoke.py --profile`` runs no check: it prints where the
+time goes (one short-read batch under torch.profiler, 32 long reads under
+cProfile and under torch.profiler) and no ``ok`` line.
 """
 
 from __future__ import annotations
@@ -61,10 +74,35 @@ SENS_MIN, MAPPED_MIN, PAIR_MIN = 0.997, 0.999, 0.997
 N_LONG, L_LONG = 400, 6000
 LONG_MAPPED_MIN, LONG_STRICT_MIN = 0.98, 0.65
 K1_JOBS = 32768
-REPLACES = {"msa_score_rows": "bbmap_tpu/ops/msa_pallas.py:243",
-            "msa_score": "bbmap_tpu/ops/msa_pallas.py:577",
-            "msa_fill": "bbmap_tpu/ops/msa_pallas.py:588"}
-SOURCE = "bbmap_tpu_torch/csrc/msa_dp.cu"
+_K1, _K2, _K3 = ("bbmap_tpu/ops/msa_pallas.py:243",
+                 "bbmap_tpu/ops/msa_pallas.py:577",
+                 "bbmap_tpu/ops/msa_pallas.py:588")
+REPLACES = {"msa_score_rows": _K1, "msa_score": _K2, "msa_score_row": _K2,
+            "msa_score_long": _K2, "msa_fill": _K3, "msa_fill_long": _K3,
+            "msa_walk": "bbmap_tpu/ops/msa_jax.py:451"}
+CSRC = "bbmap_tpu_torch/csrc/"
+SOURCE = {"msa_score_rows": CSRC + "msa_dp_warp.cu",
+          "msa_score": CSRC + "msa_dp_warp.cu",
+          "msa_score_row": CSRC + "msa_dp.cu",
+          "msa_fill": CSRC + "msa_dp.cu",
+          "msa_score_long": CSRC + "msa_dp.cu",
+          "msa_fill_long": CSRC + "msa_dp.cu",
+          "msa_walk": CSRC + "msa_walk.cu"}
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
+# Each of an SM's four schedulers starts one warp instruction (32 lanes) a
+# clock. The kernels' integer work spreads over the ALU and the FMA pipes
+# (IMAD, moves), so the schedulers' rate, and not the 64 int32 ALU lanes an
+# SM, is the rate no instruction mix can pass.
+SCHEDULER_LANES_PER_SM = 128
+# kernel variant -> its name in the ``kernels`` line, by wrapper and mapping
+VARIANT = {("msa_score", "warp"): "msa_score",
+           ("msa_score", "row"): "msa_score_row",
+           ("msa_score", "strided"): "msa_score_long",
+           ("msa_fill", "warp"): "msa_fill_warp",
+           ("msa_fill", "row"): "msa_fill",
+           ("msa_fill", "strided"): "msa_fill_long",
+           ("msa_score_rows", "warp"): "msa_score_rows",
+           ("msa_score_rows", "row"): "msa_score_rows_row"}
 
 
 def say(msg: str) -> None:
@@ -169,19 +207,112 @@ def valid_cells(rows, R: int, C: int):
     return (r >= 1) & (r <= rows.view(-1, 1, 1)) & (c >= 1) & (c <= C)
 
 
+def sass_counts(lib_path) -> dict:
+    """``cuobjdump -sass`` of a built library: {mangled kernel name:
+    (instructions, instructions of its main loop)}. The main loop is the
+    backward branch that spans the most instructions."""
+    import re
+    from bbmap_tpu_torch.ops import _build
+    tool = Path(_build.nvcc_path()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    out = {}
+    for chunk in text.split("Function : ")[1:]:
+        name = chunk.split()[0]
+        addrs, branches = [], []
+        for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", chunk):
+            addr, ins = int(m.group(1), 16), m.group(2)
+            addrs.append(addr)
+            t = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", ins)
+            if t and int(t.group(1), 16) < addr:
+                branches.append((int(t.group(1), 16), addr))
+        loop = max((sum(lo <= x <= hi for x in addrs)
+                    for lo, hi in branches), default=len(addrs))
+        out[name] = (len(addrs), loop)
+    return out
+
+
+def kernel_instructions() -> dict:
+    """Instructions a DP cell (or a walk step) for each kernel variant
+    the paths launch, from the built libraries' SASS: the main loop's
+    instructions over the cells one pass of it evaluates. Keys: the
+    variant names of ``VARIANT`` and "msa_walk"."""
+    from bbmap_tpu_torch.ops import _build
+    from bbmap_tpu_torch.ops import msa_kernels as mk
+
+    def pick(counts, *parts):
+        hits = [v for k, v in counts.items() if all(p in k for p in parts)]
+        if len(hits) != 1:
+            raise AssertionError(f"{len(hits)} kernels match {parts}")
+        return hits[0]
+
+    dp = sass_counts(_build.library_path("msa_dp"))
+    warp = sass_counts(_build.library_path("msa_dp_warp"))
+    walk = sass_counts(_build.library_path("msa_walk"))
+    Jw = mk.launch_shape(L, L + 24, "warp").rows_per_thread
+    Jl = mk.launch_shape(L_LONG, L_LONG + 456).rows_per_thread
+    out = {}
+    for name, ops, prevs in (("msa_score", "RawOps", "Lb0"),
+                             ("msa_fill", "RawOps", "Lb1"),
+                             ("msa_score_rows", "RowOps", "Lb0")):
+        tot, loop = pick(warp, "msa_dp_warp_kernel", ops, prevs, f"Li{Jw}E")
+        out[VARIANT[name, "warp"]] = {"sass": tot, "loop": loop,
+                                      "per_cell": loop / Jw}
+        tot, loop = pick(dp, "msa_dp_kernel", ops, prevs)
+        out[VARIANT[name, "row"]] = {"sass": tot, "loop": loop,
+                                     "per_cell": loop}
+        if ops == "RawOps":
+            tot, loop = pick(dp, "msa_dp_long_kernel", ops, prevs,
+                             f"Li{Jl}E")
+            out[VARIANT[name, "strided"]] = {"sass": tot, "loop": loop,
+                                             "per_cell": loop / Jl}
+    tot, loop = pick(walk, "msa_walk_kernel")
+    out["msa_walk"] = {"sass": tot, "loop": loop, "per_cell": loop}
+    for name, v in out.items():
+        say(f"sass {name}: {v['sass']} instructions, main loop {v['loop']}, "
+            f"{v['per_cell']:.1f} a cell")
+    return out
+
+
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0]
+    return float(out) * 1e6
+
+
+def bound_ms(n_bytes: float, n_instructions: float, clock_hz: float):
+    """The least time the card could take: the larger of bytes over the
+    device memory rate and instructions over the schedulers' rate, SMs
+    x 4 schedulers x 32 lanes x the SM clock. Returns (ms, "bytes" or
+    "operations")."""
+    import torch
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = n_instructions / (sms * SCHEDULER_LANES_PER_SM * clock_hz)
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def kernel_phase(genome, device) -> dict:
     """Kernels against their plain versions on the card; returns per
-    kernel variant {max_abs_err, ms, plain_ms}: "msa_score_rows" (K1),
-    "msa_score" / "msa_fill" (one row per thread) and "msa_score_long" /
-    "msa_fill_long" (rows strided over the block)."""
+    kernel variant {max_abs_err, ms, plain_ms, bound_ms, bound_by,
+    library_ms and, where the one-row mapping was timed beside the
+    default, row_ms}: "msa_score_rows" (K1), "msa_score" / "msa_fill"
+    (a warp a job), "msa_score_long" / "msa_fill_long" (rows strided over
+    the block) and "msa_walk"."""
     import torch
-    from bbmap_tpu.core.constants import PACBIO_PROFILE, SHORT_PROFILE
+    from bbmap_tpu_torch.core.constants import PACBIO_PROFILE, SHORT_PROFILE
     from bbmap_tpu_torch.ops import msa_kernels as mk
 
     err = {}
+    instr = kernel_instructions()
+    clock = max_sm_clock_hz()
+    say(f"card clocks.max.sm {clock / 1e6:.0f} MHz")
 
-    def record(name, tag, n, R, C, e, what=""):
-        key = name + ("_long" if mk.launch_shape(R, C).long else "")
+    def record(key, tag, n, R, C, e, what=""):
         err[key] = max(err.get(key, 0), e)
         say(f"kernel {key} {tag}: {n} jobs (R, C) = ({R}, {C}) "
             f"max_abs_err {e}{what}")
@@ -189,47 +320,92 @@ def kernel_phase(genome, device) -> dict:
             raise AssertionError(f"{key} disagrees with its plain version "
                                  f"({tag})")
 
+    def key_of(name, n, R, C, mapping):
+        shape = mk.launch_shape(R, C, mapping, jobs=n,
+                                fill=name == "msa_fill")
+        return VARIANT[name, shape.mapping]
+
     def jobs(n, R, C, seed, pb_err=0.0):
         return dp_jobs(genome, n, R, C, seed, device, pb_err=pb_err)
 
-    def cmp_score(tag, P, job, k=None, p=None):
+    def cmp_score(tag, P, job, k=None, p=None, mapping=None):
         rd, rf, rw = job
-        k = mk.msa_score(rd, rf, rw, P) if k is None else k
+        k = mk.msa_score(rd, rf, rw, P, mapping) if k is None else k
         p = mk.msa_score_plain(rd, rf, rw, P) if p is None else p
         _sync(device)
-        record("msa_score", tag, *rd.shape, rf.shape[1],
-               int((k.long() - p.long()).abs().max()))
+        R, C = rd.shape[1], rf.shape[1]
+        record(key_of("msa_score", len(rw), R, C, mapping), tag, len(rw), R,
+               C, int((k.long() - p.long()).abs().max()))
+        return p
 
-    def cmp_fill(tag, P, job, k=None, p=None):
+    def cmp_fill(tag, P, job, k=None, p=None, mapping=None):
         rd, rf, rw = job
-        k, kp = mk.msa_fill(rd, rf, rw, P) if k is None else k
+        k, kp = mk.msa_fill(rd, rf, rw, P, mapping) if k is None else k
         p, pp = mk.msa_fill_plain(rd, rf, rw, P) if p is None else p
         _sync(device)
         R, C = rd.shape[1], rf.shape[1]
         valid = valid_cells(rw, R, C)
         e = max(int((k.long() - p.long()).abs().max()),
                 int(((kp.short() - pp.short()).abs() * valid).max()))
-        record("msa_fill", tag, len(rw), R, C, e,
-               " (out and prev codes on valid cells)")
+        record(key_of("msa_fill", len(rw), R, C, mapping), tag, len(rw), R,
+               C, e, " (out and prev codes on valid cells)")
+        return p, pp
 
-    def cmp_rows(tag, job):
+    def cmp_rows(tag, job, mapping=None):
         rd, rf, rw = job
         R, C = rd.shape[1], rf.shape[1]
         r1, r0, rp, rows = mk.prep_operands(rd, rf, rw)
-        k = mk.msa_score_rows(r1, r0, (rp, rows), R, C, 64)
+        k = mk.msa_score_rows(r1, r0, (rp, rows), R, C, 64, mapping)
         p = mk.msa_score_rows_plain(r1, r0, (rp, rows), R, C, 64)
         _sync(device)
-        record("msa_score_rows", tag, len(rw), R, C,
-               int((k.long() - p.long()).abs().max()))
+        record(key_of("msa_score_rows", len(rw), R, C, mapping), tag,
+               len(rw), R, C, int((k.long() - p.long()).abs().max()))
+
+    def cmp_walk(tag, job, prevs, col0, st0, steps):
+        """The walk kernel against its plain version on one fill's prev
+        codes, from the given columns and states. Returns the number of
+        walks that were cut."""
+        rd, rf, _ = job
+        R, C = rd.shape[1], rf.shape[1]
+        k = mk.msa_walk(prevs, rd, rf, col0, st0, R, C, steps)
+        p = mk.msa_walk_plain(prevs, rd, rf, col0, st0, R, C, steps)
+        _sync(device)
+        e = max(int((a.long() - b.long()).abs().max()) for a, b in zip(k, p))
+        cut = int((k[3] > 0).sum())
+        record("msa_walk", tag, len(col0), R, C, e,
+               f" (symbols, out_len, gaps, row_end; steps {steps or R + C},"
+               f" {cut} walks cut)")
+        return cut
+
+    def walk_starts(out, C, seed):
+        """The fill's own last-row columns and states, and a shifted set:
+        random columns in 1..C and random states."""
+        g = torch.Generator(device="cpu").manual_seed(seed)
+        n = out.shape[1]
+        col = torch.randint(1, C + 1, (n,), generator=g, dtype=torch.int32)
+        st = torch.randint(0, 3, (n,), generator=g, dtype=torch.int32)
+        return ((out[1], out[2]), (col.to(out.device), st.to(out.device)))
 
     S, PB = SHORT_PROFILE, PACBIO_PROFILE
-    cmp_score("short narrow", S, jobs(4096, L, L + 24, 1))
-    cmp_score("short wide", S, jobs(512, L, L + 456, 2))
-    cmp_score("pacbio", PB, jobs(256, 300, 360, 3))
-    cmp_fill("short narrow", S, jobs(1024, L, L + 24, 4))
-    cmp_fill("short wide", S, jobs(64, L, L + 456, 5))
-    cmp_fill("pacbio", PB, jobs(256, 300, 360, 6))
-    cmp_rows("short narrow", jobs(4096, L, L + 24, 12))
+    for mapping in ("warp", "row"):
+        cmp_score("short narrow", S, jobs(4096, L, L + 24, 1),
+                  mapping=mapping)
+        cmp_score("short wide", S, jobs(512, L, L + 456, 2), mapping=mapping)
+        cmp_score("pacbio", PB, jobs(256, 300, 360, 3), mapping=mapping)
+        cmp_fill("short narrow", S, jobs(1024, L, L + 24, 4),
+                 mapping=mapping)
+        cmp_fill("pacbio", PB, jobs(256, 300, 360, 6), mapping=mapping)
+        cmp_rows("short narrow", jobs(4096, L, L + 24, 12), mapping=mapping)
+    # the walk over a wide fill, full length, N and gap columns included
+    job = rd, rf, rw = jobs(64, L, L + 456, 5)
+    rf[::7, 200] = ord("-")
+    rf[::5, 90] = ord("N")
+    cmp_fill("short wide, gap columns", S, job, mapping="warp")
+    k = mk.msa_fill(rd, rf, rw, S)
+    _, pp = cmp_fill("short wide, gap columns", S, job, k)
+    for col0, st0 in walk_starts(k[0], L + 456, 31):
+        cmp_walk("short wide, full length", job, pp, col0, st0, 0)
+    del k, pp
     # rows strided over the block: just past the old 1,023-row limit and
     # at the long-indel pass's widest window (the long-read escalation
     # window is compared on its timing runs below)
@@ -239,56 +415,175 @@ def kernel_phase(genome, device) -> dict:
     cmp_fill("pacbio long-indel width", PB, jobs(2, L_LONG, 8192, 16, 0.12))
 
     # times at the paths' shapes: the short path's 2E = 32,768 score
-    # jobs and T = 8,192 fill jobs at (R, C) = (150, 174), K1 at its
-    # entry point's 32,768 jobs, and the long-read wide escalation
-    # window (6,000, 6,456): 256 score jobs and 16 fill jobs, whose
-    # kernel and plain results are compared as well
+    # jobs and T = 8,192 fill jobs at (R, C) = (150, 174) with the walk
+    # bounded to 190 steps, K1 at its entry point's 32,768 jobs, and the
+    # long-read wide escalation window (6,000, 6,456): 256 score jobs
+    # and 16 fill jobs and their walk, whose kernel and plain results are
+    # compared as well. The wide pass (128 score and 64 fill jobs at
+    # (150, 606)) and PACBIO (300, 360) are timed in both mappings.
     out = {}
 
-    def timed(name, kern, plain, reps, plain_warm=True):
+    def timed(name, kern, plain, reps, plain_warm=True, other=None):
+        """Time a kernel and its plain version; ``other`` = (key, fn)
+        times the other mapping beside it."""
         ms, k = _cuda_ms(kern, reps)
         plain_ms, p = _cuda_ms(plain, 1, warm=plain_warm)
-        out[name] = {"ms": ms, "plain_ms": plain_ms}
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": None}
+        if other is not None:
+            out[name][other[0]] = _cuda_ms(other[1], reps)[0]
         return k, p
 
-    rd, rf, rw = dp_jobs(genome, 2 * 16384, L, L + 24, 7, device,
-                         var_rows=False)
+    def dp_bound(name, job, fill):
+        """Bytes: reads, windows and rows in, out (3, B) and, for the
+        fill, one byte a valid cell out. Instructions: the (rows + 1) x
+        (C + 1) in-window cells of each job's own rows times the
+        kernel's instructions a cell."""
+        rd, rf, rw = job
+        C = rf.shape[1]
+        rows = rw.double()
+        n_bytes = rd.numel() + rf.numel() + 4 * rw.numel() + 12 * len(rw)
+        if name == "msa_score_rows":        # K1 reads int32 operands
+            R = rd.shape[1]
+            n_bytes = 4 * len(rw) * (2 * (R + 1) + C + 2 * R + 2 + 1 + 3)
+        if fill:
+            n_bytes += float((rows * C).sum())
+        cells = float(((rows + 1) * (C + 1)).sum())
+        ms, by = bound_ms(n_bytes, cells * instr[name]["per_cell"], clock)
+        out[name].update(bound_ms=ms, bound_by=by, cells=cells)
+
+    def walk_bound(walked, n_jobs, steps):
+        """Bytes: three bytes a step walked (prev code, read and window
+        character), the (B, steps) symbols out and 20 bytes a job of
+        columns, states and results. Instructions: the steps walked
+        times the kernel's instructions a step (one lane of a warp
+        walks)."""
+        n_bytes = 3 * walked + n_jobs * steps + 20 * n_jobs
+        return bound_ms(n_bytes, walked * instr["msa_walk"]["per_cell"],
+                        clock)
+
+    job = rd, rf, rw = dp_jobs(genome, 2 * 16384, L, L + 24, 7, device,
+                               var_rows=False)
     timed("msa_score", lambda: mk.msa_score(rd, rf, rw, S),
-          lambda: mk.msa_score_plain(rd, rf, rw, S), 10)
+          lambda: mk.msa_score_plain(rd, rf, rw, S), 10,
+          other=("row_ms", lambda: mk.msa_score(rd, rf, rw, S, "row")))
+    dp_bound("msa_score", job, False)
     r1, r0, rp, rows = mk.prep_operands(rd, rf, rw)
     R, C = rd.shape[1], rf.shape[1]
     timed("msa_score_rows",
           lambda: mk.msa_score_rows(r1, r0, (rp, rows), R, C, 64),
-          lambda: mk.msa_score_rows_plain(r1, r0, (rp, rows), R, C, 64), 10)
-    rd, rf, rw = rd[:8192], rf[:8192], rw[:8192]
-    timed("msa_fill", lambda: mk.msa_fill(rd, rf, rw, S),
-          lambda: mk.msa_fill_plain(rd, rf, rw, S), 10)
+          lambda: mk.msa_score_rows_plain(r1, r0, (rp, rows), R, C, 64), 10,
+          other=("row_ms", lambda: mk.msa_score_rows(r1, r0, (rp, rows), R,
+                                                     C, 64, "row")))
+    dp_bound("msa_score_rows", job, False)
+    job = rd, rf, rw = rd[:8192], rf[:8192], rw[:8192]
+    k, p = timed("msa_fill", lambda: mk.msa_fill(rd, rf, rw, S),
+                 lambda: mk.msa_fill_plain(rd, rf, rw, S), 10,
+                 other=("warp_ms", lambda: mk.msa_fill(rd, rf, rw, S,
+                                                       "warp")))
+    dp_bound("msa_fill", job, True)
+    cmp_fill("short narrow, 8,192 jobs", S, job, k, p)
+    cmp_fill("short narrow, 8,192 jobs", S, job, p=p, mapping="warp")
+    steps = L + 24 + 16
+    (col0, st0), shifted = walk_starts(k[0], L + 24, 32)
+    kw, pw = timed("msa_walk",
+                  lambda: mk.msa_walk(k[1], rd, rf, col0, st0, L, L + 24,
+                                      steps),
+                  lambda: mk.msa_walk_plain(k[1], rd, rf, col0, st0, L,
+                                            L + 24, steps), 10)
+    ms_b, by = walk_bound(float(kw[1].sum()), len(rw), steps)
+    out["msa_walk"].update(bound_ms=ms_b, bound_by=by)
+    record("msa_walk", "short narrow, bounded, the kernel's prev codes",
+           len(rw), L, L + 24,
+           max(int((a.long() - b.long()).abs().max())
+               for a, b in zip(kw, pw)))
+    cmp_walk("short narrow, bounded", job, p[1], col0, st0, steps)
+    cmp_walk("short narrow, bounded, shifted starts", job, p[1], *shifted,
+             steps)
+    if cmp_walk("short narrow, cut at 120 steps", job, p[1], col0, st0,
+                120) == 0:
+        raise AssertionError("no walk was cut at 120 steps")
+    del k, p, kw, pw
+
+    # the wide pass as the main path runs it (one-row mapping at 128
+    # jobs), and the small shapes in both mappings
+    job = rd, rf, rw = jobs(128, L, L + 456, 23)
+    k, p = timed("msa_score_row", lambda: mk.msa_score(rd, rf, rw, S),
+                 lambda: mk.msa_score_plain(rd, rf, rw, S), 10,
+                 other=("warp_ms", lambda: mk.msa_score(rd, rf, rw, S,
+                                                        "warp")))
+    dp_bound("msa_score_row", job, False)
+    cmp_score("short wide, 128 jobs", S, job, k, p)
+    extra = {}
+    for tag, P, n, R, C, seed, fn in (
+            ("msa_fill wide retrace", S, 64, L, L + 456, 25, mk.msa_fill),
+            ("msa_score pacbio", PB, 256, 300, 360, 24, mk.msa_score),
+            ("msa_fill pacbio", PB, 256, 300, 360, 24, mk.msa_fill)):
+        a = jobs(n, R, C, seed)
+        extra[tag] = (n, R, C, _cuda_ms(lambda: fn(*a, P, "warp"), 10)[0],
+                      _cuda_ms(lambda: fn(*a, P, "row"), 10)[0])
+
     job = rd, rf, rw = jobs(256, L_LONG, L_LONG + 456, 19, 0.12)
     k, p = timed("msa_score_long", lambda: mk.msa_score(rd, rf, rw, PB),
                  lambda: mk.msa_score_plain(rd, rf, rw, PB), 2, False)
+    dp_bound("msa_score_long", job, False)
     cmp_score("pacbio long read", PB, job, k, p)
     job = rd, rf, rw = jobs(16, L_LONG, L_LONG + 456, 20, 0.12)
     k, p = timed("msa_fill_long", lambda: mk.msa_fill(rd, rf, rw, PB),
                  lambda: mk.msa_fill_plain(rd, rf, rw, PB), 2, False)
+    dp_bound("msa_fill_long", job, True)
     cmp_fill("pacbio long read", PB, job, k, p)
+    Cl = L_LONG + 456
+    (col0, st0), shifted = walk_starts(k[0], Cl, 33)
+    ms_l, kw = _cuda_ms(lambda: mk.msa_walk(k[1], rd, rf, col0, st0, L_LONG,
+                                            Cl), 2)
+    ms_b, by = walk_bound(float(kw[1].sum()), len(rw), L_LONG + Cl)
+    extra["msa_walk long"] = (len(rw), L_LONG, Cl, ms_l, ms_b)
+    cmp_walk("pacbio long read, full length", job, p[1], col0, st0, 0)
+    cmp_walk("pacbio long read, full length, shifted starts", job, p[1],
+             *shifted, 0)
+    if cmp_walk("pacbio long read, cut at 6,050 steps", job, p[1], col0,
+                st0, 6050) == 0:
+        raise AssertionError("no long walk was cut at 6,050 steps")
+    del k, p, kw
     # 28 jobs: the pipeline's chunk cap at this window; the prev-code
     # block is 28 x 12,456 x 6,001 = 2.09e9 bytes, past 2**31, so the
-    # last jobs check the kernel's 64-bit indexing
-    rd, rf, rw = jobs(28, L_LONG, L_LONG + 456, 22, 0.12)
+    # last jobs check the kernels' 64-bit indexing
+    rd, rf, rw = jobs(28, L_LONG, Cl, 22, 0.12)
     k, kp = mk.msa_fill(rd, rf, rw, PB)
-    cmp_fill("pacbio long read, last 2 of 28 jobs (prev codes past 2**31 "
-             "bytes)", PB, (rd[26:], rf[26:], rw[26:]),
-             (k[:, 26:], kp[26:]))
-    del k, kp
+    last = (rd[26:], rf[26:], rw[26:])
+    _, pp = cmp_fill("pacbio long read, last 2 of 28 jobs (prev codes past "
+                     "2**31 bytes)", PB, last, (k[:, 26:], kp[26:]))
+    kw = mk.msa_walk(kp, rd, rf, k[1], k[2], L_LONG, Cl)
+    pw = mk.msa_walk_plain(pp, *last[:2], k[1, 26:], k[2, 26:], L_LONG, Cl)
+    _sync(device)
+    record("msa_walk", "pacbio long read, last 2 of 28 jobs (prev codes "
+           "past 2**31 bytes)", 2, L_LONG, Cl,
+           max(int((a[26:].long() - b.long()).abs().max())
+               for a, b in zip(kw, pw)))
+    del k, kp, pp, kw, pw
     shapes = {"msa_score": "32,768 x (150, 174)",
+              "msa_score_row": "128 x (150, 606)",
               "msa_score_rows": "32,768 x (150, 174)",
               "msa_fill": "8,192 x (150, 174)",
+              "msa_walk": "8,192 x (150, 174), 190 steps",
               "msa_score_long": "256 x (6,000, 6,456) PACBIO",
               "msa_fill_long": "16 x (6,000, 6,456) PACBIO"}
     for name, t in out.items():
         t["max_abs_err"] = err[name]
-        say(f"time {name} at {shapes[name]}: kernel {t['ms']:.3f} ms, "
-            f"plain {t['plain_ms']:.3f} ms")
+        t["per_cell"] = instr[name]["per_cell"]
+        row = f", one-row mapping {t['row_ms']:.3f} ms" \
+            if "row_ms" in t else ""
+        if "warp_ms" in t:
+            row = f", warp mapping {t['warp_ms']:.3f} ms"
+        say(f"time {name} at {shapes[name]}: kernel {t['ms']:.3f} ms{row}, "
+            f"plain {t['plain_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms "
+            f"by {t['bound_by']} ({100 * t['bound_ms'] / t['ms']:.1f} % of "
+            f"the bound reached; {t['per_cell']:.1f} instructions a cell)")
+    for tag, (n, R, C, a, b2) in extra.items():
+        first, second = ("kernel", "bound") if tag == "msa_walk long" \
+            else ("warp mapping", "one-row mapping")
+        say(f"time {tag}: {n} x ({R}, {C}): {first} {a:.3f} ms, "
+            f"{second} {b2:.4f} ms")
     return out
 
 
@@ -296,7 +591,7 @@ def k1_entry(genome, device) -> int:
     """K1's own entry point, ``score_batch``, on the card at 32,768 jobs
     of (150, 174), counted; held equal to K2 on the same jobs. Returns
     K1's launch count."""
-    from bbmap_tpu.core.constants import SHORT_PROFILE
+    from bbmap_tpu_torch.core.constants import SHORT_PROFILE
     from bbmap_tpu_torch.ops import msa_kernels as mk
     rd, rf, rw = dp_jobs(genome, K1_JOBS, L, L + 24, 21, device)
     mk.reset_launches()
@@ -335,12 +630,15 @@ def grade(aligner, graded, t1, t2, n_pairs: int) -> dict:
 
 def launch_counts() -> dict:
     """Each kernel wrapper's launches since the last reset, with the
-    strided-row launches as "<name>_long"."""
+    strided-row launches as "<name>_long" and the warp and one-row
+    mappings' as "<name>_warp" and "<name>_row"."""
     from bbmap_tpu_torch.ops import msa_kernels
     out = {}
     for k in msa_kernels.KERNELS:
         out[k.__name__] = k.launches
         out[k.__name__ + "_long"] = k.long_launches
+        out[k.__name__ + "_warp"] = k.launches_by["warp"]
+        out[k.__name__ + "_row"] = k.launches_by["row"]
     return out
 
 
@@ -365,15 +663,16 @@ def main_path(device, n_pairs: int = N_PAIRS, n_steady: int = N_STEADY,
     import numpy as np
     import torch
 
-    import bench
-    from bbmap_tpu.core.batch import ReadBatch
-    from bbmap_tpu.core.genome import Genome, Scaffold
-    from bbmap_tpu.index.build import analyze_index, build_index
+    from bbmap_tpu_torch import workload
     from bbmap_tpu_torch.align.pipeline import BBMapAligner
+    from bbmap_tpu_torch.core.batch import ReadBatch
+    from bbmap_tpu_torch.core.genome import Genome, Scaffold
+    from bbmap_tpu_torch.index.build import analyze_index, build_index
     from bbmap_tpu_torch.ops import msa_kernels
 
     t0 = time.time()
-    gbases = bench.make_genome() if genome_bases is None else genome_bases
+    gbases = workload.make_genome() if genome_bases is None \
+        else genome_bases
     g = Genome(chroms=[gbases], scaffolds=[
         Scaffold(chrom=1, sid=1, start=0, length=len(gbases),
                  name="ecoli_like")]).finalize()
@@ -381,7 +680,7 @@ def main_path(device, n_pairs: int = N_PAIRS, n_steady: int = N_STEADY,
     analyze_index(index, 0.01)
     aligner = BBMapAligner(g, index, device)
     n_batches = 1 + n_steady
-    r1, r2, q1, q2, t1, t2 = bench.make_pairs(
+    r1, r2, q1, q2, t1, t2 = workload.make_pairs(
         gbases, n_pairs * n_batches, L=L, seed=11, with_quality=True)
     say(f"setup: genome {len(gbases)} bp, index k=13, "
         f"{n_batches} x {n_pairs} pairs: {time.time() - t0:.1f} s")
@@ -421,7 +720,7 @@ def main_path(device, n_pairs: int = N_PAIRS, n_steady: int = N_STEADY,
     res["n_fallback_rows"] = aligner._n_fallback_rows
     # quality offsets come from the native host stage when its library
     # builds, else from the device stage (same results either way)
-    from bbmap_tpu.io import native
+    from bbmap_tpu_torch.io import native
     res["quality_offsets"] = "host" if native.get_lib() is not None \
         else "device"
     res["make_csrc"] = make_report
@@ -453,7 +752,8 @@ def main_path(device, n_pairs: int = N_PAIRS, n_steady: int = N_STEADY,
             raise AssertionError(
                 f"accuracy below the bar (sensitivity >= {SENS_MIN}, "
                 f"mapped >= {MAPPED_MIN}, pair rate >= {PAIR_MIN})")
-        if not (launches["msa_score"] and launches["msa_fill"]):
+        if not (launches["msa_score_warp"] and launches["msa_score_row"]
+                and launches["msa_fill_row"] and launches["msa_walk"]):
             raise AssertionError(f"a kernel of the path never launched: "
                                  f"{launches}")
     return res, (mk(r1, q1, 0), mk(r2, q2, 0), out0, aligner)
@@ -463,8 +763,8 @@ def sam_phase(first, n: int = 1000) -> int:
     """emit_sam on the first n pairs; every line has >= 11 fields and
     flags 99/147 appear. Returns the number of lines."""
     import numpy as np
-    from bbmap_tpu.core.batch import ReadBatch
     from bbmap_tpu_torch.align.pipeline import MappedRead, emit_sam
+    from bbmap_tpu_torch.core.batch import ReadBatch
     b1, b2, (mb1, mb2), aligner = first
 
     def sub(b):
@@ -517,8 +817,8 @@ def write_fasta(path: str, name: str, bases) -> None:
 
 def long_phase(device, genome_bases, n_reads: int = N_LONG,
                L_read: int = L_LONG, check: bool = True) -> dict:
-    """bench_tools.bench_mappacbio's inputs, built the same way, through
-    the port's ``mappacbio`` CLI: the genome as FASTA, ``randomreads
+    """The long-read bench's inputs through the port's ``mappacbio``
+    CLI: the genome as FASTA, ``randomreads
     pacbio=t pbmin=pbmax=L pberror=0.12 seed=19``, mapped with
     ``device=``, graded with ``gradesam.grade(out, 400)``. The wall time
     covers the CLI's index build and mapping; the CLI's own mapping time
@@ -526,9 +826,8 @@ def long_phase(device, genome_bases, n_reads: int = N_LONG,
     import re
 
     import torch
-    from bbmap_tpu.tools import gradesam, randomreads
     from bbmap_tpu_torch.ops import msa_kernels
-    from bbmap_tpu_torch.tools import mappacbio
+    from bbmap_tpu_torch.tools import gradesam, mappacbio, randomreads
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_pb")
     try:
@@ -588,10 +887,78 @@ def long_phase(device, genome_bases, n_reads: int = N_LONG,
             raise AssertionError(
                 f"long-read accuracy below the bar (mapped >= "
                 f"{LONG_MAPPED_MIN}, strict >= {LONG_STRICT_MIN})")
-        if not (launches["msa_score_long"] and launches["msa_fill_long"]):
-            raise AssertionError(f"the strided-row kernels never launched "
-                                 f"on the long-read path: {launches}")
+        if not (launches["msa_score_long"] and launches["msa_fill_long"]
+                and launches["msa_walk"]):
+            raise AssertionError(f"the strided-row kernels or the walk "
+                                 f"kernel never launched on the long-read "
+                                 f"path: {launches}")
     return res
+
+
+def _device_profile(fn, tag: str, wall_ms: float, top: int = 12) -> None:
+    """Run fn under torch.profiler (CPU + CUDA activities) and print the
+    number of kernels, their summed device time, the host time inside
+    cudaLaunchKernel, the idle share (1 - device time / ``wall_ms``, the
+    same work's wall time without the profiler) and the ``top`` kernels
+    by device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = {}
+    launch_us = n_launch_calls = 0
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            n, us = kernels.get(ev.name, (0, 0.0))
+            kernels[ev.name] = (n + 1, us + ev.device_time)
+        elif ev.name == "cudaLaunchKernel":
+            n_launch_calls += 1
+            launch_us += ev.cpu_time
+    n_kernels = sum(n for n, _ in kernels.values())
+    dev_ms = sum(us for _, us in kernels.values()) / 1e3
+    say(f"profile {tag}: wall {wall_ms:.1f} ms without the profiler, "
+        f"{n_kernels} device kernels and copies, device time {dev_ms:.3f} "
+        f"ms, idle share {100 * (1 - dev_ms / wall_ms):.1f} %, "
+        f"cudaLaunchKernel {n_launch_calls} calls {launch_us / 1e3:.1f} ms")
+    for name, (n, us) in sorted(kernels.items(),
+                                key=lambda kv: -kv[1][1])[:top]:
+        say(f"  {us / 1e3:10.3f} ms {n:8d} x {name[:90]}")
+
+
+def profile_paths(device, gbases) -> None:
+    """``python3 chip_smoke.py --profile``: where the time goes. One
+    short-read batch of the main path, plain and under torch.profiler,
+    then 32 long reads through ``mappacbio`` three times: plain (the
+    CLI's mapping time), under cProfile (host functions by cumulative
+    time) and under torch.profiler (device kernels)."""
+    import cProfile
+    import pstats
+    _res, (b1, b2, _out, aligner) = main_path(device, n_steady=1,
+                                              genome_bases=gbases)
+    t0 = time.time()
+    aligner.map_pairs_columnar(b1, b2)
+    _sync(device)
+    _device_profile(lambda: aligner.map_pairs_columnar(b1, b2),
+                    f"short batch of {N_PAIRS} pairs",
+                    1e3 * (time.time() - t0))
+    del aligner
+    map_ms = 1e3 * long_phase(device, gbases, n_reads=32,
+                              check=False)["map_s"]
+    pr = cProfile.Profile()
+    pr.enable()
+    long_phase(device, gbases, n_reads=32, check=False)
+    pr.disable()
+    buf = io.StringIO()
+    pstats.Stats(pr, stream=buf).sort_stats("cumulative").print_stats(28)
+    for ln in buf.getvalue().splitlines():
+        if ln.strip():
+            say("  cprofile: " + ln.rstrip()[:150])
+    _device_profile(lambda: long_phase(device, gbases, n_reads=32,
+                                       check=False),
+                    "32 long reads (wall: the CLI's mapping time)", map_ms)
 
 
 def main() -> int:
@@ -603,8 +970,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    if not (ROOT / "bbmap_tpu_torch").is_dir() or \
-            not (ROOT / "bench.py").is_file():
+    if not (ROOT / "bbmap_tpu_torch" / "csrc" / "msa_dp.cu").is_file():
         print("chip_smoke: run from a checkout of the repository",
               file=sys.stderr)
         return 2
@@ -623,13 +989,18 @@ def main() -> int:
 
     from bbmap_tpu_torch.ops import _build
     t = time.time()
-    _build.load("msa_dp")
+    libs = _build.build_all()
+    for name in _build.SOURCES:
+        _build.load(name)
     say(f"phase build: {time.time() - t:.2f} s "
-        f"({_build.library_path('msa_dp').name})")
+        f"({', '.join(p.name for p in libs)})")
 
-    import bench
+    from bbmap_tpu_torch import workload
     t = time.time()
-    gbases = bench.make_genome()
+    gbases = workload.make_genome()
+    if "--profile" in sys.argv[1:]:
+        profile_paths(device, gbases)
+        return 0
     ktimes = kernel_phase(gbases, device)
     say(f"phase kernel vs plain: {time.time() - t:.1f} s")
 
@@ -661,20 +1032,32 @@ def main() -> int:
         f"{lres['strict_correct']:.4f}; launches {lres['launches']}; "
         f"peak memory {lres['max_memory_allocated']} B; card {smi}")
 
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
+    foreign = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "bbmap_tpu"))
+    if foreign:
+        raise AssertionError(f"the JAX package was imported: {foreign[:5]}")
+    # main-path launches; the strided-row kernels run on the long-read
+    # path only, and K1 at its own entry point
     launches = {"msa_score_rows": k1_launches,
-                "msa_score": res["launches"]["msa_score"],
-                "msa_fill": res["launches"]["msa_fill"],
+                "msa_score": res["launches"]["msa_score_warp"],
+                "msa_score_row": res["launches"]["msa_score_row"],
+                "msa_fill": res["launches"]["msa_fill_row"],
+                "msa_walk": res["launches"]["msa_walk"],
                 "msa_score_long": lres["launches"]["msa_score_long"],
                 "msa_fill_long": lres["launches"]["msa_fill_long"]}
+    say(f"walk kernel launches: main path {res['launches']['msa_walk']}, "
+        f"long reads {lres['launches']['msa_walk']}")
     kernels = []
     for name, n in launches.items():
         kt = ktimes[name]
-        kernels.append({"name": name, "route": "cuda", "source": SOURCE,
-                        "replaces": REPLACES[name.replace("_long", "")],
+        kernels.append({"name": name, "route": "cuda",
+                        "source": SOURCE[name],
+                        "replaces": REPLACES[name],
                         "launches": n, "max_abs_err": kt["max_abs_err"],
-                        "ms": kt["ms"], "plain_ms": kt["plain_ms"]})
+                        "ms": kt["ms"], "plain_ms": kt["plain_ms"],
+                        "bound_ms": kt["bound_ms"],
+                        "bound_by": kt["bound_by"],
+                        "library_ms": kt["library_ms"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -17,6 +17,7 @@ from bbmap_tpu.core.bases import COMP_ASCII
 from bbmap_tpu.core.batch import ReadBatch
 from bbmap_tpu.core.genome import Genome, Scaffold
 from bbmap_tpu.index.build import analyze_index, build_index
+from bbmap_tpu_torch import convert
 from bbmap_tpu_torch.align import fused_device as tfd
 from bbmap_tpu_torch.align.pipeline import BBMapAligner as TorchAligner
 from bbmap_tpu_torch.align.quickmap_device import DeviceIndex
@@ -81,6 +82,12 @@ def batch(rows, L, qual=None):
                      numeric_ids=np.arange(B, dtype=np.int64))
 
 
+def torch_aligner(genome, index):
+    """The port's aligner on the CPU over the reference's genome and
+    index, carried across by ``convert``."""
+    return TorchAligner(convert.genome(genome), convert.index(index), "cpu")
+
+
 def assert_mb_equal(a, b):
     for f in ("mapped", "strand", "chrom", "start", "stop", "score",
               "perfect", "ambiguous", "n_sites", "paired", "rescued"):
@@ -134,7 +141,7 @@ def test_rescue_scan_matches_jax_and_host(setup):
     from bbmap_tpu.ops import rescue_device as jrd
     from bbmap_tpu_torch.ops import rescue_device as trd
     g, genome, index = setup
-    al = TorchAligner(genome, index, "cpu")
+    al = torch_aligner(genome, index)
     rng = np.random.default_rng(11)
     Lm, R, N_OFF = 100, 48, 1536
     reads = np.zeros((R, Lm), np.uint8)
@@ -195,7 +202,8 @@ def test_fused_pair_program_host_dict(setup, with_q, monkeypatch):
     if with_q:
         q1, q2 = quality_for(Bp, L, 1), quality_for(Bp, L, 2)
     fj = jfd.build_fused_pair(index, L, Bp, index.chrom_offsets)
-    ft = tfd.build_fused_pair(DeviceIndex(index, "cpu"), L, Bp)
+    ft = tfd.build_fused_pair(DeviceIndex(convert.index(index), "cpu"), L,
+                              Bp)
     dj = fj(r1, r2, 150, q1, q2).host()
     dt = ft(r1, r2, 150, q1, q2).host()
     assert_dicts_equal(dj, dt)

@@ -1,4 +1,5 @@
-"""The port imports no jax, its kernel wrappers count nothing on CPU
+"""The port and ``chip_smoke`` import neither jax nor any module of the
+JAX package ``bbmap_tpu``, the kernel wrappers count nothing on CPU
 tensors, and asking for a device that is not there raises."""
 
 import os
@@ -9,9 +10,9 @@ import numpy as np
 import pytest
 import torch
 
-from bbmap_tpu.core.constants import SHORT_PROFILE
-from bbmap_tpu.core.genome import Genome, Scaffold
-from bbmap_tpu.index.build import analyze_index, build_index
+from bbmap_tpu_torch.core.constants import SHORT_PROFILE
+from bbmap_tpu_torch.core.genome import Genome, Scaffold
+from bbmap_tpu_torch.index.build import analyze_index, build_index
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -29,7 +30,19 @@ try:
 except SystemExit as e:
     assert e.code in (0, None), e.code
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+foreign = sorted(m for m in sys.modules
+                 if m == "bbmap_tpu" or m.startswith("bbmap_tpu."))
+assert not foreign, foreign
 print("imported", len(names))
+"""
+
+_IMPORT_SMOKE = """
+import sys
+import chip_smoke
+foreign = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "jaxlib", "bbmap_tpu"))
+assert not foreign, foreign
+print("imported chip_smoke")
 """
 
 
@@ -40,11 +53,44 @@ def _run(code):
 
 
 def test_port_never_imports_jax():
+    """Every module of the port imported and ``python -m bbmap_tpu_torch``
+    run: neither jax nor ``bbmap_tpu`` (or a module of it) is loaded."""
     p = _run(_IMPORT_ALL)
     assert p.returncode == 0, p.stderr
     assert "usage: python -m bbmap_tpu_torch" in p.stdout
     n = int(p.stdout.strip().splitlines()[-1].split()[-1])
-    assert n >= 14
+    assert n >= 30
+
+
+def test_chip_smoke_import_is_clean():
+    """``import chip_smoke`` (import only, no run) loads neither jax nor
+    the JAX package."""
+    p = _run(_IMPORT_SMOKE)
+    assert p.returncode == 0, p.stderr
+    assert "imported chip_smoke" in p.stdout
+
+
+def test_port_sources_name_no_reference_import():
+    """No import statement in the port or in chip_smoke.py names
+    ``bbmap_tpu``: it appears only in comments and in strings that cite
+    the reference by file and line."""
+    import ast
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for top, _dirs, names in os.walk(os.path.join(ROOT, "bbmap_tpu_torch")):
+        files += [os.path.join(top, n) for n in names if n.endswith(".py")]
+    assert len(files) > 30
+    for path in files:
+        with open(path) as fh:
+            tree = ast.parse(fh.read())
+        for node in ast.walk(tree):
+            mods = []
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                mods = [node.module or ""]
+            for m in mods:
+                assert m.split(".")[0] not in ("bbmap_tpu", "jax"), \
+                    (path, node.lineno, m)
 
 
 def test_cli_without_tool_prints_usage():
@@ -68,6 +114,10 @@ def test_cpu_wrappers_do_not_count_launches():
     assert torch.equal(out, out2) and prevs.shape == (6, 52, 21)
     s, c, st = msa_kernels.score_batch(reads, refs, rows, BB=4)
     assert torch.equal(torch.stack([s, c, st]), out)
+    sym, ln, _gaps, row_end = msa_kernels.msa_walk(prevs, reads, refs,
+                                                   out[1], out[2], 20, 32)
+    assert sym.shape == (6, 52) and int(row_end.max()) == 0
+    assert int(ln.min()) >= 20
     for k in msa_kernels.KERNELS:
         assert k.launches == 0 and k.long_launches == 0, k.__name__
 

@@ -10,11 +10,11 @@ import torch
 
 from bbmap_tpu.align import fused_device as jfd
 from bbmap_tpu.align.pipeline import BBMapAligner as JaxAligner
+from bbmap_tpu_torch import convert
 from bbmap_tpu_torch.align import fused_device as tfd
-from bbmap_tpu_torch.align.pipeline import BBMapAligner as TorchAligner
 
-from .test_torch_fused import (assert_mb_equal, batch, make_pairs,
-                               quality_for, setup)  # noqa: F401
+from .test_torch_fused import (assert_mb_equal, batch, make_pairs,  # noqa: F401
+                               quality_for, setup, torch_aligner)
 
 torch.set_num_threads(2)
 
@@ -33,9 +33,10 @@ def test_map_pairs_columnar_matches(setup, variant, monkeypatch):
     if variant != "plain":
         q1, q2 = quality_for(B, L, 3), quality_for(B, L, 4)
     aj = JaxAligner(genome, index)
-    at = TorchAligner(genome, index, "cpu")
+    at = torch_aligner(genome, index)
     mj = aj.map_pairs_columnar(batch(r1, L, q1), batch(r2, L, q2))
-    mt = at.map_pairs_columnar(batch(r1, L, q1), batch(r2, L, q2))
+    mt = at.map_pairs_columnar(convert.read_batch(batch(r1, L, q1)),
+                               convert.read_batch(batch(r2, L, q2)))
     for a, b in zip(mj, mt):
         assert_mb_equal(a, b)
     assert (at._n_esc_rows, at._n_fallback_rows) == \

@@ -17,6 +17,7 @@ from bbmap_tpu.align import seed as seed_host
 from bbmap_tpu.core.bases import COMP_ASCII
 from bbmap_tpu.core.genome import Genome, Scaffold
 from bbmap_tpu.index.build import analyze_index, build_index
+from bbmap_tpu_torch import convert
 from bbmap_tpu_torch.align import quickmap_device as tqd
 
 torch.set_num_threads(2)
@@ -37,7 +38,7 @@ def setup():
                  name="c1")]).finalize()
     index = build_index(g, 11)
     analyze_index(index, 0.01)
-    return index, tqd.DeviceIndex(index, "cpu")
+    return index, tqd.DeviceIndex(convert.index(index), "cpu")
 
 
 def make_reads(index, n, seed, from_repeat=False):

@@ -8,11 +8,11 @@ import torch
 
 from bbmap_tpu.align.pipeline import BBMapAligner as JaxAligner
 from bbmap_tpu.align.pipeline import emit_sam as jax_emit_sam
-from bbmap_tpu_torch.align.pipeline import BBMapAligner as TorchAligner
+from bbmap_tpu_torch import convert
 from bbmap_tpu_torch.align.pipeline import emit_sam
 
-from .test_torch_fused import (assert_mb_equal, batch, make_pairs,
-                               quality_for, setup)  # noqa: F401
+from .test_torch_fused import (assert_mb_equal, batch, make_pairs,  # noqa: F401
+                               quality_for, setup, torch_aligner)
 
 torch.set_num_threads(2)
 
@@ -28,9 +28,10 @@ def test_map_pairs_columnar_stream_matches(setup):
         items.append((batch(r1, L, quality_for(B, L, 50 + s)),
                       batch(r2, L, quality_for(B, L, 60 + s))))
     aj = JaxAligner(genome, index)
-    at = TorchAligner(genome, index, "cpu")
+    at = torch_aligner(genome, index)
     outs_j = list(aj.map_pairs_columnar_stream(iter(items)))
-    outs_t = list(at.map_pairs_columnar_stream(iter(items)))
+    outs_t = list(at.map_pairs_columnar_stream(
+        (convert.read_batch(a), convert.read_batch(b)) for a, b in items))
     assert len(outs_j) == len(outs_t) == 3
     for mj, mt in zip(outs_j, outs_t):
         for a, b in zip(mj, mt):
@@ -44,7 +45,8 @@ def test_map_batch_columnar_single_end_matches(setup):
     r1, _ = make_pairs(g, 64, L=L, seed=71)
     b = batch(r1, L, quality_for(64, L, 72))
     mj = JaxAligner(genome, index).map_batch_columnar(b)
-    mt = TorchAligner(genome, index, "cpu").map_batch_columnar(b)
+    mt = torch_aligner(genome, index).map_batch_columnar(
+        convert.read_batch(b))
     assert_mb_equal(mj, mt)
     assert mt.mapped.sum() > 55
 
@@ -56,9 +58,10 @@ def test_emit_sam_bytes_match(setup):
     b1 = batch(r1, L, quality_for(B, L, 82))
     b2 = batch(r2, L, quality_for(B, L, 83))
     j1, j2 = JaxAligner(genome, index).map_pairs(b1, b2)
-    t1, t2 = TorchAligner(genome, index, "cpu").map_pairs(b1, b2)
+    tb1, tb2 = convert.read_batch(b1), convert.read_batch(b2)
+    t1, t2 = torch_aligner(genome, index).map_pairs(tb1, tb2)
     lines_j = jax_emit_sam(genome, b1, j1, j2, b2)
-    lines_t = emit_sam(genome, b1, t1, t2, b2)
+    lines_t = emit_sam(convert.genome(genome), tb1, t1, t2, tb2)
     assert "\n".join(lines_t).encode() == "\n".join(lines_j).encode()
     flags = {int(ln.split("\t")[1]) for ln in lines_t}
     assert {99, 147} <= flags
