@@ -1,5 +1,5 @@
 // The DP kernels' mapping for short reads (R + 1 <= 320 rows): a warp a
-// job, one to four jobs a block, no shared memory and no __syncthreads().
+// job, four jobs a block, no shared memory and no __syncthreads().
 //
 // Same function as the mappings in msa_dp.cu (replaces the Pallas TPU
 // kernels msa_score_pallas_t / msa_fill_pallas_t / msa_score_pallas,
@@ -36,11 +36,12 @@
 // for the score at J = 5, 111 for the fill: 20 and 16 warps an SM), not by
 // parallelism inside a warp. Measured with chip_smoke.py on an NVIDIA H100
 // 80GB HBM3 at 700 W: the score pass takes 6.5 ms at 32,768 x (150, 174)
-// against 12.2 ms in the one-row mapping, 62 % of what the card's
+// against 12.2 ms in the one-row mapping, 61 % of what the card's
 // schedulers allow for these instructions. Two cases go the other way, and
 // launch_shape gives them the one-row mapping: with few jobs (128 at
-// (150, 606): 0.98 ms against 0.32 ms) most warp slots of the card stay
-// empty while each warp runs its long serial sweep, and the fill's
+// (150, 606): 0.98 ms against 0.32 ms; the two tie at 1,024 jobs and the
+// sweep wins from 2,048) most warp slots of the card stay empty while each
+// warp runs its long serial sweep, and the fill's
 // scattered byte stores cost more than the sweep saves (8,192 x (150, 174):
 // 5.2 ms against 3.4 ms). Keeping a short job's prev codes in shared memory
 // and walking them there would remove those stores.
@@ -49,12 +50,12 @@
 
 namespace {
 
-constexpr int kMaxWarpsPerBlock = 4;
+constexpr int kWarpsPerBlock = 4;
 constexpr int kMaxWarpRows = 10;          // J <= 10: R + 1 <= 320
 constexpr unsigned kFullMask = 0xffffffffu;
 
 template <class Ops, bool WANT_PREVS, int J>
-__global__ void __launch_bounds__(kMaxWarpsPerBlock * 32)
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
 msa_dp_warp_kernel(Ops ops, const int* __restrict__ rows_in,
                    const int* __restrict__ ins0_col, int B, int R, int C,
                    Prof P, int* __restrict__ out,
@@ -159,8 +160,7 @@ cudaError_t launch(Ops ops, const int* rows, const int* ins0, int B, int R,
   if (B <= 0) return cudaSuccess;
   if (R < 0 || C < 0 || rows_per_lane < 1 || rows_per_lane > kMaxWarpRows ||
       rows_per_lane * 32 < R + 1 || (rows_per_lane - 1) * 32 >= R + 1 ||
-      threads < 32 || threads > kMaxWarpsPerBlock * 32 || threads % 32 != 0 ||
-      smem != 0)
+      threads != kWarpsPerBlock * 32 || smem != 0)
     return cudaErrorInvalidValue;
   const Prof P = load_prof(prof);
 #define WARP_CASE(J)                                                        \

@@ -28,9 +28,8 @@ DP row per thread ("row") up to R = 1,023, rows strided over the block
 
 A wrapper given CPU tensors runs the plain version (``ops/msa.dp_plain``,
 ``ops/msa.walk_plain``) and counts nothing. Given CUDA tensors it
-launches the kernel, adds one to its ``launches`` count (to
-``launches_by[mapping]`` as well, and to ``long_launches`` for the strided
-mapping), or raises.
+launches the kernel and adds one to its ``launches`` count (a DP wrapper
+to ``launches_by[mapping]`` as well), or raises.
 """
 
 from __future__ import annotations
@@ -51,7 +50,10 @@ I32 = torch.int32
 WARP_MAX_ROWS_PER_LANE = 10    # a warp a job: R + 1 <= 320 rows
 WARP_MAX_ROWS = 32 * WARP_MAX_ROWS_PER_LANE - 1
 WARP_THREADS = 128             # four jobs a block
-WARP_MIN_JOBS = 2048           # below it a score pass takes the one-row mapping
+# Below it a score pass takes the one-row mapping. From a sweep of K2 over
+# the job count in both mappings on an H100 (chip_smoke.py, "sweep" lines):
+# at 1,024 jobs the two tie, at 2,048 the warp mapping wins 1.3-1.7x.
+WARP_MIN_JOBS = 2048
 SHORT_MAX_ROWS = 1023          # one thread per DP row, 1,024 threads a block
 LONG_ROWS_PER_THREAD = (2, 4, 8)
 MAX_THREADS = 1024
@@ -81,10 +83,6 @@ class LaunchShape(NamedTuple):
     smem_bytes: int
     mapping: str            # "warp", "row" or "strided"
 
-    @property
-    def long(self) -> bool:
-        return self.mapping == "strided"
-
 
 MAPPINGS = ("warp", "row", "strided")
 
@@ -96,12 +94,12 @@ def launch_shape(R: int, C: int, mapping: Optional[str] = None,
     columns (``fill``: with prev codes).
 
     - "warp" (R <= 319): a warp a job, lane l owns the ceil((R+1)/32)
-      rows from l * J on; four jobs a block (one below 2,048 jobs), no
-      shared memory. The default for score passes of 2,048 jobs or more
-      (``jobs=None`` counts as many): fewer jobs leave most of the card's
-      warp slots empty, and a fill's prev codes become scattered
-      single-byte stores that cost more than the sweep saves (times in
-      PERF.md), so those take the one-row mapping.
+      rows from l * J on; four jobs a block, no shared memory. The
+      default for score passes of 2,048 jobs or more (``jobs=None``
+      counts as many): fewer jobs leave most of the card's warp slots
+      empty, and a fill's prev codes become scattered single-byte stores
+      that cost more than the sweep saves (times in PERF.md), so those
+      take the one-row mapping.
     - "row" (R <= 1,023): a block a job, one row a thread. Both wave
       slots take 24 * (R+1) bytes of shared memory, the window C more.
     - "strided" (R <= 8,191): a block a job, 2, 4 or 8 rows a thread,
@@ -125,8 +123,7 @@ def launch_shape(R: int, C: int, mapping: Optional[str] = None,
         raise ValueError(f"mapping {mapping!r} cannot be forced at R={R}")
     wave = 24 * (R + 1)
     if mapping == "warp":
-        shape = LaunchShape(-(-(R + 1) // 32), WARP_THREADS if many else 32,
-                            0, mapping)
+        shape = LaunchShape(-(-(R + 1) // 32), WARP_THREADS, 0, mapping)
     elif mapping == "row":
         shape = LaunchShape(1, (R + 1 + 31) // 32 * 32, wave + C, mapping)
     else:
@@ -201,8 +198,6 @@ def _launch(wrapper, kind: str, inputs, outputs, B: int, R: int, C: int,
         raise RuntimeError(f"{fn.__name__} failed: cudaError {err}")
     wrapper.launches += 1
     wrapper.launches_by[shape.mapping] += 1
-    if shape.long:
-        wrapper.long_launches += 1
 
 
 def _check(reads: torch.Tensor, refs: torch.Tensor, rows: torch.Tensor):
@@ -445,13 +440,14 @@ def msa_walk(prevs: torch.Tensor, reads: torch.Tensor, refs: torch.Tensor,
     return syms, out_len, gaps, row_end
 
 
-KERNELS = (msa_score_rows, msa_score, msa_fill, msa_walk)
+DP_KERNELS = (msa_score_rows, msa_score, msa_fill)
+KERNELS = (*DP_KERNELS, msa_walk)
 
 
 def reset_launches() -> None:
     for k in KERNELS:
         k.launches = 0
-        k.long_launches = 0
+    for k in DP_KERNELS:
         k.launches_by = dict.fromkeys(MAPPINGS, 0)
 
 

@@ -13,7 +13,8 @@ Phases, each timed on its own line:
    together, into ``build/torch_kernels/`` (a source whose library is
    there is skipped); ``cuobjdump -sass`` of the libraries gives each
    kernel's instructions a cell (the main loop's length over the cells
-   one pass of it evaluates);
+   one pass of it evaluates), and the least of them among a function's
+   mappings is the count that function's bound is reckoned with;
 3. kernel vs plain: every kernel against its plain PyTorch version on
    the card, bit-equal (tolerance 0: the DP and the walk are integer
    arithmetic): K2 score and K3 fill at the short path's shapes
@@ -26,7 +27,9 @@ Phases, each timed on its own line:
    jobs of a 28-job fill whose prev codes pass 2**31 bytes, from the
    fill's own columns and states and from shifted ones, so that cut
    walks are among them; kernel, plain and (short shapes) one-row
-   mapping times at the shapes the paths use, and each kernel's bound;
+   mapping times at the shapes the paths use, each kernel's bound, and
+   K2 in the warp and the one-row mapping from 128 to 8,192 jobs (the
+   sweep that ``msa_kernels.WARP_MIN_JOBS`` is chosen from);
 4. K1 entry point: ``msa_kernels.score_batch`` on 32,768 jobs, counted;
 5. main path: ``make -C csrc`` once (its return code is reported next
    to the quality-offset route), then the bench workload (4.6 Mbp genome
@@ -103,6 +106,10 @@ VARIANT = {("msa_score", "warp"): "msa_score",
            ("msa_fill", "strided"): "msa_fill_long",
            ("msa_score_rows", "warp"): "msa_score_rows",
            ("msa_score_rows", "row"): "msa_score_rows_row"}
+# kernel variant -> the function it computes; every variant of a function
+# is held to one bound
+FUNCTION = {v: w for (w, _), v in VARIANT.items()}
+FUNCTION["msa_walk"] = "msa_walk"
 
 
 def say(msg: str) -> None:
@@ -236,8 +243,11 @@ def sass_counts(lib_path) -> dict:
 def kernel_instructions() -> dict:
     """Instructions a DP cell (or a walk step) for each kernel variant
     the paths launch, from the built libraries' SASS: the main loop's
-    instructions over the cells one pass of it evaluates. Keys: the
-    variant names of ``VARIANT`` and "msa_walk"."""
+    instructions over the cells one pass of it evaluates ("per_cell"),
+    and the least of them among the variants of the same function
+    ("function_per_cell"): what one mapping does a cell in, no mapping
+    needs more for. Keys: the variant names of ``VARIANT`` and
+    "msa_walk"."""
     from bbmap_tpu_torch.ops import _build
     from bbmap_tpu_torch.ops import msa_kernels as mk
 
@@ -270,8 +280,11 @@ def kernel_instructions() -> dict:
     tot, loop = pick(walk, "msa_walk_kernel")
     out["msa_walk"] = {"sass": tot, "loop": loop, "per_cell": loop}
     for name, v in out.items():
+        v["function_per_cell"] = min(w["per_cell"] for n, w in out.items()
+                                     if FUNCTION[n] == FUNCTION[name])
         say(f"sass {name}: {v['sass']} instructions, main loop {v['loop']}, "
-            f"{v['per_cell']:.1f} a cell")
+            f"{v['per_cell']:.1f} a cell; {FUNCTION[name]} needs at most "
+            f"{v['function_per_cell']:.1f}")
     return out
 
 
@@ -351,12 +364,13 @@ def kernel_phase(genome, device) -> dict:
                C, e, " (out and prev codes on valid cells)")
         return p, pp
 
-    def cmp_rows(tag, job, mapping=None):
+    def cmp_rows(tag, job, k=None, p=None, mapping=None):
         rd, rf, rw = job
         R, C = rd.shape[1], rf.shape[1]
-        r1, r0, rp, rows = mk.prep_operands(rd, rf, rw)
-        k = mk.msa_score_rows(r1, r0, (rp, rows), R, C, 64, mapping)
-        p = mk.msa_score_rows_plain(r1, r0, (rp, rows), R, C, 64)
+        if k is None or p is None:
+            r1, r0, rp, rows = mk.prep_operands(rd, rf, rw)
+            k = mk.msa_score_rows(r1, r0, (rp, rows), R, C, 64, mapping)
+            p = mk.msa_score_rows_plain(r1, r0, (rp, rows), R, C, 64)
         _sync(device)
         record(key_of("msa_score_rows", len(rw), R, C, mapping), tag,
                len(rw), R, C, int((k.long() - p.long()).abs().max()))
@@ -437,7 +451,8 @@ def kernel_phase(genome, device) -> dict:
         """Bytes: reads, windows and rows in, out (3, B) and, for the
         fill, one byte a valid cell out. Instructions: the (rows + 1) x
         (C + 1) in-window cells of each job's own rows times the
-        kernel's instructions a cell."""
+        function's instructions a cell (the least among its mappings,
+        not this kernel's own)."""
         rd, rf, rw = job
         C = rf.shape[1]
         rows = rw.double()
@@ -448,7 +463,8 @@ def kernel_phase(genome, device) -> dict:
         if fill:
             n_bytes += float((rows * C).sum())
         cells = float(((rows + 1) * (C + 1)).sum())
-        ms, by = bound_ms(n_bytes, cells * instr[name]["per_cell"], clock)
+        ms, by = bound_ms(n_bytes, cells * instr[name]["function_per_cell"],
+                          clock)
         out[name].update(bound_ms=ms, bound_by=by, cells=cells)
 
     def walk_bound(walked, n_jobs, steps):
@@ -458,23 +474,39 @@ def kernel_phase(genome, device) -> dict:
         times the kernel's instructions a step (one lane of a warp
         walks)."""
         n_bytes = 3 * walked + n_jobs * steps + 20 * n_jobs
-        return bound_ms(n_bytes, walked * instr["msa_walk"]["per_cell"],
-                        clock)
+        return bound_ms(
+            n_bytes, walked * instr["msa_walk"]["function_per_cell"], clock)
 
     job = rd, rf, rw = dp_jobs(genome, 2 * 16384, L, L + 24, 7, device,
                                var_rows=False)
-    timed("msa_score", lambda: mk.msa_score(rd, rf, rw, S),
-          lambda: mk.msa_score_plain(rd, rf, rw, S), 10,
-          other=("row_ms", lambda: mk.msa_score(rd, rf, rw, S, "row")))
+    k, p = timed("msa_score", lambda: mk.msa_score(rd, rf, rw, S),
+                 lambda: mk.msa_score_plain(rd, rf, rw, S), 10,
+                 other=("row_ms", lambda: mk.msa_score(rd, rf, rw, S,
+                                                       "row")))
     dp_bound("msa_score", job, False)
+    cmp_score("short narrow, 32,768 jobs", S, job, k, p)
     r1, r0, rp, rows = mk.prep_operands(rd, rf, rw)
     R, C = rd.shape[1], rf.shape[1]
-    timed("msa_score_rows",
-          lambda: mk.msa_score_rows(r1, r0, (rp, rows), R, C, 64),
-          lambda: mk.msa_score_rows_plain(r1, r0, (rp, rows), R, C, 64), 10,
-          other=("row_ms", lambda: mk.msa_score_rows(r1, r0, (rp, rows), R,
-                                                     C, 64, "row")))
+    k, p = timed(
+        "msa_score_rows",
+        lambda: mk.msa_score_rows(r1, r0, (rp, rows), R, C, 64),
+        lambda: mk.msa_score_rows_plain(r1, r0, (rp, rows), R, C, 64), 10,
+        other=("row_ms", lambda: mk.msa_score_rows(r1, r0, (rp, rows), R, C,
+                                                   64, "row")))
     dp_bound("msa_score_rows", job, False)
+    cmp_rows("short narrow, 32,768 jobs", job, k, p)
+    del k, p, r1, r0, rp, rows
+    # K2 in both mappings over the job count, at the narrow and the wide
+    # window: where the warp mapping starts to win is WARP_MIN_JOBS
+    for Cs in (L + 24, L + 456):
+        for n in (128, 256, 512, 1024, 2048, 4096, 8192):
+            a = (rd[:n], rf[:n], rw[:n]) if Cs == L + 24 \
+                else dp_jobs(genome, n, L, Cs, 40, device, var_rows=False)
+            w, r = (_cuda_ms(lambda: mk.msa_score(*a, S, m), 10)[0]
+                    for m in ("warp", "row"))
+            say(f"sweep msa_score {n} x ({L}, {Cs}): warp {w:.4f} ms, "
+                f"one-row {r:.4f} ms, default "
+                f"{mk.launch_shape(L, Cs, jobs=n).mapping}")
     job = rd, rf, rw = rd[:8192], rf[:8192], rw[:8192]
     k, p = timed("msa_fill", lambda: mk.msa_fill(rd, rf, rw, S),
                  lambda: mk.msa_fill_plain(rd, rf, rw, S), 10,
@@ -571,6 +603,7 @@ def kernel_phase(genome, device) -> dict:
     for name, t in out.items():
         t["max_abs_err"] = err[name]
         t["per_cell"] = instr[name]["per_cell"]
+        t["function_per_cell"] = instr[name]["function_per_cell"]
         row = f", one-row mapping {t['row_ms']:.3f} ms" \
             if "row_ms" in t else ""
         if "warp_ms" in t:
@@ -578,7 +611,8 @@ def kernel_phase(genome, device) -> dict:
         say(f"time {name} at {shapes[name]}: kernel {t['ms']:.3f} ms{row}, "
             f"plain {t['plain_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms "
             f"by {t['bound_by']} ({100 * t['bound_ms'] / t['ms']:.1f} % of "
-            f"the bound reached; {t['per_cell']:.1f} instructions a cell)")
+            f"the bound reached; bound at {t['function_per_cell']:.1f} "
+            f"instructions a cell, this kernel {t['per_cell']:.1f})")
     for tag, (n, R, C, a, b2) in extra.items():
         first, second = ("kernel", "bound") if tag == "msa_walk long" \
             else ("warp mapping", "one-row mapping")
@@ -629,16 +663,15 @@ def grade(aligner, graded, t1, t2, n_pairs: int) -> dict:
 
 
 def launch_counts() -> dict:
-    """Each kernel wrapper's launches since the last reset, with the
-    strided-row launches as "<name>_long" and the warp and one-row
-    mappings' as "<name>_warp" and "<name>_row"."""
+    """Each kernel wrapper's launches since the last reset; a DP
+    kernel's by mapping as well: "<name>_warp", "<name>_row" and, for the
+    strided rows, "<name>_long"."""
     from bbmap_tpu_torch.ops import msa_kernels
-    out = {}
-    for k in msa_kernels.KERNELS:
-        out[k.__name__] = k.launches
-        out[k.__name__ + "_long"] = k.long_launches
-        out[k.__name__ + "_warp"] = k.launches_by["warp"]
-        out[k.__name__ + "_row"] = k.launches_by["row"]
+    out = {k.__name__: k.launches for k in msa_kernels.KERNELS}
+    for k in msa_kernels.DP_KERNELS:
+        for mapping, suffix in (("warp", "_warp"), ("row", "_row"),
+                                ("strided", "_long")):
+            out[k.__name__ + suffix] = k.launches_by[mapping]
     return out
 
 

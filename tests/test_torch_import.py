@@ -119,7 +119,9 @@ def test_cpu_wrappers_do_not_count_launches():
     assert sym.shape == (6, 52) and int(row_end.max()) == 0
     assert int(ln.min()) >= 20
     for k in msa_kernels.KERNELS:
-        assert k.launches == 0 and k.long_launches == 0, k.__name__
+        assert k.launches == 0, k.__name__
+    for k in msa_kernels.DP_KERNELS:
+        assert not any(k.launches_by.values()), k.__name__
 
 
 @pytest.fixture(scope="module")

@@ -444,7 +444,7 @@ def test_plain_past_1023_rows_matches_scan():
 def test_launch_shape_rules(R, C, want):
     s = msa_kernels.launch_shape(R, C)
     assert tuple(s) == want
-    assert s.long == (R > 1023)
+    assert (s.mapping == "strided") == (R > 1023)
     assert s.threads % 32 == 0 and s.threads <= 1024
     per_block = 32 if s.mapping == "warp" else s.threads
     assert per_block * s.rows_per_thread >= R + 1
@@ -463,7 +463,8 @@ def test_launch_shape_forced_one_row(R, C, want):
     mapping cannot be forced."""
     assert tuple(msa_kernels.launch_shape(R, C, "row")) == want
     assert tuple(msa_kernels.launch_shape(R, C, fill=True)) == want
-    assert tuple(msa_kernels.launch_shape(R, C, jobs=2047)) == want
+    assert tuple(msa_kernels.launch_shape(
+        R, C, jobs=msa_kernels.WARP_MIN_JOBS - 1)) == want
     for bad in ("strided", "other"):
         with pytest.raises(ValueError):
             msa_kernels.launch_shape(R, C, bad)
@@ -473,7 +474,7 @@ def test_launch_shape_forced_one_row(R, C, want):
 
 @pytest.mark.parametrize("R, C, jobs, fill, want", [
     (150, 174, 32768, False, (5, 128, 0, "warp")),
-    (150, 174, 2048, False, (5, 128, 0, "warp")),
+    (150, 174, msa_kernels.WARP_MIN_JOBS, False, (5, 128, 0, "warp")),
     (150, 606, 128, False, (1, 160, 24 * 151 + 606, "row")),
     (150, 174, 8192, True, (1, 160, 24 * 151 + 174, "row")),
     (6000, 6456, 16, True, (8, 768, 24 * 6001 + 6456 + 6000, "strided")),
@@ -481,12 +482,11 @@ def test_launch_shape_forced_one_row(R, C, want):
 def test_launch_shape_by_jobs_and_fill(R, C, jobs, fill, want):
     """What the main path's passes get: the warp mapping for the 32,768
     job score pass, the one-row mapping for the 128-job wide pass and for
-    fills; forcing "warp" gives one job a block below 2,048 jobs."""
+    fills; forcing "warp" gives four jobs a block at any job count."""
     assert tuple(msa_kernels.launch_shape(R, C, jobs=jobs, fill=fill)) == want
     if R <= 319:
         forced = msa_kernels.launch_shape(R, C, "warp", jobs=jobs, fill=fill)
-        assert forced == (-(-(R + 1) // 32), 128 if jobs >= 2048 else 32, 0,
-                          "warp")
+        assert forced == (-(-(R + 1) // 32), 128, 0, "warp")
     else:
         with pytest.raises(ValueError):
             msa_kernels.launch_shape(R, C, "warp", jobs=jobs, fill=fill)
