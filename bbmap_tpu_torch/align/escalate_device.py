@@ -13,7 +13,8 @@ window start); the window is C reference bases from flat position
 
 Scores go through the score kernel and traces through the fill kernel
 plus the full-length walk (ops/msa.py). Trace jobs run in chunks bounded
-by the fill's prev-code block (``_trace_ladder``).
+by the device's prev-code budget (``backend.prev_code_budget``) over the
+bytes a job's prev codes take there (``_trace_ladder``).
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from ..ops import msa
+from ..backend import prev_code_budget
+from ..ops import msa, msa_kernels
 from .quickmap_device import DeviceIndex, extract_ref_codes
 
 I32 = torch.int32
@@ -34,11 +36,12 @@ TRACE_CHUNKS = (2048, 1024, 512)
 TRACE_CHUNKS_W = (1024,)
 
 
-def _trace_ladder(L: int, C: int, ladder):
-    """Memory-aware trace-chunk ladder: the fill's prev-code block is
-    ~(L+C)*(L+1) bytes per job. Budget ~2 GB per launch; always keep at
-    least chunk size 8."""
-    cap = max(8, (2 << 30) // max(1, (L + C) * (L + 1)))
+def _trace_ladder(L: int, C: int, ladder, device):
+    """Memory-aware trace-chunk ladder: the rungs of ``ladder`` that fit
+    the device's prev-code budget at the bytes a job's prev codes take in
+    the fill's layout there; always at least chunk size 8."""
+    cap = max(8, prev_code_budget(device)
+              // msa_kernels.prev_code_bytes(L, C, device))
     out = tuple(c for c in ladder if c <= cap)
     if not out:
         c = 8
@@ -79,7 +82,7 @@ def make_programs(L: int, dindex: DeviceIndex, profile=None):
     Cn = L + 2 * SLOW_ALIGN_PADDING + NARROW_SPREAD
     Cw = L + 2 * SLOW_ALIGN_PADDING + WIDE_SPREAD
     return {
-        "Cn": Cn, "Cw": Cw,
+        "Cn": Cn, "Cw": Cw, "device": dev,
         "score_n": build(Cn, False),
         "score_w": build(Cw, False),
         "trace_n": build(Cn, True),
@@ -120,7 +123,7 @@ def trace_jobs(progs: Dict, reads: np.ndarray, wstart: np.ndarray,
     for is_wide, key, ladder0 in ((False, "trace_n", TRACE_CHUNKS),
                                   (True, "trace_w", TRACE_CHUNKS_W)):
         C = Cw if is_wide else progs["Cn"]
-        chunk = _trace_ladder(L, C, ladder0)[0]
+        chunk = _trace_ladder(L, C, ladder0, progs["device"])[0]
         rows = np.nonzero(wide == is_wide)[0]
         for a in range(0, len(rows), chunk):
             sel = rows[a:a + chunk]

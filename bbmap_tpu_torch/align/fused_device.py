@@ -386,13 +386,13 @@ def fused_stage(fcfg: FusedConfig, rcodes: torch.Tensor,
     tws = wws[tl].to(I32)
     trefs = _window_ascii(dindex, cfg, tws, Cn)
     rows_t = torch.full((T,), L, dtype=I32, device=dev)
-    out3, prevs = msa_kernels.msa_fill(treads, trefs, rows_t, P)
+    out3, prevs, layout = msa_kernels.msa_fill(treads, trefs, rows_t, P)
     sc2, col, st = out3[0], out3[1], out3[2]
     # the walk runs R + max-deletion-span steps; a truncated walk
     # (row_end > 0) re-traces at Cw like a clipped alignment
     steps_n = L + (Cn - L) + 16
     sym, ln, gaps, row_end = msa.walk(prevs, treads, trefs, col, st, L, Cn,
-                                      steps=steps_n)
+                                      steps=steps_n, layout=layout)
     del prevs
     truncated = row_end > 0
 
@@ -514,14 +514,19 @@ def _upload_words(a: Optional[np.ndarray], dev) -> Optional[torch.Tensor]:
 
 def _quality_inputs(cfg: QmConfig, dindex: DeviceIndex, quality, L: int,
                     den2: float, den3: float):
-    """Quality-derived (offsets, weights, reject) on the device, by the
-    same route as the JAX package: the native host stage when the
-    library is available, else the palette-packed or raw device stage."""
+    """Quality-derived (offsets, weights, reject) on the device. One route
+    a device type: on a card always the device stage (palette-packed, or
+    raw when the batch has too many distinct quality values), whether or
+    not the native host library is built; on the CPU the native host
+    stage when that library is available, as the JAX package does, else
+    the same device stage on CPU tensors. Same results by every route."""
     dev = dindex.device
     k = dindex.k
-    host_os = native.quality_offsets_scores(
-        quality, L, k, seed_host.PROB_CORRECT,
-        np.asarray(cfg.offsets_list, np.int32), den3, 100 * k)
+    host_os = None
+    if dev.type == "cpu":
+        host_os = native.quality_offsets_scores(
+            quality, L, k, seed_host.PROB_CORRECT,
+            np.asarray(cfg.offsets_list, np.int32), den3, 100 * k)
     if host_os is not None:
         o16, s16, rej = host_os
         inv_a = torch.tensor(float(np.float32(1.0) / np.float32(100 * k)),

@@ -41,8 +41,8 @@ from ..core.genome import Genome
 from ..index.build import KmerIndex
 from ..io import sam as samio
 
-from ..backend import DeviceLike, resolve_device
-from ..ops import msa
+from ..backend import DeviceLike, prev_code_budget, resolve_device
+from ..ops import msa, msa_kernels
 from .quickmap_device import DeviceIndex
 
 # reference defaults (align2/BBMap.java:44-63, align2/AbstractMapThread.java)
@@ -240,13 +240,14 @@ RESCUE_CHUNK = 1024   # fixed rescue-kernel job budget (one program)
 DP_CHUNK = 8192       # device batch for fill+traceback DP jobs
 
 
-def _dp_tb_chunk_cap(L: int, C: int) -> int:
-    """Memory-aware cap for fill+traceback chunks: the packed
-    prev-code block is ~(L+C) x (L+1) bytes PER JOB (msa fill) —
-    72 MB/job at the 6 kbp PacBio envelope, where a short-read-sized
-    chunk would allocate tens of GB. Budget ~2 GB of HBM per launch."""
-    per_job = max(1, (L + C) * (L + 1))
-    return max(8, min(DP_CHUNK, (2 << 30) // per_job))
+def _dp_tb_chunk_cap(L: int, C: int, device) -> int:
+    """Memory-aware cap for fill+traceback chunks: the device's
+    prev-code budget (``backend.prev_code_budget``) over the bytes one
+    job's prev codes take in the fill's layout there — tens of MB a job
+    at the 6 kbp PacBio envelope, where a short-read-sized chunk would
+    not fit any card."""
+    per_job = msa_kernels.prev_code_bytes(L, C, device)
+    return max(8, min(DP_CHUNK, prev_code_budget(device) // per_job))
 DP_SCORE_CHUNK = 32768  # device batch for score-only DP
 GAPLESS_CHUNK = 8192  # fixed device batch for gapless scoring
 
@@ -2660,7 +2661,7 @@ class BBMapAligner:
         launches = []   # (slot list, device output arrays)
         for C, slots in buckets.items():
             max_chunk = DP_SCORE_CHUNK if score_only \
-                else _dp_tb_chunk_cap(L, C)
+                else _dp_tb_chunk_cap(L, C, self.device)
             chunk = min(max_chunk, _bucket_pad(len(slots)))
             for a, b in _fixed_chunks(len(slots), chunk):
                 reads = np.full((chunk, L), ord("N"), np.uint8)
@@ -2747,7 +2748,7 @@ class BBMapAligner:
             buckets.setdefault(dp_winners[w][3], []).append(w)
         launches = []
         for C, idx_list in buckets.items():
-            chunk = min(_dp_tb_chunk_cap(L, C),
+            chunk = min(_dp_tb_chunk_cap(L, C, self.device),
                         _bucket_pad(len(idx_list)))
             for a, b in _fixed_chunks(len(idx_list), chunk):
                 reads = np.full((chunk, L), ord("N"), np.uint8)

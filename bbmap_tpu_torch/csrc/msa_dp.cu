@@ -17,9 +17,10 @@
 // int32, pre-rotated so that cell (r, c) on wave d reads
 // refpad[(r - d + 1) mod (C+2R+2)] (ref1) and the lane after it (ref0).
 //
-// Two mappings here, chosen by the caller (ops/msa_kernels.launch_shape); a
-// third, a warp a job for large batches of short reads, is in
-// msa_dp_warp.cu. The cell (dp_cell) and the operand readers are shared
+// Two mappings here, chosen by the caller (ops/msa_kernels.launch_shape);
+// a warp a job for large batches of short reads is in msa_dp_warp.cu, and
+// a warp a band of rows, the mapping of the long-read shapes, in
+// msa_dp_band.cu. The cell (dp_cell) and the operand readers are shared
 // through msa_dp.cuh.
 //
 // * rows_per_thread == 1 (R <= 1023): one block per job, thread r owns DP
@@ -28,8 +29,10 @@
 //   cell in registers, so the only exchange is the upper neighbour's wave
 //   d-1 cell, read from one of two shared-memory wave slots (3 ints per
 //   row) and followed by one __syncthreads() per wave.
-// * rows_per_thread == J in {2, 4, 8} (R up to 8,191, long reads): rows
-//   are strided over the block, r = t + j * blockDim.x. Both wave slots
+// * rows_per_thread == J in {2, 4, 8} (1,024 <= R <= 8,191; the band
+//   mapping replaced it on every path, and it is launched by mapping=
+//   "strided" only, to be compared with): rows are strided over the
+//   block, r = t + j * blockDim.x. Both wave slots
 //   live in shared memory (24 * (R+1) bytes: 144 KB at R = 6,000, above
 //   48 KB only after cudaFuncSetAttribute), the window and the read are
 //   staged there too (C + R bytes), and each owned row's diagonal carry
@@ -52,9 +55,10 @@
 // from the wave slot (ptxas at J = 8: 63 registers for the score, 64 and
 // a 24-byte spill for the fill); the slots take one block per SM at
 // R = 6,000.
-// One block per job is the simple correct start: jobs are independent
-// and hundreds of jobs keep all SMs busy. Packing several jobs per block,
-// or tiling long jobs across blocks, is later work.
+// One block per job keeps every SM busy once there are hundreds of jobs,
+// which the short-read passes have. A long-read launch has few, and a
+// job of 6,001 rows alone takes one SM 43-50 ms: msa_dp_band.cu spreads
+// such a job over the card.
 
 #include "msa_dp.cuh"
 

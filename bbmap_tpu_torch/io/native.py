@@ -3,7 +3,9 @@
 Builds libbbio.so on demand with the in-repo Makefile; every entry point
 has a pure-Python/numpy fallback so the package works without a
 toolchain. (The reference gates its JNI fast paths the same way —
-reference: align2/MSA.java:45-48 usejni.)
+reference: align2/MSA.java:45-48 usejni.) When the library cannot be
+built or loaded, ``load_error`` keeps the exception and one line on
+stderr says so; nothing on a CUDA device depends on it.
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
+import sys
 from typing import Optional
 
 import numpy as np
@@ -20,10 +23,11 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(
 _LIB_PATH = os.path.join(_CSRC, "libbbio.so")
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
+load_error: Optional[Exception] = None   # why get_lib() has no library
 
 
 def get_lib() -> Optional[ctypes.CDLL]:
-    global _lib, _tried
+    global _lib, _tried, load_error
     if _lib is not None or _tried:
         return _lib
     _tried = True
@@ -42,8 +46,13 @@ def get_lib() -> Optional[ctypes.CDLL]:
         lib.revcomp_batch.restype = None
         lib.sam_format_batch.restype = ctypes.c_long
         _lib = lib
-    except Exception:
-        _lib = None
+    except (OSError, subprocess.CalledProcessError, AttributeError) as e:
+        load_error = e
+        detail = (getattr(e, "stderr", None) or b"").decode(
+            errors="replace").strip().splitlines()[-1:]
+        print(f"bbmap_tpu_torch.io.native: no native host library "
+              f"({type(e).__name__}: {e}{'; ' + detail[0] if detail else ''}"
+              f"); using the numpy paths", file=sys.stderr)
     return _lib
 
 

@@ -25,7 +25,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
-SOURCES = ("msa_dp", "msa_dp_warp", "msa_walk")
+SOURCES = ("msa_dp", "msa_dp_warp", "msa_dp_band", "msa_walk")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -17,14 +17,18 @@ the plain version of the hand-written CUDA kernels in
 kernel. The entry points here (``msa_score_batch``, ``msa_align_batch``,
 ``walk``) always go through those kernel wrappers, which run the plain
 versions only for tensors on the CPU.
-Prev-state codes are job-major, (B, R+C, R+1): ``prevs[b, d-1, r]`` holds
-the packed codes ``ms | del << 2 | ins << 4`` of cell (r, d - r).
+Prev-state codes, one byte ``ms | del << 2 | ins << 4`` a cell, come in
+two layouts, both affine in (r, c) and named by a ``PrevLayout``:
+wave-major (B, R+C, R+1), ``prevs[b, d-1, r]`` for cell (r, d - r), which
+the short mappings write coalesced, and row-major (B, R+1, pitch),
+``prevs[b, r, c]``, which the band mapping of the long-read shapes writes
+in whole words. The walks take either.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,6 +39,52 @@ from ..core.constants import (GAPC, GAPLEN, MODE_DEL, MODE_INS,
 _N = ord("N")
 I32 = torch.int32
 NEG_INF = -(2 ** 31) + 2
+
+
+class PrevLayout(NamedTuple):
+    """Where a job's block of prev codes keeps cell (r, c): at byte
+    ``base + r * row + c * col``. Defined for 1 <= r <= R, 1 <= c <= C."""
+    base: int
+    row: int
+    col: int
+
+
+def prev_pitch(C: int) -> int:
+    """Bytes a row of the row-major block takes: C + 1 rounded up to 16."""
+    return (C + 16) // 16 * 16
+
+
+def wave_major(R: int, C: int) -> PrevLayout:
+    """Block (R+C, R+1): cell (r, c) at byte (r + c - 1, r)."""
+    return PrevLayout(-(R + 1), R + 2, R + 1)
+
+
+def row_major(R: int, C: int) -> PrevLayout:
+    """Block (R+1, prev_pitch(C)): cell (r, c) at byte (r, c)."""
+    return PrevLayout(0, prev_pitch(C), 1)
+
+
+def prev_block_shape(R: int, C: int, layout: PrevLayout) -> Tuple[int, int]:
+    """A job's block in one of the two layouts."""
+    if layout == wave_major(R, C):
+        return (R + C, R + 1)
+    if layout == row_major(R, C):
+        return (R + 1, prev_pitch(C))
+    raise ValueError(f"{layout} is neither layout of (R, C) = ({R}, {C})")
+
+
+def cell_view(prevs: torch.Tensor, R: int, C: int,
+              layout: Optional[PrevLayout] = None) -> torch.Tensor:
+    """The prev codes of cells 1 <= r <= R, 1 <= c <= C as a (B, R, C)
+    view of a block in ``layout`` (default wave-major): ``[b, r-1, c-1]``."""
+    lay = layout or wave_major(R, C)
+    if tuple(prevs.shape[1:]) != prev_block_shape(R, C, lay):
+        raise ValueError(f"prevs {tuple(prevs.shape)} is no block of "
+                         f"(R, C) = ({R}, {C}) in {lay}")
+    return torch.as_strided(prevs, (prevs.shape[0], R, C),
+                            (prevs.stride(0), lay.row, lay.col),
+                            prevs.storage_offset() + lay.base + lay.row
+                            + lay.col)
 
 
 def _ins0_column(R: int, P: ScoringProfile) -> np.ndarray:
@@ -62,12 +112,15 @@ def _ins0_np(R: int, P: ScoringProfile = SHORT_PROFILE) -> np.ndarray:
 
 
 def dp_plain(reads: torch.Tensor, refs: torch.Tensor, rows: torch.Tensor,
-             P: ScoringProfile, want_prevs: bool
+             P: ScoringProfile, want_prevs: bool,
+             layout: Optional[PrevLayout] = None
              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Plain batched DP. reads (B, R) uint8 ASCII, refs (B, C) uint8
     ASCII, rows (B,) int32 per-job row count (<= R). Returns
-    (out (3, B) int32 [score >> SCOREOFFSET, col, state], prevs
-    (B, R+C, R+1) uint8 or None)."""
+    (out (3, B) int32 [score >> SCOREOFFSET, col, state], prevs uint8 or
+    None): wave-major (B, R+C, R+1) unless ``layout`` is
+    ``row_major(R, C)``, then the same codes permuted into
+    (B, R+1, pitch), zero outside cells (1..R, 1..C)."""
     dev = reads.device
     B, R = reads.shape
     C = refs.shape[1]
@@ -240,6 +293,12 @@ def dp_plain(reads: torch.Tensor, refs: torch.Tensor, rows: torch.Tensor,
     colf = torch.where(state == 0, best_c[0],
                        torch.where(state == 1, best_c[1], best_c[2]))
     out = torch.stack([score >> P.SCOREOFFSET, colf, state]).to(I32)
+    if want_prevs and layout is not None and layout != wave_major(R, C):
+        block = torch.zeros((B, *prev_block_shape(R, C, layout)),
+                            dtype=torch.uint8, device=dev)
+        if B:
+            cell_view(block, R, C, layout).copy_(cell_view(prevs, R, C))
+        prevs = block
     return out, prevs
 
 
@@ -250,10 +309,12 @@ for _c in b"ACGTU":
 
 def walk_plain(prevs: torch.Tensor, reads: torch.Tensor,
                refs: torch.Tensor, col0: torch.Tensor, st0: torch.Tensor,
-               R: int, C: int, steps: int = 0):
-    """Batched traceback walk over job-major prev codes, one tensor step
-    per walk step (port of msa_jax._walk_device); the plain version of
-    the walk kernel. prevs (B, R+C, R+1) uint8. Returns (symbols
+               R: int, C: int, steps: int = 0,
+               layout: Optional[PrevLayout] = None):
+    """Batched traceback walk over prev codes, one tensor step per walk
+    step (port of msa_jax._walk_device); the plain version of the walk
+    kernel. prevs uint8: a block of B jobs in ``layout`` (default
+    wave-major, (B, R+C, R+1)). Returns (symbols
     (B, steps) uint8 in reverse order, out_len (B,), gaps (B,), row_end
     (B,)), all int32 but the symbols. ``steps`` (default R + C, the hard
     maximum) bounds the serial loop; a walk with row_end > 0 was cut."""
@@ -268,7 +329,8 @@ def walk_plain(prevs: torch.Tensor, reads: torch.Tensor,
                 | ((ref_i == GAPC).to(I32) << 9)).reshape(-1)
     flat_prevs = prevs.reshape(-1)
     jb = torch.arange(B, device=dev, dtype=torch.int64)
-    base_p = jb * ((R + C) * (R + 1))
+    lay = layout or wave_major(R, C)
+    base_p = jb * (prevs.shape[1] * prevs.shape[2]) + lay.base
     base_r = jb * R
     base_f = jb * C
     row = torch.full((B,), R, dtype=I32, device=dev)
@@ -280,9 +342,9 @@ def walk_plain(prevs: torch.Tensor, reads: torch.Tensor,
     for i in range(n):
         main = (row > 0) & (col > 0)
         xpad = (row > 0) & (col <= 0)
-        di = (row + col - 1).clamp(0, R + C - 1).long()
-        ri = row.clamp(0, R).long()
-        code = flat_prevs[base_p + di * (R + 1) + ri].to(I32)
+        ri = row.clamp(1, R).long()
+        ci = col.clamp(1, C).long()
+        code = flat_prevs[base_p + ri * lay.row + ci * lay.col].to(I32)
         prev = (code >> (2 * st)) & 3
         rp = read_prop[base_r + (row - 1).clamp(min=0).long()]
         fp = ref_prop[base_f + (col - 1).clamp(0, C - 1).long()]
@@ -310,11 +372,12 @@ def walk_plain(prevs: torch.Tensor, reads: torch.Tensor,
 
 def walk(prevs: torch.Tensor, reads: torch.Tensor, refs: torch.Tensor,
          col0: torch.Tensor, st0: torch.Tensor, R: int, C: int,
-         steps: int = 0):
+         steps: int = 0, layout: Optional[PrevLayout] = None):
     """Batched traceback walk (``msa_kernels.msa_walk``): the walk kernel
     on CUDA tensors, ``walk_plain`` on CPU tensors. Same returns."""
     from . import msa_kernels
-    return msa_kernels.msa_walk(prevs, reads, refs, col0, st0, R, C, steps)
+    return msa_kernels.msa_walk(prevs, reads, refs, col0, st0, R, C, steps,
+                                layout)
 
 
 def _full_rows(B: int, R: int, dev) -> torch.Tensor:
@@ -338,23 +401,28 @@ def msa_align_batch(reads, refs, P: ScoringProfile = SHORT_PROFILE):
     from . import msa_kernels
     B, R = reads.shape
     C = refs.shape[1]
-    out, prevs = msa_kernels.msa_fill(reads, refs,
-                                      _full_rows(B, R, reads.device), P)
-    sym, ln, gaps, _row = walk(prevs, reads, refs, out[1], out[2], R, C)
+    out, prevs, layout = msa_kernels.msa_fill(
+        reads, refs, _full_rows(B, R, reads.device), P)
+    sym, ln, gaps, _row = walk(prevs, reads, refs, out[1], out[2], R, C,
+                               layout=layout)
     return sym, ln, gaps, out[0], out[1], out[2]
 
 
 def traceback_prevs(read: np.ndarray, ref: np.ndarray, prevs: np.ndarray,
-                    col: int, state: int) -> bytes:
-    """Host walk over one job's prev codes (R+C, R+1) — identical output
-    to the oracle traceback (reference: traceback2 :1102-1232).
-    prevs[d-1, r] holds the packed codes of cell (r, c=d-r)."""
+                    col: int, state: int,
+                    layout: Optional[PrevLayout] = None) -> bytes:
+    """Host walk over one job's block of prev codes in ``layout`` (default
+    wave-major, (R+C, R+1): prevs[d-1, r] holds the packed codes of cell
+    (r, c=d-r)) — identical output to the oracle traceback (reference:
+    traceback2 :1102-1232)."""
     R, C = len(read), len(ref)
+    lay = layout or wave_major(R, C)
+    flat = np.ascontiguousarray(prevs).reshape(-1)
     row = R
     out = bytearray()
     gaps = 0
     while row > 0 and col > 0:
-        code = int(prevs[row + col - 1, row])
+        code = int(flat[lay.base + row * lay.row + col * lay.col])
         prev = (code >> (2 * state)) & 3
         if state == MODE_MS:
             c, r = int(read[row - 1]), int(ref[col - 1])

@@ -9,9 +9,9 @@ Phases, each timed on its own line:
 
 1. device facts: the card's name and power limit;
 2. build: one nvcc for each source in ``bbmap_tpu_torch/csrc/``
-   (``msa_dp.cu``, ``msa_dp_warp.cu``, ``msa_walk.cu``), all started
-   together, into ``build/torch_kernels/`` (a source whose library is
-   there is skipped); ``cuobjdump -sass`` of the libraries gives each
+   (``msa_dp.cu``, ``msa_dp_warp.cu``, ``msa_dp_band.cu``,
+   ``msa_walk.cu``), all started together, into ``build/torch_kernels/``
+   (a source whose library is there is skipped); ``cuobjdump -sass`` of the libraries gives each
    kernel's instructions a cell (the main loop's length over the cells
    one pass of it evaluates), and the least of them among a function's
    mappings is the count that function's bound is reckoned with;
@@ -19,32 +19,38 @@ Phases, each timed on its own line:
    the card, bit-equal (tolerance 0: the DP and the walk are integer
    arithmetic): K2 score and K3 fill at the short path's shapes
    (150, 174), (150, 606) and PACBIO (300, 360) in the warp-a-job
-   mapping and in the one-row mapping, PACBIO at (1,100, 1,200) and at
-   the long-read shapes (6,000, 6,456) and (6,000, 8,192) (rows strided
-   over the block), K1 on its own operands at (150, 174) in both
-   mappings, and the walk kernel at 8,192 x (150, 174) bounded to 190
-   steps, at (150, 606) full length, at (6,000, 6,456) and on the last
-   jobs of a 28-job fill whose prev codes pass 2**31 bytes, from the
-   fill's own columns and states and from shifted ones, so that cut
-   walks are among them; kernel, plain and (short shapes) one-row
-   mapping times at the shapes the paths use, each kernel's bound, and
+   mapping and in the one-row mapping; past 1,023 rows the band mapping
+   at 2, 4 and 8 rows a lane and the strided mapping it replaced, at
+   (1,024, 1,100) with one job, (1,100, 1,200) with 100 jobs (last band
+   and last lane partly empty; K1's operands too), (2,500, 2,600) SHORT
+   profile, the long-read shapes (6,000, 6,024) and (6,000, 6,456) and
+   (8,191, 8,192), per-job rows below R among them; K1 on its own
+   operands at (150, 174) in both mappings; and the walk kernel at 8,192
+   x (150, 174) bounded to 190 steps, at (150, 606) full length, and at
+   (6,000, 6,456) over the row-major and over the wave-major block, on
+   the last 16 jobs of 64-job fills whose prev codes pass 2**31 bytes in
+   either layout, from the fill's own columns and states and from
+   shifted ones, so that cut walks are among them; kernel, plain and
+   other-mapping times at the shapes the paths use, each kernel's bound,
    K2 in the warp and the one-row mapping from 128 to 8,192 jobs (the
-   sweep that ``msa_kernels.WARP_MIN_JOBS`` is chosen from);
+   sweep that ``msa_kernels.WARP_MIN_JOBS`` is chosen from), the band
+   mapping over rows a lane and the job count beside the strided mapping
+   (``BAND_MIN_WARPS``) and beside the one-row mapping between 320 and
+   1,023 rows (``BAND_MID_MIN_ROWS`` / ``BAND_MID_MIN_JOBS``);
 4. K1 entry point: ``msa_kernels.score_batch`` on 32,768 jobs, counted;
-5. main path: ``make -C csrc`` once (its return code is reported next
-   to the quality-offset route), then the bench workload (4.6 Mbp genome
-   with repeat families, k=13 index, 2x150 bp pairs with quality, 32,768
-   pairs a batch) through ``BBMapAligner.map_pairs_columnar`` (one warmup
+5. main path: the bench workload (4.6 Mbp genome with repeat families,
+   k=13 index, 2x150 bp pairs with quality, 32,768 pairs a batch) through ``BBMapAligner.map_pairs_columnar`` (one warmup
    batch) and ``map_pairs_columnar_stream`` (3 steady batches), graded
    against the simulated origins; fails below sensitivity 0.997, mapped
    fraction 0.999 or pair rate 0.997, or when K2, K3 or the walk kernel
-   was never launched;
+   was never launched; the quality offsets are computed on the card;
 6. SAM: ``emit_sam`` on the first 1,000 pairs;
 7. long reads: 400 PacBio-model reads of 6 kbp at 12 % error on the same
    genome (``randomreads pacbio=t``) through the port's ``mappacbio``
    CLI on the card, graded by gradesam (strict = within 400 bp); fails
-   below mapped 0.98 or strict 0.65, or when the strided-row K2 or K3 or
-   the walk kernel was never launched.
+   below mapped 0.98 or strict 0.65, when the band K2 or K3 or the walk
+   kernel was never launched, or when a strided kernel was; the fill
+   chunk the card's memory allows is printed beside the launches.
 
 Each path's launch counts are set to 0 just before it and read just
 after. Any failure raises and exits non-zero without the final ``ok``
@@ -81,15 +87,18 @@ _K1, _K2, _K3 = ("bbmap_tpu/ops/msa_pallas.py:243",
                  "bbmap_tpu/ops/msa_pallas.py:577",
                  "bbmap_tpu/ops/msa_pallas.py:588")
 REPLACES = {"msa_score_rows": _K1, "msa_score": _K2, "msa_score_row": _K2,
-            "msa_score_long": _K2, "msa_fill": _K3, "msa_fill_long": _K3,
+            "msa_score_long": _K2, "msa_score_strided": _K2,
+            "msa_fill": _K3, "msa_fill_long": _K3, "msa_fill_strided": _K3,
             "msa_walk": "bbmap_tpu/ops/msa_jax.py:451"}
 CSRC = "bbmap_tpu_torch/csrc/"
 SOURCE = {"msa_score_rows": CSRC + "msa_dp_warp.cu",
           "msa_score": CSRC + "msa_dp_warp.cu",
           "msa_score_row": CSRC + "msa_dp.cu",
           "msa_fill": CSRC + "msa_dp.cu",
-          "msa_score_long": CSRC + "msa_dp.cu",
-          "msa_fill_long": CSRC + "msa_dp.cu",
+          "msa_score_long": CSRC + "msa_dp_band.cu",
+          "msa_fill_long": CSRC + "msa_dp_band.cu",
+          "msa_score_strided": CSRC + "msa_dp.cu",
+          "msa_fill_strided": CSRC + "msa_dp.cu",
           "msa_walk": CSRC + "msa_walk.cu"}
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 # Each of an SM's four schedulers starts one warp instruction (32 lanes) a
@@ -100,12 +109,23 @@ SCHEDULER_LANES_PER_SM = 128
 # kernel variant -> its name in the ``kernels`` line, by wrapper and mapping
 VARIANT = {("msa_score", "warp"): "msa_score",
            ("msa_score", "row"): "msa_score_row",
-           ("msa_score", "strided"): "msa_score_long",
+           ("msa_score", "band"): "msa_score_long",
+           ("msa_score", "strided"): "msa_score_strided",
            ("msa_fill", "warp"): "msa_fill_warp",
            ("msa_fill", "row"): "msa_fill",
-           ("msa_fill", "strided"): "msa_fill_long",
+           ("msa_fill", "band"): "msa_fill_long",
+           ("msa_fill", "strided"): "msa_fill_strided",
            ("msa_score_rows", "warp"): "msa_score_rows",
-           ("msa_score_rows", "row"): "msa_score_rows_row"}
+           ("msa_score_rows", "row"): "msa_score_rows_row",
+           ("msa_score_rows", "band"): "msa_score_rows_long"}
+# the long-read escalation window, and the job counts its kernels are
+# timed at: the ``kernels`` line's (the 16-job fill every earlier run
+# timed) first
+LONG_C = L_LONG + 456
+LONG_SCORE_JOBS = 256
+LONG_FILL_JOBS = (16, 64, 128, 256, 400)
+LONG_SWEEP_JOBS = (1, 16, 64, 100, 128, 200, 256, 400)
+PAST_32_BITS = 2 ** 31          # bytes a 64-job block of prev codes passes
 # kernel variant -> the function it computes; every variant of a function
 # is held to one bound
 FUNCTION = {v: w for (w, _), v in VARIANT.items()}
@@ -204,14 +224,39 @@ def dp_jobs(genome, n: int, R: int, C: int, seed: int, device,
             torch.from_numpy(rows).to(dev))
 
 
-def valid_cells(rows, R: int, C: int):
-    """(B, R+C, R+1) mask of the cells where prev codes are defined."""
+def prev_code_err(k, p, rows, R: int, C: int) -> int:
+    """Largest difference between two fills' prev codes, each a (block,
+    layout) pair, over the cells where they are defined: 1 <= r <=
+    rows[b], 1 <= c <= C, read through each block's stride map."""
     import torch
-    dev = rows.device
-    d = torch.arange(1, R + C + 1, device=dev).view(1, -1, 1)
-    r = torch.arange(R + 1, device=dev).view(1, 1, -1)
-    c = d - r
-    return (r >= 1) & (r <= rows.view(-1, 1, 1)) & (c >= 1) & (c <= C)
+    from bbmap_tpu_torch.ops import msa
+    valid = torch.arange(1, R + 1, device=rows.device).view(1, -1, 1) \
+        <= rows.view(-1, 1, 1)
+    worst = 0
+    for a in range(0, len(rows), 16):     # bounded scratch for long jobs
+        kc, pc = (msa.cell_view(b[a:a + 16], R, C, lay) for b, lay in (k, p))
+        worst = max(worst, int(((kc.short() - pc.short()).abs()
+                                * valid[a:a + 16]).max()))
+    return worst
+
+
+@contextlib.contextmanager
+def band_rows_a_lane(J: int, jobs: int, R: int):
+    """Make ``launch_shape`` give the band mapping J rows a lane for this
+    job count (for the comparisons and sweeps over J): the warp threshold
+    is set to what J yields, and a fill may take 8 rows a lane."""
+    from bbmap_tpu_torch.ops import msa_kernels as mk
+    old = mk.BAND_MIN_WARPS, mk.BAND_FILL_MAX_ROWS_PER_LANE
+    mk.BAND_MIN_WARPS = jobs * mk.band_count(R, J)
+    mk.BAND_FILL_MAX_ROWS_PER_LANE = max(mk.BAND_ROWS_PER_LANE)
+    try:
+        for fill in (False, True):
+            got = mk.launch_shape(R, 1, "band", jobs, fill).rows_per_thread
+            if got != J and mk.band_count(R, got) != mk.band_count(R, J):
+                raise AssertionError(f"{got} rows a lane, wanted {J}")
+        yield
+    finally:
+        mk.BAND_MIN_WARPS, mk.BAND_FILL_MAX_ROWS_PER_LANE = old
 
 
 def sass_counts(lib_path) -> dict:
@@ -259,9 +304,15 @@ def kernel_instructions() -> dict:
 
     dp = sass_counts(_build.library_path("msa_dp"))
     warp = sass_counts(_build.library_path("msa_dp_warp"))
+    band = sass_counts(_build.library_path("msa_dp_band"))
     walk = sass_counts(_build.library_path("msa_walk"))
     Jw = mk.launch_shape(L, L + 24, "warp").rows_per_thread
-    Jl = mk.launch_shape(L_LONG, L_LONG + 456).rows_per_thread
+    Jl = mk.launch_shape(L_LONG, LONG_C, "strided").rows_per_thread
+    # rows a lane of the band launches the ``kernels`` line times
+    Jb = {"msa_score": mk.launch_shape(L_LONG, LONG_C, None,
+                                       LONG_SCORE_JOBS).rows_per_thread,
+          "msa_fill": mk.launch_shape(L_LONG, LONG_C, None, LONG_FILL_JOBS[0],
+                                      True).rows_per_thread}
     out = {}
     for name, ops, prevs in (("msa_score", "RawOps", "Lb0"),
                              ("msa_fill", "RawOps", "Lb1"),
@@ -277,6 +328,13 @@ def kernel_instructions() -> dict:
                              f"Li{Jl}E")
             out[VARIANT[name, "strided"]] = {"sass": tot, "loop": loop,
                                              "per_cell": loop / Jl}
+            for J in mk.BAND_ROWS_PER_LANE:
+                tot, loop = pick(band, "msa_dp_band_kernel", ops, prevs,
+                                 f"Li{J}E")
+                key = VARIANT[name, "band"] + ("" if J == Jb[name]
+                                               else f"/{J}")
+                out[key] = {"sass": tot, "loop": loop, "per_cell": loop / J}
+                FUNCTION[key] = name
     tot, loop = pick(walk, "msa_walk_kernel")
     out["msa_walk"] = {"sass": tot, "loop": loop, "per_cell": loop}
     for name, v in out.items():
@@ -312,12 +370,14 @@ def bound_ms(n_bytes: float, n_instructions: float, clock_hz: float):
 def kernel_phase(genome, device) -> dict:
     """Kernels against their plain versions on the card; returns per
     kernel variant {max_abs_err, ms, plain_ms, bound_ms, bound_by,
-    library_ms and, where the one-row mapping was timed beside the
-    default, row_ms}: "msa_score_rows" (K1), "msa_score" / "msa_fill"
-    (a warp a job), "msa_score_long" / "msa_fill_long" (rows strided over
-    the block) and "msa_walk"."""
+    library_ms and, where another mapping was timed beside the default,
+    row_ms / warp_ms / strided_ms}: "msa_score_rows" (K1), "msa_score" /
+    "msa_fill" (a warp a job / a row a thread), "msa_score_long" /
+    "msa_fill_long" (a warp a band of rows), "msa_score_strided" /
+    "msa_fill_strided" (rows strided over the block) and "msa_walk"."""
     import torch
     from bbmap_tpu_torch.core.constants import PACBIO_PROFILE, SHORT_PROFILE
+    from bbmap_tpu_torch.ops import msa
     from bbmap_tpu_torch.ops import msa_kernels as mk
 
     err = {}
@@ -352,17 +412,20 @@ def kernel_phase(genome, device) -> dict:
         return p
 
     def cmp_fill(tag, P, job, k=None, p=None, mapping=None):
+        """A fill (out, prev codes, layout) against the plain version's,
+        on out and, through each block's stride map, on every valid prev
+        code. Returns the plain version's."""
         rd, rf, rw = job
-        k, kp = mk.msa_fill(rd, rf, rw, P, mapping) if k is None else k
-        p, pp = mk.msa_fill_plain(rd, rf, rw, P) if p is None else p
+        k = mk.msa_fill(rd, rf, rw, P, mapping) if k is None else k
+        p = mk.msa_fill_plain(rd, rf, rw, P) if p is None else p
         _sync(device)
         R, C = rd.shape[1], rf.shape[1]
-        valid = valid_cells(rw, R, C)
-        e = max(int((k.long() - p.long()).abs().max()),
-                int(((kp.short() - pp.short()).abs() * valid).max()))
+        e = max(int((k[0].long() - p[0].long()).abs().max()),
+                prev_code_err(k[1:], p[1:], rw, R, C))
         record(key_of("msa_fill", len(rw), R, C, mapping), tag, len(rw), R,
-               C, e, " (out and prev codes on valid cells)")
-        return p, pp
+               C, e, f" (out and prev codes on valid cells, "
+               f"{'row' if k[2] == msa.row_major(R, C) else 'wave'}-major)")
+        return p
 
     def cmp_rows(tag, job, k=None, p=None, mapping=None):
         rd, rf, rw = job
@@ -375,20 +438,25 @@ def kernel_phase(genome, device) -> dict:
         record(key_of("msa_score_rows", len(rw), R, C, mapping), tag,
                len(rw), R, C, int((k.long() - p.long()).abs().max()))
 
-    def cmp_walk(tag, job, prevs, col0, st0, steps):
+    def cmp_walk(tag, job, prevs, col0, st0, steps, layout=None, tail=0):
         """The walk kernel against its plain version on one fill's prev
-        codes, from the given columns and states. Returns the number of
-        walks that were cut."""
+        codes (a block in ``layout``, default wave-major), from the given
+        columns and states; with ``tail`` the plain version walks the
+        last ``tail`` jobs only. Returns the number of walks that were
+        cut."""
         rd, rf, _ = job
         R, C = rd.shape[1], rf.shape[1]
-        k = mk.msa_walk(prevs, rd, rf, col0, st0, R, C, steps)
-        p = mk.msa_walk_plain(prevs, rd, rf, col0, st0, R, C, steps)
+        k = mk.msa_walk(prevs, rd, rf, col0, st0, R, C, steps, layout)
+        p = mk.msa_walk_plain(*(x[-tail:] for x in (prevs, rd, rf, col0,
+                                                   st0)), R, C, steps, layout)
         _sync(device)
-        e = max(int((a.long() - b.long()).abs().max()) for a, b in zip(k, p))
+        e = max(int((a[-tail:].long() - b.long()).abs().max())
+                for a, b in zip(k, p))
         cut = int((k[3] > 0).sum())
-        record("msa_walk", tag, len(col0), R, C, e,
+        lay = "row" if layout == msa.row_major(R, C) else "wave"
+        record("msa_walk", tag, len(p[1]), R, C, e,
                f" (symbols, out_len, gaps, row_end; steps {steps or R + C},"
-               f" {cut} walks cut)")
+               f" {cut} walks cut, {lay}-major block of {len(col0)} jobs)")
         return cut
 
     def walk_starts(out, C, seed):
@@ -416,24 +484,52 @@ def kernel_phase(genome, device) -> dict:
     rf[::5, 90] = ord("N")
     cmp_fill("short wide, gap columns", S, job, mapping="warp")
     k = mk.msa_fill(rd, rf, rw, S)
-    _, pp = cmp_fill("short wide, gap columns", S, job, k)
+    pp = cmp_fill("short wide, gap columns", S, job, k)[1]
     for col0, st0 in walk_starts(k[0], L + 456, 31):
         cmp_walk("short wide, full length", job, pp, col0, st0, 0)
     del k, pp
-    # rows strided over the block: just past the old 1,023-row limit and
-    # at the long-indel pass's widest window (the long-read escalation
-    # window is compared on its timing runs below)
-    cmp_score("pacbio past 1,023 rows", PB, jobs(8, 1100, 1200, 13, 0.12))
-    cmp_fill("pacbio past 1,023 rows", PB, jobs(8, 1100, 1200, 14, 0.12))
-    cmp_score("pacbio long-indel width", PB, jobs(2, L_LONG, 8192, 15, 0.12))
-    cmp_fill("pacbio long-indel width", PB, jobs(2, L_LONG, 8192, 16, 0.12))
+
+    def cmp_long(tag, P, job, Js=mk.BAND_ROWS_PER_LANE):
+        """Past 1,023 rows: the band mapping at each rows a lane and the
+        strided mapping, score and fill, against one plain fill (whose
+        out is the score pass's). Returns the plain fill."""
+        rd, rf, rw = job
+        p = mk.msa_fill_plain(rd, rf, rw, P)
+        for J in Js:
+            with band_rows_a_lane(J, len(rw), rd.shape[1]):
+                cmp_score(f"{tag}, {J} rows a lane", P, job, p=p[0],
+                          mapping="band")
+                cmp_fill(f"{tag}, {J} rows a lane", P, job, p=p,
+                         mapping="band")
+        cmp_score(tag, P, job, p=p[0], mapping="strided")
+        cmp_fill(tag, P, job, p=p, mapping="strided")
+        return p
+
+    # the band mapping at the edges of its design: one job just past
+    # 1,023 rows; 100 jobs whose last band and last lane are partly empty
+    # (1,101 rows) and K1's operands on the same jobs; SHORT profile with
+    # N and gap columns; the long-read narrow window; the largest R. The
+    # long-read escalation window is compared on its timing runs below.
+    cmp_long("pacbio past 1,023 rows", PB, jobs(1, 1024, 1100, 13, 0.12))
+    job = jobs(100, 1100, 1200, 14, 0.12)
+    cmp_long("pacbio, ragged last band", PB, job)
+    cmp_rows("ragged last band", tuple(x[:64] for x in job))
+    job = rd, rf, rw = jobs(16, 2500, 2600, 15, 0.1)
+    rf[::3, 1300] = ord("-")
+    rf[::5, 700] = ord("N")
+    cmp_long("short profile, gap columns", S, job)
+    cmp_long("pacbio long read, narrow window", PB,
+             jobs(3, L_LONG, L_LONG + 24, 16, 0.12), Js=(2, 4))
+    cmp_long("pacbio largest R", PB, jobs(2, 8191, 8192, 17, 0.12),
+             Js=(4, 8))
 
     # times at the paths' shapes: the short path's 2E = 32,768 score
     # jobs and T = 8,192 fill jobs at (R, C) = (150, 174) with the walk
     # bounded to 190 steps, K1 at its entry point's 32,768 jobs, and the
     # long-read wide escalation window (6,000, 6,456): 256 score jobs
-    # and 16 fill jobs and their walk, whose kernel and plain results are
-    # compared as well. The wide pass (128 score and 64 fill jobs at
+    # and 16 to 400 fill jobs and their walks, in the band and in the
+    # strided mapping, whose results are compared with the plain
+    # version's as well. The wide pass (128 score and 64 fill jobs at
     # (150, 606)) and PACBIO (300, 360) are timed in both mappings.
     out = {}
 
@@ -447,12 +543,13 @@ def kernel_phase(genome, device) -> dict:
             out[name][other[0]] = _cuda_ms(other[1], reps)[0]
         return k, p
 
-    def dp_bound(name, job, fill):
+    def dp_bound(name, job, fill, keep=True):
         """Bytes: reads, windows and rows in, out (3, B) and, for the
         fill, one byte a valid cell out. Instructions: the (rows + 1) x
         (C + 1) in-window cells of each job's own rows times the
         function's instructions a cell (the least among its mappings,
-        not this kernel's own)."""
+        not this kernel's own). With ``keep`` stored beside ``name``'s
+        times; returns (ms, "bytes" or "operations")."""
         rd, rf, rw = job
         C = rf.shape[1]
         rows = rw.double()
@@ -465,7 +562,9 @@ def kernel_phase(genome, device) -> dict:
         cells = float(((rows + 1) * (C + 1)).sum())
         ms, by = bound_ms(n_bytes, cells * instr[name]["function_per_cell"],
                           clock)
-        out[name].update(bound_ms=ms, bound_by=by, cells=cells)
+        if keep:
+            out[name].update(bound_ms=ms, bound_by=by, cells=cells)
+        return ms, by
 
     def walk_bound(walked, n_jobs, steps):
         """Bytes: three bytes a step walked (prev code, read and window
@@ -554,45 +653,139 @@ def kernel_phase(genome, device) -> dict:
         extra[tag] = (n, R, C, _cuda_ms(lambda: fn(*a, P, "warp"), 10)[0],
                       _cuda_ms(lambda: fn(*a, P, "row"), 10)[0])
 
-    job = rd, rf, rw = jobs(256, L_LONG, L_LONG + 456, 19, 0.12)
+    def strided_beside(name):
+        """The strided kernel's entry: the band entry's shape, plain time
+        and bound, with its own time."""
+        t = dict(out[name], ms=out[name]["strided_ms"])
+        del t["strided_ms"]
+        out[name.replace("_long", "_strided")] = t
+
+    def over_rows_a_lane(fn, job):
+        """ms of one band launch at each rows a lane."""
+        times = []
+        for J in mk.BAND_ROWS_PER_LANE:
+            with band_rows_a_lane(J, len(job[2]), L_LONG):
+                # [0]: a fill's prev codes are freed as soon as it returns
+                times.append(_cuda_ms(lambda: fn(*job, PB, "band")[0], 2)[0])
+        return ", ".join(f"{J} rows a lane {t:.3f} ms" for J, t in
+                         zip(mk.BAND_ROWS_PER_LANE, times))
+
+    Cl = LONG_C
+    most = jobs(max(LONG_SWEEP_JOBS), L_LONG, Cl, 19, 0.12)
+    job = rd, rf, rw = tuple(x[:LONG_SCORE_JOBS] for x in most)
     k, p = timed("msa_score_long", lambda: mk.msa_score(rd, rf, rw, PB),
-                 lambda: mk.msa_score_plain(rd, rf, rw, PB), 2, False)
+                 lambda: mk.msa_score_plain(rd, rf, rw, PB), 2, False,
+                 other=("strided_ms",
+                        lambda: mk.msa_score(rd, rf, rw, PB, "strided")))
     dp_bound("msa_score_long", job, False)
+    strided_beside("msa_score_long")
     cmp_score("pacbio long read", PB, job, k, p)
-    job = rd, rf, rw = jobs(16, L_LONG, L_LONG + 456, 20, 0.12)
+    cmp_score("pacbio long read", PB, job, p=p, mapping="strided")
+    for n in LONG_SWEEP_JOBS:
+        sub = tuple(x[:n] for x in most)
+        say(f"sweep msa_score band {n} x ({L_LONG}, {Cl}): "
+            f"{over_rows_a_lane(mk.msa_score, sub)}; strided "
+            f"{_cuda_ms(lambda: mk.msa_score(*sub, PB, 'strided'), 2)[0]:.3f}"
+            f" ms; default "
+            f"{mk.launch_shape(L_LONG, Cl, jobs=n).rows_per_thread}")
+    del k, p, most
+    # fills: the 16 jobs every earlier run timed are held against the
+    # plain version, alone and as the last 16 of 64 to 400 jobs. The
+    # 64-job blocks pass 2**31 bytes in either layout (64 x 38.8 MB
+    # row-major, 64 x 74.7 MB wave-major), so their last jobs check the
+    # kernels' 64-bit offsets.
+    n16 = LONG_FILL_JOBS[0]
+    job = rd, rf, rw = jobs(n16, L_LONG, Cl, 20, 0.12)
     k, p = timed("msa_fill_long", lambda: mk.msa_fill(rd, rf, rw, PB),
-                 lambda: mk.msa_fill_plain(rd, rf, rw, PB), 2, False)
+                 lambda: mk.msa_fill_plain(rd, rf, rw, PB), 2, False,
+                 other=("strided_ms",
+                        lambda: mk.msa_fill(rd, rf, rw, PB, "strided")))
     dp_bound("msa_fill_long", job, True)
+    strided_beside("msa_fill_long")
     cmp_fill("pacbio long read", PB, job, k, p)
-    Cl = L_LONG + 456
+    cmp_fill("pacbio long read", PB, job, p=p, mapping="strided")
     (col0, st0), shifted = walk_starts(k[0], Cl, 33)
     ms_l, kw = _cuda_ms(lambda: mk.msa_walk(k[1], rd, rf, col0, st0, L_LONG,
-                                            Cl), 2)
+                                            Cl, 0, k[2]), 2)
     ms_b, by = walk_bound(float(kw[1].sum()), len(rw), L_LONG + Cl)
     extra["msa_walk long"] = (len(rw), L_LONG, Cl, ms_l, ms_b)
-    cmp_walk("pacbio long read, full length", job, p[1], col0, st0, 0)
-    cmp_walk("pacbio long read, full length, shifted starts", job, p[1],
-             *shifted, 0)
-    if cmp_walk("pacbio long read, cut at 6,050 steps", job, p[1], col0,
-                st0, 6050) == 0:
-        raise AssertionError("no long walk was cut at 6,050 steps")
-    del k, p, kw
-    # 28 jobs: the pipeline's chunk cap at this window; the prev-code
-    # block is 28 x 12,456 x 6,001 = 2.09e9 bytes, past 2**31, so the
-    # last jobs check the kernels' 64-bit indexing
-    rd, rf, rw = jobs(28, L_LONG, Cl, 22, 0.12)
-    k, kp = mk.msa_fill(rd, rf, rw, PB)
-    last = (rd[26:], rf[26:], rw[26:])
-    _, pp = cmp_fill("pacbio long read, last 2 of 28 jobs (prev codes past "
-                     "2**31 bytes)", PB, last, (k[:, 26:], kp[26:]))
-    kw = mk.msa_walk(kp, rd, rf, k[1], k[2], L_LONG, Cl)
-    pw = mk.msa_walk_plain(pp, *last[:2], k[1, 26:], k[2, 26:], L_LONG, Cl)
+    pw = mk.msa_walk_plain(p[1], rd, rf, col0, st0, L_LONG, Cl)
     _sync(device)
-    record("msa_walk", "pacbio long read, last 2 of 28 jobs (prev codes "
-           "past 2**31 bytes)", 2, L_LONG, Cl,
-           max(int((a[26:].long() - b.long()).abs().max())
-               for a, b in zip(kw, pw)))
-    del k, kp, pp, kw, pw
+    record("msa_walk", "pacbio long read, full length, the band fill's "
+           "row-major block against the plain fill's wave-major block",
+           n16, L_LONG, Cl, max(int((a.long() - b.long()).abs().max())
+                                for a, b in zip(kw, pw)))
+    del kw, pw
+    cmp_walk("pacbio long read, full length, shifted starts", job, k[1],
+             *shifted, 0, k[2])
+    if cmp_walk(f"pacbio long read, cut at {L_LONG + 50} steps", job, k[1],
+                col0, st0, L_LONG + 50, k[2]) == 0:
+        raise AssertionError("no long walk was cut")
+    say(f"sweep msa_fill band {n16} x ({L_LONG}, {Cl}): "
+        f"{over_rows_a_lane(mk.msa_fill, job)}; strided "
+        f"{out['msa_fill_long']['strided_ms']:.3f} ms; default "
+        f"{mk.launch_shape(L_LONG, Cl, None, n16, True).rows_per_thread}")
+    del k
+    one = jobs(1, L_LONG, Cl, 18, 0.12)
+    say(f"sweep msa_fill band 1 x ({L_LONG}, {Cl}): "
+        f"{over_rows_a_lane(mk.msa_fill, one)}; strided "
+        f"{_cuda_ms(lambda: mk.msa_fill(*one, PB, 'strided'), 2)[0]:.3f} ms")
+    for n in LONG_FILL_JOBS[1:]:
+        more = jobs(n - n16, L_LONG, Cl, 22 + n, 0.12)
+        big = brd, brf, brw = tuple(torch.cat([a, b])
+                                    for a, b in zip(more, job))
+        del more
+        ms, kb = _cuda_ms(lambda: mk.msa_fill(brd, brf, brw, PB), 2)
+        e = max(int((kb[0][:, -n16:].long() - p[0].long()).abs().max()),
+                prev_code_err((kb[1][-n16:], kb[2]), p[1:], rw, L_LONG, Cl))
+        record("msa_fill_long", f"pacbio long read, last {n16} of {n} jobs "
+               f"({kb[1].numel()} bytes of prev codes)", n16, L_LONG, Cl, e)
+        if n == LONG_FILL_JOBS[1]:
+            if kb[1].numel() <= PAST_32_BITS:
+                raise AssertionError("the block does not pass 2**31 bytes")
+            cmp_walk(f"pacbio long read, last {n16} of {n} jobs (prev codes "
+                     f"past 2**31 bytes)", big, kb[1], kb[0][1], kb[0][2], 0,
+                     kb[2], tail=n16)
+        bound, _ = dp_bound("msa_fill_long", big, True, keep=False)
+        say(f"sweep msa_fill band {n} x ({L_LONG}, {Cl}): "
+            f"{over_rows_a_lane(mk.msa_fill, big)}; default "
+            f"{mk.launch_shape(L_LONG, Cl, None, n, True).rows_per_thread}")
+        del kb
+        ms_s = _cuda_ms(lambda: mk.msa_fill(brd, brf, brw, PB,
+                                            "strided")[0], 2)[0]
+        if n == LONG_FILL_JOBS[1]:
+            ks = mk.msa_fill(brd, brf, brw, PB, "strided")
+            if ks[1].numel() <= PAST_32_BITS:
+                raise AssertionError("the block does not pass 2**31 bytes")
+            e = max(int((ks[0][:, -n16:].long() - p[0].long()).abs().max()),
+                    prev_code_err((ks[1][-n16:], ks[2]), p[1:], rw, L_LONG,
+                                  Cl))
+            record("msa_fill_strided", f"pacbio long read, last {n16} of "
+                   f"{n} jobs ({ks[1].numel()} bytes of prev codes)", n16,
+                   L_LONG, Cl, e)
+            cmp_walk(f"pacbio long read, last {n16} of {n} jobs (prev codes "
+                     f"past 2**31 bytes)", big, ks[1], ks[0][1], ks[0][2], 0,
+                     ks[2], tail=n16)
+            del ks
+        del big, brd, brf, brw
+        torch.cuda.empty_cache()
+        say(f"time msa_fill_long at {n} x ({L_LONG}, {Cl}) PACBIO: band "
+            f"{ms:.3f} ms, strided {ms_s:.3f} ms, bound {bound:.4f} ms "
+            f"({100 * bound / ms:.1f} % of the bound reached)")
+    del p
+    # between the warp mapping's 319 rows and 1,023: the band mapping
+    # beside the one-row mapping, what BAND_MID_MIN_ROWS / _JOBS rest on
+    for R, C in ((500, 560), (700, 760), (1000, 1100)):
+        for n in (16, 64, 256, 1024):
+            a = jobs(n, R, C, 50, 0.1)
+            cols = []
+            for fn in (mk.msa_score, mk.msa_fill):
+                cols.append("one-row %.3f ms, band %.3f ms" % tuple(
+                    _cuda_ms(lambda: fn(*a, PB, m), 3)[0]
+                    for m in ("row", "band")))
+            say(f"sweep band mid {n} x ({R}, {C}): score {cols[0]}; fill "
+                f"{cols[1]}; default "
+                f"{mk.launch_shape(R, C, None, n).mapping}")
     shapes = {"msa_score": "32,768 x (150, 174)",
               "msa_score_row": "128 x (150, 606)",
               "msa_score_rows": "32,768 x (150, 174)",
@@ -600,6 +793,8 @@ def kernel_phase(genome, device) -> dict:
               "msa_walk": "8,192 x (150, 174), 190 steps",
               "msa_score_long": "256 x (6,000, 6,456) PACBIO",
               "msa_fill_long": "16 x (6,000, 6,456) PACBIO"}
+    shapes.update({k.replace("_long", "_strided"): v
+                   for k, v in shapes.items() if k.endswith("_long")})
     for name, t in out.items():
         t["max_abs_err"] = err[name]
         t["per_cell"] = instr[name]["per_cell"]
@@ -608,6 +803,8 @@ def kernel_phase(genome, device) -> dict:
             if "row_ms" in t else ""
         if "warp_ms" in t:
             row = f", warp mapping {t['warp_ms']:.3f} ms"
+        if "strided_ms" in t:
+            row = f", strided mapping {t['strided_ms']:.3f} ms"
         say(f"time {name} at {shapes[name]}: kernel {t['ms']:.3f} ms{row}, "
             f"plain {t['plain_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms "
             f"by {t['bound_by']} ({100 * t['bound_ms'] / t['ms']:.1f} % of "
@@ -664,33 +861,18 @@ def grade(aligner, graded, t1, t2, n_pairs: int) -> dict:
 
 def launch_counts() -> dict:
     """Each kernel wrapper's launches since the last reset; a DP
-    kernel's by mapping as well: "<name>_warp", "<name>_row" and, for the
-    strided rows, "<name>_long"."""
+    kernel's by mapping as well: "<name>_warp", "<name>_row",
+    "<name>_band" and "<name>_strided"."""
     from bbmap_tpu_torch.ops import msa_kernels
     out = {k.__name__: k.launches for k in msa_kernels.KERNELS}
     for k in msa_kernels.DP_KERNELS:
-        for mapping, suffix in (("warp", "_warp"), ("row", "_row"),
-                                ("strided", "_long")):
-            out[k.__name__ + suffix] = k.launches_by[mapping]
+        for mapping in msa_kernels.MAPPINGS:
+            out[f"{k.__name__}_{mapping}"] = k.launches_by[mapping]
     return out
 
 
-def make_csrc() -> str:
-    """``make -C csrc`` (the JAX package's native host library, which
-    sets the quality-offset route): return code and the last lines of
-    its stderr, on one line."""
-    try:
-        p = subprocess.run(["make", "-C", str(ROOT / "csrc")],
-                           capture_output=True, text=True, timeout=300)
-        rc, tail = p.returncode, p.stderr.strip().splitlines()[-3:]
-    except (OSError, subprocess.TimeoutExpired) as e:
-        rc, tail = None, [f"{type(e).__name__}: {e}"]
-    return f"make -C csrc: rc={rc} stderr: {' | '.join(tail) or '(none)'}"
-
-
 def main_path(device, n_pairs: int = N_PAIRS, n_steady: int = N_STEADY,
-              genome_bases=None, check: bool = True,
-              make_report: str = "not run"):
+              genome_bases=None, check: bool = True):
     """The bench workload through the port's aligner. Returns (summary
     dict, (batch1, batch2, (mb1, mb2), aligner) of the warmup batch)."""
     import numpy as np
@@ -751,12 +933,6 @@ def main_path(device, n_pairs: int = N_PAIRS, n_steady: int = N_STEADY,
         torch.cuda.max_memory_allocated() if on_card else None
     res["n_esc_rows"] = aligner._n_esc_rows
     res["n_fallback_rows"] = aligner._n_fallback_rows
-    # quality offsets come from the native host stage when its library
-    # builds, else from the device stage (same results either way)
-    from bbmap_tpu_torch.io import native
-    res["quality_offsets"] = "host" if native.get_lib() is not None \
-        else "device"
-    res["make_csrc"] = make_report
 
     # per-stage decomposition on one more batch, stage by stage
     b1x, b2x = mk(r1, q1, 1), mk(r2, q2, 1)
@@ -859,9 +1035,21 @@ def long_phase(device, genome_bases, n_reads: int = N_LONG,
     import re
 
     import torch
+    from bbmap_tpu_torch import backend
+    from bbmap_tpu_torch.align import escalate_device, pipeline
     from bbmap_tpu_torch.ops import msa_kernels
     from bbmap_tpu_torch.tools import gradesam, mappacbio, randomreads
 
+    # what the card's free memory allows a fill launch at the escalation
+    # windows (the aligner asks again at each launch)
+    for C in (L_read + 24, L_read + 456):
+        ladder = escalate_device._trace_ladder(
+            L_read, C, escalate_device.TRACE_CHUNKS_W, device)
+        say(f"fill chunk at ({L_read}, {C}): budget "
+            f"{backend.prev_code_budget(device)} B over "
+            f"{msa_kernels.prev_code_bytes(L_read, C, device)} B a job: "
+            f"{pipeline._dp_tb_chunk_cap(L_read, C, device)} jobs, trace "
+            f"ladder {ladder}")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_pb")
     try:
         ref = os.path.join(tmp, "ref.fa")
@@ -920,11 +1108,14 @@ def long_phase(device, genome_bases, n_reads: int = N_LONG,
             raise AssertionError(
                 f"long-read accuracy below the bar (mapped >= "
                 f"{LONG_MAPPED_MIN}, strict >= {LONG_STRICT_MIN})")
-        if not (launches["msa_score_long"] and launches["msa_fill_long"]
+        if not (launches["msa_score_band"] and launches["msa_fill_band"]
                 and launches["msa_walk"]):
-            raise AssertionError(f"the strided-row kernels or the walk "
-                                 f"kernel never launched on the long-read "
-                                 f"path: {launches}")
+            raise AssertionError(f"the band kernels or the walk kernel "
+                                 f"never launched on the long-read path: "
+                                 f"{launches}")
+        if launches["msa_score_strided"] or launches["msa_fill_strided"]:
+            raise AssertionError(f"a strided kernel launched on the "
+                                 f"long-read path: {launches}")
     return res
 
 
@@ -1042,14 +1233,13 @@ def main() -> int:
     say(f"phase K1 entry point: {time.time() - t:.1f} s")
 
     t = time.time()
-    made = make_csrc()
-    res, first = main_path(device, genome_bases=gbases, make_report=made)
+    res, first = main_path(device, genome_bases=gbases)
     say(f"phase main path: {time.time() - t:.1f} s; reads/s "
         f"{res['reads_per_s']:.1f} over {N_STEADY} steady batches of "
         f"{N_PAIRS} pairs; sensitivity {res['sensitivity']:.4f}, mapped "
         f"{res['mapped_fraction']:.4f}, pair rate {res['pair_rate']:.4f}; "
-        f"launches {res['launches']}; quality offsets "
-        f"{res['quality_offsets']} ({made}); card {smi}")
+        f"launches {res['launches']}; quality offsets device (computed "
+        f"on the card on every CUDA run); card {smi}")
 
     t = time.time()
     n_lines = sam_phase(first)
@@ -1069,15 +1259,20 @@ def main() -> int:
                      if m.split(".")[0] in ("jax", "jaxlib", "bbmap_tpu"))
     if foreign:
         raise AssertionError(f"the JAX package was imported: {foreign[:5]}")
-    # main-path launches; the strided-row kernels run on the long-read
-    # path only, and K1 at its own entry point
+    # main-path launches; the band kernels run on the long-read path
+    # only, K1 at its own entry point, and the strided kernels, which the
+    # band kernels replaced, on no path (mapping= only)
     launches = {"msa_score_rows": k1_launches,
                 "msa_score": res["launches"]["msa_score_warp"],
                 "msa_score_row": res["launches"]["msa_score_row"],
                 "msa_fill": res["launches"]["msa_fill_row"],
                 "msa_walk": res["launches"]["msa_walk"],
-                "msa_score_long": lres["launches"]["msa_score_long"],
-                "msa_fill_long": lres["launches"]["msa_fill_long"]}
+                "msa_score_long": lres["launches"]["msa_score_band"],
+                "msa_fill_long": lres["launches"]["msa_fill_band"],
+                "msa_score_strided": lres["launches"]["msa_score_strided"]
+                + res["launches"]["msa_score_strided"],
+                "msa_fill_strided": lres["launches"]["msa_fill_strided"]
+                + res["launches"]["msa_fill_strided"]}
     say(f"walk kernel launches: main path {res['launches']['msa_walk']}, "
         f"long reads {lres['launches']['msa_walk']}")
     kernels = []

@@ -227,18 +227,25 @@ def test_sam_copy_matches(ref_state):
         assert tsam.make_flag(*args) == jsam.make_flag(*args)
 
 
+# names a copied module has beyond its reference: io.native keeps and
+# reports why the native host library did not load
+PORT_ADDED = {"io.native": {"sys", "load_error"}}
+
+
 @pytest.mark.parametrize("mod", [
     "core.bases", "core.batch", "core.constants", "core.genome", "io.fastx",
     "io.sam", "io.native", "io.bam", "io.pigz", "index.build", "align.seed",
     "ops.msa_ref", "ops.gref", "utils.args", "utils.readstats",
     "utils.watchdog", "tools.randomreads", "tools.gradesam"])
 def test_copied_module_has_the_reference_names(mod):
-    """Each copied module defines what the reference module defines."""
+    """Each copied module defines what the reference module defines, and
+    beside it only what the port added on purpose."""
     j = importlib.import_module("bbmap_tpu." + mod)
     p = importlib.import_module("bbmap_tpu_torch." + mod)
     names = [n for n in vars(j) if not n.startswith("__")]
     assert names and sorted(names) == sorted(
-        n for n in vars(p) if not n.startswith("__"))
+        n for n in vars(p)
+        if not n.startswith("__") and n not in PORT_ADDED.get(mod, ()))
 
 
 def test_workload_copy_matches_bench():

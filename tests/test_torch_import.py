@@ -110,7 +110,7 @@ def test_cpu_wrappers_do_not_count_launches():
     refs = torch.from_numpy(A[rng.integers(0, 4, (6, 32))])
     rows = torch.full((6,), 20, dtype=torch.int32)
     out = msa_kernels.msa_score(reads, refs, rows, SHORT_PROFILE)
-    out2, prevs = msa_kernels.msa_fill(reads, refs, rows, SHORT_PROFILE)
+    out2, prevs, _lay = msa_kernels.msa_fill(reads, refs, rows, SHORT_PROFILE)
     assert torch.equal(out, out2) and prevs.shape == (6, 52, 21)
     s, c, st = msa_kernels.score_batch(reads, refs, rows, BB=4)
     assert torch.equal(torch.stack([s, c, st]), out)

@@ -135,7 +135,7 @@ def test_fill_plain_matches_pallas_and_scan(prof):
     R, C, B = 30, 48, 8
     P = PROFILES[prof]
     reads, refs, rows = batch_of(11, B, R, C)
-    out, prevs = msa_kernels.msa_fill(t(reads), t(refs), t(rows), P)
+    out, prevs, _lay = msa_kernels.msa_fill(t(reads), t(refs), t(rows), P)
     out, prevs = out.numpy(), prevs.numpy()
     JP = JAX_PROFILES[prof]
     o_p, pv_p = pallas_t(reads, refs, rows, R, C, JP, fill=True)
@@ -153,7 +153,7 @@ def test_cases_score_and_traceback(case):
     rng = np.random.default_rng(sum(case.values()))
     read, ref = make_case(rng, **case)
     R, C = len(read), len(ref)
-    (sc, col, st), prevs = msa_kernels.msa_fill(
+    (sc, col, st), prevs, _lay = msa_kernels.msa_fill(
         t(read[None]), t(ref[None]), torch.tensor([R], dtype=torch.int32),
         SHORT_PROFILE)
     pe, se, ce, ste = msa_jax.msa_trace_single(read, ref, R, C)
@@ -226,8 +226,8 @@ def test_walk_matches_walk_device(steps):
     R, C, B = 30, 50, 8
     reads, refs, _ = batch_of(9, B, R, C, var_rows=False)
     rows = np.full(B, R, np.int32)
-    out, prevs = msa_kernels.msa_fill(t(reads), t(refs), t(rows),
-                                      SHORT_PROFILE)
+    out, prevs, _lay = msa_kernels.msa_fill(t(reads), t(refs), t(rows),
+                                            SHORT_PROFILE)
     sym, ln, gaps, row = msa.walk(prevs, t(reads), t(refs), out[1], out[2],
                                   R, C, steps=steps)
     pv = jnp.asarray(prevs.numpy())
@@ -257,7 +257,7 @@ def test_walk_kernel_emulation_plain_and_jax_agree(prof, steps, starts):
     reads, refs, _ = batch_of(13, B, R, C, var_rows=False, gap=True)
     refs[1::3, 20] = ord("-")
     rows = np.full(B, R, np.int32)
-    out, prevs = msa_kernels.msa_fill(t(reads), t(refs), t(rows), P)
+    out, prevs, _lay = msa_kernels.msa_fill(t(reads), t(refs), t(rows), P)
     col0, st0 = out[1].numpy(), out[2].numpy()
     if starts == "shifted":
         rng = np.random.default_rng(steps)
@@ -291,8 +291,8 @@ def test_walk_kernel_emulation_plain_and_jax_agree(prof, steps, starts):
 def test_walk_wrapper_checks_inputs():
     R, C, B = 12, 20, 3
     reads, refs, rows = batch_of(3, B, R, C, var_rows=False)
-    out, prevs = msa_kernels.msa_fill(t(reads), t(refs), t(rows),
-                                      SHORT_PROFILE)
+    out, prevs, _lay = msa_kernels.msa_fill(t(reads), t(refs), t(rows),
+                                            SHORT_PROFILE)
     with pytest.raises(ValueError):
         msa_kernels.msa_walk(prevs[:, 1:], t(reads), t(refs), out[1],
                              out[2], R, C)
@@ -412,7 +412,7 @@ def test_plain_past_1023_rows_matches_scan():
     R, C, B = 1100, 1150, 3
     P = PACBIO_PROFILE
     reads, refs, rows = batch_of(17, B, R, C, gap=True)
-    out, prevs = msa_kernels.msa_fill(t(reads), t(refs), t(rows), P)
+    out, prevs, _lay = msa_kernels.msa_fill(t(reads), t(refs), t(rows), P)
     pv_x, sc, col, st = msa_jax.msa_trace_batch_var(
         jnp.asarray(reads), jnp.asarray(refs), jnp.asarray(rows), R, C,
         JAX_PACBIO)
@@ -433,21 +433,22 @@ def test_plain_past_1023_rows_matches_scan():
     (319, 400, (10, 128, 0, "warp")),
     (320, 400, (1, 352, 24 * 321 + 400, "row")),
     (1023, 1100, (1, 1024, 24 * 1024 + 1100, "row")),
-    (1024, 1100, (2, 544, 24 * 1025 + 1100 + 1024, "strided")),
-    (1100, 1200, (2, 576, 24 * 1101 + 1200 + 1100, "strided")),
-    (4095, 4200, (4, 1024, 24 * 4096 + 4200 + 4095, "strided")),
-    (6000, 6024, (8, 768, 24 * 6001 + 6024 + 6000, "strided")),
-    (6000, 6456, (8, 768, 24 * 6001 + 6456 + 6000, "strided")),
-    (6000, 8192, (8, 768, 24 * 6001 + 8192 + 6000, "strided")),
-    (8191, 8192, (8, 1024, 24 * 8192 + 8192 + 8191, "strided")),
+    (1024, 1100, (8, 32, 0, "band")),
+    (1100, 1200, (8, 32, 0, "band")),
+    (4095, 4200, (8, 32, 0, "band")),
+    (6000, 6024, (8, 32, 0, "band")),
+    (6000, 6456, (8, 32, 0, "band")),
+    (6000, 8192, (8, 32, 0, "band")),
+    (8191, 8192, (8, 32, 0, "band")),
 ])
 def test_launch_shape_rules(R, C, want):
     s = msa_kernels.launch_shape(R, C)
     assert tuple(s) == want
-    assert (s.mapping == "strided") == (R > 1023)
+    assert (s.mapping == "band") == (R > 1023)
     assert s.threads % 32 == 0 and s.threads <= 1024
-    per_block = 32 if s.mapping == "warp" else s.threads
-    assert per_block * s.rows_per_thread >= R + 1
+    per_job = {"warp": 32, "row": s.threads,
+               "band": 32 * msa_kernels.band_count(R, s.rows_per_thread)}
+    assert per_job[s.mapping] * s.rows_per_thread >= R + 1
     assert s.smem_bytes <= 232_448
 
 
@@ -460,11 +461,14 @@ def test_launch_shape_rules(R, C, want):
 def test_launch_shape_forced_one_row(R, C, want):
     """The one-row mapping stays launchable where the warp mapping is the
     default, and is the default for a fill and for few jobs; the strided
-    mapping cannot be forced."""
+    mapping cannot be forced where the one-row mapping holds R."""
     assert tuple(msa_kernels.launch_shape(R, C, "row")) == want
     assert tuple(msa_kernels.launch_shape(R, C, fill=True)) == want
-    assert tuple(msa_kernels.launch_shape(
-        R, C, jobs=msa_kernels.WARP_MIN_JOBS - 1)) == want
+    few = msa_kernels.WARP_MIN_JOBS - 1
+    if R >= msa_kernels.BAND_MID_MIN_ROWS:      # from there: the band mapping
+        assert msa_kernels.launch_shape(R, C, jobs=few).mapping == "band"
+        few = msa_kernels.BAND_MID_MIN_JOBS - 1
+    assert tuple(msa_kernels.launch_shape(R, C, jobs=few)) == want
     for bad in ("strided", "other"):
         with pytest.raises(ValueError):
             msa_kernels.launch_shape(R, C, bad)
@@ -477,7 +481,7 @@ def test_launch_shape_forced_one_row(R, C, want):
     (150, 174, msa_kernels.WARP_MIN_JOBS, False, (5, 128, 0, "warp")),
     (150, 606, 128, False, (1, 160, 24 * 151 + 606, "row")),
     (150, 174, 8192, True, (1, 160, 24 * 151 + 174, "row")),
-    (6000, 6456, 16, True, (8, 768, 24 * 6001 + 6456 + 6000, "strided")),
+    (6000, 6456, 512, True, (4, 32, 0, "band")),
 ])
 def test_launch_shape_by_jobs_and_fill(R, C, jobs, fill, want):
     """What the main path's passes get: the warp mapping for the 32,768
@@ -495,16 +499,20 @@ def test_launch_shape_by_jobs_and_fill(R, C, jobs, fill, want):
 def test_launch_shape_limits():
     for R in range(0, 8192, 97):
         s = msa_kernels.launch_shape(R, R + 456)
-        per_block = 32 if s.mapping == "warp" else s.threads
-        assert per_block * s.rows_per_thread >= R + 1
+        bands = msa_kernels.band_count(R, s.rows_per_thread)
+        per_job = 32 * bands if s.mapping in ("warp", "band") else s.threads
+        assert per_job * s.rows_per_thread >= R + 1
         if s.mapping == "warp":
             assert 32 * (s.rows_per_thread - 1) < R + 1 <= 320
+        elif s.mapping == "band":
+            assert 32 * (bands - 1) * s.rows_per_thread < R + 1
         else:
             assert (s.threads - 32) * s.rows_per_thread < R + 1
     with pytest.raises(ValueError):
         msa_kernels.launch_shape(8192, 8192)          # rows
     with pytest.raises(ValueError):
-        msa_kernels.launch_shape(6000, 90_000)        # shared memory
+        msa_kernels.launch_shape(6000, 90_000, "strided")   # shared memory
+    assert msa_kernels.launch_shape(6000, 90_000).smem_bytes == 0
     with pytest.raises(ValueError):
         msa_kernels.launch_shape(-1, 10)
 
