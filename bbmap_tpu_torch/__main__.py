@@ -2,9 +2,12 @@
 
 The port's counterpart of ``python -m bbmap_tpu``. The ported tools are
 the short-read mapper ``bbmap``, the long-read mappers ``mappacbio`` and
-``mappacbioskimmer``, and the read simulator and SAM grader the smoke run
-uses (``randomreads``, ``gradesam``). Each entry names a module and its
-entry point.
+``mappacbioskimmer``, the read-preprocessing tools ``bbduk``, ``bbduk2``
+(k-mer trimming and filtering), ``seal`` (k-mer binning), ``bbmerge`` /
+``bbmerge-auto`` (pair merging) and ``bbmask`` (entropy masking), and the
+read simulator and SAM grader the smoke run uses (``randomreads``,
+``gradesam``). Each entry names a module and its entry point; the tools
+that run on a device take ``device=`` (default cuda).
 """
 
 from __future__ import annotations
@@ -18,6 +21,12 @@ TOOLS = {
     "mappacbioskimmer": ("bbmap_tpu_torch.tools.mappacbio", "skimmer_main"),
     "randomreads": ("bbmap_tpu_torch.tools.randomreads", "main"),
     "gradesam": ("bbmap_tpu_torch.tools.gradesam", "main"),
+    "bbduk": ("bbmap_tpu_torch.tools.bbduk", "main"),
+    "bbduk2": ("bbmap_tpu_torch.tools.bbduk2", "main"),
+    "seal": ("bbmap_tpu_torch.tools.seal", "main"),
+    "bbmerge": ("bbmap_tpu_torch.tools.bbmerge", "main"),
+    "bbmerge-auto": ("bbmap_tpu_torch.tools.bbmerge", "main"),
+    "bbmask": ("bbmap_tpu_torch.tools.bbmask", "main"),
 }
 
 

@@ -2,11 +2,11 @@
 classes.
 
 The port keeps its own copies of the host modules, so a ``Genome``,
-``KmerIndex``, ``ReadBatch`` or ``ScoringProfile`` of the reference is a
-different class from the port's. The functions here read a reference
-object by its fields (duck typing: this module does not import
-``bbmap_tpu``) and return the port's object holding the same numpy arrays
-and plain values. Arrays are shared, not copied: neither package writes
+``KmerIndex``, ``ReadBatch``, ``ScoringProfile`` or ``KmerSet`` of the
+reference is a different class from the port's. The functions here read
+a reference object by its fields (duck typing: this module does not
+import ``bbmap_tpu``) and return the port's object holding the same
+numpy arrays and plain values. Arrays are shared, not copied: neither package writes
 into them after they are built. The parity tests use these wherever they
 hand reference state to the port.
 """
@@ -20,6 +20,7 @@ from .core.batch import ReadBatch
 from .core.constants import ScoringProfile
 from .core.genome import Genome, Scaffold
 from .index.build import KmerIndex
+from .index.kmerset import KmerSet
 
 
 def _fields(cls, obj) -> dict:
@@ -59,3 +60,13 @@ def profile(ref) -> ScoringProfile:
     """The port's ScoringProfile with the reference's fields."""
     return ScoringProfile(**{f: getattr(ref, f)
                              for f in ScoringProfile._fields})
+
+
+def kmer_set(ref) -> KmerSet:
+    """The port's KmerSet with the reference's sorted values and ids,
+    k / mink / mask_middle / rcomp, sequence count and names, and the
+    multi-owner CSR (``multi_offsets``, ``multi_ids``) where it has one."""
+    kw = _fields(KmerSet, ref)
+    if kw["ref_names"] is not None:
+        kw["ref_names"] = list(kw["ref_names"])
+    return KmerSet(**kw)

@@ -1,0 +1,490 @@
+"""bbduk: k-mer based filtering, trimming, and masking.
+
+reference: jgi/BBDukF.java:47 + sh/bbduk.sh. Core modes covered:
+- filter (default): reads matching the reference k-mer set go to outm,
+  the rest to out/outu
+- ktrim=r/l: trim from the leftmost hit rightward / rightmost hit leftward
+- kmask: mask k-mer footprints with N (or a given symbol)
+- qtrim=rl with trimq (optimal-subsequence algorithm,
+  reference: align2/TrimRead.testOptimal)
+- forcetrimleft/right, minlength, mink short-tip kmers, hdist expansion
+- per-reference-sequence match stats (stats=)
+
+The port's copy of the JAX package's tool: ``device=`` (default cuda)
+names the torch device of the k-mer scan and of ``tbo=``'s overlap
+ladder; ``hosts=`` above 1 (multi-host striping) is not ported yet and
+exits 1.
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+from typing import List, Optional
+
+import numpy as np
+
+from .. import backend
+from ..core.batch import ReadBatch, batched
+from ..index import kmerset
+from ..io import fastx
+from ..utils.args import Args
+
+PROB_ERROR = 10.0 ** (-np.arange(128) / 10.0)
+NPROB = 0.75
+
+
+def optimal_trim_points(bases: np.ndarray, qual: Optional[np.ndarray],
+                        lengths: np.ndarray, trimq: int
+                        ) -> np.ndarray:
+    """Vectorized maximal-scoring-subarray quality trim
+    (reference: align2/TrimRead.testOptimal). Returns (B, 2) [left, right]
+    trim amounts."""
+    B, Lmax = bases.shape
+    if qual is None:
+        return np.zeros((B, 2), np.int32)
+    avg_err = PROB_ERROR[trimq]
+    nprob = max(min(avg_err * 1.1, 1.0), NPROB)
+    q = np.clip(qual, 0, 127)
+    prob = np.where(bases == ord("N"), nprob, PROB_ERROR[q])
+    delta = (avg_err - prob).astype(np.float32)
+    valid = np.arange(Lmax)[None, :] < lengths[:, None]
+    delta = np.where(valid, delta, 0.0)
+    # Kadane via prefix sums: best window ending at i has score
+    # prefix[i] - min(prefix[:i]); start = argmin position
+    prefix = np.cumsum(delta, axis=1)
+    prefix0 = np.concatenate([np.zeros((B, 1), np.float32), prefix], axis=1)
+    runmin = np.minimum.accumulate(prefix0, axis=1)[:, :-1]
+    window = prefix - runmin
+    window = np.where(valid, window, -1.0)
+    end = np.argmax(window, axis=1)  # first max — reference prefers longer
+    # windows on ties; approximated by the first maximal end with earliest
+    # min-prefix start below
+    best = window[np.arange(B), end]
+    # start: first index where prefix0 equals runmin at end
+    tgt = runmin[np.arange(B), end]
+    is_start = np.abs(prefix0[:, :-1] - tgt[:, None]) < 1e-7
+    start = np.argmax(is_start, axis=1)
+    left = np.where(best > 0, start, lengths)
+    right = np.where(best > 0, lengths - end - 1, 0)
+    return np.stack([left.astype(np.int32), right.astype(np.int32)],
+                    axis=1)
+
+
+def read_min_entropy(bases: np.ndarray, length: int, k: int = 5,
+                     window: int = 50) -> float:
+    """Minimum windowed Shannon entropy of a read (reference: BBDukF
+    entropy filter; shares the BBMask entropy model)."""
+    from .bbmask import window_entropy_mask
+    seq = bases[:length]
+    if length < window:
+        window = max(k + 1, length)
+    # reuse the window scanner: any masked position => below threshold is
+    # checked by the caller with its own threshold, so compute the true
+    # minimum here instead
+    from ..core.bases import BASE_TO_NUMBER
+    codes = BASE_TO_NUMBER[seq].astype(np.int64)
+    m = length - k + 1
+    if m <= 0:
+        return 0.0
+    kmers = np.zeros(m, np.int64)
+    valid = np.ones(m, bool)
+    for j in range(k):
+        kmers = (kmers << 2) | (codes[j:m + j] & 3)
+        valid &= codes[j:m + j] >= 0
+    wk = window - k + 1
+    best = 1.0
+    counts = np.bincount(kmers[:wk][valid[:wk]], minlength=4 ** k)
+
+    def ent(c):
+        nz = c[c > 0]
+        if len(nz) == 0:
+            return 0.0
+        p_ = nz / nz.sum()
+        return float(-(p_ * np.log(p_)).sum() / np.log(min(wk, 4 ** k)))
+
+    best = ent(counts)
+    for w in range(1, length - window + 1):
+        old, new = w - 1, w + wk - 1
+        if valid[old]:
+            counts[kmers[old]] -= 1
+        if new < m and valid[new]:
+            counts[kmers[new]] += 1
+        e = ent(counts)
+        if e < best:
+            best = e
+    return best
+
+
+class BBDuk:
+    def __init__(self, ref_seqs: List[bytes], names: List[str], k: int = 27,
+                 mink: int = 0, hdist: int = 0, mask_middle: bool = True,
+                 rcomp: bool = True, ktrim: str = "f",
+                 kmask: Optional[str] = None, min_kmer_hits: int = 1,
+                 qtrim: str = "f", trimq: int = 6, minlength: int = 10,
+                 forcetrimleft: int = 0, forcetrimright: int = -1,
+                 entropy: float = -1.0, kbig: int = 0,
+                 maq: int = 0, maxns: int = -1, ftm: int = 0, *, device):
+        self.device = backend.resolve_device(device)
+        self.entropy = entropy
+        # read-level filters (reference: BBDukF minAvgQuality / maxNs /
+        # forceTrimModulo, jgi/BBDukF.java flag parse)
+        self.maq = maq
+        self.maxns = maxns
+        self.ftm = ftm
+        # K>31 emulation: a kbig-mer match = a run of kbig-k+1
+        # consecutive k-mer hits (reference: BBDukF kbig emulation,
+        # jgi/BBDukF.java:604-606)
+        self.kbig_run = max(0, kbig - k + 1) if kbig > k else 0
+        if mink > 0 and mink < k:
+            mask_middle = False  # reference: BBDukF.java:620-622
+        self.ks = kmerset.build_kmer_set(
+            ref_seqs, k=k, mink=mink, hdist=hdist, mask_middle=mask_middle,
+            rcomp=rcomp, names=names)
+        self.k = k
+        self.mink = mink
+        self.ktrim = ktrim
+        self.kmask = kmask
+        self.min_kmer_hits = min_kmer_hits
+        self.qtrim = qtrim
+        self.trimq = trimq
+        self.minlength = minlength
+        self.ftl = forcetrimleft
+        self.ftr = forcetrimright
+        self.ref_counts = np.zeros(max(1, len(ref_seqs)), np.int64)
+        self.reads_in = 0
+        self.reads_matched = 0
+        self.reads_qtrimmed = 0
+        self.reads_ktrimmed = 0
+        self.reads_qfiltered = 0
+        self.bases_in = 0
+        self.bases_removed = 0
+
+    def process_batch(self, batch: ReadBatch):
+        """Returns (keep_mask (B,), trimmed SeqRecords list, matched flags).
+        Trim operations mutate copies; filter mode only flags."""
+        B = batch.size
+        bases = batch.bases.copy()
+        qual = (batch.quality.copy() if batch.quality is not None else None)
+        lengths = batch.lengths.copy()
+        left = np.zeros(B, np.int32)   # bases removed from the left
+        self.reads_in += B
+        self.bases_in += int(lengths.sum())
+
+        # force trim (reference: BBDukF forceTrimLeft/Right/Modulo)
+        if self.ftl > 0:
+            left += self.ftl
+        if self.ftr >= 0:
+            lengths = np.minimum(lengths, self.ftr + 1)
+        if self.ftm > 0:
+            lengths = lengths - lengths % self.ftm
+
+        hits, ids = kmerset.scan_batch(self.ks, bases, self.device)
+        m = hits.shape[1]
+        # ignore kmers beyond each read's (possibly force-trimmed) extent
+        if m:
+            kvalid = (np.arange(m)[None, :] >= left[:, None]) & \
+                (np.arange(m)[None, :] <= (lengths - self.k)[:, None])
+            hits = hits & kvalid
+        if self.kbig_run > 1 and m >= self.kbig_run:
+            # only runs of kbig_run consecutive hits count
+            run_ok = np.ones((B, m - self.kbig_run + 1), bool)
+            for off in range(self.kbig_run):
+                run_ok &= hits[:, off:off + m - self.kbig_run + 1]
+            hits = np.zeros_like(hits)
+            hits[:, :run_ok.shape[1]] = run_ok
+        nhits = hits.sum(1)
+        matched = nhits >= self.min_kmer_hits
+        # per-ref stats: first hit attributes the read
+        for i in np.nonzero(matched)[0]:
+            first = int(np.argmax(hits[i]))
+            sid = int(ids[i, first])
+            if sid >= 0:
+                self.ref_counts[sid] += 1
+        self.reads_matched += int(matched.sum())
+
+        keep = np.ones(B, bool)
+        if self.ktrim == "f" and self.kmask is None:
+            keep = ~matched
+        elif self.ktrim == "r":
+            # trim from leftmost hit to the end
+            # (reference: BBDukF ktrim right)
+            for i in np.nonzero(matched)[0]:
+                pos = int(np.argmax(hits[i]))
+                lengths[i] = min(lengths[i], pos)
+                self.reads_ktrimmed += 1
+            if self.mink > 0:
+                tip = kmerset.scan_tips(self.ks, bases, lengths, "r")
+                for i in np.nonzero(tip >= 0)[0]:
+                    if tip[i] < lengths[i]:
+                        lengths[i] = tip[i]
+                        self.reads_ktrimmed += 1
+        elif self.ktrim == "l":
+            for i in np.nonzero(matched)[0]:
+                last = m - 1 - int(np.argmax(hits[i][::-1]))
+                left[i] = max(left[i], last + self.k)
+                self.reads_ktrimmed += 1
+            if self.mink > 0:
+                tip = kmerset.scan_tips(self.ks, bases, lengths, "l")
+                for i in np.nonzero(tip >= 0)[0]:
+                    left[i] = max(left[i], tip[i])
+        elif self.kmask is not None:
+            ch = ord(self.kmask if self.kmask != "t" else "N")
+            for i in np.nonzero(matched)[0]:
+                for p in np.nonzero(hits[i])[0]:
+                    bases[i, p:p + self.k] = ch
+
+        # quality trim
+        if self.qtrim in ("r", "l", "rl", "t", "true"):
+            pts = optimal_trim_points(bases, qual, lengths, self.trimq)
+            do_l = self.qtrim in ("l", "rl", "t", "true")
+            do_r = self.qtrim in ("r", "rl", "t", "true")
+            if do_l:
+                qtrimmed = pts[:, 0] > left
+                left = np.maximum(left, pts[:, 0])
+            if do_r:
+                lengths = np.minimum(lengths,
+                                     np.maximum(lengths - pts[:, 1],
+                                                left))
+            self.reads_qtrimmed += int(((pts[:, 0] > 0) |
+                                        (pts[:, 1] > 0)).sum())
+
+        # min-average-quality filter (pre-trim quality, reference:
+        # BBDukF minAvgQuality) and max-Ns filter
+        if self.maq > 0 and batch.quality is not None:
+            Lm = np.maximum(batch.lengths, 1)
+            col = np.arange(batch.quality.shape[1])[None, :]
+            qv = np.where(col < batch.lengths[:, None],
+                          batch.quality, 0)
+            avg = qv.sum(axis=1) / Lm
+            bad = avg < self.maq
+            self.reads_qfiltered += int((bad & keep).sum())
+            keep &= ~bad
+        if self.maxns >= 0:
+            col = np.arange(bases.shape[1])[None, :]
+            isn = (bases == ord("N")) & (col >= left[:, None]) & \
+                (col < lengths[:, None])
+            bad = isn.sum(axis=1) > self.maxns
+            self.reads_qfiltered += int((bad & keep).sum())
+            keep &= ~bad
+
+        newlen = np.maximum(lengths - left, 0)
+        keep &= newlen >= self.minlength
+        if self.entropy >= 0:
+            for i in range(B):
+                if keep[i] and read_min_entropy(
+                        bases[i], int(newlen[i])) < self.entropy:
+                    keep[i] = False
+        self.bases_removed += int((batch.lengths - newlen).sum())
+
+        out_records = []
+        for i in range(B):
+            a, b = int(left[i]), int(lengths[i])
+            q = None
+            if qual is not None:
+                q = bytes((qual[i, a:b].astype(np.int16)
+                           + fastx.ASCII_OFFSET).astype(np.uint8))
+            out_records.append(fastx.SeqRecord(
+                batch.ids[i], bytes(bases[i, a:b]), q,
+                int(batch.numeric_ids[i])))
+        return keep, out_records, matched
+
+    def stats_lines(self) -> List[str]:
+        """reference: BBDukF stats output (:1219 style)."""
+        lines = [
+            f"#Total\t{self.reads_in}",
+            f"#Matched\t{self.reads_matched}\t"
+            f"{100.0 * self.reads_matched / max(1, self.reads_in):.5f}%",
+            "#Name\tReads\tReadsPct",
+        ]
+        names = self.ks.ref_names or [str(i) for i in
+                                      range(len(self.ref_counts))]
+        order = np.argsort(-self.ref_counts, kind="stable")
+        for sid in order:
+            if self.ref_counts[sid] > 0:
+                lines.append(
+                    f"{names[sid]}\t{self.ref_counts[sid]}\t"
+                    f"{100.0 * self.ref_counts[sid] / max(1, self.reads_in):.5f}%")
+        return lines
+
+
+def main(argv: List[str]) -> int:
+    args = Args.parse(argv)
+    in1 = args.get("in", "in1") or (args.positional[0]
+                                    if args.positional else None)
+    in2 = args.get("in2")
+    out = args.get("out", "out1", "outu")
+    out2 = args.get("out2", "outu2")
+    outm = args.get("outm", "outmatched", "outb")
+    outm2 = args.get("outm2")
+    ref = args.get("ref")
+    literal = args.get("literal")
+    k = args.get_int("k", default=27)
+    mink = args.get_int("mink", default=0)
+    hdist = args.get_int("hdist", "hammingdistance", default=0)
+    edist = args.get_int("edist", "editdistance", default=0)
+    ktrim = (args.get("ktrim", default="f") or "f").lower()
+    if ktrim in ("false", "f", "none", "null"):
+        ktrim = "f"
+    kmask = args.get("kmask")
+    mask_middle = args.get_bool("maskmiddle", "mm", default=True)
+    rcomp = args.get_bool("rcomp", default=True)
+    qtrim = (args.get("qtrim", default="f") or "f").lower()
+    trimq = args.get_int("trimq", default=6)
+    minlength = args.get_int("minlength", "minlen", "ml", default=10)
+    ftl = args.get_int("forcetrimleft", "ftl", default=0)
+    ftr = args.get_int("forcetrimright", "ftr", default=-1)
+    minkmerhits = args.get_int("minkmerhits", "mkh", default=1)
+    entropy = args.get_float("entropy", default=-1.0)
+    kbig = args.get_int("kbig", default=0)
+    tbo = args.get_bool("tbo", "trimbyoverlap", default=False)
+    tpe = args.get_bool("tpe", "trimpairsevenly", default=False)
+    stats = args.get("stats")
+    interleaved = args.get_bool("interleaved", "int", default=False)
+    maq = args.get_int("maq", "minavgquality", default=0)
+    maxns = args.get_int("maxns", default=-1)
+    ftm = args.get_int("forcetrimmod", "forcetrimmodulo", "ftm",
+                       default=0)
+    device = args.get("device", default="cuda")
+
+    if in1 is None:
+        print("Usage: bbduk in=<reads> out=<file> ref=<adapters> k=27 ...",
+              file=sys.stderr)
+        return 1
+
+    if args.get_int("hosts", default=1) > 1:
+        print("bbduk: hosts= > 1 (multi-host striping) is not ported yet",
+              file=sys.stderr)
+        return 1
+
+    seqs: List[bytes] = []
+    names: List[str] = []
+    if ref:
+        for path in ref.split(","):
+            for rec in fastx.read_seqs(path):
+                seqs.append(rec.bases)
+                names.append(rec.id)
+    if literal:
+        for i, s in enumerate(literal.split(",")):
+            seqs.append(s.encode())
+            names.append(f"literal_{i}")
+
+    duk = BBDuk(seqs, names, k=k, mink=mink, hdist=max(hdist, edist),
+                mask_middle=mask_middle, rcomp=rcomp, ktrim=ktrim,
+                kmask=kmask, min_kmer_hits=minkmerhits, qtrim=qtrim,
+                trimq=trimq, minlength=minlength, forcetrimleft=ftl,
+                forcetrimright=ftr, entropy=entropy, kbig=kbig,
+                maq=maq, maxns=maxns, ftm=ftm, device=device)
+
+    out_fh = fastx.xopen(out, "wb") if out else None
+    out2_fh = fastx.xopen(out2, "wb") if out2 else None
+    outm_fh = fastx.xopen(outm, "wb") if outm else None
+    outm2_fh = fastx.xopen(outm2, "wb") if outm2 else None
+
+    def write(fh, rec):
+        if fh is None:
+            return
+        q = rec.quality if rec.quality is not None else b"I" * len(rec.bases)
+        fh.write(b"@" + rec.id.encode() + b"\n" + rec.bases + b"\n+\n"
+                 + q + b"\n")
+
+    t0 = time.time()
+    paired = in2 is not None or interleaved
+    reader = fastx.PairedReader(in1, in2, interleaved)
+    kept = removed = 0
+    for chunk in batched(iter(reader), 8192):
+        recs1 = [p[0] for p in chunk]
+        b1 = ReadBatch.from_records(recs1)
+        keep1, out1_recs, m1 = duk.process_batch(b1)
+        if paired:
+            recs2 = [p[1] for p in chunk]
+            b2 = ReadBatch.from_records(recs2)
+            keep2, out2_recs, m2 = duk.process_batch(b2)
+            if tbo:
+                # trim-by-overlap: if the pair's insert is shorter than the
+                # read, everything past the insert is adapter
+                # (reference: BBDukF tbo -> BBMergeOverlapper)
+                from ..core.bases import COMP_ASCII
+                from ..ops import overlap as ov
+                import numpy as _np
+                l1 = max((len(r.bases) for r in out1_recs), default=0)
+                l2 = max((len(r.bases) for r in out2_recs), default=0)
+                if l1 and l2:
+                    a = _np.full((len(out1_recs), l1), ord("N"), _np.uint8)
+                    bb_ = _np.full((len(out2_recs), l2), ord("N"),
+                                   _np.uint8)
+                    for t, r in enumerate(out1_recs):
+                        a[t, :len(r.bases)] = _np.frombuffer(
+                            r.bases, _np.uint8)
+                    for t, r in enumerate(out2_recs):
+                        rcb = COMP_ASCII[_np.frombuffer(
+                            r.bases, _np.uint8)][::-1]
+                        bb_[t, :len(rcb)] = rcb
+                    ins, _bad, amb = ov.mate_by_overlap_ratio_batch(
+                        a, bb_, device=device)
+                    for t in range(len(out1_recs)):
+                        iv = int(ins[t])
+                        if 0 < iv and not amb[t]:
+                            r1t, r2t = out1_recs[t], out2_recs[t]
+                            if iv < len(r1t.bases):
+                                out1_recs[t] = fastx.SeqRecord(
+                                    r1t.id, r1t.bases[:iv],
+                                    r1t.quality[:iv] if r1t.quality
+                                    else None, r1t.numeric_id)
+                            if iv < len(r2t.bases):
+                                out2_recs[t] = fastx.SeqRecord(
+                                    r2t.id, r2t.bases[:iv],
+                                    r2t.quality[:iv] if r2t.quality
+                                    else None, r2t.numeric_id)
+            if tpe:
+                # trim pairs evenly to the shorter mate
+                # (reference: BBDukF trimPairsEvenly)
+                for t in range(len(out1_recs)):
+                    r1t, r2t = out1_recs[t], out2_recs[t]
+                    m = min(len(r1t.bases), len(r2t.bases))
+                    if len(r1t.bases) > m:
+                        out1_recs[t] = fastx.SeqRecord(
+                            r1t.id, r1t.bases[:m],
+                            r1t.quality[:m] if r1t.quality else None,
+                            r1t.numeric_id)
+                    if len(r2t.bases) > m:
+                        out2_recs[t] = fastx.SeqRecord(
+                            r2t.id, r2t.bases[:m],
+                            r2t.quality[:m] if r2t.quality else None,
+                            r2t.numeric_id)
+            pair_keep = keep1 & keep2  # removeifeitherbad (reference default)
+            for i in range(len(recs1)):
+                if pair_keep[i]:
+                    write(out_fh, out1_recs[i])
+                    write(out2_fh if out2_fh else out_fh, out2_recs[i])
+                    kept += 2
+                else:
+                    write(outm_fh, out1_recs[i])
+                    write(outm2_fh if outm2_fh else outm_fh, out2_recs[i])
+                    removed += 2
+        else:
+            for i in range(len(recs1)):
+                if keep1[i]:
+                    write(out_fh, out1_recs[i])
+                    kept += 1
+                else:
+                    write(outm_fh, out1_recs[i])
+                    removed += 1
+    for fh in (out_fh, out2_fh, outm_fh, outm2_fh):
+        if fh is not None:
+            fh.close()
+    dt = time.time() - t0
+    sys.stderr.write(
+        f"Input:\t{duk.reads_in} reads\t{duk.bases_in} bases.\n"
+        f"Contaminants:\t{duk.reads_matched} reads "
+        f"({100.0*duk.reads_matched/max(1,duk.reads_in):.2f}%)\n"
+        f"Result:\t{kept} reads out, {removed} removed.\n"
+        f"Time:\t{dt:.3f} seconds.\n")
+    if stats:
+        with open(stats, "w") as fh:
+            fh.write("\n".join(duk.stats_lines()) + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main(sys.argv[1:]))

@@ -50,16 +50,34 @@ Phases, each timed on its own line:
    CLI on the card, graded by gradesam (strict = within 400 bp); fails
    below mapped 0.98 or strict 0.65, when the band K2 or K3 or the walk
    kernel was never launched, or when a strided kernel was; the fill
-   chunk the card's memory allows is printed beside the launches.
+   chunk the card's memory allows is printed beside the launches;
+8. tools: the read-preprocessing tools at ``bench_tools.py``'s sizes on
+   seeded synthetic data. bbduk's k-mer scan (k=23, hdist=1, 200 adapters
+   of 34-66 bp) over 1,000,000 reads of 150 bp and seal (k=31,
+   ambig=first, 50 references of 5,000 bp) over 500,000 reads through
+   ``Seal.assign_batch``, both in chunks of 131,072; bbmerge's mismatch
+   and ratio ladders over 500,000 pairs of 2 x 100 bp at insert 160 in
+   batches of 65,536. The first chunk of each is held against the numpy
+   host path of the same module, tolerance 0: bbduk's (B, m) ids, seal's
+   (B, nrefs) counts and the (row, owner) pairs of ``scan_batch_multi``
+   on a multi-owner set, bbmerge's insert, bad and ambig in both modes.
+   Fails below a seal matched fraction of 0.99 or when a device scan or
+   ladder counter differs from the chunks fed. Then the ``bbduk``
+   (paired, ktrim=r mink=11 hdist=1 tbo=t), ``seal`` (stats=, pattern=)
+   and ``bbmerge`` CLIs on 20,000 reads or pairs, once with ``device=``
+   the card and once with ``device=cpu``: every output file byte-equal,
+   the reports too without their ``Time:`` line, and the card's run seen
+   in the scan and ladder counters.
 
-Each path's launch counts are set to 0 just before it and read just
-after. Any failure raises and exits non-zero without the final ``ok``
+Each path's launch counts (and the tools' device scan and ladder
+counters) are set to 0 just before it and read just after. Any failure raises and exits non-zero without the final ``ok``
 line. It exits 2 when no CUDA device is available or when it is not run
 from a checkout of the repository.
 
 ``python3 chip_smoke.py --profile`` runs no check: it prints where the
 time goes (one short-read batch under torch.profiler, 32 long reads under
-cProfile and under torch.profiler) and no ``ok`` line.
+cProfile and under torch.profiler, one chunk of bbduk, of seal and of
+each bbmerge mode under torch.profiler) and no ``ok`` line.
 """
 
 from __future__ import annotations
@@ -130,6 +148,15 @@ PAST_32_BITS = 2 ** 31          # bytes a 64-job block of prev codes passes
 # is held to one bound
 FUNCTION = {v: w for (w, _), v in VARIANT.items()}
 FUNCTION["msa_walk"] = "msa_walk"
+# the read-preprocessing tools at bench_tools.py's sizes (bench_bbduk,
+# bench_seal, bench_bbmerge), the chunks they are fed in, and the reads or
+# pairs each CLI runs on twice (card, then CPU), in the tools' own batches
+N_DUK, K_DUK, HDIST_DUK, N_ADAPTERS = 1_000_000, 23, 1, 200
+N_SEAL, SEAL_REFS, SEAL_REF_LEN, K_SEAL = 500_000, 50, 5000, 31
+SEAL_MATCHED_MIN = 0.99
+N_MERGE, MERGE_L, MERGE_INSERT = 500_000, 100, 160
+SCAN_CHUNK, MERGE_CHUNK = 131072, 65536
+N_CLI, CLI_BATCH = 20_000, 8192
 
 
 def say(msg: str) -> None:
@@ -1119,6 +1146,395 @@ def long_phase(device, genome_bases, n_reads: int = N_LONG,
     return res
 
 
+def _equal(what: str, got, want) -> None:
+    """Raise unless the card's result equals the plain host path's
+    (tolerance 0)."""
+    import numpy as np
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: shape {got.shape} on the card, "
+                             f"{want.shape} on the host")
+    n_diff = int((got != want).sum())
+    if n_diff:
+        raise AssertionError(f"{what}: {n_diff} of {got.size} values differ "
+                             f"between the card and the plain host path")
+
+
+def _chunks(rows, ch: int):
+    """rows padded with its own first rows to whole chunks of ch (as
+    bench_tools.py pads), and the chunks' starts."""
+    import numpy as np
+    n = len(rows)
+    npad = -(-n // ch) * ch
+    if npad != n:
+        rows = np.concatenate([rows, rows[:npad - n]])
+    return rows, range(0, npad, ch)
+
+
+def duk_inputs(n_reads: int = N_DUK):
+    """bench_tools.bench_bbduk's reads with a synthetic adapter set (the
+    bench read TruSeq adapters from a file the repository does not hold):
+    200 adapters of 34-66 bp and n reads of 150 bp, 20 % of them with the
+    first <= 33 bases of an adapter at a tail position."""
+    import numpy as np
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    rng = np.random.default_rng(5)
+    adapters = [bytes(rng.choice(acgt, int(rng.integers(34, 67))))
+                for _ in range(N_ADAPTERS)]
+    reads = rng.choice(acgt, size=(n_reads, L)).astype(np.uint8)
+    adlen = min(len(adapters[0]), 33)
+    for i in np.nonzero(rng.random(n_reads) < 0.2)[0]:
+        p = int(rng.integers(L // 2, L - 5))
+        ad = adapters[int(rng.integers(0, N_ADAPTERS))][:min(adlen, L - p)]
+        reads[i, p:p + len(ad)] = np.frombuffer(ad, np.uint8)
+    return adapters, reads
+
+
+def seal_inputs(n_reads: int = N_SEAL):
+    """bench_tools.bench_seal's inputs: 50 references of 5,000 bp and n
+    reads of 150 bp, each an exact substring of one of them."""
+    import numpy as np
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    rng = np.random.default_rng(11)
+    refs = [bytes(rng.choice(acgt, SEAL_REF_LEN)) for _ in range(SEAL_REFS)]
+    srcs = rng.integers(0, SEAL_REFS, n_reads)
+    offs = rng.integers(0, SEAL_REF_LEN - L, n_reads)
+    refmat = np.array([np.frombuffer(r, np.uint8) for r in refs])
+    return refs, refmat[srcs[:, None], offs[:, None] + np.arange(L)[None, :]]
+
+
+def merge_inputs(n_pairs: int = N_MERGE):
+    """bench_tools.bench_bbmerge's pairs: 2 x 100 bp at insert 160, read
+    2 given in read 1's orientation."""
+    import numpy as np
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    rng = np.random.default_rng(7)
+    frag = rng.choice(acgt, size=(n_pairs, MERGE_INSERT)).astype(np.uint8)
+    return (frag[:, :MERGE_L].copy(),
+            frag[:, MERGE_INSERT - MERGE_L:].copy())
+
+
+def bbduk_scan(device, n_reads: int = N_DUK) -> dict:
+    """bbduk's k-mer scan (k=23, hdist=1) over n reads in chunks of
+    131,072 through ``kmerset.scan_batch`` on the card; the first chunk's
+    ids held against ``scan_batch_plain``."""
+    from bbmap_tpu_torch.index import kmerset, kmerset_device
+    t = time.time()
+    adapters, reads = duk_inputs(n_reads)
+    ks = kmerset.build_kmer_set(adapters, k=K_DUK, hdist=HDIST_DUK)
+    reads, starts = _chunks(reads, SCAN_CHUNK)
+    setup_s = time.time() - t
+    t = time.time()
+    first = reads[:SCAN_CHUNK]
+    _equal("bbduk ids", kmerset.scan_batch(ks, first, device)[1],
+           kmerset.scan_batch_plain(ks, first)[1])
+    check_s = time.time() - t
+    kmerset_device.reset_scans()
+    t = time.time()
+    n_hit = 0
+    for a in starts:
+        hits, _ids = kmerset.scan_batch(ks, reads[a:a + SCAN_CHUNK], device)
+        n_hit += int(hits.any(axis=1).sum())
+    dt = time.time() - t
+    scans = dict(kmerset_device.scans)
+    res = {"tool": "bbduk", "reads": len(reads), "k": K_DUK,
+           "hdist": HDIST_DUK, "set_values": len(ks.values),
+           "reads_per_s": len(reads) / dt, "reads_with_hit": n_hit,
+           "scan_s": dt, "scans": scans, "setup_s": setup_s,
+           "check_s": check_s}
+    say("bbduk: " + json.dumps(res))
+    if scans != {"ids": len(starts), "slots": 0, "counts": 0}:
+        raise AssertionError(f"bbduk: {len(starts)} chunks fed, device "
+                             f"scans {scans}")
+    return res
+
+
+def seal_assign(device, n_reads: int = N_SEAL) -> dict:
+    """seal (k=31, ambig=first) over n reads in chunks of 131,072 through
+    ``Seal.assign_batch`` on the card: the count route. The first chunk's
+    (B, nrefs) counts held against ``count_hits_plain``, and the slot
+    route's (row, owner) pairs on a multi-owner set (the references and
+    ten chimeras of two of them) against ``scan_batch_multi_plain``."""
+    import numpy as np
+    from bbmap_tpu_torch.core.batch import ReadBatch
+    from bbmap_tpu_torch.index import kmerset, kmerset_device
+    from bbmap_tpu_torch.tools.seal import Seal
+    t = time.time()
+    refs, reads = seal_inputs(n_reads)
+    names = [f"scaf{i}" for i in range(SEAL_REFS)]
+    seal = Seal(refs, names, k=K_SEAL, ambig="first", device=device)
+    reads, starts = _chunks(reads, SCAN_CHUNK)
+    setup_s = time.time() - t
+
+    def mk(a):
+        return ReadBatch(
+            bases=reads[a:a + SCAN_CHUNK], quality=None,
+            lengths=np.full(SCAN_CHUNK, L, np.int32),
+            ids=[str(i) for i in range(SCAN_CHUNK)],
+            numeric_ids=np.arange(a, a + SCAN_CHUNK, dtype=np.int64))
+
+    t = time.time()
+    first = reads[:SCAN_CHUNK]
+    _equal("seal counts",
+           kmerset_device.device_scan_counts(seal.ks, first, seal.nrefs,
+                                             device),
+           kmerset_device.count_hits_plain(seal.ks, first, seal.nrefs))
+    chimeras = [refs[i][1000:3000] + refs[i + 1][2000:4000]
+                for i in range(0, 20, 2)]
+    multi = kmerset.build_kmer_set(
+        refs + chimeras, k=K_SEAL, multi=True,
+        names=names + [f"chimera{i}" for i in range(len(chimeras))])
+    n_multi = int((np.diff(multi.multi_offsets) > 1).sum())
+    if not n_multi:
+        raise AssertionError("seal: the multi-owner set has no k-mer with "
+                             "two owners")
+    for what, g, w in zip(("rows", "ids"),
+                          kmerset.scan_batch_multi(multi, first, device),
+                          kmerset.scan_batch_multi_plain(multi, first)):
+        _equal(f"seal multi-owner {what}", g, w)
+    check_s = time.time() - t
+    seal.assign_batch(mk(0))
+    kmerset_device.reset_scans()
+    t = time.time()
+    n_matched = 0
+    for a in starts:
+        n_matched += int((seal.assign_batch(mk(a)).primary >= 0).sum())
+    dt = time.time() - t
+    scans = dict(kmerset_device.scans)
+    res = {"tool": "seal", "reads": len(reads), "k": K_SEAL,
+           "refs": SEAL_REFS, "set_values": len(seal.ks.values),
+           "reads_per_s": len(reads) / dt,
+           "matched_fraction": n_matched / len(reads), "assign_s": dt,
+           "scans": scans, "multi_owner_values": n_multi,
+           "setup_s": setup_s, "check_s": check_s}
+    say("seal: " + json.dumps(res))
+    if scans != {"ids": 0, "slots": 0, "counts": len(starts)}:
+        raise AssertionError(f"seal: {len(starts)} chunks fed, device "
+                             f"scans {scans}")
+    if res["matched_fraction"] < SEAL_MATCHED_MIN:
+        raise AssertionError(f"seal matched below {SEAL_MATCHED_MIN}: every "
+                             f"read is a substring of a reference")
+    return res
+
+
+def bbmerge_ladders(device, n_pairs: int = N_MERGE) -> dict:
+    """bbmerge's overlap ladders over n pairs in batches of 65,536 on the
+    card: ``mate_by_overlap_batch`` (mismatch mode, no quality, as the
+    bench runs it) and ``mate_by_overlap_ratio_batch`` (bbmerge's default
+    mode); each mode's first batch held against its numpy ladder."""
+    from bbmap_tpu_torch.ops import overlap, overlap_device
+    t = time.time()
+    a, b = merge_inputs(n_pairs)
+    a, starts = _chunks(a, MERGE_CHUNK)
+    b, _ = _chunks(b, MERGE_CHUNK)
+    modes = {
+        "mismatch": (
+            lambda x, y: overlap.mate_by_overlap_batch(x, None, y, None,
+                                                       device=device),
+            lambda x, y: overlap.mate_by_overlap_batch_plain(x, None, y,
+                                                             None)),
+        "ratio": (
+            lambda x, y: overlap.mate_by_overlap_ratio_batch(x, y,
+                                                             device=device),
+            overlap.mate_by_overlap_ratio_batch_plain)}
+    res = {"tool": "bbmerge", "pairs": len(a), "setup_s": time.time() - t}
+    for mode, (on_card, plain) in modes.items():
+        t = time.time()
+        x, y = a[:MERGE_CHUNK], b[:MERGE_CHUNK]
+        for what, g, w in zip(("insert", "bad", "ambig"), on_card(x, y),
+                              plain(x, y)):
+            _equal(f"bbmerge {mode} {what}", g, w)
+        check_s = time.time() - t
+        overlap_device.reset_scans()
+        t = time.time()
+        n_merged = 0
+        for s in starts:
+            ins, _bad, _amb = on_card(a[s:s + MERGE_CHUNK],
+                                      b[s:s + MERGE_CHUNK])
+            n_merged += int((ins > 0).sum())
+        dt = time.time() - t
+        scans = dict(overlap_device.scans)
+        res[mode] = {"reads_per_s": 2 * len(a) / dt,
+                     "merged_fraction": n_merged / len(a), "ladder_s": dt,
+                     "scans": scans, "check_s": check_s}
+        want = dict.fromkeys(overlap_device.ROUTES, 0)
+        want[mode] = len(starts)
+        if scans != want:
+            raise AssertionError(f"bbmerge {mode}: {len(starts)} batches "
+                                 f"fed, ladders run {scans}")
+    say("bbmerge: " + json.dumps(res))
+    return res
+
+
+def _fastq(path: str, names, rows, quals) -> None:
+    with open(path, "wb") as fh:
+        for nm, r, q in zip(names, rows, quals):
+            fh.write(b"@" + nm.encode() + b"\n" + r.tobytes() + b"\n+\n"
+                     + (q + 33).astype("uint8").tobytes() + b"\n")
+
+
+def _cli_pairs(rng, n: int, read_len: int, ins_lo: int, ins_hi: int,
+               adapter1: bytes, adapter2: bytes):
+    """n pairs of read_len at inserts ins_lo..ins_hi, reading through into
+    adapter1 / adapter2 (repeated) past a short insert; read 2 with 0.5 %
+    substitutions, both with 0.1 % N and phred 20-40."""
+    import numpy as np
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    comp = np.zeros(256, np.uint8)
+    comp[acgt] = np.frombuffer(b"TGCA", np.uint8)
+    ins = rng.integers(ins_lo, ins_hi + 1, n)[:, None]
+    frag = rng.choice(acgt, (n, max(ins_hi, read_len))).astype(np.uint8)
+    col = np.arange(read_len)[None, :]
+    inside = col < ins
+    past = np.clip(col - ins, 0, read_len - 1)
+
+    def through(ad):
+        return np.frombuffer((ad * (read_len // len(ad) + 1))[:read_len],
+                             np.uint8)[past]
+    r1 = np.where(inside, frag[:, :read_len], through(adapter1))
+    r2 = np.where(inside, comp[np.take_along_axis(
+        frag, np.clip(ins - 1 - col, 0, None), axis=1)], through(adapter2))
+    sub = rng.random(r2.shape) < 0.005
+    r2[sub] = acgt[rng.integers(0, 4, int(sub.sum()))]
+    for r in (r1, r2):
+        r[rng.random(r.shape) < 0.001] = ord("N")
+    q1, q2 = (rng.integers(20, 41, (n, read_len)) for _ in range(2))
+    return r1, r2, q1, q2
+
+
+def run_tool(tool: str, args) -> tuple:
+    """The port's CLI entry point of ``tool`` (``python -m
+    bbmap_tpu_torch <tool>``) in this process: (exit code, its report on
+    stderr without the ``Time:`` line)."""
+    import importlib
+    from bbmap_tpu_torch.__main__ import TOOLS
+    module, entry = TOOLS[tool]
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = getattr(importlib.import_module(module), entry)(list(args))
+    return rc, "\n".join(ln for ln in err.getvalue().splitlines()
+                         if not ln.startswith("Time:"))
+
+
+def tools_cli(device, n: int = N_CLI) -> dict:
+    """bbduk (paired, ktrim=r k=23 mink=11 hdist=1 tbo=t), seal (stats=
+    and pattern=) and bbmerge (paired) through their CLI entry points, on
+    n reads (bbduk: n / 2 pairs; its short-k-mer tip scan, ``scan_tips``,
+    is a loop over reads and lengths on the host) or n pairs (bbmerge),
+    once with ``device=`` the card and once with ``device=cpu``: every
+    output file byte-equal between the two, the reports too once the
+    ``Time:`` line is dropped, and the card's run counted in the scan and
+    ladder counters."""
+    import numpy as np
+    from bbmap_tpu_torch.index import kmerset_device
+    from bbmap_tpu_torch.io import native
+    from bbmap_tpu_torch.ops import overlap_device
+    native.get_lib()                 # its one stderr line, if any, goes now
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    rng = np.random.default_rng(23)
+    adapters, _ = duk_inputs(0)
+    refs, seal_reads = seal_inputs(n)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tools")
+    try:
+        d = Path(tmp)
+        with open(d / "adapters.fa", "w") as fh:
+            for i, s in enumerate(adapters):
+                fh.write(f">adapter{i}\n{s.decode()}\n")
+        with open(d / "refs.fa", "w") as fh:
+            for i, s in enumerate(refs):
+                fh.write(f">scaf{i}\n{s.decode()}\n")
+        n_duk = n // 2
+        r1, r2, q1, q2 = _cli_pairs(rng, n_duk, L, 60, 300, adapters[0],
+                                    adapters[1])
+        _fastq(d / "duk1.fq", [f"d{i}/1" for i in range(n_duk)], r1, q1)
+        _fastq(d / "duk2.fq", [f"d{i}/2" for i in range(n_duk)], r2, q2)
+        r1, r2, q1, q2 = _cli_pairs(rng, n, MERGE_L, 110, 190, b"A", b"C")
+        _fastq(d / "merge1.fq", [f"m{i}/1" for i in range(n)], r1, q1)
+        _fastq(d / "merge2.fq", [f"m{i}/2" for i in range(n)], r2, q2)
+        seal_reads[::10] = rng.choice(acgt, (len(seal_reads[::10]), L))
+        _fastq(d / "seal.fq", [f"s{i}" for i in range(n)], seal_reads,
+               rng.integers(20, 41, seal_reads.shape))
+        duk_batches = -(-n_duk // CLI_BATCH)
+        n_batches = -(-n // CLI_BATCH)
+        # tool: (arguments, reads in, device scans and ladders expected)
+        runs = {
+            "bbduk": (["in={d}/duk1.fq", "in2={d}/duk2.fq",
+                       "out={o}/out1.fq", "out2={o}/out2.fq",
+                       "outm={o}/outm.fq", "ref={d}/adapters.fa", "k=23",
+                       "mink=11", "hdist=1", "ktrim=r", "tbo=t",
+                       "stats={o}/stats.txt"], 2 * n_duk,
+                      {"ids": 2 * duk_batches}, {"ratio": duk_batches}),
+            "seal": (["in={d}/seal.fq", "ref={d}/refs.fa", "k=31",
+                      "stats={o}/stats.txt", "pattern={o}/out_%.fq",
+                      "outu={o}/outu.fq"], n, {"counts": n_batches}, {}),
+            "bbmerge": (["in1={d}/merge1.fq", "in2={d}/merge2.fq",
+                         "out={o}/merged.fq", "outu={o}/u1.fq",
+                         "outu2={o}/u2.fq", "ihist={o}/ihist.txt"], 2 * n,
+                        {}, {"ratio": n_batches})}
+        res = {}
+        for tool, (template, reads_in, want_scans, want_ladders) \
+                in runs.items():
+            out = {}
+            for side, dev in (("card", device), ("cpu", "cpu")):
+                o = d / f"{tool}_{side}"
+                o.mkdir()
+                args = [a.format(d=d, o=o) for a in template]
+                kmerset_device.reset_scans()
+                overlap_device.reset_scans()
+                t = time.time()
+                rc, report = run_tool(tool, args + [f"device={dev}"])
+                wall = time.time() - t
+                if rc != 0:
+                    raise AssertionError(f"{tool} device={dev} exited {rc}:"
+                                         f" {report}")
+                out[side] = (report, {p.name: p.read_bytes()
+                                     for p in sorted(o.iterdir())},
+                            dict(kmerset_device.scans),
+                            dict(overlap_device.scans), wall)
+            (rep_c, files_c, scans, ladders, wall_c), \
+                (rep_h, files_h, _, _, wall_h) = out["card"], out["cpu"]
+            if rep_c != rep_h:
+                raise AssertionError(f"{tool}: the reports differ:\n{rep_c}"
+                                     f"\n---\n{rep_h}")
+            if sorted(files_c) != sorted(files_h):
+                raise AssertionError(f"{tool}: output files {sorted(files_c)}"
+                                     f" on the card, {sorted(files_h)} on "
+                                     f"the CPU")
+            for name in files_c:
+                if files_c[name] != files_h[name]:
+                    raise AssertionError(f"{tool}: {name} differs between "
+                                         f"device={device} and device=cpu")
+            want = dict.fromkeys(kmerset_device.ROUTES, 0)
+            want.update(want_scans)
+            want_l = dict.fromkeys(overlap_device.ROUTES, 0)
+            want_l.update(want_ladders)
+            if scans != want or ladders != want_l:
+                raise AssertionError(f"{tool}: device scans {scans}, "
+                                     f"ladders {ladders} on the card; "
+                                     f"expected {want}, {want_l}")
+            n_reads = sum(v.count(b"\n+\n") for k, v in files_c.items()
+                          if k.endswith(".fq"))
+            res[tool] = {"reads_in": reads_in, "reads_out": n_reads,
+                         "files": len(files_c),
+                         "bytes": sum(len(v) for v in files_c.values()),
+                         "scans": scans, "ladders": ladders, "wall_s": wall_c,
+                         "wall_cpu_s": wall_h, "report": rep_c.splitlines()}
+            if not n_reads:
+                raise AssertionError(f"{tool} wrote no reads")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say("tools CLI: " + json.dumps(res))
+    return res
+
+
+def tools_phase(device) -> list:
+    """The read-preprocessing tools on the card at bench_tools.py's sizes,
+    then their CLIs byte-equal between the card and the CPU: the results
+    of bbduk_scan, seal_assign, bbmerge_ladders and tools_cli."""
+    return [bbduk_scan(device), seal_assign(device), bbmerge_ladders(device),
+            tools_cli(device)]
+
+
 def _device_profile(fn, tag: str, wall_ms: float, top: int = 12) -> None:
     """Run fn under torch.profiler (CPU + CUDA activities) and print the
     number of kernels, their summed device time, the host time inside
@@ -1183,6 +1599,41 @@ def profile_paths(device, gbases) -> None:
     _device_profile(lambda: long_phase(device, gbases, n_reads=32,
                                        check=False),
                     "32 long reads (wall: the CLI's mapping time)", map_ms)
+    tools_profile(device)
+
+
+def tools_profile(device) -> None:
+    """One bbduk chunk, one seal chunk (the count route) and one bbmerge
+    batch in each mode at the tools phase's sizes, each timed once and
+    then run under torch.profiler: kernels and launches a chunk, device
+    time, idle share."""
+    from bbmap_tpu_torch.index import kmerset, kmerset_device
+    from bbmap_tpu_torch.ops import overlap
+    from bbmap_tpu_torch.tools.seal import Seal
+    adapters, reads = duk_inputs(SCAN_CHUNK)
+    ks = kmerset.build_kmer_set(adapters, k=K_DUK, hdist=HDIST_DUK)
+    refs, seal_reads = seal_inputs(SCAN_CHUNK)
+    seal = Seal(refs, [f"scaf{i}" for i in range(SEAL_REFS)], k=K_SEAL,
+                ambig="first", device=device)
+    a, b = merge_inputs(MERGE_CHUNK)
+    for tag, fn in (
+            (f"bbduk chunk of {SCAN_CHUNK} reads",
+             lambda: kmerset.scan_batch(ks, reads, device)),
+            (f"seal count chunk of {SCAN_CHUNK} reads",
+             lambda: kmerset_device.device_scan_counts(
+                 seal.ks, seal_reads, seal.nrefs, device)),
+            (f"bbmerge mismatch batch of {MERGE_CHUNK} pairs",
+             lambda: overlap.mate_by_overlap_batch(a, None, b, None,
+                                                   device=device)),
+            (f"bbmerge ratio batch of {MERGE_CHUNK} pairs",
+             lambda: overlap.mate_by_overlap_ratio_batch(a, b,
+                                                         device=device))):
+        fn()
+        _sync(device)
+        t0 = time.time()
+        fn()
+        _sync(device)
+        _device_profile(fn, tag, 1e3 * (time.time() - t0))
 
 
 def main() -> int:
@@ -1255,6 +1706,18 @@ def main() -> int:
         f"{lres['strict_correct']:.4f}; launches {lres['launches']}; "
         f"peak memory {lres['max_memory_allocated']} B; card {smi}")
 
+    t = time.time()
+    duk, seal, merge, cli = tools_phase(device)
+    say(f"phase tools: {time.time() - t:.1f} s; bbduk reads/s "
+        f"{duk['reads_per_s']:.1f} ({duk['reads']} reads, "
+        f"{duk['reads_with_hit']} with a hit); seal reads/s "
+        f"{seal['reads_per_s']:.1f} (matched {seal['matched_fraction']:.4f})"
+        f"; bbmerge reads/s {merge['mismatch']['reads_per_s']:.1f} mismatch "
+        f"mode (merged {merge['mismatch']['merged_fraction']:.4f}), "
+        f"{merge['ratio']['reads_per_s']:.1f} ratio mode (merged "
+        f"{merge['ratio']['merged_fraction']:.4f}); CLIs byte-equal between "
+        f"the card and the CPU; card {smi}")
+
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "bbmap_tpu"))
     if foreign:
@@ -1286,6 +1749,20 @@ def main() -> int:
                         "bound_ms": kt["bound_ms"],
                         "bound_by": kt["bound_by"],
                         "library_ms": kt["library_ms"]})
+    print(json.dumps({"tools": [
+        {"tool": "bbduk", "reads": duk["reads"],
+         "reads_per_s": duk["reads_per_s"],
+         "hit_fraction": duk["reads_with_hit"] / duk["reads"]},
+        {"tool": "seal", "reads": seal["reads"],
+         "reads_per_s": seal["reads_per_s"],
+         "matched_fraction": seal["matched_fraction"]}] + [
+        {"tool": "bbmerge", "mode": mode, "pairs": merge["pairs"],
+         "reads_per_s": merge[mode]["reads_per_s"],
+         "merged_fraction": merge[mode]["merged_fraction"]}
+        for mode in ("mismatch", "ratio")] + [
+        {"tool": f"{tool} CLI", "reads_in": cli[tool]["reads_in"],
+         "byte_equal_to_cpu": True, "wall_s": cli[tool]["wall_s"]}
+        for tool in ("bbduk", "seal", "bbmerge")]}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

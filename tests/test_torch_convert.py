@@ -228,15 +228,26 @@ def test_sam_copy_matches(ref_state):
 
 
 # names a copied module has beyond its reference: io.native keeps and
-# reports why the native host library did not load
-PORT_ADDED = {"io.native": {"sys", "load_error"}}
+# reports why the native host library did not load; the k-mer scans and
+# the overlap ladders keep their numpy bodies as plain references beside
+# the entry points that take a device; the tools resolve their device=
+PORT_ADDED = {
+    "io.native": {"sys", "load_error"},
+    "index.kmerset": {"scan_batch_plain", "scan_batch_multi_plain",
+                      "_expand_hits"},
+    "ops.overlap": {"mate_by_overlap_batch_plain",
+                    "mate_by_overlap_ratio_batch_plain"},
+    "tools.bbduk": {"backend"}, "tools.bbduk2": {"backend"},
+    "tools.seal": {"backend"}, "tools.bbmerge": {"backend"}}
 
 
 @pytest.mark.parametrize("mod", [
     "core.bases", "core.batch", "core.constants", "core.genome", "io.fastx",
     "io.sam", "io.native", "io.bam", "io.pigz", "index.build", "align.seed",
     "ops.msa_ref", "ops.gref", "utils.args", "utils.readstats",
-    "utils.watchdog", "tools.randomreads", "tools.gradesam"])
+    "utils.watchdog", "tools.randomreads", "tools.gradesam",
+    "index.kmerset", "ops.overlap", "tools.bbmask", "tools.taxonomy",
+    "tools.bbduk", "tools.bbduk2", "tools.seal", "tools.bbmerge"])
 def test_copied_module_has_the_reference_names(mod):
     """Each copied module defines what the reference module defines, and
     beside it only what the port added on purpose."""
@@ -246,6 +257,32 @@ def test_copied_module_has_the_reference_names(mod):
     assert names and sorted(names) == sorted(
         n for n in vars(p)
         if not n.startswith("__") and n not in PORT_ADDED.get(mod, ()))
+
+
+@pytest.mark.parametrize("multi", [False, True])
+def test_kmer_set_carried_across(multi):
+    """convert.kmer_set carries a reference set field by field, and the
+    port's build_kmer_set builds the same set (hdist, mink tips, multi-owner
+    CSR)."""
+    from bbmap_tpu.index import kmerset as jks
+    from bbmap_tpu_torch.index import kmerset as tks
+    rng = np.random.default_rng(4)
+    seqs = [bytes(rng.choice(BASES, n)) for n in (40, 70, 55)]
+    seqs.append(seqs[0][5:35] + seqs[1][:20])
+    kw = dict(k=19, mink=0 if multi else 9, hdist=1, mask_middle=not multi,
+              names=["a", "b", "c", "d"], multi=multi)
+    ref = jks.build_kmer_set(seqs, **kw)
+    got = convert.kmer_set(ref)
+    assert type(got) is tks.KmerSet
+    same(got, ref, "kmer_set")
+    assert (got.multi_offsets is not None) == multi
+    same(tks.build_kmer_set(seqs, **kw), ref, "build_kmer_set")
+    vals = got.values[::7]
+    same(got.lookup_ids(vals), ref.lookup_ids(vals), "lookup_ids")
+    slots = got.lookup_slots(vals)
+    rows = np.arange(len(slots), dtype=np.int64)
+    same(got.expand_slots(rows, slots), ref.expand_slots(rows, slots),
+         "expand_slots")
 
 
 def test_workload_copy_matches_bench():
