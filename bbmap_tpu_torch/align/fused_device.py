@@ -13,8 +13,10 @@ selection rules are the JAX program's:
    narrow window Cn, and re-score wide chains at Cw (budget W)
 4. selection: eff = max(gapless, DP), winner/second/rest, n_sites
 5. rows whose winner DP beat gapless compact to a budget T and run the
-   fill kernel (ops/msa_kernels.msa_fill) + the bounded traceback walk
-6. wide winners and window-clipped traces re-trace at Cw (budget RT)
+   fill + the bounded traceback walk (ops/msa_kernels.msa_fill_walk: one
+   kernel, the prev codes in shared memory)
+6. wide winners and window-clipped traces re-trace at Cw (budget RT,
+   ops/msa.msa_align_batch, the same kernel)
 
 Rows the program cannot settle exactly (budget overflow, wide windows
 past a budget) are flagged for the host refit path, as in the JAX
@@ -386,14 +388,12 @@ def fused_stage(fcfg: FusedConfig, rcodes: torch.Tensor,
     tws = wws[tl].to(I32)
     trefs = _window_ascii(dindex, cfg, tws, Cn)
     rows_t = torch.full((T,), L, dtype=I32, device=dev)
-    out3, prevs, layout = msa_kernels.msa_fill(treads, trefs, rows_t, P)
-    sc2, col, st = out3[0], out3[1], out3[2]
     # the walk runs R + max-deletion-span steps; a truncated walk
     # (row_end > 0) re-traces at Cw like a clipped alignment
     steps_n = L + (Cn - L) + 16
-    sym, ln, gaps, row_end = msa.walk(prevs, treads, trefs, col, st, L, Cn,
-                                      steps=steps_n, layout=layout)
-    del prevs
+    out3, sym, ln, gaps, row_end = msa_kernels.msa_fill_walk(
+        treads, trefs, rows_t, P, steps_n)
+    sc2, col = out3[0], out3[1]
     truncated = row_end > 0
 
     # --- wide/retry traceback at Cw

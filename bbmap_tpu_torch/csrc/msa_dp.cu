@@ -243,14 +243,6 @@ size_t smem_bytes(int rows_per_thread, int R, int C) {
   return rows_per_thread == 1 ? wave + C : wave + C + R;
 }
 
-template <class K>
-cudaError_t raise_smem(K kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
-}
-
 template <class Ops, bool WANT_PREVS, int J>
 cudaError_t launch_long(Ops ops, const int* rows, const int* ins0, int B,
                         int R, int C, const Prof& P, int* out,

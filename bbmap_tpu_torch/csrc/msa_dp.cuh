@@ -1,7 +1,11 @@
 // Shared device code of the DP kernels: the scoring profile, the two
-// operand readers, one DP cell (dp_cell), and the last-row best. Included
-// by msa_dp.cu (one row per thread; rows strided over the block) and
-// msa_dp_warp.cu (a warp a job), so every mapping evaluates the same cell.
+// operand readers, one DP cell (dp_cell), the last-row best, and one job's
+// traceback walk (walk_job). Included by msa_dp.cu (one row per thread;
+// rows strided over the block), msa_dp_warp.cu (a warp a job),
+// msa_dp_band.cu (a warp a band of rows), msa_walk.cu (the walk over a
+// block of prev codes in device memory) and msa_fill_walk.cu (fill and
+// walk of short jobs, the codes in shared memory), so every mapping
+// evaluates the same cell and every walk takes the same steps.
 
 #pragma once
 
@@ -235,11 +239,10 @@ __device__ __forceinline__ void track(int v, int c, int& best, int& col) {
   if (v > best) { best = v; col = c; }
 }
 
-template <class Ops>
-__device__ __forceinline__ void store_out(int* out, int B, int b, int best0,
-                                          int best1, int best2, int col0,
-                                          int col1, int col2, const Prof& P) {
-  int state, score, col;
+// The first maximum of the three last-row bests in MS > DEL > INS order.
+__device__ __forceinline__ void pick_best(int best0, int best1, int best2,
+                                          int col0, int col1, int col2,
+                                          int& state, int& score, int& col) {
   if (best0 >= best1 && best0 >= best2) {
     state = 0; score = best0; col = col0;
   } else if (best1 >= best2) {
@@ -247,6 +250,14 @@ __device__ __forceinline__ void store_out(int* out, int B, int b, int best0,
   } else {
     state = 2; score = best2; col = col2;
   }
+}
+
+template <class Ops>
+__device__ __forceinline__ void store_out(int* out, int B, int b, int best0,
+                                          int best1, int best2, int col0,
+                                          int col1, int col2, const Prof& P) {
+  int state, score, col;
+  pick_best(best0, best1, best2, col0, col1, col2, state, score, col);
   if (Ops::kJobMajorOut) {
     out[3 * b] = score >> P.SCOREOFFSET;
     out[3 * b + 1] = col;
@@ -256,6 +267,78 @@ __device__ __forceinline__ void store_out(int* out, int B, int b, int best0,
     out[B + b] = col;
     out[2 * B + b] = state;
   }
+}
+
+// ---- the traceback walk
+//
+// Replaces the device walk of the JAX package, _walk_device
+// (bbmap_tpu/ops/msa_jax.py:451). One job: start at row R, column col,
+// state st; a step at (row, col) with row > 0 and col > 0 reads the code of
+// cell (row, min(col, C)), emits m / S / N (state MS), D or - (DEL) or I or
+// Y (INS), counts the '-' symbols, moves to the predecessor and takes its
+// state from the code; with col <= 0 it emits X and moves up and left. The
+// walk stops at row 0 or after `steps` symbols (row > 0 at the end marks a
+// walk that was cut). Symbols go to sym_row in walk order (the reverse of
+// the match string); the caller zeroes the rest of the row.
+constexpr int MODE_MS = 0, MODE_DEL = 1, MODE_INS = 2;
+
+__device__ __forceinline__ bool defined_base(int c) {
+  return c == 'A' || c == 'C' || c == 'G' || c == 'T' || c == 'U';
+}
+
+struct WalkEnd {
+  int n;      // symbols written
+  int gaps;   // '-' among them
+  int row;    // the row the walk ended on
+};
+
+// code(row, col) is the prev-code byte of cell (row, col), 1 <= row <= R,
+// 1 <= col <= C, wherever the caller keeps it.
+template <class CodeAt>
+__device__ __forceinline__ WalkEnd walk_job(const CodeAt& code,
+                                            const uint8_t* read,
+                                            const uint8_t* ref, int R, int C,
+                                            int col, int st, int steps,
+                                            uint8_t* sym_row) {
+  int row = R, gaps = 0, n = 0;
+  for (; n < steps && row > 0; ++n) {
+    int sym;
+    if (col > 0) {
+      const int prev = (code(row, min(col, C)) >> (2 * st)) & 3;
+      const int c_ = read[row - 1];
+      const int r_ = ref[min(col - 1, C - 1)];
+      if (st == MODE_MS) {
+        sym = c_ == r_ ? 'm'
+                       : (defined_base(c_) && defined_base(r_) ? 'S' : 'N');
+        --row;
+        --col;
+      } else if (st == MODE_DEL) {
+        const bool is_gap = r_ == '-';
+        sym = is_gap ? '-' : 'D';
+        gaps += is_gap;
+        --col;
+      } else {
+        sym = col >= C ? 'Y' : 'I';
+        --row;
+      }
+      st = prev;
+    } else {
+      sym = 'X';
+      --row;
+      --col;
+    }
+    sym_row[n] = static_cast<uint8_t>(sym);
+  }
+  return WalkEnd{n, gaps, row};
+}
+
+// Dynamic shared memory above 48 KB must be asked for before the launch.
+template <class K>
+cudaError_t raise_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
 }
 
 }  // namespace

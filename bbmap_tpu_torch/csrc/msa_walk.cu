@@ -3,16 +3,11 @@
 // Replaces the device walk of the JAX package, _walk_device
 // (bbmap_tpu/ops/msa_jax.py:451, a compiled lax.scan inside the fused
 // program); the port ran it as a Python loop of tensor steps, about 35
-// launches a step. Same function: start at row R, column col0[b], state
-// st0[b]; a step at (row, col) with row > 0 and col > 0 reads the byte of
-// cell (row, col), emits m / S / N (state MS), D or - (DEL) or I or Y
-// (INS), counts
-// the '-' symbols, moves to the predecessor and takes its state from the
-// code; with col <= 0 it emits X and moves up and left. The walk stops at
-// row 0 or after `steps` symbols; row_end > 0 marks a walk that was cut.
-// Symbols are written in walk order (the reverse of the match string) to
-// syms (B, steps), zero after the last one, as the plain version lays
-// them out; out_len is their count.
+// launches a step. Same function, walk_job in msa_dp.cuh: start at row R,
+// column col0[b], state st0[b], at most `steps` symbols; row_end > 0
+// marks a walk that was cut. Symbols are written in walk order (the
+// reverse of the match string) to syms (B, steps), zero after the last
+// one, as the plain version lays them out; out_len is their count.
 //
 // Both fill layouts are affine in (row, col), so the walk takes a base
 // offset and two strides: cell (row, col) of job b is byte b * job_stride
@@ -31,18 +26,20 @@
 // launch costs about what the chain's latency adds up to. All offsets
 // are 64-bit: a 56-job long-read block passes 2**31 bytes.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "msa_dp.cuh"
 
 namespace {
 
 constexpr int kWarpsPerBlock = 4;
-constexpr int MODE_MS = 0, MODE_DEL = 1, MODE_INS = 2;
-constexpr int GAPC = '-';
 
-__device__ __forceinline__ bool defined_base(int c) {
-  return c == 'A' || c == 'C' || c == 'G' || c == 'T' || c == 'U';
-}
+// A block of prev codes in device memory, affine in (row, col).
+struct StridedCodes {
+  const uint8_t* pv;
+  long long row_stride, col_stride;
+  __device__ int operator()(int row, int col) const {
+    return pv[row * row_stride + col * col_stride];
+  }
+};
 
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 msa_walk_kernel(const uint8_t* __restrict__ prevs,
@@ -60,42 +57,13 @@ msa_walk_kernel(const uint8_t* __restrict__ prevs,
   uint8_t* sym_row = syms + static_cast<size_t>(b) * steps;
   int n = 0;
   if (lane == 0) {
-    const uint8_t* pv = prevs + b * job_stride + base;
-    const uint8_t* read = reads + static_cast<size_t>(b) * R;
-    const uint8_t* ref = refs + static_cast<size_t>(b) * C;
-    int row = R, col = col0[b], st = st0[b], gaps = 0;
-    for (; n < steps && row > 0; ++n) {
-      int sym;
-      if (col > 0) {
-        const int code = pv[row * row_stride + min(col, C) * col_stride];
-        const int prev = (code >> (2 * st)) & 3;
-        const int c_ = read[row - 1];
-        const int r_ = ref[min(col - 1, C - 1)];
-        if (st == MODE_MS) {
-          sym = c_ == r_ ? 'm'
-                         : (defined_base(c_) && defined_base(r_) ? 'S' : 'N');
-          --row;
-          --col;
-        } else if (st == MODE_DEL) {
-          const bool is_gap = r_ == GAPC;
-          sym = is_gap ? '-' : 'D';
-          gaps += is_gap;
-          --col;
-        } else {
-          sym = col >= C ? 'Y' : 'I';
-          --row;
-        }
-        st = prev;
-      } else {
-        sym = 'X';
-        --row;
-        --col;
-      }
-      sym_row[n] = static_cast<uint8_t>(sym);
-    }
-    out_len[b] = n;
-    gaps_out[b] = gaps;
-    row_end[b] = row;
+    const WalkEnd e = walk_job(
+        StridedCodes{prevs + b * job_stride + base, row_stride, col_stride},
+        reads + static_cast<size_t>(b) * R, refs + static_cast<size_t>(b) * C,
+        R, C, col0[b], st0[b], steps, sym_row);
+    out_len[b] = n = e.n;
+    gaps_out[b] = e.gaps;
+    row_end[b] = e.row;
   }
   n = __shfl_sync(0xffffffffu, n, 0);
   for (int i = n + lane; i < steps; i += 32) sym_row[i] = 0;

@@ -14,9 +14,10 @@ cells (r, c = d - r) for r in [0, R]:
 ``dp_plain`` sweeps the waves with one batched tensor step per wave; it is
 the plain version of the hand-written CUDA kernels in
 ``ops/msa_kernels.py`` (score and fill), as ``walk_plain`` is of the walk
-kernel. The entry points here (``msa_score_batch``, ``msa_align_batch``,
-``walk``) always go through those kernel wrappers, which run the plain
-versions only for tensors on the CPU.
+kernel, and the two in turn of the fused fill + walk kernel. The entry
+points here (``msa_score_batch``, ``msa_align_batch``) always go through
+those kernel wrappers, which run the plain versions only for tensors on
+the CPU.
 Prev-state codes, one byte ``ms | del << 2 | ins << 4`` a cell, come in
 two layouts, both affine in (r, c) and named by a ``PrevLayout``:
 wave-major (B, R+C, R+1), ``prevs[b, d-1, r]`` for cell (r, d - r), which
@@ -370,16 +371,6 @@ def walk_plain(prevs: torch.Tensor, reads: torch.Tensor,
     return syms, outpos, gaps, row
 
 
-def walk(prevs: torch.Tensor, reads: torch.Tensor, refs: torch.Tensor,
-         col0: torch.Tensor, st0: torch.Tensor, R: int, C: int,
-         steps: int = 0, layout: Optional[PrevLayout] = None):
-    """Batched traceback walk (``msa_kernels.msa_walk``): the walk kernel
-    on CUDA tensors, ``walk_plain`` on CPU tensors. Same returns."""
-    from . import msa_kernels
-    return msa_kernels.msa_walk(prevs, reads, refs, col0, st0, R, C, steps,
-                                layout)
-
-
 def _full_rows(B: int, R: int, dev) -> torch.Tensor:
     return torch.full((B,), R, dtype=I32, device=dev)
 
@@ -395,16 +386,13 @@ def msa_score_batch(reads, refs, P: ScoringProfile = SHORT_PROFILE):
 
 
 def msa_align_batch(reads, refs, P: ScoringProfile = SHORT_PROFILE):
-    """Fill + full-length traceback walk (steps = R + C). Returns
-    (symbols (B, R+C) uint8 in reverse order, lengths, gaps, scores,
-    cols, states)."""
+    """Fill + full-length traceback walk (steps = R + C) through
+    ``msa_kernels.msa_fill_walk``. Returns (symbols (B, R+C) uint8 in
+    reverse order, lengths, gaps, scores, cols, states)."""
     from . import msa_kernels
     B, R = reads.shape
-    C = refs.shape[1]
-    out, prevs, layout = msa_kernels.msa_fill(
+    out, sym, ln, gaps, _row = msa_kernels.msa_fill_walk(
         reads, refs, _full_rows(B, R, reads.device), P)
-    sym, ln, gaps, _row = walk(prevs, reads, refs, out[1], out[2], R, C,
-                               layout=layout)
     return sym, ln, gaps, out[0], out[1], out[2]
 
 

@@ -1,7 +1,7 @@
 """The DP kernels (``csrc/msa_dp.cu``, ``csrc/msa_dp_warp.cu``,
-``csrc/msa_dp_band.cu``) and the traceback walk kernel
-(``csrc/msa_walk.cu``), their wrappers, launch counters and plain PyTorch
-versions.
+``csrc/msa_dp_band.cu``), the traceback walk kernel (``csrc/msa_walk.cu``)
+and the fused fill + walk kernel (``csrc/msa_fill_walk.cu``), their
+wrappers, launch counters and plain PyTorch versions.
 
 - ``msa_score`` (K2) and ``msa_fill`` (K3) replace the Pallas kernels
   ``msa_score_pallas_t`` and ``msa_fill_pallas_t``
@@ -23,6 +23,13 @@ versions.
   (bbmap_tpu/ops/msa_jax.py:451, a compiled scan): one launch walks every
   job's prev codes, in either layout, from (R, col0, st0) and writes the
   symbols, their count, the gap count and the row the walk ended on.
+- ``msa_fill_walk`` is ``msa_fill`` followed by ``msa_walk`` from the
+  fill's own column and state, as the fused program and
+  ``ops/msa.msa_align_batch`` run them: where ``fill_walk_shape`` holds
+  the job (R <= 1,023, its codes within a block's shared memory) one
+  kernel (``csrc/msa_fill_walk.cu``) fills and walks with the prev codes
+  in shared memory, and no block of prev codes is allocated; elsewhere
+  the two kernels above.
 
 ``launch_shape`` picks a DP kernel's mapping: a warp a job ("warp", 1 to
 10 rows a lane) for score passes of 2,048 jobs or more up to R = 319, one
@@ -34,7 +41,8 @@ a lane) up to R = 8,191. Rows strided over one block ("strided"), which
 A wrapper given CPU tensors runs the plain version (``ops/msa.dp_plain``,
 ``ops/msa.walk_plain``) and counts nothing. Given CUDA tensors it
 launches the kernel and adds one to its ``launches`` count (a DP wrapper
-to ``launches_by[mapping]`` as well), or raises.
+to ``launches_by[mapping]`` as well, ``msa_fill_walk`` to
+``launches_by[variant]``), or raises.
 """
 
 from __future__ import annotations
@@ -84,6 +92,20 @@ BAND_MIN_WARPS = 1024
 BAND_MID_MIN_ROWS = 700
 BAND_MID_MIN_JOBS = 256
 SMEM_MAX = 232_448             # 227 KB of shared memory a block (sm_90)
+SMEM_PER_SM = 233_472          # 228 KB an SM, of it 1 KB reserved a block
+# The fused fill + walk (csrc/msa_fill_walk.cu): a block a job, a thread
+# a row (R <= 1,023), the codes in shared memory a byte a cell ("row") or
+# four bits ("row_packed"). From the sweep over the job count on an H100
+# (chip_smoke.py, "sweep msa_fill_walk" lines): a byte a cell wins at
+# (150, 174) at every job count from 64 to 8,192; at (150, 606), whose
+# byte block leaves room for 2 blocks an SM, packing wins from 1,024 jobs
+# (1.19 ms against 1.57 at 1,024, 8.56 against 11.97 at 8,192) and loses
+# below (0.41 against 0.37 ms at 64 jobs). So the codes are packed where a
+# byte block leaves room for fewer than FILL_WALK_PACK_BELOW_BLOCKS blocks
+# an SM and the launch has FILL_WALK_PACK_MIN_JOBS jobs or more.
+FILL_WALK_VARIANTS = ("row", "row_packed")
+FILL_WALK_PACK_BELOW_BLOCKS = 4
+FILL_WALK_PACK_MIN_JOBS = 1024
 
 _PROF_FIELDS = (
     "TIMEMASK", "SCOREOFFSET", "MAX_TIME", "MASK5", "BARRIER_I1",
@@ -197,6 +219,86 @@ def launch_shape(R: int, C: int, mapping: Optional[str] = None,
     return shape
 
 
+class FillWalkShape(NamedTuple):
+    threads: int
+    smem_bytes: int
+    pitch: int              # bytes a row of a job's codes
+    packed: bool            # four bits a cell, else a byte
+
+    @property
+    def variant(self) -> str:
+        return "row_packed" if self.packed else "row"
+
+
+@functools.lru_cache(maxsize=256)
+def fill_walk_pitch(C: int, packed: bool) -> int:
+    """Bytes a row of a job's codes takes in shared memory: from the bytes
+    the row needs (C, packed (C + 1) // 2) the least pitch at which the
+    stores of one wave fall on the fewest distinct words a bank. The 32
+    threads of a warp store on one wave the cells (k, c0 - k), k = 0..31,
+    at byte (k - 1) * pitch plus the column's byte; packed, only the
+    threads that complete a byte store."""
+    need = (C + 1) // 2 if packed else C
+    k = np.arange(32)
+
+    def conflicts(pitch: int) -> int:
+        worst = 0
+        for c0 in range(33, 37):
+            c = c0 - k
+            store = (c % 2 == 0) if packed else np.ones(32, bool)
+            byte = (c - 1) // 2 if packed else c - 1
+            words = np.unique((k * pitch + byte)[store] // 4)
+            worst = max(worst, int(np.bincount(words % 32).max()))
+        return worst
+
+    return min(range(need, need + 32), key=lambda p: (conflicts(p), p))
+
+
+def _fill_walk_variant(R: int, C: int, packed: bool
+                       ) -> Optional[FillWalkShape]:
+    """The launch for jobs of (R, C) with the codes a byte a cell or
+    ``packed``, or None where it does not hold them (more than 1,023 rows,
+    shared memory past a block's)."""
+    if R < 1 or C < 1 or R > SHORT_MAX_ROWS:
+        return None
+    pitch = fill_walk_pitch(C, packed)
+    shape = FillWalkShape(
+        (R + 32) // 32 * 32,
+        24 * (R + 1) + (C + 15) // 16 * 16 + R * pitch, pitch, packed)
+    return shape if shape.smem_bytes <= SMEM_MAX else None
+
+
+def fill_walk_shape(R: int, C: int, jobs: Optional[int] = None,
+                    variant: Optional[str] = None
+                    ) -> Optional[FillWalkShape]:
+    """The launch of the fused fill + walk for ``jobs`` jobs of (R, C), or
+    None where it does not hold them (the two-kernel route then runs).
+
+    A block a job, a thread a row (R <= 1,023); shared memory the two wave
+    slots (24 * (R+1)), the window (C rounded to 16) and the codes (R *
+    pitch). "row" keeps a byte a cell, "row_packed" four bits. The default
+    is "row", or "row_packed" where a "row" block leaves room for fewer
+    than ``FILL_WALK_PACK_BELOW_BLOCKS`` blocks an SM and the launch has
+    ``FILL_WALK_PACK_MIN_JOBS`` jobs or more (``jobs=None`` counts as
+    many), or where only the packed block fits. ``variant`` (one of
+    ``FILL_WALK_VARIANTS``) forces one for a comparison on the card and
+    raises where it does not hold the job. The launcher in the source
+    recomputes the shape and refuses a launch that disagrees."""
+    if variant is not None:
+        if variant not in FILL_WALK_VARIANTS:
+            raise ValueError(f"no fill + walk variant {variant!r}")
+        shape = _fill_walk_variant(R, C, variant == "row_packed")
+        if shape is None:
+            raise ValueError(f"{variant} does not hold (R, C) = ({R}, {C})")
+        return shape
+    byte = _fill_walk_variant(R, C, False)
+    few = jobs is not None and jobs < FILL_WALK_PACK_MIN_JOBS
+    if byte is not None and (few or SMEM_PER_SM // (byte.smem_bytes + 1024)
+                             >= FILL_WALK_PACK_BELOW_BLOCKS):
+        return byte
+    return _fill_walk_variant(R, C, True)
+
+
 def prev_code_bytes(R: int, C: int, device) -> int:
     """Bytes of prev codes one fill job of (R, C) takes on ``device`` at
     most: on a card the row-major block where every fill takes the band
@@ -232,6 +334,9 @@ _INTERFACE = {
     "msa_walk": {"msa_walk_launch": [_VP, _VP, _VP, _VP, _VP, _CI, _CI, _CI,
                                      _CI, _LL, _LL, _LL, _LL, _VP, _VP, _VP,
                                      _VP, _VP]},
+    "msa_fill_walk": {"msa_fill_walk_launch": [
+        _VP, _VP, _VP, _VP, _CI, _CI, _CI, _VP, _CI, _VP, _VP, _VP, _VP, _VP,
+        _CI, _CI, _CI, _CI, _VP]},
 }
 
 
@@ -551,8 +656,77 @@ def msa_walk(prevs: torch.Tensor, reads: torch.Tensor, refs: torch.Tensor,
     return syms, out_len, gaps, row_end
 
 
+# --------------------------------------------------------------------------
+# Fill and walk in one kernel, the prev codes in shared memory.
+# --------------------------------------------------------------------------
+
+def msa_fill_walk_plain(reads: torch.Tensor, refs: torch.Tensor,
+                        rows: torch.Tensor, P: ScoringProfile,
+                        steps: int = 0):
+    """Plain version of the fused fill + walk: ``msa_fill_plain`` followed
+    by ``walk_plain`` from the fill's own column and state. Returns (out
+    (3, B) int32, symbols (B, steps) uint8, out_len, gaps, row_end)."""
+    out, prevs, layout = msa_fill_plain(reads, refs, rows, P)
+    R, C = reads.shape[1], refs.shape[1]
+    return (out, *walk_plain(prevs, reads, refs, out[1], out[2], R, C,
+                             steps, layout))
+
+
+def msa_fill_walk(reads: torch.Tensor, refs: torch.Tensor,
+                  rows: torch.Tensor, P: ScoringProfile, steps: int = 0,
+                  variant: Optional[str] = None):
+    """Fill (K3) and traceback walk from the fill's own last-row column
+    and state, at most ``steps`` symbols (0: R + C). Returns (out (3, B)
+    int32 [score >> SCOREOFFSET, col, state], symbols (B, steps) uint8 in
+    walk order, zero after the last, out_len, gaps, row_end); row_end > 0
+    marks a walk that was cut. Rows must lie in 0..R.
+
+    CPU tensors: the plain version. CUDA tensors, by shape: one launch of
+    ``csrc/msa_fill_walk.cu`` where ``fill_walk_shape`` holds the jobs,
+    else ``msa_fill`` + ``msa_walk`` (the long reads' band mapping among
+    them); a failed launch raises. ``variant`` forces one of
+    ``FILL_WALK_VARIANTS`` for a comparison on the card."""
+    _check(reads, refs, rows)
+    B, R = reads.shape
+    C = refs.shape[1]
+    if R < 1 or C < 1 or steps < 0:
+        raise ValueError(f"R={R}, C={C}, steps={steps}: R and C must be "
+                         f">= 1 and steps >= 0")
+    if reads.device.type == "cpu":
+        return msa_fill_walk_plain(reads, refs, rows, P, steps)
+    _on_cuda(reads)
+    shape = fill_walk_shape(R, C, B, variant)
+    if shape is None:
+        out, prevs, layout = msa_fill(reads, refs, rows, P)
+        return (out, *msa_walk(prevs, reads, refs, out[1], out[2], R, C,
+                               steps, layout))
+    n = steps if steps else R + C
+    reads, refs, rows = (x.contiguous() for x in (reads, refs, rows))
+    dev = reads.device
+    out = torch.empty((3, B), dtype=I32, device=dev)
+    syms = torch.empty((B, n), dtype=torch.uint8, device=dev)
+    out_len, gaps, row_end = (torch.empty(B, dtype=I32, device=dev)
+                              for _ in range(3))
+    if B:
+        fn = _lib("msa_fill_walk").msa_fill_walk_launch
+        prof = prof_array(P)          # alive until the launcher has read it
+        err = fn(reads.data_ptr(), refs.data_ptr(), rows.data_ptr(),
+                 _ins0_on(R, P, dev).data_ptr(), B, R, C,
+                 prof.ctypes.data, n, out.data_ptr(),
+                 syms.data_ptr(), out_len.data_ptr(), gaps.data_ptr(),
+                 row_end.data_ptr(), int(shape.packed), shape.threads,
+                 shape.smem_bytes, shape.pitch,
+                 torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"msa_fill_walk_launch failed: cudaError "
+                               f"{err}")
+        msa_fill_walk.launches += 1
+        msa_fill_walk.launches_by[shape.variant] += 1
+    return out, syms, out_len, gaps, row_end
+
+
 DP_KERNELS = (msa_score_rows, msa_score, msa_fill)
-KERNELS = (*DP_KERNELS, msa_walk)
+KERNELS = (*DP_KERNELS, msa_walk, msa_fill_walk)
 
 
 def reset_launches() -> None:
@@ -560,6 +734,7 @@ def reset_launches() -> None:
         k.launches = 0
     for k in DP_KERNELS:
         k.launches_by = dict.fromkeys(MAPPINGS, 0)
+    msa_fill_walk.launches_by = dict.fromkeys(FILL_WALK_VARIANTS, 0)
 
 
 reset_launches()

@@ -356,6 +356,12 @@ def main(argv: List[str]) -> int:
         print("bbduk: hosts= > 1 (multi-host striping) is not ported yet",
               file=sys.stderr)
         return 1
+    if k > 31:
+        # a k-mer is one 64-bit word: BBDuk takes k <= 31 and emulates
+        # longer k-mers with kbig= (not ported)
+        print(f"bbduk: k={k} is above the limit of k <= 31; longer k-mers "
+              f"(kbig=) are not supported", file=sys.stderr)
+        return 1
 
     seqs: List[bytes] = []
     names: List[str] = []

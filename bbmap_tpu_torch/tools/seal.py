@@ -516,13 +516,20 @@ def main(argv: List[str]) -> int:
                 if chunk2:
                     wfq(outu2_fh or outu_fh, chunk2[i])
 
+    odd = 0
     if in2:
         it1 = batched(fastx.read_seqs(in1), 8192)
         it2 = batched(fastx.read_seqs(in2), 8192)
         for chunk1, chunk2 in zip(it1, it2):
             route(chunk1, chunk2)
     elif interleaved:
+        # chunks of an even size: only the last can leave a mate alone
+        n_read = 0
         for chunk in batched(fastx.read_seqs(in1), 16384):
+            n_read += len(chunk)
+            if len(chunk) % 2:
+                odd = n_read
+                break
             route(chunk[0::2], chunk[1::2])
     else:
         for chunk in batched(fastx.read_seqs(in1), 8192):
@@ -533,6 +540,10 @@ def main(argv: List[str]) -> int:
     for fh in (outm_fh, outm2_fh, outu_fh, outu2_fh):
         if fh is not None:
             fh.close()
+    if odd:
+        print(f"seal: interleaved=t takes reads in pairs, but {in1} holds "
+              f"an odd number of reads ({odd})", file=sys.stderr)
+        return 1
     if stats:
         seal.write_stats(stats, in1, in2, columns=columns,
                          nonzero_only=nzo)

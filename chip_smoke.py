@@ -10,7 +10,8 @@ Phases, each timed on its own line:
 1. device facts: the card's name and power limit;
 2. build: one nvcc for each source in ``bbmap_tpu_torch/csrc/``
    (``msa_dp.cu``, ``msa_dp_warp.cu``, ``msa_dp_band.cu``,
-   ``msa_walk.cu``), all started together, into ``build/torch_kernels/``
+   ``msa_walk.cu``, ``msa_fill_walk.cu``), all started together, into
+   ``build/torch_kernels/``
    (a source whose library is there is skipped); ``cuobjdump -sass`` of the libraries gives each
    kernel's instructions a cell (the main loop's length over the cells
    one pass of it evaluates), and the least of them among a function's
@@ -27,7 +28,8 @@ Phases, each timed on its own line:
    (8,191, 8,192), per-job rows below R among them; K1 on its own
    operands at (150, 174) in both mappings; and the walk kernel at 8,192
    x (150, 174) bounded to 190 steps, at (150, 606) full length, and at
-   (6,000, 6,456) over the row-major and over the wave-major block, on
+   (6,000, 6,456) over the row-major and over the wave-major block (its
+   timed shape, the long-read path's), on
    the last 16 jobs of 64-job fills whose prev codes pass 2**31 bytes in
    either layout, from the fill's own columns and states and from
    shifted ones, so that cut walks are among them; kernel, plain and
@@ -36,14 +38,23 @@ Phases, each timed on its own line:
    sweep that ``msa_kernels.WARP_MIN_JOBS`` is chosen from), the band
    mapping over rows a lane and the job count beside the strided mapping
    (``BAND_MIN_WARPS``) and beside the one-row mapping between 320 and
-   1,023 rows (``BAND_MID_MIN_ROWS`` / ``BAND_MID_MIN_JOBS``);
+   1,023 rows (``BAND_MID_MIN_ROWS`` / ``BAND_MID_MIN_JOBS``); the fused
+   fill + walk (``msa_fill_walk``) with a byte and with four bits a cell
+   and by its default route against ``msa_fill_walk_plain`` at the fused
+   program's two launches, 8,192 x (150, 174) bounded to 190 steps and
+   64 x (150, 606) full length, with walks cut, and at 64 x (320, 344)
+   and 64 x (645, 669) (the widest block the route gives, 672 threads),
+   SHORT and PACBIO, timed beside K3 + the walk kernel on the same jobs,
+   and swept over the job count; its registers a thread read with
+   ``cuobjdump -res-usage`` (a block of 1,024 threads must fit);
 4. K1 entry point: ``msa_kernels.score_batch`` on 32,768 jobs, counted;
 5. main path: the bench workload (4.6 Mbp genome with repeat families,
    k=13 index, 2x150 bp pairs with quality, 32,768 pairs a batch) through ``BBMapAligner.map_pairs_columnar`` (one warmup
    batch) and ``map_pairs_columnar_stream`` (3 steady batches), graded
    against the simulated origins; fails below sensitivity 0.997, mapped
-   fraction 0.999 or pair rate 0.997, or when K2, K3 or the walk kernel
-   was never launched; the quality offsets are computed on the card;
+   fraction 0.999 or pair rate 0.997, when K2 or the fused fill + walk
+   was never launched, or when a fill or a walk took the two-kernel route;
+   the quality offsets are computed on the card;
 6. SAM: ``emit_sam`` on the first 1,000 pairs;
 7. long reads: 400 PacBio-model reads of 6 kbp at 12 % error on the same
    genome (``randomreads pacbio=t``) through the port's ``mappacbio``
@@ -70,14 +81,22 @@ Phases, each timed on its own line:
    in the scan and ladder counters.
 
 Each path's launch counts (and the tools' device scan and ladder
-counters) are set to 0 just before it and read just after. Any failure raises and exits non-zero without the final ``ok``
-line. It exits 2 when no CUDA device is available or when it is not run
+counters) are set to 0 just before it and read just after; the
+``kernels`` line gives each kernel's launches on each path and, as
+``launches``, on the path whose shape it is timed at. Any failure raises
+and exits non-zero without the final ``ok`` line. It exits 2 when no CUDA device is available or when it is not run
 from a checkout of the repository.
 
 ``python3 chip_smoke.py --profile`` runs no check: it prints where the
 time goes (one short-read batch under torch.profiler, 32 long reads under
 cProfile and under torch.profiler, one chunk of bbduk, of seal and of
 each bbmerge mode under torch.profiler) and no ``ok`` line.
+
+``python3 chip_smoke.py --paired <dir>`` runs the main path and the long
+reads of the checkout in <dir> (the parent commit, unpacked with ``git
+archive``) and of this tree, each in a process of its own, in the order
+parent, change, change, parent, and prints one line a run: reads/s,
+accuracy, stage times and launches of each, no ``ok`` line.
 """
 
 from __future__ import annotations
@@ -104,10 +123,14 @@ K1_JOBS = 32768
 _K1, _K2, _K3 = ("bbmap_tpu/ops/msa_pallas.py:243",
                  "bbmap_tpu/ops/msa_pallas.py:577",
                  "bbmap_tpu/ops/msa_pallas.py:588")
+_WALK = "bbmap_tpu/ops/msa_jax.py:451"
+# the fused fill + walk's variants (ops/msa_kernels.FILL_WALK_VARIANTS)
+FILL_WALK = {v: f"msa_fill_walk_{v}" for v in ("row", "row_packed")}
 REPLACES = {"msa_score_rows": _K1, "msa_score": _K2, "msa_score_row": _K2,
             "msa_score_long": _K2, "msa_score_strided": _K2,
             "msa_fill": _K3, "msa_fill_long": _K3, "msa_fill_strided": _K3,
-            "msa_walk": "bbmap_tpu/ops/msa_jax.py:451"}
+            "msa_walk": _WALK,
+            **{n: f"{_K3} + {_WALK}" for n in FILL_WALK.values()}}
 CSRC = "bbmap_tpu_torch/csrc/"
 SOURCE = {"msa_score_rows": CSRC + "msa_dp_warp.cu",
           "msa_score": CSRC + "msa_dp_warp.cu",
@@ -117,7 +140,8 @@ SOURCE = {"msa_score_rows": CSRC + "msa_dp_warp.cu",
           "msa_fill_long": CSRC + "msa_dp_band.cu",
           "msa_score_strided": CSRC + "msa_dp.cu",
           "msa_fill_strided": CSRC + "msa_dp.cu",
-          "msa_walk": CSRC + "msa_walk.cu"}
+          "msa_walk": CSRC + "msa_walk.cu",
+          **{n: CSRC + "msa_fill_walk.cu" for n in FILL_WALK.values()}}
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 # Each of an SM's four schedulers starts one warp instruction (32 lanes) a
 # clock. The kernels' integer work spreads over the ALU and the FMA pipes
@@ -148,6 +172,19 @@ PAST_32_BITS = 2 ** 31          # bytes a 64-job block of prev codes passes
 # is held to one bound
 FUNCTION = {v: w for (w, _), v in VARIANT.items()}
 FUNCTION["msa_walk"] = "msa_walk"
+FUNCTION.update(dict.fromkeys(FILL_WALK.values(), "msa_fill_walk"))
+# the fused program's two fill + walk launches: (jobs, R, C, steps) of the
+# T fill at Cn, bounded to Cn + 16 steps, and of the RT retry at Cw, full
+# length; the job counts the variants are swept over at both windows
+FW_SHAPES = ((8192, L, L + 24, L + 24 + 16), (64, L, L + 456, 0))
+FW_CUT = (1024, L, L + 24, 120)      # walks cut short: row_end > 0
+# wide reads, full length: 352 threads a block a byte a cell, and the
+# widest block the route gives (672 threads, codes packed)
+FW_WIDE = ((64, 320, 344, 0), (64, 645, 669, 0))
+# the retry's window at a job count where the route packs the codes (a
+# refit or rescue chunk of that size): the packed entry's shape
+FW_PACKED = (1024, L, L + 456, 0)
+FW_SWEEP_JOBS = (64, 256, 1024, 2048, 4096, 8192)
 # the read-preprocessing tools at bench_tools.py's sizes (bench_bbduk,
 # bench_seal, bench_bbmerge), the chunks they are fed in, and the reads or
 # pairs each CLI runs on twice (card, then CPU), in the tools' own batches
@@ -312,6 +349,21 @@ def sass_counts(lib_path) -> dict:
     return out
 
 
+def res_usage(lib_path) -> dict:
+    """``cuobjdump -res-usage`` of a built library: {mangled kernel name:
+    (registers a thread, stack bytes, local bytes)}."""
+    import re
+    from bbmap_tpu_torch.ops import _build
+    tool = Path(_build.nvcc_path()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-res-usage", str(lib_path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    return {m.group(1): tuple(int(m.group(i)) for i in (2, 3, 4))
+            for m in re.finditer(r"Function (\S+?):?\s+REG:(\d+)\s+"
+                                 r"STACK:(\d+)\s+SHARED:\d+\s+LOCAL:(\d+)",
+                                 text)}
+
+
 def kernel_instructions() -> dict:
     """Instructions a DP cell (or a walk step) for each kernel variant
     the paths launch, from the built libraries' SASS: the main loop's
@@ -364,6 +416,22 @@ def kernel_instructions() -> dict:
                 FUNCTION[key] = name
     tot, loop = pick(walk, "msa_walk_kernel")
     out["msa_walk"] = {"sass": tot, "loop": loop, "per_cell": loop}
+    # the fused fill + walk: its sweep loop a cell (the walk's loop is the
+    # shorter one)
+    fw_lib = _build.library_path("msa_fill_walk")
+    fw = sass_counts(fw_lib)
+    use = res_usage(fw_lib)
+    for v, name in FILL_WALK.items():
+        packed = f"Lb{int(v.endswith('_packed'))}"
+        tot, loop = pick(fw, "msa_fill_walk_row_kernel", packed)
+        out[name] = {"sass": tot, "loop": loop, "per_cell": loop}
+        # a block of up to 1,024 threads must find its registers on an SM
+        regs, stack, local = pick(use, "msa_fill_walk_row_kernel", packed)
+        say(f"resources {name}: {regs} registers a thread, stack {stack} "
+            f"B, local {local} B")
+        if regs * mk.MAX_THREADS > 65536:
+            raise AssertionError(f"{name}: {regs} registers a thread do "
+                                 f"not fit a block of {mk.MAX_THREADS}")
     for name, v in out.items():
         v["function_per_cell"] = min(w["per_cell"] for n, w in out.items()
                                      if FUNCTION[n] == FUNCTION[name])
@@ -643,13 +711,11 @@ def kernel_phase(genome, device) -> dict:
     cmp_fill("short narrow, 8,192 jobs", S, job, p=p, mapping="warp")
     steps = L + 24 + 16
     (col0, st0), shifted = walk_starts(k[0], L + 24, 32)
-    kw, pw = timed("msa_walk",
-                  lambda: mk.msa_walk(k[1], rd, rf, col0, st0, L, L + 24,
-                                      steps),
-                  lambda: mk.msa_walk_plain(k[1], rd, rf, col0, st0, L,
-                                            L + 24, steps), 10)
-    ms_b, by = walk_bound(float(kw[1].sum()), len(rw), steps)
-    out["msa_walk"].update(bound_ms=ms_b, bound_by=by)
+    # short walks run in the fused kernel on every path; the walk kernel
+    # is held to its plain version here and timed at the long reads' shape
+    kw = mk.msa_walk(k[1], rd, rf, col0, st0, L, L + 24, steps)
+    pw = mk.msa_walk_plain(k[1], rd, rf, col0, st0, L, L + 24, steps)
+    _sync(device)
     record("msa_walk", "short narrow, bounded, the kernel's prev codes",
            len(rw), L, L + 24,
            max(int((a.long() - b.long()).abs().max())
@@ -732,12 +798,14 @@ def kernel_phase(genome, device) -> dict:
     cmp_fill("pacbio long read", PB, job, k, p)
     cmp_fill("pacbio long read", PB, job, p=p, mapping="strided")
     (col0, st0), shifted = walk_starts(k[0], Cl, 33)
+    # the walk kernel's entry: the long-read path's walk, full length
     ms_l, kw = _cuda_ms(lambda: mk.msa_walk(k[1], rd, rf, col0, st0, L_LONG,
                                             Cl, 0, k[2]), 2)
+    plain_ms, pw = _cuda_ms(lambda: mk.msa_walk_plain(
+        p[1], rd, rf, col0, st0, L_LONG, Cl), 1, warm=False)
     ms_b, by = walk_bound(float(kw[1].sum()), len(rw), L_LONG + Cl)
-    extra["msa_walk long"] = (len(rw), L_LONG, Cl, ms_l, ms_b)
-    pw = mk.msa_walk_plain(p[1], rd, rf, col0, st0, L_LONG, Cl)
-    _sync(device)
+    out["msa_walk"] = {"ms": ms_l, "plain_ms": plain_ms, "library_ms": None,
+                       "bound_ms": ms_b, "bound_by": by}
     record("msa_walk", "pacbio long read, full length, the band fill's "
            "row-major block against the plain fill's wave-major block",
            n16, L_LONG, Cl, max(int((a.long() - b.long()).abs().max())
@@ -817,7 +885,7 @@ def kernel_phase(genome, device) -> dict:
               "msa_score_row": "128 x (150, 606)",
               "msa_score_rows": "32,768 x (150, 174)",
               "msa_fill": "8,192 x (150, 174)",
-              "msa_walk": "8,192 x (150, 174), 190 steps",
+              "msa_walk": "16 x (6,000, 6,456) PACBIO, full length",
               "msa_score_long": "256 x (6,000, 6,456) PACBIO",
               "msa_fill_long": "16 x (6,000, 6,456) PACBIO"}
     shapes.update({k.replace("_long", "_strided"): v
@@ -838,11 +906,130 @@ def kernel_phase(genome, device) -> dict:
             f"the bound reached; bound at {t['function_per_cell']:.1f} "
             f"instructions a cell, this kernel {t['per_cell']:.1f})")
     for tag, (n, R, C, a, b2) in extra.items():
-        first, second = ("kernel", "bound") if tag == "msa_walk long" \
-            else ("warp mapping", "one-row mapping")
-        say(f"time {tag}: {n} x ({R}, {C}): {first} {a:.3f} ms, "
-            f"{second} {b2:.4f} ms")
+        say(f"time {tag}: {n} x ({R}, {C}): warp mapping {a:.3f} ms, "
+            f"one-row mapping {b2:.4f} ms")
+    out.update(fill_walk_phase(genome, device, instr, clock))
     return out
+
+
+def fill_walk_phase(genome, device, instr: dict, clock: float) -> dict:
+    """The fused fill + walk (``csrc/msa_fill_walk.cu``) on the card. Both
+    packings where they hold the job, and the default route, against
+    ``msa_fill_walk_plain`` on all five outputs, tolerance 0, at the
+    fused program's two launches (``FW_SHAPES``), with walks cut at 120
+    steps (``FW_CUT``) and at wide reads (``FW_WIDE``), SHORT and PACBIO
+    profiles, a quarter of the jobs with rows below R; then each
+    packing's time at both shapes and at ``FW_PACKED`` beside the
+    two-kernel route it replaces there (K3 in ``launch_shape``'s mapping
+    + the walk kernel) and beside its bound, and the sweep of the
+    packings over the job count at both windows (what
+    ``fill_walk_shape``'s rule rests on). Returns the ``kernels`` line's
+    entries, one a packing, each timed at the first shape whose default
+    it is: {max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms,
+    pair_ms, shape}."""
+    from bbmap_tpu_torch.core.constants import PACBIO_PROFILE, SHORT_PROFILE
+    from bbmap_tpu_torch.ops import msa_kernels as mk
+
+    S = SHORT_PROFILE
+    err = dict.fromkeys(mk.FILL_WALK_VARIANTS, 0)
+
+    def max_err(got, want) -> int:
+        return max(int((a.long() - b.long()).abs().max())
+                   for a, b in zip(got, want))
+
+    def holds(R, C, v) -> bool:
+        try:
+            return mk.fill_walk_shape(R, C, None, v) is not None
+        except ValueError:
+            return False
+
+    for (n, R, C, steps), seed in zip((*FW_SHAPES, FW_CUT, *FW_WIDE),
+                                      (61, 62, 66, 67, 68)):
+        for pname, P in (("short", S), ("pacbio", PACBIO_PROFILE)):
+            job = dp_jobs(genome, n, R, C, seed, device)
+            want = mk.msa_fill_walk_plain(*job, P, steps)
+            cut = int((want[4] > 0).sum())
+            if steps == FW_CUT[3] and not cut:
+                raise AssertionError(f"no walk was cut at {steps} steps")
+            shape = mk.fill_walk_shape(R, C, n)
+            forced = [v for v in mk.FILL_WALK_VARIANTS if holds(R, C, v)]
+            for v in (*forced, None):
+                got = mk.msa_fill_walk(*job, P, steps, v)
+                _sync(device)
+                e = max_err(got, want)
+                name = v or shape.variant
+                err[name] = max(err[name], e)
+                say(f"kernel {FILL_WALK[name]} {pname}: {n} jobs (R, C) = "
+                    f"({R}, {C}), {shape.threads} threads a block, steps "
+                    f"{steps or R + C}: max_abs_err {e} (out, symbols, "
+                    f"out_len, gaps, row_end; {cut} walks cut"
+                    f"{'; the default route' if v is None else ''})")
+                if e != 0:
+                    raise AssertionError(f"{FILL_WALK[name]} disagrees with "
+                                         f"msa_fill_walk_plain")
+            del job, want, got
+
+    def two_kernels(rd, rf, rw, steps):
+        o, prevs, lay = mk.msa_fill(rd, rf, rw, S)
+        return mk.msa_walk(prevs, rd, rf, o[1], o[2], rd.shape[1],
+                           rf.shape[1], steps, lay)
+
+    res = {}
+    for (n, R, C, steps), seed in zip((*FW_SHAPES, FW_PACKED),
+                                      (63, 64, 69)):
+        job = rd, rf, rw = dp_jobs(genome, n, R, C, seed, device,
+                                   var_rows=False)
+        tag = f"{n:,} x ({R}, {C}), {steps or R + C} steps"
+        pair = _cuda_ms(lambda: two_kernels(rd, rf, rw, steps), 10)[0]
+        plain_ms, want = _cuda_ms(
+            lambda: mk.msa_fill_walk_plain(rd, rf, rw, S, steps), 1,
+            warm=False)
+        cells = float(((rw.double() + 1) * (C + 1)).sum())
+        walked = float(want[2].sum())
+        n_bytes = rd.numel() + rf.numel() + 4 * n + 12 * n \
+            + n * (steps or R + C) + 12 * n
+        bound, by = bound_ms(
+            n_bytes, cells * instr["msa_fill"]["function_per_cell"]
+            + walked * instr["msa_walk"]["function_per_cell"], clock)
+        default = mk.fill_walk_shape(R, C, n).variant
+        for v in mk.FILL_WALK_VARIANTS:
+            ms, got = _cuda_ms(lambda: mk.msa_fill_walk(rd, rf, rw, S, steps,
+                                                        v), 10)
+            if max_err(got, want):
+                raise AssertionError(f"{FILL_WALK[v]} disagrees with "
+                                     f"msa_fill_walk_plain ({tag})")
+            name = FILL_WALK[v]
+            if v == default and name not in res:
+                res[name] = {"ms": ms, "plain_ms": plain_ms,
+                             "bound_ms": bound, "bound_by": by,
+                             "library_ms": None, "pair_ms": pair,
+                             "shape": tag, "max_abs_err": err[v]}
+            mark = "; the default" if v == default else ""
+            say(f"time {name} at {tag}: kernel {ms:.3f} ms, K3 "
+                f"({mk.launch_shape(R, C, jobs=n, fill=True).mapping}) + "
+                f"walk {pair:.3f} ms, plain {plain_ms:.3f} ms, bound "
+                f"{bound:.4f} ms by {by} ({100 * bound / ms:.1f} % of the "
+                f"bound reached; {instr[name]['per_cell']:.1f} instructions"
+                f" a cell in the sweep){mark}")
+        del job, want, got
+    if set(res) != set(FILL_WALK.values()):
+        raise AssertionError(f"a packing is the default at no shape timed: "
+                             f"{sorted(res)}")
+    for _, R, C, steps in FW_SHAPES:
+        big = dp_jobs(genome, max(FW_SWEEP_JOBS), R, C, 65, device,
+                      var_rows=False)
+        for n in FW_SWEEP_JOBS:
+            a = tuple(x[:n] for x in big)
+            cols = ["%s %.4f" % (v, _cuda_ms(
+                lambda: mk.msa_fill_walk(*a, S, steps, v), 5)[0])
+                for v in mk.FILL_WALK_VARIANTS]
+            pair = _cuda_ms(lambda: two_kernels(*a, steps), 5)[0]
+            say(f"sweep msa_fill_walk {n} x ({R}, {C}), steps "
+                f"{steps or R + C}: {', '.join(cols)} ms; K3 + walk "
+                f"{pair:.4f} ms; default "
+                f"{mk.fill_walk_shape(R, C, n).variant}")
+        del big
+    return res
 
 
 def k1_entry(genome, device) -> int:
@@ -889,12 +1076,15 @@ def grade(aligner, graded, t1, t2, n_pairs: int) -> dict:
 def launch_counts() -> dict:
     """Each kernel wrapper's launches since the last reset; a DP
     kernel's by mapping as well: "<name>_warp", "<name>_row",
-    "<name>_band" and "<name>_strided"."""
+    "<name>_band" and "<name>_strided", and the fused fill + walk's by
+    variant ("msa_fill_walk_<variant>")."""
     from bbmap_tpu_torch.ops import msa_kernels
     out = {k.__name__: k.launches for k in msa_kernels.KERNELS}
     for k in msa_kernels.DP_KERNELS:
         for mapping in msa_kernels.MAPPINGS:
             out[f"{k.__name__}_{mapping}"] = k.launches_by[mapping]
+    for v, n in msa_kernels.msa_fill_walk.launches_by.items():
+        out[FILL_WALK[v]] = n
     return out
 
 
@@ -989,9 +1179,12 @@ def main_path(device, n_pairs: int = N_PAIRS, n_steady: int = N_STEADY,
                 f"accuracy below the bar (sensitivity >= {SENS_MIN}, "
                 f"mapped >= {MAPPED_MIN}, pair rate >= {PAIR_MIN})")
         if not (launches["msa_score_warp"] and launches["msa_score_row"]
-                and launches["msa_fill_row"] and launches["msa_walk"]):
+                and launches["msa_fill_walk"]):
             raise AssertionError(f"a kernel of the path never launched: "
                                  f"{launches}")
+        if launches["msa_fill"] or launches["msa_walk"]:
+            raise AssertionError(f"a short fill or walk left the fused "
+                                 f"kernel: {launches}")
     return res, (mk(r1, q1, 0), mk(r2, q2, 0), out0, aligner)
 
 
@@ -1636,6 +1829,45 @@ def tools_profile(device) -> None:
         _device_profile(fn, tag, 1e3 * (time.time() - t0))
 
 
+_PAIRED_RUN = """
+import json, sys, torch
+sys.path.insert(0, '.')
+import chip_smoke as cs
+from bbmap_tpu_torch import workload
+from bbmap_tpu_torch.ops import _build
+_build.build_all()
+dev = torch.device('cuda', 0)
+g = workload.make_genome()
+r, _ = cs.main_path(dev, genome_bases=g)
+lr = cs.long_phase(dev, g)
+keep = ('reads_per_s', 'sensitivity', 'mapped_fraction', 'pair_rate',
+        'stages', 'launches', 'max_memory_allocated')
+print('PAIRED ' + json.dumps({'short': {k: r[k] for k in keep}, 'long': {
+    k: lr[k] for k in ('map_s', 'reads_per_s', 'mapped_fraction',
+                       'strict_correct')}}))
+"""
+
+
+def paired(parent: str) -> int:
+    """``--paired <dir>``: the short-read main path and the long reads of
+    the tree in <dir> (a checkout of another commit, the parent) and of
+    this tree, each in a process of its own on the same card, in the order
+    parent, change, change, parent; one line a run, no ``ok`` line. Each
+    tree runs its own ``chip_smoke.main_path`` and ``long_phase``."""
+    for tag, tree in (("parent", parent), ("change", str(ROOT)),
+                      ("change", str(ROOT)), ("parent", parent)):
+        t = time.time()
+        p = subprocess.run([sys.executable, "-c", _PAIRED_RUN], cwd=tree,
+                           capture_output=True, text=True, timeout=1200)
+        got = [ln[7:] for ln in p.stdout.splitlines()
+               if ln.startswith("PAIRED ")]
+        if p.returncode != 0 or not got:
+            say(p.stdout[-3000:] + p.stderr[-3000:])
+            raise AssertionError(f"the {tag} run failed ({tree})")
+        say(f"paired {tag} ({time.time() - t:.1f} s): {got[0]}")
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -1669,6 +1901,9 @@ def main() -> int:
         _build.load(name)
     say(f"phase build: {time.time() - t:.2f} s "
         f"({', '.join(p.name for p in libs)})")
+
+    if "--paired" in sys.argv[1:]:
+        return paired(sys.argv[sys.argv.index("--paired") + 1])
 
     from bbmap_tpu_torch import workload
     t = time.time()
@@ -1722,33 +1957,41 @@ def main() -> int:
                      if m.split(".")[0] in ("jax", "jaxlib", "bbmap_tpu"))
     if foreign:
         raise AssertionError(f"the JAX package was imported: {foreign[:5]}")
-    # main-path launches; the band kernels run on the long-read path
-    # only, K1 at its own entry point, and the strided kernels, which the
-    # band kernels replaced, on no path (mapping= only)
-    launches = {"msa_score_rows": k1_launches,
-                "msa_score": res["launches"]["msa_score_warp"],
-                "msa_score_row": res["launches"]["msa_score_row"],
-                "msa_fill": res["launches"]["msa_fill_row"],
-                "msa_walk": res["launches"]["msa_walk"],
-                "msa_score_long": lres["launches"]["msa_score_band"],
-                "msa_fill_long": lres["launches"]["msa_fill_band"],
-                "msa_score_strided": lres["launches"]["msa_score_strided"]
-                + res["launches"]["msa_score_strided"],
-                "msa_fill_strided": lres["launches"]["msa_fill_strided"]
-                + res["launches"]["msa_fill_strided"]}
-    say(f"walk kernel launches: main path {res['launches']['msa_walk']}, "
-        f"long reads {lres['launches']['msa_walk']}")
+    # launches on each path, each counted from 0 over that path's run:
+    # K1 at its own entry point, the short-read path ("main"), the
+    # long-read path ("long"); "launches" is the count on the path whose
+    # shape the entry is timed at: the band kernels and the walk kernel
+    # (short fills and walks take the fused kernel) on the long-read path,
+    # K1 at its entry point, the rest on the main path; the strided
+    # kernels, which the band kernels replaced, run on no path
+    counted = {"msa_score_rows": "msa_score_rows_warp",
+               "msa_score": "msa_score_warp", "msa_score_row": "msa_score_row",
+               "msa_fill": "msa_fill_row", "msa_walk": "msa_walk",
+               **{n: n for n in FILL_WALK.values()},
+               "msa_score_long": "msa_score_band",
+               "msa_fill_long": "msa_fill_band",
+               "msa_score_strided": "msa_score_strided",
+               "msa_fill_strided": "msa_fill_strided"}
+    home = {"msa_score_rows": "k1_entry", "msa_walk": "long",
+            "msa_score_long": "long", "msa_fill_long": "long",
+            "msa_score_strided": "long", "msa_fill_strided": "long"}
     kernels = []
-    for name, n in launches.items():
+    for name, key in counted.items():
         kt = ktimes[name]
+        by_path = {"k1_entry": k1_launches if name == "msa_score_rows"
+                   else 0, "main": res["launches"][key],
+                   "long": lres["launches"][key]}
         kernels.append({"name": name, "route": "cuda",
                         "source": SOURCE[name],
                         "replaces": REPLACES[name],
-                        "launches": n, "max_abs_err": kt["max_abs_err"],
+                        "launches": by_path[home.get(name, "main")],
+                        "launches_by_path": by_path,
+                        "max_abs_err": kt["max_abs_err"],
                         "ms": kt["ms"], "plain_ms": kt["plain_ms"],
                         "bound_ms": kt["bound_ms"],
                         "bound_by": kt["bound_by"],
                         "library_ms": kt["library_ms"]})
+        say(f"launches {name}: {by_path}")
     print(json.dumps({"tools": [
         {"tool": "bbduk", "reads": duk["reads"],
          "reads_per_s": duk["reads_per_s"],

@@ -180,9 +180,15 @@ def test_align_batch_matches_jax(prof):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
-def walk_kernel_emulation(prevs, reads, refs, col0, st0, R, C, steps):
+def walk_kernel_emulation(prevs, reads, refs, col0, st0, R, C, steps,
+                          code_at=None):
     """The per-job loop of csrc/msa_walk.cu in scalar Python: lane 0
-    walks until row 0 or ``steps`` symbols, the warp zeroes the tail."""
+    walks until row 0 or ``steps`` symbols, the warp zeroes the tail.
+    ``code_at(b, row, col)`` reads a cell's code (default: from the
+    wave-major block ``prevs``)."""
+    if code_at is None:
+        def code_at(b, row, col):
+            return int(prevs[b, min(row + col - 1, R + C - 1), row])
     B = len(col0)
     n_max = steps if steps else R + C
     syms = np.full((B, n_max), 0xEE, np.uint8)
@@ -192,8 +198,7 @@ def walk_kernel_emulation(prevs, reads, refs, col0, st0, R, C, steps):
         row, col, st, gaps, n = R, int(col0[b]), int(st0[b]), 0, 0
         while n < n_max and row > 0:
             if col > 0:
-                di = min(row + col - 1, R + C - 1)
-                prev = (int(prevs[b, di, row]) >> (2 * st)) & 3
+                prev = (code_at(b, row, min(col, C)) >> (2 * st)) & 3
                 c_, r_ = int(reads[b, row - 1]), int(refs[b, min(col - 1,
                                                                  C - 1)])
                 if st == 0:
@@ -228,8 +233,9 @@ def test_walk_matches_walk_device(steps):
     rows = np.full(B, R, np.int32)
     out, prevs, _lay = msa_kernels.msa_fill(t(reads), t(refs), t(rows),
                                             SHORT_PROFILE)
-    sym, ln, gaps, row = msa.walk(prevs, t(reads), t(refs), out[1], out[2],
-                                  R, C, steps=steps)
+    sym, ln, gaps, row = msa_kernels.msa_walk(prevs, t(reads), t(refs),
+                                              out[1], out[2], R, C,
+                                              steps=steps)
     pv = jnp.asarray(prevs.numpy())
     js = jax.vmap(lambda p, rd, rf, c0, s0: msa_jax._walk_device(
         p, rd, rf, c0, s0, R, C, steps=steps))(

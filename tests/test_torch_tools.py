@@ -7,7 +7,10 @@ the same report on stderr once its ``Time:`` line is dropped: bbduk
 (ktrim=r / l with short tip k-mers and hdist, kmask, filter, qtrim,
 paired tbo=t), bbduk2 with four sets, seal (stats / rpkm / refstats /
 pattern, paired) and bbmerge (ratio mode and the mismatch mode's
-QUAL_ITERS ladder). ``hosts=2`` exits 1 in each tool that has it."""
+QUAL_ITERS ladder). ``hosts=2`` exits 1 in each tool that has it. Two
+documented deviations from the JAX tools, which crash there: bbduk with
+k > 31 and seal with ``interleaved=t`` over an odd number of reads exit
+1 with a message."""
 
 import sys
 
@@ -230,6 +233,51 @@ def test_hosts_not_ported(corpus, tmp_path, monkeypatch, capsys, tool):
     assert _port(monkeypatch, tool, args + ["hosts=2"]) == 1
     assert "hosts=" in capsys.readouterr().err
     assert not list(tmp_path.iterdir())
+
+
+@pytest.mark.parametrize("k, adapters", [(40, "adapters.fa"),
+                                         (32, "long.fa")])
+def test_bbduk_k_above_31_exits(corpus, tmp_path, monkeypatch, capsys, k,
+                                adapters):
+    """Documented deviation: k > 31 exits 1 with a message naming the
+    limit and kbig=, before the set is built, whether the set would be
+    empty (k = 40 over 34 bp adapters) or not (k = 32 over an adapter of
+    60 bp). The JAX tool raises OverflowError at
+    bbmap_tpu/index/build.py:86 in both cases."""
+    (corpus / "long.fa").write_bytes(b">long\n" + TRUSEQ + TRUSEQ[:26]
+                                     + b"\n")
+    args = [f"in={corpus}/reads.fq", f"out={tmp_path}/o.fq",
+            f"ref={corpus}/{adapters}", f"k={k}", "hdist=0"]
+    assert _port(monkeypatch, "bbduk", args) == 1
+    err = capsys.readouterr().err
+    assert f"k={k}" in err and "k <= 31" in err and "kbig=" in err
+    assert not list(tmp_path.iterdir())
+    monkeypatch.setenv("BBMAP_DEVICE_KMERS", "1")
+    (tmp_path / "j").mkdir()
+    with pytest.raises(OverflowError):
+        jbbduk.main([a.replace(str(tmp_path), str(tmp_path / "j"))
+                     for a in args])
+
+
+def test_seal_interleaved_odd_count_exits(corpus, tmp_path, monkeypatch,
+                                          capsys):
+    """Documented deviation: seal with interleaved=t over a file of an odd
+    number of reads exits 1 with a message naming the count. The JAX tool
+    splits the chunk into unequal mate lists
+    (bbmap_tpu/tools/seal.py:563-566) and crashes."""
+    lines = (corpus / "seal1.fq").read_bytes().splitlines(keepends=True)
+    odd = tmp_path / "odd.fq"
+    odd.write_bytes(b"".join(lines[:4 * 101]))
+    args = [f"in={odd}", f"ref={corpus}/refA.fa", "interleaved=t",
+            f"outm={tmp_path}/m.fq", f"stats={tmp_path}/s.txt"]
+    assert _port(monkeypatch, "seal", args) == 1
+    err = capsys.readouterr().err
+    assert "odd number of reads (101)" in err and "interleaved=t" in err
+    assert not (tmp_path / "s.txt").exists()
+    monkeypatch.setenv("BBMAP_DEVICE_KMERS", "1")
+    with pytest.raises(Exception):
+        jseal.main([a.replace("m.fq", "jm.fq").replace("s.txt", "js.txt")
+                    for a in args])
 
 
 def test_dispatcher_lists_the_tools(monkeypatch, capsys):
