@@ -9,8 +9,9 @@ selection rules are the JAX program's:
 2. escalate flags: best gapless < maxImperfectScore (reference:
    align2/AbstractMapThread.java:1252)
 3. compact escalated rows to a budget E; DP-score the top-2 candidates
-   of each with the score kernel (ops/msa_kernels.msa_score) at the
-   narrow window Cn, and re-score wide chains at Cw (budget W)
+   of each at the narrow window Cn, and re-score wide chains at Cw
+   (budget W): both passes in one launch of the score kernel
+   (ops/msa_kernels.msa_score_segments)
 4. selection: eff = max(gapless, DP), winner/second/rest, n_sites
 5. rows whose winner DP beat gapless compact to a budget T and run the
    fill + the bounded traceback walk (ops/msa_kernels.msa_fill_walk: one
@@ -335,19 +336,20 @@ def fused_stage(fcfg: FusedConfig, rcodes: torch.Tensor,
     wflat = wstart.reshape(E * 2).to(I32)
     refs_ascii = _window_ascii(dindex, cfg, wflat, Cn)
     rows_j = torch.full((E * 2,), L, dtype=I32, device=dev)
-    sc_dp_flat = msa_kernels.msa_score(reads_ascii, refs_ascii, rows_j,
-                                       P)[0]
 
-    # --- wide-window rescore of chains wider than the narrow window
+    # --- wide-window rescore of chains wider than the narrow window, in
+    # the narrow pass's launch
     W, Cw = fcfg.W, fcfg.Cw
     wide_flat = wide_c.reshape(E * 2)
     wloc = _compact_indices(wide_flat, W)
     w_ok = wloc < BIG
     wl = torch.clamp(wloc, 0, E * 2 - 1).long()
     wrefs = _window_ascii(dindex, cfg, wflat[wl], Cw)
-    wsc = msa_kernels.msa_score(
-        reads_ascii[wl].contiguous(), wrefs,
-        torch.full((W,), L, dtype=I32, device=dev), P)[0]
+    sc_narrow, sc_wide = msa_kernels.msa_score_segments(
+        [(reads_ascii, refs_ascii, rows_j),
+         (reads_ascii[wl].contiguous(), wrefs,
+          torch.full((W,), L, dtype=I32, device=dev))], P)
+    sc_dp_flat, wsc = sc_narrow[0], sc_wide[0]
     wl_s = torch.where(w_ok, wl, E * 2)
     sc_dp_flat = _scatter_trash(sc_dp_flat, wl_s, wsc)
     covered = _scatter_trash(torch.zeros(E * 2, dtype=torch.bool,

@@ -3,9 +3,10 @@
 // traceback walk (walk_job). Included by msa_dp.cu (one row per thread;
 // rows strided over the block), msa_dp_warp.cu (a warp a job),
 // msa_dp_band.cu (a warp a band of rows), msa_walk.cu (the walk over a
-// block of prev codes in device memory) and msa_fill_walk.cu (fill and
-// walk of short jobs, the codes in shared memory), so every mapping
-// evaluates the same cell and every walk takes the same steps.
+// block of prev codes in device memory, staged tile by tile in shared
+// memory) and msa_fill_walk.cu (fill and walk of short jobs, the codes in
+// shared memory), so every mapping evaluates the same cell and every walk
+// takes the same steps (walk_step).
 
 #pragma once
 
@@ -292,6 +293,31 @@ struct WalkEnd {
   int row;    // the row the walk ended on
 };
 
+// The symbol of a step from (row, col), col > 0, in state st: c_ is the
+// read's character row - 1, r_ the window's min(col, C) - 1. MS moves up
+// and left, DEL left, INS up; a DEL step on a '-' column is a gap.
+__device__ __forceinline__ int walk_symbol(int st, int c_, int r_, int col,
+                                           int C) {
+  if (st == MODE_MS)
+    return c_ == r_ ? 'm' : (defined_base(c_) && defined_base(r_) ? 'S' : 'N');
+  if (st == MODE_DEL) return r_ == '-' ? '-' : 'D';
+  return col >= C ? 'Y' : 'I';
+}
+
+// One step from (row, col), col > 0, in state st, code the prev-code byte
+// of cell (row, min(col, C)): the symbol, the move, the predecessor's
+// state from the code, and the gap count.
+__device__ __forceinline__ int walk_step(int code, int c_, int r_, int C,
+                                         int& row, int& col, int& st,
+                                         int& gaps) {
+  const int sym = walk_symbol(st, c_, r_, col, C);
+  gaps += st == MODE_DEL && r_ == '-';
+  row -= st != MODE_DEL;
+  col -= st != MODE_INS;
+  st = (code >> (2 * st)) & 3;
+  return sym;
+}
+
 // code(row, col) is the prev-code byte of cell (row, col), 1 <= row <= R,
 // 1 <= col <= C, wherever the caller keeps it.
 template <class CodeAt>
@@ -304,24 +330,9 @@ __device__ __forceinline__ WalkEnd walk_job(const CodeAt& code,
   for (; n < steps && row > 0; ++n) {
     int sym;
     if (col > 0) {
-      const int prev = (code(row, min(col, C)) >> (2 * st)) & 3;
-      const int c_ = read[row - 1];
-      const int r_ = ref[min(col - 1, C - 1)];
-      if (st == MODE_MS) {
-        sym = c_ == r_ ? 'm'
-                       : (defined_base(c_) && defined_base(r_) ? 'S' : 'N');
-        --row;
-        --col;
-      } else if (st == MODE_DEL) {
-        const bool is_gap = r_ == '-';
-        sym = is_gap ? '-' : 'D';
-        gaps += is_gap;
-        --col;
-      } else {
-        sym = col >= C ? 'Y' : 'I';
-        --row;
-      }
-      st = prev;
+      const int cc = min(col, C);
+      sym = walk_step(code(row, cc), read[row - 1], ref[cc - 1], C, row, col,
+                      st, gaps);
     } else {
       sym = 'X';
       --row;

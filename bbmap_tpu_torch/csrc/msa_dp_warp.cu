@@ -43,8 +43,16 @@
 // sweep wins from 2,048) most warp slots of the card stay empty while each
 // warp runs its long serial sweep, and the fill's
 // scattered byte stores cost more than the sweep saves (8,192 x (150, 174):
-// 5.2 ms against 3.4 ms). Keeping a short job's prev codes in shared memory
-// and walking them there would remove those stores.
+// 5.2 ms against 3.4 ms; short fills now run in msa_fill_walk.cu).
+//
+// Score passes of one R over several windows go in one launch with a
+// segment table (msa_score_segments_warp_launch): the fused program's wide
+// pass, 128 jobs at (150, 606), alone a 0.32 ms one-row launch that left
+// most of the card idle, rides in its narrow pass's launch (32,768 jobs at
+// (150, 174)). The wide jobs take the first blocks, so their sweeps of
+// C + 32 steps start first and end while the narrow jobs keep the card
+// busy; on the H100 above the two passes take 6.60 ms in one launch
+// against 6.84 ms in two (PERF.md).
 
 #include "msa_dp.cuh"
 
@@ -54,20 +62,18 @@ constexpr int kWarpsPerBlock = 4;
 constexpr int kMaxWarpRows = 10;          // J <= 10: R + 1 <= 320
 constexpr unsigned kFullMask = 0xffffffffu;
 
+// One job b of B, swept by the calling warp: out (3, B) or (B, 3) as the
+// operand reader lays it out, and with WANT_PREVS the job's prev codes.
 template <class Ops, bool WANT_PREVS, int J>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-msa_dp_warp_kernel(Ops ops, const int* __restrict__ rows_in,
-                   const int* __restrict__ ins0_col, int B, int R, int C,
-                   Prof P, int* __restrict__ out,
-                   uint8_t* __restrict__ prevs) {
+__device__ __forceinline__ void warp_job(const typename Ops::Job& job, int b,
+                                         int B, int R, int C, int rows,
+                                         const int* __restrict__ ins0_col,
+                                         const Prof& P, int* __restrict__ out,
+                                         uint8_t* __restrict__ prevs) {
   const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (b >= B) return;  // the whole warp leaves together
-  const int rows = rows_in[b];
   const int SM = ~P.TIMEMASK;
   const int BAD = P.BADoff;
   const int Rp1 = R + 1;
-  const typename Ops::Job job = ops.direct(b, R, C);
   const int subfloor = sub_floor(max_gain(rows, P));
   const int r0 = lane * J;
   const size_t pbase = static_cast<size_t>(b) * (R + C) * Rp1;
@@ -139,6 +145,50 @@ msa_dp_warp_kernel(Ops ops, const int* __restrict__ rows_in,
 }
 
 template <class Ops, bool WANT_PREVS, int J>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+msa_dp_warp_kernel(Ops ops, const int* __restrict__ rows_in,
+                   const int* __restrict__ ins0_col, int B, int R, int C,
+                   Prof P, int* __restrict__ out,
+                   uint8_t* __restrict__ prevs) {
+  const int b = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (b >= B) return;  // the whole warp leaves together
+  warp_job<Ops, WANT_PREVS, J>(ops.direct(b, R, C), b, B, R, C, rows_in[b],
+                               ins0_col, P, out, prevs);
+}
+
+// Score passes of one R over several windows in one launch: segment s
+// holds B[s] raw jobs of C[s] columns and its own out (3, B[s]); its jobs
+// take the blocks [block_end[s-1], block_end[s]) of the grid, four a block
+// as above. The per-job code is warp_job's.
+constexpr int kMaxSegments = 4;
+
+struct Segments {
+  const uint8_t* reads[kMaxSegments];
+  const uint8_t* refs[kMaxSegments];
+  const int* rows[kMaxSegments];
+  int* out[kMaxSegments];
+  int B[kMaxSegments];
+  int C[kMaxSegments];
+  int block_end[kMaxSegments];
+  int n;
+};
+
+template <int J>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+msa_score_segments_kernel(Segments S, const int* __restrict__ ins0_col,
+                          int R, Prof P) {
+  int s = 0;
+  while (s + 1 < S.n && static_cast<int>(blockIdx.x) >= S.block_end[s]) ++s;
+  const int first = s ? S.block_end[s - 1] : 0;
+  const int b = (static_cast<int>(blockIdx.x) - first) * kWarpsPerBlock +
+                (threadIdx.x >> 5);
+  if (b >= S.B[s]) return;  // the whole warp leaves together
+  const RawOps ops{S.reads[s], S.refs[s]};
+  warp_job<RawOps, false, J>(ops.direct(b, R, S.C[s]), b, S.B[s], R, S.C[s],
+                             S.rows[s][b], ins0_col, P, S.out[s], nullptr);
+}
+
+template <class Ops, bool WANT_PREVS, int J>
 cudaError_t launch_j(Ops ops, const int* rows, const int* ins0, int B, int R,
                      int C, const Prof& P, int* out, uint8_t* prevs,
                      int threads, cudaStream_t stream) {
@@ -152,15 +202,19 @@ cudaError_t launch_j(Ops ops, const int* rows, const int* ins0, int B, int R,
 // rows_per_lane, threads and smem come from launch_shape in
 // ops/msa_kernels.py; they are checked here against R so that a
 // disagreement never launches.
+bool bad_shape(int R, int rows_per_lane, int threads, int smem) {
+  return R < 0 || rows_per_lane < 1 || rows_per_lane > kMaxWarpRows ||
+         rows_per_lane * 32 < R + 1 || (rows_per_lane - 1) * 32 >= R + 1 ||
+         threads != kWarpsPerBlock * 32 || smem != 0;
+}
+
 template <class Ops, bool WANT_PREVS>
 cudaError_t launch(Ops ops, const int* rows, const int* ins0, int B, int R,
                    int C, const int* prof, int* out, uint8_t* prevs,
                    int rows_per_lane, int threads, int smem,
                    cudaStream_t stream) {
   if (B <= 0) return cudaSuccess;
-  if (R < 0 || C < 0 || rows_per_lane < 1 || rows_per_lane > kMaxWarpRows ||
-      rows_per_lane * 32 < R + 1 || (rows_per_lane - 1) * 32 >= R + 1 ||
-      threads != kWarpsPerBlock * 32 || smem != 0)
+  if (C < 0 || bad_shape(R, rows_per_lane, threads, smem))
     return cudaErrorInvalidValue;
   const Prof P = load_prof(prof);
 #define WARP_CASE(J)                                                        \
@@ -174,6 +228,15 @@ cudaError_t launch(Ops ops, const int* rows, const int* ins0, int B, int R,
       return cudaErrorInvalidValue;
   }
 #undef WARP_CASE
+}
+
+template <int J>
+cudaError_t launch_segments_j(const Segments& S, const int* ins0, int R,
+                              const Prof& P, int blocks,
+                              cudaStream_t stream) {
+  msa_score_segments_kernel<J><<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
+      S, ins0, R, P);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -202,6 +265,49 @@ cudaError_t msa_fill_warp_launch(const uint8_t* reads, const uint8_t* refs,
   return launch<RawOps, true>(RawOps{reads, refs}, rows, ins0, B, R, C, prof,
                               out, prevs, rows_per_lane, threads, smem,
                               stream);
+}
+
+// Score passes of n <= 4 segments that share R, one launch: segment s is
+// reads[s] (B[s], R) uint8, refs[s] (B[s], C[s]) uint8, rows[s] (B[s],)
+// int32 and out[s] (3, B[s]) int32, as msa_score_warp_launch takes one
+// segment; ins0 (R+1,) int32. The grid holds the segments' blocks in the
+// order given. Pointer and size arrays are host memory.
+cudaError_t msa_score_segments_warp_launch(
+    int n, const uint8_t* const* reads, const uint8_t* const* refs,
+    const int* const* rows, int* const* out, const int* B, const int* C,
+    const int* ins0, int R, const int* prof, int rows_per_lane, int threads,
+    int smem, cudaStream_t stream) {
+  if (n < 1 || n > kMaxSegments ||
+      bad_shape(R, rows_per_lane, threads, smem))
+    return cudaErrorInvalidValue;
+  Segments S{};
+  long long blocks = 0;
+  for (int s = 0; s < n; ++s) {
+    if (B[s] < 0 || C[s] < 0) return cudaErrorInvalidValue;
+    S.reads[s] = reads[s];
+    S.refs[s] = refs[s];
+    S.rows[s] = rows[s];
+    S.out[s] = out[s];
+    S.B[s] = B[s];
+    S.C[s] = C[s];
+    blocks += (B[s] + kWarpsPerBlock - 1) / kWarpsPerBlock;
+    if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+    S.block_end[s] = static_cast<int>(blocks);
+  }
+  S.n = n;
+  if (blocks == 0) return cudaSuccess;
+  const Prof P = load_prof(prof);
+#define SEG_CASE(J)                                                         \
+  case J:                                                                   \
+    return launch_segments_j<J>(S, ins0, R, P, static_cast<int>(blocks),    \
+                                stream);
+  switch (rows_per_lane) {
+    SEG_CASE(1) SEG_CASE(2) SEG_CASE(3) SEG_CASE(4) SEG_CASE(5)
+    SEG_CASE(6) SEG_CASE(7) SEG_CASE(8) SEG_CASE(9) SEG_CASE(10)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef SEG_CASE
 }
 
 cudaError_t msa_score_rows_warp_launch(const int* read1, const int* read0,

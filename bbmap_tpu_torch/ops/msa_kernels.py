@@ -19,10 +19,16 @@ wrappers, launch counters and plain PyTorch versions.
   int32 and rows (B, 1) int32 (``prep_operands``); out (B, 3) int32,
   SHORT profile. ``score_batch`` is its convenience entry point.
 
+- ``msa_score_segments`` is ``msa_score`` over several lists of jobs
+  that share R (the fused program's narrow and wide passes), in one
+  launch of the warp mapping with a segment table.
+
 - ``msa_walk`` replaces the device walk ``_walk_device``
   (bbmap_tpu/ops/msa_jax.py:451, a compiled scan): one launch walks every
   job's prev codes, in either layout, from (R, col0, st0) and writes the
-  symbols, their count, the gap count and the row the walk ended on.
+  symbols, their count, the gap count and the row the walk ended on; a
+  warp a job, the row-major block's codes staged in shared memory tile by
+  tile.
 - ``msa_fill_walk`` is ``msa_fill`` followed by ``msa_walk`` from the
   fill's own column and state, as the fused program and
   ``ops/msa.msa_align_batch`` run them: where ``fill_walk_shape`` holds
@@ -39,10 +45,10 @@ a lane) up to R = 8,191. Rows strided over one block ("strided"), which
 "band" replaced, stays launchable by ``mapping=`` for comparison.
 
 A wrapper given CPU tensors runs the plain version (``ops/msa.dp_plain``,
-``ops/msa.walk_plain``) and counts nothing. Given CUDA tensors it
-launches the kernel and adds one to its ``launches`` count (a DP wrapper
-to ``launches_by[mapping]`` as well, ``msa_fill_walk`` to
-``launches_by[variant]``), or raises.
+``ops/msa.walk_plain``; ``msa_score_plain`` a segment) and counts
+nothing. Given CUDA tensors it launches the kernel and adds one to its
+``launches`` count (a DP wrapper to ``launches_by[mapping]`` as well,
+``msa_fill_walk`` to ``launches_by[variant]``), or raises.
 """
 
 from __future__ import annotations
@@ -106,6 +112,9 @@ SMEM_PER_SM = 233_472          # 228 KB an SM, of it 1 KB reserved a block
 FILL_WALK_VARIANTS = ("row", "row_packed")
 FILL_WALK_PACK_BELOW_BLOCKS = 4
 FILL_WALK_PACK_MIN_JOBS = 1024
+# Score passes of one R over several windows launch together
+# (msa_score_segments), at most this many segments a launch.
+MAX_SEGMENTS = 4
 
 _PROF_FIELDS = (
     "TIMEMASK", "SCOREOFFSET", "MAX_TIME", "MASK5", "BARRIER_I1",
@@ -326,7 +335,10 @@ _INTERFACE = {
                "msa_score_rows_launch": [*_ROWS_ARGS, _VP]},
     "msa_dp_warp": {"msa_score_warp_launch": [*_SCORE_ARGS, _VP],
                     "msa_fill_warp_launch": [*_FILL_ARGS, _VP],
-                    "msa_score_rows_warp_launch": [*_ROWS_ARGS, _VP]},
+                    "msa_score_rows_warp_launch": [*_ROWS_ARGS, _VP],
+                    "msa_score_segments_warp_launch": [
+                        _CI, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _CI, _VP,
+                        *_SHAPE, _VP]},
     "msa_dp_band": {"msa_score_band_launch": [*_SCORE_ARGS, *_BAND, _VP],
                     "msa_fill_band_launch": [*_FILL_ARGS, *_BAND, _VP],
                     "msa_score_rows_band_launch": [*_ROWS_ARGS, *_BAND,
@@ -473,6 +485,66 @@ def msa_fill(reads: torch.Tensor, refs: torch.Tensor, rows: torch.Tensor,
     the others the wave-major one. ``mapping`` as for ``msa_score``. Only
     the codes of the valid cells are defined."""
     return _raw_dp(msa_fill, reads, refs, rows, P, True, mapping)
+
+
+def segments_launch(segments) -> Optional[LaunchShape]:
+    """The warp mapping's shape where ``msa_score_segments`` launches the
+    segments together: every segment of one R <= 319, at most
+    ``MAX_SEGMENTS`` of them, ``WARP_MIN_JOBS`` jobs or more in all (the
+    count from which the warp mapping wins alone); else None, and each
+    segment goes through ``msa_score``."""
+    Rs = {rd.shape[1] for rd, _, _ in segments}
+    jobs = sum(rd.shape[0] for rd, _, _ in segments)
+    if len(Rs) != 1 or len(segments) > MAX_SEGMENTS or jobs < WARP_MIN_JOBS:
+        return None
+    R = Rs.pop()
+    return launch_shape(R, 0, "warp") if R <= WARP_MAX_ROWS else None
+
+
+def msa_score_segments(segments, P: ScoringProfile) -> list:
+    """K2 score passes of several windows that share R, in one launch:
+    ``segments`` is a list of (reads (B_i, R) uint8, refs (B_i, C_i) uint8,
+    rows (B_i,) int32); returns one (3, B_i) int32 a segment, what
+    ``msa_score`` returns for it alone.
+
+    CPU tensors: ``msa_score_plain`` a segment. CUDA tensors: where
+    ``segments_launch`` gives a shape, one launch of the warp mapping
+    (``csrc/msa_dp_warp.cu``, a segment table; the segments of the widest
+    windows take the first blocks, so that their long sweeps start first),
+    else ``msa_score`` a segment. A failed launch raises."""
+    for rd, rf, rw in segments:
+        _check(rd, rf, rw)
+        if rd.device != segments[0][0].device:
+            raise ValueError("the segments must share one device")
+    if not segments:
+        return []
+    if segments[0][0].device.type == "cpu":
+        return [msa_score_plain(rd, rf, rw, P) for rd, rf, rw in segments]
+    shape = segments_launch(segments)
+    if shape is None:
+        return [msa_score(rd, rf, rw, P) for rd, rf, rw in segments]
+    _on_cuda(segments[0][0])
+    dev = segments[0][0].device
+    R = segments[0][0].shape[1]
+    segs = [tuple(x.contiguous() for x in seg) for seg in segments]
+    outs = [torch.empty((3, rd.shape[0]), dtype=I32, device=dev)
+            for rd, _, _ in segs]
+    order = sorted(range(len(segs)), key=lambda i: -segs[i][1].shape[1])
+    ptrs = np.array([[segs[i][k].data_ptr() for i in order] for k in range(3)]
+                    + [[outs[i].data_ptr() for i in order]], np.uint64)
+    dims = np.array([[segs[i][1].shape[k] for i in order]
+                     for k in range(2)], np.int32)   # B, then C
+    prof = prof_array(P)
+    fn = _lib("msa_dp_warp").msa_score_segments_warp_launch
+    err = fn(len(segs), *(ptrs[k].ctypes.data for k in range(4)),
+             dims[0].ctypes.data, dims[1].ctypes.data,
+             _ins0_on(R, P, dev).data_ptr(), R, prof.ctypes.data, *shape[:3],
+             torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"msa_score_segments_warp_launch failed: "
+                           f"cudaError {err}")
+    msa_score_segments.launches += 1
+    return outs
 
 
 # --------------------------------------------------------------------------
@@ -726,7 +798,7 @@ def msa_fill_walk(reads: torch.Tensor, refs: torch.Tensor,
 
 
 DP_KERNELS = (msa_score_rows, msa_score, msa_fill)
-KERNELS = (*DP_KERNELS, msa_walk, msa_fill_walk)
+KERNELS = (*DP_KERNELS, msa_score_segments, msa_walk, msa_fill_walk)
 
 
 def reset_launches() -> None:

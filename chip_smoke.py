@@ -46,15 +46,27 @@ Phases, each timed on its own line:
    and 64 x (645, 669) (the widest block the route gives, 672 threads),
    SHORT and PACBIO, timed beside K3 + the walk kernel on the same jobs,
    and swept over the job count; its registers a thread read with
-   ``cuobjdump -res-usage`` (a block of 1,024 threads must fit);
+   ``cuobjdump -res-usage`` (a block of 1,024 threads must fit), and every
+   other kernel's printed; the merged score launch
+   (``msa_score_segments``) at the fused program's 32,768 narrow + 128
+   wide jobs and at PACBIO segments with an empty one, against the plain
+   version and ``msa_score`` on each segment alone, timed beside the two
+   launches one after the other, with the wide pass's clocks a wave; the
+   walk kernel also at
+   400 x (6,000, 6,456) against its plain version, and at 16 and 400 jobs
+   full length, cut at R + 50 and from shifted starts, with its clocks a
+   walked step (the launch's time at ``clocks.max.sm`` over the longest
+   walk);
 4. K1 entry point: ``msa_kernels.score_batch`` on 32,768 jobs, counted;
 5. main path: the bench workload (4.6 Mbp genome with repeat families,
    k=13 index, 2x150 bp pairs with quality, 32,768 pairs a batch) through ``BBMapAligner.map_pairs_columnar`` (one warmup
    batch) and ``map_pairs_columnar_stream`` (3 steady batches), graded
    against the simulated origins; fails below sensitivity 0.997, mapped
-   fraction 0.999 or pair rate 0.997, when K2 or the fused fill + walk
-   was never launched, or when a fill or a walk took the two-kernel route;
-   the quality offsets are computed on the card;
+   fraction 0.999 or pair rate 0.997, when the fused fill + walk was never
+   launched, when the merged score launch did not run once a batch (the
+   fused program scores its narrow and wide passes in one launch), or
+   when a fill or a walk took the two-kernel route; the quality offsets are computed on the
+   card;
 6. SAM: ``emit_sam`` on the first 1,000 pairs;
 7. long reads: 400 PacBio-model reads of 6 kbp at 12 % error on the same
    genome (``randomreads pacbio=t``) through the port's ``mappacbio``
@@ -96,7 +108,8 @@ each bbmerge mode under torch.profiler) and no ``ok`` line.
 reads of the checkout in <dir> (the parent commit, unpacked with ``git
 archive``) and of this tree, each in a process of its own, in the order
 parent, change, change, parent, and prints one line a run: reads/s,
-accuracy, stage times and launches of each, no ``ok`` line.
+accuracy, stage times and launches of each, with the fused program's
+device kernels from torch.profiler; no ``ok`` line.
 """
 
 from __future__ import annotations
@@ -127,6 +140,7 @@ _WALK = "bbmap_tpu/ops/msa_jax.py:451"
 # the fused fill + walk's variants (ops/msa_kernels.FILL_WALK_VARIANTS)
 FILL_WALK = {v: f"msa_fill_walk_{v}" for v in ("row", "row_packed")}
 REPLACES = {"msa_score_rows": _K1, "msa_score": _K2, "msa_score_row": _K2,
+            "msa_score_segments": _K2,
             "msa_score_long": _K2, "msa_score_strided": _K2,
             "msa_fill": _K3, "msa_fill_long": _K3, "msa_fill_strided": _K3,
             "msa_walk": _WALK,
@@ -135,6 +149,7 @@ CSRC = "bbmap_tpu_torch/csrc/"
 SOURCE = {"msa_score_rows": CSRC + "msa_dp_warp.cu",
           "msa_score": CSRC + "msa_dp_warp.cu",
           "msa_score_row": CSRC + "msa_dp.cu",
+          "msa_score_segments": CSRC + "msa_dp_warp.cu",
           "msa_fill": CSRC + "msa_dp.cu",
           "msa_score_long": CSRC + "msa_dp_band.cu",
           "msa_fill_long": CSRC + "msa_dp_band.cu",
@@ -172,6 +187,7 @@ PAST_32_BITS = 2 ** 31          # bytes a 64-job block of prev codes passes
 # is held to one bound
 FUNCTION = {v: w for (w, _), v in VARIANT.items()}
 FUNCTION["msa_walk"] = "msa_walk"
+FUNCTION["msa_score_segments"] = "msa_score"
 FUNCTION.update(dict.fromkeys(FILL_WALK.values(), "msa_fill_walk"))
 # the fused program's two fill + walk launches: (jobs, R, C, steps) of the
 # T fill at Cn, bounded to Cn + 16 steps, and of the RT retry at Cw, full
@@ -204,6 +220,11 @@ def _sync(device) -> None:
     import torch
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
+
+
+def _diff(a, b) -> int:
+    """Largest absolute difference of two integer tensors (0 if empty)."""
+    return int((a.long() - b.long()).abs().max()) if a.numel() else 0
 
 
 def _cuda_ms(fn, reps: int, warm: bool = True):
@@ -323,10 +344,10 @@ def band_rows_a_lane(J: int, jobs: int, R: int):
         mk.BAND_MIN_WARPS, mk.BAND_FILL_MAX_ROWS_PER_LANE = old
 
 
-def sass_counts(lib_path) -> dict:
+def sass_loops(lib_path) -> dict:
     """``cuobjdump -sass`` of a built library: {mangled kernel name:
-    (instructions, instructions of its main loop)}. The main loop is the
-    backward branch that spans the most instructions."""
+    (instructions, [(instructions, opcodes) of each loop])}, a loop being
+    the span of a backward branch."""
     import re
     from bbmap_tpu_torch.ops import _build
     tool = Path(_build.nvcc_path()).with_name("cuobjdump")
@@ -336,17 +357,28 @@ def sass_counts(lib_path) -> dict:
     out = {}
     for chunk in text.split("Function : ")[1:]:
         name = chunk.split()[0]
-        addrs, branches = [], []
+        code, branches = [], []
         for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", chunk):
             addr, ins = int(m.group(1), 16), m.group(2)
-            addrs.append(addr)
+            op = re.match(r"(?:@!?U?P\w+\s+)?([A-Z0-9_]+)", ins.strip())
+            code.append((addr, op.group(1) if op else ""))
             t = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", ins)
             if t and int(t.group(1), 16) < addr:
                 branches.append((int(t.group(1), 16), addr))
-        loop = max((sum(lo <= x <= hi for x in addrs)
-                    for lo, hi in branches), default=len(addrs))
-        out[name] = (len(addrs), loop)
+        loops = []
+        for lo, hi in branches:
+            ops = [op for a, op in code if lo <= a <= hi]
+            loops.append((len(ops), frozenset(ops)))
+        out[name] = (len(code), loops)
     return out
+
+
+def sass_counts(lib_path) -> dict:
+    """{mangled kernel name: (instructions, instructions of its main
+    loop)}. The main loop is the backward branch that spans the most
+    instructions."""
+    return {name: (tot, max((n for n, _ in loops), default=tot))
+            for name, (tot, loops) in sass_loops(lib_path).items()}
 
 
 def res_usage(lib_path) -> dict:
@@ -384,7 +416,6 @@ def kernel_instructions() -> dict:
     dp = sass_counts(_build.library_path("msa_dp"))
     warp = sass_counts(_build.library_path("msa_dp_warp"))
     band = sass_counts(_build.library_path("msa_dp_band"))
-    walk = sass_counts(_build.library_path("msa_walk"))
     Jw = mk.launch_shape(L, L + 24, "warp").rows_per_thread
     Jl = mk.launch_shape(L_LONG, LONG_C, "strided").rows_per_thread
     # rows a lane of the band launches the ``kernels`` line times
@@ -414,8 +445,15 @@ def kernel_instructions() -> dict:
                                                else f"/{J}")
                 out[key] = {"sass": tot, "loop": loop, "per_cell": loop / J}
                 FUNCTION[key] = name
-    tot, loop = pick(walk, "msa_walk_kernel")
-    out["msa_walk"] = {"sass": tot, "loop": loop, "per_cell": loop}
+    tot, loop = pick(warp, "msa_score_segments_kernel", f"Li{Jw}E")
+    out["msa_score_segments"] = {"sass": tot, "loop": loop,
+                                 "per_cell": loop / Jw}
+    # the walk: a step is one pass of the shortest loop that reads shared
+    # memory (the tile's code) and stores there (the state buffer)
+    tot, loops = pick(sass_loops(_build.library_path("msa_walk")),
+                      "msa_walk_kernel")
+    step = min(n for n, ops in loops if {"LDS", "STS"} <= ops)
+    out["msa_walk"] = {"sass": tot, "loop": step, "per_cell": step}
     # the fused fill + walk: its sweep loop a cell (the walk's loop is the
     # shorter one)
     fw_lib = _build.library_path("msa_fill_walk")
@@ -432,6 +470,11 @@ def kernel_instructions() -> dict:
         if regs * mk.MAX_THREADS > 65536:
             raise AssertionError(f"{name}: {regs} registers a thread do "
                                  f"not fit a block of {mk.MAX_THREADS}")
+    for lib in _build.SOURCES:
+        for name, (regs, stack, local) in sorted(
+                res_usage(_build.library_path(lib)).items()):
+            say(f"resources {lib} {name}: {regs} registers a thread, stack "
+                f"{stack} B, local {local} B")
     for name, v in out.items():
         v["function_per_cell"] = min(w["per_cell"] for n, w in out.items()
                                      if FUNCTION[n] == FUNCTION[name])
@@ -671,6 +714,38 @@ def kernel_phase(genome, device) -> dict:
         return bound_ms(
             n_bytes, walked * instr["msa_walk"]["function_per_cell"], clock)
 
+    def walk_clocks(tag, ms, lens):
+        """Clocks a walked step: the launch's time at clocks.max.sm over
+        the longest walk's steps (the chains run side by side)."""
+        longest = int(lens.max())
+        say(f"clocks msa_walk at {tag}: {ms * 1e-3 * clock / longest:.1f} "
+            f"clocks a walked step ({ms:.4f} ms, longest walk {longest} "
+            f"steps, {float(lens.double().mean()):.1f} on average, "
+            f"{clock / 1e6:.0f} MHz)")
+
+    def walk_times(tag, job, fill, starts, shifted):
+        """The walk kernel over a fill's block (out, prevs, layout): full
+        length, cut at R + 50, and from shifted starts, each timed and
+        held equal to its first run."""
+        rd, rf, _ = job
+        _, prevs, lay = fill
+        for steps in (0, L_LONG + 50):
+            for name, (c0, s0) in (("", starts), (", shifted starts",
+                                                   shifted)):
+                want = mk.msa_walk(prevs, rd, rf, c0, s0, L_LONG, Cl, steps,
+                                   lay)
+                ms, got = _cuda_ms(lambda: mk.msa_walk(
+                    prevs, rd, rf, c0, s0, L_LONG, Cl, steps, lay), 3)
+                e = max(int((a.long() - b.long()).abs().max())
+                        for a, b in zip(got, want))
+                what = "full length" if not steps else f"cut at {steps}"
+                say(f"time msa_walk at {tag}, {what}{name}: {ms:.4f} ms "
+                    f"({int((got[3] > 0).sum())} walks cut; same as the "
+                    f"first run: max_abs_err {e})")
+                walk_clocks(f"{tag}, {what}{name}", ms, got[1])
+                if e:
+                    raise AssertionError("two runs of the walk disagree")
+
     job = rd, rf, rw = dp_jobs(genome, 2 * 16384, L, L + 24, 7, device,
                                var_rows=False)
     k, p = timed("msa_score", lambda: mk.msa_score(rd, rf, rw, S),
@@ -810,12 +885,14 @@ def kernel_phase(genome, device) -> dict:
            "row-major block against the plain fill's wave-major block",
            n16, L_LONG, Cl, max(int((a.long() - b.long()).abs().max())
                                 for a, b in zip(kw, pw)))
+    walk_clocks(f"{n16} x ({L_LONG}, {Cl}), full length", ms_l, kw[1])
     del kw, pw
     cmp_walk("pacbio long read, full length, shifted starts", job, k[1],
              *shifted, 0, k[2])
     if cmp_walk(f"pacbio long read, cut at {L_LONG + 50} steps", job, k[1],
                 col0, st0, L_LONG + 50, k[2]) == 0:
         raise AssertionError("no long walk was cut")
+    walk_times(f"{n16} x ({L_LONG}, {Cl})", job, k, (col0, st0), shifted)
     say(f"sweep msa_fill band {n16} x ({L_LONG}, {Cl}): "
         f"{over_rows_a_lane(mk.msa_fill, job)}; strided "
         f"{out['msa_fill_long']['strided_ms']:.3f} ms; default "
@@ -841,6 +918,12 @@ def kernel_phase(genome, device) -> dict:
             cmp_walk(f"pacbio long read, last {n16} of {n} jobs (prev codes "
                      f"past 2**31 bytes)", big, kb[1], kb[0][1], kb[0][2], 0,
                      kb[2], tail=n16)
+        if n == LONG_FILL_JOBS[-1]:
+            starts, shifted_n = walk_starts(kb[0], Cl, 34)
+            cmp_walk(f"pacbio long read, {n} jobs, full length", big, kb[1],
+                     *starts, 0, kb[2])
+            walk_times(f"{n} x ({L_LONG}, {Cl})", big, kb, starts, shifted_n)
+            del starts, shifted_n
         bound, _ = dp_bound("msa_fill_long", big, True, keep=False)
         say(f"sweep msa_fill band {n} x ({L_LONG}, {Cl}): "
             f"{over_rows_a_lane(mk.msa_fill, big)}; default "
@@ -909,7 +992,83 @@ def kernel_phase(genome, device) -> dict:
         say(f"time {tag}: {n} x ({R}, {C}): warp mapping {a:.3f} ms, "
             f"one-row mapping {b2:.4f} ms")
     out.update(fill_walk_phase(genome, device, instr, clock))
+    out.update(segments_phase(genome, device, instr, clock,
+                              out["msa_score_row"]["ms"]))
     return out
+
+
+def segments_phase(genome, device, instr: dict, clock: float,
+                   row_ms: float) -> dict:
+    """The merged score launch (``msa_score_segments``) on the card: the
+    fused program's narrow pass, 32,768 jobs at (150, 174), with its wide
+    pass, 128 jobs at (150, 606), and PACBIO segments of (300, 360), (300,
+    700) and an empty one with rows below R; each segment against its
+    plain version and against ``msa_score`` on that segment alone,
+    tolerance 0. Then the merged launch's time beside the two launches one
+    after the other and the bound, and the clocks a wave of the wide pass
+    in each. Returns the ``kernels`` line's
+    entry."""
+    from bbmap_tpu_torch.core.constants import PACBIO_PROFILE, SHORT_PROFILE
+    from bbmap_tpu_torch.ops import msa_kernels as mk
+
+    S, PB = SHORT_PROFILE, PACBIO_PROFILE
+    narrow = dp_jobs(genome, 2 * 16384, L, L + 24, 71, device,
+                     var_rows=False)
+    wide = dp_jobs(genome, 128, L, L + 456, 72, device, var_rows=False)
+    segs = [narrow, wide]
+    pb = [dp_jobs(genome, 3000, 300, 360, 73, device),
+          dp_jobs(genome, 64, 300, 700, 74, device)]
+    pb.append(tuple(x[:0] for x in pb[1]))
+    err = 0
+    for tag, P, sg in (("the fused program's narrow and wide passes", S,
+                        segs), ("pacbio, rows below R, an empty segment",
+                                PB, pb)):
+        if mk.segments_launch(sg) is None:
+            raise AssertionError(f"{tag}: no merged launch")
+        mk.reset_launches()
+        got = mk.msa_score_segments(sg, P)
+        if mk.msa_score_segments.launches != 1:
+            raise AssertionError("the merged launch was not counted once")
+        for i, (seg, g) in enumerate(zip(sg, got)):
+            want = mk.msa_score_plain(*seg, P)
+            alone = mk.msa_score(*seg, P)
+            _sync(device)
+            e = max(_diff(g, want), _diff(g, alone))
+            err = max(err, e)
+            say(f"kernel msa_score_segments {tag}, segment {i}: "
+                f"{seg[0].shape[0]} jobs (R, C) = ({seg[0].shape[1]}, "
+                f"{seg[1].shape[1]}) max_abs_err {e} (against the plain "
+                f"version and msa_score on the segment alone)")
+            if e:
+                raise AssertionError("msa_score_segments disagrees")
+    ms, _ = _cuda_ms(lambda: mk.msa_score_segments(segs, S), 10)
+    sep_ms = _cuda_ms(lambda: [mk.msa_score(*x, S) for x in segs], 10)[0]
+    narrow_ms = _cuda_ms(lambda: mk.msa_score(*narrow, S), 10)[0]
+    plain_ms = _cuda_ms(
+        lambda: [mk.msa_score_plain(*x, S) for x in segs], 1, warm=False)[0]
+    n_bytes = sum(rd.numel() + rf.numel() + 4 * rw.numel() + 12 * len(rw)
+                  for rd, rf, rw in segs)
+    cells = sum(float(((rw.double() + 1) * (rf.shape[1] + 1)).sum())
+                for _, rf, rw in segs)
+    bound, by = bound_ms(
+        n_bytes, cells * instr["msa_score_segments"]["function_per_cell"],
+        clock)
+    waves = L + L + 456
+    say(f"time msa_score_segments at 32,768 x (150, 174) + 128 x (150, 606):"
+        f" merged launch {ms:.3f} ms, the two launches one after the other "
+        f"{sep_ms:.3f} ms, the narrow pass alone {narrow_ms:.3f} ms, plain "
+        f"{plain_ms:.3f}"
+        f" ms, bound {bound:.4f} ms by {by} ({100 * bound / ms:.1f} % of the "
+        f"bound reached; {instr['msa_score_segments']['per_cell']:.1f} "
+        f"instructions a cell, bound at "
+        f"{instr['msa_score_segments']['function_per_cell']:.1f})")
+    say(f"clocks a wave of the wide pass ({waves} waves, {clock / 1e6:.0f} "
+        f"MHz): one-row launch alone {row_ms * 1e-3 * clock / waves:.1f}, "
+        f"merged launch {ms * 1e-3 * clock / waves:.1f} (all of it; the "
+        f"narrow jobs share it)")
+    return {"msa_score_segments": {
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+        "library_ms": None, "max_abs_err": err, "separate_ms": sep_ms}}
 
 
 def fill_walk_phase(genome, device, instr: dict, clock: float) -> dict:
@@ -1178,10 +1337,15 @@ def main_path(device, n_pairs: int = N_PAIRS, n_steady: int = N_STEADY,
             raise AssertionError(
                 f"accuracy below the bar (sensitivity >= {SENS_MIN}, "
                 f"mapped >= {MAPPED_MIN}, pair rate >= {PAIR_MIN})")
-        if not (launches["msa_score_warp"] and launches["msa_score_row"]
+        if not (launches["msa_score_segments"]
                 and launches["msa_fill_walk"]):
             raise AssertionError(f"a kernel of the path never launched: "
                                  f"{launches}")
+        # the fused program runs once a batch and scores its narrow and
+        # wide passes in one launch
+        if launches["msa_score_segments"] != n_batches:
+            raise AssertionError(f"{launches['msa_score_segments']} merged "
+                                 f"score launches for {n_batches} batches")
         if launches["msa_fill"] or launches["msa_walk"]:
             raise AssertionError(f"a short fill or walk left the fused "
                                  f"kernel: {launches}")
@@ -1830,7 +1994,7 @@ def tools_profile(device) -> None:
 
 
 _PAIRED_RUN = """
-import json, sys, torch
+import json, statistics, sys, time, torch
 sys.path.insert(0, '.')
 import chip_smoke as cs
 from bbmap_tpu_torch import workload
@@ -1838,7 +2002,16 @@ from bbmap_tpu_torch.ops import _build
 _build.build_all()
 dev = torch.device('cuda', 0)
 g = workload.make_genome()
-r, _ = cs.main_path(dev, genome_bases=g)
+r, (b1, b2, _, aligner) = cs.main_path(dev, genome_bases=g)
+reps = []
+for _ in range(8):
+    t = time.time()
+    aligner._fused_pair_dispatch(b1, b2, cs.L)
+    torch.cuda.synchronize()
+    reps.append(1e3 * (time.time() - t))
+r['stages']['fused_device_ms_reps'] = reps
+cs._device_profile(lambda: aligner._fused_pair_dispatch(b1, b2, cs.L),
+                   'fused program', statistics.median(reps), top=30)
 lr = cs.long_phase(dev, g)
 keep = ('reads_per_s', 'sensitivity', 'mapped_fraction', 'pair_rate',
         'stages', 'launches', 'max_memory_allocated')
@@ -1853,9 +2026,14 @@ def paired(parent: str) -> int:
     the tree in <dir> (a checkout of another commit, the parent) and of
     this tree, each in a process of its own on the same card, in the order
     parent, change, change, parent; one line a run, no ``ok`` line. Each
-    tree runs its own ``chip_smoke.main_path`` and ``long_phase``."""
-    for tag, tree in (("parent", parent), ("change", str(ROOT)),
-                      ("change", str(ROOT)), ("parent", parent)):
+    tree runs its own ``chip_smoke.main_path`` and ``long_phase``, times
+    its fused program 8 more times on the warmup batch
+    (``fused_device_ms_reps``) and runs it once more under torch.profiler:
+    its device kernels by device time, and its idle share against the
+    median of the 8 (``profile fused program`` lines)."""
+    here = str(ROOT)
+    for tag, tree in (("parent", parent), ("change", here),
+                      ("change", here), ("parent", parent)):
         t = time.time()
         p = subprocess.run([sys.executable, "-c", _PAIRED_RUN], cwd=tree,
                            capture_output=True, text=True, timeout=1200)
@@ -1865,6 +2043,13 @@ def paired(parent: str) -> int:
             say(p.stdout[-3000:] + p.stderr[-3000:])
             raise AssertionError(f"the {tag} run failed ({tree})")
         say(f"paired {tag} ({time.time() - t:.1f} s): {got[0]}")
+        lines = p.stdout.splitlines()
+        at = next(i for i, ln in enumerate(lines)
+                  if ln.startswith("profile fused program"))
+        for ln in lines[at:]:
+            if not (ln is lines[at] or ln.startswith("  ")):
+                break
+            say(f"paired {tag} {ln.strip()}")
     return 0
 
 
@@ -1966,6 +2151,7 @@ def main() -> int:
     # kernels, which the band kernels replaced, run on no path
     counted = {"msa_score_rows": "msa_score_rows_warp",
                "msa_score": "msa_score_warp", "msa_score_row": "msa_score_row",
+               "msa_score_segments": "msa_score_segments",
                "msa_fill": "msa_fill_row", "msa_walk": "msa_walk",
                **{n: n for n in FILL_WALK.values()},
                "msa_score_long": "msa_score_band",

@@ -182,10 +182,11 @@ def test_align_batch_matches_jax(prof):
 
 def walk_kernel_emulation(prevs, reads, refs, col0, st0, R, C, steps,
                           code_at=None):
-    """The per-job loop of csrc/msa_walk.cu in scalar Python: lane 0
-    walks until row 0 or ``steps`` symbols, the warp zeroes the tail.
-    ``code_at(b, row, col)`` reads a cell's code (default: from the
-    wave-major block ``prevs``)."""
+    """walk_job of csrc/msa_dp.cuh (the fused kernel's walk) in scalar
+    Python: one job walks until row 0 or ``steps`` symbols, the tail is
+    zeroed. ``code_at(b, row, col)`` reads a cell's code (default: from
+    the wave-major block ``prevs``). tests/test_torch_walk.py extends it
+    to the walk kernel's loop."""
     if code_at is None:
         def code_at(b, row, col):
             return int(prevs[b, min(row + col - 1, R + C - 1), row])
@@ -251,7 +252,7 @@ def test_walk_matches_walk_device(steps):
 @pytest.mark.parametrize("steps", [0, 44, 25])
 @pytest.mark.parametrize("starts", ["fill", "shifted"])
 def test_walk_kernel_emulation_plain_and_jax_agree(prof, steps, starts):
-    """The walk kernel's per-job loop (scalar emulation), msa_walk_plain
+    """The walk's per-job steps (scalar emulation), msa_walk_plain
     and msa_jax._walk_device agree on symbols, out_len, gaps and row_end:
     full and bounded steps, walks that are cut (25 steps < R), gap
     columns and N, walks that run off the window's left edge (X),
