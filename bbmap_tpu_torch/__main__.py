@@ -6,8 +6,17 @@ the short-read mapper ``bbmap``, the long-read mappers ``mappacbio`` and
 (k-mer trimming and filtering), ``seal`` (k-mer binning), ``bbmerge`` /
 ``bbmerge-auto`` (pair merging) and ``bbmask`` (entropy masking), and the
 read simulator and SAM grader the smoke run uses (``randomreads``,
-``gradesam``). Each entry names a module and its entry point; the tools
-that run on a device take ``device=`` (default cuda).
+``gradesam``), and the k-mer counting and QC tools: ``kmercountexact`` /
+``khist`` / ``callpeaks`` (exact counting), ``tadpole`` /
+``tadpolewrapper`` / ``tadwrapper`` (assembly), ``bbnorm`` / ``ecc``
+(depth normalization and error correction on the counting Bloom filter),
+``pileup``, the coverage tools ``kmercoverage``, ``filterbycoverage``,
+``decontaminate`` / ``crossblock``, ``crosscontaminate`` and
+``postfilter``, the pair tools ``splitpairs`` / ``bbsplitpairs`` /
+``repair``, ``filterbyname``, ``demuxbyname`` and ``splitnexteralmp`` /
+``splitnextera``, and the QC chain ``rqcfilter`` / ``bbqc``. Each entry
+names a module and its entry point; the tools that run on a device take
+``device=`` (default cuda).
 """
 
 from __future__ import annotations
@@ -27,6 +36,33 @@ TOOLS = {
     "bbmerge": ("bbmap_tpu_torch.tools.bbmerge", "main"),
     "bbmerge-auto": ("bbmap_tpu_torch.tools.bbmerge", "main"),
     "bbmask": ("bbmap_tpu_torch.tools.bbmask", "main"),
+    "kmercountexact": ("bbmap_tpu_torch.tools.kmercountexact", "main"),
+    "khist": ("bbmap_tpu_torch.tools.kmercountexact", "main"),
+    "callpeaks": ("bbmap_tpu_torch.tools.kmercountexact", "callpeaks_main"),
+    "tadpole": ("bbmap_tpu_torch.tools.tadpole", "main"),
+    "tadpolewrapper": ("bbmap_tpu_torch.tools.tadpole", "wrapper_main"),
+    "tadwrapper": ("bbmap_tpu_torch.tools.tadpole", "wrapper_main"),
+    "bbnorm": ("bbmap_tpu_torch.tools.bbnorm", "main"),
+    "ecc": ("bbmap_tpu_torch.tools.bbnorm", "ecc_main"),
+    "pileup": ("bbmap_tpu_torch.tools.pileup", "main"),
+    "kmercoverage": ("bbmap_tpu_torch.tools.covtools", "kmercoverage"),
+    "filterbycoverage": ("bbmap_tpu_torch.tools.covtools",
+                         "filterbycoverage"),
+    "decontaminate": ("bbmap_tpu_torch.tools.covtools", "decontaminate"),
+    "crossblock": ("bbmap_tpu_torch.tools.covtools", "decontaminate"),
+    "crosscontaminate": ("bbmap_tpu_torch.tools.covtools",
+                         "crosscontaminate"),
+    "postfilter": ("bbmap_tpu_torch.tools.covtools", "postfilter"),
+    "splitpairs": ("bbmap_tpu_torch.tools.pairtools", "splitpairs"),
+    "bbsplitpairs": ("bbmap_tpu_torch.tools.pairtools", "splitpairs"),
+    "repair": ("bbmap_tpu_torch.tools.pairtools", "splitpairs"),
+    "filterbyname": ("bbmap_tpu_torch.tools.pairtools", "filterbyname"),
+    "demuxbyname": ("bbmap_tpu_torch.tools.pairtools", "demuxbyname"),
+    "splitnexteralmp": ("bbmap_tpu_torch.tools.pairtools",
+                        "splitnexteralmp"),
+    "splitnextera": ("bbmap_tpu_torch.tools.pairtools", "splitnexteralmp"),
+    "rqcfilter": ("bbmap_tpu_torch.tools.rqcfilter", "main"),
+    "bbqc": ("bbmap_tpu_torch.tools.rqcfilter", "main"),
 }
 
 

@@ -2,12 +2,15 @@
 classes.
 
 The port keeps its own copies of the host modules, so a ``Genome``,
-``KmerIndex``, ``ReadBatch``, ``ScoringProfile`` or ``KmerSet`` of the
-reference is a different class from the port's. The functions here read
+``KmerIndex``, ``ReadBatch``, ``ScoringProfile``, ``KmerSet`` or
+counting Bloom filter of the reference is a different class from the
+port's. The functions here read
 a reference object by its fields (duck typing: this module does not
 import ``bbmap_tpu``) and return the port's object holding the same
 numpy arrays and plain values. Arrays are shared, not copied: neither package writes
-into them after they are built. The parity tests use these wherever they
+into them after they are built. The counting Bloom filter is the
+exception: its rows are copied onto the port's device, where it counts
+on. The parity tests use these wherever they
 hand reference state to the port.
 """
 
@@ -16,10 +19,14 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
+import torch
+
 from .core.batch import ReadBatch
 from .core.constants import ScoringProfile
 from .core.genome import Genome, Scaffold
 from .index.build import KmerIndex
+from .index.kcount import DeviceKCountArray
 from .index.kmerset import KmerSet
 
 
@@ -70,3 +77,17 @@ def kmer_set(ref) -> KmerSet:
     if kw["ref_names"] is not None:
         kw["ref_names"] = list(kw["ref_names"])
     return KmerSet(**kw)
+
+
+def kca(ref, device) -> DeviceKCountArray:
+    """The port's counting Bloom filter on ``device`` holding the counter
+    rows of a reference ``KCountArray`` (numpy rows) or
+    ``DeviceKCountArray`` (its rows fetched as numpy), with the same
+    cells, cell bits and hashes. Rows are clipped to ``cell_max``: the
+    reference's device class adds without saturating, and the port's rows
+    hold saturated counts as its numpy class does."""
+    out = DeviceKCountArray(ref.cells, cell_bits=ref.cell_bits,
+                            hashes=ref.hashes, device=device)
+    rows = np.minimum(np.asarray(ref.array).astype(np.int64), ref.cell_max)
+    out.array.copy_(torch.from_numpy(rows))
+    return out

@@ -90,11 +90,29 @@ Phases, each timed on its own line:
    and ``bbmerge`` CLIs on 20,000 reads or pairs, once with ``device=``
    the card and once with ``device=cpu``: every output file byte-equal,
    the reports too without their ``Time:`` line, and the card's run seen
-   in the scan and ladder counters.
+   in the scan and ladder counters;
+9. kmer tools: the counting Bloom filter (``index/kcount.py``) at
+   bbnorm's size, 3 x 2**26 16-bit cells, counting the canonical 31-mers
+   of 1,048,576 reads of 150 bp from the genome in bbnorm's chunks of
+   8,192, then looking them up: k-mers/s and reads/s of each pass and the
+   share of host ``canonical_kmers``; the rows, the load and 65,536 reads
+   (half of them counted k-mers) equal to the numpy ``KCountArray`` after
+   4 chunks, and again at 8 and 2 bits on a chunk from a 2 kbp window,
+   where cells saturate. Then the CLIs ``bbnorm`` (20,000 pairs, khist=),
+   ``ecc`` (2,000 pairs), ``kmercoverage`` (20,000 reads, hist=),
+   ``rqcfilter`` (2,000 pairs; adapter and artifact references written
+   here, phix=f, ihist=, khist=t) and ``decontaminate`` (two libraries of
+   2,000 reads against 50 kbp assemblies) once on the card and once with
+   ``device=cpu``: every output file byte-equal (rqcfilter's status.log and
+   reproduce.sh left out), the reports too without their wall times, the
+   card's runs seen in kcount's calls, rqcfilter's out2 holding the mates
+   of out, decontaminate's junk contigs dirty and its main contigs clean.
 
 Each path's launch counts (and the tools' device scan and ladder
-counters) are set to 0 just before it and read just after; the
-``kernels`` line gives each kernel's launches on each path and, as
+counters, and kcount's calls) are set to 0 just before it and read just
+after; the kmer tools' path is decontaminate's run on the card (its two
+single-end ``bbmap`` runs). The ``kernels`` line gives each kernel's
+launches on each path and, as
 ``launches``, on the path whose shape it is timed at. Any failure raises
 and exits non-zero without the final ``ok`` line. It exits 2 when no CUDA device is available or when it is not run
 from a checkout of the repository.
@@ -1892,6 +1910,329 @@ def tools_phase(device) -> list:
             tools_cli(device)]
 
 
+# the kmer tools phase: the counting Bloom filter at bbnorm's defaults
+# (bbmap_tpu/tools/bbnorm.py:74-76: 2**26 cells, 3 hashes, 16-bit cells)
+# over 1,048,576 reads of 150 bp (~34x of the 4.6 Mbp genome), k = 31, in
+# bbnorm's chunks of 8,192 reads; the rows are held against the numpy
+# class after the first KCA_CHECK_CHUNKS chunks, with KCA_QUERIES reads;
+# saturation at 8 and 2 bits on a chunk from a KCA_HOT_BP window
+N_KCA_READS, KCA_CHUNK, KCA_K = 1 << 20, 8192, 31
+KCA_CELLS, KCA_HASHES, KCA_BITS = 1 << 26, 3, 16
+KCA_CHECK_CHUNKS, KCA_QUERIES = 4, 65536
+KCA_HOT_BP, KCA_HOT_CELLS = 2000, 1 << 22
+# the CLIs on the card and on the CPU: pairs (bbnorm, ecc), reads
+# (kmercoverage), rqcfilter's pairs, and decontaminate's two libraries
+N_NORM_PAIRS, N_ECC_PAIRS, N_KCOV_READS = 20_000, 2_000, 20_000
+N_RQC_PAIRS = 2_000
+N_DECON_READS, DECON_REF_BP, DECON_JUNK_BP = 2_000, 48_000, 2_000
+# the genome windows the CLI reads come from, so that their k-mers have
+# depth: bbnorm / kmercoverage ~40x, ecc ~30x
+NORM_WINDOW, ECC_WINDOW = 150_000, 20_000
+
+
+def genome_reads(gbases, n: int, start: int, span: int, seed: int,
+                 err: float = 0.0):
+    """n reads of L bp from gbases[start:start + span], every other one
+    reverse-complemented, with substitutions at rate err: (n, L) uint8."""
+    import numpy as np
+    from bbmap_tpu_torch.core.bases import COMP_ASCII
+    rng = np.random.default_rng(seed)
+    win = np.lib.stride_tricks.sliding_window_view(
+        gbases[start:start + span], L)
+    rows = win[rng.integers(0, len(win), n)]
+    rows[1::2] = COMP_ASCII[rows[1::2, ::-1]]
+    if err:
+        hit = rng.random(rows.shape) < err
+        rows[hit] = np.frombuffer(b"ACGT", np.uint8)[
+            rng.integers(0, 4, int(hit.sum()))]
+    return rows
+
+
+def _kca_equal(what: str, kca, host, queries) -> None:
+    """The port's filter on the card against the numpy KCountArray fed the
+    same k-mers: every row, reads of ``queries`` and the load, tolerance
+    0."""
+    for h in range(host.hashes):
+        _equal(f"{what} row {h}", kca.array[h].cpu().numpy(), host.array[h])
+    _equal(f"{what} read", kca.read(queries), host.read(queries))
+    if kca.used_fraction() != host.used_fraction():
+        raise AssertionError(f"{what}: used_fraction "
+                             f"{kca.used_fraction()} on the card, "
+                             f"{host.used_fraction()} on the host")
+
+
+def kmer_count(device, gbases) -> dict:
+    """The counting Bloom filter on the card at bbnorm's size: counting
+    (host canonical_kmers, then ``increment``) and lookup (host
+    canonical_kmers, then ``read``) passes over N_KCA_READS reads, timed
+    with the comparisons against the numpy class left out of the clock;
+    then the saturation check at 8 and 2 bits."""
+    import numpy as np
+    import torch
+    from bbmap_tpu_torch.index import kcount
+    from bbmap_tpu_torch.tools.bbnorm import canonical_kmers
+    reads = genome_reads(gbases, N_KCA_READS, 0, len(gbases), 29)
+    kca = kcount.make_kca(KCA_CELLS, cell_bits=KCA_BITS, hashes=KCA_HASHES,
+                          device=device)
+    host = kcount.KCountArray(KCA_CELLS, cell_bits=KCA_BITS,
+                              hashes=KCA_HASHES)
+    kcount.reset_calls()
+    n_kmers, t_cut, t_check = 0, 0.0, 0.0
+    _sync(device)
+    t0 = time.perf_counter()
+    for c, lo in enumerate(range(0, N_KCA_READS, KCA_CHUNK)):
+        t = time.perf_counter()
+        can, valid = canonical_kmers(reads[lo:lo + KCA_CHUNK], KCA_K)
+        km = can[valid]
+        t_cut += time.perf_counter() - t
+        kca.increment(km)
+        n_kmers += len(km)
+        if c < KCA_CHECK_CHUNKS:
+            t = time.perf_counter()
+            host.increment(km)
+            if c == KCA_CHECK_CHUNKS - 1:
+                rng = np.random.default_rng(3)
+                q = np.concatenate([
+                    rng.choice(km, KCA_QUERIES // 2),
+                    rng.integers(0, 1 << (2 * KCA_K), KCA_QUERIES // 2)])
+                _sync(device)
+                _kca_equal(f"kcount after {KCA_CHECK_CHUNKS} chunks", kca,
+                           host, q)
+                del host
+            t_check += time.perf_counter() - t
+    _sync(device)
+    wall = time.perf_counter() - t0 - t_check
+    n_chunks = N_KCA_READS // KCA_CHUNK
+    if kcount.calls != {"increment": n_chunks, "read": 1}:
+        raise AssertionError(f"kcount calls {kcount.calls}, expected "
+                             f"{n_chunks} increments and 1 read")
+    res = {"reads": N_KCA_READS, "kmers": n_kmers, "count_wall_s": wall,
+           "count_kmers_per_s": n_kmers / wall,
+           "count_reads_per_s": N_KCA_READS / wall,
+           "count_host_cut_share": t_cut / wall,
+           "load": kca.used_fraction()}
+    n_q, t_cut, t_read = 0, 0.0, 0.0
+    t0 = time.perf_counter()
+    for lo in range(0, N_KCA_READS, KCA_CHUNK):
+        t = time.perf_counter()
+        can, _valid = canonical_kmers(reads[lo:lo + KCA_CHUNK], KCA_K)
+        t1 = time.perf_counter()
+        kca.read(can.ravel())
+        t_read += time.perf_counter() - t1
+        t_cut += t1 - t
+        n_q += can.size
+    wall = time.perf_counter() - t0
+    res.update({"read_wall_s": wall, "read_kmers_per_s": n_q / t_read,
+                "read_reads_per_s": N_KCA_READS / wall,
+                "read_host_cut_share": t_cut / wall, "queries": n_q})
+    if torch.device(device).type == "cuda":
+        # one chunk's increment and read alone, host k-mers ready: the
+        # upload from pageable memory and the card's work
+        res["increment_chunk_ms"] = _cuda_ms(lambda: kca.increment(km), 10)[0]
+        res["read_chunk_ms"] = _cuda_ms(lambda: kca.read(km), 10)[0]
+        res["chunk_kmers"] = len(km)
+    del kca
+    # saturation: a chunk from a KCA_HOT_BP window (depth ~500 a k-mer)
+    hot = genome_reads(gbases, KCA_CHUNK, 100_000, KCA_HOT_BP, 37)
+    can, valid = canonical_kmers(hot, KCA_K)
+    km = can[valid]
+    q = np.concatenate([km[:KCA_QUERIES // 2], np.random.default_rng(5)
+                        .integers(0, 1 << (2 * KCA_K), KCA_QUERIES // 2)])
+    for bits in (8, 2):
+        kca = kcount.make_kca(KCA_HOT_CELLS, cell_bits=bits,
+                              hashes=KCA_HASHES, device=device)
+        host = kcount.KCountArray(KCA_HOT_CELLS, cell_bits=bits,
+                                  hashes=KCA_HASHES)
+        for part in (km[:len(km) // 2], km[len(km) // 2:]):
+            kca.increment(part)
+            host.increment(part)
+        if int(host.array.max()) != host.cell_max:
+            raise AssertionError(f"{bits}-bit cells never saturated")
+        _kca_equal(f"kcount {bits}-bit", kca, host, q)
+        res[f"saturated_cells_{bits}bit"] = int(
+            (host.array[0] == host.cell_max).sum())
+    say("kmer tools count: " + json.dumps(res))
+    return res
+
+
+def _report_lines(err: str, paths) -> str:
+    """A CLI's stderr without the lines that carry a wall time, with each
+    of ``paths`` (the run's own directories) replaced by a tag."""
+    import re
+    out = []
+    for ln in err.splitlines():
+        if ln.startswith("Time:") or re.search(r"\d seconds", ln):
+            continue
+        for tag, p in paths.items():
+            ln = ln.replace(str(p), tag)
+        out.append(ln)
+    return "\n".join(out)
+
+
+def kmer_cli(device, gbases) -> dict:
+    """bbnorm (pairs, khist=), ecc (pairs), kmercoverage (hist=),
+    rqcfilter (paired; ihist=, khist=t; adapter and artifact references
+    written here, phix=f) and decontaminate (two libraries against their
+    assemblies) through their CLI entry points, once with ``device=`` the
+    card and once with ``device=cpu``: every output file byte-equal between
+    the two (rqcfilter's status.log and reproduce.sh left out: they carry
+    time stamps and the command line), the reports too once the lines with
+    a wall time are dropped; the card's runs seen in kcount's calls and,
+    for decontaminate, in the kernels' launches (returned as
+    ``launches``)."""
+    import numpy as np
+    from bbmap_tpu_torch.index import kcount
+    from bbmap_tpu_torch.ops import msa_kernels
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    rng = np.random.default_rng(41)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_kmer")
+    res = {}
+    try:
+        d = Path(tmp)
+
+        def pairs(name, n, start, span, seed):
+            r1 = genome_reads(gbases, n, start, span, seed, 0.005)
+            r2 = genome_reads(gbases, n, start, span, seed + 1, 0.005)
+            q = rng.integers(20, 41, (2, n, L))
+            _fastq(d / f"{name}1.fq", [f"{name}{i}/1" for i in range(n)],
+                   r1, q[0])
+            _fastq(d / f"{name}2.fq", [f"{name}{i}/2" for i in range(n)],
+                   r2, q[1])
+        pairs("norm", N_NORM_PAIRS, 1_000_000, NORM_WINDOW, 51)
+        pairs("ecc", N_ECC_PAIRS, 2_000_000, ECC_WINDOW, 53)
+        kr = genome_reads(gbases, N_KCOV_READS, 1_000_000, NORM_WINDOW, 55,
+                          0.005)
+        _fastq(d / "kcov.fq", [f"k{i}" for i in range(N_KCOV_READS)], kr,
+               rng.integers(20, 41, kr.shape))
+        adapters, _ = duk_inputs(0)
+        artifacts = [bytes(rng.choice(acgt, 80)) for _ in range(4)]
+        with open(d / "adapters.fa", "w") as fh:
+            for i, s in enumerate(adapters):
+                fh.write(f">adapter{i}\n{s.decode()}\n")
+        with open(d / "artifacts.fa", "w") as fh:
+            for i, s in enumerate(artifacts):
+                fh.write(f">artifact{i}\n{s.decode()}\n")
+        r1, r2, q1, q2 = _cli_pairs(rng, N_RQC_PAIRS, L, 60, 300,
+                                    adapters[0], adapters[1])
+        hit = np.nonzero(rng.random(N_RQC_PAIRS) < 0.05)[0]
+        for i in hit:                         # artifact-bearing pairs
+            p = int(rng.integers(0, L - 80))
+            r1[i, p:p + 80] = np.frombuffer(artifacts[i % 4], np.uint8)
+        _fastq(d / "rqc1.fq", [f"q{i}/1" for i in range(N_RQC_PAIRS)], r1,
+               q1)
+        _fastq(d / "rqc2.fq", [f"q{i}/2" for i in range(N_RQC_PAIRS)], r2,
+               q2)
+        for j, lib in enumerate(("libA", "libB")):
+            at = 3_000_000 + j * 100_000
+            write_fasta(d / f"{lib}.fa", f"{lib}_main",
+                        gbases[at:at + DECON_REF_BP])
+            with open(d / f"{lib}.fa", "ab") as fh:
+                fh.write(f">{lib}_junk\n".encode()
+                         + rng.choice(acgt, DECON_JUNK_BP).tobytes() + b"\n")
+            lr = genome_reads(gbases, N_DECON_READS, at, DECON_REF_BP,
+                              61 + j, 0.005)
+            _fastq(d / f"{lib}.fq", [f"{lib}r{i}" for i in
+                                     range(N_DECON_READS)], lr,
+                   rng.integers(20, 41, lr.shape))
+        runs = {
+            "bbnorm": ["in={d}/norm1.fq", "in2={d}/norm2.fq",
+                       "out={o}/n1.fq", "out2={o}/n2.fq",
+                       "outt={o}/tossed.fq", "target=20", "mindepth=3",
+                       "khist={o}/khist.txt"],
+            "ecc": ["in={d}/ecc1.fq", "in2={d}/ecc2.fq", "out={o}/e1.fq",
+                    "out2={o}/e2.fq"],
+            "kmercoverage": ["in={d}/kcov.fq", "out={o}/cov.fq",
+                             "hist={o}/hist.txt"],
+            "rqcfilter": ["in={d}/rqc1.fq", "in2={d}/rqc2.fq",
+                          "out=clean1.fq", "out2=clean2.fq", "path={o}",
+                          "ref={d}/adapters.fa",
+                          "artifactdb={d}/artifacts.fa", "phix=f",
+                          "ihist=ihist.txt", "khist=t"],
+            "decontaminate": ["reads={d}/libA.fq,{d}/libB.fq",
+                              "ref={d}/libA.fa,{d}/libB.fa", "outdir={o}",
+                              "tmpdir={t}", "minc=3", "minp=20",
+                              "minl=500"]}
+        for tool, template in runs.items():
+            out = {}
+            for side, dev in (("card", device), ("cpu", "cpu")):
+                o, t = d / f"{tool}_{side}", d / f"{tool}_{side}_tmp"
+                o.mkdir()
+                args = [a.format(d=d, o=o, t=t) for a in template]
+                kcount.reset_calls()
+                msa_kernels.reset_launches()
+                w = time.time()
+                rc, report = run_tool(tool, args + [f"device={dev}"])
+                wall = time.time() - w
+                launches = launch_counts()
+                if rc != 0:
+                    raise AssertionError(f"{tool} device={dev} exited {rc}:"
+                                         f" {report}")
+                out[side] = (_report_lines(report, {"{o}": o, "{t}": t}),
+                             {p.name: p.read_bytes()
+                              for p in sorted(o.iterdir())
+                              if p.name not in ("status.log",
+                                                "reproduce.sh")},
+                             dict(kcount.calls), launches, wall)
+            (rep_c, files_c, calls_c, launches, wall_c), \
+                (rep_h, files_h, calls_h, _, wall_h) = out["card"], out["cpu"]
+            if rep_c != rep_h:
+                raise AssertionError(f"{tool}: the reports differ:\n{rep_c}"
+                                     f"\n---\n{rep_h}")
+            if sorted(files_c) != sorted(files_h) or not files_c:
+                raise AssertionError(f"{tool}: output files {sorted(files_c)}"
+                                     f" on the card, {sorted(files_h)} on "
+                                     f"the CPU")
+            for name in files_c:
+                if files_c[name] != files_h[name]:
+                    raise AssertionError(f"{tool}: {name} differs between "
+                                         f"device={device} and device=cpu")
+            if calls_c != calls_h:
+                raise AssertionError(f"{tool}: kcount calls {calls_c} on the "
+                                     f"card, {calls_h} on the CPU")
+            res[tool] = {"files": len(files_c),
+                         "bytes": sum(len(v) for v in files_c.values()),
+                         "kcount_calls": calls_c, "wall_s": wall_c,
+                         "wall_cpu_s": wall_h}
+            if tool == "decontaminate":
+                res[tool]["launches"] = launches
+        for tool in ("bbnorm", "ecc", "kmercoverage", "decontaminate"):
+            if not res[tool]["kcount_calls"]["increment"]:
+                raise AssertionError(f"{tool}: no kcount increment ran")
+        fl = (d / "rqcfilter_card" / "file-list.txt").read_text()
+        for want in ("filtered_fastq_2=clean2.fq", "ihist=ihist.txt",
+                     "khist=khist.txt"):
+            if want not in fl:
+                raise AssertionError(f"rqcfilter: {want} not in its "
+                                     f"file-list: {fl!r}")
+        c1, c2 = (d / "rqcfilter_card" / n for n in ("clean1.fq",
+                                                     "clean2.fq"))
+        m1 = [ln.split(b"/")[0] for ln in c1.read_bytes().split(b"\n")[::4]
+              if ln]
+        m2 = [ln.split(b"/")[0] for ln in c2.read_bytes().split(b"\n")[::4]
+              if ln]
+        if m1 != m2 or not m1:
+            raise AssertionError(f"rqcfilter: out2 does not hold the mates "
+                                 f"of out ({len(m1)} and {len(m2)} reads)")
+        cov = (d / "decontaminate_card" / "libA_covstats1.txt").read_text()
+        clean = (d / "decontaminate_card" / "libA_clean.fasta").read_text()
+        dirty = (d / "decontaminate_card" / "libA_dirty.fasta").read_text()
+        if ">libA_main" not in clean or ">libA_junk" not in dirty:
+            raise AssertionError(f"decontaminate: the main contig is not "
+                                 f"clean or the junk not dirty:\n{cov}")
+        res["decontaminate"]["covstats_libA"] = cov.splitlines()[1:]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say("kmer tools CLI: " + json.dumps(res))
+    return res
+
+
+def kmer_tools_phase(device, gbases) -> tuple:
+    """The counting Bloom filter at bbnorm's size, then the k-mer tool
+    CLIs byte-equal between the card and the CPU: the results of
+    kmer_count and kmer_cli."""
+    return kmer_count(device, gbases), kmer_cli(device, gbases)
+
+
 def _device_profile(fn, tag: str, wall_ms: float, top: int = 12) -> None:
     """Run fn under torch.profiler (CPU + CUDA activities) and print the
     number of kernels, their summed device time, the host time inside
@@ -2138,13 +2479,32 @@ def main() -> int:
         f"{merge['ratio']['merged_fraction']:.4f}); CLIs byte-equal between "
         f"the card and the CPU; card {smi}")
 
+    t = time.time()
+    kcnt, kcli = kmer_tools_phase(device, gbases)
+    say(f"phase kmer tools: {time.time() - t:.1f} s; counting Bloom filter "
+        f"({KCA_HASHES} x {KCA_CELLS} cells of {KCA_BITS} bits, k="
+        f"{KCA_K}) over {kcnt['reads']} reads: increment "
+        f"{kcnt['count_kmers_per_s']:.1f} k-mers/s, "
+        f"{kcnt['count_reads_per_s']:.1f} reads/s (host canonical_kmers "
+        f"{100 * kcnt['count_host_cut_share']:.1f} % of the wall); read "
+        f"{kcnt['read_kmers_per_s']:.1f} k-mers/s, "
+        f"{kcnt['read_reads_per_s']:.1f} reads/s (host canonical_kmers "
+        f"{100 * kcnt['read_host_cut_share']:.1f} %); rows and reads equal "
+        f"to numpy at 16, 8 and 2 bits; CLIs byte-equal between the card "
+        f"and the CPU, wall on the card: " + ", ".join(
+            f"{tool} {kcli[tool]['wall_s']:.2f} s (CPU "
+            f"{kcli[tool]['wall_cpu_s']:.2f} s)"
+            for tool in ("bbnorm", "ecc", "kmercoverage", "rqcfilter",
+                         "decontaminate")) + f"; card {smi}")
+
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "bbmap_tpu"))
     if foreign:
         raise AssertionError(f"the JAX package was imported: {foreign[:5]}")
     # launches on each path, each counted from 0 over that path's run:
     # K1 at its own entry point, the short-read path ("main"), the
-    # long-read path ("long"); "launches" is the count on the path whose
+    # long-read path ("long"), decontaminate's two single-end bbmap runs
+    # on the card ("kmer_tools"); "launches" is the count on the path whose
     # shape the entry is timed at: the band kernels and the walk kernel
     # (short fills and walks take the fused kernel) on the long-read path,
     # K1 at its entry point, the rest on the main path; the strided
@@ -2166,7 +2526,8 @@ def main() -> int:
         kt = ktimes[name]
         by_path = {"k1_entry": k1_launches if name == "msa_score_rows"
                    else 0, "main": res["launches"][key],
-                   "long": lres["launches"][key]}
+                   "long": lres["launches"][key],
+                   "kmer_tools": kcli["decontaminate"]["launches"][key]}
         kernels.append({"name": name, "route": "cuda",
                         "source": SOURCE[name],
                         "replaces": REPLACES[name],
@@ -2192,6 +2553,10 @@ def main() -> int:
         {"tool": f"{tool} CLI", "reads_in": cli[tool]["reads_in"],
          "byte_equal_to_cpu": True, "wall_s": cli[tool]["wall_s"]}
         for tool in ("bbduk", "seal", "bbmerge")]}), flush=True)
+    print(json.dumps({"kmer_tools": {
+        "count": kcnt, "cli": {tool: {k: v for k, v in r.items()
+                                      if k != "covstats_libA"}
+                               for tool, r in kcli.items()}}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

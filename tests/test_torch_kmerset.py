@@ -43,6 +43,21 @@ def _reads(rng, seqs, n_reads, L, embed_frac=0.5):
     return reads
 
 
+@pytest.mark.parametrize("k", [1, 2, 13, 25, 31, 32, 120, 121])
+def test_rolling_kmers_match_the_reference(k):
+    """The port's in-place k-mer cut gives the reference's keys (invalid
+    windows included) and validity, with N, lowercase bases and windows
+    longer than the read."""
+    rng = np.random.default_rng(k)
+    reads = _reads(rng, _seqs(rng, 3, 30, 60), 300, 120)
+    reads[7, :] = ord("N")
+    got, want = tks.rolling_kmers_batch(reads, k), \
+        jks.rolling_kmers_batch(reads, k)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+
+
 @pytest.fixture
 def device_kmers(monkeypatch):
     monkeypatch.setenv("BBMAP_DEVICE_KMERS", "1")
