@@ -1,8 +1,12 @@
 """Tool dispatcher: ``python -m bbmap_tpu_torch <tool> key=value ...``
 
 The port's counterpart of ``python -m bbmap_tpu``. The ported tools are
-the short-read mapper ``bbmap``, the long-read mappers ``mappacbio`` and
-``mappacbioskimmer``, the read-preprocessing tools ``bbduk``, ``bbduk2``
+the short-read mapper ``bbmap`` with its variants ``bbmapacc`` (denser
+seeding), ``bbmap5`` and ``bbmapskimmer`` (every site above a threshold,
+``secondary=t``), ``bbsplit`` (binning reads between references), the
+long-read mappers ``mappacbio`` and ``mappacbioskimmer``, ``dedupe`` /
+``dedupe2`` (duplicate and containment removal on the banded edit
+distance kernel), the read-preprocessing tools ``bbduk``, ``bbduk2``
 (k-mer trimming and filtering), ``seal`` (k-mer binning), ``bbmerge`` /
 ``bbmerge-auto`` (pair merging) and ``bbmask`` (entropy masking), and the
 read simulator and SAM grader the smoke run uses (``randomreads``,
@@ -26,6 +30,12 @@ import sys
 
 TOOLS = {
     "bbmap": ("bbmap_tpu_torch.tools.bbmap", "main"),
+    "bbmapacc": ("bbmap_tpu_torch.tools.bbmap", "acc_main"),
+    "bbmap5": ("bbmap_tpu_torch.tools.bbmap", "bbmap5_main"),
+    "bbmapskimmer": ("bbmap_tpu_torch.tools.bbmap", "skimmer_main"),
+    "bbsplit": ("bbmap_tpu_torch.tools.bbsplit", "main"),
+    "dedupe": ("bbmap_tpu_torch.tools.dedupe", "main"),
+    "dedupe2": ("bbmap_tpu_torch.tools.dedupe", "dedupe2_main"),
     "mappacbio": ("bbmap_tpu_torch.tools.mappacbio", "main"),
     "mappacbioskimmer": ("bbmap_tpu_torch.tools.mappacbio", "skimmer_main"),
     "randomreads": ("bbmap_tpu_torch.tools.randomreads", "main"),

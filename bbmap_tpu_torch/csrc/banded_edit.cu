@@ -1,0 +1,404 @@
+// Batched banded edit distance, one launch a call.
+//
+// Replaces the JAX package's banded_device._program
+// (bbmap_tpu/ops/banded_device.py:34-90, a jitted lax.scan over the rows
+// with the band of 2E+1 diagonals on the lanes), which Dedupe runs once for
+// each read it checks with e= and twice for each containment check. The
+// function, per pair (a of length la, b of length lb, E = max_edits,
+// BIG = E + 1, band cell d at column j = i - E + d of row i):
+//
+//   row 0:  global  v[d] = j        where 0 <= j <= lb, else BIG
+//           infix   v[d] = 0        where 0 <= j <= lb, else BIG
+//   row i (1 <= i <= min(la, La)), cells with 1 <= j <= lb, else BIG:
+//           c[d] = min(v[d] + (a[i-1] != b[j-1]), v[d+1] + 1)
+//           c[d] = min_{e <= d} (c[e] + d - e)        (the insertion sweep)
+//           v[d] = min(c[d], BIG)
+//   result: global  v[lb - la + E] where |lb - la| <= E, else BIG
+//           infix   min of v[d] over la - E + d in [0, lb], else BIG
+//
+// Bytes are compared raw (ASCII, N and IUPAC codes match only themselves);
+// a position outside b's array reads 255, as the JAX package's padding
+// does. Once every cell of a row is BIG the rest of the scan leaves them
+// BIG and the result is BIG, so a pair stops there: the same value, and
+// the work the data needs (unrelated pairs saturate within a few rows).
+//
+// Two mappings, which the launcher picks from E; together they cover every
+// E:
+// - a thread a pair (2E + 1 <= 64; dedupe's e=2 gives 5 cells, its
+//   containment check E = 2 tol): the band in registers, a template over
+//   the width (exact up to 15 cells, then 32 and 64), and the window of b
+//   as packed bytes that slide one byte a row (a funnel shift a word): one
+//   byte of a and one of b loaded a row, both for the next row while this
+//   one computes. The caller stages a and b pair-minor (position-major,
+//   byte (pos, pair) at pos * n + pair) so that the threads of a warp read
+//   neighbouring bytes; a query shared by every pair is passed once, with
+//   a pair stride of 0.
+// - a warp a pair (wider bands, so 3 chunks or more): the band on the
+//   lanes in chunks of 32 cells, in registers up to 32 chunks
+//   (2E + 1 <= 1,024). The cell above
+//   (v[d+1]) comes by __shfl_down_sync, the insertion sweep is an
+//   inclusive min scan over the lanes by __shfl_up_sync with the carry
+//   handed from one chunk to the next, and the window slides by a shuffle
+//   with one new byte a row. Past 32 chunks the band lives in a scratch
+//   row a pair in device memory (no cap on E).
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kThreadMaxCells = 64;
+constexpr int kWarpRegChunks = 32;
+
+// Byte (pos, pair) of a tensor of any strides lies at base + pos * ps +
+// pair * pp; la and lb at their base + pair * stride.
+struct Pairs {
+  const uint8_t* a;
+  long long a_ps, a_pp;
+  const int* la;
+  long long la_pp;
+  const uint8_t* b;
+  long long b_ps, b_pp;
+  const int* lb;
+  long long lb_pp;
+  int n, La, Lb, E, infix;
+  int* out;
+};
+
+__device__ __forceinline__ unsigned byte_at(const uint8_t* row, long long ps,
+                                            int pos, int L) {
+  return (pos >= 0 && pos < L) ? row[pos * ps] : 255u;
+}
+
+__device__ __forceinline__ int row0_cell(int d, int w, int E, int lb,
+                                         int infix) {
+  const int j = d - E;
+  const bool ok = d < w && j >= 0 && j <= lb;
+  return ok ? (infix ? 0 : j) : E + 1;
+}
+
+// ---------------------------------------------------------------------
+// A thread a pair, W >= 2E + 1 band cells in registers.
+// ---------------------------------------------------------------------
+template <int W>
+__global__ void __launch_bounds__(kThreads)
+    banded_thread_kernel(Pairs p) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= p.n) return;
+  const int E = p.E, w = 2 * E + 1, BIG = E + 1;
+  const int la = p.la[t * p.la_pp], lb = p.lb[t * p.lb_pp];
+  if (!p.infix && abs(lb - la) > E) {
+    p.out[t] = BIG;
+    return;
+  }
+  const uint8_t* a = p.a + t * p.a_pp;
+  const uint8_t* b = p.b + t * p.b_pp;
+  constexpr int NW = (W + 3) / 4;
+  constexpr int TOP = 4 * NW - 1;     // the window's last byte
+  int v[W];
+#pragma unroll
+  for (int d = 0; d < W; ++d) v[d] = row0_cell(d, w, E, lb, p.infix);
+  // byte d of the window at row i is b[i - E - 1 + d]
+  uint32_t win[NW];
+#pragma unroll
+  for (int k = 0; k < NW; ++k) {
+    uint32_t x = 0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      x |= byte_at(b, p.b_ps, 4 * k + q - E, p.Lb) << (8 * q);
+    win[k] = x;
+  }
+  const int rows = min(la, p.La);
+  // a[i-1] and the byte that enters the window at row i + 1
+  unsigned ai = rows >= 1 ? a[0] : 0u;
+  unsigned nb = byte_at(b, p.b_ps, 1 - E + TOP, p.Lb);
+  bool saturated = false;
+  for (int i = 1; i <= rows; ++i) {
+    const unsigned ai_next = i < rows ? a[i * p.a_ps] : 0u;
+    const unsigned nb_next = byte_at(b, p.b_ps, i + 1 - E + TOP, p.Lb);
+    const uint32_t rep = ai * 0x01010101u;
+    uint32_t m[NW];
+#pragma unroll
+    for (int k = 0; k < NW; ++k) m[k] = __vcmpne4(win[k], rep);
+    const int dlo = E + 1 - i, dhi = min(lb + E - i, w - 1);
+    int r = BIG, rowmin = BIG;
+#pragma unroll
+    for (int d = 0; d < W; ++d) {
+      const int ne = (m[d >> 2] >> (8 * (d & 3))) & 1;
+      const int up = (d + 1 < W ? v[d + 1] : BIG) + 1;
+      int c = min(v[d] + ne, up);
+      c = (d >= dlo && d <= dhi) ? c : BIG;
+      r = min(c, r + 1);
+      v[d] = min(r, BIG);
+      rowmin = min(rowmin, v[d]);
+    }
+#pragma unroll
+    for (int k = 0; k + 1 < NW; ++k)
+      win[k] = __funnelshift_r(win[k], win[k + 1], 8);
+    win[NW - 1] = (win[NW - 1] >> 8) | (nb << 24);
+    ai = ai_next;
+    nb = nb_next;
+    if (rowmin > E) {
+      saturated = true;
+      break;
+    }
+  }
+  int res = BIG;
+  if (!saturated) {
+    const int df = lb - la + E;
+#pragma unroll
+    for (int d = 0; d < W; ++d) {
+      if (p.infix) {
+        const int jsf = la - E + d;
+        if (d < w && jsf >= 0 && jsf <= lb) res = min(res, v[d]);
+      } else if (d == df) {
+        res = v[d];
+      }
+    }
+  }
+  p.out[t] = res;
+}
+
+// One chunk of 32 cells of a row in the warp mapping: x is the cell before
+// the insertion sweep, carry the swept value of the chunk's cell -1.
+// Returns the swept, unclamped value; carry becomes lane 31's.
+__device__ __forceinline__ int sweep_chunk(int x, int lane, int& carry) {
+  int s = x - lane;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(kFull, s, off);
+    if (lane >= off) s = min(s, y);
+  }
+  const int r = min(s + lane, carry + lane + 1);
+  carry = __shfl_sync(kFull, r, 31);
+  return r;
+}
+
+__device__ __forceinline__ int warp_min(int x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    x = min(x, __shfl_xor_sync(kFull, x, off));
+  return x;
+}
+
+// ---------------------------------------------------------------------
+// A warp a pair, NC chunks of 32 cells in registers.
+// ---------------------------------------------------------------------
+template <int NC>
+__global__ void __launch_bounds__(kThreads)
+    banded_warp_kernel(Pairs p) {
+  const int lane = threadIdx.x & 31;
+  const long long t = (blockIdx.x * (long long)blockDim.x + threadIdx.x) >> 5;
+  if (t >= p.n) return;                       // the whole warp
+  const int E = p.E, w = 2 * E + 1, BIG = E + 1;
+  const int la = p.la[t * p.la_pp], lb = p.lb[t * p.lb_pp];
+  if (!p.infix && abs(lb - la) > E) {
+    if (lane == 0) p.out[t] = BIG;
+    return;
+  }
+  const uint8_t* a = p.a + t * p.a_pp;
+  const uint8_t* b = p.b + t * p.b_pp;
+  constexpr int TOP = 32 * NC - 1;
+  int v[NC];
+  unsigned wb[NC];                            // b[i - E - 1 + d] at row i
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const int d = 32 * c + lane;
+    v[c] = row0_cell(d, w, E, lb, p.infix);
+    wb[c] = byte_at(b, p.b_ps, d - E, p.Lb);
+  }
+  const int rows = min(la, p.La);
+  unsigned ai = rows >= 1 ? a[0] : 0u;
+  unsigned nb = byte_at(b, p.b_ps, 1 - E + TOP, p.Lb);
+  bool saturated = false;
+  for (int i = 1; i <= rows; ++i) {
+    const unsigned ai_next = i < rows ? a[i * p.a_ps] : 0u;
+    const unsigned nb_next = byte_at(b, p.b_ps, i + 1 - E + TOP, p.Lb);
+    const int dlo = E + 1 - i, dhi = min(lb + E - i, w - 1);
+    int carry = BIG, rowmin = BIG;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int d = 32 * c + lane;
+      int up = __shfl_down_sync(kFull, v[c], 1);
+      const int next0 = c + 1 < NC ? __shfl_sync(kFull, v[c + 1], 0) : BIG;
+      if (lane == 31) up = next0;
+      int x = min(v[c] + (wb[c] != ai ? 1 : 0), up + 1);
+      x = (d >= dlo && d <= dhi) ? x : BIG;
+      v[c] = min(sweep_chunk(x, lane, carry), BIG);
+      rowmin = min(rowmin, v[c]);
+    }
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const unsigned down = __shfl_down_sync(kFull, wb[c], 1);
+      const unsigned next0 = c + 1 < NC ? __shfl_sync(kFull, wb[c + 1], 0)
+                                        : nb;
+      wb[c] = lane == 31 ? next0 : down;
+    }
+    ai = ai_next;
+    nb = nb_next;
+    if (__all_sync(kFull, rowmin > E)) {
+      saturated = true;
+      break;
+    }
+  }
+  int res = BIG;
+  if (!saturated) {
+    const int df = lb - la + E;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int d = 32 * c + lane;
+      if (p.infix) {
+        const int jsf = la - E + d;
+        if (d < w && jsf >= 0 && jsf <= lb) res = min(res, v[c]);
+      } else if (d == df) {
+        res = v[c];
+      }
+    }
+    res = warp_min(res);
+  }
+  if (lane == 0) p.out[t] = res;
+}
+
+// ---------------------------------------------------------------------
+// A warp a pair, the band (nc chunks) in a scratch row of device memory.
+// ---------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads)
+    banded_warp_mem_kernel(Pairs p, int* scratch) {
+  const int lane = threadIdx.x & 31;
+  const long long t = (blockIdx.x * (long long)blockDim.x + threadIdx.x) >> 5;
+  if (t >= p.n) return;
+  const int E = p.E, w = 2 * E + 1, BIG = E + 1;
+  const int nc = (w + 31) / 32, cells = 32 * nc;
+  const int la = p.la[t * p.la_pp], lb = p.lb[t * p.lb_pp];
+  if (!p.infix && abs(lb - la) > E) {
+    if (lane == 0) p.out[t] = BIG;
+    return;
+  }
+  const uint8_t* a = p.a + t * p.a_pp;
+  const uint8_t* b = p.b + t * p.b_pp;
+  int* band = scratch + t * cells;
+  for (int d = lane; d < cells; d += 32) band[d] = row0_cell(d, w, E, lb,
+                                                             p.infix);
+  __syncwarp();
+  const int rows = min(la, p.La);
+  bool saturated = false;
+  for (int i = 1; i <= rows; ++i) {
+    const unsigned ai = a[(i - 1) * p.a_ps];
+    const int dlo = E + 1 - i, dhi = min(lb + E - i, w - 1);
+    int carry = BIG, rowmin = BIG;
+    for (int c = 0; c < nc; ++c) {
+      const int d = 32 * c + lane;
+      const int pv = band[d];
+      const int up = d + 1 < cells ? band[d + 1] : BIG;
+      __syncwarp();
+      const unsigned bj = byte_at(b, p.b_ps, i - E - 1 + d, p.Lb);
+      int x = min(pv + (bj != ai ? 1 : 0), up + 1);
+      x = (d >= dlo && d <= dhi) ? x : BIG;
+      const int vd = min(sweep_chunk(x, lane, carry), BIG);
+      band[d] = vd;
+      rowmin = min(rowmin, vd);
+      __syncwarp();
+    }
+    if (__all_sync(kFull, rowmin > E)) {
+      saturated = true;
+      break;
+    }
+  }
+  int res = BIG;
+  if (!saturated) {
+    const int df = lb - la + E;
+    for (int d = lane; d < cells; d += 32) {
+      if (p.infix) {
+        const int jsf = la - E + d;
+        if (d < w && jsf >= 0 && jsf <= lb) res = min(res, band[d]);
+      } else if (d == df) {
+        res = band[d];
+      }
+    }
+    res = warp_min(res);
+  }
+  if (lane == 0) p.out[t] = res;
+}
+
+template <int W>
+cudaError_t launch_thread(const Pairs& p, cudaStream_t stream) {
+  const int blocks = (p.n + kThreads - 1) / kThreads;
+  banded_thread_kernel<W><<<blocks, kThreads, 0, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int NC>
+cudaError_t launch_warp(const Pairs& p, cudaStream_t stream) {
+  const long long threads = 32LL * p.n;
+  const int blocks = (int)((threads + kThreads - 1) / kThreads);
+  banded_warp_kernel<NC><<<blocks, kThreads, 0, stream>>>(p);
+  return cudaGetLastError();
+}
+
+int warp_chunks(int E) { return (2 * E + 1 + 31) / 32; }
+
+}  // namespace
+
+extern "C" {
+
+// Ints of device scratch a pair needs in the warp mapping at this E: 0
+// while the band fits the registers (2E + 1 <= 1,024 cells).
+long long banded_edit_scratch_ints(int E) {
+  const int nc = warp_chunks(E);
+  return nc <= kWarpRegChunks ? 0 : 32LL * nc;
+}
+
+// The widest band the thread mapping holds: the launcher takes a thread a
+// pair up to it and a warp a pair past it.
+int banded_edit_thread_max_cells() { return kThreadMaxCells; }
+
+// n pairs; a byte (pos, pair) at a + pos * a_ps + pair * a_pp (La
+// positions), b likewise (Lb positions), la / lb int32 at pair * stride.
+// scratch holds n * banded_edit_scratch_ints(E) ints where that is > 0.
+// out (n,) int32, saturated at E + 1.
+cudaError_t banded_edit_launch(const uint8_t* a, long long a_ps,
+                               long long a_pp, const int* la,
+                               long long la_pp, const uint8_t* b,
+                               long long b_ps, long long b_pp, const int* lb,
+                               long long lb_pp, int n, int La, int Lb, int E,
+                               int infix, int* out, int* scratch,
+                               cudaStream_t stream) {
+  if (n <= 0) return cudaSuccess;
+  if (E < 0 || La < 0 || Lb < 0) return cudaErrorInvalidValue;
+  const Pairs p{a, a_ps, a_pp, la, la_pp, b, b_ps, b_pp, lb, lb_pp,
+                n, La, Lb, E, infix ? 1 : 0, out};
+  const int w = 2 * E + 1;
+  if (w <= kThreadMaxCells) {
+    switch (w) {
+      case 1: return launch_thread<1>(p, stream);
+      case 3: return launch_thread<3>(p, stream);
+      case 5: return launch_thread<5>(p, stream);
+      case 7: return launch_thread<7>(p, stream);
+      case 9: return launch_thread<9>(p, stream);
+      case 11: return launch_thread<11>(p, stream);
+      case 13: return launch_thread<13>(p, stream);
+      case 15: return launch_thread<15>(p, stream);
+      default: break;
+    }
+    if (w <= 32) return launch_thread<32>(p, stream);
+    return launch_thread<64>(p, stream);
+  }
+  // w > 64: 3 chunks or more
+  const int nc = warp_chunks(E);
+  if (nc <= 3) return launch_warp<3>(p, stream);
+  if (nc <= 4) return launch_warp<4>(p, stream);
+  if (nc <= 6) return launch_warp<6>(p, stream);
+  if (nc <= 8) return launch_warp<8>(p, stream);
+  if (nc <= 12) return launch_warp<12>(p, stream);
+  if (nc <= 16) return launch_warp<16>(p, stream);
+  if (nc <= 24) return launch_warp<24>(p, stream);
+  if (nc <= kWarpRegChunks) return launch_warp<32>(p, stream);
+  if (scratch == nullptr) return cudaErrorInvalidValue;
+  const long long threads = 32LL * n;
+  const int blocks = (int)((threads + kThreads - 1) / kThreads);
+  banded_warp_mem_kernel<<<blocks, kThreads, 0, stream>>>(p, scratch);
+  return cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,0 +1,390 @@
+"""Batched banded edit distance on a torch device — Dedupe's verification
+hot loop (reference: jni/BandedAlignerJNI.c:588-716
+alignForward/RC/Reverse/RC, align2/BandedAlignerConcrete.java), the
+PyTorch port of bbmap_tpu/ops/banded_device.py.
+
+The JAX package runs it as one jitted ``lax.scan`` over the rows with
+the band (2*maxEdits+1 diagonals) on the lanes. Here:
+
+- ``banded_edit`` is the kernel's wrapper. Given CUDA tensors it makes
+  one launch of the hand-written kernel ``csrc/banded_edit.cu`` (a thread
+  a pair for bands of up to 64 cells, a warp a pair past that: the
+  launcher picks from E) and adds one to ``banded_edit.launches`` (and
+  ``launches_by[mapping]``); given CPU tensors it runs the plain version
+  and counts nothing.
+- ``banded_edit_batch_plain`` is the plain version: the JAX row scan as
+  torch ops on any device, the insertion sweep closed into ``cummin``.
+  It drops a pair once its whole band is past max_edits (the rest of the
+  scan would leave it there, so the value is the same).
+- ``banded_edit_batch``, ``contained_distances`` and
+  ``edit_distances_vs_one`` are the JAX package's entry points on numpy
+  arrays, with ``device=``; ``SequenceStore`` keeps Dedupe's kept
+  sequences on the device in length classes, so that a query uploads
+  only itself.
+
+Tensors are position-major (pair-minor): byte (pos, pair) of ``a`` (La,
+n) and ``b`` (Lb, n) at [pos, pair], so that the kernel's neighbouring
+threads read neighbouring bytes; ``a`` may be one query (La,) that every
+pair reads. Results (n,) int32, saturated at max_edits + 1, equal value
+by value to the JAX scan (tests/test_torch_banded.py).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from .. import backend
+from . import _build
+
+I32 = torch.int32
+MAPPINGS = ("thread", "warp")
+# rows of the plain scan between two looks for saturated pairs
+PLAIN_CHECK_ROWS = 8
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("banded_edit")
+    if not getattr(lib, "_bbmap_typed", False):
+        vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.banded_edit_launch.argtypes = [
+            vp, ll, ll, vp, ll, vp, ll, ll, vp, ll,
+            ci, ci, ci, ci, ci, vp, vp, vp]
+        lib.banded_edit_launch.restype = ci
+        lib.banded_edit_scratch_ints.argtypes = [ci]
+        lib.banded_edit_scratch_ints.restype = ll
+        lib.banded_edit_thread_max_cells.restype = ci
+        lib._bbmap_typed = True
+    return lib
+
+
+def _check(a, la, b, lb) -> None:
+    if a.dim() not in (1, 2) or b.dim() != 2 or la.dim() != 1 \
+            or lb.dim() != 1:
+        raise ValueError("a (La, n) or (La,), b (Lb, n), la and lb (n,) "
+                         "expected")
+    n = lb.shape[0]
+    if b.shape[1] != n or la.shape[0] != n or (a.dim() == 2
+                                               and a.shape[1] != n):
+        raise ValueError("a, la, b and lb disagree on the pair count")
+    if a.dtype != torch.uint8 or b.dtype != torch.uint8:
+        raise TypeError("a and b must be uint8")
+    if la.dtype != I32 or lb.dtype != I32:
+        raise TypeError("la and lb must be int32")
+    if not (a.device == la.device == b.device == lb.device):
+        raise ValueError("a, la, b and lb must share one device")
+
+
+def banded_edit_batch_plain(a: torch.Tensor, la: torch.Tensor,
+                            b: torch.Tensor, lb: torch.Tensor,
+                            max_edits: int, infix: bool = False,
+                            rows_out: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """Plain version of the kernel on any device: a (La, n) uint8 or one
+    query (La,), la (n,) int32, b (Lb, n) uint8, lb (n,) int32. Returns
+    (n,) int32 saturated at max_edits + 1 (``infix``: a's best match to any
+    infix of b). ``rows_out`` (n,) int32, when given, receives the rows
+    the kernel's scan runs for each pair: 0 for a global pair whose
+    lengths differ by more than max_edits, else the row at which its band
+    saturates, or min(la, La)."""
+    _check(a, la, b, lb)
+    dev = b.device
+    n = lb.shape[0]
+    E = int(max_edits)
+    w, BIG = 2 * E + 1, E + 1
+    La, Lb = a.shape[0], b.shape[0]
+    out = torch.full((n,), BIG, dtype=I32, device=dev)
+    if rows_out is not None:
+        rows_out.copy_(torch.minimum(la, torch.tensor(La, dtype=I32,
+                                                      device=dev)))
+    if n == 0:
+        return out
+    la, lb = la.to(I32), lb.to(I32)
+    idx = torch.arange(n, device=dev)
+    if not infix:
+        # the global result needs |lb - la| <= E: the others stay BIG
+        keep = (lb - la).abs() <= E
+        if rows_out is not None:
+            rows_out[~keep] = 0
+        idx = idx[keep]
+    shared = a.dim() == 1
+    d_idx = torch.arange(w, dtype=I32, device=dev)[:, None]
+    la_c, lb_c = la[idx], lb[idx]
+    a_c = a if shared else a[:, idx]
+    j0 = d_idx - E
+    ok0 = (j0 >= 0) & (j0 <= lb_c[None, :])
+    prev = torch.where(ok0, torch.zeros_like(j0) if infix
+                       else j0.clamp(min=0), torch.full_like(j0, BIG))
+    prev = torch.minimum(prev, torch.tensor(BIG, dtype=I32, device=dev))
+    prev = prev.expand(w, idx.numel()).contiguous()
+    Lmax = min(La, int(la_c.max())) if idx.numel() else 0
+    # b padded so that the window of row i is bp[i : i + w], b[i - E - 1
+    # + d] (255 outside b, as the JAX package pads)
+    bp = torch.full((E + 1 + Lb + Lmax + w + 2, idx.numel()), 255,
+                    dtype=torch.uint8, device=dev)
+    bp[E + 1:E + 1 + Lb] = b[:, idx]
+    big_row = torch.full((1, idx.numel()), BIG, dtype=I32, device=dev)
+    i = 1
+    while i <= Lmax:
+        win = bp[i:i + w]
+        ai = a_c[i - 1] if shared else a_c[i - 1][None, :]
+        js = i - E + d_idx
+        valid = (js >= 1) & (js <= lb_c[None, :])
+        sub = prev + (win != ai).to(I32)
+        up = torch.cat([prev[1:], big_row], 0) + 1
+        cur = torch.where(valid, torch.minimum(sub, up), BIG)
+        cur = torch.minimum(torch.cummin(cur - d_idx, 0).values + d_idx, cur)
+        cur = torch.clamp(cur, max=BIG)
+        active = i <= la_c
+        prev = torch.where(active[None, :], cur, prev)
+        if rows_out is not None:
+            sat = active & (prev > E).all(0)
+            rows_out[idx[sat]] = torch.minimum(
+                rows_out[idx[sat]], torch.tensor(i, dtype=I32, device=dev))
+        if i % PLAIN_CHECK_ROWS == 0 or i == Lmax:
+            # a band all past E stays so: its result is BIG; drop it
+            alive = (prev <= E).any(0)
+            if not bool(alive.all()):
+                idx, la_c, lb_c, prev, bp = (
+                    idx[alive], la_c[alive], lb_c[alive], prev[:, alive],
+                    bp[:, alive])
+                if not shared:
+                    a_c = a_c[:, alive]
+                big_row = big_row[:, alive]
+                if idx.numel() == 0:
+                    break
+                Lmax = min(Lmax, int(la_c.max()))
+        i += 1
+    if idx.numel() == 0:
+        return out
+    if infix:
+        jsf = la_c[None, :] - E + d_idx
+        okf = (jsf >= 0) & (jsf <= lb_c[None, :])
+        res = torch.where(okf, prev, BIG).amin(0)
+    else:
+        d_final = lb_c - la_c + E
+        res = prev.gather(0, d_final.clamp(0, w - 1)[None, :].long())[0]
+    out[idx] = res.to(I32)
+    return out
+
+
+def _on_cuda(t: torch.Tensor) -> None:
+    if t.device.type != "cuda":
+        raise RuntimeError(
+            f"the banded kernel runs on CUDA tensors (got {t.device})")
+
+
+def banded_edit(a: torch.Tensor, la: torch.Tensor, b: torch.Tensor,
+                lb: torch.Tensor, max_edits: int,
+                infix: bool = False) -> torch.Tensor:
+    """Banded edit distance of n pairs, in the layout of
+    ``banded_edit_batch_plain`` (any strides; a pair stride of 0 shares a
+    query or a length). CPU tensors: the plain version. CUDA tensors: one
+    launch of ``csrc/banded_edit.cu``, a thread a pair where 2E + 1 <= 64
+    cells, else a warp a pair; a failed launch raises."""
+    _check(a, la, b, lb)
+    if b.device.type == "cpu":
+        return banded_edit_batch_plain(a, la, b, lb, max_edits, infix)
+    _on_cuda(b)
+    n = lb.shape[0]
+    E = int(max_edits)
+    if E < 0:
+        raise ValueError(f"max_edits={E} must be >= 0")
+    out = torch.empty(n, dtype=I32, device=b.device)
+    if n == 0:
+        return out
+    lib = _lib()
+    mapping = "thread" if 2 * E + 1 <= lib.banded_edit_thread_max_cells() \
+        else "warp"
+    ints = lib.banded_edit_scratch_ints(E)
+    scratch = torch.empty(n * ints if ints else 1, dtype=I32,
+                          device=b.device)
+    a_ps, a_pp = (a.stride(0), 0) if a.dim() == 1 else a.stride()
+    err = lib.banded_edit_launch(
+        a.data_ptr(), a_ps, a_pp, la.data_ptr(), la.stride(0), b.data_ptr(),
+        b.stride(0), b.stride(1), lb.data_ptr(), lb.stride(0), n,
+        a.shape[0], b.shape[0], E, int(bool(infix)), out.data_ptr(),
+        scratch.data_ptr(),
+        torch.cuda.current_stream(b.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"banded_edit_launch failed: cudaError {err}")
+    banded_edit.launches += 1
+    banded_edit.launches_by[mapping] += 1
+    return out
+
+
+def reset_launches() -> None:
+    banded_edit.launches = 0
+    banded_edit.launches_by = dict.fromkeys(MAPPINGS, 0)
+
+
+reset_launches()
+
+
+def banded_edit_batch(a: np.ndarray, la: np.ndarray, b: np.ndarray,
+                      lb: np.ndarray, max_edits: int,
+                      infix: bool = False, *, device) -> np.ndarray:
+    """Batched banded edit distance. a (n, La) / b (n, Lb) uint8 with
+    per-row lengths la/lb; returns (n,) int32 saturated at
+    max_edits + 1. ``infix=True`` scores a's best match to ANY infix of
+    b (free start/end in b) — Dedupe's contained-with-edits
+    verification (reference: Dedupe containment via
+    BandedAligner.alignForward from a candidate offset). Staged
+    position-major and run on ``device`` (the kernel on cuda, the plain
+    version on cpu)."""
+    dev = backend.resolve_device(device)
+
+    def up(x, dt):
+        return torch.from_numpy(np.ascontiguousarray(x, dt)).to(dev)
+    d = banded_edit(up(np.asarray(a).T, np.uint8), up(la, np.int32),
+                    up(np.asarray(b).T, np.uint8), up(lb, np.int32),
+                    max_edits, infix)
+    return d.cpu().numpy()
+
+
+def _pad_rows(seqs: List[np.ndarray], width: int) -> np.ndarray:
+    out = np.zeros((len(seqs), width), np.uint8)
+    for i, s in enumerate(seqs):
+        out[i, :len(s)] = s
+    return out
+
+
+def _vs_query(query: np.ndarray, seqs: List[np.ndarray], E: int,
+              infix: bool, dev: torch.device) -> np.ndarray:
+    """One query against every sequence of ``seqs``: the query uploaded
+    once (every pair reads it), the sequences position-major."""
+    q = torch.from_numpy(np.array(query, np.uint8)).to(dev)
+    la = torch.tensor([len(query)], dtype=I32, device=dev).expand(len(seqs))
+    b = torch.from_numpy(np.ascontiguousarray(
+        _pad_rows(seqs, max(len(s) for s in seqs)).T)).to(dev)
+    lb = torch.tensor([len(s) for s in seqs], dtype=I32, device=dev)
+    return banded_edit(q, la, b, lb, E, infix).cpu().numpy()
+
+
+def contained_distances(query: np.ndarray,
+                        windows: List[np.ndarray],
+                        max_edits: int, *, device) -> np.ndarray:
+    """Best infix edit distance of `query` within each window (free
+    start/end inside the window) — Dedupe's contained-with-edits
+    verification. Band width 2*max_edits covers the offset slack of a
+    ±max_edits window."""
+    n = len(windows)
+    if n == 0:
+        return np.zeros(0, np.int32)
+    dev = backend.resolve_device(device)
+    d = _vs_query(query, windows, 2 * max_edits, True, dev)
+    return np.minimum(d, max_edits + 1)
+
+
+def edit_distances_vs_one(query: np.ndarray,
+                          others: List[np.ndarray],
+                          max_edits: int, *, device) -> np.ndarray:
+    """Distances of one query against many candidates (Dedupe's
+    near-duplicate check), one launch on ``device``."""
+    n = len(others)
+    if n == 0:
+        return np.zeros(0, np.int32)
+    return _vs_query(query, others, max_edits, False,
+                     backend.resolve_device(device))
+
+
+def length_class(L: int) -> int:
+    """The first length of L's class in ``SequenceStore``: lengths below
+    32 a class each, then 16 classes an octave ([2^(k-1), 2^k) cut into
+    steps of 2^(k-5)), so that a class's widest length is under L + L/16."""
+    shift = max(0, L.bit_length() - 5)
+    return L >> shift << shift
+
+
+def class_width(lo: int) -> int:
+    """The widest length of the class that starts at lo."""
+    return lo + (1 << max(0, lo.bit_length() - 5)) - 1
+
+
+class SequenceStore:
+    """Sequences kept on a device in length classes (``length_class``),
+    appended one at a time: a class holds its sequences position-major in
+    a (class width, capacity) uint8 tensor, byte (pos, k) of its sequence
+    k, beside their lengths, the capacity doubled as it fills, so the card
+    holds under 2 x 17/16 of the kept bytes, however far the lengths
+    spread. A query is checked against the classes that hold lengths
+    within max_edits of its own (Dedupe's near-duplicate check with e=, as
+    the JAX package's length buckets), a launch a class: one, unless its
+    length lies within max_edits of a class's edge. A kept sequence whose
+    length differs from the query's by more than max_edits gives
+    max_edits + 1, the kernel's first test."""
+
+    def __init__(self, device):
+        self.device = backend.resolve_device(device)
+        self.n = 0
+        # first length -> [(width, capacity) uint8, (capacity,) int32
+        # lengths, sequences held]
+        self.classes: Dict[int, list] = {}
+        # a length as a tensor of one element without a launch: a view
+        # into this table
+        self._lengths = torch.arange(257, dtype=I32, device=self.device)
+
+    def __len__(self) -> int:
+        return self.n
+
+    def upload(self, seq: np.ndarray) -> torch.Tensor:
+        """A query's bytes on the device: (L,) uint8."""
+        return torch.from_numpy(np.array(seq, np.uint8)).to(self.device)
+
+    def _length(self, L: int) -> torch.Tensor:
+        if L >= self._lengths.shape[0]:
+            self._lengths = torch.arange(2 * L + 1, dtype=I32,
+                                         device=self.device)
+        return self._lengths[L]
+
+    def near(self, L: int, max_edits: int) -> List[int]:
+        """The classes (their first lengths) that hold a sequence of a
+        length within max_edits of L, shortest first."""
+        out = []
+        lo = length_class(max(0, L - max_edits))
+        while lo <= L + max_edits:
+            if lo in self.classes:
+                out.append(lo)
+            lo = class_width(lo) + 1
+        return out
+
+    def append(self, q: torch.Tensor) -> None:
+        """Keep an uploaded sequence (L,) uint8."""
+        L = q.shape[0]
+        lo = length_class(L)
+        cls = self.classes.get(lo)
+        if cls is None:
+            cls = self.classes[lo] = [
+                torch.empty((class_width(lo), 1), dtype=torch.uint8,
+                            device=self.device),
+                torch.empty(1, dtype=I32, device=self.device), 0]
+        seqs, lens, k = cls
+        if k == seqs.shape[1]:
+            grown = torch.empty((seqs.shape[0], 2 * k), dtype=torch.uint8,
+                                device=self.device)
+            grown[:, :k] = seqs
+            grown_lens = torch.empty(2 * k, dtype=I32, device=self.device)
+            grown_lens[:k] = lens
+            cls[0], cls[1] = seqs, lens = grown, grown_lens
+        seqs[:L, k] = q
+        lens[k] = self._length(L)
+        cls[2] = k + 1
+        self.n += 1
+
+    def distances(self, q: torch.Tensor, max_edits: int) -> torch.Tensor:
+        """Global banded edit distance of the uploaded query q against
+        every kept sequence of the classes ``near`` its length, class by
+        class, each in the order kept: (m,) int32 on the device, a launch
+        a class."""
+        la = self._length(q.shape[0])
+        out = []
+        for lo in self.near(q.shape[0], max_edits):
+            seqs, lens, k = self.classes[lo]
+            out.append(banded_edit(q, la.expand(k), seqs[:, :k], lens[:k],
+                                   max_edits))
+        if len(out) == 1:
+            return out[0]
+        return torch.cat(out) if out else torch.zeros(
+            0, dtype=I32, device=self.device)

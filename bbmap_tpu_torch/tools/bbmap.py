@@ -376,3 +376,54 @@ def main(argv: List[str]) -> int:
 
 if __name__ == "__main__":
     raise SystemExit(main(sys.argv[1:]))
+
+
+def acc_main(argv: List[str]) -> int:
+    """bbmapacc: the accuracy-leaning variant (reference:
+    align2/BBMapAcc.java setDefaults:44-66 — denser seeding
+    keyDensity 2.3/3.2/1.8, MIN_APPROX_HITS_TO_KEEP=1, up to 8 site
+    scores). The engine has ONE unified index/thread stack (the CSR
+    block layout already is BBIndexAcc/BBIndex5's flat-array design),
+    so the variant is its parameter set, applied here."""
+    from ..align import seed
+    saved = (seed.KEY_DENSITY, seed.MAX_KEY_DENSITY,
+             seed.MIN_KEY_DENSITY)
+    seed.KEY_DENSITY, seed.MAX_KEY_DENSITY, seed.MIN_KEY_DENSITY = \
+        2.3, 3.2, 1.8
+    try:
+        extra = []
+        keys = {a.split("=")[0].lower() for a in argv if "=" in a}
+        if "maxsites" not in keys and "sssr" not in keys:
+            extra.append("maxsites=8")
+        return main(argv + extra)
+    finally:
+        (seed.KEY_DENSITY, seed.MAX_KEY_DENSITY,
+         seed.MIN_KEY_DENSITY) = saved
+
+
+def bbmap5_main(argv: List[str]) -> int:
+    """bbmap5 (reference: align2/BBMap5.java over BBIndex5.java:16 —
+    'a single array per block, 32-bit unsigned'). That memory layout IS
+    this engine's CSR index (one flat int32 sites array per shard), so
+    bbmap5 runs the standard pipeline; the name exists for CLI
+    compatibility."""
+    return main(argv)
+
+
+def skimmer_main(argv: List[str]) -> int:
+    """bbmapskimmer: emit ALL sites above threshold, not just the best
+    (reference: sh/bbmapskimmer.sh via BBMapSkimmer stack,
+    docs/guides/BBMapGuide.txt:106 — 'returns all alignments above a
+    score threshold'). Implemented as bbmap with secondary-site output
+    and ambig=all defaults."""
+    extra = []
+    keys = {a.split("=")[0].lower() for a in argv if "=" in a}
+    if "ambig" not in keys and "ambiguous" not in keys:
+        extra.append("ambig=all")
+    if "secondary" not in keys:
+        extra.append("secondary=t")
+    if "maxsites" not in keys and "sssr" not in keys:
+        extra.append("maxsites=20")
+    if "minratio" not in keys:
+        extra.append("minratio=0.45")
+    return main(argv + extra)

@@ -10,7 +10,8 @@ Phases, each timed on its own line:
 1. device facts: the card's name and power limit;
 2. build: one nvcc for each source in ``bbmap_tpu_torch/csrc/``
    (``msa_dp.cu``, ``msa_dp_warp.cu``, ``msa_dp_band.cu``,
-   ``msa_walk.cu``, ``msa_fill_walk.cu``), all started together, into
+   ``msa_walk.cu``, ``msa_fill_walk.cu``, ``banded_edit.cu``), all
+   started together, into
    ``build/torch_kernels/``
    (a source whose library is there is skipped); ``cuobjdump -sass`` of the libraries gives each
    kernel's instructions a cell (the main loop's length over the cells
@@ -107,12 +108,33 @@ Phases, each timed on its own line:
    reproduce.sh left out), the reports too without their wall times, the
    card's runs seen in kcount's calls, rqcfilter's out2 holding the mates
    of out, decontaminate's junk contigs dirty and its main contigs clean.
+10. dedupe and mapper variants: the banded edit distance kernel
+   (``csrc/banded_edit.cu``) against its plain version, tolerance 0, at
+   65,536 pairs of 150 bp from the genome (0-6 substitutions and indels)
+   at E = 0, 2, 4, 31 (a thread a pair), E = 40 (a warp a pair) and E =
+   520 on 1,024 pairs (the band in device memory), global and infix, one
+   query against all 65,536, 1,024 contigs of 5,000 bp at E = 8, and the
+   first 1,000 pairs at E = 2 against the numpy band sweep, each timed
+   beside its bound; the ``dedupe`` (e=2; s=2 ac=t; fo=t c=t mo=100 with
+   cluster stats, graph and cluster files) and ``dedupe2 nam=2`` CLIs
+   over 2,000 reads, and ``bbmapacc``, ``bbmap5``, ``bbmapskimmer`` and
+   ``bbsplit`` (the reference cut into two sets) over 500 pairs, on the
+   card and, each in a process of its own started first, on the CPU:
+   every file and report byte-equal; bbmap on the card before and after
+   bbmapacc in this process, the same SAM; then on the card alone dedupe
+   e=2 ac=t over 50,000 reads (reads/s, banded launches, a launch's time
+   against all kept reads) and bbmap, bbmapacc and bbmapskimmer over
+   32,768 pairs (reads/s over each CLI's mapping time, accuracy graded
+   from randomreads' names; bbmapacc maps no fewer reads than bbmap and
+   is not less sensitive beyond a 3-sigma sign test on the reads the two
+   grade apart).
 
 Each path's launch counts (and the tools' device scan and ladder
 counters, and kcount's calls) are set to 0 just before it and read just
 after; the kmer tools' path is decontaminate's run on the card (its two
-single-end ``bbmap`` runs). The ``kernels`` line gives each kernel's
-launches on each path and, as
+single-end ``bbmap`` runs); the dedupe path is dedupe's run over 50,000
+reads, the mapper variants' path bbmapskimmer's over 32,768 pairs. The
+``kernels`` line gives each kernel's launches on each path and, as
 ``launches``, on the path whose shape it is timed at. Any failure raises
 and exits non-zero without the final ``ok`` line. It exits 2 when no CUDA device is available or when it is not run
 from a checkout of the repository.
@@ -155,13 +177,14 @@ _K1, _K2, _K3 = ("bbmap_tpu/ops/msa_pallas.py:243",
                  "bbmap_tpu/ops/msa_pallas.py:577",
                  "bbmap_tpu/ops/msa_pallas.py:588")
 _WALK = "bbmap_tpu/ops/msa_jax.py:451"
+_BANDED = "bbmap_tpu/ops/banded_device.py:34 (_program, an XLA scan)"
 # the fused fill + walk's variants (ops/msa_kernels.FILL_WALK_VARIANTS)
 FILL_WALK = {v: f"msa_fill_walk_{v}" for v in ("row", "row_packed")}
 REPLACES = {"msa_score_rows": _K1, "msa_score": _K2, "msa_score_row": _K2,
             "msa_score_segments": _K2,
             "msa_score_long": _K2, "msa_score_strided": _K2,
             "msa_fill": _K3, "msa_fill_long": _K3, "msa_fill_strided": _K3,
-            "msa_walk": _WALK,
+            "msa_walk": _WALK, "banded_edit": _BANDED,
             **{n: f"{_K3} + {_WALK}" for n in FILL_WALK.values()}}
 CSRC = "bbmap_tpu_torch/csrc/"
 SOURCE = {"msa_score_rows": CSRC + "msa_dp_warp.cu",
@@ -174,6 +197,7 @@ SOURCE = {"msa_score_rows": CSRC + "msa_dp_warp.cu",
           "msa_score_strided": CSRC + "msa_dp.cu",
           "msa_fill_strided": CSRC + "msa_dp.cu",
           "msa_walk": CSRC + "msa_walk.cu",
+          "banded_edit": CSRC + "banded_edit.cu",
           **{n: CSRC + "msa_fill_walk.cu" for n in FILL_WALK.values()}}
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 # Each of an SM's four schedulers starts one warp instruction (32 lanes) a
@@ -1209,16 +1233,17 @@ def fill_walk_phase(genome, device, instr: dict, clock: float) -> dict:
     return res
 
 
-def k1_entry(genome, device) -> int:
+def k1_entry(genome, device) -> dict:
     """K1's own entry point, ``score_batch``, on the card at 32,768 jobs
     of (150, 174), counted; held equal to K2 on the same jobs. Returns
-    K1's launch count."""
+    every kernel's launches in that call."""
     from bbmap_tpu_torch.core.constants import SHORT_PROFILE
     from bbmap_tpu_torch.ops import msa_kernels as mk
     rd, rf, rw = dp_jobs(genome, K1_JOBS, L, L + 24, 21, device)
-    mk.reset_launches()
+    reset_counts()
     got = mk.score_batch(rd, rf, rw, BB=64)
     _sync(device)
+    launches = launch_counts()
     n = mk.msa_score_rows.launches
     want = mk.msa_score_plain(rd, rf, rw, SHORT_PROFILE)
     e = max(int((g.long() - w.long()).abs().max())
@@ -1227,7 +1252,7 @@ def k1_entry(genome, device) -> int:
         f"max_abs_err vs plain {e}")
     if e != 0 or n == 0:
         raise AssertionError("score_batch did not run K1 or disagrees")
-    return n
+    return launches
 
 
 def grade(aligner, graded, t1, t2, n_pairs: int) -> dict:
@@ -1250,18 +1275,31 @@ def grade(aligner, graded, t1, t2, n_pairs: int) -> dict:
             "pair_rate": n_paired / (len(graded) * n_pairs)}
 
 
+def reset_counts() -> None:
+    """Every kernel wrapper's launch count to 0."""
+    from bbmap_tpu_torch.ops import banded_device, msa_kernels
+    msa_kernels.reset_launches()
+    banded_device.reset_launches()
+
+
 def launch_counts() -> dict:
-    """Each kernel wrapper's launches since the last reset; a DP
-    kernel's by mapping as well: "<name>_warp", "<name>_row",
-    "<name>_band" and "<name>_strided", and the fused fill + walk's by
-    variant ("msa_fill_walk_<variant>")."""
-    from bbmap_tpu_torch.ops import msa_kernels
+    """Each kernel wrapper's launches since the last ``reset_counts``; a
+    DP kernel's by mapping as well: "<name>_warp", "<name>_row",
+    "<name>_band" and "<name>_strided", the fused fill + walk's by
+    variant ("msa_fill_walk_<variant>"), the banded kernel's as
+    "banded_edit" and by mapping ("banded_edit_thread",
+    "banded_edit_warp")."""
+    from bbmap_tpu_torch.ops import banded_device, msa_kernels
     out = {k.__name__: k.launches for k in msa_kernels.KERNELS}
     for k in msa_kernels.DP_KERNELS:
         for mapping in msa_kernels.MAPPINGS:
             out[f"{k.__name__}_{mapping}"] = k.launches_by[mapping]
     for v, n in msa_kernels.msa_fill_walk.launches_by.items():
         out[FILL_WALK[v]] = n
+    banded = banded_device.banded_edit
+    out["banded_edit"] = banded.launches
+    for mapping, n in banded.launches_by.items():
+        out[f"banded_edit_{mapping}"] = n
     return out
 
 
@@ -1277,7 +1315,6 @@ def main_path(device, n_pairs: int = N_PAIRS, n_steady: int = N_STEADY,
     from bbmap_tpu_torch.core.batch import ReadBatch
     from bbmap_tpu_torch.core.genome import Genome, Scaffold
     from bbmap_tpu_torch.index.build import analyze_index, build_index
-    from bbmap_tpu_torch.ops import msa_kernels
 
     t0 = time.time()
     gbases = workload.make_genome() if genome_bases is None \
@@ -1305,7 +1342,7 @@ def main_path(device, n_pairs: int = N_PAIRS, n_steady: int = N_STEADY,
     on_card = torch.device(device).type == "cuda"
     if on_card:
         torch.cuda.reset_peak_memory_stats()
-    msa_kernels.reset_launches()
+    reset_counts()
     tw = time.time()
     out0 = aligner.map_pairs_columnar(mk(r1, q1, 0), mk(r2, q2, 0))
     warm_s = time.time() - tw
@@ -1470,7 +1507,7 @@ def long_phase(device, genome_bases, n_reads: int = N_LONG,
         util = []
         sampler = gpu_util_sampler(util) if on_card \
             else contextlib.nullcontext()
-        msa_kernels.reset_launches()
+        reset_counts()
         t0 = time.time()
         try:
             with sampler, contextlib.redirect_stderr(log):
@@ -1777,10 +1814,10 @@ def _cli_pairs(rng, n: int, read_len: int, ins_lo: int, ins_hi: int,
     return r1, r2, q1, q2
 
 
-def run_tool(tool: str, args) -> tuple:
+def run_tool(tool: str, args, keep_time: bool = False) -> tuple:
     """The port's CLI entry point of ``tool`` (``python -m
     bbmap_tpu_torch <tool>``) in this process: (exit code, its report on
-    stderr without the ``Time:`` line)."""
+    stderr without the ``Time:`` line, unless ``keep_time``)."""
     import importlib
     from bbmap_tpu_torch.__main__ import TOOLS
     module, entry = TOOLS[tool]
@@ -1788,7 +1825,7 @@ def run_tool(tool: str, args) -> tuple:
     with contextlib.redirect_stderr(err):
         rc = getattr(importlib.import_module(module), entry)(list(args))
     return rc, "\n".join(ln for ln in err.getvalue().splitlines()
-                         if not ln.startswith("Time:"))
+                         if keep_time or not ln.startswith("Time:"))
 
 
 def tools_cli(device, n: int = N_CLI) -> dict:
@@ -2082,7 +2119,6 @@ def kmer_cli(device, gbases) -> dict:
     ``launches``)."""
     import numpy as np
     from bbmap_tpu_torch.index import kcount
-    from bbmap_tpu_torch.ops import msa_kernels
     acgt = np.frombuffer(b"ACGT", np.uint8)
     rng = np.random.default_rng(41)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_kmer")
@@ -2159,7 +2195,7 @@ def kmer_cli(device, gbases) -> dict:
                 o.mkdir()
                 args = [a.format(d=d, o=o, t=t) for a in template]
                 kcount.reset_calls()
-                msa_kernels.reset_launches()
+                reset_counts()
                 w = time.time()
                 rc, report = run_tool(tool, args + [f"device={dev}"])
                 wall = time.time() - w
@@ -2231,6 +2267,605 @@ def kmer_tools_phase(device, gbases) -> tuple:
     CLIs byte-equal between the card and the CPU: the results of
     kmer_count and kmer_cli."""
     return kmer_count(device, gbases), kmer_cli(device, gbases)
+
+
+# ---------------------------------------------------------------------------
+# dedupe and the mapper's CLI variants
+# ---------------------------------------------------------------------------
+
+# the banded kernel against its plain version: pairs of 150 bp from the
+# genome with 0-6 substitutions and indels at each E, global and infix (a
+# thread a pair), at E = 40 (a warp a pair, the band in registers) and at
+# E = 520 (a warp a pair, the band in device memory); one query against
+# the pairs' b sides (dedupe's call); contigs of 5,000 bp at E = 8; and the
+# first pairs at E = 2 against the numpy band sweep
+BANDED_PAIRS, BANDED_ES, BANDED_WARP_E = 65_536, (0, 2, 4, 31), 40
+BANDED_MEM_E, BANDED_MEM_PAIRS = 520, 1_024
+CONTIG_PAIRS, CONTIG_L, CONTIG_E = 1_024, 5_000, 8
+BANDED_NUMPY_PAIRS = 1_000
+# the CLIs card vs CPU, and the card's runs at a size users run
+N_DEDUPE_CLI, N_DEDUPE_BIG = 2_000, 50_000
+N_VARIANT_PAIRS, N_VARIANT_BIG = 500, 32_768
+VARIANT_REF_BP = 1_000_000
+
+
+def mutate_pairs(rng, src, max_ops: int):
+    """b sides of pairs: each row of src (n, La) uint8 with 0..max_ops
+    substitutions, insertions and deletions. Returns (B (n, La + max_ops)
+    uint8, lb (n,) int32)."""
+    import numpy as np
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    n, La = src.shape
+    B = np.zeros((n, La + max_ops), np.uint8)
+    lb = np.zeros(n, np.int32)
+    for t in range(n):
+        b = src[t]
+        for _ in range(int(rng.integers(0, max_ops + 1))):
+            op, p = int(rng.integers(0, 3)), int(rng.integers(0, len(b)))
+            if op == 0:
+                b = b.copy()
+                b[p] = acgt[int(rng.integers(0, 4))]
+            elif op == 1:
+                b = np.insert(b, p, acgt[int(rng.integers(0, 4))])
+            else:
+                b = np.delete(b, p)
+        B[t, :len(b)] = b
+        lb[t] = len(b)
+    return B, lb
+
+
+def banded_instructions() -> tuple:
+    """Instructions a band cell of each instantiation of
+    ``csrc/banded_edit.cu`` from its SASS: a thread's row loop over its W
+    cells, a warp's over 32 NC cells (each of the 32 lanes runs the loop),
+    and the least of them, which the bound is reckoned with."""
+    import re
+    from bbmap_tpu_torch.ops import _build
+    per = {}
+    for name, (tot, loop) in sass_counts(
+            _build.library_path("banded_edit")).items():
+        m = re.search(r"banded_(thread|warp)_kernelILi(\d+)E", name)
+        if m:
+            cells = int(m.group(2)) * (32 if m.group(1) == "warp" else 1)
+            per[f"{m.group(1)} {m.group(2)}"] = 32 * loop / cells \
+                if m.group(1) == "warp" else loop / cells
+    if not per:
+        raise AssertionError("no banded kernel in the library's SASS")
+    least = min(per.values())
+    say("sass banded_edit a cell: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in sorted(per.items())) +
+        f"; the function needs at most {least:.1f}")
+    return per, least
+
+
+def banded_check(what: str, device, a, la, b, lb, E: int, infix: bool,
+                 per_cell: float, clock: float, reps: int = 20) -> dict:
+    """The kernel against its plain version on the same tensors (the
+    layout of ``ops/banded_device``), tolerance 0, timed; the bound from
+    the cells the data needs (each pair's rows to saturation or its end,
+    from the plain version) and the bytes read and written once."""
+    import torch
+    from bbmap_tpu_torch.ops import banded_device as bd
+    n = lb.shape[0]
+    ms, got = _cuda_ms(lambda: bd.banded_edit(a, la, b, lb, E, infix), reps)
+    plain_ms, want = _cuda_ms(lambda: bd.banded_edit_batch_plain(
+        a, la, b, lb, E, infix), 1, warm=False)
+    rows = torch.zeros(n, dtype=torch.int32, device=device)
+    bd.banded_edit_batch_plain(a, la, b, lb, E, infix, rows_out=rows)
+    err = _diff(got, want)
+    cells = (2 * E + 1) * int(rows.long().sum())
+    n_bytes = a.numel() + b.numel() + 12 * n
+    bms, by = bound_ms(n_bytes, cells * per_cell, clock)
+    res = {"pairs": n, "E": E, "infix": infix, "max_abs_err": err,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+           "share": bms / ms, "cells": cells,
+           "at_most_E": int((got <= E).sum())}
+    say(f"kernel banded_edit {what}: {n} pairs, E={E}, "
+        f"{'infix' if infix else 'global'}: max_abs_err {err}, kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bms:.4f} ms "
+        f"({by}), share {100 * bms / ms:.1f} %, {cells} cells, "
+        f"{res['at_most_E']} pairs within E")
+    if err != 0:
+        raise AssertionError(f"banded_edit {what} E={E} disagrees with its "
+                             f"plain version")
+    return res
+
+
+def banded_phase(device, gbases, clock: float) -> dict:
+    """The banded kernel against its plain version on the card at every
+    shape of the phase's list; returns the ``kernels`` line's entry (the
+    E = 2 global shape, dedupe's) with every shape's result."""
+    import numpy as np
+    import torch
+    from bbmap_tpu_torch.ops import banded_device as bd
+    from bbmap_tpu_torch.ops.banded import banded_edit_distance
+    _, per_cell = banded_instructions()
+    rng = np.random.default_rng(71)
+
+    def stage(A, la, B, lb):
+        return (torch.from_numpy(np.ascontiguousarray(A.T)).to(device),
+                torch.from_numpy(la).to(device),
+                torch.from_numpy(np.ascontiguousarray(B.T)).to(device),
+                torch.from_numpy(lb).to(device))
+    win = np.lib.stride_tricks.sliding_window_view(gbases, L)
+    A = win[rng.integers(0, len(win), BANDED_PAIRS)]
+    B, lb = mutate_pairs(rng, A, 6)
+    la = np.full(BANDED_PAIRS, L, np.int32)
+    args = stage(A, la, B, lb)
+    shapes = []
+    for E in BANDED_ES:
+        for infix in (False, True):
+            shapes.append(banded_check(f"{L} bp", device, *args, E, infix,
+                                       per_cell, clock))
+    for infix in (False, True):
+        shapes.append(banded_check(f"{L} bp warp", device, *args,
+                                   BANDED_WARP_E, infix, per_cell, clock))
+        shapes.append(banded_check(
+            f"{L} bp warp, band in memory", device,
+            *(x[..., :BANDED_MEM_PAIRS] for x in args), BANDED_MEM_E,
+            infix, per_cell, clock, reps=3))
+    # dedupe's call: one query (stride 0) against every b
+    q, lq = args[0][:, 0].contiguous(), args[1][:1].expand(BANDED_PAIRS)
+    shapes.append(banded_check(f"{L} bp one query", device, q, lq,
+                               *args[2:], 2, False, per_cell, clock))
+    cw = np.lib.stride_tricks.sliding_window_view(gbases, CONTIG_L)
+    CA = cw[rng.integers(0, len(cw), CONTIG_PAIRS)]
+    CB, clb = mutate_pairs(rng, CA, 2 * CONTIG_E)
+    cargs = stage(CA, np.full(CONTIG_PAIRS, CONTIG_L, np.int32), CB, clb)
+    for infix in (False, True):
+        shapes.append(banded_check(f"{CONTIG_L} bp contigs", device,
+                                   *cargs, CONTIG_E, infix, per_cell, clock,
+                                   reps=5))
+    # the first pairs at E = 2 against the numpy band sweep
+    got = bd.banded_edit(*(x[..., :BANDED_NUMPY_PAIRS] for x in args), 2)
+    sweep = np.array([min(banded_edit_distance(A[t], B[t, :lb[t]], 2), 3)
+                      for t in range(BANDED_NUMPY_PAIRS)], np.int32)
+    err = int(np.abs(got.cpu().numpy() - sweep).max())
+    say(f"kernel banded_edit {BANDED_NUMPY_PAIRS} pairs, E=2 against the "
+        f"numpy band sweep: max_abs_err {err}")
+    if err != 0:
+        raise AssertionError("banded_edit disagrees with the numpy sweep")
+    main = shapes[2]                     # E = 2, global: dedupe's e=2
+    return {"max_abs_err": max(s["max_abs_err"] for s in shapes),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None, "shapes": shapes}
+
+
+def dedupe_reads(gbases, n: int, seed: int):
+    """A read library of n reads from a window of the genome at ~3x
+    (150 bp; reads overlap): about 60 % distinct, 10 % exact copies, 8 %
+    reverse-complement copies, 10 % near copies (1-2 substitutions or
+    indels) and 12 % contained fragments of 60-120 bp (some
+    reverse-complemented, some with a substitution). Returns [(name,
+    bases)]."""
+    import numpy as np
+    from bbmap_tpu_torch.core.bases import COMP_ASCII
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    n0 = int(0.6 * n)
+    base = genome_reads(gbases, n0, 500_000, 50 * n, seed)
+    recs = [(f"u{i}", bytes(r)) for i, r in enumerate(base)]
+    for k in range(n - n0):
+        src = base[int(rng.integers(0, n0))]
+        u = rng.random()
+        if u < 0.25:
+            seq, kind = src, "x"
+        elif u < 0.45:
+            seq, kind = COMP_ASCII[src[::-1]], "rc"
+        elif u < 0.7:
+            seq, kind = src.copy(), "near"
+            for _ in range(int(rng.integers(1, 3))):
+                p, op = int(rng.integers(5, len(seq) - 5)), rng.integers(0, 3)
+                if op == 0:
+                    seq = seq.copy()
+                    seq[p] = acgt[(int(np.searchsorted(acgt, seq[p])) + 1)
+                                  % 4]
+                elif op == 1:
+                    seq = np.insert(seq, p, acgt[int(rng.integers(0, 4))])
+                else:
+                    seq = np.delete(seq, p)
+        else:
+            f = int(rng.integers(60, 121))
+            s = int(rng.integers(0, L - f + 1))
+            seq, kind = src[s:s + f].copy(), "frag"
+            if rng.random() < 0.5:
+                seq = COMP_ASCII[seq[::-1]]
+            if rng.random() < 0.3:
+                p = int(rng.integers(0, f))
+                seq[p] = acgt[(int(np.searchsorted(acgt, seq[p])) + 1) % 4]
+        recs.append((f"{kind}{k}", bytes(seq)))
+    order = rng.permutation(len(recs))
+    return [recs[i] for i in order]
+
+
+def _fastq_recs(path, recs, seed: int) -> None:
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    with open(path, "wb") as fh:
+        for name, seq in recs:
+            q = (rng.integers(20, 41, len(seq)) + 33).astype(np.uint8)
+            fh.write(b"@" + name.encode() + b"\n" + seq + b"\n+\n"
+                     + q.tobytes() + b"\n")
+
+
+def dedupe_runs() -> dict:
+    """dedupe's CLI runs card vs CPU: key -> (tool, arguments); {d} is the
+    inputs' directory, {o} the run's output directory."""
+    io_ = ["in={d}/lib.fq", "out={o}/u.fq", "outd={o}/dup.fq"]
+    return {"dedupe e=2": ("dedupe", [*io_, "e=2", "ac=f"]),
+            "dedupe s=2 ac=t": ("dedupe", [*io_, "s=2", "ac=t"]),
+            "dedupe fo=t c=t": ("dedupe", [
+                *io_, "fo=t", "c=t", "mo=100", "csf={o}/stats.txt",
+                "dot={o}/graph.dot", "pattern={o}/cluster_%.fq"]),
+            "dedupe2 nam=2": ("dedupe2", [*io_, "nam=2", "e=1", "ac=t"])}
+
+
+def variant_runs() -> dict:
+    """The mapper variants' runs card vs CPU, as ``dedupe_runs``."""
+    pairs = ["in={d}/small1.fq", "in2={d}/small2.fq"]
+    sam = ["ref={d}/ref.fa", *pairs, "out={o}/out.sam", "nodisk"]
+    return {"bbmapacc": ("bbmapacc", sam), "bbmap5": ("bbmap5", sam),
+            "bbmapskimmer": ("bbmapskimmer", sam),
+            "bbsplit": ("bbsplit", ["ref={d}/setA.fa,{d}/setB.fa", *pairs,
+                                    "basename={o}/out_%.fq",
+                                    "refstats={o}/refstats.txt"])}
+
+
+def _files(o: Path) -> dict:
+    return {p.name: p.read_bytes() for p in sorted(o.iterdir())}
+
+
+def cli_card(device, o: Path, tool: str, args) -> dict:
+    """``tool`` on the card in this process: its report (without wall
+    times), output files, wall and every kernel's launches."""
+    reset_counts()
+    w = time.time()
+    rc, report = run_tool(tool, list(args) + [f"device={device}"])
+    _sync(device)
+    wall = time.time() - w
+    if rc != 0:
+        raise AssertionError(f"{tool} device={device} exited {rc}: {report}")
+    return {"report": _report_lines(report, {"{o}": o}), "files": _files(o),
+            "wall_s": wall,
+            "launches": launch_counts()}
+
+
+class CpuRun:
+    """``python -m bbmap_tpu_torch <tool> ... device=cpu`` in a process of
+    its own (one thread, no card), started now; ``finish`` waits for it and
+    returns what ``cli_card`` returns but the launches."""
+
+    def __init__(self, o: Path, tool: str, args):
+        import threading
+        self.o, self.tool = o, tool
+        env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1",
+                   MKL_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+        self.t0 = time.time()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "bbmap_tpu_torch", tool, *args,
+             "device=cpu"], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        self.done = {}
+        self.waiter = threading.Thread(target=self._wait, daemon=True)
+        self.waiter.start()
+
+    def _wait(self):
+        self.done["out"] = self.proc.communicate()
+        self.done["t1"] = time.time()
+
+    def finish(self, timeout: float) -> dict:
+        self.waiter.join(timeout)
+        if self.waiter.is_alive():
+            raise AssertionError(f"{self.tool} device=cpu did not end in "
+                                 f"{timeout:.0f} s")
+        _, err = self.done["out"]
+        if self.proc.returncode != 0:
+            raise AssertionError(f"{self.tool} device=cpu exited "
+                                 f"{self.proc.returncode}: {err[-2000:]}")
+        # the process's own one-time note that the native host library
+        # did not load (this process printed its own at its first use)
+        from bbmap_tpu_torch.io import native
+        note = native.__name__ + ":"
+        report = "\n".join(ln for ln in err.splitlines()
+                           if not ln.startswith(("Time:", note)))
+        return {"report": _report_lines(report, {"{o}": self.o}),
+                "files": _files(self.o), "wall_s": self.done["t1"] - self.t0}
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+
+
+def cli_compare(key: str, card: dict, cpu: dict) -> dict:
+    """Raise unless the card's and the CPU's runs wrote the same files
+    and reports; the comparison's summary."""
+    if card["report"] != cpu["report"]:
+        raise AssertionError(f"{key}: the reports differ:\n{card['report']}"
+                             f"\n---\n{cpu['report']}")
+    fc, fh = card["files"], cpu["files"]
+    if sorted(fc) != sorted(fh) or not fc:
+        raise AssertionError(f"{key}: output files {sorted(fc)} on the card,"
+                             f" {sorted(fh)} on the CPU")
+    for name in fc:
+        if fc[name] != fh[name]:
+            raise AssertionError(f"{key}: {name} differs between the card "
+                                 f"and the CPU")
+    say(f"{key}: byte-equal card vs CPU, {len(fc)} files, card "
+        f"{card['wall_s']:.2f} s, CPU {cpu['wall_s']:.2f} s (a process "
+        f"of its own, one thread, beside the others); "
+        + "; ".join(card["report"].splitlines()[-3:]))
+    return {"files": len(fc), "bytes": sum(len(v) for v in fc.values()),
+            "wall_s": card["wall_s"], "wall_cpu_s": cpu["wall_s"],
+            "launches": {k: v for k, v in card["launches"].items() if v}}
+
+
+def variant_inputs(gbases, d: Path) -> None:
+    """The variants' references (a slice of the genome, and the slice cut
+    into two sets for bbsplit, and the whole genome) and randomreads pairs:
+    N_VARIANT_PAIRS from the slice and N_VARIANT_BIG from the genome."""
+    from bbmap_tpu_torch.tools import randomreads
+    at = 1_500_000
+    ref = gbases[at:at + VARIANT_REF_BP]
+    half = VARIANT_REF_BP // 2
+    write_fasta(d / "ref.fa", "slice", ref)
+    write_fasta(d / "setA.fa", "a", ref[:half])
+    write_fasta(d / "setB.fa", "b", ref[half:])
+    write_fasta(d / "genome.fa", "ecoli_like", gbases)
+    for name, refname, n, seed in (("small", "ref.fa", N_VARIANT_PAIRS, 31),
+                                   ("big", "genome.fa", N_VARIANT_BIG, 37)):
+        if randomreads.main([
+                f"ref={d / refname}", f"out={d / name}1.fq",
+                f"out2={d / name}2.fq", f"reads={n}", "length=150",
+                "paired=t", "snprate=0.3", "maxsnps=3", "insrate=0.05",
+                "delrate=0.05", f"seed={seed}"]) != 0:
+            raise AssertionError("randomreads failed")
+
+
+def dedupe_big(device, d: Path) -> dict:
+    """dedupe e=2 ac=t over N_DEDUPE_BIG reads on the card: reads/s over
+    the CLI's wall, every kernel's launches, the kept reads' length
+    classes and their bytes on the card, and the time of one read's check
+    at the run's widest (a read of the most common kept length against
+    the classes that hold lengths within 2 of it: a launch a class)."""
+    import numpy as np
+    import torch
+    from bbmap_tpu_torch.ops import banded_device as bd
+    reset_counts()
+    t0 = time.time()
+    rc, report = run_tool("dedupe", [f"in={d}/big.fq", f"out={d}/big_u.fq",
+                                     "e=2", "ac=t", f"device={device}"])
+    _sync(device)
+    wall = time.time() - t0
+    launches = launch_counts()
+    if rc != 0 or not launches["banded_edit"]:
+        raise AssertionError(f"dedupe at {N_DEDUPE_BIG} reads: rc {rc}, "
+                             f"{launches['banded_edit']} banded launches: "
+                             f"{report}")
+    store = bd.SequenceStore(device)
+    kept = (d / "big_u.fq").read_bytes().split(b"\n")[1::4]
+    for s in kept:
+        store.append(store.upload(np.frombuffer(s, np.uint8)))
+    lens = np.array([len(s) for s in kept])
+    L = int(np.bincount(lens).argmax())
+    near = store.near(L, 2)
+    q = store.upload(np.frombuffer(next(s for s in kept if len(s) == L),
+                                   np.uint8))
+    ms_check, _ = _cuda_ms(lambda: store.distances(q, 2), 20)
+    held = sum(c[0].numel() for c in store.classes.values())
+    big = {"reads": N_DEDUPE_BIG, "wall_s": wall,
+           "reads_per_s": N_DEDUPE_BIG / wall,
+           "launches": launches["banded_edit"], "kernel_launches": launches,
+           "kept": len(kept),
+           "classes": len(store.classes), "store_bytes": held,
+           "kept_bytes": int(lens.sum()), "check_classes": len(near),
+           "check_reads": sum(store.classes[lo][2] for lo in near),
+           "check_ms_at_all_kept": ms_check}
+    say(f"dedupe e=2 ac=t at {N_DEDUPE_BIG} reads on the card: "
+        f"{big['reads_per_s']:.1f} reads/s ({wall:.2f} s), launches "
+        f"{ {k: v for k, v in launches.items() if v} }, {len(kept)} kept in "
+        f"{len(store.classes)} length classes ({held} B on the card for "
+        f"{big['kept_bytes']} B of reads); a {L} bp read's check against "
+        f"the {big['check_reads']} kept reads of its {len(near)} classes "
+        f"{ms_check:.4f} ms; " + "; ".join(report.splitlines()[-3:]))
+    del store
+    torch.cuda.empty_cache()
+    return big
+
+
+def grade_paired(sam_path, keep: bool = False) -> dict:
+    """gradesam's grading (``parse_custom``, ``cigar_spans``) of a paired
+    run on randomreads' names, whose contig field carries the pair's
+    ``_insert=N`` suffix, so that ``gradesam.grade`` finds no contig right;
+    the genome is one contig, and it is not compared: primary alignments,
+    mapped, strict (start and stop exact) and within 20 bp (start or
+    stop), on the strand. ``keep``:
+    also each primary line's (correct, flag, pos, mapq, cigar) by name and
+    mate, as "lines"."""
+    from bbmap_tpu_torch.tools import gradesam
+    s = dict(primary=0, mapped=0, strict=0, loose=0)
+    lines = {}
+    with open(sam_path) as fh:
+        for line in fh:
+            if line.startswith("@"):
+                continue
+            f = line.split("\t")
+            flag = int(f[1])
+            if flag & 0x900:
+                continue
+            s["primary"] += 1
+            truth = gradesam.parse_custom(f[0])
+            if truth is None:
+                raise AssertionError(f"unparsed read name {f[0]}")
+            _, tstrand, tstart, tstop, trel, _ = truth
+            ok = False
+            if not flag & 0x4:
+                s["mapped"] += 1
+                lead, span, trail, _ = gradesam.cigar_spans(f[5])
+                start = int(f[3]) - 1 - lead
+                stop = start + lead + span + trail - 1
+                on = (1 if flag & 0x10 else 0) == tstrand
+                cstop = trel + tstop - tstart
+                s["strict"] += on and start == trel and stop == cstop
+                ok = on and (abs(start - trel) <= 20
+                             or abs(stop - cstop) <= 20)
+                s["loose"] += ok
+            if keep:
+                lines[(f[0], flag & 0xC0)] = (ok, flag, int(f[3]), int(f[4]),
+                                              f[5])
+    if keep:
+        s["lines"] = lines
+    return s
+
+
+def variants_big(device, d: Path) -> dict:
+    """bbmap, bbmapacc and bbmapskimmer over N_VARIANT_BIG pairs on the
+    card: reads/s over each CLI's mapping time, accuracy, every kernel's
+    launches; the reads that bbmap and bbmapacc grade apart, printed."""
+    import re
+    big, lines = {}, {}
+    for tool in ("bbmap", "bbmapacc", "bbmapskimmer"):
+        o = d / f"big_{tool}.sam"
+        reset_counts()
+        t0 = time.time()
+        rc, report = run_tool(tool, [
+            f"ref={d}/genome.fa", f"in={d}/big1.fq", f"in2={d}/big2.fq",
+            f"out={o}", f"device={device}"], keep_time=True)
+        _sync(device)
+        wall = time.time() - t0
+        launches = launch_counts()
+        if rc != 0:
+            raise AssertionError(f"{tool} exited {rc}: {report}")
+        # the CLI's own mapping time (the index build and SAM header not
+        # in it), as the long-read phase reads it
+        m = re.search(r"Time:\s*([0-9.]+) seconds", report)
+        if m is None:
+            raise AssertionError(f"{tool} reported no mapping time")
+        s = grade_paired(o, keep=tool != "bbmapskimmer")
+        lines[tool] = s.pop("lines", None)
+        n = max(1, s["primary"])
+        map_s = float(m.group(1))
+        big[tool] = {"pairs": N_VARIANT_BIG, "wall_s": wall, "map_s": map_s,
+                     "reads_per_s": 2 * N_VARIANT_BIG / map_s,
+                     "sensitivity": s["loose"] / n,
+                     "strict": s["strict"] / n,
+                     "mapped_fraction": s["mapped"] / n,
+                     "launches": launches}
+        say(f"{tool} at {N_VARIANT_BIG} pairs on the card: "
+            f"{big[tool]['reads_per_s']:.1f} reads/s over its mapping "
+            f"time {map_s:.3f} s (wall with the index's load "
+            f"{wall:.2f} s), "
+            f"sensitivity (within 20 bp) {big[tool]['sensitivity']:.4f}, "
+            f"strict {big[tool]['strict']:.4f}, mapped "
+            f"{big[tool]['mapped_fraction']:.4f}; launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        o.unlink()
+    base, acc = lines["bbmap"], lines["bbmapacc"]
+    lost = sorted(k for k in base if base[k][0] and not acc[k][0])
+    won = sorted(k for k in base if acc[k][0] and not base[k][0])
+    say(f"bbmapacc against bbmap on the same {2 * N_VARIANT_BIG} reads: "
+        f"{len(won)} graded correct by bbmapacc alone, {len(lost)} by bbmap "
+        f"alone")
+    for k in lost + won:
+        say(f"  {k[0]} mate {k[1] >> 6}: bbmap {base[k]}, bbmapacc {acc[k]}")
+    big["acc_only_correct"], big["bbmap_only_correct"] = len(won), len(lost)
+    # bbmapacc must map at least as many reads as bbmap and must not be
+    # less sensitive beyond chance: of the reads the two grade apart
+    # (placements on another copy of a repeat family, both ways), bbmap's
+    # surplus stays within 3 sigma of a fair sign test. On these reads the
+    # JAX tools place them so too, and the port writes their SAM lines
+    # (tests/test_torch_mapvariants.py::test_acc_apart_as_the_jax_tools)
+    acc, base = big["bbmapacc"], big["bbmap"]
+    if acc["mapped_fraction"] < base["mapped_fraction"] or \
+            len(lost) - len(won) > 3 * (len(lost) + len(won)) ** 0.5:
+        raise AssertionError(
+            f"bbmapacc below bbmap: mapped {acc['mapped_fraction']} against "
+            f"{base['mapped_fraction']}, {len(lost)} reads correct by bbmap "
+            f"alone against {len(won)} by bbmapacc alone")
+    return big
+
+
+def dedupe_variants_phase(device, gbases, clock: float) -> tuple:
+    """The CLIs card vs CPU (dedupe and dedupe2 over N_DEDUPE_CLI reads,
+    the four mapper variants over N_VARIANT_PAIRS pairs): the CPU sides
+    each in a process of its own, all started first, beside the card's
+    runs in this process, then compared file by file; bbmap on the card
+    before and after bbmapacc (the same SAM). Then, with those processes
+    ended: the banded kernel against its plain version at every shape of
+    the phase's list, dedupe over N_DEDUPE_BIG reads and the variants over
+    N_VARIANT_BIG pairs on the card. Returns (the kernel's entry,
+    {dedupe runs, "big"}, {variant runs, "big"})."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dedupe")
+    cpu_runs = {}
+    try:
+        d = Path(tmp)
+        dd_in, vv_in = d / "dedupe", d / "variants"
+        dd_in.mkdir()
+        vv_in.mkdir()
+        _fastq_recs(dd_in / "lib.fq", dedupe_reads(gbases, N_DEDUPE_CLI,
+                                                   81), 82)
+        _fastq_recs(dd_in / "big.fq", dedupe_reads(gbases, N_DEDUPE_BIG,
+                                                   91), 92)
+        variant_inputs(gbases, vv_in)
+        # the genome's index, built and saved beside the reference by a
+        # bbmap run on the CPU over four pairs, beside the CLI runs, for
+        # the card's runs at N_VARIANT_BIG pairs to load
+        (vv_in / "warm").mkdir()
+        (vv_in / "warm.fq").write_bytes(b"\n".join(
+            (vv_in / "small1.fq").read_bytes().split(b"\n")[:16]) + b"\n")
+        cpu_runs["index"] = CpuRun(vv_in / "warm", "bbmap", [
+            f"ref={vv_in}/genome.fa", f"in={vv_in}/warm.fq",
+            f"out={vv_in}/warm/out.sam"])
+        runs = {key: (dd_in, *r) for key, r in dedupe_runs().items()}
+        runs.update({key: (vv_in, *r) for key, r in variant_runs().items()})
+        outs = {}
+        for key, (src, tool, template) in runs.items():
+            tag = key.replace(" ", "_").replace("=", "")
+            outs[key] = (d / f"{tag}_card", d / f"{tag}_cpu")
+            for o in outs[key]:
+                o.mkdir()
+            cpu_runs[key] = CpuRun(outs[key][1], tool,
+                                   [a.format(d=src, o=outs[key][1])
+                                    for a in template])
+        card = {}
+        for key, (src, tool, template) in runs.items():
+            o = outs[key][0]
+            card[key] = cli_card(device, o, tool, [a.format(d=src, o=o)
+                                                   for a in template])
+        sams = []
+        for tool in ("bbmap", "bbmapacc", "bbmap"):
+            o = d / f"order_{len(sams)}"
+            o.mkdir()
+            r = cli_card(device, o, tool, [
+                f"ref={vv_in}/ref.fa", f"in={vv_in}/small1.fq",
+                f"in2={vv_in}/small2.fq", f"out={o}/out.sam", "nodisk"])
+            sams.append(r["files"]["out.sam"])
+        if sams[0] != sams[2]:
+            raise AssertionError("bbmap after bbmapacc in one process wrote "
+                                 "another SAM than bbmap before it")
+        say("bbmap after bbmapacc in one process: the SAM of bbmap before it")
+        dd, vv = {}, {}
+        for key, (src, tool, template) in runs.items():
+            res = cli_compare(key, card[key], cpu_runs[key].finish(900))
+            if any(a.startswith("e=") for a in template) and not \
+                    res["launches"].get("banded_edit"):
+                raise AssertionError(f"{key}: the banded kernel never "
+                                     f"launched")
+            if tool == "bbsplit" and not {"out_setA.fq", "out_setB.fq"} <= \
+                    set(card[key]["files"]):
+                raise AssertionError(f"bbsplit binned into "
+                                     f"{sorted(card[key]['files'])}")
+            (dd if src == dd_in else vv)[key] = res
+        cpu_runs["index"].finish(900)
+        kt = banded_phase(device, gbases, clock)
+        dd["big"] = dedupe_big(device, dd_in)
+        vv["big"] = variants_big(device, vv_in)
+    finally:
+        for r in cpu_runs.values():
+            r.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return kt, dd, vv
 
 
 def _device_profile(fn, tag: str, wall_ms: float, top: int = 12) -> None:
@@ -2441,7 +3076,7 @@ def main() -> int:
     say(f"phase kernel vs plain: {time.time() - t:.1f} s")
 
     t = time.time()
-    k1_launches = k1_entry(gbases, device)
+    k1 = k1_entry(gbases, device)
     say(f"phase K1 entry point: {time.time() - t:.1f} s")
 
     t = time.time()
@@ -2497,17 +3132,38 @@ def main() -> int:
             for tool in ("bbnorm", "ecc", "kmercoverage", "rqcfilter",
                          "decontaminate")) + f"; card {smi}")
 
+    t = time.time()
+    bkt, dd, vv = dedupe_variants_phase(device, gbases, max_sm_clock_hz())
+    vb = vv["big"]
+    say(f"phase dedupe and mapper variants: {time.time() - t:.1f} s; "
+        f"banded_edit at {BANDED_PAIRS} x {L} bp, E=2: {bkt['ms']:.4f} ms "
+        f"(plain {bkt['plain_ms']:.3f} ms, bound {bkt['bound_ms']:.4f} ms, "
+        f"share {100 * bkt['bound_ms'] / bkt['ms']:.1f} %), every shape "
+        f"equal to its plain version; dedupe e=2 ac=t at {N_DEDUPE_BIG} "
+        f"reads {dd['big']['reads_per_s']:.1f} reads/s with "
+        f"{dd['big']['launches']} launches; at {N_VARIANT_BIG} pairs "
+        + ", ".join(f"{tool} {vb[tool]['reads_per_s']:.1f} reads/s "
+                    f"(sensitivity {vb[tool]['sensitivity']:.4f})"
+                    for tool in ("bbmap", "bbmapacc", "bbmapskimmer"))
+        + f"; one-row launches in bbmapskimmer: K2 "
+        f"{vb['bbmapskimmer']['launches']['msa_score_row']}, K3 "
+        f"{vb['bbmapskimmer']['launches']['msa_fill_row']}; CLIs "
+        f"byte-equal between the card and the CPU; card {smi}")
+
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "bbmap_tpu"))
     if foreign:
         raise AssertionError(f"the JAX package was imported: {foreign[:5]}")
-    # launches on each path, each counted from 0 over that path's run:
-    # K1 at its own entry point, the short-read path ("main"), the
-    # long-read path ("long"), decontaminate's two single-end bbmap runs
-    # on the card ("kmer_tools"); "launches" is the count on the path whose
-    # shape the entry is timed at: the band kernels and the walk kernel
-    # (short fills and walks take the fused kernel) on the long-read path,
-    # K1 at its entry point, the rest on the main path; the strided
+    # launches on each path, each counted from 0 over that path's run
+    # and read at its end: K1 at its own entry point ("k1_entry"), the
+    # short-read path ("main"), the long-read path ("long"),
+    # decontaminate's two single-end bbmap runs on the card
+    # ("kmer_tools"), dedupe over N_DEDUPE_BIG reads ("dedupe") and
+    # bbmapskimmer over N_VARIANT_BIG pairs ("mapper_variants");
+    # "launches" is the count on the path whose shape the entry is timed
+    # at: the band kernels and the walk kernel (short fills and walks take
+    # the fused kernel) on the long-read path, K1 at its entry point, the
+    # banded kernel on dedupe's, the rest on the main path; the strided
     # kernels, which the band kernels replaced, run on no path
     counted = {"msa_score_rows": "msa_score_rows_warp",
                "msa_score": "msa_score_warp", "msa_score_row": "msa_score_row",
@@ -2517,17 +3173,22 @@ def main() -> int:
                "msa_score_long": "msa_score_band",
                "msa_fill_long": "msa_fill_band",
                "msa_score_strided": "msa_score_strided",
-               "msa_fill_strided": "msa_fill_strided"}
+               "msa_fill_strided": "msa_fill_strided",
+               "banded_edit": "banded_edit"}
     home = {"msa_score_rows": "k1_entry", "msa_walk": "long",
             "msa_score_long": "long", "msa_fill_long": "long",
-            "msa_score_strided": "long", "msa_fill_strided": "long"}
+            "msa_score_strided": "long", "msa_fill_strided": "long",
+            "banded_edit": "dedupe"}
+    ktimes["banded_edit"] = bkt
+    paths = {"k1_entry": k1, "main": res["launches"],
+             "long": lres["launches"],
+             "kmer_tools": kcli["decontaminate"]["launches"],
+             "dedupe": dd["big"]["kernel_launches"],
+             "mapper_variants": vb["bbmapskimmer"]["launches"]}
     kernels = []
     for name, key in counted.items():
         kt = ktimes[name]
-        by_path = {"k1_entry": k1_launches if name == "msa_score_rows"
-                   else 0, "main": res["launches"][key],
-                   "long": lres["launches"][key],
-                   "kmer_tools": kcli["decontaminate"]["launches"][key]}
+        by_path = {path: counts[key] for path, counts in paths.items()}
         kernels.append({"name": name, "route": "cuda",
                         "source": SOURCE[name],
                         "replaces": REPLACES[name],
@@ -2557,6 +3218,12 @@ def main() -> int:
         "count": kcnt, "cli": {tool: {k: v for k, v in r.items()
                                       if k != "covstats_libA"}
                                for tool, r in kcli.items()}}}), flush=True)
+    print(json.dumps({"dedupe_variants": {
+        "banded_edit": bkt["shapes"],
+        "dedupe": {k: {f: v for f, v in r.items() if f != "report"}
+                   for k, r in dd.items()},
+        "variants": {k: {f: v for f, v in r.items() if f != "report"}
+                     for k, r in vv.items()}}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -232,8 +232,17 @@ def test_sam_copy_matches(ref_state):
 # the overlap ladders keep their numpy bodies as plain references beside
 # the entry points that take a device; the tools resolve their device=;
 # kcount's device class hashes in int64 and counts its calls; rqcfilter
-# names an absent reference and splits interleaved pairs
+# names an absent reference and splits interleaved pairs; banded_device is
+# a torch rewrite: the plain version, the kernel's wrapper with its launch
+# counts and library, and the device store of dedupe's kept sequences
 PORT_ADDED = {
+    "ops.banded_device": {"banded_edit_batch_plain", "banded_edit",
+                          "backend", "torch", "ctypes", "Optional",
+                          "_build", "I32", "MAPPINGS", "PLAIN_CHECK_ROWS",
+                          "SequenceStore", "_check", "_lib", "_on_cuda",
+                          "_vs_query", "reset_launches", "Dict",
+                          "length_class", "class_width"},
+    "tools.dedupe": {"backend"}, "tools.bbsplit": {"backend"},
     "io.native": {"sys", "load_error"},
     "index.kmerset": {"scan_batch_plain", "scan_batch_multi_plain",
                       "_expand_hits"},
@@ -248,8 +257,12 @@ PORT_ADDED = {
 # under the machine's reference directory (the port takes every reference
 # from the command line); kcount's rewritten device class needs no
 # Optional. kcount's BBMAP_DEVICE_KCA switch was inside make_kca and
-# leaves no name; make_kca decides by its device= alone
+# leaves no name; make_kca decides by its device= alone. banded_device
+# leaves out the BBMAP_DEVICE_BANDED switch (_enabled, os), the program
+# cache (_CACHE) and the jitted scan (_program), which the plain version
+# and the kernel replace
 PORT_DROPPED = {
+    "ops.banded_device": {"_enabled", "_CACHE", "os", "_program", "Tuple"},
     "tools.rqcfilter": {"RESOURCES", "DEFAULT_ADAPTERS", "DEFAULT_PHIX",
                         "DEFAULT_LFPE_LINKER", "DEFAULT_CLRS_LINKER",
                         "DEFAULT_ARTIFACTS"},
@@ -265,7 +278,8 @@ PORT_DROPPED = {
     "tools.bbduk", "tools.bbduk2", "tools.seal", "tools.bbmerge",
     "index.kmer_big", "tools.kmercountexact", "index.kcount",
     "tools.tadpole", "tools.bbnorm", "tools.pileup", "tools.covtools",
-    "tools.pairtools", "tools.rqcfilter"])
+    "tools.pairtools", "tools.rqcfilter", "ops.banded", "ops.banded_device",
+    "tools.dedupe", "tools.bbsplit"])
 def test_copied_module_has_the_reference_names(mod):
     """Each copied module defines what the reference module defines, less
     what it leaves out on purpose, and beside it only what the port added

@@ -1,0 +1,180 @@
+"""``python -m bbmap_tpu_torch dedupe`` / ``dedupe2`` (device=cpu) write
+byte-equal files and reports to the JAX package's tools (run on the CPU:
+the numpy sweep for e=, the jitted scan for the contained-with-edits
+check) in every mode: exact, rc=f, s=, e=, containment with and without
+a tolerance, overlap clustering with its stats, graph and cluster files,
+and dedupe2's nam=."""
+
+import re
+import sys
+
+import numpy as np
+import pytest
+
+from bbmap_tpu import __main__ as jax_main
+from bbmap_tpu.core.bases import COMP_ASCII
+from bbmap_tpu_torch import __main__ as port_main
+
+BASES = np.frombuffer(b"ACGT", np.uint8)
+
+
+def _fastq(path, recs):
+    with open(path, "w") as fh:
+        for name, seq, q in recs:
+            fh.write(f"@{name}\n{seq.decode()}\n+\n{q}\n")
+
+
+def _fasta(path, recs):
+    with open(path, "w") as fh:
+        for name, seq in recs:
+            fh.write(f">{name}\n{seq.decode()}\n")
+
+
+def _edit(rng, s: bytes, n: int, indels: bool) -> bytes:
+    a = np.frombuffer(s, np.uint8).copy()
+    for _ in range(n):
+        p = int(rng.integers(5, len(a) - 5))
+        op = int(rng.integers(0, 3)) if indels else 0
+        if op == 0:
+            a[p] = BASES[(int(np.searchsorted(BASES, a[p])) + 1) % 4] \
+                if a[p] in BASES else ord("A")
+        elif op == 1:
+            a = np.insert(a, p, BASES[int(rng.integers(0, 4))])
+        else:
+            a = np.delete(a, p)
+    return bytes(a)
+
+
+@pytest.fixture(scope="module")
+def corpus(tmp_path_factory):
+    """A seeded library of ~300 reads from a 6 kbp genome (120-180 bp, so
+    that reads overlap) with exact copies, reverse-complement copies, near
+    copies (1-2 substitutions, or 1-2 edits with indels), contained
+    fragments (some reverse-complemented, some with a substitution) and a
+    few N; and the containment inputs of tests/test_dedupe_containment.py
+    and tests/test_small_tools.py as FASTA."""
+    d = tmp_path_factory.mktemp("dedupe")
+    rng = np.random.default_rng(29)
+    g = bytes(rng.choice(BASES, 6000))
+    base = []
+    for i in range(180):
+        L = int(rng.integers(120, 181))
+        s = int(rng.integers(0, len(g) - L))
+        seq = g[s:s + L]
+        if i % 37 == 0:
+            seq = seq[:40] + b"N" + seq[41:]
+        base.append(seq)
+    recs = [(f"r{i}", s) for i, s in enumerate(base)]
+    for k in range(120):
+        src = base[int(rng.integers(0, len(base)))]
+        kind = k % 6
+        if kind == 0:
+            seq = src
+        elif kind == 1:
+            seq = bytes(COMP_ASCII[np.frombuffer(src, np.uint8)][::-1])
+        elif kind == 2:
+            seq = _edit(rng, src, int(rng.integers(1, 3)), indels=False)
+        elif kind == 3:
+            seq = _edit(rng, src, int(rng.integers(1, 3)), indels=True)
+        else:
+            L = (70, 90)[k % 2]
+            s = int(rng.integers(0, len(src) - L))
+            seq = src[s:s + L]
+            if k % 4 == 0:
+                seq = bytes(COMP_ASCII[np.frombuffer(seq, np.uint8)][::-1])
+            if k % 5 == 0:
+                seq = _edit(rng, seq, 1, indels=False)
+        recs.append((f"d{k}_{kind}", seq))
+    order = rng.permutation(len(recs))
+    lib = [recs[i] for i in order]
+    _fastq(d / "lib.fq", [(n, s, "".join(chr(33 + int(q)) for q in
+                                         rng.integers(10, 41, len(s))))
+                          for n, s in lib])
+    # tests/test_dedupe_containment.py and tests/test_small_tools.py inputs
+    r1 = np.random.default_rng(1)
+    big = bytes(r1.choice(BASES, 400))
+    r2 = np.random.default_rng(2)
+    big2 = bytes(r2.choice(BASES, 400))
+    arr = np.frombuffer(big2[120:260], np.uint8).copy()
+    arr[10] = ord("A") if arr[10] != ord("A") else ord("C")
+    arr[70] = ord("G") if arr[70] != ord("G") else ord("T")
+    r3 = np.random.default_rng(3)
+    big3 = bytes(r3.choice(BASES, 500))
+    rc = COMP_ASCII[np.frombuffer(big3[200:340], np.uint8)][::-1].copy()
+    r4 = np.random.default_rng(4)
+    r11 = np.random.default_rng(11)
+    big11 = bytes(r11.choice(BASES, 400))
+    r12 = np.random.default_rng(12)
+    s = bytes(r12.choice(BASES, 150))
+    s2 = bytearray(s)
+    del s2[70]
+    s2.append(ord("A"))
+    _fasta(d / "contain.fa", [
+        ("big", big), ("small", big[100:220]), ("big2", big2),
+        ("small2", bytes(arr)), ("big3", big3),
+        ("rcsmall", bytes(np.delete(rc, 50))),
+        ("a", bytes(r4.choice(BASES, 300))), ("b", bytes(r4.choice(BASES, 120))),
+        ("big11", big11), ("sub", big11[77:260]),
+        ("other", bytes(r11.choice(BASES, 200))), ("e1", s), ("e2", bytes(s2))])
+    return d
+
+
+# case -> (tool, input, arguments); {o} is the run's output directory
+CASES = {
+    "exact": ("dedupe", "lib.fq", ["ac=f"]),
+    "rc=f": ("dedupe", "lib.fq", ["rc=f", "ac=f"]),
+    "s=2": ("dedupe", "lib.fq", ["s=2", "ac=f"]),
+    "e=2": ("dedupe", "lib.fq", ["e=2", "ac=f"]),
+    "ac=t": ("dedupe", "lib.fq", ["ac=t"]),
+    "s=2 ac=t": ("dedupe", "lib.fq", ["s=2", "ac=t"]),
+    "e=2 ac=t containment": ("dedupe", "contain.fa", ["e=2", "ac=t"]),
+    "s=2 ac=t containment": ("dedupe", "contain.fa", ["s=2", "ac=t"]),
+    "fo=t c=t": ("dedupe", "lib.fq", [
+        "ac=t", "fo=t", "c=t", "mo=100", "csf={o}/stats.txt",
+        "dot={o}/graph.dot", "pattern={o}/cluster_%.fq"]),
+    "dedupe2 nam=3": ("dedupe2", "lib.fq", ["nam=3", "e=1",
+                                            "csf={o}/stats.txt"]),
+    "dedupe2 nam=0": ("dedupe2", "lib.fq", ["nam=0"]),
+}
+
+
+def _run(monkeypatch, capsys, side, tool, args):
+    if side == "port":
+        monkeypatch.setattr(sys, "argv", ["bbmap_tpu_torch", tool, *args,
+                                          "device=cpu"])
+        main = port_main.main
+    else:
+        monkeypatch.setattr(sys, "argv", ["bbmap_tpu", tool, *args])
+        main = jax_main.main
+    capsys.readouterr()
+    rc = main()
+    cap = capsys.readouterr()
+    return rc, cap.out, cap.err
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_dedupe_byte_equal(corpus, tmp_path, monkeypatch, capsys, case):
+    tool, inp, template = CASES[case]
+    runs = {}
+    for side in ("port", "jax"):
+        o = tmp_path / side
+        o.mkdir()
+        args = [f"in={corpus / inp}", f"out={o}/unique.fq",
+                f"outd={o}/dups.fq"] + [a.format(o=o) for a in template]
+        rc, out, err = _run(monkeypatch, capsys, side, tool, args)
+        files = {p.name: p.read_bytes() for p in sorted(o.iterdir())}
+        runs[side] = (rc, out, err.replace(str(o), "{o}"), files)
+    assert runs["port"] == runs["jax"]
+    rc, _out, err, files = runs["port"]
+    if case == "dedupe2 nam=0":
+        assert rc == 1 and "numaffixmaps" in err
+        return
+    assert rc == 0
+    n_in, n_dup = (int(re.search(rf"{k}:\t(\d+)", err).group(1))
+                   for k in ("Input", "Duplicates"))
+    assert n_in > 0 and 0 < n_dup < n_in
+    assert files["unique.fq"] and files["dups.fq"]
+    if case == "fo=t c=t":
+        assert {"stats.txt", "graph.dot"} <= set(files)
+        assert sum(n.startswith("cluster_") for n in files) > 1
+        assert "Overlap edges" in err
