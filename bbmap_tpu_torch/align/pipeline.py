@@ -2662,10 +2662,13 @@ class BBMapAligner:
         for C, slots in buckets.items():
             max_chunk = DP_SCORE_CHUNK if score_only \
                 else _dp_tb_chunk_cap(L, C, self.device)
-            chunk = min(max_chunk, _bucket_pad(len(slots)))
-            for a, b in _fixed_chunks(len(slots), chunk):
-                reads = np.full((chunk, L), ord("N"), np.uint8)
-                refs = np.full((chunk, C), ord("N"), np.uint8)
+            # exactly the bucket's jobs: the kernels take any job count
+            # (the JAX package pads to a power of two for its program
+            # cache)
+            for a, b in _fixed_chunks(len(slots), min(max_chunk,
+                                                      len(slots))):
+                reads = np.empty((b - a, L), np.uint8)
+                refs = np.empty((b - a, C), np.uint8)
                 for s_i, t in enumerate(slots[a:b]):
                     j = int(dp_jobs[t])
                     reads[s_i] = cand_reads[j]
@@ -2748,11 +2751,10 @@ class BBMapAligner:
             buckets.setdefault(dp_winners[w][3], []).append(w)
         launches = []
         for C, idx_list in buckets.items():
-            chunk = min(_dp_tb_chunk_cap(L, C, self.device),
-                        _bucket_pad(len(idx_list)))
-            for a, b in _fixed_chunks(len(idx_list), chunk):
-                reads = np.full((chunk, L), ord("N"), np.uint8)
-                refs = np.full((chunk, C), ord("N"), np.uint8)
+            for a, b in _fixed_chunks(len(idx_list), min(
+                    _dp_tb_chunk_cap(L, C, self.device), len(idx_list))):
+                reads = np.empty((b - a, L), np.uint8)
+                refs = np.empty((b - a, C), np.uint8)
                 for slot, w in enumerate(idx_list[a:b]):
                     read_global, j, ws, wl, score, _dp = dp_winners[w]
                     reads[slot] = cand_reads[j]

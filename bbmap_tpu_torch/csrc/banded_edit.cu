@@ -3,8 +3,9 @@
 // Replaces the JAX package's banded_device._program
 // (bbmap_tpu/ops/banded_device.py:34-90, a jitted lax.scan over the rows
 // with the band of 2E+1 diagonals on the lanes), which Dedupe runs once for
-// each read it checks with e= and twice for each containment check. The
-// function, per pair (a of length la, b of length lb, E = max_edits,
+// each read it checks with e= and twice for each containment check (here:
+// the block mapping below for the first, the thread mapping for the
+// second). The function, per pair (a of length la, b of length lb, E = max_edits,
 // BIG = E + 1, band cell d at column j = i - E + d of row i):
 //
 //   row 0:  global  v[d] = j        where 0 <= j <= lb, else BIG
@@ -41,6 +42,26 @@
 //   handed from one chunk to the next, and the window slides by a shuffle
 //   with one new byte a row. Past 32 chunks the band lives in a scratch
 //   row a pair in device memory (no cap on E).
+//
+// The block mapping (banded_block_kernel, dedupe's store check): many
+// queries against one length class of kept sequences in one launch, where
+// the thread mapping above made a launch a query. What bounded that was
+// not arithmetic: a launch, an upload and a synchronisation a read, about
+// 500 warps a launch, and a dependent byte load from device memory every
+// row. Here a block takes a tile of kTile = 128 class sequences (a thread
+// each) and a group of queries; it copies the tile (its rows of 128
+// position-major bytes, 16-byte cp.async pieces) and the group's query
+// bytes into shared memory once, and each thread runs its sequence against
+// every query of the group in turn with thread_pair (the band in
+// registers, the same early stop). A query's flag, any(d <= E) over the
+// class, is one __any_sync and a plain store of 1 by lane 0 of a warp that
+// found one, into flags the caller zeroed: the same bytes whatever the
+// order of the blocks. The launcher sizes the query groups so that the
+// grid (tiles x groups) gives the card several blocks an SM at dedupe's
+// class sizes (10^3 to 10^5 sequences). A second mode runs the queries
+// against each other: the lower triangle j < i, d(query i, query j) <= E
+// as a (Q, Q) byte matrix. Where a tile and its group would not fit a
+// block's shared memory (contigs), the same loop reads them in place.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -79,26 +100,22 @@ __device__ __forceinline__ int row0_cell(int d, int w, int E, int lb,
 }
 
 // ---------------------------------------------------------------------
-// A thread a pair, W >= 2E + 1 band cells in registers.
+// A thread a pair, W >= 2E + 1 band cells in registers: one pair's
+// distance, a (la <= La bytes) and b (Lb bytes, 255 past them) read at a
+// stride of a_ps / b_ps bytes a position, in device or shared memory.
 // ---------------------------------------------------------------------
 template <int W>
-__global__ void __launch_bounds__(kThreads)
-    banded_thread_kernel(Pairs p) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= p.n) return;
-  const int E = p.E, w = 2 * E + 1, BIG = E + 1;
-  const int la = p.la[t * p.la_pp], lb = p.lb[t * p.lb_pp];
-  if (!p.infix && abs(lb - la) > E) {
-    p.out[t] = BIG;
-    return;
-  }
-  const uint8_t* a = p.a + t * p.a_pp;
-  const uint8_t* b = p.b + t * p.b_pp;
+__device__ __forceinline__ int thread_pair(const uint8_t* a, long long a_ps,
+                                           int la, int La, const uint8_t* b,
+                                           long long b_ps, int lb, int Lb,
+                                           int E, int infix) {
+  const int w = 2 * E + 1, BIG = E + 1;
+  if (!infix && abs(lb - la) > E) return BIG;
   constexpr int NW = (W + 3) / 4;
   constexpr int TOP = 4 * NW - 1;     // the window's last byte
   int v[W];
 #pragma unroll
-  for (int d = 0; d < W; ++d) v[d] = row0_cell(d, w, E, lb, p.infix);
+  for (int d = 0; d < W; ++d) v[d] = row0_cell(d, w, E, lb, infix);
   // byte d of the window at row i is b[i - E - 1 + d]
   uint32_t win[NW];
 #pragma unroll
@@ -106,17 +123,16 @@ __global__ void __launch_bounds__(kThreads)
     uint32_t x = 0;
 #pragma unroll
     for (int q = 0; q < 4; ++q)
-      x |= byte_at(b, p.b_ps, 4 * k + q - E, p.Lb) << (8 * q);
+      x |= byte_at(b, b_ps, 4 * k + q - E, Lb) << (8 * q);
     win[k] = x;
   }
-  const int rows = min(la, p.La);
+  const int rows = min(la, La);
   // a[i-1] and the byte that enters the window at row i + 1
   unsigned ai = rows >= 1 ? a[0] : 0u;
-  unsigned nb = byte_at(b, p.b_ps, 1 - E + TOP, p.Lb);
-  bool saturated = false;
+  unsigned nb = byte_at(b, b_ps, 1 - E + TOP, Lb);
   for (int i = 1; i <= rows; ++i) {
-    const unsigned ai_next = i < rows ? a[i * p.a_ps] : 0u;
-    const unsigned nb_next = byte_at(b, p.b_ps, i + 1 - E + TOP, p.Lb);
+    const unsigned ai_next = i < rows ? a[i * a_ps] : 0u;
+    const unsigned nb_next = byte_at(b, b_ps, i + 1 - E + TOP, Lb);
     const uint32_t rep = ai * 0x01010101u;
     uint32_t m[NW];
 #pragma unroll
@@ -139,25 +155,30 @@ __global__ void __launch_bounds__(kThreads)
     win[NW - 1] = (win[NW - 1] >> 8) | (nb << 24);
     ai = ai_next;
     nb = nb_next;
-    if (rowmin > E) {
-      saturated = true;
-      break;
-    }
+    if (rowmin > E) return BIG;
   }
   int res = BIG;
-  if (!saturated) {
-    const int df = lb - la + E;
+  const int df = lb - la + E;
 #pragma unroll
-    for (int d = 0; d < W; ++d) {
-      if (p.infix) {
-        const int jsf = la - E + d;
-        if (d < w && jsf >= 0 && jsf <= lb) res = min(res, v[d]);
-      } else if (d == df) {
-        res = v[d];
-      }
+  for (int d = 0; d < W; ++d) {
+    if (infix) {
+      const int jsf = la - E + d;
+      if (d < w && jsf >= 0 && jsf <= lb) res = min(res, v[d]);
+    } else if (d == df) {
+      res = v[d];
     }
   }
-  p.out[t] = res;
+  return res;
+}
+
+template <int W>
+__global__ void __launch_bounds__(kThreads)
+    banded_thread_kernel(Pairs p) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= p.n) return;
+  p.out[t] = thread_pair<W>(p.a + t * p.a_pp, p.a_ps, p.la[t * p.la_pp],
+                            p.La, p.b + t * p.b_pp, p.b_ps,
+                            p.lb[t * p.lb_pp], p.Lb, p.E, p.infix);
 }
 
 // One chunk of 32 cells of a row in the warp mapping: x is the cell before
@@ -321,6 +342,99 @@ __global__ void __launch_bounds__(kThreads)
   if (lane == 0) p.out[t] = res;
 }
 
+// ---------------------------------------------------------------------
+// The block mapping: a tile of kTile class sequences x a group of queries.
+// ---------------------------------------------------------------------
+constexpr int kTile = 128;
+
+struct Block {
+  const uint8_t* q;   // queries, byte (pos, i) at q + pos * q_ps + i
+  long long q_ps;
+  const int* lq;
+  int Q, Lq;
+  const uint8_t* s;   // class sequences, byte (pos, j) at s + pos * s_ps + j
+  long long s_ps;
+  const int* ls;
+  int k, Ls, E, tri, group;
+  uint8_t* out;       // flags (Q,), or the (Q, Q) triangle
+};
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+template <int W, bool STAGED>
+__global__ void __launch_bounds__(kTile) banded_block_kernel(Block p) {
+  extern __shared__ __align__(16) uint8_t sm[];
+  const int t = threadIdx.x;
+  const int j0 = blockIdx.x * kTile;
+  const int g0 = blockIdx.y * p.group;
+  const int ng = min(p.group, p.Q - g0);
+  const uint8_t* tile = p.s + j0 + t;
+  long long tile_ps = p.s_ps;
+  const uint8_t* qs = p.q + g0;
+  long long q_ps = p.q_ps;
+  if (STAGED) {
+    // the tile's rows are 128 bytes at 16-byte aligned addresses (the
+    // launcher checks the class's pitch and base)
+    uint8_t* st = sm;
+    uint8_t* sq = sm + static_cast<size_t>(p.Ls) * kTile;
+    for (int idx = t; idx < p.Ls * (kTile / 16); idx += kTile) {
+      const int pos = idx / (kTile / 16), piece = idx % (kTile / 16);
+      cp_async16(st + pos * kTile + piece * 16,
+                 p.s + pos * p.s_ps + j0 + piece * 16);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+    for (int idx = t; idx < p.Lq * ng; idx += kTile) {
+      const int pos = idx / ng, g = idx - pos * ng;
+      sq[pos * p.group + g] = p.q[pos * p.q_ps + g0 + g];
+    }
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+    tile = st + t;
+    tile_ps = kTile;
+    qs = sq;
+    q_ps = p.group;
+  }
+  const int j = j0 + t;
+  const bool live = j < p.k;
+  const int lb = live ? p.ls[j] : 0;
+  for (int g = 0; g < ng; ++g) {
+    const int i = g0 + g;
+    bool hit = false;
+    if (live && (!p.tri || j < i))
+      hit = thread_pair<W>(qs + g, q_ps, p.lq[i], p.Lq, tile, tile_ps, lb,
+                           p.Ls, p.E, 0) <= p.E;
+    if (p.tri) {
+      if (live && j < i) p.out[static_cast<size_t>(i) * p.Q + j] = hit;
+    } else if (__any_sync(kFull, hit) && (t & 31) == 0) {
+      p.out[i] = 1;
+    }
+  }
+}
+
+template <int W>
+cudaError_t launch_block(const Block& p, bool staged, size_t smem,
+                         cudaStream_t stream) {
+  const dim3 grid((p.k + kTile - 1) / kTile,
+                  (p.Q + p.group - 1) / p.group);
+  if (!staged) {
+    banded_block_kernel<W, false><<<grid, kTile, 0, stream>>>(p);
+    return cudaGetLastError();
+  }
+  auto kernel = banded_block_kernel<W, true>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  kernel<<<grid, kTile, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
 template <int W>
 cudaError_t launch_thread(const Pairs& p, cudaStream_t stream) {
   const int blocks = (p.n + kThreads - 1) / kThreads;
@@ -399,6 +513,53 @@ cudaError_t banded_edit_launch(const uint8_t* a, long long a_ps,
   const int blocks = (int)((threads + kThreads - 1) / kThreads);
   banded_warp_mem_kernel<<<blocks, kThreads, 0, stream>>>(p, scratch);
   return cudaGetLastError();
+}
+
+// The block mapping. Queries: byte (pos, i) at q + pos * q_ps + i, Q of
+// them, Lq positions, lengths lq (Q,). tri == 0: the class's k sequences,
+// byte (pos, j) at s + pos * s_ps + j, Ls positions, lengths ls (k,); out
+// (Q,) flags, which the caller zeroes, set to 1 where any sequence lies
+// within E. tri == 1: s, s_ps, ls, k and Ls are the queries' own; out (Q,
+// Q), the caller zeroes it, row i column j < i = d(query i, query j) <= E.
+// group: queries a block. staged: copy the tile and the group into shared
+// memory (s_ps a multiple of 16 and at least k rounded up to 128, s 16-byte
+// aligned), else read them in place. 2E + 1 <= 64.
+int banded_block_smem(int Ls, int Lq, int group) {
+  return Ls * kTile + Lq * group;
+}
+
+cudaError_t banded_block_launch(const uint8_t* q, long long q_ps,
+                                const int* lq, int Q, int Lq,
+                                const uint8_t* s, long long s_ps,
+                                const int* ls, int k, int Ls, int E, int tri,
+                                int group, int staged, uint8_t* out,
+                                cudaStream_t stream) {
+  if (Q <= 0 || k <= 0) return cudaSuccess;
+  const int w = 2 * E + 1;
+  if (E < 0 || w > kThreadMaxCells || group <= 0 || Lq < 0 || Ls < 0)
+    return cudaErrorInvalidValue;
+  const size_t smem = staged ? static_cast<size_t>(
+      banded_block_smem(Ls, Lq, group)) : 0;
+  if (staged && (s_ps % 16 != 0 || s_ps < (k + kTile - 1) / kTile * kTile ||
+                 reinterpret_cast<uintptr_t>(s) % 16 != 0 ||
+                 smem > 232448))
+    return cudaErrorInvalidValue;
+  const Block p{q, q_ps, lq, Q, Lq, s, s_ps, ls, k, Ls, E, tri ? 1 : 0,
+                group, out};
+  const bool st = staged != 0;
+  switch (w) {
+    case 1: return launch_block<1>(p, st, smem, stream);
+    case 3: return launch_block<3>(p, st, smem, stream);
+    case 5: return launch_block<5>(p, st, smem, stream);
+    case 7: return launch_block<7>(p, st, smem, stream);
+    case 9: return launch_block<9>(p, st, smem, stream);
+    case 11: return launch_block<11>(p, st, smem, stream);
+    case 13: return launch_block<13>(p, st, smem, stream);
+    case 15: return launch_block<15>(p, st, smem, stream);
+    default: break;
+  }
+  if (w <= 32) return launch_block<32>(p, st, smem, stream);
+  return launch_block<64>(p, st, smem, stream);
 }
 
 }  // extern "C"

@@ -143,11 +143,33 @@ struct RowOps {
   }
 };
 
+// The form of dp_cell's maxima: 0 the plain max / compare chains, 1 and 2
+// Hopper's DPX instructions (__vimax3_s32 for three-way maxima, with
+// equality to the maximum giving "came from MS"; __vibmax_s32 where its
+// predicate a >= b gives the DEL / INS source and the MS prev code), 2 also
+// __viaddmax_s32 (max(a + b, c) in one instruction) for the sums that are
+// only maximised. A build may set the default for every mapping with
+// -DBBMAP_DPX_DEFAULT=<form> (chip_smoke.py times the other mappings so);
+// msa_dp_pipe.cu asks for its form itself.
+#ifndef BBMAP_DPX_DEFAULT
+#define BBMAP_DPX_DEFAULT 0
+#endif
+constexpr int kDpxDefault = BBMAP_DPX_DEFAULT;
+
+// max(a + b, c) with a + b wrapped as wadd, in the form DPX asks for.
+template <int DPX>
+__device__ __forceinline__ int addmax(int a, int b, int c) {
+  if (DPX >= 2) return __viaddmax_s32(a, b, c);
+  return max(static_cast<int>(static_cast<uint32_t>(a) +
+                              static_cast<uint32_t>(b)), c);
+}
+
 // One DP cell (r, c) on wave d from its neighbours: dd = (r-1, c-1) on
 // wave d-2, own = (r, c-1) and up = (r-1, c) on wave d-1. ins0 is the
 // column-0 boundary of row r. Writes the new MS / DEL / INS cells and,
-// with WANT_PREVS, the packed prev-state code.
-template <bool WANT_PREVS>
+// with WANT_PREVS, the packed prev-state code. DPX: the form of the
+// maxima (above); every form gives the same bits.
+template <bool WANT_PREVS, int DPX = kDpxDefault>
 __device__ __forceinline__ void dp_cell(
     int r, int c, int C, int rows, int read1, int read0, int ref1, int ref0,
     int dd_ms, int dd_del, int dd_ins, int own_ms, int own_del, int up_ms,
@@ -163,19 +185,34 @@ __device__ __forceinline__ void dp_cell(
   const int s_diag = dd_ms & SM, s_del = dd_del & SM, s_ins = dd_ins & SM;
   const int streak = dd_ms & TM;
   const int m_ms = wadd(s_diag, pm ? P.MATCH2 : P.MATCH);
-  const int m_d = wadd(s_del, P.MATCH);
-  const int m_i = wadd(s_ins, P.MATCH);
-  const int m_best = max(m_ms, max(m_d, m_i));
-  const bool m_from_ms = m_ms >= m_d && m_ms >= m_i;
-  const int m_time = (m_from_ms && pm) ? streak + 1 : 1;
   const int sub_pen = pm ? (streak <= 1 ? P.SUBR : P.SUB)
                          : sub_array(streak + 1, P);
   const int x_ms = (ref1 != 'N' && read1 != 'N') ? wadd(s_diag, sub_pen)
                                                  : wadd(s_diag, P.NOCALL);
-  const int x_d = wadd(s_del, P.SUB);
-  const int x_i = wadd(s_ins, P.SUB);
-  const int x_best = max(x_ms, max(x_d, x_i));
-  const bool x_from_ms = x_ms >= x_d && x_ms >= x_i;
+  int m_best, x_best;
+  bool m_from_ms, x_from_ms;
+  if (DPX >= 2) {
+    // "came from MS" is "MS is the maximum"
+    m_best = addmax<DPX>(s_ins, P.MATCH, addmax<DPX>(s_del, P.MATCH, m_ms));
+    x_best = addmax<DPX>(s_ins, P.SUB, addmax<DPX>(s_del, P.SUB, x_ms));
+    m_from_ms = m_best == m_ms;
+    x_from_ms = x_best == x_ms;
+  } else if (DPX == 1) {
+    m_best = __vimax3_s32(m_ms, wadd(s_del, P.MATCH), wadd(s_ins, P.MATCH));
+    x_best = __vimax3_s32(x_ms, wadd(s_del, P.SUB), wadd(s_ins, P.SUB));
+    m_from_ms = m_best == m_ms;
+    x_from_ms = x_best == x_ms;
+  } else {
+    const int m_d = wadd(s_del, P.MATCH);
+    const int m_i = wadd(s_ins, P.MATCH);
+    m_best = max(m_ms, max(m_d, m_i));
+    m_from_ms = m_ms >= m_d && m_ms >= m_i;
+    const int x_d = wadd(s_del, P.SUB);
+    const int x_i = wadd(s_ins, P.SUB);
+    x_best = max(x_ms, max(x_d, x_i));
+    x_from_ms = x_ms >= x_d && x_ms >= x_i;
+  }
+  const int m_time = (m_from_ms && pm) ? streak + 1 : 1;
   const int x_time = x_from_ms ? (pm ? 1 : streak + 1) : 1;
   const int ms_score = match ? m_best : x_best;
   const int ms_time = clamp_time(match ? m_time : x_time, P);
@@ -186,8 +223,15 @@ __device__ __forceinline__ void dp_cell(
   const int refn_adj = ref1 == 'N' ? P.DEL_REF_N : (gap ? P.GAP : 0);
   const int d_ms = wadd(wadd(own_ms & SM, P.DEL), refn_adj);
   const int d_d = wadd(wadd(own_del & SM, del_ext(dstreak, P)), refn_adj);
-  const int del_score = max(d_ms, d_d);
-  const int del_time = clamp_time(d_ms >= d_d ? 1 : dstreak + 1, P);
+  bool d_from_ms;
+  int del_score;
+  if (DPX >= 1) {
+    del_score = __vibmax_s32(d_ms, d_d, &d_from_ms);
+  } else {
+    del_score = max(d_ms, d_d);
+    d_from_ms = d_ms >= d_d;
+  }
+  const int del_time = clamp_time(d_from_ms ? 1 : dstreak + 1, P);
   const bool del_barrier = r < P.BARRIER_D1 || r > rows - P.BARRIER_D1;
   int del_val = del_barrier ? subfloor : (del_score | del_time);
 
@@ -195,8 +239,15 @@ __device__ __forceinline__ void dp_cell(
   const int istreak = up_ins & TM;
   const int i_ms = wadd(up_ms & SM, P.INS);
   const int i_i = wadd(up_ins & SM, ins_array(istreak + 1, P));
-  const int ins_score = max(i_ms, i_i);
-  const int ins_time = clamp_time(i_ms >= i_i ? 1 : istreak + 1, P);
+  bool i_from_ms;
+  int ins_score;
+  if (DPX >= 1) {
+    ins_score = __vibmax_s32(i_ms, i_i, &i_from_ms);
+  } else {
+    ins_score = max(i_ms, i_i);
+    i_from_ms = i_ms >= i_i;
+  }
+  const int ins_time = clamp_time(i_from_ms ? 1 : istreak + 1, P);
   const bool ins_barrier = gap || (r < P.BARRIER_I1 && c > 1) ||
                            (r > rows - P.BARRIER_I1 && c < C - 1);
   int ins_val = ins_barrier ? subfloor : (ins_score | ins_time);
@@ -211,8 +262,16 @@ __device__ __forceinline__ void dp_cell(
   if (c < 0 || c > C || r > rows) ms_val = del_val = ins_val = P.BADoff;
 
   if (WANT_PREVS) {
-    const int ms_arg = (s_diag >= s_del && s_diag >= s_ins)
-                           ? 0 : (s_del >= s_ins ? 1 : 2);
+    int ms_arg;
+    if (DPX >= 1) {
+      // s_del >= s_ins, then s_diag >= both, from the predicates
+      bool del_ge, diag_ge;
+      __vibmax_s32(s_diag, __vibmax_s32(s_del, s_ins, &del_ge), &diag_ge);
+      ms_arg = diag_ge ? 0 : (del_ge ? 1 : 2);
+    } else {
+      ms_arg = (s_diag >= s_del && s_diag >= s_ins)
+                   ? 0 : (s_del >= s_ins ? 1 : 2);
+    }
     const int ms_prev = ms_time > 1 ? 0 : ms_arg;
     const int del_prev = del_time > 1 ? 1
                        : ((own_ms & SM) >= (own_del & SM) ? 0 : 1);

@@ -25,8 +25,18 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
-SOURCES = ("msa_dp", "msa_dp_warp", "msa_dp_band", "msa_walk",
-           "msa_fill_walk", "banded_edit")
+SOURCES = ("msa_dp", "msa_dp_warp", "msa_dp_pipe", "msa_dp_band",
+           "msa_walk", "msa_fill_walk", "banded_edit")
+# Libraries built from a source with other flags, by name: (source, extra
+# nvcc flags). The "_dpx" builds turn dp_cell's DPX form on in mappings
+# that keep the plain form (chip_smoke.py times them beside the default);
+# no path of the package loads them.
+VARIANTS = {f"{src}_dpx": (src, ("-DBBMAP_DPX_DEFAULT=2",))
+            for src in ("msa_dp", "msa_dp_warp", "msa_dp_band",
+                        "msa_fill_walk")}
+VARIANTS.update({f"msa_dp_pipe_dpx{f}": ("msa_dp_pipe",
+                                         (f"-DBBMAP_PIPE_DPX={f}",))
+                 for f in (0, 1)})
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -44,17 +54,24 @@ def nvcc_path() -> str:
                        "the CUDA toolkit is installed")
 
 
+def _source(name: str):
+    """(source name, extra nvcc flags) of library ``name``."""
+    return VARIANTS.get(name, (name, ()))
+
+
 def library_path(name: str) -> Path:
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    src, flags = _source(name)
+    h = hashlib.sha256((CSRC / f"{src}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
+    h.update(" ".join(flags).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def build_all(names: Iterable[str] = SOURCES) -> List[Path]:
-    """Compile every ``csrc/<name>.cu`` that has no library of the same
-    source hash yet, one nvcc process each, all started together.
-    Returns the library paths."""
+    """Compile every library of ``names`` (a source, or a name of
+    ``VARIANTS``) that has no library of the same source hash yet, one
+    nvcc process each, all started together. Returns the library paths."""
     outs = [library_path(n) for n in names]
     procs = []
     for name, out in zip(names, outs):
@@ -62,8 +79,9 @@ def build_all(names: Iterable[str] = SOURCES) -> List[Path]:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
+        src, flags = _source(name)
+        cmd = [nvcc_path(), *NVCC_FLAGS, *flags, "-o", str(tmp),
+               str(CSRC / f"{src}.cu")]
         procs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     failed = []

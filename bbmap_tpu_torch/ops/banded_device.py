@@ -16,11 +16,19 @@ the band (2*maxEdits+1 diagonals) on the lanes. Here:
   torch ops on any device, the insertion sweep closed into ``cummin``.
   It drops a pair once its whole band is past max_edits (the rest of the
   scan would leave it there, so the value is the same).
+- ``banded_any`` is the block kernel's wrapper (the block mapping of
+  ``csrc/banded_edit.cu``): a block of queries against one class of
+  sequences in one launch, one flag a query (``any(d <= E)``), or the
+  queries against each other (the lower triangle of ``d <= E``);
+  ``banded_any_plain`` is its plain version (``banded_edit_batch_plain``
+  over every pair, then ``any``). Its launches count in
+  ``banded_any.launches`` and ``launches_by["class" | "triangle"]``.
 - ``banded_edit_batch``, ``contained_distances`` and
   ``edit_distances_vs_one`` are the JAX package's entry points on numpy
   arrays, with ``device=``; ``SequenceStore`` keeps Dedupe's kept
-  sequences on the device in length classes, so that a query uploads
-  only itself.
+  sequences on the device in length classes, checks a block of queries
+  (``upload_block``, one upload) against them a launch a near class, and
+  keeps a block's kept reads a copy a class.
 
 Tensors are position-major (pair-minor): byte (pos, pair) of ``a`` (La,
 n) and ``b`` (Lb, n) at [pos, pair], so that the kernel's neighbouring
@@ -42,8 +50,23 @@ from . import _build
 
 I32 = torch.int32
 MAPPINGS = ("thread", "warp")
+# who made a banded_edit launch (banded_edit's ``site=``): dedupe's
+# containment check, or another caller (the store check is banded_any's)
+SITES = ("containment", "other")
 # rows of the plain scan between two looks for saturated pairs
 PLAIN_CHECK_ROWS = 8
+# The block mapping (banded_any): class sequences a block (a thread each),
+# the widest E its thread band holds (2E + 1 <= 64 cells), the queries a
+# block at most, the blocks an SM its query groups aim for, and the shared
+# memory a block may stage (two blocks an SM) before it reads in place.
+BLOCK_TILE = 128
+BLOCK_MAX_E = 31
+BLOCK_MAX_GROUP = 64
+BLOCK_AIM_PER_SM = 8
+BLOCK_STAGE_MAX = 96 * 1024
+# pairs a call of the plain version takes at once (bounded scratch)
+PLAIN_ANY_PAIRS = 1 << 21
+ANY_MODES = ("class", "triangle")
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("banded_edit")
@@ -56,6 +79,11 @@ def _lib() -> ctypes.CDLL:
         lib.banded_edit_scratch_ints.argtypes = [ci]
         lib.banded_edit_scratch_ints.restype = ll
         lib.banded_edit_thread_max_cells.restype = ci
+        lib.banded_block_launch.argtypes = [
+            vp, ll, vp, ci, ci, vp, ll, vp, ci, ci, ci, ci, ci, ci, vp, vp]
+        lib.banded_block_launch.restype = ci
+        lib.banded_block_smem.argtypes = [ci, ci, ci]
+        lib.banded_block_smem.restype = ci
         lib._bbmap_typed = True
     return lib
 
@@ -178,12 +206,13 @@ def _on_cuda(t: torch.Tensor) -> None:
 
 def banded_edit(a: torch.Tensor, la: torch.Tensor, b: torch.Tensor,
                 lb: torch.Tensor, max_edits: int,
-                infix: bool = False) -> torch.Tensor:
+                infix: bool = False, site: str = "other") -> torch.Tensor:
     """Banded edit distance of n pairs, in the layout of
     ``banded_edit_batch_plain`` (any strides; a pair stride of 0 shares a
     query or a length). CPU tensors: the plain version. CUDA tensors: one
     launch of ``csrc/banded_edit.cu``, a thread a pair where 2E + 1 <= 64
-    cells, else a warp a pair; a failed launch raises."""
+    cells, else a warp a pair; a failed launch raises. ``site`` (one of
+    ``SITES``) names the caller in ``launches_by_site``."""
     _check(a, la, b, lb)
     if b.device.type == "cpu":
         return banded_edit_batch_plain(a, la, b, lb, max_edits, infix)
@@ -212,12 +241,137 @@ def banded_edit(a: torch.Tensor, la: torch.Tensor, b: torch.Tensor,
         raise RuntimeError(f"banded_edit_launch failed: cudaError {err}")
     banded_edit.launches += 1
     banded_edit.launches_by[mapping] += 1
+    banded_edit.launches_by_site[site] += 1
     return out
 
 
 def reset_launches() -> None:
     banded_edit.launches = 0
     banded_edit.launches_by = dict.fromkeys(MAPPINGS, 0)
+    banded_edit.launches_by_site = dict.fromkeys(SITES, 0)
+    banded_any.launches = 0
+    banded_any.launches_by = dict.fromkeys(ANY_MODES, 0)
+
+
+def _check_any(q, lq, s, ls) -> None:
+    if q.dim() != 2 or lq.dim() != 1 or q.shape[1] != lq.shape[0]:
+        raise ValueError("queries (Lq, Q) and lengths (Q,) expected")
+    if s is not None and (s.dim() != 2 or ls.dim() != 1
+                          or s.shape[1] != ls.shape[0]):
+        raise ValueError("sequences (Ls, k) and lengths (k,) expected")
+    for x in (q, s):
+        if x is not None and x.dtype != torch.uint8:
+            raise TypeError("queries and sequences must be uint8")
+    for x in (lq, ls):
+        if x is not None and x.dtype != I32:
+            raise TypeError("lengths must be int32")
+    if any(x is not None and x.device != q.device for x in (lq, s, ls)):
+        raise ValueError("queries, sequences and lengths must share one "
+                         "device")
+
+
+def banded_any_plain(q: torch.Tensor, lq: torch.Tensor,
+                     s: Optional[torch.Tensor], ls: Optional[torch.Tensor],
+                     max_edits: int, tri: bool = False,
+                     rows_out: Optional[list] = None) -> torch.Tensor:
+    """Plain version of the block kernel on any device:
+    ``banded_edit_batch_plain`` over every (query, sequence) pair, then
+    ``any``. q (Lq, Q) uint8 position-major, lq (Q,) int32; s (Ls, k), ls
+    (k,) the class. Returns (Q,) uint8, 1 where some sequence lies within
+    max_edits of the query (global distance). ``tri``: s and ls are not
+    read; returns (Q, Q) uint8 with [i, j] = d(query i, query j) <=
+    max_edits for j < i, 0 elsewhere. ``rows_out``, when given a list,
+    receives the rows the kernel's scan runs for the pairs, summed (the
+    cells the data needs, over the band width)."""
+    _check_any(q, lq, s, ls)
+    dev, Q = q.device, q.shape[1]
+    if tri:
+        s, ls = q, lq
+    k = s.shape[1]
+    E = int(max_edits)
+    out = torch.zeros((Q, Q) if tri else (Q,), dtype=torch.uint8,
+                      device=dev)
+    ii, jj = (torch.tril_indices(Q, Q, -1, device=dev) if tri else
+              torch.cartesian_prod(torch.arange(Q, device=dev),
+                                   torch.arange(k, device=dev)).T)
+    for a0 in range(0, ii.numel(), PLAIN_ANY_PAIRS):
+        i, j = ii[a0:a0 + PLAIN_ANY_PAIRS], jj[a0:a0 + PLAIN_ANY_PAIRS]
+        rows = None if rows_out is None else torch.zeros(
+            i.numel(), dtype=I32, device=dev)
+        hit = banded_edit_batch_plain(q[:, i], lq[i], s[:, j], ls[j], E,
+                                      rows_out=rows) <= E
+        if rows_out is not None:
+            rows_out.append(int(rows.long().sum()))
+        if tri:
+            out[i, j] = hit.to(torch.uint8)
+        else:
+            out[i[hit]] = 1
+    return out
+
+
+def block_groups(Q: int, k: int, device) -> int:
+    """Queries a block of the block kernel takes: as many as leave
+    ``BLOCK_AIM_PER_SM`` blocks an SM over the class's tiles, at most
+    ``BLOCK_MAX_GROUP``."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    tiles = -(-k // BLOCK_TILE)
+    groups = max(1, min(Q, -(-BLOCK_AIM_PER_SM * sms // tiles)))
+    return min(BLOCK_MAX_GROUP, max(1, Q // groups))
+
+
+def banded_any(q: torch.Tensor, lq: torch.Tensor, s: Optional[torch.Tensor],
+               ls: Optional[torch.Tensor], max_edits: int,
+               tri: bool = False) -> torch.Tensor:
+    """Many queries against one class of sequences in one launch (the
+    layout and result of ``banded_any_plain``; ``tri``: the queries
+    against each other). CPU tensors: the plain version. CUDA tensors: one
+    launch of the block mapping of ``csrc/banded_edit.cu`` for E up to
+    ``BLOCK_MAX_E``, the tile staged in shared memory where the class's
+    pitch and a block's bytes allow; past that E a ``banded_edit`` launch
+    a query (a warp a pair). A failed launch raises."""
+    _check_any(q, lq, s, ls)
+    if q.device.type == "cpu":
+        return banded_any_plain(q, lq, s, ls, max_edits, tri)
+    _on_cuda(q)
+    E = int(max_edits)
+    if E < 0:
+        raise ValueError(f"max_edits={E} must be >= 0")
+    Q = q.shape[1]
+    if tri:
+        s, ls = q, lq
+    k = s.shape[1]
+    out = torch.zeros((Q, Q) if tri else (Q,), dtype=torch.uint8,
+                      device=q.device)
+    if Q == 0 or k == 0:
+        return out
+    if q.stride(1) != 1 or s.stride(1) != 1:
+        raise ValueError("queries and sequences must be position-major with "
+                         "a pair stride of 1")
+    if E > BLOCK_MAX_E:
+        for i in range(1 if tri else 0, Q):
+            d = banded_edit(q[:, i], lq[i].expand(i if tri else k),
+                            s[:, :i] if tri else s,
+                            ls[:i] if tri else ls, E)
+            if tri:
+                out[i, :i] = (d <= E).to(torch.uint8)
+            else:
+                out[i] = (d <= E).any().to(torch.uint8)
+        return out
+    lib = _lib()
+    group = block_groups(Q, k, q.device)
+    Lq, Ls = q.shape[0], s.shape[0]
+    staged = (s.stride(0) % 16 == 0 and s.data_ptr() % 16 == 0
+              and s.stride(0) >= -(-k // BLOCK_TILE) * BLOCK_TILE
+              and lib.banded_block_smem(Ls, Lq, group) <= BLOCK_STAGE_MAX)
+    err = lib.banded_block_launch(
+        q.data_ptr(), q.stride(0), lq.data_ptr(), Q, Lq, s.data_ptr(),
+        s.stride(0), ls.data_ptr(), k, Ls, E, int(tri), group, int(staged),
+        out.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"banded_block_launch failed: cudaError {err}")
+    banded_any.launches += 1
+    banded_any.launches_by["triangle" if tri else "class"] += 1
+    return out
 
 
 reset_launches()
@@ -252,7 +406,8 @@ def _pad_rows(seqs: List[np.ndarray], width: int) -> np.ndarray:
 
 
 def _vs_query(query: np.ndarray, seqs: List[np.ndarray], E: int,
-              infix: bool, dev: torch.device) -> np.ndarray:
+              infix: bool, dev: torch.device,
+              site: str = "other") -> np.ndarray:
     """One query against every sequence of ``seqs``: the query uploaded
     once (every pair reads it), the sequences position-major."""
     q = torch.from_numpy(np.array(query, np.uint8)).to(dev)
@@ -260,7 +415,7 @@ def _vs_query(query: np.ndarray, seqs: List[np.ndarray], E: int,
     b = torch.from_numpy(np.ascontiguousarray(
         _pad_rows(seqs, max(len(s) for s in seqs)).T)).to(dev)
     lb = torch.tensor([len(s) for s in seqs], dtype=I32, device=dev)
-    return banded_edit(q, la, b, lb, E, infix).cpu().numpy()
+    return banded_edit(q, la, b, lb, E, infix, site).cpu().numpy()
 
 
 def contained_distances(query: np.ndarray,
@@ -274,7 +429,7 @@ def contained_distances(query: np.ndarray,
     if n == 0:
         return np.zeros(0, np.int32)
     dev = backend.resolve_device(device)
-    d = _vs_query(query, windows, 2 * max_edits, True, dev)
+    d = _vs_query(query, windows, 2 * max_edits, True, dev, "containment")
     return np.minimum(d, max_edits + 1)
 
 
@@ -303,18 +458,37 @@ def class_width(lo: int) -> int:
     return lo + (1 << max(0, lo.bit_length() - 5)) - 1
 
 
+def upload_block(seqs: List[np.ndarray], device) -> tuple:
+    """A block of sequences on ``device`` in the layout of the block
+    kernel: (Lq, Q rounded up to ``BLOCK_TILE``) uint8 position-major, byte
+    (pos, i) of sequence i (bytes past a sequence's length mean nothing),
+    and the (Q,) int32 lengths; one upload each. Returns (the (Lq, Q) view,
+    lengths)."""
+    Q = len(seqs)
+    lens = np.array([len(x) for x in seqs], np.int32)
+    Lq = int(lens.max()) if Q else 0
+    host = np.zeros((Lq, -(-max(Q, 1) // BLOCK_TILE) * BLOCK_TILE), np.uint8)
+    for i, x in enumerate(seqs):
+        host[:len(x), i] = x
+    dev = backend.resolve_device(device)
+    return (torch.from_numpy(host).to(dev)[:, :Q],
+            torch.from_numpy(lens).to(dev))
+
+
 class SequenceStore:
-    """Sequences kept on a device in length classes (``length_class``),
-    appended one at a time: a class holds its sequences position-major in
-    a (class width, capacity) uint8 tensor, byte (pos, k) of its sequence
-    k, beside their lengths, the capacity doubled as it fills, so the card
-    holds under 2 x 17/16 of the kept bytes, however far the lengths
-    spread. A query is checked against the classes that hold lengths
-    within max_edits of its own (Dedupe's near-duplicate check with e=, as
-    the JAX package's length buckets), a launch a class: one, unless its
-    length lies within max_edits of a class's edge. A kept sequence whose
-    length differs from the query's by more than max_edits gives
-    max_edits + 1, the kernel's first test."""
+    """Sequences kept on a device in length classes (``length_class``): a
+    class holds its sequences position-major in a (class width, capacity)
+    uint8 tensor, byte (pos, k) of its sequence k, beside their lengths;
+    the capacity starts at ``BLOCK_TILE`` and doubles as the class fills
+    (a multiple of 128, so the block kernel stages its tiles with aligned
+    16-byte copies), and the card holds under 2 x 17/16 of the kept bytes
+    past the first tile of a class. ``check`` runs a block of queries
+    against every class that holds lengths within max_edits of one of
+    them (Dedupe's near-duplicate check with e=, as the JAX package's
+    length buckets), a launch of the block kernel a class; ``append``
+    keeps some of the block's sequences, a copy a class. A kept sequence
+    whose length differs from a query's by more than max_edits lies past
+    max_edits of it, the kernel's first test."""
 
     def __init__(self, device):
         self.device = backend.resolve_device(device)
@@ -322,69 +496,65 @@ class SequenceStore:
         # first length -> [(width, capacity) uint8, (capacity,) int32
         # lengths, sequences held]
         self.classes: Dict[int, list] = {}
-        # a length as a tensor of one element without a launch: a view
-        # into this table
-        self._lengths = torch.arange(257, dtype=I32, device=self.device)
 
     def __len__(self) -> int:
         return self.n
 
-    def upload(self, seq: np.ndarray) -> torch.Tensor:
-        """A query's bytes on the device: (L,) uint8."""
-        return torch.from_numpy(np.array(seq, np.uint8)).to(self.device)
-
-    def _length(self, L: int) -> torch.Tensor:
-        if L >= self._lengths.shape[0]:
-            self._lengths = torch.arange(2 * L + 1, dtype=I32,
-                                         device=self.device)
-        return self._lengths[L]
-
-    def near(self, L: int, max_edits: int) -> List[int]:
+    def near(self, lengths, max_edits: int) -> List[int]:
         """The classes (their first lengths) that hold a sequence of a
-        length within max_edits of L, shortest first."""
-        out = []
-        lo = length_class(max(0, L - max_edits))
-        while lo <= L + max_edits:
-            if lo in self.classes:
-                out.append(lo)
-            lo = class_width(lo) + 1
-        return out
+        length within max_edits of one of ``lengths``, shortest first."""
+        out = set()
+        for L in set(int(x) for x in lengths):
+            lo = length_class(max(0, L - max_edits))
+            while lo <= L + max_edits:
+                if lo in self.classes:
+                    out.add(lo)
+                lo = class_width(lo) + 1
+        return sorted(out)
 
-    def append(self, q: torch.Tensor) -> None:
-        """Keep an uploaded sequence (L,) uint8."""
-        L = q.shape[0]
-        lo = length_class(L)
-        cls = self.classes.get(lo)
-        if cls is None:
-            cls = self.classes[lo] = [
-                torch.empty((class_width(lo), 1), dtype=torch.uint8,
-                            device=self.device),
-                torch.empty(1, dtype=I32, device=self.device), 0]
-        seqs, lens, k = cls
-        if k == seqs.shape[1]:
-            grown = torch.empty((seqs.shape[0], 2 * k), dtype=torch.uint8,
-                                device=self.device)
-            grown[:, :k] = seqs
-            grown_lens = torch.empty(2 * k, dtype=I32, device=self.device)
-            grown_lens[:k] = lens
-            cls[0], cls[1] = seqs, lens = grown, grown_lens
-        seqs[:L, k] = q
-        lens[k] = self._length(L)
-        cls[2] = k + 1
-        self.n += 1
-
-    def distances(self, q: torch.Tensor, max_edits: int) -> torch.Tensor:
-        """Global banded edit distance of the uploaded query q against
-        every kept sequence of the classes ``near`` its length, class by
-        class, each in the order kept: (m,) int32 on the device, a launch
-        a class."""
-        la = self._length(q.shape[0])
-        out = []
-        for lo in self.near(q.shape[0], max_edits):
+    def check(self, q: torch.Tensor, lq: torch.Tensor, lengths,
+              max_edits: int) -> torch.Tensor:
+        """Flags (Q,) uint8 on the device: 1 where a kept sequence lies
+        within max_edits of query i (global banded edit distance) of the
+        block q (Lq, Q), lq (Q,) (``upload_block``); ``lengths`` the
+        queries' lengths on the host. A launch a near class."""
+        flags = torch.zeros(q.shape[1], dtype=torch.uint8,
+                            device=self.device)
+        for lo in self.near(lengths, max_edits):
             seqs, lens, k = self.classes[lo]
-            out.append(banded_edit(q, la.expand(k), seqs[:, :k], lens[:k],
-                                   max_edits))
-        if len(out) == 1:
-            return out[0]
-        return torch.cat(out) if out else torch.zeros(
-            0, dtype=I32, device=self.device)
+            flags |= banded_any(q, lq, seqs[:, :k], lens[:k], max_edits)
+        return flags
+
+    def append(self, q: torch.Tensor, lq: torch.Tensor, lengths,
+               keep: List[int]) -> None:
+        """Keep the block's sequences ``keep`` (column indices of q (Lq,
+        Q), in order; ``lengths`` on the host): one copy a class they fall
+        in."""
+        by_class: Dict[int, List[int]] = {}
+        for i in keep:
+            by_class.setdefault(length_class(int(lengths[i])), []).append(i)
+        for lo, idx in by_class.items():
+            cls = self.classes.get(lo)
+            if cls is None:
+                cls = self.classes[lo] = [
+                    torch.empty((class_width(lo), BLOCK_TILE),
+                                dtype=torch.uint8, device=self.device),
+                    torch.empty(BLOCK_TILE, dtype=I32, device=self.device),
+                    0]
+            seqs, lens, k = cls
+            cap = seqs.shape[1]
+            while cap < k + len(idx):
+                cap *= 2
+            if cap > seqs.shape[1]:
+                grown = torch.empty((seqs.shape[0], cap), dtype=torch.uint8,
+                                    device=self.device)
+                grown[:, :k] = seqs[:, :k]
+                grown_lens = torch.empty(cap, dtype=I32, device=self.device)
+                grown_lens[:k] = lens[:k]
+                cls[0], cls[1] = seqs, lens = grown, grown_lens
+            cols = torch.tensor(idx, dtype=torch.long, device=self.device)
+            m = min(q.shape[0], seqs.shape[0])
+            seqs[:m, k:k + len(idx)] = q[:m].index_select(1, cols)
+            lens[k:k + len(idx)] = lq.index_select(0, cols)
+            cls[2] = k + len(idx)
+            self.n += len(idx)

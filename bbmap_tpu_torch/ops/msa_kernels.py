@@ -1,5 +1,6 @@
 """The DP kernels (``csrc/msa_dp.cu``, ``csrc/msa_dp_warp.cu``,
-``csrc/msa_dp_band.cu``), the traceback walk kernel (``csrc/msa_walk.cu``)
+``csrc/msa_dp_pipe.cu``, ``csrc/msa_dp_band.cu``), the traceback walk
+kernel (``csrc/msa_walk.cu``)
 and the fused fill + walk kernel (``csrc/msa_fill_walk.cu``), their
 wrappers, launch counters and plain PyTorch versions.
 
@@ -38,11 +39,13 @@ wrappers, launch counters and plain PyTorch versions.
   the two kernels above.
 
 ``launch_shape`` picks a DP kernel's mapping: a warp a job ("warp", 1 to
-10 rows a lane) for score passes of 2,048 jobs or more up to R = 319, one
-DP row per thread ("row") up to R = 1,023, and past that a warp a band of
-rows, the bands of a job pipelined over the card ("band", 2, 4 or 8 rows
-a lane) up to R = 8,191. Rows strided over one block ("strided"), which
-"band" replaced, stays launchable by ``mapping=`` for comparison.
+10 rows a lane) for score passes of 1,024 jobs or more up to R = 319, one
+DP row per thread ("row") up to R = 1,023, a block a job with a warp a
+band of rows pipelined inside it ("pipe", 1 or 2 rows a lane) where it won
+(from 700 rows, and in narrow windows from some hundreds of jobs), and
+past that a warp a band of rows, the bands of a job pipelined over the
+card ("band", 2, 4 or 8 rows a lane) up to R = 8,191. Rows strided over one block ("strided"), which "band" replaced,
+stays launchable by ``mapping=`` for comparison.
 
 A wrapper given CPU tensors runs the plain version (``ops/msa.dp_plain``,
 ``ops/msa.walk_plain``; ``msa_score_plain`` a segment) and counts
@@ -70,11 +73,19 @@ I32 = torch.int32
 WARP_MAX_ROWS_PER_LANE = 10    # a warp a job: R + 1 <= 320 rows
 WARP_MAX_ROWS = 32 * WARP_MAX_ROWS_PER_LANE - 1
 WARP_THREADS = 128             # four jobs a block
-# Below it a score pass takes the one-row mapping. From a sweep of K2 over
-# the job count in both mappings on an H100 (chip_smoke.py, "sweep" lines):
-# at 1,024 jobs the two tie, at 2,048 the warp mapping wins 1.3-1.7x.
-WARP_MIN_JOBS = 2048
+# Below it a score pass takes the one-row mapping. From the sweep of K2
+# over the job count in the warp, one-row and pipe mappings (chip_smoke.py,
+# "sweep msa_score" lines, NVIDIA H100 80GB HBM3, 700 W): at
+# 1,024 jobs the warp mapping wins at (150, 174), 0.363 ms against one-row
+# 0.453 and pipe 0.414, and ties at (150, 606), 1.100 against 1.081 and
+# 1.154; at 512 jobs the one-row mapping wins at both windows (0.248
+# against 0.332 and 0.257 at (150, 174)).
+WARP_MIN_JOBS = 1024
 SHORT_MAX_ROWS = 1023          # one thread per DP row, 1,024 threads a block
+# The pipelined-warp mapping (csrc/msa_dp_pipe.cu): a lane a row up to
+# this many rows (16 warps), two rows a lane past it (at most 16 warps).
+PIPE_ONE_ROW_MAX = 511
+PIPE_CHUNK, PIPE_RING = 4, 64   # columns a hand-over, columns a ring
 LONG_ROWS_PER_THREAD = (2, 4, 8)
 MAX_THREADS = 1024
 MAX_ROWS = LONG_ROWS_PER_THREAD[-1] * MAX_THREADS - 1   # 8,191
@@ -90,13 +101,35 @@ BAND_FILL_MAX_ROWS_PER_LANE = 4
 # and was never ahead (level at 64 jobs, 77 ms against 62 ms at 128, 236
 # against 174 at 400), so a fill stops at 4.
 BAND_MIN_WARPS = 1024
-# Between the warp mapping's 319 rows and 1,023 the band mapping takes the
-# launches it won against the one-row mapping in the same run ("sweep band
-# mid" lines): at (700, 760) and (1,000, 1,100) from 256 jobs, 1.1-1.6x; at
-# (500, 560) it lost up to 256 jobs, and below 256 jobs it lost or tied at
-# (700, 760).
-BAND_MID_MIN_ROWS = 700
-BAND_MID_MIN_JOBS = 256
+# Between the warp mapping's 319 rows and 1,023 rows, from the same run's
+# "sweep band mid" lines (score / fill ms, one-row, band, pipe): from 700
+# rows the pipe mapping wins the score pass at every job count swept (16 to
+# 1,024: 1.062 / 1.113 / 1.163 at 16 x (700, 760), 5.036 / 6.217 / 7.960
+# at 1,024; at 16 x (1,000, 1,100) band 1.625 and pipe 1.652 tie) and the
+# fill from 256 jobs (1.862 against 2.111 and 2.262 at (700, 760)); below
+# 256 jobs a fill keeps the one-row mapping (the band mapping is ahead by
+# up to 19 % at (1,000, 1,100) and behind at 64 x (700, 760)). At (500,
+# 560) the band mapping wins from 1,024 jobs (2.647 against one-row 4.009
+# and pipe 3.803), the one-row mapping below.
+PIPE_MID_MIN_ROWS = 700
+PIPE_MID_MIN_FILL_JOBS = 256
+BAND_MID_MIN_ROWS = 500
+BAND_MID_MIN_JOBS = 1024
+# In a narrow window (at most PIPE_NARROW_SLACK columns past the read) a
+# score pass takes the pipe mapping from PIPE_NARROW_SCORE_MIN_JOBS jobs
+# to the warp mapping's, and a fill from PIPE_NARROW_FILL_MIN_JOBS jobs.
+# From the same run: the score pass at the CLIs' shapes (chip_smoke.py,
+# "time msa_score at a CLI's one-row shape" lines) at (150, 158), pipe
+# against one-row, 0.2702 against 0.2930 ms at 530 jobs to 0.3106 against
+# 0.3396 at 760, one-row ahead to 506 jobs (0.2341 against 0.2440); the
+# fill at (150, 174) 0.877 ms against one-row 0.921 at 2,048 jobs, 1.659
+# against 1.769 at 4,096 and 3.145 against 3.397 at 8,192 ("time
+# msa_fill_pipe"), one-row ahead at 1,024 (0.495 against 0.553); at (150,
+# 606) the one-row mapping wins both passes at every job count to 1,024
+# and the fill to 4,096 (4.327 against 4.670).
+PIPE_NARROW_SLACK = 24
+PIPE_NARROW_SCORE_MIN_JOBS = 520
+PIPE_NARROW_FILL_MIN_JOBS = 2048
 SMEM_MAX = 232_448             # 227 KB of shared memory a block (sm_90)
 SMEM_PER_SM = 233_472          # 228 KB an SM, of it 1 KB reserved a block
 # The fused fill + walk (csrc/msa_fill_walk.cu): a block a job, a thread
@@ -115,6 +148,10 @@ FILL_WALK_PACK_MIN_JOBS = 1024
 # Score passes of one R over several windows launch together
 # (msa_score_segments), at most this many segments a launch.
 MAX_SEGMENTS = 4
+# When a dict, every DP launch adds one to it under (wrapper, mapping,
+# jobs, R, C): the shapes a run gives each mapping (chip_smoke.py reads
+# the CLIs' one-row launches so). None: nothing is recorded.
+LAUNCH_SHAPES: Optional[dict] = None
 
 _PROF_FIELDS = (
     "TIMEMASK", "SCOREOFFSET", "MAX_TIME", "MASK5", "BARRIER_I1",
@@ -134,13 +171,21 @@ def prof_array(P: ScoringProfile) -> np.ndarray:
 
 
 class LaunchShape(NamedTuple):
-    rows_per_thread: int    # warp, band: rows a lane; row: 1; strided: 2-8
-    threads: int
+    rows_per_thread: int    # warp, pipe, band: rows a lane; row: 1;
+    threads: int            # strided: 2-8
     smem_bytes: int
-    mapping: str            # "warp", "row", "band" or "strided"
+    mapping: str            # one of MAPPINGS
 
 
-MAPPINGS = ("warp", "row", "band", "strided")
+MAPPINGS = ("warp", "pipe", "row", "band", "strided")
+
+
+def pipe_smem(R: int, C: int, bands: int) -> int:
+    """Shared memory of a pipe block: the window and the read staged (each
+    rounded to 16 bytes), and a ring of PIPE_RING x 3 ints and two
+    counters a band."""
+    return -(-C // 16) * 16 + -(-R // 16) * 16 + bands * (
+        PIPE_RING * 3 + 2) * 4
 
 
 def band_count(R: int, rows_per_lane: int) -> int:
@@ -161,22 +206,34 @@ def launch_shape(R: int, C: int, mapping: Optional[str] = None,
 
     - "warp" (R <= 319): a warp a job, lane l owns the ceil((R+1)/32)
       rows from l * J on; four jobs a block, no shared memory. The
-      default for score passes of 2,048 jobs or more (``jobs=None``
+      default for score passes of ``WARP_MIN_JOBS`` jobs or more (``jobs=None``
       counts as many): fewer jobs leave most of the card's warp slots
       empty, and a fill's prev codes become scattered single-byte stores
       that cost more than the sweep saves (times in PERF.md), so those
       take the one-row mapping.
     - "row" (R <= 1,023): a block a job, one row a thread. Both wave
       slots take 24 * (R+1) bytes of shared memory, the window C more.
+      The default below the warp mapping's launches where the pipe and
+      band mappings did not win, and for an unknown job count.
+    - "pipe" (R <= 1,023): a block a job, a warp a band of 32 rows (a
+      lane a row; 64, two a lane, past ``PIPE_ONE_ROW_MAX`` rows), the
+      bands handing their bottom rows on through a ring in shared memory
+      (``csrc/msa_dp_pipe.cu``); the window and the read staged. The
+      default from ``PIPE_MID_MIN_ROWS`` rows (a fill: of
+      ``PIPE_MID_MIN_FILL_JOBS`` jobs or more), and in windows at most
+      ``PIPE_NARROW_SLACK`` columns wider than the read for score passes
+      of ``PIPE_NARROW_SCORE_MIN_JOBS`` jobs or more (below the warp
+      mapping's) and fills of ``PIPE_NARROW_FILL_MIN_JOBS`` or more,
+      where it beat the one-row and band mappings on the card.
     - "band" (R <= 8,191; the default past R = 1,023): a warp a band of
       32 * J rows, a block a band, the bands of a job handing their bottom
       rows on through device memory (``csrc/msa_dp_band.cu``); no shared
       memory. J is 8 (a fill: 4) for launches of ``BAND_MIN_WARPS`` warps
       or more at that J (``jobs=None`` counts as many), else 4, else 2:
       few jobs are cut into thinner bands so that more warps run. Also
-      the default from ``BAND_MID_MIN_ROWS`` rows for launches of
-      ``BAND_MID_MIN_JOBS`` jobs or more, where it beat the one-row
-      mapping on the card.
+      the default from ``BAND_MID_MIN_ROWS`` to ``PIPE_MID_MIN_ROWS`` rows
+      for launches of ``BAND_MID_MIN_JOBS`` jobs or more, where it beat
+      the one-row and pipe mappings on the card.
     - "strided" (1,024 <= R <= 8,191, by ``mapping=`` only): a block a
       job, 2, 4 or 8 rows a thread, strided; the read is staged as well
       (R bytes).
@@ -191,14 +248,24 @@ def launch_shape(R: int, C: int, mapping: Optional[str] = None,
     if mapping is None:
         if R <= WARP_MAX_ROWS and many and not fill:
             mapping = "warp"
-        elif R <= SHORT_MAX_ROWS and not (
-                R >= BAND_MID_MIN_ROWS and jobs is not None
-                and jobs >= BAND_MID_MIN_JOBS):
-            mapping = "row"
-        else:
+        elif R > SHORT_MAX_ROWS:
             mapping = "band"
+        elif jobs is None:
+            mapping = "row"
+        elif R >= PIPE_MID_MIN_ROWS and (not fill
+                                         or jobs >= PIPE_MID_MIN_FILL_JOBS):
+            mapping = "pipe"
+        elif BAND_MID_MIN_ROWS <= R < PIPE_MID_MIN_ROWS \
+                and jobs >= BAND_MID_MIN_JOBS:
+            mapping = "band"
+        elif C <= R + PIPE_NARROW_SLACK and jobs >= (
+                PIPE_NARROW_FILL_MIN_JOBS if fill
+                else PIPE_NARROW_SCORE_MIN_JOBS):
+            mapping = "pipe"
+        else:
+            mapping = "row"
     elif not ((mapping == "warp" and R <= WARP_MAX_ROWS)
-              or (mapping == "row" and R <= SHORT_MAX_ROWS)
+              or (mapping in ("row", "pipe") and R <= SHORT_MAX_ROWS)
               or mapping == "band"
               or (mapping == "strided" and R > SHORT_MAX_ROWS)):
         raise ValueError(f"mapping {mapping!r} cannot be forced at R={R}")
@@ -210,6 +277,10 @@ def launch_shape(R: int, C: int, mapping: Optional[str] = None,
         shape = LaunchShape(-(-(R + 1) // 32), WARP_THREADS, 0, mapping)
     elif mapping == "row":
         shape = LaunchShape(1, (R + 1 + 31) // 32 * 32, wave + C, mapping)
+    elif mapping == "pipe":
+        J = 1 if R <= PIPE_ONE_ROW_MAX else 2
+        bands = band_count(R, J)
+        shape = LaunchShape(J, 32 * bands, pipe_smem(R, C, bands), mapping)
     elif mapping == "band":
         J = next((j for j in reversed(BAND_ROWS_PER_LANE)
                   if (not fill or j <= BAND_FILL_MAX_ROWS_PER_LANE)
@@ -310,11 +381,10 @@ def fill_walk_shape(R: int, C: int, jobs: Optional[int] = None,
 
 def prev_code_bytes(R: int, C: int, device) -> int:
     """Bytes of prev codes one fill job of (R, C) takes on ``device`` at
-    most: on a card the row-major block where every fill takes the band
-    mapping (past 1,023 rows), else the wave-major block (on the CPU the
-    plain version's)."""
+    most: on a card the row-major block of the band and pipe mappings, else
+    the wave-major block (on the CPU the plain version's)."""
     band = torch.device(device).type == "cuda" and \
-        launch_shape(R, C, jobs=1, fill=True).mapping == "band"
+        launch_shape(R, C, jobs=1, fill=True).mapping in ("band", "pipe")
     rows, pitch = prev_block_shape(
         R, C, row_major(R, C) if band else wave_major(R, C))
     return rows * pitch
@@ -339,6 +409,12 @@ _INTERFACE = {
                     "msa_score_segments_warp_launch": [
                         _CI, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _CI, _VP,
                         *_SHAPE, _VP]},
+    "msa_dp_pipe": {"msa_score_pipe_launch": [*_SCORE_ARGS, _VP],
+                    "msa_fill_pipe_launch": [*_FILL_ARGS, _VP],
+                    "msa_score_rows_pipe_launch": [*_ROWS_ARGS, _VP],
+                    "dp_cell_check_launch": [_VP, _CI, _VP, _VP, _VP],
+                    "addmax_probe_launch": [_VP, _CI, _VP, _VP],
+                    "msa_dp_pipe_smem": [_CI, _CI, _CI]},
     "msa_dp_band": {"msa_score_band_launch": [*_SCORE_ARGS, *_BAND, _VP],
                     "msa_fill_band_launch": [*_FILL_ARGS, *_BAND, _VP],
                     "msa_score_rows_band_launch": [*_ROWS_ARGS, *_BAND,
@@ -355,7 +431,7 @@ _INTERFACE = {
 def _lib(name: str) -> ctypes.CDLL:
     lib = _build.load(name)
     if not getattr(lib, "_bbmap_typed", False):
-        for fn, argtypes in _INTERFACE[name].items():
+        for fn, argtypes in _INTERFACE[_build._source(name)[0]].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = _CI
         lib._bbmap_typed = True
@@ -365,7 +441,7 @@ def _lib(name: str) -> ctypes.CDLL:
 def _dp_fn(kind: str, shape: LaunchShape):
     """The C launcher of a DP kernel (kind: "score", "fill" or
     "score_rows") in the mapping's library."""
-    if shape.mapping in ("warp", "band"):
+    if shape.mapping in ("warp", "band", "pipe"):
         return getattr(_lib(f"msa_dp_{shape.mapping}"),
                        f"msa_{kind}_{shape.mapping}_launch")
     return getattr(_lib("msa_dp"), f"msa_{kind}_launch")
@@ -402,6 +478,9 @@ def _launch(wrapper, kind: str, inputs, outputs, B: int, R: int, C: int,
         raise RuntimeError(f"{fn.__name__} failed: cudaError {err}")
     wrapper.launches += 1
     wrapper.launches_by[shape.mapping] += 1
+    if LAUNCH_SHAPES is not None:
+        key = (wrapper.__name__, shape.mapping, B, R, C)
+        LAUNCH_SHAPES[key] = LAUNCH_SHAPES.get(key, 0) + 1
 
 
 def _check(reads: torch.Tensor, refs: torch.Tensor, rows: torch.Tensor):
@@ -454,7 +533,7 @@ def _raw_dp(wrapper, reads, refs, rows, P: ScoringProfile,
     _on_cuda(reads)
     reads, refs, rows = (x.contiguous() for x in (reads, refs, rows))
     shape = launch_shape(R, C, mapping, jobs=B, fill=want_prevs)
-    layout = row_major(R, C) if shape.mapping == "band" \
+    layout = row_major(R, C) if shape.mapping in ("band", "pipe") \
         else wave_major(R, C)
     out = torch.empty((3, B), dtype=I32, device=reads.device)
     prevs = torch.empty((B, *prev_block_shape(R, C, layout)),
@@ -481,8 +560,8 @@ def msa_fill(reads: torch.Tensor, refs: torch.Tensor, rows: torch.Tensor,
              P: ScoringProfile, mapping: Optional[str] = None):
     """DP fill pass (K3): (out, prev-state codes, their ``PrevLayout``).
     CPU tensors: plain version, wave-major. CUDA tensors: the hand-written
-    kernel, or an exception; the band mapping writes the row-major block,
-    the others the wave-major one. ``mapping`` as for ``msa_score``. Only
+    kernel, or an exception; the band and pipe mappings write the
+    row-major block, the others the wave-major one. ``mapping`` as for ``msa_score``. Only
     the codes of the valid cells are defined."""
     return _raw_dp(msa_fill, reads, refs, rows, P, True, mapping)
 
@@ -795,6 +874,45 @@ def msa_fill_walk(reads: torch.Tensor, refs: torch.Tensor,
         msa_fill_walk.launches += 1
         msa_fill_walk.launches_by[shape.variant] += 1
     return out, syms, out_len, gaps, row_end
+
+
+# --------------------------------------------------------------------------
+# dp_cell's forms on the card (csrc/msa_dp_pipe.cu): a check, not a path.
+# --------------------------------------------------------------------------
+
+CELL_OPERANDS = ("r", "c", "C", "rows", "read1", "read0", "ref1", "ref0",
+                 "dd_ms", "dd_del", "dd_ins", "own_ms", "own_del", "up_ms",
+                 "up_ins", "ins0", "subfloor")
+
+
+def dp_cell_forms(ops: torch.Tensor, P: ScoringProfile) -> torch.Tensor:
+    """dp_cell with prev codes on every row of ``ops`` ((n, 17) int32 on
+    the card, the operands of ``CELL_OPERANDS``) in its plain form and
+    its two DPX forms: (n, 3, 4) int32, (ms, del, ins, code) a form."""
+    _on_cuda(ops)
+    ops = ops.to(I32).contiguous()
+    out = torch.empty((ops.shape[0], 3, 4), dtype=I32, device=ops.device)
+    prof = prof_array(P)
+    err = _lib("msa_dp_pipe").dp_cell_check_launch(
+        ops.data_ptr(), ops.shape[0], prof.ctypes.data, out.data_ptr(),
+        torch.cuda.current_stream(ops.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"dp_cell_check_launch failed: cudaError {err}")
+    return out
+
+
+def addmax_probe(abc: torch.Tensor) -> torch.Tensor:
+    """``__viaddmax_s32(a, b, c)`` beside max(a + b wrapped, c) on every
+    row of ``abc`` ((n, 3) int32 on the card): (n, 2) int32."""
+    _on_cuda(abc)
+    abc = abc.to(I32).contiguous()
+    out = torch.empty((abc.shape[0], 2), dtype=I32, device=abc.device)
+    err = _lib("msa_dp_pipe").addmax_probe_launch(
+        abc.data_ptr(), abc.shape[0], out.data_ptr(),
+        torch.cuda.current_stream(abc.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"addmax_probe_launch failed: cudaError {err}")
+    return out
 
 
 DP_KERNELS = (msa_score_rows, msa_score, msa_fill)

@@ -12,9 +12,12 @@ batch — the array-native equivalent of the reference's hashed read sets.
 The PyTorch port of bbmap_tpu/tools/dedupe.py. ``device=`` (default cuda)
 runs the banded edit distances (``e=`` and the contained-with-edits
 check) on that device: the kept sequences stay there in length classes
-(``ops/banded_device.SequenceStore``), and a read checked with ``e=``
-uploads only itself and makes a kernel launch for each class that holds
-lengths within ``e`` of its own (one, or two at a class's edge).
+(``ops/banded_device.SequenceStore``). Reads are checked with ``e=`` in
+blocks of ``BLOCK`` reads: one upload of the block, a launch of the block
+kernel for each class that holds lengths within ``e`` of one of them, one
+launch for the block's reads against each other, and one fetch; the
+decisions are then taken on the host in read order, as one read at a time
+would take them.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import sys
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from .. import backend
 from ..core.bases import COMP_ASCII
@@ -39,6 +43,66 @@ def canonical_bytes(seq: bytes, absorb_rc: bool) -> bytes:
 
 
 AFFIX_K = 31
+
+
+# reads checked with e= a block: one upload, a launch a near length class
+# and one for the block's reads against each other, one fetch
+BLOCK = 512
+
+
+def _contained(can: bytes, arr: np.ndarray, tol: int, kept_seqs, affix,
+               dev) -> bool:
+    """The containment check of a read (its canonical bytes): an exact
+    substring of a kept sequence in either orientation, or, with tol > 0,
+    within tol edits of a window of one (banded infix verification),
+    candidates from the affix maps."""
+    from ..ops import banded_device
+
+    # containers index kmers every AFFIX_K positions; querying the
+    # first AFFIX_K offsets of this read guarantees one query hits
+    # an indexed container kmer for any containment offset
+    # (reads >= 2K-1; shorter reads also try the suffix kmer)
+    rc = bytes(COMP_ASCII[arr][::-1])
+    cands = set()
+    # probe a full mod-K residue window from BOTH ends: one
+    # probe per residue class is guaranteed to land on an
+    # indexed container k-mer, and a single edit region can
+    # break the head OR the tail probes, not both
+    n_can = len(can)
+    head = range(0, min(AFFIX_K, n_can - AFFIX_K + 1))
+    tail = range(max(0, n_can - 2 * AFFIX_K + 1), n_can - AFFIX_K + 1)
+    for off in set(head) | set(tail):
+        for (ci, p) in affix.get(can[off:off + AFFIX_K], []):
+            cands.add((ci, p - off, 0))
+        for (ci, p) in affix.get(rc[off:off + AFFIX_K], []):
+            cands.add((ci, p - off, 1))
+    for (ci, q0, orient) in cands:
+        ks = kept_seqs[ci]
+        if len(ks) >= len(can) and (can in ks or rc in ks):
+            return True
+    if tol <= 0 or not cands:
+        return False
+    # contained-with-mismatches: banded infix verification of the read
+    # against each candidate container window (reference: Dedupe
+    # containment absorption verifies candidates with the banded aligner,
+    # Dedupe.java absorb modes :95-117); the query orientation is handled
+    # by testing both read orientations
+    wins = []
+    for (ci, q0, orient) in cands:
+        ks = kept_seqs[ci]
+        if len(ks) < len(can):
+            continue
+        lo = max(0, q0 - tol)
+        hi = min(len(ks), q0 + len(can) + tol)
+        if hi - lo < len(can) - tol:
+            continue
+        wins.append(np.frombuffer(ks[lo:hi], np.uint8))
+    if not wins:
+        return False
+    d1 = banded_device.contained_distances(arr, wins, tol, device=dev)
+    d2 = banded_device.contained_distances(np.frombuffer(rc, np.uint8),
+                                           wins, tol, device=dev)
+    return bool((np.minimum(d1, d2) <= tol).any())
 
 
 def dedupe_stream(records, absorb_rc: bool = True, subs: int = 0,
@@ -57,11 +121,16 @@ def dedupe_stream(records, absorb_rc: bool = True, subs: int = 0,
       (reference: jgi/Dedupe.java affix maps :95-117)
 
     With edits>0 the kept sequences sit in a device store in length
-    classes, appended as they are kept; a read is checked against the
-    classes that hold lengths within edits of its own. A candidate of a
-    length further off gives edits+1, and the decision is
-    ``any(d <= edits)``, so neither the extra candidates nor their order
-    changes it.
+    classes. Reads are taken BLOCK at a time: the reads whose hash was
+    not seen before the block are checked on the device against the store
+    as it stood before the block, and against each other (d(i, j) for j <
+    i); then, in read order, read i is a near duplicate if it hit the
+    store or lies within edits of an earlier read of the block that was
+    kept. That is the decision of one read at a time against every read
+    kept before it: a candidate of a length further off gives edits+1,
+    the decision is ``any(d <= edits)``, and the hash check, the affix
+    maps and the containment check still run read by read. The block's
+    kept reads join the store at its end, a copy a length class.
     """
     from ..ops import banded_device
 
@@ -71,95 +140,57 @@ def dedupe_stream(records, absorb_rc: bool = True, subs: int = 0,
     store = banded_device.SequenceStore(dev) if edits > 0 else None
     kept_seqs: List[bytes] = []
     affix: Dict[bytes, List[int]] = {}
-    for rec in records:
-        can = canonical_bytes(rec.bases, absorb_rc)
-        h = hashlib.blake2b(can, digest_size=16).digest()
-        if h in seen:
-            if clusters is not None:
-                clusters.setdefault(seen[h], []).append(rec.id)
-            yield rec, True
-            continue
-        dup = False
-        arr = np.frombuffer(can, np.uint8)
-        q = None
-        if subs > 0 or edits > 0:
+
+    def run_block(block):
+        cans = [canonical_bytes(rec.bases, absorb_rc) for rec in block]
+        hashes = [hashlib.blake2b(c, digest_size=16).digest() for c in cans]
+        arrs = [np.frombuffer(c, np.uint8) for c in cans]
+        slot = {}                  # read -> column of the device block
+        hit = tri = None
+        if edits > 0:
+            # (reference: the BandedAligner verification loop,
+            # jni/BandedAlignerJNI.c:588; ops/banded_device.py)
+            need = [i for i, h in enumerate(hashes) if h not in seen]
+            slot = {i: n for n, i in enumerate(need)}
+            if need:
+                lengths = [len(arrs[i]) for i in need]
+                q, lq = banded_device.upload_block([arrs[i] for i in need],
+                                                   dev)
+                flags = store.check(q, lq, lengths, edits)
+                tri_d = banded_device.banded_any(
+                    q, lq, None, None, edits, tri=True) if len(need) > 1 \
+                    else torch.zeros((1, 1), dtype=torch.uint8, device=dev)
+                both = torch.cat([flags[None, :], tri_d]).cpu().numpy()
+                hit, tri = both[0], both[1:]
+        kept_cols: List[int] = []
+        for i, rec in enumerate(block):
+            can, h, arr = cans[i], hashes[i], arrs[i]
+            if h in seen:
+                if clusters is not None:
+                    clusters.setdefault(seen[h], []).append(rec.id)
+                yield rec, True
+                continue
+            dup = False
             if edits > 0:
-                # cross-length comparisons within the edit budget
-                if store.near(len(can), edits):
-                    # a launch a length class within the edit budget
-                    # (reference: the BandedAligner verification loop,
-                    # jni/BandedAlignerJNI.c:588; ops/banded_device.py)
-                    q = store.upload(arr)
-                    d = store.distances(q, edits)
-                    dup = bool((d <= edits).any())
-            else:
-                others = sub_buckets.get(len(can), [])
-                for other in others:
+                n = slot[i]
+                dup = bool(hit[n]) or bool(tri[n, kept_cols].any())
+            elif subs > 0:
+                for other in sub_buckets.get(len(can), []):
                     if len(other) == len(arr) \
                             and int((other != arr).sum()) <= subs:
                         dup = True
                         break
-        if not dup and absorb_containment and len(can) >= AFFIX_K:
-            # containers index kmers every AFFIX_K positions; querying the
-            # first AFFIX_K offsets of this read guarantees one query hits
-            # an indexed container kmer for any containment offset
-            # (reads >= 2K-1; shorter reads also try the suffix kmer)
-            rc = bytes(COMP_ASCII[arr][::-1])
-            cands = set()
-            # probe a full mod-K residue window from BOTH ends: one
-            # probe per residue class is guaranteed to land on an
-            # indexed container k-mer, and a single edit region can
-            # break the head OR the tail probes, not both
-            n_can = len(can)
-            head = range(0, min(AFFIX_K, n_can - AFFIX_K + 1))
-            tail = range(max(0, n_can - 2 * AFFIX_K + 1),
-                         n_can - AFFIX_K + 1)
-            for off in set(head) | set(tail):
-                for (ci, p) in affix.get(can[off:off + AFFIX_K], []):
-                    cands.add((ci, p - off, 0))
-                for (ci, p) in affix.get(rc[off:off + AFFIX_K], []):
-                    cands.add((ci, p - off, 1))
-            exact_hit = False
-            for (ci, q0, orient) in cands:
-                ks = kept_seqs[ci]
-                if len(ks) >= len(can) and (can in ks or rc in ks):
-                    exact_hit = True
-                    break
-            dup = exact_hit
-            tol = max(subs, edits)
-            if not dup and tol > 0 and cands:
-                # contained-with-mismatches: banded infix verification
-                # of the read against each candidate container window
-                # (reference: Dedupe containment absorption verifies
-                # candidates with the banded aligner, Dedupe.java
-                # absorb modes :95-117)
-                wins = []
-                for (ci, q0, orient) in cands:
-                    ks = kept_seqs[ci]
-                    if len(ks) < len(can):
-                        continue
-                    lo = max(0, q0 - tol)
-                    hi = min(len(ks), q0 + len(can) + tol)
-                    if hi - lo < len(can) - tol:
-                        continue
-                    w = np.frombuffer(ks[lo:hi], np.uint8)
-                    wins.append(w if orient == 0
-                                else w)   # query orientation handled
-                    # below by testing both read orientations
-                if wins:
-                    d1 = banded_device.contained_distances(
-                        arr, wins, tol, device=dev)
-                    d2 = banded_device.contained_distances(
-                        np.frombuffer(rc, np.uint8), wins, tol, device=dev)
-                    dup = bool((np.minimum(d1, d2) <= tol).any())
-        if dup:
-            if clusters is not None:
-                clusters.setdefault("~near", []).append(rec.id)
-            yield rec, True
-        else:
+            if not dup and absorb_containment and len(can) >= AFFIX_K:
+                dup = _contained(can, arr, max(subs, edits), kept_seqs,
+                                 affix, dev)
+            if dup:
+                if clusters is not None:
+                    clusters.setdefault("~near", []).append(rec.id)
+                yield rec, True
+                continue
             seen[h] = rec.id if clusters is not None else 1
             if edits > 0:
-                store.append(q if q is not None else store.upload(arr))
+                kept_cols.append(slot[i])
             elif subs > 0:
                 sub_buckets.setdefault(len(can), []).append(arr)
             if absorb_containment and len(can) >= AFFIX_K:
@@ -173,6 +204,17 @@ def dedupe_stream(records, absorb_rc: bool = True, subs: int = 0,
                 affix.setdefault(can[-AFFIX_K:],
                                  []).append((idx, len(can) - AFFIX_K))
             yield rec, False
+        if kept_cols:
+            store.append(q, lq, [len(arrs[i]) for i in need], kept_cols)
+
+    block: List = []
+    for rec in records:
+        block.append(rec)
+        if len(block) == BLOCK:
+            yield from run_block(block)
+            block = []
+    if block:
+        yield from run_block(block)
 
 
 class _UnionFind:

@@ -9,9 +9,11 @@ Phases, each timed on its own line:
 
 1. device facts: the card's name and power limit;
 2. build: one nvcc for each source in ``bbmap_tpu_torch/csrc/``
-   (``msa_dp.cu``, ``msa_dp_warp.cu``, ``msa_dp_band.cu``,
-   ``msa_walk.cu``, ``msa_fill_walk.cu``, ``banded_edit.cu``), all
-   started together, into
+   (``msa_dp.cu``, ``msa_dp_warp.cu``, ``msa_dp_pipe.cu``,
+   ``msa_dp_band.cu``, ``msa_walk.cu``, ``msa_fill_walk.cu``,
+   ``banded_edit.cu``) and for each build of ``_build.VARIANTS`` (the
+   DPX cell in the mappings that keep the plain one, the pipe mapping's
+   other cell forms), all started together, into
    ``build/torch_kernels/``
    (a source whose library is there is skipped); ``cuobjdump -sass`` of the libraries gives each
    kernel's instructions a cell (the main loop's length over the cells
@@ -21,7 +23,10 @@ Phases, each timed on its own line:
    the card, bit-equal (tolerance 0: the DP and the walk are integer
    arithmetic): K2 score and K3 fill at the short path's shapes
    (150, 174), (150, 606) and PACBIO (300, 360) in the warp-a-job
-   mapping and in the one-row mapping; past 1,023 rows the band mapping
+   mapping and in the one-row mapping, and K2, K3 and K1's operands in
+   the pipe mapping (``csrc/msa_dp_pipe.cu``) below 32 rows, at a band's
+   edge, at both short windows with gap and N columns, PACBIO (300, 360),
+   two rows a lane at (600, 660) and 1,023 rows; past 1,023 rows the band mapping
    at 2, 4 and 8 rows a lane and the strided mapping it replaced, at
    (1,024, 1,100) with one job, (1,100, 1,200) with 100 jobs (last band
    and last lane partly empty; K1's operands too), (2,500, 2,600) SHORT
@@ -30,16 +35,20 @@ Phases, each timed on its own line:
    operands at (150, 174) in both mappings; and the walk kernel at 8,192
    x (150, 174) bounded to 190 steps, at (150, 606) full length, and at
    (6,000, 6,456) over the row-major and over the wave-major block (its
-   timed shape, the long-read path's), on
+   timed shape, the long-read path's; at (6,000, 6,456) the kernels run
+   at the full job counts and the plain versions, timed, on the first
+   ``LONG_CMP_JOBS`` jobs, which are the ones compared), on
    the last 16 jobs of 64-job fills whose prev codes pass 2**31 bytes in
    either layout, from the fill's own columns and states and from
    shifted ones, so that cut walks are among them; kernel, plain and
    other-mapping times at the shapes the paths use, each kernel's bound,
-   K2 in the warp and the one-row mapping from 128 to 8,192 jobs (the
-   sweep that ``msa_kernels.WARP_MIN_JOBS`` is chosen from), the band
+   K2 in the warp, one-row and pipe mappings and K3 in the one-row and
+   pipe mappings from 16 to 4,096 jobs (the sweep that
+   ``msa_kernels.WARP_MIN_JOBS`` is chosen from), the band
    mapping over rows a lane and the job count beside the strided mapping
-   (``BAND_MIN_WARPS``) and beside the one-row mapping between 320 and
-   1,023 rows (``BAND_MID_MIN_ROWS`` / ``BAND_MID_MIN_JOBS``); the fused
+   (``BAND_MIN_WARPS``) and beside the one-row and pipe mappings between
+   320 and 1,023 rows (``PIPE_MID_MIN_ROWS``, ``PIPE_MID_MIN_FILL_JOBS``,
+   ``BAND_MID_MIN_ROWS``, ``BAND_MID_MIN_JOBS``); the fused
    fill + walk (``msa_fill_walk``) with a byte and with four bits a cell
    and by its default route against ``msa_fill_walk_plain`` at the fused
    program's two launches, 8,192 x (150, 174) bounded to 190 steps and
@@ -57,7 +66,13 @@ Phases, each timed on its own line:
    400 x (6,000, 6,456) against its plain version, and at 16 and 400 jobs
    full length, cut at R + 50 and from shifted starts, with its clocks a
    walked step (the launch's time at ``clocks.max.sm`` over the longest
-   walk);
+   walk); the pipe mapping's K2 at 128 x (150, 606), K3 at 8,192 x (150,
+   174) and K1 at 128 x (150, 174) timed beside the one-row (and warp)
+   mapping and their bounds; dp_cell's DPX forms: ``__viaddmax_s32``
+   against max(a + b wrapped, c) on the int32 extremes and 2**20 random
+   triples, the three forms of the cell on 2**20 random and extreme
+   operand sets a profile, all equal, and the mappings that keep the plain
+   cell timed once with their DPX builds (the same outputs);
 4. K1 entry point: ``msa_kernels.score_batch`` on 32,768 jobs, counted;
 5. main path: the bench workload (4.6 Mbp genome with repeat families,
    k=13 index, 2x150 bp pairs with quality, 32,768 pairs a batch) through ``BBMapAligner.map_pairs_columnar`` (one warmup
@@ -115,19 +130,26 @@ Phases, each timed on its own line:
    520 on 1,024 pairs (the band in device memory), global and infix, one
    query against all 65,536, 1,024 contigs of 5,000 bp at E = 8, and the
    first 1,000 pairs at E = 2 against the numpy band sweep, each timed
-   beside its bound; the ``dedupe`` (e=2; s=2 ac=t; fo=t c=t mo=100 with
+   beside its bound; the block kernel (``banded_any``, both modes, staged
+   and in place) at 256 queries against the 65,536 reads, and 512
+   queries against 15,000 and 1,000 of them, E = 0 and 2, against its
+   plain version and timed beside its bound; the ``dedupe`` (e=2; s=2 ac=t; fo=t c=t mo=100 with
    cluster stats, graph and cluster files) and ``dedupe2 nam=2`` CLIs
    over 2,000 reads, and ``bbmapacc``, ``bbmap5``, ``bbmapskimmer`` and
    ``bbsplit`` (the reference cut into two sets) over 500 pairs, on the
    card and, each in a process of its own started first, on the CPU:
    every file and report byte-equal; bbmap on the card before and after
    bbmapacc in this process, the same SAM; then on the card alone dedupe
-   e=2 ac=t over 50,000 reads (reads/s, banded launches, a launch's time
-   against all kept reads) and bbmap, bbmapacc and bbmapskimmer over
-   32,768 pairs (reads/s over each CLI's mapping time, accuracy graded
-   from randomreads' names; bbmapacc maps no fewer reads than bbmap and
-   is not less sensitive beyond a 3-sigma sign test on the reads the two
-   grade apart).
+   e=2 ac=t over 50,000 reads (reads/s, the store check's launches of
+   the block kernel and the containment check's of ``banded_edit``, a
+   block's check against all kept reads, the kernels' share of the wall)
+   and bbmap, bbmapacc and bbmapskimmer over 32,768 pairs (reads/s over
+   each CLI's mapping time, accuracy graded from randomreads' names;
+   bbmapacc maps no fewer reads than bbmap and is not less sensitive
+   beyond a 3-sigma sign test on the reads the two grade apart; every DP
+   launch recorded by (jobs, R, C), the one-row and pipe ones printed as
+   a histogram and put on the ``kernels`` line, K2 timed at each of
+   their shapes in the pipe, one-row and warp mappings).
 
 Each path's launch counts (and the tools' device scan and ladder
 counters, and kcount's calls) are set to 0 just before it and read just
@@ -143,6 +165,12 @@ from a checkout of the repository.
 time goes (one short-read batch under torch.profiler, 32 long reads under
 cProfile and under torch.profiler, one chunk of bbduk, of seal and of
 each bbmerge mode under torch.profiler) and no ``ok`` line.
+
+``python3 chip_smoke.py --dedupe-split <dir>`` runs dedupe e=2 ac=t over
+the dedupe phase's 50,000-read library with the checkout in <dir> (the
+parent) and with this tree, and prints each run's reads/s and the banded
+kernels' launches by call site (store check, containment check); no
+``ok`` line.
 
 ``python3 chip_smoke.py --paired <dir>`` runs the main path and the long
 reads of the checkout in <dir> (the parent commit, unpacked with ``git
@@ -184,7 +212,9 @@ REPLACES = {"msa_score_rows": _K1, "msa_score": _K2, "msa_score_row": _K2,
             "msa_score_segments": _K2,
             "msa_score_long": _K2, "msa_score_strided": _K2,
             "msa_fill": _K3, "msa_fill_long": _K3, "msa_fill_strided": _K3,
-            "msa_walk": _WALK, "banded_edit": _BANDED,
+            "msa_walk": _WALK, "banded_edit": _BANDED, "banded_any": _BANDED,
+            "msa_score_pipe": _K2, "msa_fill_pipe": _K3,
+            "msa_score_rows_pipe": _K1,
             **{n: f"{_K3} + {_WALK}" for n in FILL_WALK.values()}}
 CSRC = "bbmap_tpu_torch/csrc/"
 SOURCE = {"msa_score_rows": CSRC + "msa_dp_warp.cu",
@@ -198,6 +228,10 @@ SOURCE = {"msa_score_rows": CSRC + "msa_dp_warp.cu",
           "msa_fill_strided": CSRC + "msa_dp.cu",
           "msa_walk": CSRC + "msa_walk.cu",
           "banded_edit": CSRC + "banded_edit.cu",
+          "banded_any": CSRC + "banded_edit.cu",
+          "msa_score_pipe": CSRC + "msa_dp_pipe.cu",
+          "msa_fill_pipe": CSRC + "msa_dp_pipe.cu",
+          "msa_score_rows_pipe": CSRC + "msa_dp_pipe.cu",
           **{n: CSRC + "msa_fill_walk.cu" for n in FILL_WALK.values()}}
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 # Each of an SM's four schedulers starts one warp instruction (32 lanes) a
@@ -208,6 +242,9 @@ SCHEDULER_LANES_PER_SM = 128
 # kernel variant -> its name in the ``kernels`` line, by wrapper and mapping
 VARIANT = {("msa_score", "warp"): "msa_score",
            ("msa_score", "row"): "msa_score_row",
+           ("msa_score", "pipe"): "msa_score_pipe",
+           ("msa_fill", "pipe"): "msa_fill_pipe",
+           ("msa_score_rows", "pipe"): "msa_score_rows_pipe",
            ("msa_score", "band"): "msa_score_long",
            ("msa_score", "strided"): "msa_score_strided",
            ("msa_fill", "warp"): "msa_fill_warp",
@@ -225,6 +262,31 @@ LONG_SCORE_JOBS = 256
 LONG_FILL_JOBS = (16, 64, 128, 256, 400)
 LONG_SWEEP_JOBS = (1, 16, 64, 100, 128, 200, 256, 400)
 PAST_32_BITS = 2 ** 31          # bytes a 64-job block of prev codes passes
+LONG_CMP_JOBS = 2               # jobs at (6,000, 6,456) the plain versions run
+# The band mapping's edge cases past 1,023 rows: (tag, profile, jobs, R, C,
+# seed, error rate, rows a lane compared, gap and N columns). Their plain
+# fills cost a wave at a time whatever the job count (37,931 waves in
+# all), so they run in a CPU process of their own (``PlainFills``)
+# beside the card's work and are compared when they are done.
+EDGE_CASES = (
+    ("pacbio past 1,023 rows", "PB", 1, 1024, 1100, 13, 0.12, (2, 4, 8),
+     False),
+    ("pacbio, ragged last band", "PB", 100, 1100, 1200, 14, 0.12,
+     (2, 4, 8), False),
+    ("short profile, gap columns", "S", 16, 2500, 2600, 15, 0.1, (2, 4, 8),
+     True),
+    ("pacbio long read, narrow window", "PB", 3, L_LONG, L_LONG + 24, 16,
+     0.12, (2, 4), False),
+    ("pacbio largest R", "PB", 2, 8191, 8192, 17, 0.12, (4, 8), False))
+# the one-row sweep's job counts, and the pipe mapping's checks: (jobs, R,
+# C, profile, tag); a window past 400 columns gets gap and N columns
+ONEROW_SWEEP_JOBS = (16, 64, 128, 256, 512, 768, 1024, 2048, 4096)
+PIPE_CHECKS = (
+    (64, 31, 60, "S", "below 32 rows"), (40, 32, 70, "S", "33 rows"),
+    (40, 63, 90, "S", "a band's edge"), (512, L, L + 24, "S", "narrow"),
+    (128, L, L + 456, "S", "wide, gap and N columns"),
+    (100, 300, 360, "PB", "pacbio"), (16, 600, 660, "PB", "two rows a lane"),
+    (5, 1023, 1100, "PB", "1,023 rows"))
 # kernel variant -> the function it computes; every variant of a function
 # is held to one bound
 FUNCTION = {v: w for (w, _), v in VARIANT.items()}
@@ -256,6 +318,11 @@ N_CLI, CLI_BATCH = 20_000, 8192
 
 def say(msg: str) -> None:
     print(msg, flush=True)
+
+
+def torch_cuda(device) -> bool:
+    import torch
+    return torch.device(device).type == "cuda"
 
 
 def _sync(device) -> None:
@@ -349,6 +416,76 @@ def dp_jobs(genome, n: int, R: int, C: int, seed: int, device,
     dev = torch.device(device)
     return (torch.from_numpy(reads).to(dev), torch.from_numpy(refs).to(dev),
             torch.from_numpy(rows).to(dev))
+
+
+def edge_jobs(genome, case, device):
+    """The jobs of one of ``EDGE_CASES`` on ``device`` (the same bytes on
+    any device: they are drawn with numpy)."""
+    _tag, _prof, n, R, C, seed, err, _Js, gaps = case
+    rd, rf, rw = dp_jobs(genome, n, R, C, seed, device, pb_err=err)
+    if gaps:
+        rf[::3, C // 2] = ord("-")
+        rf[::5, 700] = ord("N")
+    return rd, rf, rw
+
+
+_PLAIN_FILLS = """
+import os, sys, torch
+sys.path.insert(0, ".")
+torch.set_num_threads(2)
+import chip_smoke as cs
+from bbmap_tpu_torch import workload
+from bbmap_tpu_torch.core.constants import PACBIO_PROFILE, SHORT_PROFILE
+from bbmap_tpu_torch.ops import msa_kernels as mk
+genome = workload.make_genome()
+for i, case in enumerate(cs.EDGE_CASES):
+    P = SHORT_PROFILE if case[1] == "S" else PACBIO_PROFILE
+    out, prevs, lay = mk.msa_fill_plain(*cs.edge_jobs(genome, case, "cpu"), P)
+    tmp = os.path.join(sys.argv[1], f"{i}.tmp")
+    torch.save((out, prevs, tuple(lay)), tmp)
+    os.replace(tmp, os.path.join(sys.argv[1], f"{i}.pt"))
+"""
+
+
+class PlainFills:
+    """The plain fills of ``EDGE_CASES`` in a CPU process of its own
+    (no card, two threads), started now; ``get(i, device)`` waits for case
+    i's and returns (out, prevs, layout) on ``device``; ``stop`` ends the
+    process and removes its files."""
+
+    def __init__(self):
+        self.dir = Path(tempfile.mkdtemp(prefix="chip_smoke_plain"))
+        env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="2",
+                   CUDA_VISIBLE_DEVICES="")
+        self.err = open(self.dir / "stderr.txt", "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", _PLAIN_FILLS, str(self.dir)], cwd=ROOT,
+            env=env, stdout=subprocess.DEVNULL, stderr=self.err)
+
+    def get(self, i: int, device, timeout: float = 900.0):
+        import torch
+        from bbmap_tpu_torch.ops import msa
+        path = self.dir / f"{i}.pt"
+        t0 = time.time()
+        while not path.exists():
+            if self.proc.poll() is not None and not path.exists():
+                raise AssertionError(
+                    "the CPU process of plain fills ended early: "
+                    + (self.dir / "stderr.txt").read_text()[-2000:])
+            if time.time() - t0 > timeout:
+                raise AssertionError(f"no plain fill of edge case {i} in "
+                                     f"{timeout:.0f} s")
+            time.sleep(0.2)
+        out, prevs, lay = torch.load(path)
+        path.unlink()
+        return out.to(device), prevs.to(device), msa.PrevLayout(*lay)
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+        self.err.close()
+        shutil.rmtree(self.dir, ignore_errors=True)
 
 
 def prev_code_err(k, p, rows, R: int, C: int) -> int:
@@ -456,6 +593,7 @@ def kernel_instructions() -> dict:
         return hits[0]
 
     dp = sass_counts(_build.library_path("msa_dp"))
+    pipe = sass_counts(_build.library_path("msa_dp_pipe"))
     warp = sass_counts(_build.library_path("msa_dp_warp"))
     band = sass_counts(_build.library_path("msa_dp_band"))
     Jw = mk.launch_shape(L, L + 24, "warp").rows_per_thread
@@ -475,6 +613,10 @@ def kernel_instructions() -> dict:
         tot, loop = pick(dp, "msa_dp_kernel", ops, prevs)
         out[VARIANT[name, "row"]] = {"sass": tot, "loop": loop,
                                      "per_cell": loop}
+        # the pipe mapping at the short reads' 150 rows: a lane a row
+        tot, loop = pick(pipe, "msa_dp_pipe_kernel", ops, prevs, "Li1E")
+        out[VARIANT[name, "pipe"]] = {"sass": tot, "loop": loop,
+                                      "per_cell": loop}
         if ops == "RawOps":
             tot, loop = pick(dp, "msa_dp_long_kernel", ops, prevs,
                              f"Li{Jl}E")
@@ -548,7 +690,18 @@ def bound_ms(n_bytes: float, n_instructions: float, clock_hz: float):
 
 
 def kernel_phase(genome, device) -> dict:
-    """Kernels against their plain versions on the card; returns per
+    """``kernel_phases`` with the edge cases' plain fills computed in a CPU
+    process beside it (``PlainFills``)."""
+    plain = PlainFills()
+    try:
+        return kernel_phases(genome, device, plain)
+    finally:
+        plain.stop()
+
+
+def kernel_phases(genome, device, plain) -> dict:
+    """Kernels against their plain versions on the card (the band
+    mapping's edge cases against plain fills from ``plain``); returns per
     kernel variant {max_abs_err, ms, plain_ms, bound_ms, bound_by,
     library_ms and, where another mapping was timed beside the default,
     row_ms / warp_ms / strided_ms}: "msa_score_rows" (K1), "msa_score" /
@@ -618,19 +771,23 @@ def kernel_phase(genome, device) -> dict:
         record(key_of("msa_score_rows", len(rw), R, C, mapping), tag,
                len(rw), R, C, int((k.long() - p.long()).abs().max()))
 
-    def cmp_walk(tag, job, prevs, col0, st0, steps, layout=None, tail=0):
+    def cmp_walk(tag, job, prevs, col0, st0, steps, layout=None,
+                 part=slice(None), ref=None):
         """The walk kernel against its plain version on one fill's prev
         codes (a block in ``layout``, default wave-major), from the given
-        columns and states; with ``tail`` the plain version walks the
-        last ``tail`` jobs only. Returns the number of walks that were
+        columns and states; the plain version walks the jobs of ``part``
+        only. With ``ref`` (the walks of those jobs from the same starts,
+        already held to the plain version) no plain walk runs: the jobs of
+        ``part`` are held to ``ref``. Returns the number of walks that were
         cut."""
         rd, rf, _ = job
         R, C = rd.shape[1], rf.shape[1]
         k = mk.msa_walk(prevs, rd, rf, col0, st0, R, C, steps, layout)
-        p = mk.msa_walk_plain(*(x[-tail:] for x in (prevs, rd, rf, col0,
-                                                   st0)), R, C, steps, layout)
+        p = ref if ref is not None else mk.msa_walk_plain(
+            *(x[part] for x in (prevs, rd, rf, col0, st0)), R, C, steps,
+            layout)
         _sync(device)
-        e = max(int((a[-tail:].long() - b.long()).abs().max())
+        e = max(int((a[part].long() - b.long()).abs().max())
                 for a, b in zip(k, p))
         cut = int((k[3] > 0).sum())
         lay = "row" if layout == msa.row_major(R, C) else "wave"
@@ -669,12 +826,15 @@ def kernel_phase(genome, device) -> dict:
         cmp_walk("short wide, full length", job, pp, col0, st0, 0)
     del k, pp
 
-    def cmp_long(tag, P, job, Js=mk.BAND_ROWS_PER_LANE):
-        """Past 1,023 rows: the band mapping at each rows a lane and the
-        strided mapping, score and fill, against one plain fill (whose
-        out is the score pass's). Returns the plain fill."""
-        rd, rf, rw = job
-        p = mk.msa_fill_plain(rd, rf, rw, P)
+    def cmp_long(i):
+        """Past 1,023 rows, edge case i of ``EDGE_CASES``: the band mapping
+        at each of its rows a lane and the strided mapping, score and
+        fill, against one plain fill (whose out is the score pass's) from
+        the CPU process. Returns the jobs."""
+        tag, prof, _n, _R, _C, _seed, _err, Js, _gaps = EDGE_CASES[i]
+        P = S if prof == "S" else PB
+        job = rd, rf, rw = edge_jobs(genome, EDGE_CASES[i], device)
+        p = plain.get(i, device)
         for J in Js:
             with band_rows_a_lane(J, len(rw), rd.shape[1]):
                 cmp_score(f"{tag}, {J} rows a lane", P, job, p=p[0],
@@ -683,25 +843,7 @@ def kernel_phase(genome, device) -> dict:
                          mapping="band")
         cmp_score(tag, P, job, p=p[0], mapping="strided")
         cmp_fill(tag, P, job, p=p, mapping="strided")
-        return p
-
-    # the band mapping at the edges of its design: one job just past
-    # 1,023 rows; 100 jobs whose last band and last lane are partly empty
-    # (1,101 rows) and K1's operands on the same jobs; SHORT profile with
-    # N and gap columns; the long-read narrow window; the largest R. The
-    # long-read escalation window is compared on its timing runs below.
-    cmp_long("pacbio past 1,023 rows", PB, jobs(1, 1024, 1100, 13, 0.12))
-    job = jobs(100, 1100, 1200, 14, 0.12)
-    cmp_long("pacbio, ragged last band", PB, job)
-    cmp_rows("ragged last band", tuple(x[:64] for x in job))
-    job = rd, rf, rw = jobs(16, 2500, 2600, 15, 0.1)
-    rf[::3, 1300] = ord("-")
-    rf[::5, 700] = ord("N")
-    cmp_long("short profile, gap columns", S, job)
-    cmp_long("pacbio long read, narrow window", PB,
-             jobs(3, L_LONG, L_LONG + 24, 16, 0.12), Js=(2, 4))
-    cmp_long("pacbio largest R", PB, jobs(2, 8191, 8192, 17, 0.12),
-             Js=(4, 8))
+        return job
 
     # times at the paths' shapes: the short path's 2E = 32,768 score
     # jobs and T = 8,192 fill jobs at (R, C) = (150, 174) with the walk
@@ -807,24 +949,33 @@ def kernel_phase(genome, device) -> dict:
     dp_bound("msa_score_rows", job, False)
     cmp_rows("short narrow, 32,768 jobs", job, k, p)
     del k, p, r1, r0, rp, rows
-    # K2 in both mappings over the job count, at the narrow and the wide
-    # window: where the warp mapping starts to win is WARP_MIN_JOBS
+    # K2 in the warp, one-row and pipe mappings over the job count, K3 in
+    # the one-row and pipe mappings, at the narrow and the wide window:
+    # what launch_shape's WARP_MIN_JOBS and its choice below it rest on
     for Cs in (L + 24, L + 456):
-        for n in (128, 256, 512, 1024, 2048, 4096, 8192):
+        wide_jobs = dp_jobs(genome, 4096, L, Cs, 40, device,
+                            var_rows=False) if Cs == L + 456 else None
+        for n in ONEROW_SWEEP_JOBS:
             a = (rd[:n], rf[:n], rw[:n]) if Cs == L + 24 \
-                else dp_jobs(genome, n, L, Cs, 40, device, var_rows=False)
-            w, r = (_cuda_ms(lambda: mk.msa_score(*a, S, m), 10)[0]
-                    for m in ("warp", "row"))
-            say(f"sweep msa_score {n} x ({L}, {Cs}): warp {w:.4f} ms, "
-                f"one-row {r:.4f} ms, default "
-                f"{mk.launch_shape(L, Cs, jobs=n).mapping}")
+                else tuple(x[:n] for x in wide_jobs)
+            t_ = {m: _cuda_ms(lambda: mk.msa_score(*a, S, m), 10)[0]
+                  for m in ("warp", "row", "pipe")}
+            f_ = {m: _cuda_ms(lambda: mk.msa_fill(*a, S, m)[0], 5)[0]
+                  for m in ("row", "pipe")}
+            say(f"sweep msa_score {n} x ({L}, {Cs}): warp {t_['warp']:.4f} "
+                f"ms, one-row {t_['row']:.4f} ms, pipe {t_['pipe']:.4f} ms, "
+                f"default {mk.launch_shape(L, Cs, jobs=n).mapping}; "
+                f"msa_fill one-row {f_['row']:.4f} ms, pipe "
+                f"{f_['pipe']:.4f} ms, default "
+                f"{mk.launch_shape(L, Cs, jobs=n, fill=True).mapping}")
+        del wide_jobs
     job = rd, rf, rw = rd[:8192], rf[:8192], rw[:8192]
-    k, p = timed("msa_fill", lambda: mk.msa_fill(rd, rf, rw, S),
+    k, p = timed("msa_fill", lambda: mk.msa_fill(rd, rf, rw, S, "row"),
                  lambda: mk.msa_fill_plain(rd, rf, rw, S), 10,
                  other=("warp_ms", lambda: mk.msa_fill(rd, rf, rw, S,
                                                        "warp")))
     dp_bound("msa_fill", job, True)
-    cmp_fill("short narrow, 8,192 jobs", S, job, k, p)
+    cmp_fill("short narrow, 8,192 jobs", S, job, k, p, mapping="row")
     cmp_fill("short narrow, 8,192 jobs", S, job, p=p, mapping="warp")
     steps = L + 24 + 16
     (col0, st0), shifted = walk_starts(k[0], L + 24, 32)
@@ -880,17 +1031,24 @@ def kernel_phase(genome, device) -> dict:
         return ", ".join(f"{J} rows a lane {t:.3f} ms" for J, t in
                          zip(mk.BAND_ROWS_PER_LANE, times))
 
+    # At (6,000, 6,456) the kernels run at the full job counts and the
+    # plain versions on the first LONG_CMP_JOBS of them (row counts and
+    # error profile as drawn), the comparisons on those jobs: the plain
+    # runs on all of them took minutes of the script's limit.
     Cl = LONG_C
+    two = slice(0, LONG_CMP_JOBS)
     most = jobs(max(LONG_SWEEP_JOBS), L_LONG, Cl, 19, 0.12)
     job = rd, rf, rw = tuple(x[:LONG_SCORE_JOBS] for x in most)
+    job2 = tuple(x[two] for x in job)
     k, p = timed("msa_score_long", lambda: mk.msa_score(rd, rf, rw, PB),
-                 lambda: mk.msa_score_plain(rd, rf, rw, PB), 2, False,
+                 lambda: mk.msa_score_plain(*job2, PB), 2, False,
                  other=("strided_ms",
                         lambda: mk.msa_score(rd, rf, rw, PB, "strided")))
+    out["msa_score_long"]["plain_jobs"] = LONG_CMP_JOBS
     dp_bound("msa_score_long", job, False)
     strided_beside("msa_score_long")
-    cmp_score("pacbio long read", PB, job, k, p)
-    cmp_score("pacbio long read", PB, job, p=p, mapping="strided")
+    cmp_score("pacbio long read", PB, job2, k[:, two], p)
+    cmp_score("pacbio long read", PB, job2, p=p, mapping="strided")
     for n in LONG_SWEEP_JOBS:
         sub = tuple(x[:n] for x in most)
         say(f"sweep msa_score band {n} x ({L_LONG}, {Cl}): "
@@ -906,33 +1064,49 @@ def kernel_phase(genome, device) -> dict:
     # kernels' 64-bit offsets.
     n16 = LONG_FILL_JOBS[0]
     job = rd, rf, rw = jobs(n16, L_LONG, Cl, 20, 0.12)
+    job2 = tuple(x[two] for x in job)
     k, p = timed("msa_fill_long", lambda: mk.msa_fill(rd, rf, rw, PB),
-                 lambda: mk.msa_fill_plain(rd, rf, rw, PB), 2, False,
+                 lambda: mk.msa_fill_plain(*job2, PB), 2, False,
                  other=("strided_ms",
                         lambda: mk.msa_fill(rd, rf, rw, PB, "strided")))
+    out["msa_fill_long"]["plain_jobs"] = LONG_CMP_JOBS
     dp_bound("msa_fill_long", job, True)
     strided_beside("msa_fill_long")
-    cmp_fill("pacbio long read", PB, job, k, p)
-    cmp_fill("pacbio long read", PB, job, p=p, mapping="strided")
+    cmp_fill("pacbio long read", PB, job2, (k[0][:, two], k[1][two], k[2]),
+             p)
+    cmp_fill("pacbio long read", PB, job2, p=p, mapping="strided")
     (col0, st0), shifted = walk_starts(k[0], Cl, 33)
-    # the walk kernel's entry: the long-read path's walk, full length
+    # the walk kernel's entry: the long-read path's walk, full length, from
+    # the fill's own starts and from shifted ones; the plain version walks
+    # the compared jobs from both in one call (its time is a step's, not a
+    # job's) over the plain fill's wave-major block
     ms_l, kw = _cuda_ms(lambda: mk.msa_walk(k[1], rd, rf, col0, st0, L_LONG,
                                             Cl, 0, k[2]), 2)
-    plain_ms, pw = _cuda_ms(lambda: mk.msa_walk_plain(
-        p[1], rd, rf, col0, st0, L_LONG, Cl), 1, warm=False)
+    kw_s = mk.msa_walk(k[1], rd, rf, *shifted, L_LONG, Cl, 0, k[2])
+    both = (torch.cat([p[1], p[1]]), *(torch.cat([x, x]) for x in job2[:2]),
+            torch.cat([col0[two], shifted[0][two]]),
+            torch.cat([st0[two], shifted[1][two]]))
+    plain_ms, pw = _cuda_ms(lambda: mk.msa_walk_plain(*both, L_LONG, Cl), 1,
+                            warm=False)
     ms_b, by = walk_bound(float(kw[1].sum()), len(rw), L_LONG + Cl)
     out["msa_walk"] = {"ms": ms_l, "plain_ms": plain_ms, "library_ms": None,
-                       "bound_ms": ms_b, "bound_by": by}
-    record("msa_walk", "pacbio long read, full length, the band fill's "
-           "row-major block against the plain fill's wave-major block",
-           n16, L_LONG, Cl, max(int((a.long() - b.long()).abs().max())
-                                for a, b in zip(kw, pw)))
+                       "bound_ms": ms_b, "bound_by": by,
+                       "plain_jobs": 2 * LONG_CMP_JOBS}
+    nc = LONG_CMP_JOBS
+    for what, kk, half in (("", kw, slice(0, nc)),
+                           (", shifted starts", kw_s, slice(nc, 2 * nc))):
+        record("msa_walk", f"pacbio long read, full length{what}, the band "
+               f"fill's row-major block against the plain fill's wave-major "
+               f"block", nc, L_LONG, Cl,
+               max(int((a[two].long() - b[half].long()).abs().max())
+                   for a, b in zip(kk, pw)))
     walk_clocks(f"{n16} x ({L_LONG}, {Cl}), full length", ms_l, kw[1])
-    del kw, pw
-    cmp_walk("pacbio long read, full length, shifted starts", job, k[1],
-             *shifted, 0, k[2])
+    # the compared jobs' walks from their own starts: the reference of the
+    # 64- and 400-job blocks below, which hold the same jobs
+    ref_walk = tuple(x[two] for x in kw)
+    del kw, kw_s, pw, both
     if cmp_walk(f"pacbio long read, cut at {L_LONG + 50} steps", job, k[1],
-                col0, st0, L_LONG + 50, k[2]) == 0:
+                col0, st0, L_LONG + 50, k[2], part=two) == 0:
         raise AssertionError("no long walk was cut")
     walk_times(f"{n16} x ({L_LONG}, {Cl})", job, k, (col0, st0), shifted)
     say(f"sweep msa_fill band {n16} x ({L_LONG}, {Cl}): "
@@ -950,20 +1124,26 @@ def kernel_phase(genome, device) -> dict:
                                     for a, b in zip(more, job))
         del more
         ms, kb = _cuda_ms(lambda: mk.msa_fill(brd, brf, brw, PB), 2)
-        e = max(int((kb[0][:, -n16:].long() - p[0].long()).abs().max()),
-                prev_code_err((kb[1][-n16:], kb[2]), p[1:], rw, L_LONG, Cl))
-        record("msa_fill_long", f"pacbio long read, last {n16} of {n} jobs "
-               f"({kb[1].numel()} bytes of prev codes)", n16, L_LONG, Cl, e)
+        # the compared jobs: the first LONG_CMP_JOBS of the 16 at the end
+        at = slice(n - n16, n - n16 + LONG_CMP_JOBS)
+        e = max(int((kb[0][:, at].long() - p[0].long()).abs().max()),
+                prev_code_err((kb[1][at], kb[2]), p[1:], rw[two], L_LONG,
+                              Cl))
+        record("msa_fill_long", f"pacbio long read, jobs {at.start} and "
+               f"{at.start + 1} of {n} ({kb[1].numel()} bytes of prev "
+               f"codes)", LONG_CMP_JOBS, L_LONG, Cl, e)
         if n == LONG_FILL_JOBS[1]:
             if kb[1].numel() <= PAST_32_BITS:
                 raise AssertionError("the block does not pass 2**31 bytes")
-            cmp_walk(f"pacbio long read, last {n16} of {n} jobs (prev codes "
-                     f"past 2**31 bytes)", big, kb[1], kb[0][1], kb[0][2], 0,
-                     kb[2], tail=n16)
+            cmp_walk(f"pacbio long read, jobs {at.start} and {at.start + 1}"
+                     f" of {n} (prev codes past 2**31 bytes)", big, kb[1],
+                     kb[0][1], kb[0][2], 0, kb[2], part=at, ref=ref_walk)
         if n == LONG_FILL_JOBS[-1]:
             starts, shifted_n = walk_starts(kb[0], Cl, 34)
+            starts = tuple(x.clone() for x in starts)
+            starts[0][at], starts[1][at] = col0[two], st0[two]
             cmp_walk(f"pacbio long read, {n} jobs, full length", big, kb[1],
-                     *starts, 0, kb[2])
+                     *starts, 0, kb[2], part=at, ref=ref_walk)
             walk_times(f"{n} x ({L_LONG}, {Cl})", big, kb, starts, shifted_n)
             del starts, shifted_n
         bound, _ = dp_bound("msa_fill_long", big, True, keep=False)
@@ -977,15 +1157,15 @@ def kernel_phase(genome, device) -> dict:
             ks = mk.msa_fill(brd, brf, brw, PB, "strided")
             if ks[1].numel() <= PAST_32_BITS:
                 raise AssertionError("the block does not pass 2**31 bytes")
-            e = max(int((ks[0][:, -n16:].long() - p[0].long()).abs().max()),
-                    prev_code_err((ks[1][-n16:], ks[2]), p[1:], rw, L_LONG,
+            e = max(int((ks[0][:, at].long() - p[0].long()).abs().max()),
+                    prev_code_err((ks[1][at], ks[2]), p[1:], rw[two], L_LONG,
                                   Cl))
-            record("msa_fill_strided", f"pacbio long read, last {n16} of "
-                   f"{n} jobs ({ks[1].numel()} bytes of prev codes)", n16,
-                   L_LONG, Cl, e)
-            cmp_walk(f"pacbio long read, last {n16} of {n} jobs (prev codes "
-                     f"past 2**31 bytes)", big, ks[1], ks[0][1], ks[0][2], 0,
-                     ks[2], tail=n16)
+            record("msa_fill_strided", f"pacbio long read, jobs {at.start} "
+                   f"and {at.start + 1} of {n} ({ks[1].numel()} bytes of "
+                   f"prev codes)", LONG_CMP_JOBS, L_LONG, Cl, e)
+            cmp_walk(f"pacbio long read, jobs {at.start} and {at.start + 1}"
+                     f" of {n} (prev codes past 2**31 bytes)", big, ks[1],
+                     ks[0][1], ks[0][2], 0, ks[2], part=at, ref=ref_walk)
             del ks
         del big, brd, brf, brw
         torch.cuda.empty_cache()
@@ -993,16 +1173,27 @@ def kernel_phase(genome, device) -> dict:
             f"{ms:.3f} ms, strided {ms_s:.3f} ms, bound {bound:.4f} ms "
             f"({100 * bound / ms:.1f} % of the bound reached)")
     del p
+    # the band mapping at the edges of its design, against the CPU
+    # process's plain fills: one job just past 1,023 rows; 100 jobs whose
+    # last band and last lane are partly empty (1,101 rows) and K1's
+    # operands on the same jobs; SHORT profile with N and gap columns; the
+    # long-read narrow window; the largest R
+    for i in range(len(EDGE_CASES)):
+        job = cmp_long(i)
+        if i == 1:
+            cmp_rows("ragged last band", tuple(x[:64] for x in job))
+    del job
     # between the warp mapping's 319 rows and 1,023: the band mapping
-    # beside the one-row mapping, what BAND_MID_MIN_ROWS / _JOBS rest on
+    # beside the one-row and pipe mappings, what PIPE_MID_* / BAND_MID_*
+    # rest on
     for R, C in ((500, 560), (700, 760), (1000, 1100)):
-        for n in (16, 64, 256, 1024):
+        for n in (16, 64, 256, 1024, 2048):
             a = jobs(n, R, C, 50, 0.1)
             cols = []
             for fn in (mk.msa_score, mk.msa_fill):
-                cols.append("one-row %.3f ms, band %.3f ms" % tuple(
-                    _cuda_ms(lambda: fn(*a, PB, m), 3)[0]
-                    for m in ("row", "band")))
+                cols.append("one-row %.3f ms, band %.3f ms, pipe %.3f ms"
+                            % tuple(_cuda_ms(lambda: fn(*a, PB, m)[0], 3)[0]
+                                    for m in ("row", "band", "pipe")))
             say(f"sweep band mid {n} x ({R}, {C}): score {cols[0]}; fill "
                 f"{cols[1]}; default "
                 f"{mk.launch_shape(R, C, None, n).mapping}")
@@ -1036,7 +1227,216 @@ def kernel_phase(genome, device) -> dict:
     out.update(fill_walk_phase(genome, device, instr, clock))
     out.update(segments_phase(genome, device, instr, clock,
                               out["msa_score_row"]["ms"]))
+    out.update(pipe_phase(genome, device, instr, clock))
+    dpx_phase(genome, device)
     return out
+
+
+def pipe_phase(genome, device, instr: dict, clock: float) -> dict:
+    """The pipe mapping (``csrc/msa_dp_pipe.cu``) on the card: K2, K3 and
+    K1's operands against their plain versions, tolerance 0, below 32
+    rows, at a band's edge (32 and 64 rows), at the short reads' windows
+    with N and gap columns, PACBIO at (300, 360), two rows a lane at (600,
+    660) and 1,023 rows, a quarter of the jobs with rows below R; then
+    each one's time beside the one-row mapping's (and the warp mapping's
+    where it holds R) and its bound: K2 at 128 x (150, 606), K3 at 8,192 x
+    (150, 174), K1 at 128 x (150, 174). Returns the ``kernels`` line's
+    entries."""
+    from bbmap_tpu_torch.core.constants import PACBIO_PROFILE, SHORT_PROFILE
+    from bbmap_tpu_torch.ops import msa_kernels as mk
+
+    S, PB = SHORT_PROFILE, PACBIO_PROFILE
+    err = {}
+    for n, R, C, pname, tag in PIPE_CHECKS:
+        P = S if pname == "S" else PB
+        job = rd, rf, rw = dp_jobs(genome, n, R, C, n + R, device,
+                                   pb_err=0.12 if P is PB else 0.0)
+        if C > 400:
+            rf[::7, C // 3] = ord("-")
+            rf[::5, C // 6] = ord("N")
+        p = mk.msa_fill_plain(rd, rf, rw, P)
+        k = mk.msa_score(rd, rf, rw, P, "pipe")
+        kf = mk.msa_fill(rd, rf, rw, P, "pipe")
+        _sync(device)
+        es = {"msa_score_pipe": _diff(k, p[0]),
+              "msa_fill_pipe": max(_diff(kf[0], p[0]),
+                                   prev_code_err(kf[1:], p[1:], rw, R, C))}
+        if P is S:
+            r1, r0, rp, rows = mk.prep_operands(rd, rf, rw)
+            es["msa_score_rows_pipe"] = _diff(
+                mk.msa_score_rows(r1, r0, (rp, rows), R, C, 1, "pipe"),
+                mk.msa_score_rows_plain(r1, r0, (rp, rows), R, C, 1))
+        for name, e in es.items():
+            err[name] = max(err.get(name, 0), e)
+        say(f"kernel pipe {tag}: {n} jobs (R, C) = ({R}, {C}), "
+            f"{mk.launch_shape(R, C, 'pipe').rows_per_thread} rows a lane: "
+            f"max_abs_err " + ", ".join(f"{k_} {v}" for k_, v in es.items())
+            + " (out; the fill's prev codes on valid cells, row-major)")
+        if any(es.values()):
+            raise AssertionError(f"the pipe mapping disagrees ({tag})")
+    out = {}
+    for name, (n, R, C), fn, plain, others in (
+            ("msa_score_pipe", (128, L, L + 456),
+             lambda a, m: mk.msa_score(*a, S, m),
+             lambda a: mk.msa_score_plain(*a, S), ("row", "warp")),
+            ("msa_fill_pipe", (8192, L, L + 24),
+             lambda a, m: mk.msa_fill(*a, S, m)[0],
+             lambda a: mk.msa_fill_plain(*a, S)[0], ("row",)),
+            ("msa_score_rows_pipe", (128, L, L + 24),
+             lambda a, m: mk.msa_score_rows(*a, m),
+             lambda a: mk.msa_score_rows_plain(*a), ("row", "warp"))):
+        job = dp_jobs(genome, n, R, C, 90 + n, device, var_rows=False)
+        a = job
+        if name == "msa_score_rows_pipe":
+            r1, r0, rp, rows = mk.prep_operands(*job)
+            a = (r1, r0, (rp, rows), R, C, 1)
+        ms, _ = _cuda_ms(lambda: fn(a, "pipe"), 10)
+        times = {m: _cuda_ms(lambda: fn(a, m), 10)[0] for m in others}
+        plain_ms, _ = _cuda_ms(lambda: plain(a), 1, warm=False)
+        rd, rf, rw = job
+        n_bytes = rd.numel() + rf.numel() + 16 * len(rw)
+        if name == "msa_score_rows_pipe":
+            n_bytes = 4 * n * (2 * (R + 1) + C + 2 * R + 2 + 1 + 3)
+        if name == "msa_fill_pipe":
+            n_bytes += float((rw.double() * C).sum())
+        cells = float(((rw.double() + 1) * (C + 1)).sum())
+        bound, by = bound_ms(n_bytes, cells * instr[name][
+            "function_per_cell"], clock)
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": by, "library_ms": None,
+                     "max_abs_err": err[name],
+                     **{f"{m}_ms": t for m, t in times.items()}}
+        say(f"time {name} at {n} x ({R}, {C}): pipe {ms:.4f} ms, " +
+            ", ".join(f"{'one-row' if m == 'row' else m} mapping {t:.4f} ms"
+                      for m, t in times.items()) +
+            f", plain {plain_ms:.3f} ms, bound {bound:.4f} ms by {by} "
+            f"({100 * bound / ms:.1f} % of the bound reached; "
+            f"{instr[name]['per_cell']:.1f} instructions a cell, bound at "
+            f"{instr[name]['function_per_cell']:.1f})")
+    return out
+
+
+@contextlib.contextmanager
+def dpx_libraries(on: bool):
+    """With ``on``, the mappings that keep dp_cell's plain form load their
+    DPX builds (``_build.VARIANTS``, "<source>_dpx") in place of their
+    libraries until the block ends."""
+    from bbmap_tpu_torch.ops import _build
+    names = [n for n in _build.VARIANTS if n.endswith("_dpx")]
+    saved = {_build.VARIANTS[n][0]: _build._libs.get(_build.VARIANTS[n][0])
+             for n in names}
+    try:
+        if on:
+            for n in names:
+                _build._libs[_build.VARIANTS[n][0]] = _build.load(n)
+        yield
+    finally:
+        for src, lib in saved.items():
+            if lib is None:
+                _build._libs.pop(src, None)
+            else:
+                _build._libs[src] = lib
+
+
+def dpx_phase(genome, device) -> None:
+    """dp_cell's DPX forms on the card: ``__viaddmax_s32`` beside max(a + b
+    wrapped, c) on the int32 extremes and random words, then the three
+    forms of the cell on 2**20 operand sets a profile (rows and columns in
+    and off the window, read and window characters among ACGTN, '-' and
+    the sentinels, packed cells that are scores with streaks, BAD,
+    NEG_INF, random words and the extremes), all equal; then the mappings
+    that keep the plain form timed once with it on (their DPX builds) and
+    off, each held equal to itself off."""
+    import numpy as np
+    import torch
+    from bbmap_tpu_torch.core.constants import PACBIO_PROFILE, SHORT_PROFILE
+    from bbmap_tpu_torch.ops import msa, msa_kernels as mk
+    rng = np.random.default_rng(101)
+    ext = np.array([2**31 - 1, -2**31, -2**31 + 1, msa.NEG_INF, 2**30,
+                    -2**30, 0, 1, -1, 2**31 - 2048, -(3 << 29)], np.int64)
+    grid = np.stack(np.meshgrid(ext, ext, ext), -1).reshape(-1, 3)
+    abc = np.concatenate([grid, rng.integers(-2**31, 2**31 - 1,
+                                             (1 << 20, 3))])
+    got = mk.addmax_probe(torch.from_numpy(abc.astype(np.int32)).to(
+        device)).cpu().numpy()
+    bad = int((got[:, 0] != got[:, 1]).sum())
+    say(f"dpx addmax: __viaddmax_s32 against max(a + b wrapped, c) on "
+        f"{len(abc)} triples ({len(grid)} of the int32 extremes): {bad} "
+        f"differ")
+    if bad:
+        raise AssertionError("__viaddmax_s32 does not wrap as wadd does")
+    chars = np.frombuffer(b"ACGTN-?!", np.uint8).astype(np.int64)
+    n = 1 << 20
+    for P, pname in ((SHORT_PROFILE, "short"), (PACBIO_PROFILE, "pacbio")):
+        def cells():
+            kind = rng.integers(0, 6, n)
+            packed = (rng.integers(-40000, 40000, n) << P.SCOREOFFSET) \
+                | rng.integers(0, 300, n)
+            return np.where(kind == 0, P.BADoff, np.where(
+                kind == 1, msa.NEG_INF, np.where(
+                    kind == 2, rng.integers(-2**31, 2**31 - 1, n),
+                    np.where(kind == 3, rng.choice(ext, n), packed))))
+        ops = np.stack([rng.integers(0, 200, n), rng.integers(-2, 200, n),
+                        np.full(n, 174), rng.integers(1, 151, n),
+                        *(rng.choice(chars, n) for _ in range(4)),
+                        *(cells() for _ in range(9))], 1)
+        forms = mk.dp_cell_forms(torch.from_numpy(
+            ((ops + 2**31) % 2**32 - 2**31).astype(np.int32)).to(device),
+            P).cpu().numpy()
+        for f in (1, 2):
+            d = int((forms[:, f] != forms[:, 0]).any(1).sum())
+            say(f"dpx cell, {pname}: form {f} against the plain form on "
+                f"{n} operand sets: {d} differ")
+            if d:
+                raise AssertionError(f"dp_cell's DPX form {f} disagrees")
+    S, PB = SHORT_PROFILE, PACBIO_PROFILE
+    narrow = dp_jobs(genome, 2 * 16384, L, L + 24, 110, device,
+                     var_rows=False)
+    wide = dp_jobs(genome, 128, L, L + 456, 111, device, var_rows=False)
+    long_ = dp_jobs(genome, LONG_SCORE_JOBS, L_LONG, LONG_C, 112, device,
+                    pb_err=0.12)
+    for tag, fn in (
+            ("msa_score warp, 32,768 x (150, 174)",
+             lambda: mk.msa_score(*narrow, S, "warp")),
+            ("msa_score one-row, 128 x (150, 606)",
+             lambda: mk.msa_score(*wide, S, "row")),
+            (f"msa_score band, {LONG_SCORE_JOBS} x ({L_LONG}, {LONG_C})",
+             lambda: mk.msa_score(*long_, PB, "band")),
+            ("msa_fill_walk, 8,192 x (150, 174), 190 steps",
+             lambda: mk.msa_fill_walk(*(x[:8192] for x in narrow), S,
+                                      L + 40)[0])):
+        reps = 2 if "band" in tag else 10
+        off, want = _cuda_ms(fn, reps)
+        with dpx_libraries(True):
+            on, got = _cuda_ms(fn, reps)
+        e = _diff(got, want)
+        say(f"time dpx {tag}: plain cell {off:.4f} ms, DPX cell {on:.4f} ms "
+            f"({100 * (off - on) / off:+.1f} %), same out: max_abs_err {e}")
+        if e:
+            raise AssertionError(f"the DPX build disagrees: {tag}")
+    # the pipe mapping in each form of the cell (its own is form 2)
+    from bbmap_tpu_torch.ops import _build
+    for n, C in ((128, L + 24), (128, L + 456), (1024, L + 24)):
+        a = tuple(x[:n] for x in narrow) if C == L + 24 else wide
+        times = {}
+        for form in (0, 1, 2):
+            saved = _build._libs["msa_dp_pipe"]
+            if form != 2:
+                _build._libs["msa_dp_pipe"] = _build.load(
+                    f"msa_dp_pipe_dpx{form}")
+            try:
+                times[form], got = _cuda_ms(
+                    lambda: mk.msa_score(*a, S, "pipe"), 10)
+            finally:
+                _build._libs["msa_dp_pipe"] = saved
+            if form == 0:
+                want = got
+            elif _diff(got, want):
+                raise AssertionError(f"the pipe's cell form {form} "
+                                     f"disagrees")
+        say(f"time dpx pipe msa_score {n} x ({L}, {C}): cell form 0 (plain) "
+            f"{times[0]:.4f} ms, form 1 {times[1]:.4f} ms, form 2 (the "
+            f"kernel's) {times[2]:.4f} ms, same out")
 
 
 def segments_phase(genome, device, instr: dict, clock: float,
@@ -1288,7 +1688,8 @@ def launch_counts() -> dict:
     "<name>_band" and "<name>_strided", the fused fill + walk's by
     variant ("msa_fill_walk_<variant>"), the banded kernel's as
     "banded_edit" and by mapping ("banded_edit_thread",
-    "banded_edit_warp")."""
+    "banded_edit_warp"), the block kernel's as "banded_any" and by mode
+    ("banded_any_class", "banded_any_triangle")."""
     from bbmap_tpu_torch.ops import banded_device, msa_kernels
     out = {k.__name__: k.launches for k in msa_kernels.KERNELS}
     for k in msa_kernels.DP_KERNELS:
@@ -1300,6 +1701,9 @@ def launch_counts() -> dict:
     out["banded_edit"] = banded.launches
     for mapping, n in banded.launches_by.items():
         out[f"banded_edit_{mapping}"] = n
+    out["banded_any"] = banded_device.banded_any.launches
+    for mode, n in banded_device.banded_any.launches_by.items():
+        out[f"banded_any_{mode}"] = n
     return out
 
 
@@ -1654,6 +2058,21 @@ def bbduk_scan(device, n_reads: int = N_DUK) -> dict:
            "reads_per_s": len(reads) / dt, "reads_with_hit": n_hit,
            "scan_s": dt, "scans": scans, "setup_s": setup_s,
            "check_s": check_s}
+    if torch_cuda(device):
+        # a chunk's scan at least: the reads in, the set's sorted values
+        # (int64) in, the ids (int32 a k-mer position) out; and at each
+        # position the two k-mers built (2k shift-or steps) and a binary
+        # search of the values (a compare and a select a halving)
+        pos = SCAN_CHUNK * (L - K_DUK + 1)
+        n_bytes = SCAN_CHUNK * L + 8 * len(ks.values) + 4 * pos
+        ops = pos * (2 * 2 * K_DUK + 2 * max(1, len(ks.values)).bit_length())
+        res["chunk_ms"] = 1e3 * dt / len(starts)
+        res["bound_ms"], res["bound_by"] = bound_ms(n_bytes, ops,
+                                                    max_sm_clock_hz())
+        say(f"bound bbduk scan a chunk of {SCAN_CHUNK} x {L} bp: {n_bytes} "
+            f"B, {ops} operations, {res['bound_ms']:.4f} ms "
+            f"({res['bound_by']}) against {res['chunk_ms']:.3f} ms of wall a "
+            f"chunk (host included)")
     say("bbduk: " + json.dumps(res))
     if scans != {"ids": len(starts), "slots": 0, "counts": 0}:
         raise AssertionError(f"bbduk: {len(starts)} chunks fed, device "
@@ -1769,6 +2188,24 @@ def bbmerge_ladders(device, n_pairs: int = N_MERGE) -> dict:
         res[mode] = {"reads_per_s": 2 * len(a) / dt,
                      "merged_fraction": n_merged / len(a), "ladder_s": dt,
                      "scans": scans, "check_s": check_s}
+        if torch_cuda(device):
+            # a batch at least: both mates' bases in, (insert, bad, ambig)
+            # int32 out; each insert size's overlap compared once, a
+            # compare and a count a base (inserts from the ladder's
+            # smallest, 26 or 35, to the two mates' length)
+            la, lb = a.shape[1], b.shape[1]
+            lo = 35 if mode == "mismatch" else 26
+            per_pair = sum(min(i, la, lb, la + lb - i)
+                           for i in range(lo, la + lb + 1))
+            n_bytes = MERGE_CHUNK * (la + lb + 12)
+            ops = 2 * MERGE_CHUNK * per_pair
+            bms, by = bound_ms(n_bytes, ops, max_sm_clock_hz())
+            res[mode].update(batch_ms=1e3 * dt / len(starts), bound_ms=bms,
+                             bound_by=by)
+            say(f"bound bbmerge {mode} ladder a batch of {MERGE_CHUNK} "
+                f"pairs: {n_bytes} B, {ops} operations, {bms:.4f} ms "
+                f"({by}) against {1e3 * dt / len(starts):.3f} ms of wall a "
+                f"batch (host included)")
         want = dict.fromkeys(overlap_device.ROUTES, 0)
         want[mode] = len(starts)
         if scans != want:
@@ -2068,6 +2505,20 @@ def kmer_count(device, gbases) -> dict:
         res["increment_chunk_ms"] = _cuda_ms(lambda: kca.increment(km), 10)[0]
         res["read_chunk_ms"] = _cuda_ms(lambda: kca.read(km), 10)[0]
         res["chunk_kmers"] = len(km)
+        # the bytes a chunk's increment and read must move, each input read
+        # once and each output written once: the k-mers (int64) in; a cell
+        # of each hash row read and written (increment) or read (read), and
+        # the counts (int32) out
+        n = len(km)
+        cell = 8 if KCA_BITS == 32 else 4
+        for what, n_bytes in (("increment", 8 * n + 2 * KCA_HASHES * n * cell),
+                              ("read", 8 * n + KCA_HASHES * n * cell + 4 * n)):
+            bms, by = bound_ms(n_bytes, 0, max_sm_clock_hz())
+            res[f"{what}_bound_ms"] = bms
+            say(f"bound kcount {what} a chunk of {n} k-mers: {n_bytes} B, "
+                f"{bms:.4f} ms ({by}) against "
+                f"{res[f'{what}_chunk_ms']:.3f} ms measured "
+                f"({100 * bms / res[f'{what}_chunk_ms']:.1f} %)")
     del kca
     # saturation: a chunk from a KCA_HOT_BP window (depth ~500 a k-mer)
     hot = genome_reads(gbases, KCA_CHUNK, 100_000, KCA_HOT_BP, 37)
@@ -2283,6 +2734,10 @@ BANDED_PAIRS, BANDED_ES, BANDED_WARP_E = 65_536, (0, 2, 4, 31), 40
 BANDED_MEM_E, BANDED_MEM_PAIRS = 520, 1_024
 CONTIG_PAIRS, CONTIG_L, CONTIG_E = 1_024, 5_000, 8
 BANDED_NUMPY_PAIRS = 1_000
+# the block kernel: queries at the table's shape (a class of BANDED_PAIRS
+# reads), and dedupe's block against a class of about its 150 bp class's
+# size at 50,000 reads
+BLOCK_QUERIES_TABLE, BLOCK_QUERIES, DEDUPE_CLASS = 256, 512, 15_000
 # the CLIs card vs CPU, and the card's runs at a size users run
 N_DEDUPE_CLI, N_DEDUPE_BIG = 2_000, 50_000
 N_VARIANT_PAIRS, N_VARIANT_BIG = 500, 32_768
@@ -2324,10 +2779,13 @@ def banded_instructions() -> tuple:
     per = {}
     for name, (tot, loop) in sass_counts(
             _build.library_path("banded_edit")).items():
-        m = re.search(r"banded_(thread|warp)_kernelILi(\d+)E", name)
+        m = re.search(r"banded_(thread|warp|block)_kernelILi(\d+)E", name)
         if m:
             cells = int(m.group(2)) * (32 if m.group(1) == "warp" else 1)
-            per[f"{m.group(1)} {m.group(2)}"] = 32 * loop / cells \
+            key = f"{m.group(1)} {m.group(2)}"
+            if m.group(1) == "block":
+                key += " staged" if "ELb1E" in name else " in place"
+            per[key] = 32 * loop / cells \
                 if m.group(1) == "warp" else loop / cells
     if not per:
         raise AssertionError("no banded kernel in the library's SASS")
@@ -2426,10 +2884,68 @@ def banded_phase(device, gbases, clock: float) -> dict:
     if err != 0:
         raise AssertionError("banded_edit disagrees with the numpy sweep")
     main = shapes[2]                     # E = 2, global: dedupe's e=2
+    blocks = []
+    for k, Q, what in ((BANDED_PAIRS, BLOCK_QUERIES_TABLE, "the table's"),
+                       (DEDUPE_CLASS, BLOCK_QUERIES, "dedupe's"),
+                       (1_000, BLOCK_QUERIES, "a small class")):
+        cls = A[:k]
+        near, nlb = mutate_pairs(rng, cls[rng.integers(0, k, Q // 2)], 3)
+        qs = [near[i, :nlb[i]] for i in range(Q // 2)] + list(
+            win[rng.integers(0, len(win), Q - Q // 2)])
+        s_, ls = bd.upload_block(list(cls), device)
+        q, lq = bd.upload_block(qs, device)
+        for E in (0, 2):
+            for tri in (False, True):
+                blocks.append(block_check(
+                    f"{what} shape, {Q} queries x {k}", device, q, lq,
+                    None if tri else s_, None if tri else ls, E, tri,
+                    per_cell, clock))
+            if E == 2:
+                blocks.append(block_check(
+                    f"{what} shape, {Q} queries x {k}, in place", device, q,
+                    lq, s_.contiguous(), ls, E, False, per_cell, clock))
+    table = blocks[2]                    # the table's shape, E = 2, class
+    any_entry = {"max_abs_err": max(b["max_abs_err"] for b in blocks),
+                 "ms": table["ms"], "plain_ms": table["plain_ms"],
+                 "bound_ms": table["bound_ms"],
+                 "bound_by": table["bound_by"], "library_ms": None,
+                 "shapes": blocks}
     return {"max_abs_err": max(s["max_abs_err"] for s in shapes),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "library_ms": None, "shapes": shapes}
+            "library_ms": None, "shapes": shapes}, any_entry
+
+
+def block_check(what: str, device, q, lq, s, ls, E: int, tri: bool,
+                per_cell: float, clock: float, reps: int = 20) -> dict:
+    """The block kernel (``banded_any``) against its plain version on the
+    same tensors, tolerance 0, timed; the bound from the cells the data
+    needs (each pair's rows to saturation or its end, from the plain
+    version, over the band width) and the bytes read and written once."""
+    from bbmap_tpu_torch.ops import banded_device as bd
+    ms, got = _cuda_ms(lambda: bd.banded_any(q, lq, s, ls, E, tri), reps)
+    rows = []
+    plain_ms, want = _cuda_ms(lambda: bd.banded_any_plain(
+        q, lq, s, ls, E, tri, rows_out=rows), 1, warm=False)
+    err = _diff(got, want)
+    Q = q.shape[1]
+    cells = (2 * E + 1) * sum(rows)
+    n_bytes = q.shape[0] * Q + 4 * Q + want.numel() + (
+        0 if tri else s.shape[0] * s.shape[1] + 4 * s.shape[1])
+    bms, by = bound_ms(n_bytes, cells * per_cell, clock)
+    mode = "triangle" if tri else "class"
+    res = {"what": what, "mode": mode, "queries": Q,
+           "sequences": Q if tri else s.shape[1], "E": E,
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bms, "bound_by": by, "share": bms / ms,
+           "cells": cells, "hits": int(want.sum())}
+    say(f"kernel banded_any {mode} {what}, E={E}: max_abs_err {err}, kernel"
+        f" {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by}),"
+        f" share {100 * bms / ms:.1f} %, {cells} cells, {res['hits']} hits")
+    if err != 0:
+        raise AssertionError(f"banded_any {what} E={E} disagrees with its "
+                             f"plain version")
+    return res
 
 
 def dedupe_reads(gbases, n: int, seed: int):
@@ -2625,13 +3141,17 @@ def variant_inputs(gbases, d: Path) -> None:
 
 def dedupe_big(device, d: Path) -> dict:
     """dedupe e=2 ac=t over N_DEDUPE_BIG reads on the card: reads/s over
-    the CLI's wall, every kernel's launches, the kept reads' length
-    classes and their bytes on the card, and the time of one read's check
-    at the run's widest (a read of the most common kept length against
-    the classes that hold lengths within 2 of it: a launch a class)."""
+    the CLI's wall, every kernel's launches (the store check's by length
+    class and triangle, the containment check's on their own), the kept
+    reads' length classes and their bytes on the card, and the kernels'
+    share of the wall reckoned from two timings at the run's end: a block
+    of the library's reads checked against every kept read (a launch a
+    near class and the triangle, ``tools/dedupe.BLOCK`` reads), and one
+    containment check (two launches and their fetch)."""
     import numpy as np
     import torch
     from bbmap_tpu_torch.ops import banded_device as bd
+    from bbmap_tpu_torch.tools import dedupe
     reset_counts()
     t0 = time.time()
     rc, report = run_tool("dedupe", [f"in={d}/big.fq", f"out={d}/big_u.fq",
@@ -2639,37 +3159,71 @@ def dedupe_big(device, d: Path) -> dict:
     _sync(device)
     wall = time.time() - t0
     launches = launch_counts()
-    if rc != 0 or not launches["banded_edit"]:
+    by_site = dict(bd.banded_edit.launches_by_site)
+    by_mode = dict(bd.banded_any.launches_by)
+    if rc != 0 or not launches["banded_any"]:
         raise AssertionError(f"dedupe at {N_DEDUPE_BIG} reads: rc {rc}, "
-                             f"{launches['banded_edit']} banded launches: "
+                             f"{launches['banded_any']} block launches: "
                              f"{report}")
+    if launches["banded_edit"] != by_site["containment"]:
+        raise AssertionError(f"banded_edit launched by another caller than "
+                             f"the containment check: {by_site}")
     store = bd.SequenceStore(device)
-    kept = (d / "big_u.fq").read_bytes().split(b"\n")[1::4]
-    for s in kept:
-        store.append(store.upload(np.frombuffer(s, np.uint8)))
-    lens = np.array([len(s) for s in kept])
-    L = int(np.bincount(lens).argmax())
-    near = store.near(L, 2)
-    q = store.upload(np.frombuffer(next(s for s in kept if len(s) == L),
-                                   np.uint8))
-    ms_check, _ = _cuda_ms(lambda: store.distances(q, 2), 20)
+    kept = [np.frombuffer(x, np.uint8) for x in
+            (d / "big_u.fq").read_bytes().split(b"\n")[1::4]]
+    q, lq = bd.upload_block(kept, device)
+    store.append(q, lq, [len(x) for x in kept], list(range(len(kept))))
+    del q, lq
+    reads = [np.frombuffer(x, np.uint8) for x in
+             (d / "big.fq").read_bytes().split(b"\n")[1::4]]
+    block = reads[:dedupe.BLOCK]
+    lengths = [len(x) for x in block]
+    q, lq = bd.upload_block(block, device)
+    near = store.near(lengths, 2)
+
+    def check():
+        flags = store.check(q, lq, lengths, 2)
+        tri = bd.banded_any(q, lq, None, None, 2, tri=True)
+        return torch.cat([flags[None, :], tri]).cpu()
+    ms_block, _ = _cuda_ms(check, 10)
+    lens = np.array([len(x) for x in kept])
+    Lc = int(np.bincount(lens).argmax())
+    arr = next(x for x in kept if len(x) == Lc)
+    wins = [x for x in kept[:64] if len(x) >= Lc - 4][:8]
+    t1 = time.time()
+    for _ in range(20):
+        bd.contained_distances(arr, wins, 2, device=device)
+        bd.contained_distances(arr[::-1].copy(), wins, 2, device=device)
+    ms_contain = 1e3 * (time.time() - t1) / 20
+    n_blocks = -(-N_DEDUPE_BIG // dedupe.BLOCK)
+    kernel_s = 1e-3 * (n_blocks * ms_block
+                       + by_site["containment"] / 2 * ms_contain)
     held = sum(c[0].numel() for c in store.classes.values())
     big = {"reads": N_DEDUPE_BIG, "wall_s": wall,
-           "reads_per_s": N_DEDUPE_BIG / wall,
-           "launches": launches["banded_edit"], "kernel_launches": launches,
-           "kept": len(kept),
+           "reads_per_s": N_DEDUPE_BIG / wall, "block": dedupe.BLOCK,
+           "launches": launches["banded_any"] + launches["banded_edit"],
+           "store_check_launches": launches["banded_any"],
+           "store_check_by_mode": by_mode,
+           "containment_launches": by_site["containment"],
+           "kernel_launches": launches, "kept": len(kept),
            "classes": len(store.classes), "store_bytes": held,
-           "kept_bytes": int(lens.sum()), "check_classes": len(near),
-           "check_reads": sum(store.classes[lo][2] for lo in near),
-           "check_ms_at_all_kept": ms_check}
+           "kept_bytes": int(lens.sum()), "block_near_classes": len(near),
+           "block_check_ms_at_all_kept": ms_block,
+           "containment_check_ms": ms_contain,
+           "kernel_s_reckoned": kernel_s, "kernel_share": kernel_s / wall}
     say(f"dedupe e=2 ac=t at {N_DEDUPE_BIG} reads on the card: "
-        f"{big['reads_per_s']:.1f} reads/s ({wall:.2f} s), launches "
-        f"{ {k: v for k, v in launches.items() if v} }, {len(kept)} kept in "
-        f"{len(store.classes)} length classes ({held} B on the card for "
-        f"{big['kept_bytes']} B of reads); a {L} bp read's check against "
-        f"the {big['check_reads']} kept reads of its {len(near)} classes "
-        f"{ms_check:.4f} ms; " + "; ".join(report.splitlines()[-3:]))
-    del store
+        f"{big['reads_per_s']:.1f} reads/s ({wall:.2f} s), blocks of "
+        f"{dedupe.BLOCK}: store check {launches['banded_any']} launches "
+        f"{big['store_check_by_mode']}, containment check "
+        f"{by_site['containment']} banded_edit launches; {len(kept)} kept "
+        f"in {len(store.classes)} length classes ({held} B on the card for "
+        f"{big['kept_bytes']} B of reads); a block's check against every "
+        f"kept read ({len(near)} near classes and the triangle, one fetch)"
+        f" {ms_block:.4f} ms, a containment check {ms_contain:.4f} ms: the "
+        f"kernels at most {kernel_s:.2f} s of {wall:.2f} s "
+        f"({100 * kernel_s / wall:.1f} %); "
+        + "; ".join(report.splitlines()[-3:]))
+    del store, q, lq
     torch.cuda.empty_cache()
     return big
 
@@ -2724,15 +3278,20 @@ def variants_big(device, d: Path) -> dict:
     card: reads/s over each CLI's mapping time, accuracy, every kernel's
     launches; the reads that bbmap and bbmapacc grade apart, printed."""
     import re
+    from bbmap_tpu_torch.ops import msa_kernels as mk
     big, lines = {}, {}
     for tool in ("bbmap", "bbmapacc", "bbmapskimmer"):
         o = d / f"big_{tool}.sam"
         reset_counts()
+        mk.LAUNCH_SHAPES = {}
         t0 = time.time()
-        rc, report = run_tool(tool, [
-            f"ref={d}/genome.fa", f"in={d}/big1.fq", f"in2={d}/big2.fq",
-            f"out={o}", f"device={device}"], keep_time=True)
-        _sync(device)
+        try:
+            rc, report = run_tool(tool, [
+                f"ref={d}/genome.fa", f"in={d}/big1.fq", f"in2={d}/big2.fq",
+                f"out={o}", f"device={device}"], keep_time=True)
+            _sync(device)
+        finally:
+            shapes, mk.LAUNCH_SHAPES = mk.LAUNCH_SHAPES, None
         wall = time.time() - t0
         launches = launch_counts()
         if rc != 0:
@@ -2751,7 +3310,9 @@ def variants_big(device, d: Path) -> dict:
                      "sensitivity": s["loose"] / n,
                      "strict": s["strict"] / n,
                      "mapped_fraction": s["mapped"] / n,
-                     "launches": launches}
+                     "launches": launches,
+                     "dp_shapes": [[*key, k] for key, k in sorted(
+                         shapes.items())]}
         say(f"{tool} at {N_VARIANT_BIG} pairs on the card: "
             f"{big[tool]['reads_per_s']:.1f} reads/s over its mapping "
             f"time {map_s:.3f} s (wall with the index's load "
@@ -2849,8 +3410,8 @@ def dedupe_variants_phase(device, gbases, clock: float) -> tuple:
         for key, (src, tool, template) in runs.items():
             res = cli_compare(key, card[key], cpu_runs[key].finish(900))
             if any(a.startswith("e=") for a in template) and not \
-                    res["launches"].get("banded_edit"):
-                raise AssertionError(f"{key}: the banded kernel never "
+                    res["launches"].get("banded_any"):
+                raise AssertionError(f"{key}: the block kernel never "
                                      f"launched")
             if tool == "bbsplit" and not {"out_setA.fq", "out_setB.fq"} <= \
                     set(card[key]["files"]):
@@ -2858,14 +3419,48 @@ def dedupe_variants_phase(device, gbases, clock: float) -> tuple:
                                      f"{sorted(card[key]['files'])}")
             (dd if src == dd_in else vv)[key] = res
         cpu_runs["index"].finish(900)
-        kt = banded_phase(device, gbases, clock)
+        kt, kany = banded_phase(device, gbases, clock)
         dd["big"] = dedupe_big(device, dd_in)
         vv["big"] = variants_big(device, vv_in)
+        vv["onerow_at_cli_shapes"] = onerow_at_cli_shapes(
+            device, gbases, vv["big"])
     finally:
         for r in cpu_runs.values():
             r.stop()
         shutil.rmtree(tmp, ignore_errors=True)
-    return kt, dd, vv
+    return kt, kany, dd, vv
+
+
+def onerow_at_cli_shapes(device, gbases, big: dict) -> list:
+    """The one-row and pipe launches of bbmap, bbmapacc and bbmapskimmer
+    over N_VARIANT_BIG pairs as a histogram by (jobs, R, C), and K2 timed
+    at each score shape in the pipe, one-row and (where it holds R) warp
+    mappings on bench-like jobs. Returns [[tool, wrapper, mapping, jobs,
+    R, C, launches], ...] and prints the times."""
+    from bbmap_tpu_torch.core.constants import SHORT_PROFILE
+    from bbmap_tpu_torch.ops import msa_kernels as mk
+    hist = [[tool, *row] for tool in ("bbmap", "bbmapacc", "bbmapskimmer")
+            for row in big[tool]["dp_shapes"] if row[1] in ("row", "pipe")]
+    for row in hist:
+        say(f"one-row launches {row[0]}: {row[1]} {row[2]} {row[3]} jobs x "
+            f"({row[4]}, {row[5]}): {row[6]}")
+    shapes = sorted({tuple(r[3:6]) for r in hist if r[1] == "msa_score"})
+    totals = dict.fromkeys(("pipe", "row", "warp"), 0.0)
+    for n, R, C in shapes:
+        a = dp_jobs(gbases, n, R, C, n + C, device)
+        ms = {m: _cuda_ms(lambda: mk.msa_score(*a, SHORT_PROFILE, m), 10)[0]
+              for m in ("pipe", "row") + (("warp",) if R <= 319 else ())}
+        launched = sum(r[6] for r in hist if tuple(r[3:6]) == (n, R, C)
+                       and r[1] == "msa_score")
+        for m, t in ms.items():
+            totals[m] += launched * t
+        say(f"time msa_score at a CLI's one-row shape {n} x ({R}, {C}), "
+            f"{launched} launches: " + ", ".join(
+                f"{m} {t:.4f} ms" for m, t in ms.items()) + f", default "
+            f"{mk.launch_shape(R, C, jobs=n).mapping}")
+    say("time msa_score at the CLIs' one-row shapes, launches x ms summed: "
+        + ", ".join(f"{m} {t:.2f} ms" for m, t in totals.items()))
+    return hist
 
 
 def _device_profile(fn, tag: str, wall_ms: float, top: int = 12) -> None:
@@ -3029,6 +3624,82 @@ def paired(parent: str) -> int:
     return 0
 
 
+# One dedupe run of the checkout in the working directory over the library
+# in sys.argv[1] (e=2 ac=t on the card): reads/s and banded_edit's
+# launches split by call site, counted around the two call sites of any
+# tree (SequenceStore.distances of the one-read-a-launch design, the
+# containment check's contained_distances) and banded_any's where the
+# tree has it. One "SPLIT <json>" line.
+_SPLIT_RUN = """
+import json, sys, time, torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from bbmap_tpu_torch.ops import banded_device as bd
+split = {"store": 0, "containment": 0}
+def counted(site, fn):
+    def run(*a, **k):
+        n0 = bd.banded_edit.launches
+        try:
+            return fn(*a, **k)
+        finally:
+            split[site] += bd.banded_edit.launches - n0
+    return run
+if hasattr(bd.SequenceStore, "distances"):
+    bd.SequenceStore.distances = counted("store",
+                                         bd.SequenceStore.distances)
+bd.contained_distances = counted("containment", bd.contained_distances)
+from bbmap_tpu_torch.ops import _build
+_build.load("banded_edit")           # built before the timed run
+cs.reset_counts()
+t = time.time()
+rc, rep = cs.run_tool("dedupe", [f"in={sys.argv[1]}", f"out={sys.argv[2]}",
+                                 "e=2", "ac=t", "device=cuda"])
+torch.cuda.synchronize()
+wall = time.time() - t
+block = getattr(bd, "banded_any", None)
+print("SPLIT " + json.dumps({
+    "rc": rc, "wall_s": wall, "reads_per_s": cs.N_DEDUPE_BIG / wall,
+    "banded_edit": bd.banded_edit.launches, "banded_edit_by_site": split,
+    "banded_any": dict(block.launches_by) if block else None,
+    "report": rep.splitlines()[-3:]}), flush=True)
+"""
+
+
+def dedupe_split(parent: str) -> int:
+    """``--dedupe-split <dir>``: dedupe e=2 ac=t over the N_DEDUPE_BIG-read
+    library of the dedupe phase, once with the tree in <dir> (the parent)
+    and once with this tree, each in a process of its own on the card, in
+    the order parent, change: reads/s and the banded kernels' launches by
+    call site (the store check, the containment check), and the two
+    outputs byte-equal; no ``ok`` line."""
+    from bbmap_tpu_torch import workload
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_split"))
+    try:
+        lib = tmp / "big.fq"
+        _fastq_recs(lib, dedupe_reads(workload.make_genome(), N_DEDUPE_BIG,
+                                      91), 92)
+        outs = {}
+        for tag, tree in (("parent", parent), ("change", str(ROOT))):
+            out = tmp / f"{tag}_u.fq"
+            p = subprocess.run([sys.executable, "-c", _SPLIT_RUN, str(lib),
+                                str(out)], cwd=tree, capture_output=True,
+                               text=True, timeout=900)
+            got = [ln[6:] for ln in p.stdout.splitlines()
+                   if ln.startswith("SPLIT ")]
+            if p.returncode != 0 or not got:
+                say(p.stdout[-3000:] + p.stderr[-3000:])
+                raise AssertionError(f"the {tag} dedupe run failed ({tree})")
+            say(f"dedupe split {tag}: {got[0]}")
+            outs[tag] = out.read_bytes()
+        if outs["parent"] != outs["change"]:
+            raise AssertionError("the parent's and the change's dedupe "
+                                 "outputs differ")
+        say("dedupe split: the parent's and the change's outputs byte-equal")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -3057,7 +3728,7 @@ def main() -> int:
 
     from bbmap_tpu_torch.ops import _build
     t = time.time()
-    libs = _build.build_all()
+    libs = _build.build_all([*_build.SOURCES, *_build.VARIANTS])
     for name in _build.SOURCES:
         _build.load(name)
     say(f"phase build: {time.time() - t:.2f} s "
@@ -3065,6 +3736,8 @@ def main() -> int:
 
     if "--paired" in sys.argv[1:]:
         return paired(sys.argv[sys.argv.index("--paired") + 1])
+    if "--dedupe-split" in sys.argv[1:]:
+        return dedupe_split(sys.argv[sys.argv.index("--dedupe-split") + 1])
 
     from bbmap_tpu_torch import workload
     t = time.time()
@@ -3133,21 +3806,31 @@ def main() -> int:
                          "decontaminate")) + f"; card {smi}")
 
     t = time.time()
-    bkt, dd, vv = dedupe_variants_phase(device, gbases, max_sm_clock_hz())
+    bkt, bany, dd, vv = dedupe_variants_phase(device, gbases,
+                                              max_sm_clock_hz())
     vb = vv["big"]
     say(f"phase dedupe and mapper variants: {time.time() - t:.1f} s; "
         f"banded_edit at {BANDED_PAIRS} x {L} bp, E=2: {bkt['ms']:.4f} ms "
         f"(plain {bkt['plain_ms']:.3f} ms, bound {bkt['bound_ms']:.4f} ms, "
         f"share {100 * bkt['bound_ms'] / bkt['ms']:.1f} %), every shape "
-        f"equal to its plain version; dedupe e=2 ac=t at {N_DEDUPE_BIG} "
-        f"reads {dd['big']['reads_per_s']:.1f} reads/s with "
-        f"{dd['big']['launches']} launches; at {N_VARIANT_BIG} pairs "
+        f"equal to its plain version; banded_any at {BLOCK_QUERIES_TABLE} "
+        f"queries x {BANDED_PAIRS}, E=2: {bany['ms']:.4f} ms (bound "
+        f"{bany['bound_ms']:.4f} ms, share "
+        f"{100 * bany['bound_ms'] / bany['ms']:.1f} %); dedupe e=2 ac=t at "
+        f"{N_DEDUPE_BIG} reads {dd['big']['reads_per_s']:.1f} reads/s, "
+        f"store check {dd['big']['store_check_launches']} launches "
+        f"{dd['big']['store_check_by_mode']}, containment check "
+        f"{dd['big']['containment_launches']}, kernels <= "
+        f"{100 * dd['big']['kernel_share']:.1f} % of the wall; at "
+        f"{N_VARIANT_BIG} pairs "
         + ", ".join(f"{tool} {vb[tool]['reads_per_s']:.1f} reads/s "
                     f"(sensitivity {vb[tool]['sensitivity']:.4f})"
                     for tool in ("bbmap", "bbmapacc", "bbmapskimmer"))
         + f"; one-row launches in bbmapskimmer: K2 "
-        f"{vb['bbmapskimmer']['launches']['msa_score_row']}, K3 "
-        f"{vb['bbmapskimmer']['launches']['msa_fill_row']}; CLIs "
+        f"{vb['bbmapskimmer']['launches']['msa_score_row']} one-row, "
+        f"{vb['bbmapskimmer']['launches']['msa_score_pipe']} pipe, K3 "
+        f"{vb['bbmapskimmer']['launches']['msa_fill_row']} one-row, "
+        f"{vb['bbmapskimmer']['launches']['msa_fill_pipe']} pipe; CLIs "
         f"byte-equal between the card and the CPU; card {smi}")
 
     foreign = sorted(m for m in sys.modules
@@ -3174,12 +3857,25 @@ def main() -> int:
                "msa_fill_long": "msa_fill_band",
                "msa_score_strided": "msa_score_strided",
                "msa_fill_strided": "msa_fill_strided",
-               "banded_edit": "banded_edit"}
+               "msa_score_pipe": "msa_score_pipe",
+               "msa_fill_pipe": "msa_fill_pipe",
+               "msa_score_rows_pipe": "msa_score_rows_pipe",
+               "banded_edit": "banded_edit", "banded_any": "banded_any"}
     home = {"msa_score_rows": "k1_entry", "msa_walk": "long",
             "msa_score_long": "long", "msa_fill_long": "long",
             "msa_score_strided": "long", "msa_fill_strided": "long",
-            "banded_edit": "dedupe"}
+            "banded_edit": "dedupe", "banded_any": "dedupe",
+            "msa_score_row": "mapper_variants",
+            "msa_score_pipe": "mapper_variants",
+            "msa_fill_pipe": "mapper_variants",
+            "msa_score_rows_pipe": "k1_entry"}
     ktimes["banded_edit"] = bkt
+    ktimes["banded_any"] = bany
+    # the CLIs' one-row launches by shape, on the entries of their mapping
+    cli_shapes = {}
+    for tool, wrapper, mapping, n, R, C, k in vv["onerow_at_cli_shapes"]:
+        cli_shapes.setdefault(VARIANT[wrapper, mapping], []).append(
+            [tool, n, R, C, k])
     paths = {"k1_entry": k1, "main": res["launches"],
              "long": lres["launches"],
              "kmer_tools": kcli["decontaminate"]["launches"],
@@ -3199,6 +3895,8 @@ def main() -> int:
                         "bound_ms": kt["bound_ms"],
                         "bound_by": kt["bound_by"],
                         "library_ms": kt["library_ms"]})
+        if name in cli_shapes:
+            kernels[-1]["launch_shapes"] = cli_shapes[name]
         say(f"launches {name}: {by_path}")
     print(json.dumps({"tools": [
         {"tool": "bbduk", "reads": duk["reads"],
@@ -3219,10 +3917,11 @@ def main() -> int:
                                       if k != "covstats_libA"}
                                for tool, r in kcli.items()}}}), flush=True)
     print(json.dumps({"dedupe_variants": {
-        "banded_edit": bkt["shapes"],
+        "banded_edit": bkt["shapes"], "banded_any": bany["shapes"],
         "dedupe": {k: {f: v for f, v in r.items() if f != "report"}
                    for k, r in dd.items()},
         "variants": {k: {f: v for f, v in r.items() if f != "report"}
+                     if isinstance(r, dict) else r
                      for k, r in vv.items()}}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

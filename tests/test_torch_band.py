@@ -319,12 +319,12 @@ def test_walk_refuses_a_block_of_the_other_layout():
     (6000, 6024, 512, True, 4),
     (8191, 8192, 3, False, 2),
     (8191, 8192, 4096, True, 4),
-    (700, 760, 256, False, 4),
-    (1000, 1100, 4096, True, 4),
+    (500, 560, 1024, False, 8),
+    (600, 660, 4096, True, 4),
 ])
 def test_launch_shape_band(R, C, jobs, fill, want_J):
-    """Past 1,023 rows every pass takes the band mapping, and from 700
-    rows the launches of 256 jobs or more: 32 threads a block, no shared
+    """Past 1,023 rows every pass takes the band mapping, and from 500 to
+    699 rows the launches of 1,024 jobs or more: 32 threads a block, no shared
     memory, and as many rows a lane (a fill: 4 at most) as keep the launch
     at BAND_MIN_WARPS warps or more (else the thinnest bands)."""
     s = msa_kernels.launch_shape(R, C, jobs=jobs, fill=fill)
@@ -387,7 +387,7 @@ def test_band_source_agrees_with_launch_shape():
 
 def test_launch_counters_name_every_mapping():
     msa_kernels.reset_launches()
-    assert msa_kernels.MAPPINGS == ("warp", "row", "band", "strided")
+    assert msa_kernels.MAPPINGS == ("warp", "pipe", "row", "band", "strided")
     for k in msa_kernels.DP_KERNELS:
         assert k.launches_by == dict.fromkeys(msa_kernels.MAPPINGS, 0)
 

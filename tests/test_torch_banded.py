@@ -285,10 +285,16 @@ def test_rows_out_counts_the_kernel_rows():
     assert rows.tolist() == [10, 0, 3, 0]
 
 
+def _block(seqs):
+    return tbd.upload_block(seqs, "cpu")
+
+
 def test_store_equals_the_list_entry_point():
-    """SequenceStore (length classes, a launch a class that holds lengths
-    within E of the query's) gives the values of edit_distances_vs_one
-    over the kept sequences of those classes, and so its decisions."""
+    """SequenceStore (length classes, a launch of the block kernel a class
+    that holds lengths within E of a query's) flags a query exactly where
+    edit_distances_vs_one over every kept sequence finds one within E,
+    and each class it launches on holds every kept length within E of
+    some query."""
     rng = np.random.default_rng(3)
     E = 2
     base = rng.choice(BYTES, 150).astype(np.uint8)
@@ -296,46 +302,174 @@ def test_store_equals_the_list_entry_point():
     kept += [rng.choice(BYTES, int(n)).astype(np.uint8)
              for n in rng.integers(100, 200, 10)]
     store = tbd.SequenceStore("cpu")
-    for s in kept:
-        store.append(store.upload(s))
+    q, lq = _block(kept)
+    store.append(q, lq, [len(x) for x in kept], list(range(len(kept))))
     assert len(store) == len(kept)
-    for q in (base, kept[3], rng.choice(BYTES, 151).astype(np.uint8),
-              rng.choice(BYTES, 40).astype(np.uint8)):
-        d = store.distances(store.upload(q), E).numpy()
-        near = store.near(len(q), E)
-        order = [k for lo in near for k, s in enumerate(kept)
-                 if tbd.length_class(len(s)) == lo]
-        want = tbd.edit_distances_vs_one(q, kept, E, device="cpu")
-        np.testing.assert_array_equal(d, want[order])
-        assert (d <= E).any() == (want <= E).any()
-        assert {k for k, s in enumerate(kept)
-                if abs(len(s) - len(q)) <= E} <= set(order)
+    queries = [base, kept[3], rng.choice(BYTES, 151).astype(np.uint8),
+               rng.choice(BYTES, 40).astype(np.uint8)]
+    q, lq = _block(queries)
+    lengths = [len(x) for x in queries]
+    got = store.check(q, lq, lengths, E).numpy()
+    want = [(tbd.edit_distances_vs_one(x, kept, E, device="cpu")
+             <= E).any() for x in queries]
+    np.testing.assert_array_equal(got, want)
+    assert got[:2].all() and not got[3]
+    near = store.near(lengths, E)
+    assert {tbd.length_class(len(s)) for s in kept
+            if any(abs(len(s) - n) <= E for n in lengths)} <= set(near)
 
 
 def test_store_holds_about_its_own_bytes():
     """Kept sequences of far different lengths (reads and a contig 400
-    times longer) cost the device under 2 x 17/16 of their bytes: a class
-    pads a sequence by under 1/16 of its length, and its capacity stays
-    under twice its count."""
+    times longer) cost the device under 2 x 17/16 of their bytes past a
+    class's first tile of 128: a class pads a sequence by under 1/16 of
+    its length, and its capacity stays a multiple of 128 under twice its
+    count once past 128. A block's kept sequences join in one copy a
+    class, in order."""
     rng = np.random.default_rng(5)
     lens = [100] * 9 + [40_000] + [150] * 5 + [151, 0, 7]
+    seqs = [rng.choice(BYTES, n).astype(np.uint8) for n in lens]
     store = tbd.SequenceStore("cpu")
-    for n in lens:
-        store.append(store.upload(rng.choice(BYTES, n).astype(np.uint8)))
+    q, lq = _block(seqs)
+    keep = [i for i in range(len(seqs)) if i != 3]
+    store.append(q, lq, lens, keep)
+    store.append(q, lq, lens, [3] * 300)     # 300 more of one class
+    kept = [lens[i] for i in keep] + [lens[3]] * 300
     assert sorted(store.classes) == sorted({tbd.length_class(n)
                                             for n in lens})
     held = 0
     for lo, (t, lens_t, k) in store.classes.items():
-        members = [n for n in lens if tbd.length_class(n) == lo]
-        assert k == len(members) <= t.shape[1] < 2 * k
+        members = [n for n in kept if tbd.length_class(n) == lo]
+        assert k == len(members) <= t.shape[1]
+        assert t.shape[1] % tbd.BLOCK_TILE == 0
+        assert t.shape[1] < max(tbd.BLOCK_TILE + 1, 2 * k)
         assert max(members) <= t.shape[0] <= max(members) * 17 / 16
         assert sorted(lens_t[:k].tolist()) == sorted(members)
         held += t.numel()
-    assert held < 2 * 17 / 16 * sum(lens)
-    q = store.upload(rng.choice(BYTES, 150).astype(np.uint8))
-    assert store.near(150, 1) == [144]
-    assert store.distances(q, 1).shape == (6,)
-    assert store.distances(store.upload(BYTES[:3]), 2).shape == (0,)
+    assert held < 2 * 17 / 16 * sum(kept) + tbd.BLOCK_TILE * sum(
+        t.shape[0] for t, _, _ in store.classes.values())
+    t100 = store.classes[tbd.length_class(100)]
+    cols = [i for i in keep if lens[i] == 100] + [3] * 300
+    np.testing.assert_array_equal(t100[0][:100, :t100[2]].T.numpy(),
+                                  np.stack([seqs[i] for i in cols]))
+    assert store.near([150], 1) == [144]
+    assert store.near([3], 2) == []
+    flags = store.check(*_block([seqs[12], BYTES[:3]]), [150, 3], 1)
+    assert flags.tolist() == [1, 0]
+
+
+# ---------------------------------------------------------------------------
+# The block mapping (banded_block_kernel): a numpy emulation of its tiles,
+# query groups, vote and triangle, against the plain version.
+# ---------------------------------------------------------------------------
+
+def _emulate_block(qT, lq, sT, ls, E, tri, group, tile=8, warp=4):
+    """banded_block_kernel on numpy arrays, ``tile`` sequences a block
+    and ``warp`` lanes a vote in place of 128 and 32: blocks over (tiles,
+    query groups) in any order; each thread runs thread_pair (its
+    emulation above) on the staged bytes, and a warp's vote sets a
+    query's flag, or the thread writes its cell of the triangle."""
+    Q, Lq = qT.shape[1], qT.shape[0]
+    if tri:
+        sT, ls = qT, lq
+    k, Ls = sT.shape[1], sT.shape[0]
+    out = np.zeros((Q, Q) if tri else Q, np.uint8)
+    blocks = [(bx, by) for bx in range(-(-k // tile))
+              for by in range(-(-Q // group))]
+    rng = np.random.default_rng(len(blocks))
+    for bx, by in (blocks[i] for i in rng.permutation(len(blocks))):
+        j0, g0 = bx * tile, by * group
+        st = np.zeros((Ls, tile), np.uint8)           # the staged tile
+        st[:, :min(tile, k - j0)] = sT[:, j0:j0 + tile]
+        sq = qT[:, g0:g0 + group]                      # the staged group
+        for g in range(sq.shape[1]):
+            i = g0 + g
+            hits = np.zeros(tile, bool)
+            for t in range(tile):
+                j = j0 + t
+                if j < k and (not tri or j < i):
+                    hits[t] = _emulate_thread(sq[:, g], int(lq[i]), st[:, t],
+                                              int(ls[j]), E, False, Lq,
+                                              Ls) <= E
+                    if tri:
+                        out[i, j] = hits[t]
+            if not tri and hits.reshape(-1, warp).any(1).any():
+                out[i] = 1
+    return out
+
+
+def _class_case(seed, E, n_q, n_s):
+    """Queries and one class of sequences at the edges of a length class
+    (144..159 around 150 bp and past it), copies within and past E edits
+    of each other, and the queries' own near copies (for the triangle)."""
+    rng = np.random.default_rng(seed)
+    base = [rng.choice(BYTES[:4], int(rng.integers(144, 160))).astype(
+        np.uint8) for _ in range(4)]
+    seqs = [_mutate(rng, base[int(rng.integers(0, 4))],
+                    int(rng.integers(0, 2 * E + 2))) for _ in range(n_s)]
+    seqs = [x[:159] for x in seqs if len(x) >= 144]
+    qs = [_mutate(rng, base[int(rng.integers(0, 4))],
+                  int(rng.integers(0, 2 * E + 2))) for _ in range(n_q)]
+    qs += [qs[0].copy(), _mutate(rng, qs[1], 1),
+           rng.choice(BYTES, 150).astype(np.uint8), base[0][:143],
+           np.concatenate([base[1], BYTES[:4]])[:160]]
+    W = max(len(x) for x in seqs)
+    sT = np.zeros((W, len(seqs)), np.uint8)
+    for j, x in enumerate(seqs):
+        sT[:len(x), j] = x
+    Lq = max(len(x) for x in qs)
+    qT = np.zeros((Lq, len(qs)), np.uint8)
+    for i, x in enumerate(qs):
+        qT[:len(x), i] = x
+    return (qT, np.array([len(x) for x in qs], np.int32), sT,
+            np.array([len(x) for x in seqs], np.int32))
+
+
+@pytest.mark.parametrize("E", [0, 1, 2])
+@pytest.mark.parametrize("group", [1, 3, 16])
+def test_block_emulation_equals_plain(E, group):
+    """The block mapping, emulated block by block in a random order
+    (tiles, query groups, the staged bytes, the warp vote, the triangle),
+    equals banded_any_plain, which equals any() over the list entry point;
+    lengths at a class's edges and past E of the class."""
+    qT, lq, sT, ls = _class_case(40 + E + group, E, 13, 21)
+    plain = tbd.banded_any_plain(torch.from_numpy(qT), torch.from_numpy(lq),
+                                 torch.from_numpy(sT), torch.from_numpy(ls),
+                                 E).numpy()
+    got = _emulate_block(qT, lq, sT, ls, E, False, group)
+    np.testing.assert_array_equal(got, plain)
+    seqs = [sT[:n, j] for j, n in enumerate(ls)]
+    want = [(tbd.edit_distances_vs_one(qT[:n, i], seqs, E, device="cpu")
+             <= E).any() for i, n in enumerate(lq)]
+    np.testing.assert_array_equal(plain, want)
+    assert 0 < plain.sum() < len(plain)
+    tri = tbd.banded_any_plain(torch.from_numpy(qT), torch.from_numpy(lq),
+                               None, None, E, tri=True).numpy()
+    np.testing.assert_array_equal(
+        _emulate_block(qT, lq, None, None, E, True, group), tri)
+    for i, n in enumerate(lq):
+        d = tbd.edit_distances_vs_one(qT[:n, i], [qT[:m, j] for j, m in
+                                                  enumerate(lq[:i])], E,
+                                      device="cpu")
+        np.testing.assert_array_equal(tri[i, :i], d <= E)
+    assert not np.triu(tri).any() and tri.any()
+
+
+def test_block_groups_fill_the_card(monkeypatch):
+    """Queries a block: several blocks an SM over the class's tiles, at
+    most BLOCK_MAX_GROUP a block, never more than the queries."""
+    class Props:
+        multi_processor_count = 132
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: Props)
+    for Q, k in ((512, 1_000), (512, 15_000), (512, 100_000), (3, 50),
+                 (1, 10**6)):
+        g = tbd.block_groups(Q, k, "cuda")
+        blocks = -(-k // tbd.BLOCK_TILE) * -(-Q // g)
+        assert 1 <= g <= min(Q, tbd.BLOCK_MAX_GROUP)
+        assert blocks >= min(tbd.BLOCK_AIM_PER_SM * 132,
+                             -(-k // tbd.BLOCK_TILE) * Q) or \
+            g == tbd.BLOCK_MAX_GROUP
 
 
 def test_kernel_equals_plain_on_the_card():
@@ -356,3 +490,25 @@ def test_kernel_equals_plain_on_the_card():
             mapping = "thread" if E <= 31 else "warp"
             assert tbd.banded_edit.launches_by[mapping] == 1
             assert torch.equal(got, want), (E, infix)
+
+
+def test_block_kernel_equals_plain_on_the_card():
+    """The block kernel, staged and in place, both modes, against its
+    plain version on the card (chip_smoke.py does this at full size)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    for E in (0, 2, 31):
+        qT, lq, sT, ls = _class_case(E, E, 40, 300)
+        q, lqd = tbd.upload_block([qT[:n, i] for i, n in enumerate(lq)], dev)
+        seqs = [sT[:n, j] for j, n in enumerate(ls)]
+        sb, lsd = tbd.upload_block(seqs, dev)
+        for s_, what in ((sb, "staged"), (sb.contiguous(), "in place")):
+            want = tbd.banded_any_plain(q, lqd, s_, lsd, E)
+            tbd.reset_launches()
+            assert torch.equal(tbd.banded_any(q, lqd, s_, lsd, E), want), \
+                (E, what)
+            assert tbd.banded_any.launches_by["class"] == 1
+        want = tbd.banded_any_plain(q, lqd, None, None, E, tri=True)
+        assert torch.equal(tbd.banded_any(q, lqd, None, None, E, tri=True),
+                           want)

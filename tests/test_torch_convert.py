@@ -234,15 +234,23 @@ def test_sam_copy_matches(ref_state):
 # kcount's device class hashes in int64 and counts its calls; rqcfilter
 # names an absent reference and splits interleaved pairs; banded_device is
 # a torch rewrite: the plain version, the kernel's wrapper with its launch
-# counts and library, and the device store of dedupe's kept sequences
+# counts and library, the block kernel's wrapper and plain version, and
+# the device store of dedupe's kept sequences; dedupe checks its reads in
+# blocks and keeps the containment check in a function of its own
 PORT_ADDED = {
     "ops.banded_device": {"banded_edit_batch_plain", "banded_edit",
                           "backend", "torch", "ctypes", "Optional",
                           "_build", "I32", "MAPPINGS", "PLAIN_CHECK_ROWS",
                           "SequenceStore", "_check", "_lib", "_on_cuda",
                           "_vs_query", "reset_launches", "Dict",
-                          "length_class", "class_width"},
-    "tools.dedupe": {"backend"}, "tools.bbsplit": {"backend"},
+                          "length_class", "class_width", "SITES",
+                          "BLOCK_TILE", "BLOCK_MAX_E", "BLOCK_MAX_GROUP",
+                          "BLOCK_AIM_PER_SM", "BLOCK_STAGE_MAX",
+                          "PLAIN_ANY_PAIRS", "ANY_MODES", "_check_any",
+                          "banded_any_plain", "banded_any", "block_groups",
+                          "upload_block"},
+    "tools.dedupe": {"backend", "torch", "BLOCK", "_contained"},
+    "tools.bbsplit": {"backend"},
     "io.native": {"sys", "load_error"},
     "index.kmerset": {"scan_batch_plain", "scan_batch_multi_plain",
                       "_expand_hits"},

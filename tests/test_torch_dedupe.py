@@ -178,3 +178,41 @@ def test_dedupe_byte_equal(corpus, tmp_path, monkeypatch, capsys, case):
         assert {"stats.txt", "graph.dot"} <= set(files)
         assert sum(n.startswith("cluster_") for n in files) > 1
         assert "Overlap edges" in err
+
+
+@pytest.mark.parametrize("block", [1, 3, 256])
+@pytest.mark.parametrize("case", ["e=2", "e=2 ac=t containment",
+                                  "dedupe2 nam=3"])
+def test_dedupe_blocks_byte_equal(corpus, tmp_path, monkeypatch, capsys,
+                                  case, block):
+    """The e= check in blocks of 1, 3 and 256 reads (the store as it stood
+    before the block, the block's reads against each other, the decisions
+    in read order) writes the JAX tools' bytes."""
+    from bbmap_tpu_torch.tools import dedupe as tdd
+    monkeypatch.setattr(tdd, "BLOCK", block)
+    test_dedupe_byte_equal(corpus, tmp_path, monkeypatch, capsys, case)
+
+
+def test_chain_inside_one_block():
+    """Read A is kept; B lies within 2 edits of A and is a duplicate; C lies
+    within 2 of B but 4 of A, and is kept, since B was not: in one block as
+    one read at a time, and as the JAX package decides."""
+    from bbmap_tpu.tools import dedupe as jdd
+    from bbmap_tpu_torch.tools import dedupe as tdd
+    rng = np.random.default_rng(8)
+    a = rng.choice(BASES, 150).astype(np.uint8)
+    b, c = a.copy(), a.copy()
+    b[[30, 90]] = BASES[(np.searchsorted(BASES, a[[30, 90]]) + 1) % 4]
+    c[[30, 90]] = b[[30, 90]]
+    c[[50, 120]] = BASES[(np.searchsorted(BASES, a[[50, 120]]) + 1) % 4]
+
+    class Rec:
+        def __init__(self, name, seq):
+            self.id, self.bases, self.quality = name, bytes(seq), None
+
+    recs = [Rec(n, x) for n, x in (("A", a), ("B", b), ("C", c))]
+    want = [(r.id, d) for r, d in jdd.dedupe_stream(
+        recs, True, 0, 2, False)]
+    got = [(r.id, d) for r, d in tdd.dedupe_stream(
+        recs, True, 0, 2, False, device="cpu")]
+    assert got == want == [("A", False), ("B", True), ("C", False)]

@@ -82,8 +82,8 @@ def meta(B, R, C):
 @pytest.mark.parametrize("segs, want", [
     # the fused program's narrow and wide passes: one warp launch, J = 5
     ([(32768, 150, 174), (128, 150, 606)], (5, 128, 0, "warp")),
-    ([(2047, 150, 174), (1, 150, 606)], (5, 128, 0, "warp")),
-    ([(2000, 150, 174), (47, 150, 606)], None),       # under WARP_MIN_JOBS
+    ([(1023, 150, 174), (1, 150, 606)], (5, 128, 0, "warp")),
+    ([(1000, 150, 174), (23, 150, 606)], None),       # under WARP_MIN_JOBS
     ([(4096, 319, 400), (64, 319, 900)], (10, 128, 0, "warp")),
     ([(4096, 320, 400), (64, 320, 900)], None),       # past WARP_MAX_ROWS
     ([(4096, 150, 174), (64, 151, 606)], None),       # R differs
