@@ -143,23 +143,22 @@ struct RowOps {
   }
 };
 
-// The form of dp_cell's maxima: 0 the plain max / compare chains, 1 and 2
-// Hopper's DPX instructions (__vimax3_s32 for three-way maxima, with
-// equality to the maximum giving "came from MS"; __vibmax_s32 where its
-// predicate a >= b gives the DEL / INS source and the MS prev code), 2 also
-// __viaddmax_s32 (max(a + b, c) in one instruction) for the sums that are
-// only maximised. A build may set the default for every mapping with
-// -DBBMAP_DPX_DEFAULT=<form> (chip_smoke.py times the other mappings so);
-// msa_dp_pipe.cu asks for its form itself.
+// dp_cell's DPX form: Hopper's DPX instructions in place of the plain max
+// / compare chains. __viaddmax_s32 (max(a + b, c) in one instruction) for
+// the MS sums that are only maximised, with equality to the maximum giving
+// "came from MS"; __vibmax_s32 where its predicate a >= b gives the DEL /
+// INS source and the MS prev code. Both forms give the same bits.
+// msa_dp_pipe.cu turns it on; a build may turn it on for every mapping
+// with -DBBMAP_DPX_DEFAULT=1 (chip_smoke.py times the other mappings so).
 #ifndef BBMAP_DPX_DEFAULT
 #define BBMAP_DPX_DEFAULT 0
 #endif
-constexpr int kDpxDefault = BBMAP_DPX_DEFAULT;
+constexpr bool kDpxDefault = BBMAP_DPX_DEFAULT != 0;
 
 // max(a + b, c) with a + b wrapped as wadd, in the form DPX asks for.
-template <int DPX>
+template <bool DPX>
 __device__ __forceinline__ int addmax(int a, int b, int c) {
-  if (DPX >= 2) return __viaddmax_s32(a, b, c);
+  if (DPX) return __viaddmax_s32(a, b, c);
   return max(static_cast<int>(static_cast<uint32_t>(a) +
                               static_cast<uint32_t>(b)), c);
 }
@@ -167,9 +166,9 @@ __device__ __forceinline__ int addmax(int a, int b, int c) {
 // One DP cell (r, c) on wave d from its neighbours: dd = (r-1, c-1) on
 // wave d-2, own = (r, c-1) and up = (r-1, c) on wave d-1. ins0 is the
 // column-0 boundary of row r. Writes the new MS / DEL / INS cells and,
-// with WANT_PREVS, the packed prev-state code. DPX: the form of the
-// maxima (above); every form gives the same bits.
-template <bool WANT_PREVS, int DPX = kDpxDefault>
+// with WANT_PREVS, the packed prev-state code. DPX: the DPX form (above),
+// the same bits.
+template <bool WANT_PREVS, bool DPX = kDpxDefault>
 __device__ __forceinline__ void dp_cell(
     int r, int c, int C, int rows, int read1, int read0, int ref1, int ref0,
     int dd_ms, int dd_del, int dd_ins, int own_ms, int own_del, int up_ms,
@@ -191,15 +190,10 @@ __device__ __forceinline__ void dp_cell(
                                                  : wadd(s_diag, P.NOCALL);
   int m_best, x_best;
   bool m_from_ms, x_from_ms;
-  if (DPX >= 2) {
+  if (DPX) {
     // "came from MS" is "MS is the maximum"
     m_best = addmax<DPX>(s_ins, P.MATCH, addmax<DPX>(s_del, P.MATCH, m_ms));
     x_best = addmax<DPX>(s_ins, P.SUB, addmax<DPX>(s_del, P.SUB, x_ms));
-    m_from_ms = m_best == m_ms;
-    x_from_ms = x_best == x_ms;
-  } else if (DPX == 1) {
-    m_best = __vimax3_s32(m_ms, wadd(s_del, P.MATCH), wadd(s_ins, P.MATCH));
-    x_best = __vimax3_s32(x_ms, wadd(s_del, P.SUB), wadd(s_ins, P.SUB));
     m_from_ms = m_best == m_ms;
     x_from_ms = x_best == x_ms;
   } else {
@@ -225,7 +219,7 @@ __device__ __forceinline__ void dp_cell(
   const int d_d = wadd(wadd(own_del & SM, del_ext(dstreak, P)), refn_adj);
   bool d_from_ms;
   int del_score;
-  if (DPX >= 1) {
+  if (DPX) {
     del_score = __vibmax_s32(d_ms, d_d, &d_from_ms);
   } else {
     del_score = max(d_ms, d_d);
@@ -241,7 +235,7 @@ __device__ __forceinline__ void dp_cell(
   const int i_i = wadd(up_ins & SM, ins_array(istreak + 1, P));
   bool i_from_ms;
   int ins_score;
-  if (DPX >= 1) {
+  if (DPX) {
     ins_score = __vibmax_s32(i_ms, i_i, &i_from_ms);
   } else {
     ins_score = max(i_ms, i_i);
@@ -263,7 +257,7 @@ __device__ __forceinline__ void dp_cell(
 
   if (WANT_PREVS) {
     int ms_arg;
-    if (DPX >= 1) {
+    if (DPX) {
       // s_del >= s_ins, then s_diag >= both, from the predicates
       bool del_ge, diag_ge;
       __vibmax_s32(s_diag, __vibmax_s32(s_del, s_ins, &del_ge), &diag_ge);

@@ -1,14 +1,14 @@
-// The DP kernels' mapping for few jobs of up to 1,023 rows (the CLIs' and
-// tools' score and fill passes under 2,048 jobs): a block a job, a warp a
-// band of rows, the bands pipelined along the columns inside the block,
-// no block-wide barrier in the sweep, the cell on Hopper's DPX
-// instructions.
+// A mapping of the DP kernels for few jobs of up to 1,023 rows: a block a job, a
+// warp a band of rows, the bands pipelined along the columns inside the
+// block, no block-wide barrier in the sweep, the cell on Hopper's DPX
+// instructions. ops/msa_kernels.launch_shape takes it from 700 rows, where
+// it beat the one-row and band mappings on the card; below that it lost to
+// the one-row mapping at few jobs and is launched by mapping="pipe" only.
 //
 // Same function as the mappings in msa_dp.cu, msa_dp_warp.cu and
 // msa_dp_band.cu (replaces the Pallas TPU kernels msa_score_pallas_t /
 // msa_fill_pallas_t / msa_score_pallas, bbmap_tpu/ops/msa_pallas.py:577,
-// :588, :243), the same dp_cell in its DPX form (kPipeDpx), which gives the
-// same bits.
+// :588, :243), the same dp_cell in its DPX form, which gives the same bits.
 //
 // What it replaces and why. The one-row mapping (msa_dp.cu, a thread a
 // row) sweeps the R + C anti-diagonals of a job with one __syncthreads()
@@ -42,11 +42,10 @@
 // and stores one aligned word. The walk kernel takes that layout.
 //
 // What bounds it. With few jobs (its launches), latency: one dependent cell
-// chain a lane and a step. The DPX form shortens the chain (three-way
-// maxima and add-then-max in one instruction each, the source of DEL and
-// INS from vibmax's predicate). With the card full, the integer
-// instruction rate, as every mapping of this cell; from 2,048 jobs at R <=
-// 319 the warp-a-job mapping takes over (ops/msa_kernels.launch_shape).
+// chain a lane and a step. The DPX form shortens the chain (each three-way
+// maximum two add-then-max instructions, the source of DEL and INS from
+// vibmax's predicate). With the card full, the integer instruction rate,
+// as every mapping of this cell.
 
 #include "msa_dp.cuh"
 
@@ -54,11 +53,6 @@ namespace {
 
 constexpr int kChunk = 4;                 // columns a hand-over covers
 constexpr int kRing = 16 * kChunk;        // columns the ring holds
-// dp_cell's form here (a build may ask for another to compare with)
-#ifndef BBMAP_PIPE_DPX
-#define BBMAP_PIPE_DPX 2
-#endif
-constexpr int kPipeDpx = BBMAP_PIPE_DPX;
 constexpr int kPipeMaxThreads = 512;      // 16 bands of 32 or 64 rows
 constexpr unsigned kFullMask = 0xffffffffu;
 
@@ -179,7 +173,7 @@ msa_dp_pipe_kernel(Ops ops, const int* __restrict__ rows_in,
           const int own_ms = ms[j], own_del = dl[j], own_ins = in[j];
           int ms_val, del_val, ins_val;
           uint8_t code = 0;
-          dp_cell<WANT_PREVS, kPipeDpx>(
+          dp_cell<WANT_PREVS, true>(
               r, c, C, rows, rd1[j], rd0[j], ref1, ref0, dd_ms, dd_del,
               dd_ins, own_ms, own_del, u_ms, u_ins, ins0[j], subfloor, P,
               ms_val, del_val, ins_val, code);
@@ -271,11 +265,11 @@ cudaError_t launch(Ops ops, const int* rows, const int* ins0, int B, int R,
   }
 }
 
-// The DPX check: every operand set through dp_cell's three forms.
+// The DPX check: every operand set through dp_cell's two forms.
 // in: n x 17 int32 (r, c, C, rows, read1, read0, ref1, ref0, dd_ms,
 // dd_del, dd_ins, own_ms, own_del, up_ms, up_ins, ins0, subfloor); out: n
-// x 3 forms x 4 int32 (ms, del, ins, code).
-template <int DPX>
+// x 2 forms x 4 int32 (ms, del, ins, code).
+template <bool DPX>
 __device__ void cell_form(const int* x, const Prof& P, int* o) {
   int ms, dl, in;
   uint8_t code = 0;
@@ -293,10 +287,9 @@ __global__ void dp_cell_check_kernel(const int* in, int n, Prof P,
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= n) return;
   const int* x = in + static_cast<size_t>(t) * 17;
-  int* o = out + static_cast<size_t>(t) * 12;
-  cell_form<0>(x, P, o);
-  cell_form<1>(x, P, o + 4);
-  cell_form<2>(x, P, o + 8);
+  int* o = out + static_cast<size_t>(t) * 8;
+  cell_form<false>(x, P, o);
+  cell_form<true>(x, P, o + 4);
 }
 
 // __viaddmax_s32(a, b, c) beside max(a + b wrapped, c): out n x 2.
@@ -305,7 +298,7 @@ __global__ void addmax_probe_kernel(const int* abc, int n, int* out) {
   if (t >= n) return;
   const int a = abc[3 * t], b = abc[3 * t + 1], c = abc[3 * t + 2];
   out[2 * t] = __viaddmax_s32(a, b, c);
-  out[2 * t + 1] = addmax<0>(a, b, c);
+  out[2 * t + 1] = addmax<false>(a, b, c);
 }
 
 }  // namespace

@@ -31,12 +31,9 @@ SOURCES = ("msa_dp", "msa_dp_warp", "msa_dp_pipe", "msa_dp_band",
 # nvcc flags). The "_dpx" builds turn dp_cell's DPX form on in mappings
 # that keep the plain form (chip_smoke.py times them beside the default);
 # no path of the package loads them.
-VARIANTS = {f"{src}_dpx": (src, ("-DBBMAP_DPX_DEFAULT=2",))
+VARIANTS = {f"{src}_dpx": (src, ("-DBBMAP_DPX_DEFAULT=1",))
             for src in ("msa_dp", "msa_dp_warp", "msa_dp_band",
                         "msa_fill_walk")}
-VARIANTS.update({f"msa_dp_pipe_dpx{f}": ("msa_dp_pipe",
-                                         (f"-DBBMAP_PIPE_DPX={f}",))
-                 for f in (0, 1)})
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

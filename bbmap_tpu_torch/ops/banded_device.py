@@ -327,8 +327,10 @@ def banded_any(q: torch.Tensor, lq: torch.Tensor, s: Optional[torch.Tensor],
     against each other). CPU tensors: the plain version. CUDA tensors: one
     launch of the block mapping of ``csrc/banded_edit.cu`` for E up to
     ``BLOCK_MAX_E``, the tile staged in shared memory where the class's
-    pitch and a block's bytes allow; past that E a ``banded_edit`` launch
-    a query (a warp a pair). A failed launch raises."""
+    pitch and a block's bytes allow. Past that E (dedupe's ``e=`` above
+    31) the block design does not apply: a ``banded_edit`` launch a query
+    (a warp a pair), looped here, so the launches grow with the reads
+    again. A failed launch raises."""
     _check_any(q, lq, s, ls)
     if q.device.type == "cpu":
         return banded_any_plain(q, lq, s, ls, max_edits, tri)

@@ -41,11 +41,11 @@ wrappers, launch counters and plain PyTorch versions.
 ``launch_shape`` picks a DP kernel's mapping: a warp a job ("warp", 1 to
 10 rows a lane) for score passes of 1,024 jobs or more up to R = 319, one
 DP row per thread ("row") up to R = 1,023, a block a job with a warp a
-band of rows pipelined inside it ("pipe", 1 or 2 rows a lane) where it won
-(from 700 rows, and in narrow windows from some hundreds of jobs), and
-past that a warp a band of rows, the bands of a job pipelined over the
-card ("band", 2, 4 or 8 rows a lane) up to R = 8,191. Rows strided over one block ("strided"), which "band" replaced,
-stays launchable by ``mapping=`` for comparison.
+band of rows pipelined inside it ("pipe", 1 or 2 rows a lane) from 700
+rows, where it won, and past 1,023 rows a warp a band of rows, the bands
+of a job pipelined over the card ("band", 2, 4 or 8 rows a lane) up to
+R = 8,191. Rows strided over one block ("strided"), which "band"
+replaced, stays launchable by ``mapping=`` for comparison.
 
 A wrapper given CPU tensors runs the plain version (``ops/msa.dp_plain``,
 ``ops/msa.walk_plain``; ``msa_score_plain`` a segment) and counts
@@ -108,28 +108,13 @@ BAND_MIN_WARPS = 1024
 # at 1,024; at 16 x (1,000, 1,100) band 1.625 and pipe 1.652 tie) and the
 # fill from 256 jobs (1.862 against 2.111 and 2.262 at (700, 760)); below
 # 256 jobs a fill keeps the one-row mapping (the band mapping is ahead by
-# up to 19 % at (1,000, 1,100) and behind at 64 x (700, 760)). At (500,
-# 560) the band mapping wins from 1,024 jobs (2.647 against one-row 4.009
-# and pipe 3.803), the one-row mapping below.
+# up to 19 % at (1,000, 1,100) and behind at 64 x (700, 760)). Below 700
+# rows every launch under WARP_MIN_JOBS keeps the one-row mapping: the
+# pipe's and the band mapping's few wins there (narrow windows from ~520
+# jobs, (500, 560) from 1,024 jobs; PERF.md) were measured at too few
+# window widths to draw a rule from.
 PIPE_MID_MIN_ROWS = 700
 PIPE_MID_MIN_FILL_JOBS = 256
-BAND_MID_MIN_ROWS = 500
-BAND_MID_MIN_JOBS = 1024
-# In a narrow window (at most PIPE_NARROW_SLACK columns past the read) a
-# score pass takes the pipe mapping from PIPE_NARROW_SCORE_MIN_JOBS jobs
-# to the warp mapping's, and a fill from PIPE_NARROW_FILL_MIN_JOBS jobs.
-# From the same run: the score pass at the CLIs' shapes (chip_smoke.py,
-# "time msa_score at a CLI's one-row shape" lines) at (150, 158), pipe
-# against one-row, 0.2702 against 0.2930 ms at 530 jobs to 0.3106 against
-# 0.3396 at 760, one-row ahead to 506 jobs (0.2341 against 0.2440); the
-# fill at (150, 174) 0.877 ms against one-row 0.921 at 2,048 jobs, 1.659
-# against 1.769 at 4,096 and 3.145 against 3.397 at 8,192 ("time
-# msa_fill_pipe"), one-row ahead at 1,024 (0.495 against 0.553); at (150,
-# 606) the one-row mapping wins both passes at every job count to 1,024
-# and the fill to 4,096 (4.327 against 4.670).
-PIPE_NARROW_SLACK = 24
-PIPE_NARROW_SCORE_MIN_JOBS = 520
-PIPE_NARROW_FILL_MIN_JOBS = 2048
 SMEM_MAX = 232_448             # 227 KB of shared memory a block (sm_90)
 SMEM_PER_SM = 233_472          # 228 KB an SM, of it 1 KB reserved a block
 # The fused fill + walk (csrc/msa_fill_walk.cu): a block a job, a thread
@@ -213,27 +198,21 @@ def launch_shape(R: int, C: int, mapping: Optional[str] = None,
       take the one-row mapping.
     - "row" (R <= 1,023): a block a job, one row a thread. Both wave
       slots take 24 * (R+1) bytes of shared memory, the window C more.
-      The default below the warp mapping's launches where the pipe and
-      band mappings did not win, and for an unknown job count.
+      The default below the warp mapping's launches and below
+      ``PIPE_MID_MIN_ROWS`` rows, and for an unknown job count.
     - "pipe" (R <= 1,023): a block a job, a warp a band of 32 rows (a
       lane a row; 64, two a lane, past ``PIPE_ONE_ROW_MAX`` rows), the
       bands handing their bottom rows on through a ring in shared memory
       (``csrc/msa_dp_pipe.cu``); the window and the read staged. The
       default from ``PIPE_MID_MIN_ROWS`` rows (a fill: of
-      ``PIPE_MID_MIN_FILL_JOBS`` jobs or more), and in windows at most
-      ``PIPE_NARROW_SLACK`` columns wider than the read for score passes
-      of ``PIPE_NARROW_SCORE_MIN_JOBS`` jobs or more (below the warp
-      mapping's) and fills of ``PIPE_NARROW_FILL_MIN_JOBS`` or more,
-      where it beat the one-row and band mappings on the card.
+      ``PIPE_MID_MIN_FILL_JOBS`` jobs or more), where it beat the one-row
+      and band mappings on the card.
     - "band" (R <= 8,191; the default past R = 1,023): a warp a band of
       32 * J rows, a block a band, the bands of a job handing their bottom
       rows on through device memory (``csrc/msa_dp_band.cu``); no shared
       memory. J is 8 (a fill: 4) for launches of ``BAND_MIN_WARPS`` warps
       or more at that J (``jobs=None`` counts as many), else 4, else 2:
-      few jobs are cut into thinner bands so that more warps run. Also
-      the default from ``BAND_MID_MIN_ROWS`` to ``PIPE_MID_MIN_ROWS`` rows
-      for launches of ``BAND_MID_MIN_JOBS`` jobs or more, where it beat
-      the one-row and pipe mappings on the card.
+      few jobs are cut into thinner bands so that more warps run.
     - "strided" (1,024 <= R <= 8,191, by ``mapping=`` only): a block a
       job, 2, 4 or 8 rows a thread, strided; the read is staged as well
       (R bytes).
@@ -250,17 +229,8 @@ def launch_shape(R: int, C: int, mapping: Optional[str] = None,
             mapping = "warp"
         elif R > SHORT_MAX_ROWS:
             mapping = "band"
-        elif jobs is None:
-            mapping = "row"
-        elif R >= PIPE_MID_MIN_ROWS and (not fill
-                                         or jobs >= PIPE_MID_MIN_FILL_JOBS):
-            mapping = "pipe"
-        elif BAND_MID_MIN_ROWS <= R < PIPE_MID_MIN_ROWS \
-                and jobs >= BAND_MID_MIN_JOBS:
-            mapping = "band"
-        elif C <= R + PIPE_NARROW_SLACK and jobs >= (
-                PIPE_NARROW_FILL_MIN_JOBS if fill
-                else PIPE_NARROW_SCORE_MIN_JOBS):
+        elif jobs is not None and R >= PIPE_MID_MIN_ROWS and (
+                not fill or jobs >= PIPE_MID_MIN_FILL_JOBS):
             mapping = "pipe"
         else:
             mapping = "row"
@@ -888,10 +858,10 @@ CELL_OPERANDS = ("r", "c", "C", "rows", "read1", "read0", "ref1", "ref0",
 def dp_cell_forms(ops: torch.Tensor, P: ScoringProfile) -> torch.Tensor:
     """dp_cell with prev codes on every row of ``ops`` ((n, 17) int32 on
     the card, the operands of ``CELL_OPERANDS``) in its plain form and
-    its two DPX forms: (n, 3, 4) int32, (ms, del, ins, code) a form."""
+    its DPX form: (n, 2, 4) int32, (ms, del, ins, code) a form."""
     _on_cuda(ops)
     ops = ops.to(I32).contiguous()
-    out = torch.empty((ops.shape[0], 3, 4), dtype=I32, device=ops.device)
+    out = torch.empty((ops.shape[0], 2, 4), dtype=I32, device=ops.device)
     prof = prof_array(P)
     err = _lib("msa_dp_pipe").dp_cell_check_launch(
         ops.data_ptr(), ops.shape[0], prof.ctypes.data, out.data_ptr(),

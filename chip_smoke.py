@@ -12,8 +12,8 @@ Phases, each timed on its own line:
    (``msa_dp.cu``, ``msa_dp_warp.cu``, ``msa_dp_pipe.cu``,
    ``msa_dp_band.cu``, ``msa_walk.cu``, ``msa_fill_walk.cu``,
    ``banded_edit.cu``) and for each build of ``_build.VARIANTS`` (the
-   DPX cell in the mappings that keep the plain one, the pipe mapping's
-   other cell forms), all started together, into
+   DPX cell in the mappings that keep the plain one), all started
+   together, into
    ``build/torch_kernels/``
    (a source whose library is there is skipped); ``cuobjdump -sass`` of the libraries gives each
    kernel's instructions a cell (the main loop's length over the cells
@@ -47,8 +47,8 @@ Phases, each timed on its own line:
    ``msa_kernels.WARP_MIN_JOBS`` is chosen from), the band
    mapping over rows a lane and the job count beside the strided mapping
    (``BAND_MIN_WARPS``) and beside the one-row and pipe mappings between
-   320 and 1,023 rows (``PIPE_MID_MIN_ROWS``, ``PIPE_MID_MIN_FILL_JOBS``,
-   ``BAND_MID_MIN_ROWS``, ``BAND_MID_MIN_JOBS``); the fused
+   320 and 1,023 rows (``PIPE_MID_MIN_ROWS``, ``PIPE_MID_MIN_FILL_JOBS``);
+   the fused
    fill + walk (``msa_fill_walk``) with a byte and with four bits a cell
    and by its default route against ``msa_fill_walk_plain`` at the fused
    program's two launches, 8,192 x (150, 174) bounded to 190 steps and
@@ -68,9 +68,10 @@ Phases, each timed on its own line:
    walked step (the launch's time at ``clocks.max.sm`` over the longest
    walk); the pipe mapping's K2 at 128 x (150, 606), K3 at 8,192 x (150,
    174) and K1 at 128 x (150, 174) timed beside the one-row (and warp)
-   mapping and their bounds; dp_cell's DPX forms: ``__viaddmax_s32``
+   mapping, every one of them held to the plain version's out, and
+   their bounds; dp_cell's DPX form: ``__viaddmax_s32``
    against max(a + b wrapped, c) on the int32 extremes and 2**20 random
-   triples, the three forms of the cell on 2**20 random and extreme
+   triples, the two forms of the cell on 2**20 random and extreme
    operand sets a profile, all equal, and the mappings that keep the plain
    cell timed once with their DPX builds (the same outputs);
 4. K1 entry point: ``msa_kernels.score_batch`` on 32,768 jobs, counted;
@@ -149,7 +150,8 @@ Phases, each timed on its own line:
    beyond a 3-sigma sign test on the reads the two grade apart; every DP
    launch recorded by (jobs, R, C), the one-row and pipe ones printed as
    a histogram and put on the ``kernels`` line, K2 timed at each of
-   their shapes in the pipe, one-row and warp mappings).
+   their shapes in the pipe, one-row and warp mappings, each held to the
+   plain version's out).
 
 Each path's launch counts (and the tools' device scan and ladder
 counters, and kcount's calls) are set to 0 just before it and read just
@@ -1184,19 +1186,34 @@ def kernel_phases(genome, device, plain) -> dict:
             cmp_rows("ragged last band", tuple(x[:64] for x in job))
     del job
     # between the warp mapping's 319 rows and 1,023: the band mapping
-    # beside the one-row and pipe mappings, what PIPE_MID_* / BAND_MID_*
-    # rest on
+    # beside the one-row and pipe mappings, what PIPE_MID_* rests on; the
+    # jobs of a window made once at 2,048 jobs, a launch of n jobs their
+    # first n, every mapping's out held to the plain version's
     for R, C in ((500, 560), (700, 760), (1000, 1100)):
+        a_all = jobs(2048, R, C, 50, 0.1)
+        want = mk.msa_score_plain(*a_all, PB)
         for n in (16, 64, 256, 1024, 2048):
-            a = jobs(n, R, C, 50, 0.1)
+            a = tuple(x[:n] for x in a_all)
             cols = []
-            for fn in (mk.msa_score, mk.msa_fill):
+            for name, fn in (
+                    ("msa_score", lambda m: mk.msa_score(*a, PB, m)),
+                    ("msa_fill", lambda m: mk.msa_fill(*a, PB, m)[0])):
+                ts = {}
+                for m in ("row", "band", "pipe"):
+                    ts[m], got = _cuda_ms(lambda: fn(m), 3)
+                    key = key_of(name, n, R, C, m)
+                    e = _diff(got, want[:, :n])
+                    err[key] = max(err.get(key, 0), e)
+                    if e:
+                        raise AssertionError(f"{key} at {n} x ({R}, {C}) "
+                                             f"disagrees with its plain "
+                                             f"version: max_abs_err {e}")
                 cols.append("one-row %.3f ms, band %.3f ms, pipe %.3f ms"
-                            % tuple(_cuda_ms(lambda: fn(*a, PB, m)[0], 3)[0]
-                                    for m in ("row", "band", "pipe")))
+                            % tuple(ts[m] for m in ("row", "band", "pipe")))
             say(f"sweep band mid {n} x ({R}, {C}): score {cols[0]}; fill "
                 f"{cols[1]}; default "
-                f"{mk.launch_shape(R, C, None, n).mapping}")
+                f"{mk.launch_shape(R, C, None, n).mapping}; every out "
+                f"equal to the plain version's")
     shapes = {"msa_score": "32,768 x (150, 174)",
               "msa_score_row": "128 x (150, 606)",
               "msa_score_rows": "32,768 x (150, 174)",
@@ -1227,7 +1244,9 @@ def kernel_phases(genome, device, plain) -> dict:
     out.update(fill_walk_phase(genome, device, instr, clock))
     out.update(segments_phase(genome, device, instr, clock,
                               out["msa_score_row"]["ms"]))
-    out.update(pipe_phase(genome, device, instr, clock))
+    for name, t in pipe_phase(genome, device, instr, clock).items():
+        t["max_abs_err"] = max(t["max_abs_err"], err.get(name, 0))
+        out[name] = t
     dpx_phase(genome, device)
     return out
 
@@ -1290,9 +1309,18 @@ def pipe_phase(genome, device, instr: dict, clock: float) -> dict:
         if name == "msa_score_rows_pipe":
             r1, r0, rp, rows = mk.prep_operands(*job)
             a = (r1, r0, (rp, rows), R, C, 1)
-        ms, _ = _cuda_ms(lambda: fn(a, "pipe"), 10)
-        times = {m: _cuda_ms(lambda: fn(a, m), 10)[0] for m in others}
-        plain_ms, _ = _cuda_ms(lambda: plain(a), 1, warm=False)
+        ms, got = _cuda_ms(lambda: fn(a, "pipe"), 10)
+        outs = {m: _cuda_ms(lambda: fn(a, m), 10) for m in others}
+        times = {m: t for m, (t, _) in outs.items()}
+        plain_ms, want = _cuda_ms(lambda: plain(a), 1, warm=False)
+        # every mapping timed here, held to the plain version's out
+        es = {"pipe": _diff(got, want),
+              **{m: _diff(o, want) for m, (_, o) in outs.items()}}
+        if any(es.values()):
+            raise AssertionError(f"{name} at {n} x ({R}, {C}): the timed "
+                                 f"mappings disagree with the plain "
+                                 f"version: {es}")
+        err[name] = max(err[name], es["pipe"])
         rd, rf, rw = job
         n_bytes = rd.numel() + rf.numel() + 16 * len(rw)
         if name == "msa_score_rows_pipe":
@@ -1306,7 +1334,9 @@ def pipe_phase(genome, device, instr: dict, clock: float) -> dict:
                      "bound_by": by, "library_ms": None,
                      "max_abs_err": err[name],
                      **{f"{m}_ms": t for m, t in times.items()}}
-        say(f"time {name} at {n} x ({R}, {C}): pipe {ms:.4f} ms, " +
+        say(f"time {name} at {n} x ({R}, {C}): max_abs_err against the "
+            f"plain version " + ", ".join(f"{m} {e}" for m, e in es.items())
+            + f"; pipe {ms:.4f} ms, " +
             ", ".join(f"{'one-row' if m == 'row' else m} mapping {t:.4f} ms"
                       for m, t in times.items()) +
             f", plain {plain_ms:.3f} ms, bound {bound:.4f} ms by {by} "
@@ -1339,8 +1369,8 @@ def dpx_libraries(on: bool):
 
 
 def dpx_phase(genome, device) -> None:
-    """dp_cell's DPX forms on the card: ``__viaddmax_s32`` beside max(a + b
-    wrapped, c) on the int32 extremes and random words, then the three
+    """dp_cell's DPX form on the card: ``__viaddmax_s32`` beside max(a + b
+    wrapped, c) on the int32 extremes and random words, then the two
     forms of the cell on 2**20 operand sets a profile (rows and columns in
     and off the window, read and window characters among ACGTN, '-' and
     the sentinels, packed cells that are scores with streaks, BAD,
@@ -1383,12 +1413,11 @@ def dpx_phase(genome, device) -> None:
         forms = mk.dp_cell_forms(torch.from_numpy(
             ((ops + 2**31) % 2**32 - 2**31).astype(np.int32)).to(device),
             P).cpu().numpy()
-        for f in (1, 2):
-            d = int((forms[:, f] != forms[:, 0]).any(1).sum())
-            say(f"dpx cell, {pname}: form {f} against the plain form on "
-                f"{n} operand sets: {d} differ")
-            if d:
-                raise AssertionError(f"dp_cell's DPX form {f} disagrees")
+        d = int((forms[:, 1] != forms[:, 0]).any(1).sum())
+        say(f"dpx cell, {pname}: the DPX form against the plain form on "
+            f"{n} operand sets: {d} differ")
+        if d:
+            raise AssertionError("dp_cell's DPX form disagrees")
     S, PB = SHORT_PROFILE, PACBIO_PROFILE
     narrow = dp_jobs(genome, 2 * 16384, L, L + 24, 110, device,
                      var_rows=False)
@@ -1414,29 +1443,6 @@ def dpx_phase(genome, device) -> None:
             f"({100 * (off - on) / off:+.1f} %), same out: max_abs_err {e}")
         if e:
             raise AssertionError(f"the DPX build disagrees: {tag}")
-    # the pipe mapping in each form of the cell (its own is form 2)
-    from bbmap_tpu_torch.ops import _build
-    for n, C in ((128, L + 24), (128, L + 456), (1024, L + 24)):
-        a = tuple(x[:n] for x in narrow) if C == L + 24 else wide
-        times = {}
-        for form in (0, 1, 2):
-            saved = _build._libs["msa_dp_pipe"]
-            if form != 2:
-                _build._libs["msa_dp_pipe"] = _build.load(
-                    f"msa_dp_pipe_dpx{form}")
-            try:
-                times[form], got = _cuda_ms(
-                    lambda: mk.msa_score(*a, S, "pipe"), 10)
-            finally:
-                _build._libs["msa_dp_pipe"] = saved
-            if form == 0:
-                want = got
-            elif _diff(got, want):
-                raise AssertionError(f"the pipe's cell form {form} "
-                                     f"disagrees")
-        say(f"time dpx pipe msa_score {n} x ({L}, {C}): cell form 0 (plain) "
-            f"{times[0]:.4f} ms, form 1 {times[1]:.4f} ms, form 2 (the "
-            f"kernel's) {times[2]:.4f} ms, same out")
 
 
 def segments_phase(genome, device, instr: dict, clock: float,
@@ -2894,12 +2900,15 @@ def banded_phase(device, gbases, clock: float) -> dict:
             win[rng.integers(0, len(win), Q - Q // 2)])
         s_, ls = bd.upload_block(list(cls), device)
         q, lq = bd.upload_block(qs, device)
-        for E in (0, 2):
+        # past BLOCK_MAX_E (the small class only) a banded_edit launch a
+        # query, outside the block design
+        wide = (bd.BLOCK_MAX_E + 9,) if k == 1_000 else ()
+        for E in (0, 2, *wide):
             for tri in (False, True):
                 blocks.append(block_check(
                     f"{what} shape, {Q} queries x {k}", device, q, lq,
                     None if tri else s_, None if tri else ls, E, tri,
-                    per_cell, clock))
+                    per_cell, clock, reps=3 if E in wide else 20))
             if E == 2:
                 blocks.append(block_check(
                     f"{what} shape, {Q} queries x {k}, in place", device, q,
@@ -3422,8 +3431,8 @@ def dedupe_variants_phase(device, gbases, clock: float) -> tuple:
         kt, kany = banded_phase(device, gbases, clock)
         dd["big"] = dedupe_big(device, dd_in)
         vv["big"] = variants_big(device, vv_in)
-        vv["onerow_at_cli_shapes"] = onerow_at_cli_shapes(
-            device, gbases, vv["big"])
+        vv["onerow_at_cli_shapes"], vv["cli_shapes_max_abs_err"] = \
+            onerow_at_cli_shapes(device, gbases, vv["big"])
     finally:
         for r in cpu_runs.values():
             r.stop()
@@ -3431,12 +3440,16 @@ def dedupe_variants_phase(device, gbases, clock: float) -> tuple:
     return kt, kany, dd, vv
 
 
-def onerow_at_cli_shapes(device, gbases, big: dict) -> list:
+def onerow_at_cli_shapes(device, gbases, big: dict) -> tuple:
     """The one-row and pipe launches of bbmap, bbmapacc and bbmapskimmer
     over N_VARIANT_BIG pairs as a histogram by (jobs, R, C), and K2 timed
     at each score shape in the pipe, one-row and (where it holds R) warp
-    mappings on bench-like jobs. Returns [[tool, wrapper, mapping, jobs,
-    R, C, launches], ...] and prints the times."""
+    mappings on bench-like jobs, every mapping's out held to the plain
+    version's (tolerance 0): the jobs of each window made once at the
+    largest job count, the plain version run once on them, a shape of n
+    jobs their first n. Returns ([[tool, wrapper, mapping, jobs, R, C,
+    launches], ...], {kernels line name: max_abs_err}) and prints the
+    times."""
     from bbmap_tpu_torch.core.constants import SHORT_PROFILE
     from bbmap_tpu_torch.ops import msa_kernels as mk
     hist = [[tool, *row] for tool in ("bbmap", "bbmapacc", "bbmapskimmer")
@@ -3446,21 +3459,38 @@ def onerow_at_cli_shapes(device, gbases, big: dict) -> list:
             f"({row[4]}, {row[5]}): {row[6]}")
     shapes = sorted({tuple(r[3:6]) for r in hist if r[1] == "msa_score"})
     totals = dict.fromkeys(("pipe", "row", "warp"), 0.0)
-    for n, R, C in shapes:
-        a = dp_jobs(gbases, n, R, C, n + C, device)
-        ms = {m: _cuda_ms(lambda: mk.msa_score(*a, SHORT_PROFILE, m), 10)[0]
-              for m in ("pipe", "row") + (("warp",) if R <= 319 else ())}
-        launched = sum(r[6] for r in hist if tuple(r[3:6]) == (n, R, C)
-                       and r[1] == "msa_score")
-        for m, t in ms.items():
-            totals[m] += launched * t
-        say(f"time msa_score at a CLI's one-row shape {n} x ({R}, {C}), "
-            f"{launched} launches: " + ", ".join(
-                f"{m} {t:.4f} ms" for m, t in ms.items()) + f", default "
-            f"{mk.launch_shape(R, C, jobs=n).mapping}")
+    err = {}
+    for R, C in sorted({(R, C) for _, R, C in shapes}):
+        top = max(n for n, R_, C_ in shapes if (R_, C_) == (R, C))
+        jobs = dp_jobs(gbases, top, R, C, top + C, device)
+        want = mk.msa_score_plain(*jobs, SHORT_PROFILE)
+        for n in sorted(n for n, R_, C_ in shapes if (R_, C_) == (R, C)):
+            a = tuple(x[:n] for x in jobs)
+            res = {m: _cuda_ms(lambda: mk.msa_score(*a, SHORT_PROFILE, m),
+                               10)
+                   for m in ("pipe", "row") + (("warp",) if R <= 319
+                                                else ())}
+            es = {m: _diff(o, want[:, :n]) for m, (_, o) in res.items()}
+            for m, e in es.items():
+                name = VARIANT["msa_score", m]
+                err[name] = max(err.get(name, 0), e)
+            launched = sum(r[6] for r in hist if tuple(r[3:6]) == (n, R, C)
+                           and r[1] == "msa_score")
+            for m, (t, _) in res.items():
+                totals[m] += launched * t
+            say(f"time msa_score at a CLI's one-row shape {n} x ({R}, {C}),"
+                f" {launched} launches: " + ", ".join(
+                    f"{m} {t:.4f} ms" for m, (t, _) in res.items())
+                + f", default {mk.launch_shape(R, C, jobs=n).mapping}; "
+                f"max_abs_err against the plain version " + ", ".join(
+                    f"{m} {e}" for m, e in es.items()))
+            if any(es.values()):
+                raise AssertionError(f"msa_score at {n} x ({R}, {C}): a "
+                                     f"mapping disagrees with the plain "
+                                     f"version: {es}")
     say("time msa_score at the CLIs' one-row shapes, launches x ms summed: "
         + ", ".join(f"{m} {t:.2f} ms" for m, t in totals.items()))
-    return hist
+    return hist, err
 
 
 def _device_profile(fn, tag: str, wall_ms: float, top: int = 12) -> None:
@@ -3847,7 +3877,8 @@ def main() -> int:
     # at: the band kernels and the walk kernel (short fills and walks take
     # the fused kernel) on the long-read path, K1 at its entry point, the
     # banded kernel on dedupe's, the rest on the main path; the strided
-    # kernels, which the band kernels replaced, run on no path
+    # kernels, which the band kernels replaced, run on no path, and the
+    # pipe kernels, the default from 700 rows, on none of these paths
     counted = {"msa_score_rows": "msa_score_rows_warp",
                "msa_score": "msa_score_warp", "msa_score_row": "msa_score_row",
                "msa_score_segments": "msa_score_segments",
@@ -3871,6 +3902,10 @@ def main() -> int:
             "msa_score_rows_pipe": "k1_entry"}
     ktimes["banded_edit"] = bkt
     ktimes["banded_any"] = bany
+    # K2 at the CLIs' one-row shapes, held to its plain version there too
+    for name, e in vv["cli_shapes_max_abs_err"].items():
+        ktimes[name]["max_abs_err"] = max(ktimes[name]["max_abs_err"], e)
+        ktimes[name]["max_abs_err_at_cli_shapes"] = e
     # the CLIs' one-row launches by shape, on the entries of their mapping
     cli_shapes = {}
     for tool, wrapper, mapping, n, R, C, k in vv["onerow_at_cli_shapes"]:
@@ -3895,6 +3930,9 @@ def main() -> int:
                         "bound_ms": kt["bound_ms"],
                         "bound_by": kt["bound_by"],
                         "library_ms": kt["library_ms"]})
+        if "max_abs_err_at_cli_shapes" in kt:
+            kernels[-1]["max_abs_err_at_cli_shapes"] = \
+                kt["max_abs_err_at_cli_shapes"]
         if name in cli_shapes:
             kernels[-1]["launch_shapes"] = cli_shapes[name]
         say(f"launches {name}: {by_path}")

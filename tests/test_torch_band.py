@@ -319,14 +319,14 @@ def test_walk_refuses_a_block_of_the_other_layout():
     (6000, 6024, 512, True, 4),
     (8191, 8192, 3, False, 2),
     (8191, 8192, 4096, True, 4),
-    (500, 560, 1024, False, 8),
-    (600, 660, 4096, True, 4),
+    (1100, 1200, 256, False, 8),
+    (2000, 2100, 4096, True, 4),
 ])
 def test_launch_shape_band(R, C, jobs, fill, want_J):
-    """Past 1,023 rows every pass takes the band mapping, and from 500 to
-    699 rows the launches of 1,024 jobs or more: 32 threads a block, no shared
-    memory, and as many rows a lane (a fill: 4 at most) as keep the launch
-    at BAND_MIN_WARPS warps or more (else the thinnest bands)."""
+    """Past 1,023 rows every pass takes the band mapping: 32 threads a
+    block, no shared memory, and as many rows a lane (a fill: 4 at most)
+    as keep the launch at BAND_MIN_WARPS warps or more (else the thinnest
+    bands)."""
     s = msa_kernels.launch_shape(R, C, jobs=jobs, fill=fill)
     assert tuple(s) == (want_J, 32, 0, "band")
     bands = msa_kernels.band_count(R, s.rows_per_thread)

@@ -472,9 +472,6 @@ def test_launch_shape_forced_one_row(R, C, want):
     assert tuple(msa_kernels.launch_shape(R, C, "row")) == want
     assert tuple(msa_kernels.launch_shape(R, C, fill=True)) == want
     few = msa_kernels.WARP_MIN_JOBS - 1
-    if C <= R + msa_kernels.PIPE_NARROW_SLACK:  # a narrow window: the pipe
-        assert msa_kernels.launch_shape(R, C, jobs=few).mapping == "pipe"
-        few = msa_kernels.PIPE_NARROW_SCORE_MIN_JOBS - 1
     if R >= msa_kernels.PIPE_MID_MIN_ROWS:   # from there: the pipe mapping
         for fill in (False, True):
             assert msa_kernels.launch_shape(R, C, jobs=few,
@@ -496,17 +493,16 @@ def test_launch_shape_forced_one_row(R, C, want):
     (150, 174, msa_kernels.WARP_MIN_JOBS, False, (5, 128, 0, "warp")),
     (150, 606, 128, False, (1, 160, 24 * 151 + 606, "row")),
     (150, 174, 2047, True, (1, 160, 24 * 151 + 174, "row")),
-    (150, 174, 8192, True, (1, 160, msa_kernels.pipe_smem(150, 174, 5),
-                            "pipe")),
-    (150, 175, 8192, True, (1, 160, 24 * 151 + 175, "row")),
+    (150, 174, 8192, True, (1, 160, 24 * 151 + 174, "row")),
+    (700, 760, 256, True, (2, 352, msa_kernels.pipe_smem(700, 760, 11),
+                           "pipe")),
     (6000, 6456, 512, True, (4, 32, 0, "band")),
 ])
 def test_launch_shape_by_jobs_and_fill(R, C, jobs, fill, want):
     """What the main path's passes get: the warp mapping for the 32,768
     job score pass, the one-row mapping for the 128-job wide pass and for
-    fills but those of 2,048 jobs or more in a window at most 24 columns
-    wider than the read (the pipe mapping); forcing "warp" gives four
-    jobs a block at any job count."""
+    fills of 150 rows, the pipe mapping for a fill of 256 jobs from 700
+    rows; forcing "warp" gives four jobs a block at any job count."""
     assert tuple(msa_kernels.launch_shape(R, C, jobs=jobs, fill=fill)) == want
     if R <= 319:
         forced = msa_kernels.launch_shape(R, C, "warp", jobs=jobs, fill=fill)

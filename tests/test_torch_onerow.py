@@ -1,5 +1,5 @@
 """The pipelined-warp mapping of the DP kernels for up to 1,023 rows
-(bbmap_tpu_torch/csrc/msa_dp_pipe.cu) and dp_cell's DPX forms
+(bbmap_tpu_torch/csrc/msa_dp_pipe.cu) and dp_cell's DPX form
 (csrc/msa_dp.cuh), on the CPU:
 
 - a numpy emulation of the kernel's schedule (a block a job, a warp a band
@@ -10,8 +10,8 @@
   ``msa_score_plain`` / ``msa_fill_plain`` in out, prev codes and walk
   symbols, below 32 rows, at 150, at a band's edge and at two rows a
   lane, with N and gap columns and per-job rows below R;
-- a numpy model of dp_cell's three forms (plain, DPX maxima and
-  predicates, DPX add-then-max with int32 wrap) against the plain cell
+- a numpy model of dp_cell's two forms (plain, and DPX: add-then-max with
+  int32 wrap, predicates from the two-way maximum) against the plain cell
   model of tests/test_torch_msa.py on random and extreme packed operands;
 - ``launch_shape``'s pipe shape against the launcher in the source.
 
@@ -257,10 +257,6 @@ def _wrap(x):
     return ((np.asarray(x, np.int64) + 2**31) % 2**32 - 2**31).astype(I32)
 
 
-def _vimax3(a, b, c):
-    return np.maximum(np.maximum(a, b), c)
-
-
 def _viaddmax(a, b, c):
     """__viaddmax_s32: max(a + b, c), the sum wrapped to 32 bits."""
     return np.maximum(_wrap(a.astype(np.int64) + b), c)
@@ -271,12 +267,12 @@ def _vibmax(a, b):
     return np.maximum(a, b), a >= b
 
 
-def np_dp_cell_form(P, form, r, c, C, rows, read1, read0, ref1, ref0, dd,
+def np_dp_cell_form(P, dpx, r, c, C, rows, read1, read0, ref1, ref0, dd,
                     own, up, ins0, subfloor):
-    """dp_cell of csrc/msa_dp.cuh in the given form (0 plain, 1 DPX maxima
-    and predicates, 2 also add-then-max) on numpy int32 arrays, the
-    intrinsics modelled as their definitions (the sums wrapped). Returns
-    ((ms, del, ins), code) as ``np_dp_cell``."""
+    """dp_cell of csrc/msa_dp.cuh in its plain form or (``dpx``) its DPX
+    form on numpy int32 arrays, the intrinsics modelled as their
+    definitions (the sums wrapped). Returns ((ms, del, ins), code) as
+    ``np_dp_cell``."""
     SM, TM = I32(~P.TIMEMASK), I32(P.TIMEMASK)
 
     def add(a, b):
@@ -304,17 +300,11 @@ def np_dp_cell_form(P, form, r, c, C, rows, read1, read0, ref1, ref0, dd,
               (1, P.POINTSoff_SUB2), P.POINTSoff_SUB))
     x_ms = np.where((ref1 != n_) & (read1 != n_), add(s_diag, sub_pen),
                     add(s_diag, P.POINTSoff_NOCALL))
-    if form == 2:
+    if dpx:
         m_best = _viaddmax(s_ins, P.POINTSoff_MATCH,
                            _viaddmax(s_del, P.POINTSoff_MATCH, m_ms))
         x_best = _viaddmax(s_ins, P.POINTSoff_SUB,
                            _viaddmax(s_del, P.POINTSoff_SUB, x_ms))
-        m_from, x_from = m_best == m_ms, x_best == x_ms
-    elif form == 1:
-        m_best = _vimax3(m_ms, add(s_del, P.POINTSoff_MATCH),
-                         add(s_ins, P.POINTSoff_MATCH))
-        x_best = _vimax3(x_ms, add(s_del, P.POINTSoff_SUB),
-                         add(s_ins, P.POINTSoff_SUB))
         m_from, x_from = m_best == m_ms, x_best == x_ms
     else:
         m_d, m_i = add(s_del, P.POINTSoff_MATCH), add(s_ins, P.POINTSoff_MATCH)
@@ -342,7 +332,7 @@ def np_dp_cell_form(P, form, r, c, C, rows, read1, read0, ref1, ref0, dd,
                    np.where(gap, I32(P.POINTSoff_GAP), I32(0)))
     d_ms = add(add(own[0] & SM, P.POINTSoff_DEL), adj)
     d_d = add(add(own[1] & SM, del_ext), adj)
-    if form >= 1:
+    if dpx:
         del_score, d_from = _vibmax(d_ms, d_d)
     else:
         del_score, d_from = np.maximum(d_ms, d_d), d_ms >= d_d
@@ -356,7 +346,7 @@ def np_dp_cell_form(P, form, r, c, C, rows, read1, read0, ref1, ref0, dd,
                                 (P.LIMIT_FOR_COST_4, P.POINTSoff_INS4),
                                 (P.LIMIT_FOR_COST_3, P.POINTSoff_INS3),
                                 (1, P.POINTSoff_INS2), P.POINTSoff_INS))
-    if form >= 1:
+    if dpx:
         ins_score, i_from = _vibmax(i_ms, i_i)
     else:
         ins_score, i_from = np.maximum(i_ms, i_i), i_ms >= i_i
@@ -370,7 +360,7 @@ def np_dp_cell_form(P, form, r, c, C, rows, read1, read0, ref1, ref0, dd,
         v = np.where(r == 0, 0, np.where(c == 0, ins0, v))
         vals.append(np.where((c < 0) | (c > C) | (r > rows),
                              I32(P.BADoff), v).astype(I32))
-    if form >= 1:
+    if dpx:
         m_di, del_ge = _vibmax(s_del, s_ins)
         _, diag_ge = _vibmax(s_diag, m_di)
         ms_arg = np.where(diag_ge, 0, np.where(del_ge, 1, 2))
@@ -418,7 +408,7 @@ def cell_operands(rng, P, n):
 
 @pytest.mark.parametrize("prof", ["short", "pacbio"])
 def test_dpx_forms_equal_the_plain_cell(prof):
-    """dp_cell's DPX forms give the plain form's bits on random and
+    """dp_cell's DPX form gives the plain form's bits on random and
     extreme packed operands, the int32 wrap of every sum included, and the
     plain form is the cell model of tests/test_torch_msa.py."""
     P = PROFILES[prof]
@@ -428,7 +418,7 @@ def test_dpx_forms_equal_the_plain_cell(prof):
     args = (r, c, C, rows, rd1, rd0, rf1, rf0, dd, own, up, ins0, sf)
     with np.errstate(over="ignore"):
         base_vals, base_code = np_dp_cell(P, *args)
-        forms = [np_dp_cell_form(P, f, *args) for f in (0, 1, 2)]
+        forms = [np_dp_cell_form(P, dpx, *args) for dpx in (False, True)]
     for vals, code in forms:
         for a, b in zip(vals, base_vals):
             np.testing.assert_array_equal(a, b)
@@ -453,7 +443,7 @@ def test_dpx_model_wraps_as_the_card_is_asked_to():
 
 def test_pipe_kernel_equals_plain_on_the_card():
     """The pipe mapping's K2, K3 and K1 operands against their plain
-    versions on the card, and dp_cell's forms against each other there
+    versions on the card, and dp_cell's two forms against each other there
     (chip_smoke.py does this at full size)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -485,4 +475,3 @@ def test_pipe_kernel_equals_plain_on_the_card():
     forms = msa_kernels.dp_cell_forms(torch.from_numpy(flat).to(dev),
                                       PROFILES["pacbio"]).cpu()
     assert torch.equal(forms[:, 1], forms[:, 0])
-    assert torch.equal(forms[:, 2], forms[:, 0])
