@@ -18,9 +18,28 @@ read simulator and SAM grader the smoke run uses (``randomreads``,
 ``decontaminate`` / ``crossblock``, ``crosscontaminate`` and
 ``postfilter``, the pair tools ``splitpairs`` / ``bbsplitpairs`` /
 ``repair``, ``filterbyname``, ``demuxbyname`` and ``splitnexteralmp`` /
-``splitnextera``, and the QC chain ``rqcfilter`` / ``bbqc``. Each entry
-names a module and its entry point; the tools that run on a device take
-``device=`` (default cuda).
+``splitnextera``, and the QC chain ``rqcfilter`` / ``bbqc``.
+
+The host tools, copies of the JAX package's that run on the host as they
+do there: ``reformat``, ``stats``, ``comparesam``, ``samtoroc`` and
+``calctruequality``; the k-mer sketch and clumping tools ``clumpify``,
+``loglog``, ``sketch`` / ``comparesketch``, ``bbcountunique`` and
+``reclusterbykmer``; the alignment small tools ``idmatrix``, ``idtree``,
+``msa``, ``cutprimers``, ``commonkmers`` and ``removesmartbell``; the
+jgi/driver long tail (``countgc`` ... ``dedupebymapping``); the taxonomy
+suite (``printtaxonomy``, ``taxtree``, ``gi2taxid``, ...); the synthetic
+data tools (``mutategenome`` / ``mutate``, ``shred``, ``fakereads`` /
+``bbfakereads``, ...); the barcode tools; ``sortsam``, ``sortbyname``,
+``grademerge``, ``callvariants`` / ``applyvariants``, ``shuffle``,
+``partition``, ``translate6frames``, ``kcompress``, ``filterbysequence``
+and ``bbwrap``; the PacBio site-stack pipeline (``stacksites`` ...
+``splitoffperfectcontigs``); the text utilities (``bbgrep``,
+``linecount``, ...); and ``liftover`` / ``translator``. Of these only
+``bbwrap`` maps reads: it hands its arguments, ``device=`` with them, to
+``bbmap`` for each input.
+
+Each entry names a module and its entry point; the tools that run on a
+device take ``device=`` (default cuda).
 """
 
 from __future__ import annotations
@@ -73,6 +92,124 @@ TOOLS = {
     "splitnextera": ("bbmap_tpu_torch.tools.pairtools", "splitnexteralmp"),
     "rqcfilter": ("bbmap_tpu_torch.tools.rqcfilter", "main"),
     "bbqc": ("bbmap_tpu_torch.tools.rqcfilter", "main"),
+    # format, statistics and SAM tools
+    "reformat": ("bbmap_tpu_torch.tools.reformat", "main"),
+    "stats": ("bbmap_tpu_torch.tools.stats", "main"),
+    "comparesam": ("bbmap_tpu_torch.tools.comparesam", "main"),
+    "samtoroc": ("bbmap_tpu_torch.tools.samtoroc", "main"),
+    "calctruequality": ("bbmap_tpu_torch.tools.calctruequality", "main"),
+    # k-mer sketches, clumping and clustering
+    "clumpify": ("bbmap_tpu_torch.tools.clumpify", "main"),
+    "loglog": ("bbmap_tpu_torch.tools.loglog", "main"),
+    "sketch": ("bbmap_tpu_torch.tools.sketch", "main"),
+    "comparesketch": ("bbmap_tpu_torch.tools.sketch", "main"),
+    "bbcountunique": ("bbmap_tpu_torch.tools.bbcountunique", "main"),
+    "reclusterbykmer": ("bbmap_tpu_torch.tools.recluster", "main"),
+    # alignment small tools
+    "idmatrix": ("bbmap_tpu_torch.tools.idtools", "idmatrix"),
+    "idtree": ("bbmap_tpu_torch.tools.idtools", "idtree"),
+    "msa": ("bbmap_tpu_torch.tools.idtools", "msa"),
+    "cutprimers": ("bbmap_tpu_torch.tools.idtools", "cutprimers"),
+    "commonkmers": ("bbmap_tpu_torch.tools.idtools", "commonkmers"),
+    "removesmartbell": ("bbmap_tpu_torch.tools.removesmartbell", "main"),
+    # the jgi/driver long tail
+    "countgc": ("bbmap_tpu_torch.tools.smalltools", "countgc"),
+    "readlength": ("bbmap_tpu_torch.tools.smalltools", "readlength"),
+    "fuse": ("bbmap_tpu_torch.tools.smalltools", "fuse"),
+    "getreads": ("bbmap_tpu_torch.tools.smalltools", "getreads"),
+    "splitsam": ("bbmap_tpu_torch.tools.smalltools", "splitsam"),
+    "rename": ("bbmap_tpu_torch.tools.smalltools", "rename"),
+    "testformat": ("bbmap_tpu_torch.tools.smalltools", "testformat"),
+    "textfile": ("bbmap_tpu_torch.tools.smalltools", "textfile"),
+    "printtime": ("bbmap_tpu_torch.tools.smalltools", "printtime"),
+    "phylip2fasta": ("bbmap_tpu_torch.tools.smalltools", "phylip2fasta"),
+    "matrixtocolumns": ("bbmap_tpu_torch.tools.smalltools", "matrixtocolumns"),
+    "mergeotus": ("bbmap_tpu_torch.tools.smalltools", "mergeotus"),
+    "summarizescafstats": ("bbmap_tpu_torch.tools.smalltools",
+                           "summarizescafstats"),
+    "summarizeseal": ("bbmap_tpu_torch.tools.smalltools", "summarizeseal"),
+    "muxbyname": ("bbmap_tpu_torch.tools.smalltools", "muxbyname"),
+    "filtersubs": ("bbmap_tpu_torch.tools.smalltools", "filtersubs"),
+    "reducesilva": ("bbmap_tpu_torch.tools.smalltools", "reducesilva"),
+    "estherfilter": ("bbmap_tpu_torch.tools.smalltools", "estherfilter"),
+    "bbest": ("bbmap_tpu_torch.tools.smalltools", "bbest"),
+    "summarizecrossblock": ("bbmap_tpu_torch.tools.smalltools",
+                            "summarizecrossblock"),
+    "summarizemerge": ("bbmap_tpu_torch.tools.smalltools", "summarizemerge"),
+    "processfrag": ("bbmap_tpu_torch.tools.smalltools", "processfrag"),
+    "filterassemblysummary": ("bbmap_tpu_torch.tools.smalltools",
+                              "filterassemblysummary"),
+    "dedupebymapping": ("bbmap_tpu_torch.tools.smalltools", "dedupebymapping"),
+    # taxonomy suite
+    "printtaxonomy": ("bbmap_tpu_torch.tools.taxonomy", "printtaxonomy"),
+    "findancestor": ("bbmap_tpu_torch.tools.taxonomy", "findancestor"),
+    "filterbytaxa": ("bbmap_tpu_torch.tools.taxonomy", "filterbytaxa"),
+    "taxtree": ("bbmap_tpu_torch.tools.taxonomy", "taxtree_build"),
+    "gitable": ("bbmap_tpu_torch.tools.taxonomy", "gitable"),
+    "gi2taxid": ("bbmap_tpu_torch.tools.taxonomy", "gi2taxid"),
+    "gi2ancestors": ("bbmap_tpu_torch.tools.taxonomy", "gi2ancestors"),
+    "sortbytaxa": ("bbmap_tpu_torch.tools.taxonomy", "sortbytaxa"),
+    "splitbytaxa": ("bbmap_tpu_torch.tools.taxonomy", "splitbytaxa"),
+    "taxonomy": ("bbmap_tpu_torch.tools.taxonomy", "printtaxonomy"),
+    # synthetic data
+    "mutategenome": ("bbmap_tpu_torch.tools.synth", "mutategenome"),
+    "shred": ("bbmap_tpu_torch.tools.synth", "shred"),
+    "makechimeras": ("bbmap_tpu_torch.tools.synth", "makechimeras"),
+    "addadapters": ("bbmap_tpu_torch.tools.synth", "addadapters"),
+    "fakereads": ("bbmap_tpu_torch.tools.synth", "fakereads"),
+    "synthmda": ("bbmap_tpu_torch.tools.synth", "synthmda"),
+    "fungalrelease": ("bbmap_tpu_torch.tools.synth", "fungalrelease"),
+    "bbfakereads": ("bbmap_tpu_torch.tools.synth", "fakereads"),
+    "mutate": ("bbmap_tpu_torch.tools.synth", "mutategenome"),
+    # barcodes
+    "countbarcodes": ("bbmap_tpu_torch.tools.barcodes", "countbarcodes"),
+    "mergebarcodes": ("bbmap_tpu_torch.tools.barcodes", "mergebarcodes"),
+    "correlatebarcodes": ("bbmap_tpu_torch.tools.barcodes",
+                          "correlatebarcodes"),
+    "filterbarcodes": ("bbmap_tpu_torch.tools.barcodes", "filterbarcodes"),
+    "removebadbarcodes": ("bbmap_tpu_torch.tools.barcodes",
+                          "removebadbarcodes"),
+    # sorting, variants and the rest
+    "sortsam": ("bbmap_tpu_torch.tools.sorttools", "sortsam"),
+    "sortbyname": ("bbmap_tpu_torch.tools.sorttools", "sortbyname"),
+    "grademerge": ("bbmap_tpu_torch.tools.sorttools", "grademerge"),
+    "callvariants": ("bbmap_tpu_torch.tools.callvariants", "main"),
+    "applyvariants": ("bbmap_tpu_torch.tools.callvariants", "applyvariants"),
+    "shuffle": ("bbmap_tpu_torch.tools.misc", "shuffle"),
+    "partition": ("bbmap_tpu_torch.tools.misc", "partition"),
+    "translate6frames": ("bbmap_tpu_torch.tools.misc", "translate6frames"),
+    "kcompress": ("bbmap_tpu_torch.tools.misc", "kcompress"),
+    "bbwrap": ("bbmap_tpu_torch.tools.misc", "bbwrap"),
+    "filterbysequence": ("bbmap_tpu_torch.tools.misc", "filterbysequence"),
+    # the PacBio site-stack pipeline
+    "stacksites": ("bbmap_tpu_torch.tools.pacbio", "stacksites_main"),
+    "calccoveragefromsites": ("bbmap_tpu_torch.tools.pacbio",
+                              "calccoverage_main"),
+    "processstackedsites": ("bbmap_tpu_torch.tools.pacbio",
+                            "processstacked_main"),
+    "mergefastacontigs": ("bbmap_tpu_torch.tools.pacbio",
+                          "mergefastacontigs_main"),
+    "partitionreads": ("bbmap_tpu_torch.tools.pacbio", "partitionreads_main"),
+    "partitionfastafile": ("bbmap_tpu_torch.tools.pacbio",
+                           "partitionfastafile_main"),
+    "removenfromchromosome": ("bbmap_tpu_torch.tools.pacbio",
+                              "removenfromchromosome_main"),
+    "sortsites": ("bbmap_tpu_torch.tools.pacbio", "sortsites_main"),
+    "splitoffperfectcontigs": ("bbmap_tpu_torch.tools.pacbio",
+                               "splitoffperfectcontigs_main"),
+    # text utilities, liftover
+    "concatenatetextfiles": ("bbmap_tpu_torch.tools.textutils",
+                             "concatenatetextfiles"),
+    "filterlines": ("bbmap_tpu_torch.tools.textutils", "filterlines"),
+    "countsharedlines": ("bbmap_tpu_torch.tools.textutils",
+                         "countsharedlines"),
+    "replaceheaders": ("bbmap_tpu_torch.tools.textutils", "replaceheaders"),
+    "statswrapper": ("bbmap_tpu_torch.tools.textutils", "statswrapper"),
+    "bbgrep": ("bbmap_tpu_torch.tools.textutils", "grep"),
+    "linecount": ("bbmap_tpu_torch.tools.textutils", "linecount"),
+    "renamebyheader": ("bbmap_tpu_torch.tools.textutils", "renamebyheader"),
+    "liftover": ("bbmap_tpu_torch.tools.liftover", "main"),
+    "translator": ("bbmap_tpu_torch.tools.liftover", "main"),
 }
 
 

@@ -152,12 +152,28 @@ Phases, each timed on its own line:
    a histogram and put on the ``kernels`` line, K2 timed at each of
    their shapes in the pipe, one-row and warp mappings, each held to the
    plain version's out).
+11. host tools: ``bbwrap`` (``tools/misc.bbwrap``, a ``bbmap`` run an
+   input) over two single-end inputs of 500 reads on the 1 Mbp slice
+   (the variants' pairs, each mate file an input), on the card and, in a
+   process of its own, on the CPU: both SAM files and the report
+   byte-equal; one run of each other host tool module the port copied
+   (reformat, stats, comparesam, samtoroc, calctruequality, clumpify,
+   loglog, sketch, bbcountunique, recluster, idtools, removesmartbell,
+   smalltools, synth, barcodes, sorttools, callvariants, pacbio,
+   textutils, liftover) on small inputs written here, each exit 0 with
+   output, its wall printed; then bbwrap on the card over the genome at
+   32,768 pairs, twice: the pairs interleaved in one file
+   (``interleaved=t``, the pair stream) and their first mates alone (the
+   single-end stream), each input's reads/s over its mapping time, its
+   mapped fraction and grading and its launches; fails when either input
+   launched no K2 or no fill + walk, or maps below 0.95.
 
 Each path's launch counts (and the tools' device scan and ladder
 counters, and kcount's calls) are set to 0 just before it and read just
 after; the kmer tools' path is decontaminate's run on the card (its two
 single-end ``bbmap`` runs); the dedupe path is dedupe's run over 50,000
-reads, the mapper variants' path bbmapskimmer's over 32,768 pairs. The
+reads, the mapper variants' path bbmapskimmer's over 32,768 pairs, the
+host tools' path bbwrap's two runs over 32,768 pairs (both inputs). The
 ``kernels`` line gives each kernel's launches on each path and, as
 ``launches``, on the path whose shape it is timed at. Any failure raises
 and exits non-zero without the final ``ok`` line. It exits 2 when no CUDA device is available or when it is not run
@@ -3493,6 +3509,231 @@ def onerow_at_cli_shapes(device, gbases, big: dict) -> tuple:
     return hist, err
 
 
+# one run of each host tool module the port copied but misc (whose bbwrap
+# the phase runs at size): module -> (tool, arguments); {d} is the
+# phase's inputs, {o} the run's own directory
+HOST_TOOL_RUNS = {
+    "reformat": ("reformat", ["in={d}/small1.fq", "out={o}/r.fa",
+                              "qtrim=rl", "trimq=10"]),
+    "stats": ("stats", ["in={d}/ref.fa"]),
+    "comparesam": ("comparesam", ["in1={d}/card_a.sam",
+                                  "in2={d}/cpu_a.sam", "out={o}/diff.sam"]),
+    "samtoroc": ("samtoroc", ["in={d}/card_a.sam"]),
+    "calctruequality": ("calctruequality", ["in={d}/card_a.sam",
+                                            "out={o}/tq.txt"]),
+    "clumpify": ("clumpify", ["in={d}/small1.fq", "out={o}/c.fq",
+                              "dedupe=t"]),
+    "loglog": ("loglog", ["in={d}/small1.fq"]),
+    "sketch": ("sketch", ["in={d}/ref.fa", "out={o}/ref.sketch",
+                          "size=1000"]),
+    "bbcountunique": ("bbcountunique", ["in={d}/small1.fq",
+                                        "out={o}/u.txt", "interval=100"]),
+    "recluster": ("reclusterbykmer", ["in={d}/few.fq", "out={o}/o.fq"]),
+    "idtools": ("idmatrix", ["in={d}/few.fa", "out={o}/m.tsv"]),
+    "removesmartbell": ("removesmartbell", ["in={d}/pb.fq",
+                                            "out={o}/split.fq"]),
+    "smalltools": ("countgc", ["in={d}/ref.fa", "out={o}/gc.txt"]),
+    "synth": ("mutategenome", ["in={d}/ref.fa", "out={o}/m.fa",
+                               "subrate=0.01", "seed=1"]),
+    "barcodes": ("countbarcodes", ["in={d}/codes.fq", "out={o}/c.txt",
+                                   "expected=ACGTAC"]),
+    "sorttools": ("sortsam", ["in={d}/card_a.sam", "out={o}/s.sam"]),
+    "callvariants": ("callvariants", ["in={d}/card_a.sam",
+                                      "ref={d}/ref.fa", "out={o}/v.txt"]),
+    "pacbio": ("stacksites", ["in={d}/card_a.sam", "out={o}/sites.txt"]),
+    "textutils": ("linecount", ["in={d}/card_a.sam"]),
+    "liftover": ("liftover", ["chain={d}/a.chain", "in={d}/in.bed",
+                              "out={o}/out.bed"]),
+}
+
+
+class _KeptOpen(io.BytesIO):
+    """A captured stream that outlives the tools that close stdout."""
+
+    def close(self):
+        pass
+
+
+def run_host_tool(tool: str, args) -> tuple:
+    """The port's CLI entry point of ``tool`` in this process: (exit code,
+    stdout, stderr)."""
+    import importlib
+    from bbmap_tpu_torch.__main__ import TOOLS
+    module, entry = TOOLS[tool]
+    streams = [io.TextIOWrapper(_KeptOpen(), encoding="utf-8",
+                                write_through=True) for _ in range(2)]
+    saved = sys.stdout, sys.stderr
+    sys.stdout, sys.stderr = streams
+    try:
+        rc = getattr(importlib.import_module(module), entry)(list(args))
+    finally:
+        sys.stdout, sys.stderr = saved
+    return (rc, *(s.buffer.getvalue().decode() for s in streams))
+
+
+def host_tool_inputs(d: Path, gbases) -> None:
+    """The small inputs of HOST_TOOL_RUNS beside the variants' (the first
+    24 reads of small1.fq as fastq and fasta, PacBio-like reads around a
+    SMRTbell adapter, barcoded reads, a chain and a bed file)."""
+    from bbmap_tpu_torch.tools.removesmartbell import SMARTBELL
+    lines = (d / "small1.fq").read_bytes().split(b"\n")[:96]
+    (d / "few.fq").write_bytes(b"\n".join(lines) + b"\n")
+    (d / "few.fa").write_bytes(b"".join(
+        b">" + lines[i][1:] + b"\n" + lines[i + 1] + b"\n"
+        for i in range(0, 96, 4)))
+    g = bytes(gbases[:4000])
+    with open(d / "pb.fq", "wb") as fh:
+        for i, read in enumerate((g[:300] + SMARTBELL + g[300:550],
+                                  g[600:900] + SMARTBELL + g[900:1300]
+                                  + SMARTBELL + g[1300:1500], g[2000:2400])):
+            fh.write(b"@zmw%d\n%s\n+\n%s\n" % (i, read, b"I" * len(read)))
+    with open(d / "codes.fq", "w") as fh:
+        for i, code in enumerate(("ACGTAC", "ACGTAC", "ACGTAA", "NNGTAC")):
+            fh.write(f"@read{i}:{code}\nACGT\n+\nIIII\n")
+    (d / "a.chain").write_text(
+        "chain 1000 chrA 300 + 0 100 chrB 200 + 10 110 1\n60\t10\t5\n30\n"
+        "\nchain 900 chrA 300 + 200 260 chrC 120 - 20 80 2\n60\n\n")
+    (d / "in.bed").write_text("chrA\t5\t15\tx\nchrA\t75\t85\tseg2\n"
+                              "chrA\t210\t220\tminus\n")
+
+
+def _interleave(a: Path, b: Path, out: Path) -> None:
+    la, lb = (p.read_bytes().rstrip(b"\n").split(b"\n") for p in (a, b))
+    with open(out, "wb") as fh:
+        for i in range(0, len(la), 4):
+            fh.write(b"\n".join(la[i:i + 4] + lb[i:i + 4]) + b"\n")
+
+
+def _dp_launched(launches: dict) -> bool:
+    """Whether a run launched a K2 (any score mapping) and a fill + walk
+    (the fused kernel, or a fill and the walk kernel)."""
+    k2 = launches["msa_score"] + launches["msa_score_segments"]
+    k3 = sum(launches[n] for n in FILL_WALK.values()) + \
+        min(launches["msa_fill"], launches["msa_walk"])
+    return k2 > 0 and k3 > 0
+
+
+def bbwrap_big(device, d: Path) -> dict:
+    """bbwrap on the card over the genome: input A the N_VARIANT_BIG pairs
+    interleaved (``interleaved=t``: the pair stream), input B their first
+    mates (the single-end stream), one bbwrap run each, since bbwrap hands
+    every argument to every input. Each input's reads/s over its mapping
+    time, grading and launches (the counts set to 0 before A and read
+    after each input; "launches", read after B, is the host tools' path)."""
+    import re
+    out = {}
+    reset_counts()
+    seen = launch_counts()
+    for key, name, extra, reads in (
+            ("A", "bigA.fq", ["interleaved=t"], 2 * N_VARIANT_BIG),
+            ("B", "big1.fq", [], N_VARIANT_BIG)):
+        sam = d / f"big{key}.sam"
+        t0 = time.time()
+        rc, report = run_tool("bbwrap", [
+            f"ref={d}/genome.fa", f"in={d}/{name}", f"out={sam}", *extra,
+            f"device={device}"], keep_time=True)
+        _sync(device)
+        wall = time.time() - t0
+        if rc != 0:
+            raise AssertionError(f"bbwrap {key} exited {rc}: {report}")
+        now = launch_counts()
+        launches = {k: now[k] - seen[k] for k in now}
+        seen = now
+        m = re.search(r"Time:\s*([0-9.]+) seconds", report)
+        if m is None:
+            raise AssertionError(f"bbwrap {key} reported no mapping time")
+        s = grade_paired(sam)
+        n = max(1, s["primary"])
+        map_s = float(m.group(1))
+        out[key] = {"input": name, "reads": reads, "wall_s": wall,
+                    "map_s": map_s, "reads_per_s": reads / map_s,
+                    "primary": s["primary"],
+                    "mapped_fraction": s["mapped"] / n,
+                    "sensitivity": s["loose"] / n, "strict": s["strict"] / n,
+                    "launches": {k: v for k, v in launches.items() if v}}
+        say(f"bbwrap input {key} ({name}{', interleaved' if extra else ''})"
+            f" on the card: {reads} reads, {out[key]['reads_per_s']:.1f} "
+            f"reads/s over its mapping time {map_s:.3f} s (wall with the "
+            f"index's load {wall:.2f} s), mapped "
+            f"{out[key]['mapped_fraction']:.4f}, sensitivity (within 20 bp) "
+            f"{out[key]['sensitivity']:.4f}, strict "
+            f"{out[key]['strict']:.4f}; launches {out[key]['launches']}")
+        if s["primary"] != reads:
+            raise AssertionError(f"bbwrap {key}: {s['primary']} primary "
+                                 f"lines for {reads} reads")
+        if not _dp_launched(launches):
+            raise AssertionError(f"bbwrap {key} launched no K2 or no fill "
+                                 f"+ walk: {out[key]['launches']}")
+        if out[key]["mapped_fraction"] < 0.95:
+            raise AssertionError(f"bbwrap {key} mapped "
+                                 f"{out[key]['mapped_fraction']}")
+        sam.unlink()
+    out["launches"] = seen
+    return out
+
+
+def host_tools_phase(device, gbases) -> dict:
+    """bbwrap card vs CPU over two single-end inputs of N_VARIANT_PAIRS
+    reads (the variants' mate files on the 1 Mbp slice, nodisk), one run
+    of each other copied host tool module (HOST_TOOL_RUNS), then bbwrap at
+    N_VARIANT_BIG pairs (``bbwrap_big``); a CPU process builds the
+    genome's index beside the first two for the last to load."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_host")
+    cpu_runs = []
+    try:
+        d = Path(tmp)
+        t = time.time()
+        variant_inputs(gbases, d)
+        _interleave(d / "big1.fq", d / "big2.fq", d / "bigA.fq")
+        (d / "warm").mkdir()
+        (d / "warm.fq").write_bytes(b"\n".join(
+            (d / "small1.fq").read_bytes().split(b"\n")[:16]) + b"\n")
+        cpu_runs.append(CpuRun(d / "warm", "bbmap", [
+            f"ref={d}/genome.fa", f"in={d}/warm.fq",
+            f"out={d}/warm/out.sam"]))
+        say(f"host tools inputs: {time.time() - t:.1f} s")
+        wrap = ["ref={d}/ref.fa", "in={d}/small1.fq,{d}/small2.fq",
+                "out={o}/a.sam,{o}/b.sam", "nodisk"]
+        outs = {side: d / f"wrap_{side}" for side in ("card", "cpu")}
+        for o in outs.values():
+            o.mkdir()
+        cpu = CpuRun(outs["cpu"], "bbwrap",
+                     [a.format(d=d, o=outs["cpu"]) for a in wrap])
+        cpu_runs.append(cpu)
+        card = cli_card(device, outs["card"], "bbwrap",
+                        [a.format(d=d, o=outs["card"]) for a in wrap])
+        res = {"bbwrap_cli": cli_compare("bbwrap", card, cpu.finish(900))}
+        if not _dp_launched(card["launches"]):
+            raise AssertionError("bbwrap on the card launched no K2 or no "
+                                 "fill + walk")
+        for side, o in outs.items():
+            shutil.copy(o / "a.sam", d / f"{side}_a.sam")
+        host_tool_inputs(d, gbases)
+        res["modules"] = {}
+        for module, (tool, template) in HOST_TOOL_RUNS.items():
+            o = d / f"mod_{module}"
+            o.mkdir()
+            t = time.time()
+            rc, out, err = run_host_tool(tool, [a.format(d=d, o=o)
+                                               for a in template])
+            wall = time.time() - t
+            size = len(out) + sum(p.stat().st_size for p in o.iterdir())
+            if rc != 0 or not size:
+                raise AssertionError(f"{module}: {tool} exited {rc} with "
+                                     f"{size} bytes of output: {err[-800:]}")
+            res["modules"][module] = {"tool": tool, "wall_s": wall,
+                                      "output_bytes": size}
+            say(f"host tool {module}: {tool} exit 0, {size} bytes of "
+                f"output, {wall:.3f} s")
+        cpu_runs[0].finish(900)
+        res["big"] = bbwrap_big(device, d)
+    finally:
+        for r in cpu_runs:
+            r.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
 def _device_profile(fn, tag: str, wall_ms: float, top: int = 12) -> None:
     """Run fn under torch.profiler (CPU + CUDA activities) and print the
     number of kernels, their summed device time, the host time inside
@@ -3863,6 +4104,20 @@ def main() -> int:
         f"{vb['bbmapskimmer']['launches']['msa_fill_pipe']} pipe; CLIs "
         f"byte-equal between the card and the CPU; card {smi}")
 
+    t = time.time()
+    host = host_tools_phase(device, gbases)
+    hb = host["big"]
+    say(f"phase host tools: {time.time() - t:.1f} s; bbwrap over two "
+        f"inputs byte-equal between the card and the CPU; "
+        f"{len(host['modules'])} other host tool modules exit 0 in "
+        f"{sum(r['wall_s'] for r in host['modules'].values()):.2f} s; "
+        f"bbwrap at {N_VARIANT_BIG} pairs interleaved "
+        f"{hb['A']['reads_per_s']:.1f} reads/s (mapped "
+        f"{hb['A']['mapped_fraction']:.4f}, sensitivity "
+        f"{hb['A']['sensitivity']:.4f}), their first mates single-end "
+        f"{hb['B']['reads_per_s']:.1f} reads/s (mapped "
+        f"{hb['B']['mapped_fraction']:.4f}); card {smi}")
+
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "bbmap_tpu"))
     if foreign:
@@ -3871,8 +4126,9 @@ def main() -> int:
     # and read at its end: K1 at its own entry point ("k1_entry"), the
     # short-read path ("main"), the long-read path ("long"),
     # decontaminate's two single-end bbmap runs on the card
-    # ("kmer_tools"), dedupe over N_DEDUPE_BIG reads ("dedupe") and
-    # bbmapskimmer over N_VARIANT_BIG pairs ("mapper_variants");
+    # ("kmer_tools"), dedupe over N_DEDUPE_BIG reads ("dedupe"),
+    # bbmapskimmer over N_VARIANT_BIG pairs ("mapper_variants") and
+    # bbwrap's two inputs at N_VARIANT_BIG pairs ("host_tools");
     # "launches" is the count on the path whose shape the entry is timed
     # at: the band kernels and the walk kernel (short fills and walks take
     # the fused kernel) on the long-read path, K1 at its entry point, the
@@ -3915,7 +4171,8 @@ def main() -> int:
              "long": lres["launches"],
              "kmer_tools": kcli["decontaminate"]["launches"],
              "dedupe": dd["big"]["kernel_launches"],
-             "mapper_variants": vb["bbmapskimmer"]["launches"]}
+             "mapper_variants": vb["bbmapskimmer"]["launches"],
+             "host_tools": hb["launches"]}
     kernels = []
     for name, key in counted.items():
         kt = ktimes[name]
@@ -3961,6 +4218,9 @@ def main() -> int:
         "variants": {k: {f: v for f, v in r.items() if f != "report"}
                      if isinstance(r, dict) else r
                      for k, r in vv.items()}}}), flush=True)
+    print(json.dumps({"host_tools": {
+        "bbwrap_cli": host["bbwrap_cli"], "modules": host["modules"],
+        "bbwrap_big": {k: hb[k] for k in ("A", "B")}}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

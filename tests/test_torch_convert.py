@@ -287,7 +287,13 @@ PORT_DROPPED = {
     "index.kmer_big", "tools.kmercountexact", "index.kcount",
     "tools.tadpole", "tools.bbnorm", "tools.pileup", "tools.covtools",
     "tools.pairtools", "tools.rqcfilter", "ops.banded", "ops.banded_device",
-    "tools.dedupe", "tools.bbsplit"])
+    "tools.dedupe", "tools.bbsplit", "tools.reformat", "tools.stats",
+    "tools.comparesam", "tools.samtoroc", "tools.calctruequality",
+    "tools.clumpify", "tools.loglog", "tools.sketch", "tools.bbcountunique",
+    "tools.recluster", "tools.idtools", "tools.removesmartbell",
+    "tools.smalltools", "tools.synth", "tools.barcodes", "tools.sorttools",
+    "tools.callvariants", "tools.misc", "tools.pacbio", "tools.textutils",
+    "tools.liftover"])
 def test_copied_module_has_the_reference_names(mod):
     """Each copied module defines what the reference module defines, less
     what it leaves out on purpose, and beside it only what the port added
