@@ -62,6 +62,26 @@
 // against each other: the lower triangle j < i, d(query i, query j) <= E
 // as a (Q, Q) byte matrix. Where a tile and its group would not fit a
 // block's shared memory (contigs), the same loop reads them in place.
+//
+// The containment mapping (banded_contained_kernel, dedupe's containment
+// check): a block of reads against the windows that the host cut from the
+// containers kept before the block, in one launch, where the thread
+// mapping made two launches and a fetch a read. The work is a few
+// thousand band cells a read (E = 2 tol, infix), far below a microsecond
+// of the card's rate; what bounded it was the launch and the
+// synchronisation. A pair table (query column, window column, window
+// length) names the pairs; pair p runs on threads 2p (the read) and 2p + 1
+// (its reverse complement), so that a query's pairs sit on neighbouring
+// threads. The reverse complement is read in place: the forward column
+// backward, each byte through the complement table (kComp, core/bases
+// COMP_ASCII: ACGTacgt complemented, every other byte as it is), which a
+// block stages in shared memory beside an identity table, so that both
+// orientations run the same instructions. Each distance is thread_pair's
+// (the band in registers, the same early stop). A query's flag, any(d <=
+// tol), is one warp vote among the lanes of that query (__match_any_sync,
+// __ballot_sync) and a plain store of 1 into flags the caller zeroed:
+// order-free. Past 64 band cells (tol >= 16) the same table runs in the
+// same launch on the warp body, a warp an orientation of a pair.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -99,16 +119,57 @@ __device__ __forceinline__ int row0_cell(int d, int w, int E, int lb,
   return ok ? (infix ? 0 : j) : E + 1;
 }
 
+// The complement of each byte (core/bases.COMP_ASCII): A<->T, C<->G,
+// a<->t, c<->g, every other byte itself.
+__constant__ uint8_t kComp[256] = {
+    0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15,
+    16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30, 31,
+    32, 33, 34, 35, 36, 37, 38, 39, 40, 41, 42, 43, 44, 45, 46, 47,
+    48, 49, 50, 51, 52, 53, 54, 55, 56, 57, 58, 59, 60, 61, 62, 63,
+    64, 84, 66, 71, 68, 69, 70, 67, 72, 73, 74, 75, 76, 77, 78, 79,
+    80, 81, 82, 83, 65, 85, 86, 87, 88, 89, 90, 91, 92, 93, 94, 95,
+    96, 116, 98, 103, 100, 101, 102, 99, 104, 105, 106, 107, 108, 109, 110,
+    111,
+    112, 113, 114, 115, 97, 117, 118, 119, 120, 121, 122, 123, 124, 125, 126,
+    127,
+    128, 129, 130, 131, 132, 133, 134, 135, 136, 137, 138, 139, 140, 141, 142,
+    143,
+    144, 145, 146, 147, 148, 149, 150, 151, 152, 153, 154, 155, 156, 157, 158,
+    159,
+    160, 161, 162, 163, 164, 165, 166, 167, 168, 169, 170, 171, 172, 173, 174,
+    175,
+    176, 177, 178, 179, 180, 181, 182, 183, 184, 185, 186, 187, 188, 189, 190,
+    191,
+    192, 193, 194, 195, 196, 197, 198, 199, 200, 201, 202, 203, 204, 205, 206,
+    207,
+    208, 209, 210, 211, 212, 213, 214, 215, 216, 217, 218, 219, 220, 221, 222,
+    223,
+    224, 225, 226, 227, 228, 229, 230, 231, 232, 233, 234, 235, 236, 237, 238,
+    239,
+    240, 241, 242, 243, 244, 245, 246, 247, 248, 249, 250, 251, 252, 253, 254,
+    255};
+
+// Byte off of a, through the table tab when MAP (the staged identity or
+// complement), else as it is.
+template <bool MAP>
+__device__ __forceinline__ unsigned a_byte(const uint8_t* a, long long off,
+                                           const uint8_t* tab) {
+  const unsigned x = a[off];
+  return MAP ? tab[x] : x;
+}
+
 // ---------------------------------------------------------------------
 // A thread a pair, W >= 2E + 1 band cells in registers: one pair's
 // distance, a (la <= La bytes) and b (Lb bytes, 255 past them) read at a
-// stride of a_ps / b_ps bytes a position, in device or shared memory.
+// stride of a_ps / b_ps bytes a position (a_ps may be negative), in device
+// or shared memory; MAP: a's bytes through the 256-byte table tab.
 // ---------------------------------------------------------------------
-template <int W>
+template <int W, bool MAP = false>
 __device__ __forceinline__ int thread_pair(const uint8_t* a, long long a_ps,
                                            int la, int La, const uint8_t* b,
                                            long long b_ps, int lb, int Lb,
-                                           int E, int infix) {
+                                           int E, int infix,
+                                           const uint8_t* tab = nullptr) {
   const int w = 2 * E + 1, BIG = E + 1;
   if (!infix && abs(lb - la) > E) return BIG;
   constexpr int NW = (W + 3) / 4;
@@ -128,10 +189,10 @@ __device__ __forceinline__ int thread_pair(const uint8_t* a, long long a_ps,
   }
   const int rows = min(la, La);
   // a[i-1] and the byte that enters the window at row i + 1
-  unsigned ai = rows >= 1 ? a[0] : 0u;
+  unsigned ai = rows >= 1 ? a_byte<MAP>(a, 0, tab) : 0u;
   unsigned nb = byte_at(b, b_ps, 1 - E + TOP, Lb);
   for (int i = 1; i <= rows; ++i) {
-    const unsigned ai_next = i < rows ? a[i * a_ps] : 0u;
+    const unsigned ai_next = i < rows ? a_byte<MAP>(a, i * a_ps, tab) : 0u;
     const unsigned nb_next = byte_at(b, b_ps, i + 1 - E + TOP, Lb);
     const uint32_t rep = ai * 0x01010101u;
     uint32_t m[NW];
@@ -196,6 +257,11 @@ __device__ __forceinline__ int sweep_chunk(int x, int lane, int& carry) {
   return r;
 }
 
+// 32-cell chunks of the band at E
+__host__ __device__ inline int warp_chunks(int E) {
+  return (2 * E + 1 + 31) / 32;
+}
+
 __device__ __forceinline__ int warp_min(int x) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
@@ -204,38 +270,32 @@ __device__ __forceinline__ int warp_min(int x) {
 }
 
 // ---------------------------------------------------------------------
-// A warp a pair, NC chunks of 32 cells in registers.
+// A warp a pair, NC chunks of 32 cells in registers: the pair's distance
+// on every lane, in the layout of thread_pair (MAP: a through tab).
 // ---------------------------------------------------------------------
-template <int NC>
-__global__ void __launch_bounds__(kThreads)
-    banded_warp_kernel(Pairs p) {
-  const int lane = threadIdx.x & 31;
-  const long long t = (blockIdx.x * (long long)blockDim.x + threadIdx.x) >> 5;
-  if (t >= p.n) return;                       // the whole warp
-  const int E = p.E, w = 2 * E + 1, BIG = E + 1;
-  const int la = p.la[t * p.la_pp], lb = p.lb[t * p.lb_pp];
-  if (!p.infix && abs(lb - la) > E) {
-    if (lane == 0) p.out[t] = BIG;
-    return;
-  }
-  const uint8_t* a = p.a + t * p.a_pp;
-  const uint8_t* b = p.b + t * p.b_pp;
+template <int NC, bool MAP = false>
+__device__ __forceinline__ int warp_pair(const uint8_t* a, long long a_ps,
+                                         int la, int La, const uint8_t* b,
+                                         long long b_ps, int lb, int Lb,
+                                         int E, int infix, int lane,
+                                         const uint8_t* tab = nullptr) {
+  const int w = 2 * E + 1, BIG = E + 1;
+  if (!infix && abs(lb - la) > E) return BIG;
   constexpr int TOP = 32 * NC - 1;
   int v[NC];
   unsigned wb[NC];                            // b[i - E - 1 + d] at row i
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
     const int d = 32 * c + lane;
-    v[c] = row0_cell(d, w, E, lb, p.infix);
-    wb[c] = byte_at(b, p.b_ps, d - E, p.Lb);
+    v[c] = row0_cell(d, w, E, lb, infix);
+    wb[c] = byte_at(b, b_ps, d - E, Lb);
   }
-  const int rows = min(la, p.La);
-  unsigned ai = rows >= 1 ? a[0] : 0u;
-  unsigned nb = byte_at(b, p.b_ps, 1 - E + TOP, p.Lb);
-  bool saturated = false;
+  const int rows = min(la, La);
+  unsigned ai = rows >= 1 ? a_byte<MAP>(a, 0, tab) : 0u;
+  unsigned nb = byte_at(b, b_ps, 1 - E + TOP, Lb);
   for (int i = 1; i <= rows; ++i) {
-    const unsigned ai_next = i < rows ? a[i * p.a_ps] : 0u;
-    const unsigned nb_next = byte_at(b, p.b_ps, i + 1 - E + TOP, p.Lb);
+    const unsigned ai_next = i < rows ? a_byte<MAP>(a, i * a_ps, tab) : 0u;
+    const unsigned nb_next = byte_at(b, b_ps, i + 1 - E + TOP, Lb);
     const int dlo = E + 1 - i, dhi = min(lb + E - i, w - 1);
     int carry = BIG, rowmin = BIG;
 #pragma unroll
@@ -258,54 +318,55 @@ __global__ void __launch_bounds__(kThreads)
     }
     ai = ai_next;
     nb = nb_next;
-    if (__all_sync(kFull, rowmin > E)) {
-      saturated = true;
-      break;
-    }
+    if (__all_sync(kFull, rowmin > E)) return BIG;
   }
   int res = BIG;
-  if (!saturated) {
-    const int df = lb - la + E;
+  const int df = lb - la + E;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int d = 32 * c + lane;
-      if (p.infix) {
-        const int jsf = la - E + d;
-        if (d < w && jsf >= 0 && jsf <= lb) res = min(res, v[c]);
-      } else if (d == df) {
-        res = v[c];
-      }
+  for (int c = 0; c < NC; ++c) {
+    const int d = 32 * c + lane;
+    if (infix) {
+      const int jsf = la - E + d;
+      if (d < w && jsf >= 0 && jsf <= lb) res = min(res, v[c]);
+    } else if (d == df) {
+      res = v[c];
     }
-    res = warp_min(res);
   }
+  return warp_min(res);
+}
+
+template <int NC>
+__global__ void __launch_bounds__(kThreads)
+    banded_warp_kernel(Pairs p) {
+  const int lane = threadIdx.x & 31;
+  const long long t = (blockIdx.x * (long long)blockDim.x + threadIdx.x) >> 5;
+  if (t >= p.n) return;                       // the whole warp
+  const int res = warp_pair<NC>(p.a + t * p.a_pp, p.a_ps, p.la[t * p.la_pp],
+                                p.La, p.b + t * p.b_pp, p.b_ps,
+                                p.lb[t * p.lb_pp], p.Lb, p.E, p.infix, lane);
   if (lane == 0) p.out[t] = res;
 }
 
 // ---------------------------------------------------------------------
-// A warp a pair, the band (nc chunks) in a scratch row of device memory.
+// A warp a pair, the band (nc chunks) in a scratch row of device memory
+// (band: 32 nc ints of its own), in the layout of warp_pair.
 // ---------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
-    banded_warp_mem_kernel(Pairs p, int* scratch) {
-  const int lane = threadIdx.x & 31;
-  const long long t = (blockIdx.x * (long long)blockDim.x + threadIdx.x) >> 5;
-  if (t >= p.n) return;
-  const int E = p.E, w = 2 * E + 1, BIG = E + 1;
+template <bool MAP = false>
+__device__ __forceinline__ int warp_mem_pair(const uint8_t* a,
+                                             long long a_ps, int la, int La,
+                                             const uint8_t* b, long long b_ps,
+                                             int lb, int Lb, int E, int infix,
+                                             int lane, int* band,
+                                             const uint8_t* tab = nullptr) {
+  const int w = 2 * E + 1, BIG = E + 1;
   const int nc = (w + 31) / 32, cells = 32 * nc;
-  const int la = p.la[t * p.la_pp], lb = p.lb[t * p.lb_pp];
-  if (!p.infix && abs(lb - la) > E) {
-    if (lane == 0) p.out[t] = BIG;
-    return;
-  }
-  const uint8_t* a = p.a + t * p.a_pp;
-  const uint8_t* b = p.b + t * p.b_pp;
-  int* band = scratch + t * cells;
+  if (!infix && abs(lb - la) > E) return BIG;
   for (int d = lane; d < cells; d += 32) band[d] = row0_cell(d, w, E, lb,
-                                                             p.infix);
+                                                             infix);
   __syncwarp();
-  const int rows = min(la, p.La);
-  bool saturated = false;
+  const int rows = min(la, La);
   for (int i = 1; i <= rows; ++i) {
-    const unsigned ai = a[(i - 1) * p.a_ps];
+    const unsigned ai = a_byte<MAP>(a, (i - 1) * a_ps, tab);
     const int dlo = E + 1 - i, dhi = min(lb + E - i, w - 1);
     int carry = BIG, rowmin = BIG;
     for (int c = 0; c < nc; ++c) {
@@ -313,7 +374,7 @@ __global__ void __launch_bounds__(kThreads)
       const int pv = band[d];
       const int up = d + 1 < cells ? band[d + 1] : BIG;
       __syncwarp();
-      const unsigned bj = byte_at(b, p.b_ps, i - E - 1 + d, p.Lb);
+      const unsigned bj = byte_at(b, b_ps, i - E - 1 + d, Lb);
       int x = min(pv + (bj != ai ? 1 : 0), up + 1);
       x = (d >= dlo && d <= dhi) ? x : BIG;
       const int vd = min(sweep_chunk(x, lane, carry), BIG);
@@ -321,24 +382,31 @@ __global__ void __launch_bounds__(kThreads)
       rowmin = min(rowmin, vd);
       __syncwarp();
     }
-    if (__all_sync(kFull, rowmin > E)) {
-      saturated = true;
-      break;
-    }
+    if (__all_sync(kFull, rowmin > E)) return BIG;
   }
   int res = BIG;
-  if (!saturated) {
-    const int df = lb - la + E;
-    for (int d = lane; d < cells; d += 32) {
-      if (p.infix) {
-        const int jsf = la - E + d;
-        if (d < w && jsf >= 0 && jsf <= lb) res = min(res, band[d]);
-      } else if (d == df) {
-        res = band[d];
-      }
+  const int df = lb - la + E;
+  for (int d = lane; d < cells; d += 32) {
+    if (infix) {
+      const int jsf = la - E + d;
+      if (d < w && jsf >= 0 && jsf <= lb) res = min(res, band[d]);
+    } else if (d == df) {
+      res = band[d];
     }
-    res = warp_min(res);
   }
+  return warp_min(res);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    banded_warp_mem_kernel(Pairs p, int* scratch) {
+  const int lane = threadIdx.x & 31;
+  const long long t = (blockIdx.x * (long long)blockDim.x + threadIdx.x) >> 5;
+  if (t >= p.n) return;
+  const int cells = 32 * ((2 * p.E + 1 + 31) / 32);
+  const int res = warp_mem_pair(p.a + t * p.a_pp, p.a_ps, p.la[t * p.la_pp],
+                                p.La, p.b + t * p.b_pp, p.b_ps,
+                                p.lb[t * p.lb_pp], p.Lb, p.E, p.infix, lane,
+                                scratch + t * cells);
   if (lane == 0) p.out[t] = res;
 }
 
@@ -450,7 +518,120 @@ cudaError_t launch_warp(const Pairs& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-int warp_chunks(int E) { return (2 * E + 1 + 31) / 32; }
+// ---------------------------------------------------------------------
+// The containment mapping: a pair table over a block of queries and the
+// windows cut for them, both orientations, one flag a query.
+// ---------------------------------------------------------------------
+struct Contained {
+  const uint8_t* q;   // queries, byte (pos, i) at q + pos * q_ps + i
+  long long q_ps;
+  const int* lq;
+  int Lq;
+  const uint8_t* w;   // windows, byte (pos, c) at w + pos * w_ps + c
+  long long w_ps;
+  int Lw;
+  const int* table;   // (3, P): query column, window column, window length
+  int P, tol;
+  uint8_t* flags;     // (Q,), zeroed by the caller
+};
+
+// The identity (tab[0, 256)) and the complement (tab[256, 512)), staged by
+// the block.
+__device__ __forceinline__ void stage_tables(uint8_t* tab) {
+  for (int x = threadIdx.x; x < 256; x += blockDim.x) {
+    tab[x] = static_cast<uint8_t>(x);
+    tab[256 + x] = kComp[x];
+  }
+  __syncthreads();
+}
+
+// Pair k's operands in orientation rc (1: the reverse complement, read from
+// the forward column backward): the query's first byte, stride and length.
+struct Operand {
+  const uint8_t* a;
+  long long a_ps;
+  int la, col;
+};
+
+__device__ __forceinline__ Operand operand(const Contained& p, long long k,
+                                           int rc) {
+  const int col = p.table[k];
+  const int la = p.lq[col];
+  const uint8_t* a = p.q + col;
+  if (rc && la > 0) a += (la - 1) * p.q_ps;
+  return {a, rc ? -p.q_ps : p.q_ps, la, col};
+}
+
+template <int W>
+__global__ void __launch_bounds__(kThreads)
+    banded_contained_kernel(Contained p) {
+  __shared__ uint8_t tab[512];
+  stage_tables(tab);
+  const long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  const long long k = t >> 1;
+  const int rc = t & 1;
+  int col = -1;
+  bool hit = false;
+  if (k < p.P) {
+    const Operand o = operand(p, k, rc);
+    col = o.col;
+    hit = thread_pair<W, true>(o.a, o.a_ps, o.la, p.Lq,
+                               p.w + p.table[p.P + k], p.w_ps,
+                               p.table[2 * p.P + k], p.Lw, 2 * p.tol, 1,
+                               tab + 256 * rc) <= p.tol;
+  }
+  // the lanes of one query vote; the lowest of them stores
+  const unsigned peers = __match_any_sync(kFull, col);
+  const unsigned hits = __ballot_sync(kFull, hit) & peers;
+  if (col >= 0 && hits && static_cast<int>(threadIdx.x & 31) ==
+                                 __ffs(peers) - 1)
+    p.flags[col] = 1;
+}
+
+// A warp an orientation of a pair: NC chunks in registers, or (NC == 0)
+// the band in scratch, 32 * warp_chunks(2 tol) ints a warp.
+template <int NC>
+__global__ void __launch_bounds__(kThreads)
+    banded_contained_warp_kernel(Contained p, int* scratch) {
+  __shared__ uint8_t tab[512];
+  stage_tables(tab);
+  const int lane = threadIdx.x & 31;
+  const long long t = (blockIdx.x * (long long)blockDim.x + threadIdx.x) >> 5;
+  const long long k = t >> 1;
+  if (k >= p.P) return;                       // the whole warp
+  const int rc = t & 1, E = 2 * p.tol;
+  const Operand o = operand(p, k, rc);
+  const uint8_t* b = p.w + p.table[p.P + k];
+  const int lb = p.table[2 * p.P + k];
+  int d;
+  if constexpr (NC > 0) {
+    d = warp_pair<NC, true>(o.a, o.a_ps, o.la, p.Lq, b, p.w_ps, lb, p.Lw, E,
+                            1, lane, tab + 256 * rc);
+  } else {
+    d = warp_mem_pair<true>(o.a, o.a_ps, o.la, p.Lq, b, p.w_ps, lb, p.Lw,
+                            E, 1, lane, scratch + t * 32 * warp_chunks(E),
+                            tab + 256 * rc);
+  }
+  if (lane == 0 && d <= p.tol) p.flags[o.col] = 1;
+}
+
+template <int W>
+cudaError_t launch_contained(const Contained& p, cudaStream_t stream) {
+  const long long threads = 2LL * p.P;
+  const int blocks = (int)((threads + kThreads - 1) / kThreads);
+  banded_contained_kernel<W><<<blocks, kThreads, 0, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int NC>
+cudaError_t launch_contained_warp(const Contained& p, int* scratch,
+                                  cudaStream_t stream) {
+  const long long threads = 64LL * p.P;
+  const int blocks = (int)((threads + kThreads - 1) / kThreads);
+  banded_contained_warp_kernel<NC><<<blocks, kThreads, 0, stream>>>(
+      p, scratch);
+  return cudaGetLastError();
+}
 
 }  // namespace
 
@@ -560,6 +741,51 @@ cudaError_t banded_block_launch(const uint8_t* q, long long q_ps,
   }
   if (w <= 32) return launch_block<32>(p, st, smem, stream);
   return launch_block<64>(p, st, smem, stream);
+}
+
+
+// The containment mapping. Queries: byte (pos, i) at q + pos * q_ps + i
+// (Lq positions), lengths lq (i), read forward and as their reverse
+// complement in place. Windows: byte (pos, c) at w + pos * w_ps + c (Lw
+// positions). table (3, P) int32: pair k is query table[k] against window
+// table[P + k] of length table[2P + k]. flags (Q,), which the caller
+// zeroes: set to 1 where, for some pair of the query, the infix distance
+// at E = 2 tol of the query or of its reverse complement is <= tol. A
+// thread an orientation of a pair where 4 tol + 1 <= 64 band cells, else a
+// warp; past 32 chunks the band lives in scratch, 2P *
+// banded_edit_scratch_ints(2 tol) ints.
+cudaError_t banded_contained_launch(const uint8_t* q, long long q_ps,
+                                    const int* lq, int Lq, const uint8_t* w,
+                                    long long w_ps, int Lw, const int* table,
+                                    int P, int tol, uint8_t* flags,
+                                    int* scratch, cudaStream_t stream) {
+  if (P <= 0) return cudaSuccess;
+  if (tol < 0 || Lq < 0 || Lw < 0) return cudaErrorInvalidValue;
+  const Contained p{q, q_ps, lq, Lq, w, w_ps, Lw, table, P, tol, flags};
+  const int E = 2 * tol, cells = 2 * E + 1;
+  if (cells <= kThreadMaxCells) {
+    switch (cells) {
+      case 1: return launch_contained<1>(p, stream);
+      case 5: return launch_contained<5>(p, stream);
+      case 9: return launch_contained<9>(p, stream);
+      case 13: return launch_contained<13>(p, stream);
+      default: break;
+    }
+    if (cells <= 32) return launch_contained<32>(p, stream);
+    return launch_contained<64>(p, stream);
+  }
+  const int nc = warp_chunks(E);
+  if (nc <= 3) return launch_contained_warp<3>(p, scratch, stream);
+  if (nc <= 4) return launch_contained_warp<4>(p, scratch, stream);
+  if (nc <= 6) return launch_contained_warp<6>(p, scratch, stream);
+  if (nc <= 8) return launch_contained_warp<8>(p, scratch, stream);
+  if (nc <= 12) return launch_contained_warp<12>(p, scratch, stream);
+  if (nc <= 16) return launch_contained_warp<16>(p, scratch, stream);
+  if (nc <= 24) return launch_contained_warp<24>(p, scratch, stream);
+  if (nc <= kWarpRegChunks) return launch_contained_warp<32>(p, scratch,
+                                                             stream);
+  if (scratch == nullptr) return cudaErrorInvalidValue;
+  return launch_contained_warp<0>(p, scratch, stream);
 }
 
 }  // extern "C"

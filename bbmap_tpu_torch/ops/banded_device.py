@@ -23,6 +23,16 @@ the band (2*maxEdits+1 diagonals) on the lanes. Here:
   ``banded_any_plain`` is its plain version (``banded_edit_batch_plain``
   over every pair, then ``any``). Its launches count in
   ``banded_any.launches`` and ``launches_by["class" | "triangle"]``.
+- ``contained_any`` is the containment mapping's wrapper (dedupe's
+  containment check, ``csrc/banded_edit.cu``): a block of queries against
+  the windows cut for them from kept containers, named by a pair table
+  (``upload_windows``: the windows and the table in one pinned,
+  non-blocking copy), both read orientations, the reverse complement read
+  in place, in one launch; one flag a query (any pair within tol,
+  E = 2 tol, infix). ``contained_any_plain`` is its plain version
+  (``banded_edit_batch_plain`` over the table in both orientations). Its
+  launches count in ``contained_any.launches`` and
+  ``launches_by["thread" | "warp"]``, its pairs in ``contained_any.pairs``.
 - ``banded_edit_batch``, ``contained_distances`` and
   ``edit_distances_vs_one`` are the JAX package's entry points on numpy
   arrays, with ``device=``; ``SequenceStore`` keeps Dedupe's kept
@@ -46,13 +56,16 @@ import numpy as np
 import torch
 
 from .. import backend
+from ..core.bases import COMP_ASCII
 from . import _build
 
 I32 = torch.int32
 MAPPINGS = ("thread", "warp")
-# who made a banded_edit launch (banded_edit's ``site=``): dedupe's
-# containment check, or another caller (the store check is banded_any's)
-SITES = ("containment", "other")
+# who made a banded_edit launch (banded_edit's ``site=``): a containment
+# check a read (contained_distances), dedupe's check of a read against the
+# containers kept earlier in its own block, or another caller (the store
+# check is banded_any's, the block's containment check contained_any's)
+SITES = ("containment", "containment_in_block", "other")
 # rows of the plain scan between two looks for saturated pairs
 PLAIN_CHECK_ROWS = 8
 # The block mapping (banded_any): class sequences a block (a thread each),
@@ -84,6 +97,9 @@ def _lib() -> ctypes.CDLL:
         lib.banded_block_launch.restype = ci
         lib.banded_block_smem.argtypes = [ci, ci, ci]
         lib.banded_block_smem.restype = ci
+        lib.banded_contained_launch.argtypes = [
+            vp, ll, vp, ci, vp, ll, ci, vp, ci, ci, vp, vp, vp]
+        lib.banded_contained_launch.restype = ci
         lib._bbmap_typed = True
     return lib
 
@@ -251,6 +267,9 @@ def reset_launches() -> None:
     banded_edit.launches_by_site = dict.fromkeys(SITES, 0)
     banded_any.launches = 0
     banded_any.launches_by = dict.fromkeys(ANY_MODES, 0)
+    contained_any.launches = 0
+    contained_any.launches_by = dict.fromkeys(MAPPINGS, 0)
+    contained_any.pairs = 0
 
 
 def _check_any(q, lq, s, ls) -> None:
@@ -376,6 +395,124 @@ def banded_any(q: torch.Tensor, lq: torch.Tensor, s: Optional[torch.Tensor],
     return out
 
 
+def _check_contained(q, lq, w, table) -> None:
+    _check_any(q, lq, None, None)
+    if w.dim() != 2 or w.dtype != torch.uint8:
+        raise ValueError("windows (Lw, n) uint8 expected")
+    if table.dim() != 2 or table.shape[0] != 3 or table.dtype != I32:
+        raise ValueError("a pair table (3, P) int32 expected")
+    if not (w.device == table.device == q.device):
+        raise ValueError("queries, windows and table must share one device")
+
+
+def _reverse_complements(q: torch.Tensor, lq: torch.Tensor,
+                         cols: torch.Tensor) -> torch.Tensor:
+    """(Lq, n) uint8: the reverse complement of query cols[k] of q (Lq, Q)
+    in column k (core/bases.COMP_ASCII; bytes past its length mean
+    nothing)."""
+    comp = torch.from_numpy(COMP_ASCII).to(q.device)
+    back = lq[cols].long()[None, :] - 1 - torch.arange(
+        q.shape[0], device=q.device)[:, None]
+    return comp[q[back.clamp(min=0), cols[None, :]].long()]
+
+
+def contained_any_plain(q: torch.Tensor, lq: torch.Tensor, w: torch.Tensor,
+                        table: torch.Tensor, tol: int,
+                        rows_out: Optional[list] = None) -> torch.Tensor:
+    """Plain version of the containment mapping on any device: q (Lq, Q)
+    uint8 position-major and lq (Q,) int32 (``upload_block``), w (Lw, n)
+    uint8 the windows, table (3, P) int32 (query column, window column,
+    window length: ``upload_windows``). For each pair the infix distance at
+    E = 2 tol of the query and of its reverse complement within the window
+    (``banded_edit_batch_plain``). Returns (Q,) uint8, 1 where one of them
+    is <= tol for some pair of the query. ``rows_out``, when given a list,
+    receives the rows the kernel's scan runs for the 2P (pair,
+    orientation) runs, summed."""
+    _check_contained(q, lq, w, table)
+    out = torch.zeros(q.shape[1], dtype=torch.uint8, device=q.device)
+    P = table.shape[1]
+    if P == 0:
+        if rows_out is not None:
+            rows_out.append(0)
+        return out
+    cols, wcols = table[0].long(), table[1].long()
+    a = torch.cat([q[:, cols], _reverse_complements(q, lq, cols)], 1)
+    rows = None if rows_out is None else torch.zeros(
+        2 * P, dtype=I32, device=q.device)
+    d = banded_edit_batch_plain(a, lq[cols].repeat(2), w[:, wcols].repeat(
+        1, 2), table[2].repeat(2), 2 * int(tol), True, rows_out=rows)
+    if rows_out is not None:
+        rows_out.append(int(rows.long().sum()))
+    out[cols[(d <= tol).view(2, P).any(0)]] = 1
+    return out
+
+
+def contained_any(q: torch.Tensor, lq: torch.Tensor, w: torch.Tensor,
+                  table: torch.Tensor, tol: int) -> torch.Tensor:
+    """Dedupe's containment check of a block of queries in one launch (the
+    layout and result of ``contained_any_plain``). CPU tensors: the plain
+    version. CUDA tensors: one launch of the containment mapping of
+    ``csrc/banded_edit.cu``, a thread an orientation of a pair where 4 tol
+    + 1 <= 64 band cells, else a warp; queries and windows position-major
+    with a pair stride of 1, lengths and table contiguous, the table's
+    columns within q and w. A failed launch raises."""
+    _check_contained(q, lq, w, table)
+    if q.device.type == "cpu":
+        return contained_any_plain(q, lq, w, table, tol)
+    _on_cuda(q)
+    tol = int(tol)
+    if tol < 0:
+        raise ValueError(f"tol={tol} must be >= 0")
+    if q.stride(1) != 1 or w.stride(1) != 1 or lq.stride(0) != 1 \
+            or not table.is_contiguous():
+        raise ValueError("queries and windows position-major with a pair "
+                         "stride of 1, lengths and table contiguous")
+    flags = torch.zeros(q.shape[1], dtype=torch.uint8, device=q.device)
+    P = table.shape[1]
+    if P == 0:
+        return flags
+    lib = _lib()
+    E = 2 * tol
+    mapping = "thread" if 2 * E + 1 <= lib.banded_edit_thread_max_cells() \
+        else "warp"
+    ints = lib.banded_edit_scratch_ints(E)
+    scratch = torch.empty(2 * P * ints if ints else 1, dtype=I32,
+                          device=q.device)
+    err = lib.banded_contained_launch(
+        q.data_ptr(), q.stride(0), lq.data_ptr(), q.shape[0], w.data_ptr(),
+        w.stride(0), w.shape[0], table.data_ptr(), P, tol, flags.data_ptr(),
+        scratch.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"banded_contained_launch failed: cudaError {err}")
+    contained_any.launches += 1
+    contained_any.launches_by[mapping] += 1
+    contained_any.pairs += P
+    return flags
+
+
+def upload_windows(cols: List[int], windows: List[np.ndarray],
+                   device) -> tuple:
+    """The containment check's pairs on ``device`` in one copy (pinned and
+    non-blocking on a CUDA device): pair k is query column cols[k] against
+    windows[k]. Returns (the windows (Lw, P) uint8 position-major, bytes
+    past a window's length meaning nothing; the table (3, P) int32: query
+    column, window column, window length)."""
+    P = len(windows)
+    lens = np.array([len(x) for x in windows], np.int32)
+    Lw = int(lens.max()) if P else 0
+    at = -(-12 * P // 16) * 16             # the windows after the table
+    dev = backend.resolve_device(device)
+    host = torch.empty(at + Lw * P, dtype=torch.uint8,
+                       pin_memory=dev.type == "cuda")
+    h = host.numpy()
+    table = h[:12 * P].view(np.int32).reshape(3, P)
+    table[0], table[1], table[2] = cols, np.arange(P), lens
+    h[at:].reshape(Lw, P)[:] = _pad_rows(windows, Lw).T
+    buf = host.to(dev, non_blocking=True)
+    return (buf[at:].view(Lw, P),
+            buf[:12 * P].view(torch.int32).view(3, P))
+
+
 reset_launches()
 
 
@@ -422,16 +559,18 @@ def _vs_query(query: np.ndarray, seqs: List[np.ndarray], E: int,
 
 def contained_distances(query: np.ndarray,
                         windows: List[np.ndarray],
-                        max_edits: int, *, device) -> np.ndarray:
+                        max_edits: int, *, device,
+                        site: str = "containment") -> np.ndarray:
     """Best infix edit distance of `query` within each window (free
     start/end inside the window) — Dedupe's contained-with-edits
     verification. Band width 2*max_edits covers the offset slack of a
-    ±max_edits window."""
+    ±max_edits window. ``site`` names the caller in
+    ``banded_edit.launches_by_site``."""
     n = len(windows)
     if n == 0:
         return np.zeros(0, np.int32)
     dev = backend.resolve_device(device)
-    d = _vs_query(query, windows, 2 * max_edits, True, dev, "containment")
+    d = _vs_query(query, windows, 2 * max_edits, True, dev, site)
     return np.minimum(d, max_edits + 1)
 
 

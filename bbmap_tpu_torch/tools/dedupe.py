@@ -1,23 +1,35 @@
 """dedupe: duplicate read/contig removal.
 
-reference: jgi/Dedupe.java:49 + sh/dedupe.sh. Round-1 coverage: exact
-duplicates and reverse-complement duplicates (absorbrc, reference default
-t), optional substitution tolerance within equal-length sequences via
-affix-bucket comparison (reference uses affix maps + banded verification,
-Dedupe.java:95-117); containment/overlap absorption is a later milestone.
+reference: jgi/Dedupe.java:49 + sh/dedupe.sh. Exact duplicates and
+reverse-complement duplicates (absorbrc, reference default t), optional
+substitution tolerance within equal-length sequences via affix-bucket
+comparison, near duplicates within ``e=`` edits, and containment
+absorption: a read that lies in a kept read, exactly or within the
+tolerance (affix maps + banded verification, Dedupe.java:95-117).
 
 Matching uses content hashes over canonical orientation, vectorized per
 batch — the array-native equivalent of the reference's hashed read sets.
 
 The PyTorch port of bbmap_tpu/tools/dedupe.py. ``device=`` (default cuda)
-runs the banded edit distances (``e=`` and the contained-with-edits
-check) on that device: the kept sequences stay there in length classes
-(``ops/banded_device.SequenceStore``). Reads are checked with ``e=`` in
-blocks of ``BLOCK`` reads: one upload of the block, a launch of the block
-kernel for each class that holds lengths within ``e`` of one of them, one
-launch for the block's reads against each other, and one fetch; the
-decisions are then taken on the host in read order, as one read at a time
-would take them.
+runs the banded edit distances on that device. Reads are taken in blocks
+of ``BLOCK``; the decisions are taken on the host in read order, as one
+read at a time would take them, from checks made for the whole block:
+
+- with ``e=``, the kept sequences stay on the device in length classes
+  (``ops/banded_device.SequenceStore``): one upload of the block, a launch
+  of the block kernel for each class that holds lengths within ``e`` of
+  one of its reads, and one launch for the block's reads against each
+  other;
+- with ``ac=t``, the containment check against the containers kept
+  before the block: candidates from the affix maps and the exact
+  substring test on the host, then, with a tolerance, the windows cut
+  from those containers in one pinned upload and one launch of the
+  containment kernel (``banded_device.contained_any``, both orientations
+  of every read). With ``e=`` its flags come back in the store check's
+  one fetch; with ``s=`` alone it makes one fetch of its own. A read
+  whose candidates include a container kept earlier in its own block is
+  checked against those containers when it is reached, a read at a time
+  (``banded_edit``, counted as the ``containment_in_block`` site).
 """
 
 from __future__ import annotations
@@ -50,58 +62,105 @@ AFFIX_K = 31
 BLOCK = 512
 
 
-def _contained(can: bytes, arr: np.ndarray, tol: int, kept_seqs, affix,
-               dev) -> bool:
-    """The containment check of a read (its canonical bytes): an exact
-    substring of a kept sequence in either orientation, or, with tol > 0,
-    within tol edits of a window of one (banded infix verification),
-    candidates from the affix maps."""
-    from ..ops import banded_device
+# the complement of each byte, for bytes.translate
+COMP_BYTES = bytes(COMP_ASCII)
 
+
+def _offsets(n_can: int) -> tuple:
+    """The read offsets probed for a read of n_can bases."""
     # containers index kmers every AFFIX_K positions; querying the
     # first AFFIX_K offsets of this read guarantees one query hits
     # an indexed container kmer for any containment offset
-    # (reads >= 2K-1; shorter reads also try the suffix kmer)
-    rc = bytes(COMP_ASCII[arr][::-1])
-    cands = set()
+    # (reads >= 2K-1; shorter reads also try the suffix kmer).
     # probe a full mod-K residue window from BOTH ends: one
     # probe per residue class is guaranteed to land on an
     # indexed container k-mer, and a single edit region can
     # break the head OR the tail probes, not both
-    n_can = len(can)
     head = range(0, min(AFFIX_K, n_can - AFFIX_K + 1))
     tail = range(max(0, n_can - 2 * AFFIX_K + 1), n_can - AFFIX_K + 1)
-    for off in set(head) | set(tail):
-        for (ci, p) in affix.get(can[off:off + AFFIX_K], []):
-            cands.add((ci, p - off, 0))
-        for (ci, p) in affix.get(rc[off:off + AFFIX_K], []):
-            cands.add((ci, p - off, 1))
-    for (ci, q0, orient) in cands:
+    offs = tuple(sorted(set(head) | set(tail)))
+    return offs + offs
+
+
+def _probes(can: bytes, rc: bytes, offsets: Dict[int, tuple]) -> tuple:
+    """The read's affix probes: (the k-mers of its canonical bytes ``can``
+    and of their reverse complement ``rc`` at the probed offsets, the
+    offset of each); ``offsets`` caches ``_offsets`` by length. Tuples of
+    bytes and ints, which the cyclic garbage collector stops tracking:
+    a block holds them for every read."""
+    offs = offsets.get(len(can))
+    if offs is None:
+        offs = offsets[len(can)] = _offsets(len(can))
+    half = offs[:len(offs) // 2]
+    return tuple([can[o:o + AFFIX_K] for o in half]
+                 + [rc[o:o + AFFIX_K] for o in half]), offs
+
+
+def _candidates(probes, affix, keys=None, first: int = 0) -> set:
+    """(container, offset of the read in it) of every probe hit in
+    ``affix`` by a container from index ``first`` on; ``keys``, when
+    given, the set of affix keys to look at."""
+    probe_keys, offs = probes
+    hits = affix.keys() & probe_keys if keys is None \
+        else keys.intersection(probe_keys)
+    if not hits:
+        return set()
+    return {(ci, p - off) for key, off in zip(probe_keys, offs)
+            if key in hits for (ci, p) in affix[key] if ci >= first}
+
+
+def _exact(can: bytes, rc: bytes, cands, kept_seqs) -> bool:
+    """An exact substring of a candidate container in either
+    orientation."""
+    for ci in {ci for ci, _ in cands}:
         ks = kept_seqs[ci]
         if len(ks) >= len(can) and (can in ks or rc in ks):
             return True
-    if tol <= 0 or not cands:
-        return False
-    # contained-with-mismatches: banded infix verification of the read
-    # against each candidate container window (reference: Dedupe
-    # containment absorption verifies candidates with the banded aligner,
-    # Dedupe.java absorb modes :95-117); the query orientation is handled
-    # by testing both read orientations
-    wins = []
-    for (ci, q0, orient) in cands:
+    return False
+
+
+def _windows(n_can: int, cands, tol: int, kept_seqs) -> List[np.ndarray]:
+    """Contained-with-mismatches: the window of each candidate container
+    around the read's offset, +- tol, that the banded infix verification
+    runs the read in (reference: Dedupe containment absorption verifies
+    candidates with the banded aligner, Dedupe.java absorb modes
+    :95-117); windows too short for the read are skipped."""
+    wins = {}
+    for (ci, q0) in cands:
         ks = kept_seqs[ci]
-        if len(ks) < len(can):
+        if len(ks) < n_can:
             continue
         lo = max(0, q0 - tol)
-        hi = min(len(ks), q0 + len(can) + tol)
-        if hi - lo < len(can) - tol:
+        hi = min(len(ks), q0 + n_can + tol)
+        if hi - lo < n_can - tol:
             continue
-        wins.append(np.frombuffer(ks[lo:hi], np.uint8))
+        wins[ci, lo, hi] = np.frombuffer(ks[lo:hi], np.uint8)
+    return list(wins.values())
+
+
+def _contained_in_block(can: bytes, arr: np.ndarray, rc: bytes, probes,
+                        tol: int, kept_seqs, affix, block_keys,
+                        first: int, dev) -> bool:
+    """The containment check of a read against the containers kept
+    earlier in its own block (from index ``first`` on; the affix keys
+    they added, ``block_keys``): the exact test, then, with tol > 0, the
+    banded infix verification of both read orientations, a launch
+    each."""
+    from ..ops import banded_device
+
+    cands = _candidates(probes, affix, block_keys, first)
+    if not cands:
+        return False
+    if _exact(can, rc, cands, kept_seqs):
+        return True
+    wins = _windows(len(can), cands, tol, kept_seqs) if tol > 0 else []
     if not wins:
         return False
-    d1 = banded_device.contained_distances(arr, wins, tol, device=dev)
+    site = "containment_in_block"
+    d1 = banded_device.contained_distances(arr, wins, tol, device=dev,
+                                           site=site)
     d2 = banded_device.contained_distances(np.frombuffer(rc, np.uint8),
-                                           wins, tol, device=dev)
+                                           wins, tol, device=dev, site=site)
     return bool((np.minimum(d1, d2) <= tol).any())
 
 
@@ -128,9 +187,17 @@ def dedupe_stream(records, absorb_rc: bool = True, subs: int = 0,
     store or lies within edits of an earlier read of the block that was
     kept. That is the decision of one read at a time against every read
     kept before it: a candidate of a length further off gives edits+1,
-    the decision is ``any(d <= edits)``, and the hash check, the affix
-    maps and the containment check still run read by read. The block's
-    kept reads join the store at its end, a copy a length class.
+    the decision is ``any(d <= edits)``. The block's kept reads join the
+    store at its end, a copy a length class.
+
+    The containment check splits the same way. It is an ``any`` over the
+    candidate containers the affix maps give when the read is reached, so
+    it is the check against the containers kept before the block (made
+    for every read at the block's start: the exact test on the host, the
+    banded windows in one launch for the block) or the check against
+    those kept earlier in the block (made when the read is reached, only
+    where it has such a candidate). The hash check and the affix maps
+    still run read by read.
     """
     from ..ops import banded_device
 
@@ -140,29 +207,64 @@ def dedupe_stream(records, absorb_rc: bool = True, subs: int = 0,
     store = banded_device.SequenceStore(dev) if edits > 0 else None
     kept_seqs: List[bytes] = []
     affix: Dict[bytes, List[int]] = {}
+    offsets: Dict[int, tuple] = {}      # probed offsets by length
+    tol = max(subs, edits)
 
     def run_block(block):
         cans = [canonical_bytes(rec.bases, absorb_rc) for rec in block]
         hashes = [hashlib.blake2b(c, digest_size=16).digest() for c in cans]
         arrs = [np.frombuffer(c, np.uint8) for c in cans]
+        need = [i for i, h in enumerate(hashes) if h not in seen]
+        # the containment check against the containers kept before the
+        # block: read -> its reverse complement and affix probes; the
+        # reads it found contained; the banded pairs (read, window)
+        rcs, probes, contained, pairs = {}, {}, set(), []
+        if absorb_containment:
+            for i in need:
+                if len(cans[i]) < AFFIX_K:
+                    continue
+                rcs[i] = rc = cans[i].translate(COMP_BYTES)[::-1]
+                probes[i] = _probes(cans[i], rc, offsets)
+                cands = _candidates(probes[i], affix)
+                if _exact(cans[i], rc, cands, kept_seqs):
+                    contained.add(i)
+                elif tol > 0:
+                    pairs += [(i, x) for x in _windows(len(cans[i]), cands,
+                                                       tol, kept_seqs)]
         slot = {}                  # read -> column of the device block
         hit = tri = None
-        if edits > 0:
+        if edits > 0 and need:
             # (reference: the BandedAligner verification loop,
             # jni/BandedAlignerJNI.c:588; ops/banded_device.py)
-            need = [i for i, h in enumerate(hashes) if h not in seen]
             slot = {i: n for n, i in enumerate(need)}
-            if need:
-                lengths = [len(arrs[i]) for i in need]
-                q, lq = banded_device.upload_block([arrs[i] for i in need],
-                                                   dev)
-                flags = store.check(q, lq, lengths, edits)
-                tri_d = banded_device.banded_any(
-                    q, lq, None, None, edits, tri=True) if len(need) > 1 \
-                    else torch.zeros((1, 1), dtype=torch.uint8, device=dev)
-                both = torch.cat([flags[None, :], tri_d]).cpu().numpy()
-                hit, tri = both[0], both[1:]
+            lengths = [len(arrs[i]) for i in need]
+            q, lq = banded_device.upload_block([arrs[i] for i in need], dev)
+            rows = [store.check(q, lq, lengths, edits)[None, :],
+                    banded_device.banded_any(q, lq, None, None, edits,
+                                             tri=True) if len(need) > 1
+                    else torch.zeros((1, 1), dtype=torch.uint8, device=dev)]
+            if pairs:
+                rows.append(banded_device.contained_any(
+                    q, lq, *banded_device.upload_windows(
+                        [slot[i] for i, _ in pairs], [x for _, x in pairs],
+                        dev), tol)[None, :])
+            both = torch.cat(rows).cpu().numpy()
+            hit, tri = both[0], both[1:1 + len(need)]
+            if pairs:
+                contained.update(i for i, _ in pairs if both[-1][slot[i]])
+        elif pairs:
+            reads = sorted({i for i, _ in pairs})
+            col = {i: n for n, i in enumerate(reads)}
+            cq, clq = banded_device.upload_block([arrs[i] for i in reads],
+                                                 dev)
+            flags = banded_device.contained_any(
+                cq, clq, *banded_device.upload_windows(
+                    [col[i] for i, _ in pairs], [x for _, x in pairs], dev),
+                tol).cpu().numpy()
+            contained.update(i for i in reads if flags[col[i]])
         kept_cols: List[int] = []
+        first = len(kept_seqs)     # the block's first container
+        block_keys = set()         # the affix keys its containers added
         for i, rec in enumerate(block):
             can, h, arr = cans[i], hashes[i], arrs[i]
             if h in seen:
@@ -181,8 +283,9 @@ def dedupe_stream(records, absorb_rc: bool = True, subs: int = 0,
                         dup = True
                         break
             if not dup and absorb_containment and len(can) >= AFFIX_K:
-                dup = _contained(can, arr, max(subs, edits), kept_seqs,
-                                 affix, dev)
+                dup = i in contained or _contained_in_block(
+                    can, arr, rcs[i], probes[i], tol, kept_seqs, affix,
+                    block_keys, first, dev)
             if dup:
                 if clusters is not None:
                     clusters.setdefault("~near", []).append(rec.id)
@@ -198,11 +301,11 @@ def dedupe_stream(records, absorb_rc: bool = True, subs: int = 0,
                 kept_seqs.append(can)
                 # index every AFFIX_K-th interior kmer + both affixes so
                 # shorter contained reads can find this container
-                for p in range(0, len(can) - AFFIX_K + 1, AFFIX_K):
-                    affix.setdefault(can[p:p + AFFIX_K],
-                                     []).append((idx, p))
-                affix.setdefault(can[-AFFIX_K:],
-                                 []).append((idx, len(can) - AFFIX_K))
+                for p in (*range(0, len(can) - AFFIX_K + 1, AFFIX_K),
+                          len(can) - AFFIX_K):
+                    key = can[p:p + AFFIX_K]
+                    affix.setdefault(key, []).append((idx, p))
+                    block_keys.add(key)
             yield rec, False
         if kept_cols:
             store.append(q, lq, [len(arrs[i]) for i in need], kept_cols)

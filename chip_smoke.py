@@ -134,7 +134,11 @@ Phases, each timed on its own line:
    beside its bound; the block kernel (``banded_any``, both modes, staged
    and in place) at 256 queries against the 65,536 reads, and 512
    queries against 15,000 and 1,000 of them, E = 0 and 2, against its
-   plain version and timed beside its bound; the ``dedupe`` (e=2; s=2 ac=t; fo=t c=t mo=100 with
+   plain version and timed beside its bound; the containment kernel
+   (``contained_any``) on a block of 512 reads with 64 fragments and 4
+   windows each at tol 2 (a thread an orientation of a pair) and tol 16
+   (the warp body), against its plain version, timed beside its bound;
+   the ``dedupe`` (e=2; s=2 ac=t; fo=t c=t mo=100 with
    cluster stats, graph and cluster files) and ``dedupe2 nam=2`` CLIs
    over 2,000 reads, and ``bbmapacc``, ``bbmap5``, ``bbmapskimmer`` and
    ``bbsplit`` (the reference cut into two sets) over 500 pairs, on the
@@ -142,8 +146,12 @@ Phases, each timed on its own line:
    every file and report byte-equal; bbmap on the card before and after
    bbmapacc in this process, the same SAM; then on the card alone dedupe
    e=2 ac=t over 50,000 reads (reads/s, the store check's launches of
-   the block kernel and the containment check's of ``banded_edit``, a
-   block's check against all kept reads, the kernels' share of the wall)
+   the block kernel, the containment check's launches by site: the
+   containment kernel a block, at most one a block, and the in-block
+   checks' ``banded_edit``; the containment kernel held to its plain
+   version on the run's median block and timed there, a block's check
+   against all kept reads, a block's containment check and an in-block
+   check timed, the kernels' share of the wall)
    and bbmap, bbmapacc and bbmapskimmer over 32,768 pairs (reads/s over
    each CLI's mapping time, accuracy graded from randomreads' names;
    bbmapacc maps no fewer reads than bbmap and is not less sensitive
@@ -186,9 +194,9 @@ each bbmerge mode under torch.profiler) and no ``ok`` line.
 
 ``python3 chip_smoke.py --dedupe-split <dir>`` runs dedupe e=2 ac=t over
 the dedupe phase's 50,000-read library with the checkout in <dir> (the
-parent) and with this tree, and prints each run's reads/s and the banded
-kernels' launches by call site (store check, containment check); no
-``ok`` line.
+parent) and with this tree, in the order parent, change, change, parent,
+and prints each run's reads/s and the banded kernels' launches by call
+site (store check, containment check); no ``ok`` line.
 
 ``python3 chip_smoke.py --paired <dir>`` runs the main path and the long
 reads of the checkout in <dir> (the parent commit, unpacked with ``git
@@ -231,6 +239,7 @@ REPLACES = {"msa_score_rows": _K1, "msa_score": _K2, "msa_score_row": _K2,
             "msa_score_long": _K2, "msa_score_strided": _K2,
             "msa_fill": _K3, "msa_fill_long": _K3, "msa_fill_strided": _K3,
             "msa_walk": _WALK, "banded_edit": _BANDED, "banded_any": _BANDED,
+            "contained_any": _BANDED,
             "msa_score_pipe": _K2, "msa_fill_pipe": _K3,
             "msa_score_rows_pipe": _K1,
             **{n: f"{_K3} + {_WALK}" for n in FILL_WALK.values()}}
@@ -247,6 +256,7 @@ SOURCE = {"msa_score_rows": CSRC + "msa_dp_warp.cu",
           "msa_walk": CSRC + "msa_walk.cu",
           "banded_edit": CSRC + "banded_edit.cu",
           "banded_any": CSRC + "banded_edit.cu",
+          "contained_any": CSRC + "banded_edit.cu",
           "msa_score_pipe": CSRC + "msa_dp_pipe.cu",
           "msa_fill_pipe": CSRC + "msa_dp_pipe.cu",
           "msa_score_rows_pipe": CSRC + "msa_dp_pipe.cu",
@@ -1711,7 +1721,9 @@ def launch_counts() -> dict:
     variant ("msa_fill_walk_<variant>"), the banded kernel's as
     "banded_edit" and by mapping ("banded_edit_thread",
     "banded_edit_warp"), the block kernel's as "banded_any" and by mode
-    ("banded_any_class", "banded_any_triangle")."""
+    ("banded_any_class", "banded_any_triangle"), the containment kernel's
+    as "contained_any" and by mapping ("contained_any_thread",
+    "contained_any_warp")."""
     from bbmap_tpu_torch.ops import banded_device, msa_kernels
     out = {k.__name__: k.launches for k in msa_kernels.KERNELS}
     for k in msa_kernels.DP_KERNELS:
@@ -1726,6 +1738,9 @@ def launch_counts() -> dict:
     out["banded_any"] = banded_device.banded_any.launches
     for mode, n in banded_device.banded_any.launches_by.items():
         out[f"banded_any_{mode}"] = n
+    out["contained_any"] = banded_device.contained_any.launches
+    for mapping, n in banded_device.contained_any.launches_by.items():
+        out[f"contained_any_{mapping}"] = n
     return out
 
 
@@ -2760,6 +2775,9 @@ BANDED_NUMPY_PAIRS = 1_000
 # reads), and dedupe's block against a class of about its 150 bp class's
 # size at 50,000 reads
 BLOCK_QUERIES_TABLE, BLOCK_QUERIES, DEDUPE_CLASS = 256, 512, 15_000
+# the containment kernel at dedupe's block: fragments with windows in a
+# block of BLOCK_QUERIES reads (4 windows each)
+CONTAINED_FRAGMENTS = 64
 # the CLIs card vs CPU, and the card's runs at a size users run
 N_DEDUPE_CLI, N_DEDUPE_BIG = 2_000, 50_000
 N_VARIANT_PAIRS, N_VARIANT_BIG = 500, 32_768
@@ -2801,14 +2819,15 @@ def banded_instructions() -> tuple:
     per = {}
     for name, (tot, loop) in sass_counts(
             _build.library_path("banded_edit")).items():
-        m = re.search(r"banded_(thread|warp|block)_kernelILi(\d+)E", name)
-        if m:
-            cells = int(m.group(2)) * (32 if m.group(1) == "warp" else 1)
+        m = re.search(r"banded_(thread|warp|block|contained|contained_warp)"
+                      r"_kernelILi(\d+)E", name)
+        if m and m.group(2) != "0":
+            warp = m.group(1).endswith("warp")
+            cells = int(m.group(2)) * (32 if warp else 1)
             key = f"{m.group(1)} {m.group(2)}"
             if m.group(1) == "block":
                 key += " staged" if "ELb1E" in name else " in place"
-            per[key] = 32 * loop / cells \
-                if m.group(1) == "warp" else loop / cells
+            per[key] = 32 * loop / cells if warp else loop / cells
     if not per:
         raise AssertionError("no banded kernel in the library's SASS")
     least = min(per.values())
@@ -2971,6 +2990,84 @@ def block_check(what: str, device, q, lq, s, ls, E: int, tri: bool,
         raise AssertionError(f"banded_any {what} E={E} disagrees with its "
                              f"plain version")
     return res
+
+
+def contained_check(what: str, device, q, lq, w, table, tol: int,
+                    per_cell: float, clock: float, reps: int = 20) -> dict:
+    """The containment kernel (``contained_any``) against its plain version
+    on the same tensors, tolerance 0, timed; the bound from the cells the
+    data needs (each pair's rows in each orientation to saturation or its
+    end, from the plain version, over the band width 4 tol + 1) and the
+    bytes read and written once (the queries the table names, the
+    windows, the table, the flags)."""
+    from bbmap_tpu_torch.ops import banded_device as bd
+    ms, got = _cuda_ms(lambda: bd.contained_any(q, lq, w, table, tol), reps)
+    rows = []
+    plain_ms, want = _cuda_ms(lambda: bd.contained_any_plain(
+        q, lq, w, table, tol, rows_out=rows), 1, warm=False)
+    err = _diff(got, want)
+    P = table.shape[1]
+    cols = table[0].long().unique()
+    cells = (4 * tol + 1) * rows[-1]
+    n_bytes = int(lq[cols].long().sum()) + int(table[2].long().sum()) + \
+        table.numel() * 4 + q.shape[1]
+    bms, by = bound_ms(n_bytes, cells * per_cell, clock)
+    res = {"what": what, "queries": q.shape[1], "queries_with_pairs":
+           int(cols.numel()), "pairs": P, "tol": tol, "max_abs_err": err,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+           "share": bms / ms, "cells": cells, "flagged": int(want.sum())}
+    say(f"kernel contained_any {what}: {q.shape[1]} queries "
+        f"({res['queries_with_pairs']} with pairs), {P} pairs x 2 "
+        f"orientations, tol={tol}: max_abs_err {err}, kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.3f} ms, bound {bms:.6f} ms ({by}), share "
+        f"{100 * bms / ms:.2f} %, {cells} cells, {res['flagged']} flagged")
+    if err != 0:
+        raise AssertionError(f"contained_any {what} tol={tol} disagrees with "
+                             f"its plain version")
+    return res
+
+
+def contained_block(gbases, rng, tol: int, n_frag: int, device):
+    """A block as dedupe's containment check stages it: BLOCK_QUERIES reads
+    of L bp from the genome, the first n_frag of them fragments of 60-120
+    bp of other reads (half reverse-complemented, some with a
+    substitution or an indel), each with the window dedupe cuts around its
+    offset (+- tol, clipped at the container's ends) and three windows of
+    other reads at random offsets. Returns (q, lq, w, table) on device."""
+    import numpy as np
+    from bbmap_tpu_torch.core.bases import COMP_ASCII
+    from bbmap_tpu_torch.ops import banded_device as bd
+    win = np.lib.stride_tricks.sliding_window_view(gbases, L)
+    reads = list(win[rng.integers(0, len(win), BLOCK_QUERIES)])
+    conts = win[rng.integers(0, len(win), 4 * n_frag)]
+    cols, wins = [], []
+    for r in range(n_frag):
+        c = conts[r]
+        n = int(rng.integers(60, 121))
+        q0 = int(rng.integers(0, L - n + 1))
+        frag, fl = mutate_pairs(rng, c[None, q0:q0 + n], 1)
+        frag = frag[0, :fl[0]]
+        reads[r] = COMP_ASCII[frag[::-1]] if r % 2 else frag
+        for k, cc in enumerate((c, *conts[n_frag + 3 * r:n_frag + 3 * r + 3])):
+            at = q0 if k == 0 else int(rng.integers(0, L - n + 1))
+            cols.append(r)
+            wins.append(cc[max(0, at - tol):min(L, at + n + tol)])
+    q, lq = bd.upload_block(reads, device)
+    return (q, lq, *bd.upload_windows(cols, wins, device))
+
+
+def contained_phase(device, gbases, clock: float) -> list:
+    """The containment kernel against its plain version on the card at
+    dedupe's block shape, tol 2 (a thread an orientation of a pair, 9 band
+    cells) and tol 16 (the warp body, 65 cells); the shapes' results."""
+    import numpy as np
+    _, per_cell = banded_instructions()
+    rng = np.random.default_rng(73)
+    return [contained_check(f"{BLOCK_QUERIES}-read block, {n} fragments",
+                            device, *contained_block(gbases, rng, tol, n,
+                                                     device), tol,
+                            per_cell, clock)
+            for tol, n in ((2, CONTAINED_FRAGMENTS), (16, CONTAINED_FRAGMENTS))]
 
 
 def dedupe_reads(gbases, n: int, seed: int):
@@ -3164,35 +3261,67 @@ def variant_inputs(gbases, d: Path) -> None:
             raise AssertionError("randomreads failed")
 
 
-def dedupe_big(device, d: Path) -> dict:
+# the containment check of the design before the block mapping, at
+# 50,000 reads of this library on an NVIDIA H100 80GB HBM3 (700 W): two
+# banded_edit launches and a fetch a read, and a check's time
+CONTAINMENT_BEFORE = {"launches": 5_466, "check_ms": 0.3909}
+
+
+def dedupe_big(device, d: Path, clock: float) -> dict:
     """dedupe e=2 ac=t over N_DEDUPE_BIG reads on the card: reads/s over
     the CLI's wall, every kernel's launches (the store check's by length
-    class and triangle, the containment check's on their own), the kept
-    reads' length classes and their bytes on the card, and the kernels'
-    share of the wall reckoned from two timings at the run's end: a block
-    of the library's reads checked against every kept read (a launch a
-    near class and the triangle, ``tools/dedupe.BLOCK`` reads), and one
-    containment check (two launches and their fetch)."""
+    class and triangle, the containment check's by site: a launch of the
+    containment kernel a block, and the in-block checks' ``banded_edit``
+    launches), the kept reads' length classes and their bytes on the card,
+    and the kernels' share of the wall reckoned from timings at the run's
+    end: a block of the library's reads checked against every kept read (a
+    launch a near class and the triangle, ``tools/dedupe.BLOCK`` reads), a
+    block's containment check (the windows' upload, the launch and a
+    fetch) on the pairs of the run's median block, held to the plain
+    version, and one in-block check (two launches and their fetch)."""
     import numpy as np
     import torch
     from bbmap_tpu_torch.ops import banded_device as bd
     from bbmap_tpu_torch.tools import dedupe
     reset_counts()
+    real, calls = bd.contained_any, []
+
+    def spy(q, lq, w, table, tol):
+        calls.append((q, lq, w, table, tol))
+        return real(q, lq, w, table, tol)
+    # the wrapper counts through its module name: the spy shares its counts
+    spy.__dict__ = real.__dict__
+    bd.contained_any = spy
     t0 = time.time()
-    rc, report = run_tool("dedupe", [f"in={d}/big.fq", f"out={d}/big_u.fq",
-                                     "e=2", "ac=t", f"device={device}"])
-    _sync(device)
+    try:
+        rc, report = run_tool("dedupe", [f"in={d}/big.fq",
+                                         f"out={d}/big_u.fq", "e=2", "ac=t",
+                                         f"device={device}"])
+        _sync(device)
+    finally:
+        bd.contained_any = real
     wall = time.time() - t0
     launches = launch_counts()
     by_site = dict(bd.banded_edit.launches_by_site)
     by_mode = dict(bd.banded_any.launches_by)
+    cont_pairs = real.pairs
+    n_blocks = -(-N_DEDUPE_BIG // dedupe.BLOCK)
     if rc != 0 or not launches["banded_any"]:
         raise AssertionError(f"dedupe at {N_DEDUPE_BIG} reads: rc {rc}, "
                              f"{launches['banded_any']} block launches: "
                              f"{report}")
-    if launches["banded_edit"] != by_site["containment"]:
+    if launches["banded_edit"] != by_site["containment_in_block"]:
         raise AssertionError(f"banded_edit launched by another caller than "
-                             f"the containment check: {by_site}")
+                             f"the in-block containment check: {by_site}")
+    if not 0 < launches["contained_any"] <= n_blocks:
+        raise AssertionError(f"{launches['contained_any']} launches of the "
+                             f"containment kernel in {n_blocks} blocks")
+    pairs = sorted((c[3].shape[1], k) for k, c in enumerate(calls))
+    median = calls[pairs[len(pairs) // 2][1]]
+    _, per_cell = banded_instructions()
+    cont = contained_check(f"dedupe's median block ({len(calls)} launches)",
+                           device, *median, per_cell, clock)
+    del calls
     store = bd.SequenceStore(device)
     kept = [np.frombuffer(x, np.uint8) for x in
             (d / "big_u.fq").read_bytes().split(b"\n")[1::4]]
@@ -3211,6 +3340,16 @@ def dedupe_big(device, d: Path) -> dict:
         tri = bd.banded_any(q, lq, None, None, 2, tri=True)
         return torch.cat([flags[None, :], tri]).cpu()
     ms_block, _ = _cuda_ms(check, 10)
+    # a block's containment check as dedupe makes it on the median block's
+    # pairs: the windows' pinned upload, one launch and a fetch
+    mq, mlq, mw, mtable, _ = median
+    cols, mt = mtable[0].tolist(), mtable.cpu()
+    wins = [mw[:int(mt[2, k]), k].cpu().numpy() for k in range(mt.shape[1])]
+    t1 = time.time()
+    for _ in range(20):
+        bd.contained_any(mq, mlq, *bd.upload_windows(cols, wins, device),
+                         2).cpu()
+    ms_cblock = 1e3 * (time.time() - t1) / 20
     lens = np.array([len(x) for x in kept])
     Lc = int(np.bincount(lens).argmax())
     arr = next(x for x in kept if len(x) == Lc)
@@ -3220,32 +3359,45 @@ def dedupe_big(device, d: Path) -> dict:
         bd.contained_distances(arr, wins, 2, device=device)
         bd.contained_distances(arr[::-1].copy(), wins, 2, device=device)
     ms_contain = 1e3 * (time.time() - t1) / 20
-    n_blocks = -(-N_DEDUPE_BIG // dedupe.BLOCK)
+    in_block = by_site["containment_in_block"]
     kernel_s = 1e-3 * (n_blocks * ms_block
-                       + by_site["containment"] / 2 * ms_contain)
+                       + launches["contained_any"] * ms_cblock
+                       + in_block / 2 * ms_contain)
     held = sum(c[0].numel() for c in store.classes.values())
     big = {"reads": N_DEDUPE_BIG, "wall_s": wall,
            "reads_per_s": N_DEDUPE_BIG / wall, "block": dedupe.BLOCK,
-           "launches": launches["banded_any"] + launches["banded_edit"],
+           "launches": launches["banded_any"] + launches["banded_edit"]
+           + launches["contained_any"],
            "store_check_launches": launches["banded_any"],
            "store_check_by_mode": by_mode,
-           "containment_launches": by_site["containment"],
+           "containment_launches": {"block": launches["contained_any"],
+                                    "in_block": in_block},
+           "containment_pairs": cont_pairs,
+           "containment_before": CONTAINMENT_BEFORE,
            "kernel_launches": launches, "kept": len(kept),
            "classes": len(store.classes), "store_bytes": held,
            "kept_bytes": int(lens.sum()), "block_near_classes": len(near),
            "block_check_ms_at_all_kept": ms_block,
-           "containment_check_ms": ms_contain,
+           "containment_block_ms": ms_cblock,
+           "containment_in_block_check_ms": ms_contain,
+           "contained_check": cont,
            "kernel_s_reckoned": kernel_s, "kernel_share": kernel_s / wall}
     say(f"dedupe e=2 ac=t at {N_DEDUPE_BIG} reads on the card: "
         f"{big['reads_per_s']:.1f} reads/s ({wall:.2f} s), blocks of "
         f"{dedupe.BLOCK}: store check {launches['banded_any']} launches "
-        f"{big['store_check_by_mode']}, containment check "
-        f"{by_site['containment']} banded_edit launches; {len(kept)} kept "
+        f"{big['store_check_by_mode']}; containment check "
+        f"{launches['contained_any']} block launches "
+        f"({cont_pairs} pairs) and {in_block} in-block banded_edit launches"
+        f" (before the block mapping: {CONTAINMENT_BEFORE['launches']} "
+        f"launches); {len(kept)} kept "
         f"in {len(store.classes)} length classes ({held} B on the card for "
         f"{big['kept_bytes']} B of reads); a block's check against every "
         f"kept read ({len(near)} near classes and the triangle, one fetch)"
-        f" {ms_block:.4f} ms, a containment check {ms_contain:.4f} ms: the "
-        f"kernels at most {kernel_s:.2f} s of {wall:.2f} s "
+        f" {ms_block:.4f} ms, a block's containment check (upload, launch, "
+        f"fetch; {median[3].shape[1]} pairs) {ms_cblock:.4f} ms, an in-block"
+        f" check {ms_contain:.4f} ms (before: "
+        f"{CONTAINMENT_BEFORE['check_ms']} ms a check a read): the kernels "
+        f"at most {kernel_s:.2f} s of {wall:.2f} s "
         f"({100 * kernel_s / wall:.1f} %); "
         + "; ".join(report.splitlines()[-3:]))
     del store, q, lq
@@ -3380,8 +3532,9 @@ def dedupe_variants_phase(device, gbases, clock: float) -> tuple:
     before and after bbmapacc (the same SAM). Then, with those processes
     ended: the banded kernel against its plain version at every shape of
     the phase's list, dedupe over N_DEDUPE_BIG reads and the variants over
-    N_VARIANT_BIG pairs on the card. Returns (the kernel's entry,
-    {dedupe runs, "big"}, {variant runs, "big"})."""
+    N_VARIANT_BIG pairs on the card. Returns (the banded kernel's, the
+    block kernel's and the containment kernel's entries, {dedupe runs,
+    "big"}, {variant runs, "big"})."""
     tmp = tempfile.mkdtemp(prefix="chip_smoke_dedupe")
     cpu_runs = {}
     try:
@@ -3445,7 +3598,8 @@ def dedupe_variants_phase(device, gbases, clock: float) -> tuple:
             (dd if src == dd_in else vv)[key] = res
         cpu_runs["index"].finish(900)
         kt, kany = banded_phase(device, gbases, clock)
-        dd["big"] = dedupe_big(device, dd_in)
+        kcont = contained_phase(device, gbases, clock)
+        dd["big"] = dedupe_big(device, dd_in, clock)
         vv["big"] = variants_big(device, vv_in)
         vv["onerow_at_cli_shapes"], vv["cli_shapes_max_abs_err"] = \
             onerow_at_cli_shapes(device, gbases, vv["big"])
@@ -3453,7 +3607,14 @@ def dedupe_variants_phase(device, gbases, clock: float) -> tuple:
         for r in cpu_runs.values():
             r.stop()
         shutil.rmtree(tmp, ignore_errors=True)
-    return kt, kany, dd, vv
+    # the containment kernel's entry: its check on dedupe's median block,
+    # beside the kernel phase's shapes
+    c = dd["big"]["contained_check"]
+    kcont = {"max_abs_err": max(x["max_abs_err"] for x in [c, *kcont]),
+             "ms": c["ms"], "plain_ms": c["plain_ms"],
+             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+             "library_ms": None, "shapes": [*kcont, c]}
+    return kt, kany, kcont, dd, vv
 
 
 def onerow_at_cli_shapes(device, gbases, big: dict) -> tuple:
@@ -3899,8 +4060,8 @@ def paired(parent: str) -> int:
 # in sys.argv[1] (e=2 ac=t on the card): reads/s and banded_edit's
 # launches split by call site, counted around the two call sites of any
 # tree (SequenceStore.distances of the one-read-a-launch design, the
-# containment check's contained_distances) and banded_any's where the
-# tree has it. One "SPLIT <json>" line.
+# containment check's contained_distances), banded_any's and
+# contained_any's where the tree has them. One "SPLIT <json>" line.
 _SPLIT_RUN = """
 import json, sys, time, torch
 sys.path.insert(0, ".")
@@ -3928,21 +4089,23 @@ rc, rep = cs.run_tool("dedupe", [f"in={sys.argv[1]}", f"out={sys.argv[2]}",
 torch.cuda.synchronize()
 wall = time.time() - t
 block = getattr(bd, "banded_any", None)
+cont = getattr(bd, "contained_any", None)
 print("SPLIT " + json.dumps({
     "rc": rc, "wall_s": wall, "reads_per_s": cs.N_DEDUPE_BIG / wall,
     "banded_edit": bd.banded_edit.launches, "banded_edit_by_site": split,
     "banded_any": dict(block.launches_by) if block else None,
+    "contained_any": cont.launches if cont else None,
     "report": rep.splitlines()[-3:]}), flush=True)
 """
 
 
 def dedupe_split(parent: str) -> int:
     """``--dedupe-split <dir>``: dedupe e=2 ac=t over the N_DEDUPE_BIG-read
-    library of the dedupe phase, once with the tree in <dir> (the parent)
-    and once with this tree, each in a process of its own on the card, in
-    the order parent, change: reads/s and the banded kernels' launches by
-    call site (the store check, the containment check), and the two
-    outputs byte-equal; no ``ok`` line."""
+    library of the dedupe phase with the tree in <dir> (the parent) and
+    with this tree, each run in a process of its own on the card, in the
+    order parent, change, change, parent: reads/s and the banded kernels'
+    launches by call site (the store check, the containment check), and
+    every output byte-equal; no ``ok`` line."""
     from bbmap_tpu_torch import workload
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_split"))
     try:
@@ -3950,8 +4113,10 @@ def dedupe_split(parent: str) -> int:
         _fastq_recs(lib, dedupe_reads(workload.make_genome(), N_DEDUPE_BIG,
                                       91), 92)
         outs = {}
-        for tag, tree in (("parent", parent), ("change", str(ROOT))):
-            out = tmp / f"{tag}_u.fq"
+        trees = {"parent": parent, "change": str(ROOT)}
+        for n, tag in enumerate(("parent", "change", "change", "parent")):
+            tree = trees[tag]
+            out = tmp / f"{tag}{n}_u.fq"
             p = subprocess.run([sys.executable, "-c", _SPLIT_RUN, str(lib),
                                 str(out)], cwd=tree, capture_output=True,
                                text=True, timeout=900)
@@ -3961,8 +4126,8 @@ def dedupe_split(parent: str) -> int:
                 say(p.stdout[-3000:] + p.stderr[-3000:])
                 raise AssertionError(f"the {tag} dedupe run failed ({tree})")
             say(f"dedupe split {tag}: {got[0]}")
-            outs[tag] = out.read_bytes()
-        if outs["parent"] != outs["change"]:
+            outs[n] = out.read_bytes()
+        if len(set(outs.values())) != 1:
             raise AssertionError("the parent's and the change's dedupe "
                                  "outputs differ")
         say("dedupe split: the parent's and the change's outputs byte-equal")
@@ -4077,8 +4242,8 @@ def main() -> int:
                          "decontaminate")) + f"; card {smi}")
 
     t = time.time()
-    bkt, bany, dd, vv = dedupe_variants_phase(device, gbases,
-                                              max_sm_clock_hz())
+    bkt, bany, bcont, dd, vv = dedupe_variants_phase(device, gbases,
+                                                     max_sm_clock_hz())
     vb = vv["big"]
     say(f"phase dedupe and mapper variants: {time.time() - t:.1f} s; "
         f"banded_edit at {BANDED_PAIRS} x {L} bp, E=2: {bkt['ms']:.4f} ms "
@@ -4087,7 +4252,9 @@ def main() -> int:
         f"equal to its plain version; banded_any at {BLOCK_QUERIES_TABLE} "
         f"queries x {BANDED_PAIRS}, E=2: {bany['ms']:.4f} ms (bound "
         f"{bany['bound_ms']:.4f} ms, share "
-        f"{100 * bany['bound_ms'] / bany['ms']:.1f} %); dedupe e=2 ac=t at "
+        f"{100 * bany['bound_ms'] / bany['ms']:.1f} %); contained_any at "
+        f"dedupe's median block: {bcont['ms']:.4f} ms (bound "
+        f"{bcont['bound_ms']:.6f} ms); dedupe e=2 ac=t at "
         f"{N_DEDUPE_BIG} reads {dd['big']['reads_per_s']:.1f} reads/s, "
         f"store check {dd['big']['store_check_launches']} launches "
         f"{dd['big']['store_check_by_mode']}, containment check "
@@ -4147,17 +4314,20 @@ def main() -> int:
                "msa_score_pipe": "msa_score_pipe",
                "msa_fill_pipe": "msa_fill_pipe",
                "msa_score_rows_pipe": "msa_score_rows_pipe",
-               "banded_edit": "banded_edit", "banded_any": "banded_any"}
+               "banded_edit": "banded_edit", "banded_any": "banded_any",
+               "contained_any": "contained_any"}
     home = {"msa_score_rows": "k1_entry", "msa_walk": "long",
             "msa_score_long": "long", "msa_fill_long": "long",
             "msa_score_strided": "long", "msa_fill_strided": "long",
             "banded_edit": "dedupe", "banded_any": "dedupe",
+            "contained_any": "dedupe",
             "msa_score_row": "mapper_variants",
             "msa_score_pipe": "mapper_variants",
             "msa_fill_pipe": "mapper_variants",
             "msa_score_rows_pipe": "k1_entry"}
     ktimes["banded_edit"] = bkt
     ktimes["banded_any"] = bany
+    ktimes["contained_any"] = bcont
     # K2 at the CLIs' one-row shapes, held to its plain version there too
     for name, e in vv["cli_shapes_max_abs_err"].items():
         ktimes[name]["max_abs_err"] = max(ktimes[name]["max_abs_err"], e)
@@ -4213,6 +4383,7 @@ def main() -> int:
                                for tool, r in kcli.items()}}}), flush=True)
     print(json.dumps({"dedupe_variants": {
         "banded_edit": bkt["shapes"], "banded_any": bany["shapes"],
+        "contained_any": bcont["shapes"],
         "dedupe": {k: {f: v for f, v in r.items() if f != "report"}
                    for k, r in dd.items()},
         "variants": {k: {f: v for f, v in r.items() if f != "report"}

@@ -3,13 +3,16 @@ package's jitted scan (bbmap_tpu/ops/banded_device.py, run on the CPU
 with BBMAP_DEVICE_BANDED=1) and the numpy band sweep, value by value
 (tolerance 0); a numpy emulation of the CUDA kernel's two mappings
 (csrc/banded_edit.cu: the packed sliding window, the chunked lane scan
-with its carry, the early stop at saturation) against the plain version;
-the kernel itself against the plain version where there is a card."""
+with its carry, the early stop at saturation), of the block mapping and of
+the containment mapping (the pair table, the reverse complement read in
+place) against the plain version; the kernel itself against the plain
+version where there is a card."""
 
 import numpy as np
 import pytest
 import torch
 
+from bbmap_tpu.core.bases import COMP_ASCII
 from bbmap_tpu.ops import banded_device as jbd
 from bbmap_tpu.ops.banded import banded_edit_distance
 from bbmap_tpu_torch.ops import banded_device as tbd
@@ -512,3 +515,179 @@ def test_block_kernel_equals_plain_on_the_card():
         want = tbd.banded_any_plain(q, lqd, None, None, E, tri=True)
         assert torch.equal(tbd.banded_any(q, lqd, None, None, E, tri=True),
                            want)
+
+
+# ---------------------------------------------------------------------------
+# The containment mapping (banded_contained_kernel): dedupe's containment
+# check of a block of reads, a pair table, both orientations in place.
+# ---------------------------------------------------------------------------
+
+def _rc(x):
+    return COMP_ASCII[np.asarray(x, np.uint8)][::-1].copy()
+
+
+def _contained_case(seed, tol, n_q=12, n_c=6):
+    """Reads cut from containers (150-260 bp of ACGTNacgt) with up to 2 tol
+    + 1 edits, some reverse-complemented, and for each read the windows
+    dedupe cuts around its offsets in some containers (+- tol, clipped at
+    a container's ends: offsets at 0, at the end and past both), beside
+    unrelated windows and reads with no window. Returns (queries, [(read,
+    window)])."""
+    rng = np.random.default_rng(seed)
+    conts = [rng.choice(BYTES, int(rng.integers(150, 261))).astype(np.uint8)
+             for _ in range(n_c)]
+    reads, pairs = [], []
+    for r in range(n_q):
+        c = conts[int(rng.integers(0, n_c))]
+        n = int(rng.integers(40, 121))
+        q0 = (0, len(c) - n, int(rng.integers(0, len(c) - n + 1)))[r % 3]
+        read = _mutate(rng, c[q0:q0 + n], int(rng.integers(0, 2 * tol + 2)))
+        if r % 4 == 1:
+            read = _rc(read)
+        reads.append(read)
+        if r % 6 == 5:
+            continue                  # a read with no window
+        for off in (q0, q0 - 3, q0 + 2)[:1 + r % 3]:
+            lo, hi = max(0, off - tol), min(len(c), off + n + tol)
+            pairs.append((r, c[lo:hi]))
+        if r % 5 == 0:                # an unrelated window
+            pairs.append((r, rng.choice(BYTES, n + 2 * tol).astype(
+                np.uint8)))
+    return reads, pairs
+
+
+def _contained_block(reads, pairs):
+    q, lq = tbd.upload_block(reads, "cpu")
+    w, table = tbd.upload_windows([r for r, _ in pairs],
+                                  [x for _, x in pairs], "cpu")
+    return q, lq, w, table
+
+
+@pytest.mark.parametrize("tol", [1, 2, 16])
+def test_contained_any_plain_equals_both_orientations(monkeypatch, tol):
+    """contained_any_plain flags a read exactly where, over its windows,
+    min(d(read), d(reverse complement)) <= tol by contained_distances, the
+    port's and the JAX package's, read by read; the windows and the table
+    come back from upload_windows as they went in."""
+    monkeypatch.setenv("BBMAP_DEVICE_BANDED", "1")
+    reads, pairs = _contained_case(60 + tol, tol)
+    q, lq, w, table = _contained_block(reads, pairs)
+    assert table.tolist() == [[r for r, _ in pairs], list(range(len(pairs))),
+                              [len(x) for _, x in pairs]]
+    for k, (_, x) in enumerate(pairs):
+        np.testing.assert_array_equal(w[:len(x), k].numpy(), x)
+    got = tbd.contained_any_plain(q, lq, w, table, tol).numpy()
+    want = []
+    for r, read in enumerate(reads):
+        wins = [x for i, x in pairs if i == r]
+        if not wins:
+            want.append(False)
+            continue
+        d = [tbd.contained_distances(x, wins, tol, device="cpu")
+             for x in (read, _rc(read))]
+        for x, dx in zip((read, _rc(read)), d):
+            np.testing.assert_array_equal(
+                dx, jbd.contained_distances(x, wins, tol))
+        want.append(bool((np.minimum(*d) <= tol).any()))
+    np.testing.assert_array_equal(got, want)
+    assert 0 < got.sum() < len(reads)
+    assert tbd.contained_any(q, lq, w, table, tol).tolist() == got.tolist()
+
+
+class _Strided:
+    """A query column read as the kernel reads it: byte i at start + i *
+    step of the column, through a 256-byte table."""
+
+    def __init__(self, col, start, step, tab):
+        self.col, self.start, self.step, self.tab = col, start, step, tab
+
+    def __getitem__(self, i):
+        return int(self.tab[self.col[self.start + i * self.step]])
+
+
+def _kernel_comp_table():
+    """kComp of csrc/banded_edit.cu, parsed from the source."""
+    import re
+    from pathlib import Path
+    src = (Path(tbd.__file__).parent.parent / "csrc"
+           / "banded_edit.cu").read_text()
+    body = re.search(r"kComp\[256\] = \{([^}]*)\}", src).group(1)
+    return np.array([int(x) for x in body.replace("\n", " ").split(",")],
+                    np.uint8)
+
+
+def _emulate_contained(q, lq, w, table, tol, warp=4, block=8):
+    """banded_contained_kernel (and, past 64 cells, the warp body) on numpy
+    arrays: thread t = 2k + rc runs pair k in orientation rc, the reverse
+    complement read from the forward column backward through the staged
+    complement table; a warp of ``warp`` lanes votes a query's flag among
+    its lanes of that query and the lowest of them stores 1; blocks of
+    ``block`` threads in a random order."""
+    comp = _kernel_comp_table()
+    tabs = (np.arange(256, dtype=np.uint8), comp)
+    qn, lqn, wn, tn = (x.numpy() for x in (q, lq, w, table))
+    P, E = tn.shape[1], 2 * tol
+    thread_band = 2 * E + 1 <= 64
+    flags = np.zeros(qn.shape[1], np.uint8)
+    n_threads = -(-2 * P // block) * block
+    starts = list(range(0, n_threads, block))
+    rng = np.random.default_rng(P)
+    for b0 in (starts[i] for i in rng.permutation(len(starts))):
+        for w0 in range(b0, b0 + block, warp):
+            cols, hits = [], []
+            for t in range(w0, w0 + warp):
+                k, rc = t >> 1, t & 1
+                if k >= P:
+                    cols.append(-1)
+                    hits.append(False)
+                    continue
+                col, wc, lw = (int(x) for x in tn[:, k])
+                la = int(lqn[col])
+                a = _Strided(qn[:, col], la - 1 if rc and la else 0,
+                             -1 if rc else 1, tabs[rc])
+                args = (a, la, wn[:, wc], lw, E, True, qn.shape[0],
+                        wn.shape[0])
+                d = _emulate_thread(*args) if thread_band \
+                    else _emulate_warp(*args)
+                cols.append(col)
+                hits.append(d <= tol)
+            for lane, col in enumerate(cols):
+                peers = [x for x, c in enumerate(cols) if c == col]
+                if col >= 0 and lane == peers[0] and any(hits[x]
+                                                         for x in peers):
+                    flags[col] = 1
+    return flags
+
+
+@pytest.mark.parametrize("tol", [1, 2, 4, 16])
+def test_contained_emulation_equals_plain(tol):
+    """The containment mapping, emulated thread by thread (the pair table's
+    walk, the reverse complement read in place through the kernel's own
+    complement table, the vote among a query's lanes, blocks in a random
+    order), equals contained_any_plain: the thread band to tol = 15, the
+    warp body from tol = 16. The kernel's table is core/bases.COMP_ASCII."""
+    np.testing.assert_array_equal(_kernel_comp_table(), COMP_ASCII)
+    reads, pairs = _contained_case(80 + tol, tol, n_q=8 if tol > 4 else 12)
+    args = _contained_block(reads, pairs)
+    want = tbd.contained_any_plain(*args, tol).numpy()
+    np.testing.assert_array_equal(_emulate_contained(*args, tol), want)
+    assert 0 < want.sum() < len(reads)
+
+
+def test_contained_kernel_equals_plain_on_the_card():
+    """The containment mapping against its plain version on the card, in
+    the thread band (tol 1, 2, 15) and on the warp body (tol 16), on
+    dedupe's block layout (chip_smoke.py does this at dedupe's shape)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    for tol in (1, 2, 15, 16):
+        reads, pairs = _contained_case(tol, tol, n_q=40)
+        q, lq = tbd.upload_block(reads, dev)
+        w, table = tbd.upload_windows([r for r, _ in pairs],
+                                      [x for _, x in pairs], dev)
+        want = tbd.contained_any_plain(q, lq, w, table, tol)
+        tbd.reset_launches()
+        got = tbd.contained_any(q, lq, w, table, tol)
+        assert tbd.contained_any.launches == 1
+        assert torch.equal(got, want), tol

@@ -235,8 +235,9 @@ def test_sam_copy_matches(ref_state):
 # names an absent reference and splits interleaved pairs; banded_device is
 # a torch rewrite: the plain version, the kernel's wrapper with its launch
 # counts and library, the block kernel's wrapper and plain version, and
-# the device store of dedupe's kept sequences; dedupe checks its reads in
-# blocks and keeps the containment check in a function of its own
+# the device store of dedupe's kept sequences, the containment kernel's
+# wrapper, plain version and staging; dedupe checks its reads in blocks and
+# splits the containment check into the functions the block calls
 PORT_ADDED = {
     "ops.banded_device": {"banded_edit_batch_plain", "banded_edit",
                           "backend", "torch", "ctypes", "Optional",
@@ -248,8 +249,13 @@ PORT_ADDED = {
                           "BLOCK_AIM_PER_SM", "BLOCK_STAGE_MAX",
                           "PLAIN_ANY_PAIRS", "ANY_MODES", "_check_any",
                           "banded_any_plain", "banded_any", "block_groups",
-                          "upload_block"},
-    "tools.dedupe": {"backend", "torch", "BLOCK", "_contained"},
+                          "upload_block", "COMP_ASCII",
+                          "_check_contained", "_reverse_complements",
+                          "contained_any_plain", "contained_any",
+                          "upload_windows"},
+    "tools.dedupe": {"backend", "torch", "BLOCK", "COMP_BYTES", "_offsets",
+                     "_probes", "_candidates", "_exact", "_windows",
+                     "_contained_in_block"},
     "tools.bbsplit": {"backend"},
     "io.native": {"sys", "load_error"},
     "index.kmerset": {"scan_batch_plain", "scan_batch_multi_plain",

@@ -182,12 +182,14 @@ def test_dedupe_byte_equal(corpus, tmp_path, monkeypatch, capsys, case):
 
 @pytest.mark.parametrize("block", [1, 3, 256])
 @pytest.mark.parametrize("case", ["e=2", "e=2 ac=t containment",
-                                  "dedupe2 nam=3"])
+                                  "s=2 ac=t containment", "dedupe2 nam=3"])
 def test_dedupe_blocks_byte_equal(corpus, tmp_path, monkeypatch, capsys,
                                   case, block):
-    """The e= check in blocks of 1, 3 and 256 reads (the store as it stood
-    before the block, the block's reads against each other, the decisions
-    in read order) writes the JAX tools' bytes."""
+    """The e= check and the containment check in blocks of 1, 3 and 256
+    reads (the store and the containers as they stood before the block,
+    the block's reads against each other and against the containers kept
+    earlier in the block, the decisions in read order) write the JAX
+    tools' bytes."""
     from bbmap_tpu_torch.tools import dedupe as tdd
     monkeypatch.setattr(tdd, "BLOCK", block)
     test_dedupe_byte_equal(corpus, tmp_path, monkeypatch, capsys, case)
@@ -216,3 +218,113 @@ def test_chain_inside_one_block():
     got = [(r.id, d) for r, d in tdd.dedupe_stream(
         recs, True, 0, 2, False, device="cpu")]
     assert got == want == [("A", False), ("B", True), ("C", False)]
+
+
+class _Rec:
+    def __init__(self, name, seq):
+        self.id, self.bases, self.quality = name, bytes(seq), None
+
+
+def _forward(rng, n):
+    """n random bases that start and end with A, so that they are their
+    own canonical orientation (dedupe keeps min(seq, rc))."""
+    x = rng.choice(BASES, n).astype(np.uint8)
+    x[0] = x[-1] = ord("A")
+    return x
+
+
+def _subs(x, at):
+    y = x.copy()
+    y[at] = BASES[(np.searchsorted(BASES, y[at]) + 1) % 4]
+    return y
+
+
+def _both_streams(monkeypatch, recs, block, mode):
+    """dedupe_stream of both packages over recs with ac=t and tol 2 (e=2
+    or s=2), the port in blocks of ``block``; the port's containment
+    checks recorded: the block launches' query columns and each in-block
+    check's result by read."""
+    from bbmap_tpu.tools import dedupe as jdd
+    from bbmap_tpu_torch.ops import banded_device as tbd
+    from bbmap_tpu_torch.tools import dedupe as tdd
+    subs, edits = (0, 2) if mode == "e" else (2, 0)
+    seen = {"block": 0, "in_block": []}
+    check, block_check = tdd._contained_in_block, tbd.contained_any
+
+    def in_block(can, *a, **k):
+        got = check(can, *a, **k)
+        seen["in_block"].append((can, got))
+        return got
+
+    def counted(*a, **k):
+        seen["block"] += 1
+        return block_check(*a, **k)
+    counted.__dict__ = block_check.__dict__   # the wrapper's own counts
+    monkeypatch.setattr(tdd, "BLOCK", block)
+    monkeypatch.setattr(tdd, "_contained_in_block", in_block)
+    monkeypatch.setattr(tbd, "contained_any", counted)
+    want = [(r.id, d) for r, d in jdd.dedupe_stream(recs, True, subs, edits,
+                                                     True)]
+    got = [(r.id, d) for r, d in tdd.dedupe_stream(
+        recs, True, subs, edits, True, device="cpu")]
+    assert got == want
+    return dict(got), seen
+
+
+@pytest.mark.parametrize("mode", ["e", "s"])
+@pytest.mark.parametrize("block", [3, 512])
+@pytest.mark.parametrize("gap", [1, 100])
+def test_container_kept_in_the_same_block(monkeypatch, mode, block, gap):
+    """A read whose only container was kept earlier in its own block (the
+    next read, or a read 100 places later): a duplicate within 1
+    substitution, found by the in-block check, as the JAX package finds
+    it one read at a time; where the block is smaller than the gap, the
+    block check against the containers kept before finds it. An exact
+    fragment of the same container is a duplicate too."""
+    rng = np.random.default_rng(17 + gap)
+    recs = [_Rec(f"f{i}", _forward(rng, int(rng.integers(100, 900))))
+            for i in range(6 + gap + 12)]
+    cont = _forward(rng, 200)
+    cont[31] = cont[150] = ord("A")
+    recs[6] = _Rec("C", cont)
+    recs[6 + gap] = _Rec("R", _subs(cont[31:151], 60))
+    recs[6 + gap + 3] = _Rec("X", cont[31:151])
+    got, seen = _both_streams(monkeypatch, recs, block, mode)
+    assert not got["C"] and got["R"] and got["X"]
+    assert sum(got.values()) == 2
+    same_block = 6 // block == (6 + gap) // block
+    in_block = [hit for can, hit in seen["in_block"]
+                if can == recs[6 + gap].bases]
+    if same_block:
+        assert in_block == [True] and seen["block"] == 0
+    else:
+        assert in_block == [] and seen["block"] >= 1
+
+
+@pytest.mark.parametrize("mode", ["e", "s"])
+@pytest.mark.parametrize("block", [3, 512])
+def test_containers_before_and_inside_the_block(monkeypatch, mode, block):
+    """A read with a container kept before its block (3 substitutions off,
+    past the tolerance) and one kept earlier inside its block (1
+    substitution off): the block check finds the first and rejects it, the
+    in-block check finds the second, and the read is a duplicate, as in
+    the JAX package; another read 1 off the first container alone is a
+    duplicate by the block check."""
+    rng = np.random.default_rng(23)
+    recs = [_Rec(f"f{i}", _forward(rng, int(rng.integers(100, 900))))
+            for i in range(2 * block + 8)]
+    core = _forward(rng, 120)
+    c1 = np.concatenate([_forward(rng, 62), core, _forward(rng, 40)])
+    c2 = np.concatenate([_forward(rng, 31), _subs(core, [58, 59]),
+                         _forward(rng, 50)])
+    at = 2 * block
+    recs[0] = _Rec("C1", c1)
+    recs[at] = _Rec("C2", c2)
+    recs[at + 1] = _Rec("R", _subs(core, [58, 59, 60]))
+    recs[at + 4] = _Rec("S", _subs(core, 20))
+    got, seen = _both_streams(monkeypatch, recs, block, mode)
+    assert not got["C1"] and not got["C2"] and got["R"] and got["S"]
+    assert sum(got.values()) == 2
+    assert [hit for can, hit in seen["in_block"]
+            if can == recs[at + 1].bases] == [True]
+    assert seen["block"] >= 1
