@@ -4,8 +4,10 @@ traceback -> SAM (PyTorch port of bbmap_tpu/align/pipeline.py).
 Host numpy code copied from the JAX package with its device calls pointed
 at this package's modules: the quickmap, fused, escalation and rescue
 programs run as PyTorch on the aligner's ``device``, and every DP pass
-goes through the score / fill kernel wrappers (ops/msa_kernels.py). The
-mesh and cross-host sharded-index paths are not ported.
+goes through the score / fill kernel wrappers (ops/msa_kernels.py). A
+``mesh`` (parallel/sharded.py) shards the CSR index over genome blocks in
+one process; the cross-host sharded index injects its quickmap through
+``quickmap_factory`` (tools/bbmap.py shardindex=).
 
 Orchestration replacing the reference per-thread loop
 (reference: align2/AbstractMapThread.java:387-640 processRead /
@@ -286,11 +288,34 @@ class BBMapAligner:
                  ambig_mode: str = "best", maxindel: int = 16000,
                  device_quickmap: bool = True, local: bool = False,
                  print_secondary: bool = False, max_sites: int = 5,
-                 mesh=None, profile=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh (multi-device index sharding) is not yet ported")
+                 mesh=None, n_index_shards: Optional[int] = None,
+                 profile=None):
         self.device = resolve_device(device)
+        # multi-device: shard the CSR index over the mesh's "index" axis
+        # and read batches over "data" (reference P4/P5; VERDICT r1 #2).
+        # The shard count is the mesh's; n_index_shards is kept for the
+        # JAX package's signature and must name the same number
+        if mesh is not None:
+            from ..parallel.sharded import Mesh
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh must be a parallel.sharded.Mesh, "
+                                f"not {type(mesh).__name__}")
+            if n_index_shards not in (None, mesh.shape["index"]):
+                raise ValueError(
+                    f"n_index_shards={n_index_shards}, but the mesh has "
+                    f"{mesh.shape['index']} index shards")
+        self.mesh = mesh
+        self._sharded_index = None
+        # cross-host index sharding (parallel/sharded.py
+        # build_crosshost_quickmap): an injected factory supplies the
+        # quickmap runner; mesh_quality marks that it accepts quality;
+        # _xh_gather merges host-side long-indel seed lists across
+        # processes; _li_global_counts replaces local CSR lengths in
+        # host seeding filters (the local shard's lengths are partial)
+        self.quickmap_factory = None
+        self.mesh_quality = False
+        self._xh_gather = None
+        self._li_global_counts = None
         # scoring profile: SHORT (MSA11ts) or PACBIO (MSA9PacBio) with
         # its own clearzone model (reference: BBMapThreadPacBio.java)
         self.profile = profile if profile is not None else K.SHORT_PROFILE
@@ -363,6 +388,14 @@ class BBMapAligner:
                 and int(lens[0]) >= self.index.k):
             self._map_batch_device(batch, int(lens[0]), results)
             return results
+        if self.quickmap_factory is not None:
+            # cross-host sharded index: the host per-length fallback
+            # seeds against the LOCAL CSR block only — mixed-length
+            # batches must be length-bucketed upstream
+            raise RuntimeError(
+                "cross-host sharded index requires uniform-length "
+                "read batches (got lengths "
+                f"{sorted(set(int(x) for x in lens))[:5]})")
         by_len: Dict[int, List[int]] = {}
         for i in range(B):
             L = int(batch.lengths[i])
@@ -381,10 +414,23 @@ class BBMapAligner:
         stream/ConcurrentGenericReadInputStream.java:122-166)."""
         from . import quickmap_device
         if L not in self._qm_cache:
-            self._qm_cache[L] = quickmap_device.build_quickmap(
-                self.dindex, L, chain_dist=self.chain_dist,
-                min_ratio=self.min_ratio, profile=self.profile)
-        if batch.quality is not None:
+            if self.quickmap_factory is not None:
+                self._qm_cache[L] = self.quickmap_factory(L)
+            elif self.mesh is not None:
+                from ..parallel import sharded
+                if self._sharded_index is None:
+                    self._sharded_index = sharded.shard_index(
+                        self.index, self.mesh.shape["index"])
+                self._qm_cache[L] = sharded.build_sharded_quickmap(
+                    self.mesh, self.index, self._sharded_index, L,
+                    chain_dist=self.chain_dist,
+                    min_ratio=self.min_ratio, profile=self.profile)
+            else:
+                self._qm_cache[L] = quickmap_device.build_quickmap(
+                    self.dindex, L, chain_dist=self.chain_dist,
+                    min_ratio=self.min_ratio, profile=self.profile)
+        if batch.quality is not None and (self.mesh is None
+                                          or self.mesh_quality):
             return self._qm_cache[L](batch.bases[:, :L],
                                      batch.quality[:, :L])
         return self._qm_cache[L](batch.bases[:, :L])
@@ -402,7 +448,7 @@ class BBMapAligner:
     FUSED_MAX_L = 600
 
     def _use_fused(self, L: Optional[int] = None) -> bool:
-        return (self.device_quickmap
+        return (self.device_quickmap and self.mesh is None
                 and self.maxindel > 0 and not self.print_secondary
                 and (L is None or L <= self.FUSED_MAX_L))
 
@@ -2264,9 +2310,13 @@ class BBMapAligner:
         min_score = int(max_sw * self.min_ratio)
 
         from ..index.build import reverse_complement_key
+        gcounts = self._li_global_counts
 
         def local_diags(i):
-            """Both strands' seed diagonals from the CSR."""
+            """Both strands' seed diagonals from the (possibly
+            block-local) CSR; per-key list-length filters consult the
+            GLOBAL counts in cross-host mode (the local shard's
+            lengths are partial)."""
             row = batch.bases[i, :L]
             keys_p = seed.keys_at_offsets(row, offsets, k)
             out = []
@@ -2286,7 +2336,8 @@ class BBMapAligner:
                         continue
                     s0, s1 = self.index.starts[key], \
                         self.index.starts[key + 1]
-                    gl = s1 - s0
+                    gl = int(gcounts[key]) if gcounts is not None \
+                        else s1 - s0
                     if gl == 0 or gl > 64:
                         continue
                     diags.append(
@@ -2297,6 +2348,27 @@ class BBMapAligner:
             return out
 
         per_read = [local_diags(i) for i in idxs]
+        if self._xh_gather is not None and len(idxs):
+            # merge seed lists across processes: each shard saw only
+            # its genome block's sites. ONE fixed-shape collective per
+            # pass (every process reaches here with identical idxs —
+            # upstream results are replicated)
+            flat = np.concatenate(
+                [d for pair in per_read for d in pair]) \
+                if per_read else np.zeros(0, np.int64)
+            lens = np.array([len(d) for pair in per_read
+                             for d in pair], np.int64)
+            flats, lens_all = self._xh_gather(flat, lens)
+            n_ent = len(lens)
+            offs_p = [np.concatenate([[0], np.cumsum(lens_all[p])])
+                      for p in range(len(flats))]
+            merged = []
+            for t in range(n_ent):
+                merged.append(np.concatenate(
+                    [flats[p][offs_p[p][t]:offs_p[p][t + 1]]
+                     for p in range(len(flats))]))
+            per_read = [(merged[2 * t], merged[2 * t + 1])
+                        for t in range(len(idxs))]
         jobs = []   # (read_idx, strand, read_row, gref_padded, c2r, C)
         for pos_i, i in enumerate(idxs):
             row = batch.bases[i, :L]

@@ -607,10 +607,19 @@ def _stable_desc(x: torch.Tensor, dim: int = -1):
 
 def candidate_stage(cfg: QmConfig, bases, dindex: DeviceIndex,
                     offsets_dyn=None, rcodes=None, two_tier: bool = False,
-                    weights_dyn=None, reject=None):
-    """Steps 1-5 (seed -> chain -> vote -> top-K candidates). Returns
-    (rcodes (B, L) uint8, cand dict of (B, K) int32 tensors: votes, mode,
-    strand, start, spread; plus ``hi_over`` (B,) bool when two_tier)."""
+                    weights_dyn=None, reject=None, gcnt_d=None):
+    """Steps 1-5 (seed -> chain -> vote -> top-K candidates) against the
+    CSR of ``dindex`` (the whole index, or one genome block's shard).
+    Returns (rcodes (B, L) uint8, cand dict of (B, K) int32 tensors:
+    votes, mode, strand, start, spread; plus ``hi_over`` (B,) bool when
+    two_tier).
+
+    ``gcnt_d``: optional per-key GLOBAL site-list length table (uint8,
+    saturated at 255 — every admission threshold is < 255). A shard sees
+    only its block's lists, so over-long-list exclusion, staged
+    re-admission and the greedy slot budget (reference:
+    BBIndex.find:421-440) consult the global length to make the
+    whole index's decisions; None uses the local (= global) count."""
     k, L, S = cfg.k, cfg.L, cfg.S
     chain_dist = cfg.chain_dist
     offsets_list = cfg.offsets_list
@@ -654,7 +663,9 @@ def candidate_stage(cfg: QmConfig, bases, dindex: DeviceIndex,
     else:
         s0 = dindex.starts[safe]
         cnt_local = dindex.starts[safe + 1] - s0
-    gcnt = cnt_local
+    # admission consults the GLOBAL list length (== local on one
+    # device); the gathers use the LOCAL length
+    gcnt = cnt_local if gcnt_d is None else gcnt_d[safe].to(I32)
     if cfg.ref_admit and dindex.ccnt is not None:
         ccnt_p = dindex.ccnt[torch.where(kp < 0, 0, kp).long()]
         ccnt_p = torch.where(kp < 0, 0, ccnt_p)

@@ -12,8 +12,8 @@ reference: jgi/BBDukF.java:47 + sh/bbduk.sh. Core modes covered:
 
 The port's copy of the JAX package's tool: ``device=`` (default cuda)
 names the torch device of the k-mer scan and of ``tbo=``'s overlap
-ladder; ``hosts=`` above 1 (multi-host striping) is not ported yet and
-exits 1.
+ladder; ``hosts=`` stripes read batches over processes
+(``parallel/multihost.py``).
 """
 
 from __future__ import annotations
@@ -352,10 +352,18 @@ def main(argv: List[str]) -> int:
               file=sys.stderr)
         return 1
 
-    if args.get_int("hosts", default=1) > 1:
-        print("bbduk: hosts= > 1 (multi-host striping) is not ported yet",
-              file=sys.stderr)
-        return 1
+    # multi-host striping (VERDICT r3 #6 — hosts= beyond bbmap; bbduk
+    # is a pure map over reads so the rank-ownership rule
+    # batch_id %% hosts == hostid stripes trivially; host 0 merges
+    # output shards in input order and tree-reduces the counters).
+    # The stripe and the shared-FS barrier suffice: bbduk joins no
+    # process group
+    import os as _os
+    num_hosts = args.get_int("hosts", default=1)
+    host_id = 0
+    if num_hosts > 1:
+        host_id = args.get_int("hostid", default=int(
+            _os.environ.get("BBMAP_TPU_HOST_ID", "0")))
     if k > 31:
         # a k-mer is one 64-bit word: BBDuk takes k <= 31 and emulates
         # longer k-mers with kbig= (not ported)
@@ -382,10 +390,19 @@ def main(argv: List[str]) -> int:
                 forcetrimright=ftr, entropy=entropy, kbig=kbig,
                 maq=maq, maxns=maxns, ftm=ftm, device=device)
 
-    out_fh = fastx.xopen(out, "wb") if out else None
-    out2_fh = fastx.xopen(out2, "wb") if out2 else None
-    outm_fh = fastx.xopen(outm, "wb") if outm else None
-    outm2_fh = fastx.xopen(outm2, "wb") if outm2 else None
+    shards = {}
+    if num_hosts > 1:
+        from ..parallel import multihost
+        for name, path in (("out", out), ("out2", out2),
+                           ("outm", outm), ("outm2", outm2)):
+            shards[name] = multihost.ShardWriter(path, host_id) \
+                if path else None
+        out_fh = out2_fh = outm_fh = outm2_fh = None
+    else:
+        out_fh = fastx.xopen(out, "wb") if out else None
+        out2_fh = fastx.xopen(out2, "wb") if out2 else None
+        outm_fh = fastx.xopen(outm, "wb") if outm else None
+        outm2_fh = fastx.xopen(outm2, "wb") if outm2 else None
 
     def write(fh, rec):
         if fh is None:
@@ -398,7 +415,21 @@ def main(argv: List[str]) -> int:
     paired = in2 is not None or interleaved
     reader = fastx.PairedReader(in1, in2, interleaved)
     kept = removed = 0
-    for chunk in batched(iter(reader), 8192):
+    src = batched(iter(reader), 8192)
+    if num_hosts > 1:
+        from ..parallel import multihost
+        src = multihost.stripe_batches(src, host_id, num_hosts)
+    else:
+        src = enumerate(src)
+    import io as _io
+    for batch_id, chunk in src:
+        if num_hosts > 1:
+            bufs = {name: _io.BytesIO() if sh is not None else None
+                    for name, sh in shards.items()}
+            out_fh = bufs["out"]
+            out2_fh = bufs["out2"]
+            outm_fh = bufs["outm"]
+            outm2_fh = bufs["outm2"]
         recs1 = [p[0] for p in chunk]
         b1 = ReadBatch.from_records(recs1)
         keep1, out1_recs, m1 = duk.process_batch(b1)
@@ -476,8 +507,32 @@ def main(argv: List[str]) -> int:
                 else:
                     write(outm_fh, out1_recs[i])
                     removed += 1
+        if num_hosts > 1:
+            for name, sh in shards.items():
+                if sh is not None:
+                    sh.write_batch(batch_id, bufs[name].getvalue())
+            out_fh = out2_fh = outm_fh = outm2_fh = None
+    if num_hosts > 1:
+        from ..parallel import multihost
+        for sh in shards.values():
+            if sh is not None:
+                sh.close()
+        total = multihost.finish_stripes(
+            "bbduk-shards-done", host_id, num_hosts, out or outm,
+            {"reads_in": duk.reads_in, "bases_in": duk.bases_in,
+             "reads_matched": duk.reads_matched, "kept": kept,
+             "removed": removed, "ref_counts": duk.ref_counts},
+            (out, out2, outm, outm2))
+        if total is None:
+            stats = None
+        else:
+            duk.reads_in, duk.bases_in = total["reads_in"], \
+                total["bases_in"]
+            duk.reads_matched = total["reads_matched"]
+            kept, removed = total["kept"], total["removed"]
+            duk.ref_counts = total["ref_counts"]
     for fh in (out_fh, out2_fh, outm_fh, outm2_fh):
-        if fh is not None:
+        if fh is not None and not isinstance(fh, _io.BytesIO):
             fh.close()
     dt = time.time() - t0
     sys.stderr.write(

@@ -3,9 +3,13 @@ PyTorch port of bbmap_tpu/tools/bbmap.py.
 
 reference: align2/BBMap.java:24 + sh/bbmap.sh. Flag-for-flag compatible for
 the core mapping flags. ``device=`` selects the torch device (default
-cuda; device=cpu runs the plain PyTorch versions of the kernels). The
-multi-host (hosts=, shardindex=) and profiler (profiledir=) options are
-not yet ported and raise.
+cuda; device=cpu runs the plain PyTorch versions of the kernels).
+``hosts=N hostid=I coordinator=host:port`` joins N processes in a gloo
+process group (``parallel/multihost.py``): each maps its stripe of
+batches and host 0 merges the SAM shards, or, with ``shardindex=t``,
+each holds one genome block's index and maps every batch
+(``parallel/sharded.py``). ``profiledir=`` writes a torch.profiler
+trace of the mapping loop.
 """
 
 from __future__ import annotations
@@ -26,6 +30,8 @@ from ..io import sam as samio
 from ..utils.args import Args
 
 from ..align.pipeline import BBMapAligner, emit_sam
+from ..backend import resolve_device
+from ..parallel import multihost
 
 
 def _apply_presets(argv: List[str]) -> List[str]:
@@ -63,12 +69,17 @@ def _apply_presets(argv: List[str]) -> List[str]:
 
 
 def main(argv: List[str]) -> int:
+    try:
+        return _main(argv)
+    finally:
+        # leave the process group (hosts=), so that a later run in this
+        # process starts clean
+        multihost.shutdown()
+
+
+def _main(argv: List[str]) -> int:
     argv = _apply_presets(argv)
     args = Args.parse(argv)
-    for opt in ("hosts", "hostid", "coordinator", "shardindex",
-                "indexshard", "profiledir"):
-        if args.get(opt) is not None:
-            raise NotImplementedError(f"{opt}= is not yet ported")
     device = args.get("device", default="cuda")
     ref = args.get("ref")
     in1 = args.get("in", "in1") or (args.positional[0]
@@ -119,6 +130,35 @@ def main(argv: List[str]) -> int:
         print("Usage: bbmap ref=<fasta> in=<reads> [in2=] out=<sam>",
               file=sys.stderr)
         return 1
+    # a device that does not exist fails before any peer waits on us
+    device = resolve_device(device)
+
+    # multi-host mode (SURVEY §5.8; reference:
+    # stream/ConcurrentReadInputStreamD.java:157 rank ownership):
+    # hosts=N hostid=I coordinator=host:port — every host opens the
+    # shared input and keeps its stripe of batches
+    # (batch_id % hosts == hostid), maps against its own index copy,
+    # writes a SAM shard + batch-offset sidecar, and host 0 reassembles
+    # global input order. Histogram/scafstats outputs are reduced on
+    # host 0.
+    num_hosts = args.get_int("hosts", default=int(
+        os.environ.get("BBMAP_TPU_NUM_HOSTS", "1")))
+    # shardindex=t: cross-host INDEX sharding — each process holds only
+    # its genome-block CSR shard; every host maps every batch and the
+    # candidate tables are all-gathered across the hosts a batch
+    # (parallel/sharded.build_crosshost_quickmap). Default (f)
+    # replicates the index and stripes read batches — the right choice
+    # while the index fits one device.
+    shardindex = args.get_bool("shardindex", "indexshard",
+                               default=False)
+    host_id = 0
+    if num_hosts > 1:
+        if not out:
+            print("multi-host mode requires out=", file=sys.stderr)
+            return 1
+        host_id = multihost.init(
+            args.get("coordinator"), num_hosts,
+            args.get_int("hostid", default=None))
 
     t0 = time.time()
     maxchromlen = args.get_int("maxchromlen", default=0)
@@ -130,26 +170,39 @@ def main(argv: List[str]) -> int:
 
     t1 = time.time()
     index = None
-    if not nodisk:
-        cache_dir = os.path.join(
-            os.path.dirname(os.path.abspath(ref)), "ref_tpu")
-        os.makedirs(cache_dir, exist_ok=True)
-        mod_tag = "_mod9" if usemodulo else ""
-        if excl_frac >= 0:
-            mod_tag += f"_x{excl_frac:g}"
-        cache = os.path.join(
-            cache_dir, f"index_{genome_hash(ref, k)}{mod_tag}.npz")
-        if os.path.exists(cache):
-            index = load_index(cache)
-    if index is None:
-        index = build_index(genome, k, usemodulo=usemodulo)
+    counts_global = None
+    if num_hosts > 1 and shardindex:
+        from ..index.build import build_index_shard
+        index, counts_global, _bounds = build_index_shard(
+            genome, k, host_id, num_hosts, usemodulo=usemodulo)
         frac = excl_frac if excl_frac >= 0 else \
             set_fraction_to_exclude(genome.total_bases())
-        analyze_index(index, frac)
+        analyze_index(index, frac, lengths_global=counts_global)
+        sys.stderr.write(
+            f"Generated Index Shard {host_id}/{num_hosts} "
+            f"({len(index.sites)} of {int(counts_global.sum())} "
+            f"sites):\t{time.time()-t1:.3f} seconds.\n")
+    else:
         if not nodisk:
-            save_index(index, cache)
-    sys.stderr.write(
-        f"Generated Index:\t{time.time()-t1:.3f} seconds.\n")
+            cache_dir = os.path.join(
+                os.path.dirname(os.path.abspath(ref)), "ref_tpu")
+            os.makedirs(cache_dir, exist_ok=True)
+            mod_tag = "_mod9" if usemodulo else ""
+            if excl_frac >= 0:
+                mod_tag += f"_x{excl_frac:g}"
+            cache = os.path.join(
+                cache_dir, f"index_{genome_hash(ref, k)}{mod_tag}.npz")
+            if os.path.exists(cache):
+                index = load_index(cache)
+        if index is None:
+            index = build_index(genome, k, usemodulo=usemodulo)
+            frac = excl_frac if excl_frac >= 0 else \
+                set_fraction_to_exclude(genome.total_bases())
+            analyze_index(index, frac)
+            if not nodisk:
+                save_index(index, cache)
+        sys.stderr.write(
+            f"Generated Index:\t{time.time()-t1:.3f} seconds.\n")
 
     # scoring profile: profile=pacbio selects the MSA9PacBio stack
     # (reference: align2/BBMapPacBio.java MSA_TYPE, BBMapThreadPacBio)
@@ -163,8 +216,31 @@ def main(argv: List[str]) -> int:
                            else 0, local=local,
                            print_secondary=secondary,
                            max_sites=max_sites, profile=profile)
+    if counts_global is not None:
+        # cross-host sharded index: inject the process-group quickmap,
+        # the long-indel seed merge, and global-count seeding filters
+        from ..parallel import sharded as shmod
+        xmesh = shmod.crosshost_mesh(aligner.device)
+        aligner.mesh = xmesh
+        aligner.mesh_quality = True
+        aligner.quickmap_factory = \
+            lambda LL: shmod.build_crosshost_quickmap(
+                aligner.dindex, counts_global, LL,
+                chain_dist=aligner.chain_dist,
+                min_ratio=aligner.min_ratio, mesh=xmesh,
+                profile=aligner.profile)
+        aligner._xh_gather = shmod.xh_allgather_varlen
+        aligner._li_global_counts = counts_global
+
+    shard = None
     out_fh = None
-    if out:
+    if num_hosts > 1 and not shardindex:
+        shard = multihost.ShardWriter(out, host_id)
+        shard.write_header(
+            ("\n".join(samio.sam_header(genome)) + "\n").encode())
+    elif out and (num_hosts <= 1 or host_id == 0):
+        # shardindex mode: every host maps every batch (results are
+        # replicated); host 0 alone writes the SAM
         out_fh = samio.open_sam_writer(out)
         for line in samio.sam_header(genome):
             out_fh.write(line + "\n")
@@ -252,6 +328,27 @@ def main(argv: List[str]) -> int:
             res.start -= a
             res.stop += b_
 
+    # optional profiler trace around the mapping loop (SURVEY §5.1
+    # per-phase timers; torch.profiler with the CPU and, where there is
+    # a card, the CUDA activities; a chrome trace per host in the
+    # directory). NOTE: "profile=" is the SCORING-profile flag
+    # (profile=pacbio); only profiledir= starts the trace
+    profile_dir = args.get("profiledir")
+    prof = None
+    if profile_dir:
+        try:
+            import torch
+            from torch.profiler import ProfilerActivity
+            acts = [ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                acts.append(ProfilerActivity.CUDA)
+            prof = torch.profiler.profile(activities=acts)
+            prof.start()
+            sys.stderr.write(f"Profiler trace -> {profile_dir}\n")
+        except Exception as e:
+            prof = None
+            sys.stderr.write(f"profiler unavailable: {e}\n")
+
     # hung-run watchdog: aborts if no batch completes for 30 min
     # (reference: stream/KillSwitch.java:17 kill timer around the
     # map/print loop)
@@ -266,7 +363,13 @@ def main(argv: List[str]) -> int:
     from collections import deque
 
     from ..core.batch import prefetch
-    batches = enumerate(batched(iter(reader), batch_size))
+    batches = batched(iter(reader), batch_size)
+    if num_hosts > 1 and not shardindex:
+        batches = multihost.stripe_batches(batches, host_id, num_hosts)
+    else:
+        # single host, or cross-host sharded index (every host maps
+        # every batch — the work division is the index axis)
+        batches = enumerate(batches)
 
     # producer prepares batch N+1 (decode + trim) and queues its
     # metadata while the aligner stream holds batch N's dispatch in
@@ -328,12 +431,55 @@ def main(argv: List[str]) -> int:
             n_reads += len(recs1)
             n_mapped += sum(r.mapped for r in res1)
             accumulate(b1, res1)
-        if out_fh is not None:
+        if shard is not None:
+            shard.write_batch(batch_id,
+                              ("\n".join(lines) + "\n").encode())
+        elif out_fh is not None:
             out_fh.write("\n".join(lines) + "\n")
         if stats is not None:
             stats.add_time(time.time() - t_batch,
                            (2 if paired else 1) * len(recs1))
     dog.stop()
+    if prof is not None:
+        try:
+            prof.stop()
+            os.makedirs(profile_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(
+                profile_dir, f"bbmap_host{host_id}.trace.json"))
+        except Exception as e:
+            sys.stderr.write(f"profiler trace not written: {e}\n")
+    if shard is not None:
+        shard.close()
+        # stats/scafstats/read-count stripes ride sidecars so host 0 can
+        # tree-reduce the FULL battery to single-process-identical
+        # artifacts (VERDICT r3 #6; reference: align2/ReadStats
+        # mergeRaw:208-256 merges every histogram at end of run)
+        side = multihost.shard_path(out, host_id) + ".stats.npz"
+        if stats is not None:
+            stats.save_npz(side)
+        total = multihost.finish_stripes(
+            "bbmap-shards-done", host_id, num_hosts, out,
+            {"n_reads": n_reads, "n_mapped": n_mapped,
+             "scaf_counts": scaf_counts}, (out,))
+        if total is not None:
+            n_reads, n_mapped = total["n_reads"], total["n_mapped"]
+            scaf_counts = total["scaf_counts"]
+            for p in range(num_hosts):
+                sp = multihost.shard_path(out, p) + ".stats.npz"
+                if os.path.exists(sp):
+                    if p and stats is not None:
+                        stats.merge_npz(sp)
+                    os.remove(sp)
+        else:
+            # non-zero hosts do not emit stats artifacts (host 0 owns
+            # the merged files)
+            hist_flags = {k: None for k in hist_flags}
+            scafstats_path = None
+            scaf_counts = None
+    if shardindex and num_hosts > 1 and host_id != 0:
+        # replicated-output mode: host 0 owns every artifact
+        hist_flags = {k: None for k in hist_flags}
+        scafstats_path = None
     if out_fh is not None and out_fh not in (sys.stdout,):
         out_fh.close()
     dt = time.time() - t2

@@ -8,8 +8,8 @@ the insert-size histogram. Ratio mode is a round-2 item.
 
 The port's copy of the JAX package's tool: ``device=`` (default cuda)
 names the torch device of the overlap ladders (ratio mode and the
-QUAL_ITERS mismatch ladder); ``hosts=`` above 1 (multi-host striping) is
-not ported yet and exits 1.
+QUAL_ITERS mismatch ladder); ``hosts=`` stripes read pairs over
+processes (``parallel/multihost.py``).
 """
 
 from __future__ import annotations
@@ -228,15 +228,28 @@ def main(argv: List[str]) -> int:
         print("Usage: bbmerge in1= in2= out=merged.fq outu=unmerged.fq",
               file=sys.stderr)
         return 1
-    if args.get_int("hosts", default=1) > 1:
-        print("bbmerge: hosts= > 1 (multi-host striping) is not ported yet",
-              file=sys.stderr)
-        return 1
+
+    # hosts=N striping (reference ownership rule ln.id%ranks==rank,
+    # ConcurrentReadInputStreamD:157 — same machinery as bbduk hosts=)
+    import os as _os
+    num_hosts = args.get_int("hosts", default=1)
+    host_id = args.get_int("hostid", default=int(
+        _os.environ.get("BBMAP_TPU_HOST_ID", "0"))) \
+        if num_hosts > 1 else 0
 
     merger = BBMerge(**p, device=args.get("device", default="cuda"))
-    out_fh = fastx.xopen(out, "wb") if out else None
-    outu1_fh = fastx.xopen(outu1, "wb") if outu1 else None
-    outu2_fh = fastx.xopen(outu2, "wb") if outu2 else None
+    shards = {}
+    if num_hosts > 1:
+        from ..parallel import multihost
+        for nm, path in (("out", out), ("outu1", outu1),
+                         ("outu2", outu2)):
+            shards[nm] = multihost.ShardWriter(path, host_id) \
+                if path else None
+        out_fh = outu1_fh = outu2_fh = None
+    else:
+        out_fh = fastx.xopen(out, "wb") if out else None
+        outu1_fh = fastx.xopen(outu1, "wb") if outu1 else None
+        outu2_fh = fastx.xopen(outu2, "wb") if outu2 else None
 
     def wfq(fh, name, bases, qual):
         if fh is None:
@@ -247,7 +260,20 @@ def main(argv: List[str]) -> int:
 
     t0 = time.time()
     reader = fastx.PairedReader(in1, in2, interleaved and in2 is None)
-    for chunk in batched(iter(reader), 8192):
+    src = batched(iter(reader), 8192)
+    if num_hosts > 1:
+        from ..parallel import multihost
+        src = multihost.stripe_batches(src, host_id, num_hosts)
+    else:
+        src = enumerate(src)
+    import io as _io
+    for batch_id, chunk in src:
+        if num_hosts > 1:
+            bufs = {nm: _io.BytesIO() if sh is not None else None
+                    for nm, sh in shards.items()}
+            out_fh = bufs["out"]
+            outu1_fh = bufs["outu1"]
+            outu2_fh = bufs["outu2"]
         recs1 = [c[0] for c in chunk]
         recs2 = [c[1] for c in chunk]
         if any(r is None for r in recs2):
@@ -281,6 +307,12 @@ def main(argv: List[str]) -> int:
                     wfq(out_fh, rec.id, rec.bases, rec.quality)
                     wfq(outu2_fh if outu2_fh else out_fh, recs2[i].id,
                         recs2[i].bases, recs2[i].quality)
+            if num_hosts > 1:
+                # the ecco branch skips the tail of the loop body —
+                # flush this batch's shard buffers here too
+                for nm, sh in shards.items():
+                    if sh is not None:
+                        sh.write_batch(batch_id, bufs[nm].getvalue())
             continue
         for i, rec in enumerate(recs1):
             if inserts[i] > 0 and joined[i] is not None:
@@ -289,8 +321,29 @@ def main(argv: List[str]) -> int:
                 wfq(outu1_fh, rec.id, rec.bases, rec.quality)
                 wfq(outu2_fh if outu2_fh else outu1_fh, recs2[i].id,
                     recs2[i].bases, recs2[i].quality)
+        if num_hosts > 1:
+            for nm, sh in shards.items():
+                if sh is not None:
+                    sh.write_batch(batch_id, bufs[nm].getvalue())
+    if num_hosts > 1:
+        from ..parallel import multihost
+        for sh in shards.values():
+            if sh is not None:
+                sh.close()
+        total = multihost.finish_stripes(
+            "bbmerge-shards-done", host_id, num_hosts, out or outu1,
+            {"pairs": merger.pairs, "merged": merger.merged,
+             "ambiguous": merger.ambiguous,
+             "no_solution": merger.no_solution,
+             "too_short": merger.too_short, "hist": merger.hist},
+            (out, outu1, outu2))
+        if total is None:
+            return 0
+        for name, v in total.items():
+            setattr(merger, name, v)
+        out_fh = outu1_fh = outu2_fh = None
     for fh in (out_fh, outu1_fh, outu2_fh):
-        if fh is not None:
+        if fh is not None and not isinstance(fh, _io.BytesIO):
             fh.close()
     dt = time.time() - t0
     pct = 100.0 * merger.merged / max(1, merger.pairs)

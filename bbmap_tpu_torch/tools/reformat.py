@@ -6,9 +6,8 @@ samplereadstarget), read count/base limits, force-trim, quality trim,
 length filters, reverse-complement, interleaving/deinterleaving, and
 pair verification.
 
-The port's copy of the JAX package's tool (host numpy). It runs on one
-host: hosts= above 1 (striping over 8192-pair batches) exits 1 until the
-port has the multi-host layer.
+The port's copy of the JAX package's tool (host numpy); ``hosts=``
+stripes 8192-pair batches over processes (``parallel/multihost.py``).
 """
 
 from __future__ import annotations
@@ -56,13 +55,28 @@ def main(argv: List[str]) -> int:
     rng = np.random.default_rng(sampleseed if sampleseed >= 0 else None)
     paired = in2 is not None or interleaved_in
 
-    if args.get_int("hosts", default=1) > 1:
-        print("reformat: hosts= > 1 (multi-host striping) is not ported yet",
-              file=sys.stderr)
-        return 1
+    # hosts=N striping over 8192-pair batches (same machinery as
+    # bbduk/bbmerge/seal hosts=). Note: samplerate= draws follow the
+    # striped order (per-host RNG streams), so sampled outputs are
+    # multihost-deterministic but not byte-equal to a single-process
+    # run; unsampled runs merge byte-equal.
+    import io as _io
+    import os as _os
+    num_hosts = args.get_int("hosts", default=1)
+    host_id = args.get_int("hostid", default=int(
+        _os.environ.get("BBMAP_TPU_HOST_ID", "0"))) \
+        if num_hosts > 1 else 0
+    shards = {}
     out_fmt1 = fastx.sniff_format(out1) if out1 else None
-    out1_fh = fastx.xopen(out1, "wb") if out1 else None
-    out2_fh = fastx.xopen(out2, "wb") if out2 else None
+    if num_hosts > 1:
+        from ..parallel import multihost
+        for nm, path in (("out1", out1), ("out2", out2)):
+            shards[nm] = multihost.ShardWriter(path, host_id) \
+                if path else None
+        out1_fh = out2_fh = None
+    else:
+        out1_fh = fastx.xopen(out1, "wb") if out1 else None
+        out2_fh = fastx.xopen(out2, "wb") if out2 else None
 
     def emit(fh, fmt, rec):
         if fh is None:
@@ -121,17 +135,28 @@ def main(argv: List[str]) -> int:
                                 qfin2=args.get("qfin2"))
     from ..core.batch import batched as _batched
     src = _batched(iter(reader), 8192)
+    if num_hosts > 1:
+        from ..parallel import multihost
+        src = multihost.stripe_batches(src, host_id, num_hosts)
+    else:
+        src = enumerate(src)
     out_fmt2 = fastx.sniff_format(out2) if out2 else out_fmt1
     stop = False
-    for chunk in src:
+    for batch_id, chunk in src:
         if stop:
             break
+        if num_hosts > 1:
+            bufs = {nm: _io.BytesIO() if sh is not None else None
+                    for nm, sh in shards.items()}
+            out1_fh = bufs["out1"]
+            out2_fh = bufs["out2"]
         for r1, r2 in chunk:
             n_in += 1 if r2 is None else 2
             bases_in += len(r1.bases) + (len(r2.bases) if r2 else 0)
             if reads_cap >= 0 and n_out >= reads_cap:
                 stop = True
-                break
+                break          # shard buffers flushed below before the
+                #                outer stop check
             if samplerate < 1.0 and rng.random() >= samplerate:
                 continue
             if verify and r2 is not None:
@@ -153,8 +178,28 @@ def main(argv: List[str]) -> int:
                 emit(fh, fmt, t2)
                 n_out += 1
                 bases_out += len(t2.bases)
+        if num_hosts > 1:
+            for nm, sh in shards.items():
+                if sh is not None:
+                    sh.write_batch(batch_id, bufs[nm].getvalue())
+    if num_hosts > 1:
+        from ..parallel import multihost
+        for sh in shards.values():
+            if sh is not None:
+                sh.close()
+        total = multihost.finish_stripes(
+            "reformat-shards-done", host_id, num_hosts, out1 or out2,
+            {"n_in": n_in, "n_out": n_out, "bases_in": bases_in,
+             "bases_out": bases_out, "mismatch": pair_name_mismatch},
+            (out1, out2))
+        if total is None:
+            return 0
+        n_in, n_out = total["n_in"], total["n_out"]
+        bases_in, bases_out = total["bases_in"], total["bases_out"]
+        pair_name_mismatch = total["mismatch"]
+        out1_fh = out2_fh = None
     for fh in (out1_fh, out2_fh):
-        if fh is not None:
+        if fh is not None and not isinstance(fh, _io.BytesIO):
             fh.close()
     dt = time.time() - t0
     sys.stderr.write(

@@ -16,8 +16,8 @@ Attribution is fully vectorized (the torch k-mer scan of
 index/kmerset_device on ``device=``, default cuda, counting hits per
 read and scaffold there; past its gates the slot scan plus a sort-free
 np.unique condense over the whole batch — no per-read Python loop).
-The port's copy of the JAX package's tool; ``hosts=`` above 1
-(multi-host striping) is not ported yet and exits 1.
+The port's copy of the JAX package's tool; ``hosts=`` stripes
+read batches over processes (``parallel/multihost.py``).
 """
 
 from __future__ import annotations
@@ -441,10 +441,6 @@ def main(argv: List[str]) -> int:
     if ambig not in _AMBIG:
         print(f"Unknown ambiguous mode: {ambig}", file=sys.stderr)
         return 1
-    if args.get_int("hosts", default=1) > 1:
-        print("seal: hosts= > 1 (multi-host striping) is not ported yet",
-              file=sys.stderr)
-        return 1
     seqs, names = [], []
     ref_names, ref_scaf_counts = [], []
     for path in ref.split(","):
@@ -474,11 +470,30 @@ def main(argv: List[str]) -> int:
                   file=sys.stderr)
             return 1
 
+    # hosts=N striping (same machinery as bbduk/bbmerge hosts=)
+    import io as _io
+    import os as _os
+    num_hosts = args.get_int("hosts", default=1)
+    host_id = args.get_int("hostid", default=int(
+        _os.environ.get("BBMAP_TPU_HOST_ID", "0"))) \
+        if num_hosts > 1 else 0
+    shards: Dict[str, object] = {}
+    pat_shards: Dict[int, object] = {}
+    if num_hosts > 1:
+        from ..parallel import multihost
+        for nm, path in (("outm", outm), ("outm2", outm2),
+                         ("outu", outu), ("outu2", outu2)):
+            shards[nm] = multihost.ShardWriter(path, host_id) \
+                if path else None
     per_ref_fh: Dict[int, object] = {}
-    outm_fh = fastx.xopen(outm, "wb") if outm else None
-    outm2_fh = fastx.xopen(outm2, "wb") if outm2 else None
-    outu_fh = fastx.xopen(outu, "wb") if outu else None
-    outu2_fh = fastx.xopen(outu2, "wb") if outu2 else None
+    outm_fh = fastx.xopen(outm, "wb") if outm and not num_hosts > 1 \
+        else None
+    outm2_fh = fastx.xopen(outm2, "wb") if outm2 and num_hosts == 1 \
+        else None
+    outu_fh = fastx.xopen(outu, "wb") if outu and num_hosts == 1 \
+        else None
+    outu2_fh = fastx.xopen(outu2, "wb") if outu2 and num_hosts == 1 \
+        else None
 
     def wfq(fh, rec):
         if fh is None:
@@ -488,7 +503,16 @@ def main(argv: List[str]) -> int:
         fh.write(b"@" + rec.id.encode() + b"\n" + rec.bases + b"\n+\n"
                  + q + b"\n")
 
-    def route(chunk1, chunk2):
+    def route(chunk1, chunk2, batch_id):
+        nonlocal outm_fh, outm2_fh, outu_fh, outu2_fh
+        if num_hosts > 1:
+            bufs = {nm: _io.BytesIO() if sh is not None else None
+                    for nm, sh in shards.items()}
+            outm_fh = bufs["outm"]
+            outm2_fh = bufs["outm2"]
+            outu_fh = bufs["outu"]
+            outu2_fh = bufs["outu2"]
+            pat_bufs: Dict[int, object] = {}
         b1 = ReadBatch.from_records(chunk1)
         b2 = ReadBatch.from_records(chunk2) if chunk2 else None
         asg = seal.assign_batch(b1, b2)
@@ -497,11 +521,19 @@ def main(argv: List[str]) -> int:
         if pattern and "%" in pattern:
             for r, i in zip(asg.chosen_rows, asg.chosen_ids):
                 i = int(i)
-                if i not in per_ref_fh:
-                    safe = names[i].replace("/", "_")
-                    per_ref_fh[i] = fastx.xopen(
-                        pattern.replace("%", safe), "wb")
-                fh = per_ref_fh[i]
+                if num_hosts > 1:
+                    if i not in pat_shards:
+                        from ..parallel import multihost
+                        safe = names[i].replace("/", "_")
+                        pat_shards[i] = multihost.ShardWriter(
+                            pattern.replace("%", safe), host_id)
+                    fh = pat_bufs.setdefault(i, _io.BytesIO())
+                else:
+                    if i not in per_ref_fh:
+                        safe = names[i].replace("/", "_")
+                        per_ref_fh[i] = fastx.xopen(
+                            pattern.replace("%", safe), "wb")
+                    fh = per_ref_fh[i]
                 wfq(fh, chunk1[r])
                 if chunk2:
                     wfq(fh, chunk2[r])
@@ -515,31 +547,75 @@ def main(argv: List[str]) -> int:
                 wfq(outu_fh, rec)
                 if chunk2:
                     wfq(outu2_fh or outu_fh, chunk2[i])
+        if num_hosts > 1:
+            for nm, sh in shards.items():
+                if sh is not None:
+                    sh.write_batch(batch_id, bufs[nm].getvalue())
+            for i, buf in pat_bufs.items():
+                pat_shards[i].write_batch(batch_id, buf.getvalue())
+
+    def striped(src):
+        if num_hosts > 1:
+            from ..parallel import multihost
+            return multihost.stripe_batches(src, host_id, num_hosts)
+        return enumerate(src)
 
     odd = 0
     if in2:
         it1 = batched(fastx.read_seqs(in1), 8192)
         it2 = batched(fastx.read_seqs(in2), 8192)
-        for chunk1, chunk2 in zip(it1, it2):
-            route(chunk1, chunk2)
+        for bid, (chunk1, chunk2) in striped(zip(it1, it2)):
+            route(chunk1, chunk2, bid)
     elif interleaved:
         # chunks of an even size: only the last can leave a mate alone
-        n_read = 0
-        for chunk in batched(fastx.read_seqs(in1), 16384):
-            n_read += len(chunk)
+        for bid, chunk in striped(batched(fastx.read_seqs(in1),
+                                          16384)):
             if len(chunk) % 2:
-                odd = n_read
+                odd = 16384 * bid + len(chunk)
                 break
-            route(chunk[0::2], chunk[1::2])
+            route(chunk[0::2], chunk[1::2], bid)
     else:
-        for chunk in batched(fastx.read_seqs(in1), 8192):
-            route(chunk, None)
+        for bid, chunk in striped(batched(fastx.read_seqs(in1),
+                                          8192)):
+            route(chunk, None, bid)
 
     for fh in per_ref_fh.values():
         fh.close()
     for fh in (outm_fh, outm2_fh, outu_fh, outu2_fh):
-        if fh is not None:
+        if fh is not None and not isinstance(fh, _io.BytesIO):
             fh.close()
+    if num_hosts > 1:
+        from ..parallel import multihost
+        for sh in list(shards.values()) + list(pat_shards.values()):
+            if sh is not None:
+                sh.close()
+        pat = np.zeros(len(names), np.int64)     # refs with a pattern shard
+        pat[sorted(pat_shards)] = 1
+        total = multihost.finish_stripes(
+            "seal-shards-done", host_id, num_hosts,
+            outm or outu or (stats or "seal") + ".x",
+            {"reads_in": seal.reads_in, "bases_in": seal.bases_in,
+             "frags_in": seal.frags_in,
+             "reads_matched": seal.reads_matched,
+             "bases_matched": seal.bases_matched,
+             "read_counts": seal.read_counts,
+             "base_counts": seal.base_counts,
+             "frag_counts": seal.frag_counts, "pat": pat, "odd": odd},
+            (outm, outm2, outu, outu2))
+        if total is None:
+            if odd:
+                print(f"seal: interleaved=t takes reads in pairs, but "
+                      f"{in1} holds an odd number of reads ({odd})",
+                      file=sys.stderr)
+                return 1
+            return 0
+        odd = total.pop("odd")       # one host holds the last batch
+        for i in np.nonzero(total.pop("pat"))[0]:
+            multihost.merge_shards(
+                pattern.replace("%", names[i].replace("/", "_")),
+                num_hosts)
+        for name, v in total.items():
+            setattr(seal, name, v)
     if odd:
         print(f"seal: interleaved=t takes reads in pairs, but {in1} holds "
               f"an odd number of reads ({odd})", file=sys.stderr)

@@ -175,13 +175,42 @@ Phases, each timed on its own line:
    single-end stream), each input's reads/s over its mapping time, its
    mapped fraction and grading and its launches; fails when either input
    launched no K2 or no fill + walk, or maps below 0.95.
+12. parallel (``bbmap_tpu_torch/parallel/``), two processes on the one
+   card (a gloo process group; NCCL takes no two ranks on one GPU):
+   (a) bbmap over the host tools' 32,768 pairs on the genome (its index
+   cache, batches of 4,096 pairs) in one process, then in two with
+   ``hosts=2`` (both on cuda:0): each CLI's reads/s over its mapping
+   time, the two processes' aggregate over the longer of their times,
+   their walls, and the records apart from the one process's SAM by
+   column (the running average pair distance restarts on each host, so
+   MAPQ moves); the merged SAM byte-equal to bbmap in one process over
+   each host's stripe of batches (which restarts the average the same
+   way), interleaved by batch id; the first mates single-end likewise,
+   host 0's SAM byte-equal to the one process's;
+   (b) the genome as two scaffolds in chrom blocks of their own
+   (``maxchromlen=``), 8,192 first mates single-end, two processes with
+   ``shardindex=t``: each shard a strict part of the sites, the parts
+   summing to the whole, host 0's SAM byte-equal to the CLI in this
+   process with the fused programs off (the path a sharded index takes),
+   and the records apart from the fused program's one-process SAM
+   counted; (c) the in-process mesh at full width: (b)'s genome,
+   ``BBMapAligner(mesh=make_mesh(1, 2, card))``
+   on the main path's 32,768 first mates without quality, every
+   ``MappedBatch`` field and match equal to the unsharded aligner's on
+   the same unfused path (the fields apart from the fused program's
+   counted), ``sharded_score_step`` (K1's entry point) on 8,192 reads x 2
+   windows held to plain K1, ``dryrun_multichip(2)``; (d) bbduk, seal,
+   bbmerge and reformat at ``hosts=2`` (the eight processes at once) on
+   20,000 reads or pairs, every file byte-equal to ``hosts=1``. Fails
+   when (c) launched no K2, no fill + walk or no K1.
 
 Each path's launch counts (and the tools' device scan and ladder
 counters, and kcount's calls) are set to 0 just before it and read just
 after; the kmer tools' path is decontaminate's run on the card (its two
 single-end ``bbmap`` runs); the dedupe path is dedupe's run over 50,000
 reads, the mapper variants' path bbmapskimmer's over 32,768 pairs, the
-host tools' path bbwrap's two runs over 32,768 pairs (both inputs). The
+host tools' path bbwrap's two runs over 32,768 pairs (both inputs), the
+parallel path the mesh's batch and ``sharded_score_step`` (c). The
 ``kernels`` line gives each kernel's launches on each path and, as
 ``launches``, on the path whose shape it is timed at. Any failure raises
 and exits non-zero without the final ``ok`` line. It exits 2 when no CUDA device is available or when it is not run
@@ -3833,16 +3862,19 @@ def bbwrap_big(device, d: Path) -> dict:
     return out
 
 
-def host_tools_phase(device, gbases) -> dict:
+def host_tools_phase(device, gbases, d: Path = None) -> dict:
     """bbwrap card vs CPU over two single-end inputs of N_VARIANT_PAIRS
     reads (the variants' mate files on the 1 Mbp slice, nodisk), one run
     of each other copied host tool module (HOST_TOOL_RUNS), then bbwrap at
     N_VARIANT_BIG pairs (``bbwrap_big``); a CPU process builds the
-    genome's index beside the first two for the last to load."""
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_host")
+    genome's index beside the first two for the last to load. The inputs
+    go into ``d`` (which the caller removes) or into a temporary
+    directory removed at the end."""
+    tmp = None if d is not None else tempfile.mkdtemp(
+        prefix="chip_smoke_host")
     cpu_runs = []
     try:
-        d = Path(tmp)
+        d = d if tmp is None else Path(tmp)
         t = time.time()
         variant_inputs(gbases, d)
         _interleave(d / "big1.fq", d / "big2.fq", d / "bigA.fq")
@@ -3891,7 +3923,622 @@ def host_tools_phase(device, gbases) -> dict:
     finally:
         for r in cpu_runs:
             r.stop()
-        shutil.rmtree(tmp, ignore_errors=True)
+        if tmp is not None:
+            shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# parallel/: two processes on the one card, the in-process mesh
+# ---------------------------------------------------------------------------
+
+N_SHARD_READS = 8_192           # (b): first mates, every rank maps all
+SHARD_MAXCHROMLEN = 3_000_000   # the two halves of the genome, two blocks
+N_STEP_READS = 8_192            # sharded_score_step: 2 windows a read
+N_PAR_TOOLS = 20_000            # (d): reads or pairs, three batches
+BBMAP_BATCH = 4096              # bbmap's default batchsize= (pairs)
+
+
+def _free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _map_time(report: str) -> float:
+    """The mapping time of a bbmap report's ``Time:`` line."""
+    import re
+    m = re.search(r"Time:\s*([0-9.]+) seconds", report)
+    if m is None:
+        raise AssertionError(f"no mapping time in: {report[-800:]}")
+    return float(m.group(1))
+
+
+class Children:
+    """``python -m bbmap_tpu_torch <argv>`` for each argv, started at once
+    on the card (the checkout on PYTHONPATH; the kernels' libraries are
+    built already), stderr in a file each, ``threads`` CPU threads each
+    where given, a thread each noting when it ends; ``finish`` waits for
+    all and returns each one's wall and report, and kills every one still
+    running when one fails or the time is up."""
+
+    def __init__(self, tag: str, argvs, logdir: Path, threads: int = 0):
+        import threading
+        env = dict(os.environ, PYTHONPATH=str(ROOT))
+        if threads:
+            env.update(OMP_NUM_THREADS=str(threads),
+                       MKL_NUM_THREADS=str(threads))
+        self.tag = tag
+        self.logs = [logdir / f"{tag}.{i}.err" for i in range(len(argvs))]
+        self.walls = [None] * len(argvs)
+        self.procs = []
+        self.t0 = time.time()
+        for argv, log in zip(argvs, self.logs):
+            with open(log, "w") as fh:
+                self.procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "bbmap_tpu_torch", *argv],
+                    cwd=ROOT, env=env, stdout=subprocess.DEVNULL,
+                    stderr=fh))
+        self.waiters = [threading.Thread(target=self._wait, args=(i,),
+                                         daemon=True)
+                        for i in range(len(argvs))]
+        for w in self.waiters:
+            w.start()
+
+    def _wait(self, i: int) -> None:
+        self.procs[i].wait()
+        self.walls[i] = time.time() - self.t0
+
+    def finish(self, timeout: float) -> list:
+        try:
+            while None in self.walls:
+                for i, p in enumerate(self.procs):
+                    if self.walls[i] is not None and p.returncode != 0:
+                        raise AssertionError(
+                            f"{self.tag} process {i} exited "
+                            f"{p.returncode}: "
+                            f"{self.logs[i].read_text()[-2000:]}")
+                if time.time() - self.t0 > timeout:
+                    raise AssertionError(f"{self.tag}: not done in "
+                                         f"{timeout:.0f} s")
+                time.sleep(0.05)
+            for i, p in enumerate(self.procs):
+                if p.returncode != 0:
+                    raise AssertionError(
+                        f"{self.tag} process {i} exited {p.returncode}: "
+                        f"{self.logs[i].read_text()[-2000:]}")
+        finally:
+            self.stop()
+        return [{"wall_s": w, "report": log.read_text()}
+                for w, log in zip(self.walls, self.logs)]
+
+    def stop(self) -> None:
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for w in self.waiters:
+            w.join()
+
+
+@contextlib.contextmanager
+def unfused():
+    """BBMapAligner's fused programs off in this process: the path a mesh
+    or ``shardindex=`` takes, for the one-process run it is held to."""
+    from bbmap_tpu_torch.align.pipeline import BBMapAligner
+    saved = BBMapAligner._use_fused
+    BBMapAligner._use_fused = lambda self, L=None: False
+    try:
+        yield
+    finally:
+        BBMapAligner._use_fused = saved
+
+
+def _same_file(what: str, a: Path, b: Path) -> int:
+    x, y = a.read_bytes(), b.read_bytes()
+    if x != y or not x:
+        raise AssertionError(f"{what}: {a.name} ({len(x)} bytes) and "
+                             f"{b.name} ({len(y)} bytes) differ")
+    return len(x)
+
+
+SAM_COLUMNS = ("QNAME", "FLAG", "RNAME", "POS", "MAPQ", "CIGAR", "RNEXT",
+               "PNEXT", "TLEN", "SEQ", "QUAL")
+
+
+def _sam_apart(a: Path, b: Path) -> tuple:
+    """(records apart, {column or tag: records where it differs}) of two
+    SAM files of the same reads in the same order."""
+    x, y = (p.read_bytes().decode().split("\n") for p in (a, b))
+    if len(x) != len(y):
+        raise AssertionError(f"{a.name} and {b.name}: {len(x)} and "
+                             f"{len(y)} lines")
+    cols = {}
+    n = 0
+    for u, v in zip(x, y):
+        if u == v:
+            continue
+        n += 1
+        fu, fv = u.split("\t"), v.split("\t")
+        for i, (p, q) in enumerate(zip(fu, fv)):
+            if p != q:
+                name = SAM_COLUMNS[i] if i < len(SAM_COLUMNS) else p[:2]
+                cols[name] = cols.get(name, 0) + 1
+    return n, cols
+
+
+def striped_pairs(d: Path, o: Path, smi: str) -> dict:
+    """(a) bbmap over the variants' N_VARIANT_BIG pairs on the genome (the
+    index cache beside it), the default batch of 4,096 pairs, on the
+    card: one process, then two (hosts=2, a gloo group, both on cuda:0).
+    Reads/s over each CLI's mapping time; the two processes' aggregate
+    over the longer of their two times (each counts its wait at the
+    barrier). The merged SAM holds as many records as the one process's;
+    the records apart are counted by column: the running average pair
+    distance (AVERAGE_PAIR_DIST) restarts on each host, so MAPQ moves
+    after a host's first batch (in both packages). ``stripes_finish``
+    holds the merged SAM (kept as two.sam) to runs that restart the same
+    way."""
+    common = [f"ref={d}/genome.fa", f"in={d}/big1.fq", f"in2={d}/big2.fq"]
+    one = Children("striped_one", [["bbmap", *common, f"out={o}/one.sam"]],
+                   o).finish(600)[0]
+    coord = f"coordinator=localhost:{_free_port()}"
+    two = Children("striped_two", [
+        ["bbmap", *common, f"out={o}/two.sam", "hosts=2", f"hostid={h}",
+         coord] for h in range(2)], o).finish(600)
+    apart, cols = _sam_apart(o / "two.sam", o / "one.sam")
+    reads = 2 * N_VARIANT_BIG
+    sizes = [min(BBMAP_BATCH, N_VARIANT_BIG - a)
+             for a in range(0, N_VARIANT_BIG, BBMAP_BATCH)]
+    for h, want in ((0, reads), (1, 2 * sum(sizes[1::2]))):
+        if f"Mapped:\t{want} reads" not in two[h]["report"]:
+            raise AssertionError(f"striped host {h} did not map {want} "
+                                 f"reads: {two[h]['report'][-800:]}")
+    _no_leftovers(o)
+    t_one = _map_time(one["report"])
+    t_two = [_map_time(r["report"]) for r in two]
+    res = {"reads": reads, "records_apart": apart, "columns_apart": cols,
+           "one_process": {"wall_s": one["wall_s"], "map_s": t_one,
+                           "reads_per_s": reads / t_one},
+           "two_processes": {"wall_s": [r["wall_s"] for r in two],
+                             "map_s": t_two,
+                             "reads_per_s": reads / max(t_two)},
+           "card": smi}
+    say(f"parallel (a) striped bbmap, {reads} reads ({N_VARIANT_BIG} pairs,"
+        f" batches of {BBMAP_BATCH} pairs): one process "
+        f"{reads / t_one:.1f} reads/s over {t_one:.3f} s of mapping (wall "
+        f"{one['wall_s']:.2f} s); two "
+        f"processes on the one card {reads / max(t_two):.1f} reads/s in "
+        f"aggregate over max({t_two[0]:.3f}, {t_two[1]:.3f}) s (walls "
+        f"{two[0]['wall_s']:.2f} / {two[1]['wall_s']:.2f} s); {apart} of "
+        f"{reads} records apart from the one process's, by column {cols}; "
+        f"card {smi}")
+    os.unlink(o / "one.sam")
+    return res
+
+
+def stripes_start(d: Path, o: Path) -> Children:
+    """(a)'s oracle, started: each host's stripe of batches (batch b of
+    BBMAP_BATCH pairs to host b % 2) written as a pair of FASTQ files, and
+    bbmap in one process over each, the two at once on the card."""
+    for m in (1, 2):
+        lines = (d / f"big{m}.fq").read_bytes().splitlines()
+        per = 4 * BBMAP_BATCH
+        n_batches = -(-N_VARIANT_BIG // BBMAP_BATCH)
+        for h in range(2):
+            with open(d / f"stripe{h}_{m}.fq", "wb") as fh:
+                for b in range(h, n_batches, 2):
+                    fh.write(b"".join(ln + b"\n" for ln in
+                                      lines[b * per:(b + 1) * per]))
+    return Children("stripes", [
+        ["bbmap", f"ref={d}/genome.fa", f"in={d}/stripe{h}_1.fq",
+         f"in2={d}/stripe{h}_2.fq", f"out={o}/stripe{h}.sam"]
+        for h in range(2)], o, threads=1)
+
+
+def stripes_finish(ch: Children, o: Path) -> dict:
+    """(a)'s oracle, checked: the two stripes' SAM records interleaved by
+    batch id (2 x BBMAP_BATCH records a batch), after stripe 0's header,
+    byte-equal to the two processes' merged SAM."""
+    ch.finish(600)
+    heads, bodies = [], []
+    for h in range(2):
+        lines = (o / f"stripe{h}.sam").read_bytes().split(b"\n")[:-1]
+        heads.append([ln for ln in lines if ln.startswith(b"@")])
+        bodies.append(lines[len(heads[h]):])
+    per = 2 * BBMAP_BATCH
+    want = list(heads[0])
+    for b in range(-(-N_VARIANT_BIG // BBMAP_BATCH)):
+        k = b // 2
+        want += bodies[b % 2][k * per:(k + 1) * per]
+    if sum(map(len, bodies)) != 2 * N_VARIANT_BIG:
+        raise AssertionError(f"the stripes' SAMs hold "
+                             f"{[len(x) for x in bodies]} records")
+    got = (o / "two.sam").read_bytes()
+    if b"\n".join(want) + b"\n" != got:
+        raise AssertionError("striped paired bbmap: the merged SAM differs "
+                             "from the stripes' one-process runs "
+                             "interleaved by batch")
+    say(f"parallel (a) striped bbmap paired: the merged SAM ({len(got)} "
+        f"bytes) byte-equal to one-process runs over each host's stripe, "
+        f"interleaved by batch id")
+    for name in ("two.sam", "stripe0.sam", "stripe1.sam"):
+        os.unlink(o / name)
+    return {"byte_equal_to_stripes": True, "sam_bytes": len(got)}
+
+
+def _no_leftovers(o: Path) -> None:
+    """No SAM shard, sidecar or barrier marker is left beside the merged
+    SAM."""
+    import re
+    left = [p.name for p in o.iterdir()
+            if re.search(r"\.shard\d{4}", p.name)
+            or p.name.endswith((".done", ".passed"))]
+    if left:
+        raise AssertionError(f"striped runs left {left}")
+
+
+def striped_se_start(d: Path, o: Path, hosts: int) -> Children:
+    """(a), single-end: the pairs' first mates (N_VARIANT_BIG reads,
+    batches of 4,096) in one process or in ``hosts`` processes."""
+    common = ["bbmap", f"ref={d}/genome.fa", f"in={d}/big1.fq",
+              f"out={o}/se{hosts}.sam"]
+    if hosts == 1:
+        return Children("striped_se_one", [common], o, threads=2)
+    coord = f"coordinator=localhost:{_free_port()}"
+    return Children("striped_se_two", [
+        [*common, f"hosts={hosts}", f"hostid={h}", coord]
+        for h in range(hosts)], o, threads=1)
+
+
+def striped_se_finish(one: dict, two: list, o: Path, smi: str) -> dict:
+    """(a), single-end, checked: host 0's merged SAM byte-equal to the one
+    process's (single-end mapping keeps no state across batches)."""
+    n_bytes = _same_file("striped single-end bbmap", o / "se2.sam",
+                         o / "se1.sam")
+    _no_leftovers(o)
+    t_one = _map_time(one["report"])
+    t_two = [_map_time(r["report"]) for r in two]
+    res = {"reads": N_VARIANT_BIG, "sam_bytes": n_bytes, "byte_equal": True,
+           "one_process": {"wall_s": one["wall_s"], "map_s": t_one},
+           "two_processes": {"wall_s": [r["wall_s"] for r in two],
+                             "map_s": t_two}, "card": smi}
+    say(f"parallel (a) striped bbmap single-end, {N_VARIANT_BIG} first "
+        f"mates: SAM byte-equal to one process ({n_bytes} bytes); mapping "
+        f"{t_one:.3f} s in one process (beside the sharded runs), "
+        f"{t_two[0]:.3f} / {t_two[1]:.3f} s in two (beside the tools'); "
+        f"card {smi}")
+    os.unlink(o / "se1.sam")
+    os.unlink(o / "se2.sam")
+    return res
+
+
+def _shard_args(d: Path) -> list:
+    return [f"ref={d}/genome2.fa", f"in={d}/se.fq", "nodisk",
+            f"maxchromlen={SHARD_MAXCHROMLEN}"]
+
+
+def sharded_bbmap_start(d: Path, o: Path, gbases) -> Children:
+    """(b), started: the genome as two scaffolds of half its length, each
+    in a chrom block of its own (maxchromlen=), and the first
+    N_SHARD_READS first mates of the variants' pairs, single-end; two
+    processes with shardindex=t and one with the whole index (the fused
+    program), all three at once, nodisk."""
+    half = len(gbases) // 2
+    with open(d / "genome2.fa", "wb") as fh:
+        fh.write(b">a\n" + gbases[:half].tobytes() + b"\n>b\n"
+                 + gbases[half:].tobytes() + b"\n")
+    lines = (d / "big1.fq").read_bytes().split(b"\n")[:4 * N_SHARD_READS]
+    (d / "se.fq").write_bytes(b"\n".join(lines) + b"\n")
+    coord = f"coordinator=localhost:{_free_port()}"
+    return Children("shardindex", [
+        ["bbmap", *_shard_args(d), f"out={o}/sh_two.sam", "hosts=2",
+         f"hostid={h}", "shardindex=t", coord] for h in range(2)] + [
+        ["bbmap", *_shard_args(d), f"out={o}/sh_fused.sam"]], o, threads=2)
+
+
+def sharded_bbmap_finish(ch: Children, d: Path, o: Path, device,
+                         smi: str) -> dict:
+    """(b), checked: host 0's SAM byte-equal to the one-process run on
+    the same path (this process, the CLI with the fused programs off: a
+    sharded index maps through the unfused path); the SAM records apart
+    from the fused one-process run counted; each rank's ``Generated Index
+    Shard i/2 (n of N sites)`` a strict part, the two parts summing to
+    N."""
+    import re
+    t = time.time()
+    with unfused():
+        rc, report = run_tool("bbmap", [*_shard_args(d),
+                                        f"out={o}/sh_one.sam",
+                                        f"device={device}"], keep_time=True)
+    _sync(device)
+    one_wall = time.time() - t
+    if rc != 0:
+        raise AssertionError(f"bbmap (unfused) exited {rc}: {report}")
+    *two, fused = ch.finish(600)
+    n_bytes = _same_file("shardindex bbmap", o / "sh_two.sam",
+                         o / "sh_one.sam")
+    apart, cols = _sam_apart(o / "sh_two.sam", o / "sh_fused.sam")
+    sites = []
+    for h, r in enumerate(two):
+        m = re.search(r"Generated Index Shard (\d)/2 \((\d+) of (\d+) "
+                      r"sites\)", r["report"])
+        if m is None or int(m.group(1)) != h:
+            raise AssertionError(f"rank {h} printed no shard line: "
+                                 f"{r['report'][-800:]}")
+        sites.append((int(m.group(2)), int(m.group(3))))
+    total = sites[0][1]
+    if sites[1][1] != total or sites[0][0] + sites[1][0] != total \
+            or not all(0 < n < total for n, _ in sites):
+        raise AssertionError(f"shards are not a partition: {sites}")
+    t_one = _map_time(report)
+    t_two = [_map_time(r["report"]) for r in two]
+    res = {"reads": N_SHARD_READS, "sam_bytes": n_bytes, "byte_equal": True,
+           "shard_sites": [n for n, _ in sites], "sites": total,
+           "records_apart_from_fused": apart,
+           "columns_apart_from_fused": cols,
+           "one_process": {"wall_s": one_wall, "map_s": t_one},
+           "fused_one_process": {"wall_s": fused["wall_s"],
+                                 "map_s": _map_time(fused["report"])},
+           "two_processes": {"wall_s": [r["wall_s"] for r in two],
+                             "map_s": t_two}, "card": smi}
+    say(f"parallel (b) shardindex=t, {N_SHARD_READS} single-end reads on "
+        f"the genome as two scaffolds: shards {sites[0][0]} + {sites[1][0]}"
+        f" of {total} sites; SAM byte-equal ({n_bytes} bytes) to one "
+        f"process on the same (unfused) path; {apart} records apart from "
+        f"the fused program's, by column {cols}; mapping {t_two[0]:.3f} / {t_two[1]:.3f} s "
+        f"(walls {two[0]['wall_s']:.2f} / {two[1]['wall_s']:.2f} s, beside "
+        f"the in-process mesh); one process {t_one:.3f} s; card {smi}")
+    for name in ("sh_one.sam", "sh_two.sam", "sh_fused.sam"):
+        os.unlink(o / name)
+    return res
+
+
+def mesh_phase(device, gbases, first, d: Path) -> dict:
+    """(c) the in-process mesh at full width: (b)'s genome2.fa (the genome
+    as two scaffolds, each in a chrom block of its own and padded with N
+    as the CLI packs them: an index shards at chrom bounds only, and the
+    pads keep chains from straddling them), its k=13 index, and the main
+    path's first batch's first mates (N_PAIRS reads of 150 bp) without
+    quality (the mesh takes none, as in the JAX package), through
+    BBMapAligner(mesh=make_mesh(1, 2, card)) and through the unsharded
+    aligner on the same unfused path: every field equal, and each read's
+    match string (the fused program's fields are compared and counted
+    too; the mesh maps the batch twice, and the second call is the one
+    timed); then
+    sharded_score_step (K1's entry point) on N_STEP_READS reads against
+    two windows each, held to the plain version of K1 on the same jobs.
+    The counts from 0 over the mesh's batch and the step are the
+    "parallel" path. Then dryrun_multichip(2) on the card."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from bbmap_tpu_torch.align.pipeline import BBMapAligner
+    from bbmap_tpu_torch.core.constants import SHORT_PROFILE
+    from bbmap_tpu_torch.core.genome import build_genome
+    from bbmap_tpu_torch.index.build import analyze_index, build_index
+    from bbmap_tpu_torch.ops import msa_kernels as mk
+    from bbmap_tpu_torch.parallel import sharded
+
+    t = time.time()
+    g = build_genome(str(d / "genome2.fa"), max_length=SHARD_MAXCHROMLEN)
+    index = build_index(g, 13)
+    analyze_index(index, 0.01)
+    index_s = time.time() - t
+    batch = dataclasses.replace(first[0], quality=None)
+    flat = BBMapAligner(g, index, device)
+    mb_fused = flat.map_batch_columnar(batch)
+    t = time.time()
+    with unfused():                             # the mesh's path
+        mb_flat = flat.map_batch_columnar(batch)
+    _sync(device)
+    flat_s = time.time() - t
+    del flat
+    mesh = sharded.make_mesh(1, 2, device)
+    multi = BBMapAligner(g, index, device, mesh=mesh)
+    C = L + 24
+    rd, rf0, _ = dp_jobs(gbases, N_STEP_READS, L, C, 41, device,
+                         var_rows=False)
+    _, rf1, _ = dp_jobs(gbases, N_STEP_READS, L, C, 43, device,
+                        var_rows=False)
+    rf1[::7] = rf0[::7]                         # ties between the shards
+    refs = torch.stack([rf0, rf1], dim=1)
+    min_score = int(SHORT_PROFILE.max_quality(L) * 0.56)
+    step = sharded.sharded_score_step(mesh, L, C)
+    t = time.time()
+    multi.map_batch_columnar(batch)     # shards the index and uploads it
+    _sync(device)
+    mesh_first_s = time.time() - t
+    reset_counts()
+    t = time.time()
+    mb = multi.map_batch_columnar(batch)
+    _sync(device)
+    mesh_s = time.time() - t
+    best, shard, n_mapped = step(rd, refs, min_score)
+    _sync(device)
+    launches = launch_counts()
+    fields = ("mapped", "strand", "chrom", "start", "stop", "score",
+              "ambiguous")
+    for f in fields:
+        if not np.array_equal(getattr(mb, f), getattr(mb_flat, f)):
+            raise AssertionError(f"mesh: {f} differs from the unsharded "
+                                 f"aligner's")
+    bad = [i for i in range(batch.size) if mb.match(i) != mb_flat.match(i)]
+    if bad:
+        raise AssertionError(f"mesh: {len(bad)} match strings differ, "
+                             f"first at read {bad[0]}")
+    fused_diff = int(sum((getattr(mb, f) != getattr(mb_fused, f)).sum()
+                         for f in fields))
+    if torch_cuda(device) and not _dp_launched(launches):
+        raise AssertionError(f"the mesh's batch launched no K2 or no fill "
+                             f"+ walk: {launches}")
+    if torch_cuda(device) and launches["msa_score_rows"] == 0:
+        raise AssertionError("sharded_score_step launched no K1")
+    rows = torch.full((N_STEP_READS,), L, dtype=torch.int32, device=device)
+    tp = time.time()
+    want = torch.stack([mk.msa_score_plain(rd, refs[:, s], rows,
+                                           SHORT_PROFILE)[0]
+                        for s in range(2)], dim=1)
+    _sync(device)
+    plain_ms = 1000 * (time.time() - tp)
+    w_best = want.max(dim=1).values
+    e = max(_diff(best, w_best),
+            _diff(shard, torch.argmax(want, dim=1).to(torch.int32)),
+            abs(int(n_mapped) - int((w_best >= min_score).sum())))
+    if e != 0:
+        raise AssertionError(f"sharded_score_step differs from plain K1 by "
+                             f"{e}")
+    step_ms = _cuda_ms(lambda: step(rd, refs, min_score), 5)[0] \
+        if torch_cuda(device) else float("nan")
+    t = time.time()
+    sharded.dryrun_multichip(2, device)
+    dry_s = time.time() - t
+    res = {"reads": batch.size, "index_s": index_s,
+           "mesh_first_map_s": mesh_first_s, "mesh_map_s": mesh_s,
+           "unsharded_unfused_map_s": flat_s,
+           "mapped": int(mb.mapped.sum()),
+           "field_values_apart_from_fused": fused_diff,
+           "score_step": {"reads": N_STEP_READS, "windows": 2, "R": L,
+                          "C": C, "ms": step_ms, "plain_ms": plain_ms,
+                          "max_abs_err": e, "mapped": int(n_mapped)},
+           "dryrun_multichip_s": dry_s,
+           "launches": launches}
+    say(f"parallel (c) mesh (1 x 2) on the card: {batch.size} reads "
+        f"mapped in {mesh_s:.2f} s (the first call, which shards and uploads"
+        f" the index, {mesh_first_s:.2f} s; unsharded, same unfused path, "
+        f"{flat_s:.2f} s), every field and match equal; field values "
+        f"differing from the fused program's: {fused_diff}; "
+        f"sharded_score_step {N_STEP_READS} x 2 windows ({L}, {C}) "
+        f"{step_ms:.3f} ms (plain {plain_ms:.1f} ms), max_abs_err {e}; "
+        f"dryrun_multichip(2) {dry_s:.1f} s; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    return res
+
+
+def striped_tools(device, d: Path, o: Path, smi: str) -> dict:
+    """(d) bbduk (paired filter, k=23 hdist=1, stats=), seal (stats=,
+    pattern=, outm=, outu=), bbmerge (out=, outu=, outu2=, ihist=) and
+    reformat (paired, ftl=5 qtrim=rl) on N_PAR_TOOLS reads or pairs
+    (three batches of 8,192), each at hosts=2 (two processes on the card,
+    all eight at once) against hosts=1 in this process on the card: every
+    file byte-equal."""
+    import numpy as np
+    rng = np.random.default_rng(29)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    adapters, _ = duk_inputs(0)
+    refs, seal_reads = seal_inputs(N_PAR_TOOLS)
+    with open(d / "p_adapters.fa", "w") as fh:
+        for i, s in enumerate(adapters):
+            fh.write(f">adapter{i}\n{s.decode()}\n")
+    with open(d / "p_refs.fa", "w") as fh:
+        for i, s in enumerate(refs):
+            fh.write(f">scaf{i}\n{s.decode()}\n")
+    n = N_PAR_TOOLS
+    r1, r2, q1, q2 = _cli_pairs(rng, n, L, 60, 300, adapters[0],
+                                adapters[1])
+    _fastq(d / "p_duk1.fq", [f"d{i}/1" for i in range(n)], r1, q1)
+    _fastq(d / "p_duk2.fq", [f"d{i}/2" for i in range(n)], r2, q2)
+    r1, r2, q1, q2 = _cli_pairs(rng, n, MERGE_L, 110, 190, b"A", b"C")
+    _fastq(d / "p_merge1.fq", [f"m{i}/1" for i in range(n)], r1, q1)
+    _fastq(d / "p_merge2.fq", [f"m{i}/2" for i in range(n)], r2, q2)
+    seal_reads[::10] = rng.choice(acgt, (len(seal_reads[::10]), L))
+    _fastq(d / "p_seal.fq", [f"s{i}" for i in range(n)], seal_reads,
+           rng.integers(20, 41, seal_reads.shape))
+    runs = {
+        "bbduk": ["in={d}/p_duk1.fq", "in2={d}/p_duk2.fq", "out={o}/o1.fq",
+                  "out2={o}/o2.fq", "outm={o}/m.fq", "ref={d}/p_adapters.fa",
+                  "k=23", "hdist=1", "stats={o}/stats.txt"],
+        "seal": ["in={d}/p_seal.fq", "ref={d}/p_refs.fa", "k=31",
+                 "stats={o}/stats.txt", "pattern={o}/out_%.fq",
+                 "outm={o}/m.fq", "outu={o}/u.fq"],
+        "bbmerge": ["in1={d}/p_merge1.fq", "in2={d}/p_merge2.fq",
+                    "out={o}/merged.fq", "outu={o}/u1.fq", "outu2={o}/u2.fq",
+                    "ihist={o}/ihist.txt"],
+        "reformat": ["in={d}/p_merge1.fq", "in2={d}/p_merge2.fq",
+                     "out={o}/r1.fq", "out2={o}/r2.fq", "ftl=5",
+                     "minlength=20", "qtrim=rl", "trimq=12"]}
+    children = {}
+    for tool, template in runs.items():
+        od = o / f"{tool}_two"
+        od.mkdir()
+        args = [a.format(d=d, o=od) for a in template]
+        children[tool] = Children(f"{tool}_two", [
+            [tool, *args, "hosts=2", f"hostid={h}"] for h in range(2)], o,
+            threads=1)
+    res = {}
+    try:
+        for tool, template in runs.items():
+            od = o / f"{tool}_one"
+            od.mkdir()
+            t = time.time()
+            dev = [f"device={device}"] if tool != "reformat" else []
+            rc, report = run_tool(tool, [a.format(d=d, o=od)
+                                         for a in template] + dev)
+            _sync(device)
+            if rc != 0:
+                raise AssertionError(f"{tool} hosts=1 exited {rc}: {report}")
+            res[tool] = {"wall_one_s": time.time() - t}
+        for tool in runs:
+            two = children[tool].finish(600)
+            one, got = _files(o / f"{tool}_one"), _files(o / f"{tool}_two")
+            if sorted(one) != sorted(got) or not one:
+                raise AssertionError(f"{tool}: files {sorted(got)} at "
+                                     f"hosts=2, {sorted(one)} at hosts=1")
+            for name in one:
+                if one[name] != got[name]:
+                    raise AssertionError(f"{tool}: {name} differs between "
+                                         f"hosts=2 and hosts=1")
+            res[tool].update({"files": len(one),
+                              "bytes": sum(map(len, one.values())),
+                              "walls_two_s": [r["wall_s"] for r in two],
+                              "byte_equal": True})
+    finally:
+        for ch in children.values():
+            ch.stop()
+    say(f"parallel (d) hosts=2 tools on {n} reads or pairs, byte-equal to "
+        f"hosts=1: " + "; ".join(
+            f"{t} {r['files']} files {r['bytes']} bytes, hosts=1 "
+            f"{r['wall_one_s']:.2f} s, hosts=2 walls "
+            f"{r['walls_two_s'][0]:.2f} / {r['walls_two_s'][1]:.2f} s (the "
+            f"eight processes at once)" for t, r in res.items())
+        + f"; card {smi}")
+    return res
+
+
+def parallel_phase(device, gbases, first, d: Path, smi: str) -> dict:
+    """parallel/ on the one card: (a) striped bbmap, paired (one process,
+    then two, each alone on the card; the two stripes' one-process runs
+    beside (b) and (c)) and single-end (one process beside (b) and (c),
+    two beside (d)); (b) the sharded index (its three
+    processes beside (c)); (c) the in-process mesh, sharded_score_step and
+    dryrun_multichip; (d) the striped tools. ``d`` holds the host tools
+    phase's inputs (genome.fa with its index cache, big1.fq, big2.fq)."""
+    o = d / "parallel"
+    o.mkdir()
+    res = {"striped_pairs": striped_pairs(d, o, smi)}
+    shard = sharded_bbmap_start(d, o, gbases)
+    se_one = striped_se_start(d, o, 1)
+    stripes = stripes_start(d, o)
+    try:
+        res["mesh"] = mesh_phase(device, gbases, first, d)
+        res["sharded_index"] = sharded_bbmap_finish(shard, d, o, device,
+                                                    smi)
+        se1 = se_one.finish(600)[0]
+        res["striped_pairs"].update(stripes_finish(stripes, o))
+    finally:
+        shard.stop()
+        se_one.stop()
+        stripes.stop()
+    se_two = striped_se_start(d, o, 2)
+    try:
+        res["tools"] = striped_tools(device, d, o, smi)
+        res["striped_single_end"] = striped_se_finish(
+            se1, se_two.finish(600), o, smi)
+    finally:
+        se_two.stop()
     return res
 
 
@@ -4271,19 +4918,39 @@ def main() -> int:
         f"{vb['bbmapskimmer']['launches']['msa_fill_pipe']} pipe; CLIs "
         f"byte-equal between the card and the CPU; card {smi}")
 
-    t = time.time()
-    host = host_tools_phase(device, gbases)
-    hb = host["big"]
-    say(f"phase host tools: {time.time() - t:.1f} s; bbwrap over two "
-        f"inputs byte-equal between the card and the CPU; "
-        f"{len(host['modules'])} other host tool modules exit 0 in "
-        f"{sum(r['wall_s'] for r in host['modules'].values()):.2f} s; "
-        f"bbwrap at {N_VARIANT_BIG} pairs interleaved "
-        f"{hb['A']['reads_per_s']:.1f} reads/s (mapped "
-        f"{hb['A']['mapped_fraction']:.4f}, sensitivity "
-        f"{hb['A']['sensitivity']:.4f}), their first mates single-end "
-        f"{hb['B']['reads_per_s']:.1f} reads/s (mapped "
-        f"{hb['B']['mapped_fraction']:.4f}); card {smi}")
+    hd = Path(tempfile.mkdtemp(prefix="chip_smoke_host"))
+    try:
+        t = time.time()
+        host = host_tools_phase(device, gbases, hd)
+        hb = host["big"]
+        say(f"phase host tools: {time.time() - t:.1f} s; bbwrap over two "
+            f"inputs byte-equal between the card and the CPU; "
+            f"{len(host['modules'])} other host tool modules exit 0 in "
+            f"{sum(r['wall_s'] for r in host['modules'].values()):.2f} s; "
+            f"bbwrap at {N_VARIANT_BIG} pairs interleaved "
+            f"{hb['A']['reads_per_s']:.1f} reads/s (mapped "
+            f"{hb['A']['mapped_fraction']:.4f}, sensitivity "
+            f"{hb['A']['sensitivity']:.4f}), their first mates single-end "
+            f"{hb['B']['reads_per_s']:.1f} reads/s (mapped "
+            f"{hb['B']['mapped_fraction']:.4f}); card {smi}")
+
+        t = time.time()
+        par = parallel_phase(device, gbases, first, hd, smi)
+        pa = par["striped_pairs"]
+        say(f"phase parallel: {time.time() - t:.1f} s; (a) striped bbmap "
+            f"at {N_VARIANT_BIG} pairs: two processes "
+            f"{pa['two_processes']['reads_per_s']:.1f} reads/s in aggregate"
+            f", one process {pa['one_process']['reads_per_s']:.1f} "
+            f"({pa['records_apart']} records apart: MAPQ), single-end "
+            f"byte-equal; (b) "
+            f"shardindex=t byte-equal, shards "
+            f"{par['sharded_index']['shard_sites']} of "
+            f"{par['sharded_index']['sites']} sites; (c) mesh equal to the "
+            f"unsharded aligner, sharded_score_step equal to plain K1; (d) "
+            f"bbduk, seal, bbmerge, reformat hosts=2 byte-equal to hosts=1;"
+            f" card {smi}")
+    finally:
+        shutil.rmtree(hd, ignore_errors=True)
 
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "bbmap_tpu"))
@@ -4294,8 +4961,9 @@ def main() -> int:
     # short-read path ("main"), the long-read path ("long"),
     # decontaminate's two single-end bbmap runs on the card
     # ("kmer_tools"), dedupe over N_DEDUPE_BIG reads ("dedupe"),
-    # bbmapskimmer over N_VARIANT_BIG pairs ("mapper_variants") and
-    # bbwrap's two inputs at N_VARIANT_BIG pairs ("host_tools");
+    # bbmapskimmer over N_VARIANT_BIG pairs ("mapper_variants"),
+    # bbwrap's two inputs at N_VARIANT_BIG pairs ("host_tools") and the
+    # in-process mesh's batch with sharded_score_step ("parallel");
     # "launches" is the count on the path whose shape the entry is timed
     # at: the band kernels and the walk kernel (short fills and walks take
     # the fused kernel) on the long-read path, K1 at its entry point, the
@@ -4342,7 +5010,8 @@ def main() -> int:
              "kmer_tools": kcli["decontaminate"]["launches"],
              "dedupe": dd["big"]["kernel_launches"],
              "mapper_variants": vb["bbmapskimmer"]["launches"],
-             "host_tools": hb["launches"]}
+             "host_tools": hb["launches"],
+             "parallel": par["mesh"]["launches"]}
     kernels = []
     for name, key in counted.items():
         kt = ktimes[name]
@@ -4392,6 +5061,9 @@ def main() -> int:
     print(json.dumps({"host_tools": {
         "bbwrap_cli": host["bbwrap_cli"], "modules": host["modules"],
         "bbwrap_big": {k: hb[k] for k in ("A", "B")}}}), flush=True)
+    print(json.dumps({"parallel": {
+        k: ({f: v for f, v in r.items() if f != "launches"}
+            if k == "mesh" else r) for k, r in par.items()}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

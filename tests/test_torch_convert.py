@@ -266,7 +266,23 @@ PORT_ADDED = {
     "tools.seal": {"backend"}, "tools.bbmerge": {"backend"},
     "index.kcount": {"Dict", "torch", "backend", "_signed", "_SALTS",
                      "_FINAL", "ROUTES", "calls", "reset_calls"},
-    "tools.rqcfilter": {"_reference", "_deinterleave"}}
+    "tools.rqcfilter": {"_reference", "_deinterleave"},
+    # the process group: its timeout and the call that leaves it; the end
+    # of a striped run that every striped tool shares (sidecar of counts,
+    # barrier, merge and sum on host 0), with its two helpers
+    "parallel.multihost": {"datetime", "INIT_TIMEOUT_S", "shutdown",
+                           "finish_stripes", "_plain", "_add", "Iterable"},
+    # sharded: the Mesh of torch devices is a class of the module (the
+    # JAX module imports jax's), and its builders take a device; the
+    # shard_map body (_shard_worker) is the candidate stage, the gather
+    # and _shard_finalize, gloo's all-gather is _allgather, K1's entry
+    # point scores the step, the shard DeviceIndex is a
+    # dataclasses.replace of the index, and dryrun_multichip is the
+    # counterpart of __graft_entry__.dryrun_multichip
+    "parallel.sharded": {"torch", "dataclasses", "Dict", "List",
+                         "Sequence", "DeviceLike", "resolve_device",
+                         "msa_kernels", "seed_host", "_shard_finalize",
+                         "_allgather", "dryrun_multichip"}}
 # names a copy leaves out on purpose: rqcfilter's default reference paths
 # under the machine's reference directory (the port takes every reference
 # from the command line); kcount's rewritten device class needs no
@@ -280,7 +296,17 @@ PORT_DROPPED = {
     "tools.rqcfilter": {"RESOURCES", "DEFAULT_ADAPTERS", "DEFAULT_PHIX",
                         "DEFAULT_LFPE_LINKER", "DEFAULT_CLRS_LINKER",
                         "DEFAULT_ARTIFACTS"},
-    "index.kcount": {"Optional"}}
+    "index.kcount": {"Optional"},
+    # jax itself, its sharding types, jnp and the vmapped DP step
+    # (msa_jax) are the JAX package's; shard_batch was device_put with a
+    # PartitionSpec (build_sharded_quickmap splits a batch itself), and
+    # _shard_worker / functools / Tuple went with the shard_map body.
+    # multihost's concatenation of shards without an .idx sidecar goes:
+    # every ShardWriter, the JAX package's too, writes the sidecar
+    "parallel.multihost": {"jax", "_merge_shards_concat", "List"},
+    "parallel.sharded": {"jax", "jnp", "NamedSharding", "P", "msa_jax",
+                         "shard_batch", "_shard_worker", "functools",
+                         "Tuple"}}
 
 
 @pytest.mark.parametrize("mod", [
@@ -299,7 +325,7 @@ PORT_DROPPED = {
     "tools.recluster", "tools.idtools", "tools.removesmartbell",
     "tools.smalltools", "tools.synth", "tools.barcodes", "tools.sorttools",
     "tools.callvariants", "tools.misc", "tools.pacbio", "tools.textutils",
-    "tools.liftover"])
+    "tools.liftover", "parallel.multihost", "parallel.sharded"])
 def test_copied_module_has_the_reference_names(mod):
     """Each copied module defines what the reference module defines, less
     what it leaves out on purpose, and beside it only what the port added

@@ -427,15 +427,29 @@ def test_cli_byte_equal(corpus, tmp_path, monkeypatch, case):
     compare(tmp_path, monkeypatch, corpus, tool, template)
 
 
-def test_reformat_hosts_is_refused(corpus, tmp_path, monkeypatch):
-    """reformat hosts=2 exits 1 with its message and writes nothing: the
-    multi-host striping is not in the port yet."""
-    rc, out, err = run_cli(monkeypatch, "port", "reformat", [
-        f"in={corpus / 'reads.fq'}", f"out={tmp_path / 'o.fq'}", "hosts=2"])
-    assert rc == 1 and not out
-    assert "reformat: hosts= > 1 (multi-host striping) is not ported yet" \
-        in err
-    assert not any(tmp_path.iterdir())
+def test_reformat_hosts_byte_equal(corpus, tmp_path, monkeypatch):
+    """reformat hosts=2 (two processes striping its batches; host 0
+    merges the shards and reduces the counts) writes the JAX tool's
+    output files and, on host 0, its report; no shard or marker is
+    left."""
+    from tests.test_torch_multihost import cli_ranks
+    template = ["in={d}/r1.fq", "in2={d}/r2.fq", "out={o}/o1.fq",
+                "out2={o}/o2.fq", "ftl=5", "minlength=20", "qtrim=rl",
+                "trimq=12"]
+    o = tmp_path / "port"
+    o.mkdir()
+    errs = cli_ranks("reformat", [a.format(d=corpus, o=o)
+                                  for a in template], timeout=240)
+    j = tmp_path / "jax"
+    j.mkdir()
+    rc, _out, err = run_cli(monkeypatch, "jax", "reformat",
+                            [a.format(d=corpus, o=j) for a in template])
+    assert rc == 0
+    assert _report(errs[0], o) == _report(err, j)
+    got, want = _files(o), _files(j)
+    assert sorted(got) == sorted(want) == ["o1.fq", "o2.fq"]
+    for name in got:
+        assert got[name] == want[name] and got[name], name
 
 
 def _jax_names():

@@ -21,6 +21,8 @@ import importlib, pkgutil, runpy, sys
 import bbmap_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(bbmap_tpu_torch.__path__,
                                                "bbmap_tpu_torch.")]
+assert {"bbmap_tpu_torch.parallel.multihost",
+        "bbmap_tpu_torch.parallel.sharded"} <= set(names), names
 for n in names:
     if n != "bbmap_tpu_torch.__main__":
         importlib.import_module(n)
@@ -139,11 +141,15 @@ def tiny():
 def test_device_must_exist_and_be_explicit(tiny):
     from bbmap_tpu_torch.align.pipeline import BBMapAligner
     from bbmap_tpu_torch.align.quickmap_device import DeviceIndex
+    from bbmap_tpu_torch.parallel.sharded import make_mesh
     g, index = tiny
     with pytest.raises(TypeError):
         BBMapAligner(g, index)                       # no device given
-    with pytest.raises(NotImplementedError):
-        BBMapAligner(g, index, "cpu", mesh=object())
+    with pytest.raises(TypeError):
+        BBMapAligner(g, index, "cpu", mesh=object())   # not a Mesh
+    with pytest.raises(ValueError):                    # not the mesh's
+        BBMapAligner(g, index, "cpu", mesh=make_mesh(1, 2, "cpu"),
+                     n_index_shards=3)
     with pytest.raises(ValueError):
         DeviceIndex(index, None)
     if torch.cuda.is_available():
@@ -152,3 +158,30 @@ def test_device_must_exist_and_be_explicit(tiny):
         DeviceIndex(index, "cuda")
     with pytest.raises(RuntimeError):
         BBMapAligner(g, index, "cuda")
+
+
+def test_mesh_is_taken_and_maps(tiny):
+    """A parallel.sharded.Mesh of CPU entries is taken: the aligner
+    shards the index over its "index" axis, leaves the fused program, and
+    maps a batch as the unsharded aligner does."""
+    from bbmap_tpu_torch.align.pipeline import BBMapAligner
+    from bbmap_tpu_torch.core.batch import ReadBatch
+    from bbmap_tpu_torch.parallel.sharded import make_mesh
+    g, index = tiny
+    rng = np.random.default_rng(3)
+    L, B = 60, 16
+    starts = rng.integers(0, 5000 - L, B)
+    reads = np.stack([index.genome_codes[s:s + L] for s in starts])
+    reads = np.frombuffer(b"ACGTN", np.uint8)[reads]
+    batch = ReadBatch(bases=reads, quality=None,
+                      lengths=np.full(B, L, np.int32),
+                      ids=[str(i) for i in range(B)],
+                      numeric_ids=np.arange(B, dtype=np.int64))
+    mesh = make_mesh(2, 1, "cpu")
+    multi = BBMapAligner(g, index, "cpu", mesh=mesh)
+    assert multi.mesh is mesh and not multi._use_fused(L)
+    got = multi.map_batch_columnar(batch)
+    want = BBMapAligner(g, index, "cpu").map_batch_columnar(batch)
+    for f in ("mapped", "strand", "chrom", "start", "stop", "score"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+    assert int(got.mapped.sum()) == B

@@ -7,7 +7,8 @@ the same report on stderr once its ``Time:`` line is dropped: bbduk
 (ktrim=r / l with short tip k-mers and hdist, kmask, filter, qtrim,
 paired tbo=t), bbduk2 with four sets, seal (stats / rpkm / refstats /
 pattern, paired) and bbmerge (ratio mode and the mismatch mode's
-QUAL_ITERS ladder). ``hosts=2`` exits 1 in each tool that has it. Two
+QUAL_ITERS ladder). ``hosts=2`` (two processes) gives each tool's
+``hosts=1`` output and the JAX tool's. Two
 documented deviations from the JAX tools, which crash there: bbduk with
 k > 31 and seal with ``interleaved=t`` over an odd number of reads exit
 1 with a message."""
@@ -221,18 +222,44 @@ def test_cli_byte_equal(corpus, tmp_path, monkeypatch, capsys, case):
     assert reads.count(b"\n@") > 50
 
 
+HOSTS_ARGS = {
+    "bbduk": ["in={d}/reads.fq", "out={o}/o.fq", "outm={o}/m.fq",
+              "ref={d}/adapters.fa", "stats={o}/s.txt"],
+    "seal": ["in={d}/seal1.fq", "in2={d}/seal2.fq", "ref={d}/refA.fa,"
+             "{d}/refB.fa", "outm={o}/m.fq", "outu={o}/u.fq",
+             "pattern={o}/p_%.fq", "stats={o}/s.txt", "ambig=all"],
+    "bbmerge": ["in1={d}/merge1.fq", "in2={d}/merge2.fq", "out={o}/m.fq",
+                "outu1={o}/u1.fq", "outu2={o}/u2.fq", "ihist={o}/ih.txt"]}
+
+
 @pytest.mark.parametrize("tool", ["bbduk", "seal", "bbmerge"])
-def test_hosts_not_ported(corpus, tmp_path, monkeypatch, capsys, tool):
-    args = {"bbduk": [f"in={corpus}/reads.fq", f"out={tmp_path}/o.fq",
-                      f"ref={corpus}/adapters.fa"],
-            "seal": [f"in={corpus}/seal1.fq", f"ref={corpus}/refB.fa",
-                     f"stats={tmp_path}/s.txt"],
-            "bbmerge": [f"in1={corpus}/merge1.fq",
-                        f"in2={corpus}/merge2.fq",
-                        f"out={tmp_path}/m.fq"]}[tool]
-    assert _port(monkeypatch, tool, args + ["hosts=2"]) == 1
-    assert "hosts=" in capsys.readouterr().err
-    assert not list(tmp_path.iterdir())
+def test_hosts_striped_equals_one_host(corpus, tmp_path, monkeypatch,
+                                       capsys, tool):
+    """hosts=2 (two processes, device=cpu): host 0 merges the shards and
+    reduces the counts, and every output and stats file is byte-equal to
+    the port's hosts=1 run and to the JAX tool's; no shard or marker is
+    left."""
+    from tests.test_torch_multihost import cli_ranks
+    monkeypatch.setenv("BBMAP_DEVICE_KMERS", "1")
+    monkeypatch.setenv("BBMAP_DEVICE_OVERLAP", "1")
+    files = {}
+    for side in ("one", "two", "jax"):
+        o = tmp_path / side
+        o.mkdir()
+        args = [a.format(d=corpus, o=o) for a in HOSTS_ARGS[tool]]
+        if side == "one":
+            assert _port(monkeypatch, tool, args) == 0
+        elif side == "two":
+            cli_ranks(tool, args + ["device=cpu"], timeout=240)
+        else:
+            assert JAX_MAIN[tool](args) == 0
+        files[side] = {p.name: p.read_bytes() for p in o.iterdir()}
+    assert sorted(files["two"]) == sorted(files["one"]) == \
+        sorted(files["jax"])
+    for name in files["one"]:
+        assert files["two"][name] == files["one"][name] == \
+            files["jax"][name], name
+    assert sum(len(v) for v in files["two"].values()) > 1000
 
 
 @pytest.mark.parametrize("k, adapters", [(40, "adapters.fa"),
