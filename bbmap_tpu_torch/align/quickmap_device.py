@@ -95,7 +95,10 @@ class DeviceIndex(nn.Module):
     offsets — all registered buffers. Host-side facts the programs need
     (genome length, whether the genome has N bases, the longest list)
     are plain attributes. Replaces the JAX package's ``device_arrays`` /
-    ``scnt_array`` / ``ccnt_array`` caches on the KmerIndex."""
+    ``scnt_array`` / ``ccnt_array`` caches on the KmerIndex: the CSR and
+    the packed genome that ``index/build_device.build_index_device`` left
+    on the index (``_device_arrays``) are taken as they are when they lie
+    on this device (``seeded`` says so), else uploaded."""
 
     def __init__(self, index: KmerIndex, device: DeviceLike):
         super().__init__()
@@ -110,11 +113,19 @@ class DeviceIndex(nn.Module):
         def put(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-        gpack, nmask = pack_genome_2bit(index.genome_codes)
-        self.register_buffer("starts", put(index.starts.astype(np.int32)))
-        self.register_buffer("sites", put(index.sites.astype(np.int32)))
-        self.register_buffer("gpack", put(gpack.astype(np.int64)))
-        self.register_buffer("nmask", put(nmask.astype(np.int64)))
+        seeded = getattr(index, "_device_arrays", None)
+        self.seeded = seeded is not None and seeded[0].device == dev
+        if self.seeded:
+            starts, sites, gpack, nmask, _G = seeded
+        else:
+            gpack, nmask = (put(a.astype(np.int64))
+                            for a in pack_genome_2bit(index.genome_codes))
+            starts = put(index.starts.astype(np.int32))
+            sites = put(index.sites.astype(np.int32))
+        self.register_buffer("starts", starts)
+        self.register_buffer("sites", sites)
+        self.register_buffer("gpack", gpack)
+        self.register_buffer("nmask", nmask)
         scnt = None
         if len(index.sites) < (1 << 24):
             st = index.starts.astype(np.int64)

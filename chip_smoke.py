@@ -18,8 +18,15 @@ Phases, each timed on its own line:
    (a source whose library is there is skipped); ``cuobjdump -sass`` of the libraries gives each
    kernel's instructions a cell (the main loop's length over the cells
    one pass of it evaluates), and the least of them among a function's
-   mappings is the count that function's bound is reckoned with;
-3. kernel vs plain: every kernel against its plain PyTorch version on
+   mappings is the count that function's bound is reckoned with; beside
+   the nvcc processes, in a thread, the kernel self-test's oracle
+   (``ops/msa_ref.fill_unlimited`` on its 2 x 128 cases);
+3. kernel selftest: ``ops/msa_selftest.kernel_selftest`` on the card,
+   K2, K3 and the fused fill + walk against that oracle's score and
+   column on 128 cases a profile (64 x 128, substitutions, deletions and
+   insertions), SHORT and PACBIO; fails on False or when one of the
+   three kernels never launched;
+4. kernel vs plain: every kernel against its plain PyTorch version on
    the card, bit-equal (tolerance 0: the DP and the walk are integer
    arithmetic): K2 score and K3 fill at the short path's shapes
    (150, 174), (150, 606) and PACBIO (300, 360) in the warp-a-job
@@ -74,8 +81,8 @@ Phases, each timed on its own line:
    triples, the two forms of the cell on 2**20 random and extreme
    operand sets a profile, all equal, and the mappings that keep the plain
    cell timed once with their DPX builds (the same outputs);
-4. K1 entry point: ``msa_kernels.score_batch`` on 32,768 jobs, counted;
-5. main path: the bench workload (4.6 Mbp genome with repeat families,
+5. K1 entry point: ``msa_kernels.score_batch`` on 32,768 jobs, counted;
+6. main path: the bench workload (4.6 Mbp genome with repeat families,
    k=13 index, 2x150 bp pairs with quality, 32,768 pairs a batch) through ``BBMapAligner.map_pairs_columnar`` (one warmup
    batch) and ``map_pairs_columnar_stream`` (3 steady batches), graded
    against the simulated origins; fails below sensitivity 0.997, mapped
@@ -84,14 +91,25 @@ Phases, each timed on its own line:
    fused program scores its narrow and wide passes in one launch), or
    when a fill or a walk took the two-kernel route; the quality offsets are computed on the
    card;
-6. SAM: ``emit_sam`` on the first 1,000 pairs;
-7. long reads: 400 PacBio-model reads of 6 kbp at 12 % error on the same
+7. SAM: ``emit_sam`` on the first 1,000 pairs;
+8. index build: ``index/build_device.build_index_device`` on the card
+   (k = 13, torch operations: one stable sort, a binary search a key)
+   against the host ``build_index`` on the main path's genome and on one
+   of the same length with 0.1 % N bases across two chroms, ``starts``
+   and ``sites`` equal; the host build, ``analyze_index`` and the device
+   build (cold, warm, and its CSR alone between CUDA events) timed, with
+   the device build's peak memory and its bound in bytes; then the main
+   path's warmup batch through a ``BBMapAligner`` on the device-built
+   index after ``analyze_index``: every ``MappedBatch`` field and match
+   equal to the main path's, and which aligner took the device arrays
+   the build left on the index;
+9. long reads: 400 PacBio-model reads of 6 kbp at 12 % error on the same
    genome (``randomreads pacbio=t``) through the port's ``mappacbio``
    CLI on the card, graded by gradesam (strict = within 400 bp); fails
    below mapped 0.98 or strict 0.65, when the band K2 or K3 or the walk
    kernel was never launched, or when a strided kernel was; the fill
    chunk the card's memory allows is printed beside the launches;
-8. tools: the read-preprocessing tools at ``bench_tools.py``'s sizes on
+10. tools: the read-preprocessing tools at ``bench_tools.py``'s sizes on
    seeded synthetic data. bbduk's k-mer scan (k=23, hdist=1, 200 adapters
    of 34-66 bp) over 1,000,000 reads of 150 bp and seal (k=31,
    ambig=first, 50 references of 5,000 bp) over 500,000 reads through
@@ -105,10 +123,12 @@ Phases, each timed on its own line:
    ladder counter differs from the chunks fed. Then the ``bbduk``
    (paired, ktrim=r mink=11 hdist=1 tbo=t), ``seal`` (stats=, pattern=)
    and ``bbmerge`` CLIs on 20,000 reads or pairs, once with ``device=``
-   the card and once with ``device=cpu``: every output file byte-equal,
+   the card and once with ``device=cpu`` (each in a process of its own,
+   one thread, started with the phase, beside the card's work): every
+   output file byte-equal,
    the reports too without their ``Time:`` line, and the card's run seen
    in the scan and ladder counters;
-9. kmer tools: the counting Bloom filter (``index/kcount.py``) at
+11. kmer tools: the counting Bloom filter (``index/kcount.py``) at
    bbnorm's size, 3 x 2**26 16-bit cells, counting the canonical 31-mers
    of 1,048,576 reads of 150 bp from the genome in bbnorm's chunks of
    8,192, then looking them up: k-mers/s and reads/s of each pass and the
@@ -120,11 +140,14 @@ Phases, each timed on its own line:
    ``rqcfilter`` (2,000 pairs; adapter and artifact references written
    here, phix=f, ihist=, khist=t) and ``decontaminate`` (two libraries of
    2,000 reads against 50 kbp assemblies) once on the card and once with
-   ``device=cpu``: every output file byte-equal (rqcfilter's status.log and
+   ``device=cpu`` (each in a process of its own, one thread, started with
+   the tools phase, which writes kcount's calls to a file when it ends):
+   every
+   output file byte-equal (rqcfilter's status.log and
    reproduce.sh left out), the reports too without their wall times, the
    card's runs seen in kcount's calls, rqcfilter's out2 holding the mates
    of out, decontaminate's junk contigs dirty and its main contigs clean.
-10. dedupe and mapper variants: the banded edit distance kernel
+12. dedupe and mapper variants: the banded edit distance kernel
    (``csrc/banded_edit.cu``) against its plain version, tolerance 0, at
    65,536 pairs of 150 bp from the genome (0-6 substitutions and indels)
    at E = 0, 2, 4, 31 (a thread a pair), E = 40 (a warp a pair) and E =
@@ -160,7 +183,7 @@ Phases, each timed on its own line:
    a histogram and put on the ``kernels`` line, K2 timed at each of
    their shapes in the pipe, one-row and warp mappings, each held to the
    plain version's out).
-11. host tools: ``bbwrap`` (``tools/misc.bbwrap``, a ``bbmap`` run an
+13. host tools: ``bbwrap`` (``tools/misc.bbwrap``, a ``bbmap`` run an
    input) over two single-end inputs of 500 reads on the 1 Mbp slice
    (the variants' pairs, each mate file an input), on the card and, in a
    process of its own, on the CPU: both SAM files and the report
@@ -175,7 +198,7 @@ Phases, each timed on its own line:
    single-end stream), each input's reads/s over its mapping time, its
    mapped fraction and grading and its launches; fails when either input
    launched no K2 or no fill + walk, or maps below 0.95.
-12. parallel (``bbmap_tpu_torch/parallel/``), two processes on the one
+14. parallel (``bbmap_tpu_torch/parallel/``), two processes on the one
    card (a gloo process group; NCCL takes no two ranks on one GPU):
    (a) bbmap over the host tools' 32,768 pairs on the genome (its index
    cache, batches of 4,096 pairs) in one process, then in two with
@@ -1905,6 +1928,178 @@ def sam_phase(first, n: int = 1000) -> int:
     return len(lines)
 
 
+def selftest_phase(device, cases) -> dict:
+    """``msa_selftest.kernel_selftest`` on the card over ``cases`` (the
+    oracle's answers, computed beside the build): K2, K3 and the fused
+    fill + walk on 128 cases a profile, SHORT and PACBIO; fails on False,
+    or when a kernel of the three did not launch."""
+    from bbmap_tpu_torch.ops import msa_selftest
+    msgs = []
+    reset_counts()
+    t = time.time()
+    ok = msa_selftest.kernel_selftest(device=device, cases=cases,
+                                      verbose=msgs.append)
+    _sync(device)
+    wall = time.time() - t
+    launches = {k: v for k, v in launch_counts().items() if v}
+    if not ok:
+        raise AssertionError("kernel selftest: " + "; ".join(msgs))
+    if torch_cuda(device) and not all(
+            launches.get(k) for k in ("msa_score", "msa_fill",
+                                      "msa_fill_walk")):
+        raise AssertionError(f"kernel selftest: K2, K3 or the fused fill + "
+                             f"walk never launched: {launches}")
+    return {"ok": ok, "cases": sum(len(c[1]) for c in cases),
+            "profiles": [c[0] for c in cases], "wall_s": wall,
+            "launches": launches}
+
+
+# the index build phase: the bench genome and one of the same length with
+# INDEX_N_FRACTION N bases across two chroms, k = 13
+INDEX_K, INDEX_N_FRACTION, INDEX_DEVICE_REPS = 13, 0.001, 3
+
+
+def index_genomes(gbases) -> dict:
+    """name -> Genome: the main path's genome (one chrom), and the same
+    bases as two chroms of half the length each with INDEX_N_FRACTION of
+    the bases N (seeded), where every window over an N takes the
+    sentinel key."""
+    import numpy as np
+    from bbmap_tpu_torch.core.genome import Genome, Scaffold
+    half = len(gbases) // 2
+    rng = np.random.default_rng(71)
+    withn = gbases.copy()
+    withn[rng.choice(len(gbases), int(len(gbases) * INDEX_N_FRACTION),
+                     replace=False)] = ord("N")
+    out = {"bench": Genome(chroms=[gbases], scaffolds=[
+        Scaffold(chrom=1, sid=1, start=0, length=len(gbases),
+                 name="ecoli_like")]).finalize()}
+    chroms = [withn[:half].copy(), withn[half:].copy()]
+    out["with_n"] = Genome(chroms=chroms, scaffolds=[
+        Scaffold(chrom=i + 1, sid=i + 1, start=0, length=len(c),
+                 name=f"part{i}") for i, c in enumerate(chroms)]).finalize()
+    return out
+
+
+def index_build_phase(device, gbases, first, smi: str) -> dict:
+    """``index/build_device.build_index_device`` on the card against the
+    host ``build_index`` on ``index_genomes``: ``starts`` and ``sites``
+    equal (dtypes too), the host build timed, the device build timed cold
+    and warm (its whole call, and the device CSR alone between CUDA
+    events) with its peak memory, and its bound (the packed genome read
+    once, ``starts`` and ``sites`` written once, over the card's memory
+    rate). Then ``analyze_index`` (host code; timed) on the device-built
+    bench index and the main path's warmup batch through a BBMapAligner
+    on it: every MappedBatch field and match equal to the main path's, and
+    which of the two aligners took the seeded device arrays."""
+    import numpy as np
+    import torch
+    from bbmap_tpu_torch.align.pipeline import BBMapAligner
+    from bbmap_tpu_torch.align.quickmap_device import pack_genome_2bit
+    from bbmap_tpu_torch.index import build_device
+    from bbmap_tpu_torch.index.build import analyze_index, build_index
+
+    on_card = torch_cuda(device)
+    res = {}
+    built = {}
+    for name, g in index_genomes(gbases).items():
+        t = time.time()
+        host = build_index(g, INDEX_K)
+        host_s = time.time() - t
+        _sync(device)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device) if on_card else 0
+        t = time.time()
+        idx = build_device.build_index_device(g, INDEX_K, device=device)
+        _sync(device)
+        cold_s = time.time() - t
+        peak = torch.cuda.max_memory_allocated(device) - base \
+            if on_card else None
+        for f in ("starts", "sites"):
+            a, b = getattr(idx, f), getattr(host, f)
+            if a.dtype != b.dtype or not np.array_equal(a, b):
+                raise AssertionError(f"index build {name}: {f} of the "
+                                     f"device build differs from the host "
+                                     f"build's ({a.dtype}, {b.dtype})")
+        warm = []
+        for _ in range(INDEX_DEVICE_REPS):
+            t = time.time()
+            build_device.build_index_device(g, INDEX_K, device=device)
+            _sync(device)
+            warm.append(time.time() - t)
+        _starts, _sites, gpack, nmask, G = idx._device_arrays
+        csr_ms = _cuda_ms(lambda: build_device._device_csr(
+            gpack, nmask, G, INDEX_K), INDEX_DEVICE_REPS)[0] \
+            if on_card else float("nan")
+        codes = g.packed_codes()[0]
+        gp, nm = pack_genome_2bit(codes)
+        n_bytes = gp.nbytes + nm.nbytes + 4 * (len(host.starts)
+                                               + len(host.sites))
+        res[name] = {"G": len(codes), "chroms": g.n_chroms,
+                     "n_bases": int((codes > 3).sum()),
+                     "sites": len(host.sites), "k": INDEX_K,
+                     "host_build_s": host_s,
+                     "device_build_cold_s": cold_s,
+                     "device_build_warm_s": warm, "device_csr_ms": csr_ms,
+                     "device_peak_bytes": peak,
+                     "bound_ms": 1e3 * n_bytes / HBM_BYTES_PER_S,
+                     "bound_by": "bytes", "starts_sites_equal": True}
+        say(f"index build {name}: {len(codes)} bp, {g.n_chroms} chroms, "
+            f"{res[name]['n_bases']} N, k={INDEX_K}, {len(host.sites)} "
+            f"sites: host build_index {host_s:.3f} s; "
+            f"build_index_device cold {cold_s:.3f} s, "
+            f"warm {', '.join(f'{w:.3f}' for w in warm)} s (the device CSR "
+            f"alone {csr_ms:.3f} ms, bound {res[name]['bound_ms']:.4f} ms "
+            f"in bytes), peak {peak} B above the {base} B held before; "
+            f"starts and sites equal to the host build's; card {smi}")
+        built[name] = (g, idx)
+        del host
+
+    # the main path's warmup batch on the device-built bench index
+    b1, b2, (mb1, mb2), main_aligner = first
+    g, idx = built["bench"]
+    n_sites = len(idx.sites)
+    t = time.time()
+    analyze_index(idx, 0.01)
+    analyze_s = time.time() - t
+    compacted = len(idx.sites) != n_sites
+    al = BBMapAligner(g, idx, device)
+    reset_counts()
+    t = time.time()
+    got = al.map_pairs_columnar(b1, b2)
+    _sync(device)
+    map_s = time.time() - t
+    launches = {k: v for k, v in launch_counts().items() if v}
+    fields = ("mapped", "strand", "chrom", "start", "stop", "score",
+              "ambiguous", "perfect", "paired", "rescued", "n_sites")
+    for mate, (a, b) in enumerate(zip(got, (mb1, mb2))):
+        for f in fields:
+            if not np.array_equal(getattr(a, f), getattr(b, f)):
+                raise AssertionError(f"index build: mate {mate + 1}'s {f} on "
+                                     f"the device-built index differs from "
+                                     f"the host-built run's")
+        bad = [i for i in range(a.size) if a.match(i) != b.match(i)]
+        if bad:
+            raise AssertionError(f"index build: mate {mate + 1}: "
+                                 f"{len(bad)} match strings differ, first "
+                                 f"at read {bad[0]}")
+    res["aligner"] = {"pairs": b1.size, "map_s": map_s,
+                      "analyze_s": analyze_s, "compacted": compacted,
+                      "seeded_device_built": al.dindex.seeded,
+                      "seeded_host_built": main_aligner.dindex.seeded,
+                      "launches": launches}
+    say(f"index build: the main path's warmup batch ({b1.size} pairs) on "
+        f"the device-built index after analyze_index ({analyze_s:.3f} s, "
+        f"{'compacted' if compacted else 'no clumpy key removed'}): every "
+        f"MappedBatch field and match equal to the host-built run's, "
+        f"{map_s:.2f} s; seeded device arrays taken by the device-built "
+        f"index's aligner: {al.dindex.seeded}, by the main path's "
+        f"(host-built) aligner: {main_aligner.dindex.seeded}; card {smi}")
+    del al, built
+    return res
+
+
 @contextlib.contextmanager
 def gpu_util_sampler(samples: list):
     """Sample the card's utilization.gpu (the share of time a kernel was
@@ -2331,123 +2526,118 @@ def run_tool(tool: str, args, keep_time: bool = False) -> tuple:
                          if keep_time or not ln.startswith("Time:"))
 
 
-def tools_cli(device, n: int = N_CLI) -> dict:
-    """bbduk (paired, ktrim=r k=23 mink=11 hdist=1 tbo=t), seal (stats=
-    and pattern=) and bbmerge (paired) through their CLI entry points, on
-    n reads (bbduk: n / 2 pairs; its short-k-mer tip scan, ``scan_tips``,
-    is a loop over reads and lengths on the host) or n pairs (bbmerge),
-    once with ``device=`` the card and once with ``device=cpu``: every
-    output file byte-equal between the two, the reports too once the
-    ``Time:`` line is dropped, and the card's run counted in the scan and
-    ladder counters."""
+def tools_cli_inputs(d: Path, n: int = N_CLI) -> dict:
+    """The inputs of the bbduk (paired, ktrim=r k=23 mink=11 hdist=1
+    tbo=t), seal (stats= and pattern=) and bbmerge (paired) CLI runs,
+    written into ``d``: n reads (bbduk: n / 2 pairs) or n pairs (bbmerge).
+    Returns tool -> (argument templates, reads in, device scans and
+    ladders expected on the card); {d} is ``d``, {o} the run's output
+    directory."""
     import numpy as np
-    from bbmap_tpu_torch.index import kmerset_device
-    from bbmap_tpu_torch.io import native
-    from bbmap_tpu_torch.ops import overlap_device
-    native.get_lib()                 # its one stderr line, if any, goes now
     acgt = np.frombuffer(b"ACGT", np.uint8)
     rng = np.random.default_rng(23)
     adapters, _ = duk_inputs(0)
     refs, seal_reads = seal_inputs(n)
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_tools")
-    try:
-        d = Path(tmp)
-        with open(d / "adapters.fa", "w") as fh:
-            for i, s in enumerate(adapters):
-                fh.write(f">adapter{i}\n{s.decode()}\n")
-        with open(d / "refs.fa", "w") as fh:
-            for i, s in enumerate(refs):
-                fh.write(f">scaf{i}\n{s.decode()}\n")
-        n_duk = n // 2
-        r1, r2, q1, q2 = _cli_pairs(rng, n_duk, L, 60, 300, adapters[0],
-                                    adapters[1])
-        _fastq(d / "duk1.fq", [f"d{i}/1" for i in range(n_duk)], r1, q1)
-        _fastq(d / "duk2.fq", [f"d{i}/2" for i in range(n_duk)], r2, q2)
-        r1, r2, q1, q2 = _cli_pairs(rng, n, MERGE_L, 110, 190, b"A", b"C")
-        _fastq(d / "merge1.fq", [f"m{i}/1" for i in range(n)], r1, q1)
-        _fastq(d / "merge2.fq", [f"m{i}/2" for i in range(n)], r2, q2)
-        seal_reads[::10] = rng.choice(acgt, (len(seal_reads[::10]), L))
-        _fastq(d / "seal.fq", [f"s{i}" for i in range(n)], seal_reads,
-               rng.integers(20, 41, seal_reads.shape))
-        duk_batches = -(-n_duk // CLI_BATCH)
-        n_batches = -(-n // CLI_BATCH)
-        # tool: (arguments, reads in, device scans and ladders expected)
-        runs = {
-            "bbduk": (["in={d}/duk1.fq", "in2={d}/duk2.fq",
-                       "out={o}/out1.fq", "out2={o}/out2.fq",
-                       "outm={o}/outm.fq", "ref={d}/adapters.fa", "k=23",
-                       "mink=11", "hdist=1", "ktrim=r", "tbo=t",
-                       "stats={o}/stats.txt"], 2 * n_duk,
-                      {"ids": 2 * duk_batches}, {"ratio": duk_batches}),
-            "seal": (["in={d}/seal.fq", "ref={d}/refs.fa", "k=31",
-                      "stats={o}/stats.txt", "pattern={o}/out_%.fq",
-                      "outu={o}/outu.fq"], n, {"counts": n_batches}, {}),
-            "bbmerge": (["in1={d}/merge1.fq", "in2={d}/merge2.fq",
-                         "out={o}/merged.fq", "outu={o}/u1.fq",
-                         "outu2={o}/u2.fq", "ihist={o}/ihist.txt"], 2 * n,
-                        {}, {"ratio": n_batches})}
-        res = {}
-        for tool, (template, reads_in, want_scans, want_ladders) \
-                in runs.items():
-            out = {}
-            for side, dev in (("card", device), ("cpu", "cpu")):
-                o = d / f"{tool}_{side}"
-                o.mkdir()
-                args = [a.format(d=d, o=o) for a in template]
-                kmerset_device.reset_scans()
-                overlap_device.reset_scans()
-                t = time.time()
-                rc, report = run_tool(tool, args + [f"device={dev}"])
-                wall = time.time() - t
-                if rc != 0:
-                    raise AssertionError(f"{tool} device={dev} exited {rc}:"
-                                         f" {report}")
-                out[side] = (report, {p.name: p.read_bytes()
-                                     for p in sorted(o.iterdir())},
-                            dict(kmerset_device.scans),
-                            dict(overlap_device.scans), wall)
-            (rep_c, files_c, scans, ladders, wall_c), \
-                (rep_h, files_h, _, _, wall_h) = out["card"], out["cpu"]
-            if rep_c != rep_h:
-                raise AssertionError(f"{tool}: the reports differ:\n{rep_c}"
-                                     f"\n---\n{rep_h}")
-            if sorted(files_c) != sorted(files_h):
-                raise AssertionError(f"{tool}: output files {sorted(files_c)}"
-                                     f" on the card, {sorted(files_h)} on "
-                                     f"the CPU")
-            for name in files_c:
-                if files_c[name] != files_h[name]:
-                    raise AssertionError(f"{tool}: {name} differs between "
-                                         f"device={device} and device=cpu")
-            want = dict.fromkeys(kmerset_device.ROUTES, 0)
-            want.update(want_scans)
-            want_l = dict.fromkeys(overlap_device.ROUTES, 0)
-            want_l.update(want_ladders)
-            if scans != want or ladders != want_l:
-                raise AssertionError(f"{tool}: device scans {scans}, "
-                                     f"ladders {ladders} on the card; "
-                                     f"expected {want}, {want_l}")
-            n_reads = sum(v.count(b"\n+\n") for k, v in files_c.items()
-                          if k.endswith(".fq"))
-            res[tool] = {"reads_in": reads_in, "reads_out": n_reads,
-                         "files": len(files_c),
-                         "bytes": sum(len(v) for v in files_c.values()),
-                         "scans": scans, "ladders": ladders, "wall_s": wall_c,
-                         "wall_cpu_s": wall_h, "report": rep_c.splitlines()}
-            if not n_reads:
-                raise AssertionError(f"{tool} wrote no reads")
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    with open(d / "adapters.fa", "w") as fh:
+        for i, s in enumerate(adapters):
+            fh.write(f">adapter{i}\n{s.decode()}\n")
+    with open(d / "refs.fa", "w") as fh:
+        for i, s in enumerate(refs):
+            fh.write(f">scaf{i}\n{s.decode()}\n")
+    n_duk = n // 2
+    r1, r2, q1, q2 = _cli_pairs(rng, n_duk, L, 60, 300, adapters[0],
+                                adapters[1])
+    _fastq(d / "duk1.fq", [f"d{i}/1" for i in range(n_duk)], r1, q1)
+    _fastq(d / "duk2.fq", [f"d{i}/2" for i in range(n_duk)], r2, q2)
+    r1, r2, q1, q2 = _cli_pairs(rng, n, MERGE_L, 110, 190, b"A", b"C")
+    _fastq(d / "merge1.fq", [f"m{i}/1" for i in range(n)], r1, q1)
+    _fastq(d / "merge2.fq", [f"m{i}/2" for i in range(n)], r2, q2)
+    seal_reads[::10] = rng.choice(acgt, (len(seal_reads[::10]), L))
+    _fastq(d / "seal.fq", [f"s{i}" for i in range(n)], seal_reads,
+           rng.integers(20, 41, seal_reads.shape))
+    duk_batches = -(-n_duk // CLI_BATCH)
+    n_batches = -(-n // CLI_BATCH)
+    return {
+        "bbduk": (["in={d}/duk1.fq", "in2={d}/duk2.fq",
+                   "out={o}/out1.fq", "out2={o}/out2.fq",
+                   "outm={o}/outm.fq", "ref={d}/adapters.fa", "k=23",
+                   "mink=11", "hdist=1", "ktrim=r", "tbo=t",
+                   "stats={o}/stats.txt"], 2 * n_duk,
+                  {"ids": 2 * duk_batches}, {"ratio": duk_batches}),
+        "seal": (["in={d}/seal.fq", "ref={d}/refs.fa", "k=31",
+                  "stats={o}/stats.txt", "pattern={o}/out_%.fq",
+                  "outu={o}/outu.fq"], n, {"counts": n_batches}, {}),
+        "bbmerge": (["in1={d}/merge1.fq", "in2={d}/merge2.fq",
+                     "out={o}/merged.fq", "outu={o}/u1.fq",
+                     "outu2={o}/u2.fq", "ihist={o}/ihist.txt"], 2 * n,
+                    {}, {"ratio": n_batches})}
+
+
+def tools_cli(device, d: Path, runs: dict, cpu_runs: dict) -> dict:
+    """The CLIs of ``tools_cli_inputs`` on the card in this process, each
+    held to its CPU run (``cpu_runs``: tool -> ``CpuRun`` with
+    ``device=cpu``, started beforehand in processes of their own): every
+    output file byte-equal between the two, the reports too once the
+    ``Time:`` line is dropped, and the card's run counted in the scan and
+    ladder counters."""
+    from bbmap_tpu_torch.index import kmerset_device
+    from bbmap_tpu_torch.ops import overlap_device
+    res = {}
+    for tool, (template, reads_in, want_scans, want_ladders) in runs.items():
+        o = d / f"{tool}_card"
+        kmerset_device.reset_scans()
+        overlap_device.reset_scans()
+        card = cli_card(device, o, tool, [a.format(d=d, o=o)
+                                          for a in template])
+        scans, ladders = dict(kmerset_device.scans), \
+            dict(overlap_device.scans)
+        cmp = cli_compare(tool, card, cpu_runs[tool].finish(900))
+        want = dict.fromkeys(kmerset_device.ROUTES, 0)
+        want.update(want_scans)
+        want_l = dict.fromkeys(overlap_device.ROUTES, 0)
+        want_l.update(want_ladders)
+        if scans != want or ladders != want_l:
+            raise AssertionError(f"{tool}: device scans {scans}, "
+                                 f"ladders {ladders} on the card; "
+                                 f"expected {want}, {want_l}")
+        n_reads = sum(v.count(b"\n+\n") for k, v in card["files"].items()
+                      if k.endswith(".fq"))
+        res[tool] = {"reads_in": reads_in, "reads_out": n_reads,
+                     "files": cmp["files"], "bytes": cmp["bytes"],
+                     "scans": scans, "ladders": ladders,
+                     "wall_s": cmp["wall_s"], "wall_cpu_s": cmp["wall_cpu_s"],
+                     "report": card["report"].splitlines()}
+        if not n_reads:
+            raise AssertionError(f"{tool} wrote no reads")
     say("tools CLI: " + json.dumps(res))
     return res
 
 
 def tools_phase(device) -> list:
     """The read-preprocessing tools on the card at bench_tools.py's sizes,
-    then their CLIs byte-equal between the card and the CPU: the results
-    of bbduk_scan, seal_assign, bbmerge_ladders and tools_cli."""
-    return [bbduk_scan(device), seal_assign(device), bbmerge_ladders(device),
-            tools_cli(device)]
+    then their CLIs byte-equal between the card and the CPU, the CPU runs
+    in processes of their own started first, beside the card's work: the
+    results of bbduk_scan, seal_assign, bbmerge_ladders and tools_cli."""
+    from bbmap_tpu_torch.io import native
+    native.get_lib()                 # its one stderr line, if any, goes now
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tools")
+    cpu_runs = {}
+    try:
+        d = Path(tmp)
+        runs = tools_cli_inputs(d)
+        for tool, (template, *_) in runs.items():
+            for side in ("card", "cpu"):
+                (d / f"{tool}_{side}").mkdir()
+            o = d / f"{tool}_cpu"
+            cpu_runs[tool] = CpuRun(o, tool, [a.format(d=d, o=o)
+                                              for a in template])
+        return [bbduk_scan(device), seal_assign(device),
+                bbmerge_ladders(device),
+                tools_cli(device, d, runs, cpu_runs)]
+    finally:
+        for r in cpu_runs.values():
+            r.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 # the kmer tools phase: the counting Bloom filter at bbnorm's defaults
@@ -2623,167 +2813,165 @@ def _report_lines(err: str, paths) -> str:
     return "\n".join(out)
 
 
-def kmer_cli(device, gbases) -> dict:
-    """bbnorm (pairs, khist=), ecc (pairs), kmercoverage (hist=),
-    rqcfilter (paired; ihist=, khist=t; adapter and artifact references
-    written here, phix=f) and decontaminate (two libraries against their
-    assemblies) through their CLI entry points, once with ``device=`` the
-    card and once with ``device=cpu``: every output file byte-equal between
-    the two (rqcfilter's status.log and reproduce.sh left out: they carry
-    time stamps and the command line), the reports too once the lines with
-    a wall time are dropped; the card's runs seen in kcount's calls and,
-    for decontaminate, in the kernels' launches (returned as
-    ``launches``)."""
+def kmer_cli_inputs(d: Path, gbases) -> dict:
+    """The inputs of the bbnorm (pairs, khist=), ecc (pairs), kmercoverage
+    (hist=), rqcfilter (paired; ihist=, khist=t; adapter and artifact
+    references written here, phix=f) and decontaminate (two libraries
+    against their assemblies) CLI runs, written into ``d``. Returns tool
+    -> argument templates: {d} is ``d``, {o} the run's output directory,
+    {t} its temporary directory."""
     import numpy as np
-    from bbmap_tpu_torch.index import kcount
     acgt = np.frombuffer(b"ACGT", np.uint8)
     rng = np.random.default_rng(41)
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_kmer")
-    res = {}
-    try:
-        d = Path(tmp)
 
-        def pairs(name, n, start, span, seed):
-            r1 = genome_reads(gbases, n, start, span, seed, 0.005)
-            r2 = genome_reads(gbases, n, start, span, seed + 1, 0.005)
-            q = rng.integers(20, 41, (2, n, L))
-            _fastq(d / f"{name}1.fq", [f"{name}{i}/1" for i in range(n)],
-                   r1, q[0])
-            _fastq(d / f"{name}2.fq", [f"{name}{i}/2" for i in range(n)],
-                   r2, q[1])
-        pairs("norm", N_NORM_PAIRS, 1_000_000, NORM_WINDOW, 51)
-        pairs("ecc", N_ECC_PAIRS, 2_000_000, ECC_WINDOW, 53)
-        kr = genome_reads(gbases, N_KCOV_READS, 1_000_000, NORM_WINDOW, 55,
-                          0.005)
-        _fastq(d / "kcov.fq", [f"k{i}" for i in range(N_KCOV_READS)], kr,
-               rng.integers(20, 41, kr.shape))
-        adapters, _ = duk_inputs(0)
-        artifacts = [bytes(rng.choice(acgt, 80)) for _ in range(4)]
-        with open(d / "adapters.fa", "w") as fh:
-            for i, s in enumerate(adapters):
-                fh.write(f">adapter{i}\n{s.decode()}\n")
-        with open(d / "artifacts.fa", "w") as fh:
-            for i, s in enumerate(artifacts):
-                fh.write(f">artifact{i}\n{s.decode()}\n")
-        r1, r2, q1, q2 = _cli_pairs(rng, N_RQC_PAIRS, L, 60, 300,
-                                    adapters[0], adapters[1])
-        hit = np.nonzero(rng.random(N_RQC_PAIRS) < 0.05)[0]
-        for i in hit:                         # artifact-bearing pairs
-            p = int(rng.integers(0, L - 80))
-            r1[i, p:p + 80] = np.frombuffer(artifacts[i % 4], np.uint8)
-        _fastq(d / "rqc1.fq", [f"q{i}/1" for i in range(N_RQC_PAIRS)], r1,
-               q1)
-        _fastq(d / "rqc2.fq", [f"q{i}/2" for i in range(N_RQC_PAIRS)], r2,
-               q2)
-        for j, lib in enumerate(("libA", "libB")):
-            at = 3_000_000 + j * 100_000
-            write_fasta(d / f"{lib}.fa", f"{lib}_main",
-                        gbases[at:at + DECON_REF_BP])
-            with open(d / f"{lib}.fa", "ab") as fh:
-                fh.write(f">{lib}_junk\n".encode()
-                         + rng.choice(acgt, DECON_JUNK_BP).tobytes() + b"\n")
-            lr = genome_reads(gbases, N_DECON_READS, at, DECON_REF_BP,
-                              61 + j, 0.005)
-            _fastq(d / f"{lib}.fq", [f"{lib}r{i}" for i in
-                                     range(N_DECON_READS)], lr,
-                   rng.integers(20, 41, lr.shape))
-        runs = {
-            "bbnorm": ["in={d}/norm1.fq", "in2={d}/norm2.fq",
-                       "out={o}/n1.fq", "out2={o}/n2.fq",
-                       "outt={o}/tossed.fq", "target=20", "mindepth=3",
-                       "khist={o}/khist.txt"],
-            "ecc": ["in={d}/ecc1.fq", "in2={d}/ecc2.fq", "out={o}/e1.fq",
-                    "out2={o}/e2.fq"],
-            "kmercoverage": ["in={d}/kcov.fq", "out={o}/cov.fq",
-                             "hist={o}/hist.txt"],
-            "rqcfilter": ["in={d}/rqc1.fq", "in2={d}/rqc2.fq",
-                          "out=clean1.fq", "out2=clean2.fq", "path={o}",
-                          "ref={d}/adapters.fa",
-                          "artifactdb={d}/artifacts.fa", "phix=f",
-                          "ihist=ihist.txt", "khist=t"],
-            "decontaminate": ["reads={d}/libA.fq,{d}/libB.fq",
-                              "ref={d}/libA.fa,{d}/libB.fa", "outdir={o}",
-                              "tmpdir={t}", "minc=3", "minp=20",
-                              "minl=500"]}
-        for tool, template in runs.items():
-            out = {}
-            for side, dev in (("card", device), ("cpu", "cpu")):
-                o, t = d / f"{tool}_{side}", d / f"{tool}_{side}_tmp"
-                o.mkdir()
-                args = [a.format(d=d, o=o, t=t) for a in template]
-                kcount.reset_calls()
-                reset_counts()
-                w = time.time()
-                rc, report = run_tool(tool, args + [f"device={dev}"])
-                wall = time.time() - w
-                launches = launch_counts()
-                if rc != 0:
-                    raise AssertionError(f"{tool} device={dev} exited {rc}:"
-                                         f" {report}")
-                out[side] = (_report_lines(report, {"{o}": o, "{t}": t}),
-                             {p.name: p.read_bytes()
-                              for p in sorted(o.iterdir())
-                              if p.name not in ("status.log",
-                                                "reproduce.sh")},
-                             dict(kcount.calls), launches, wall)
-            (rep_c, files_c, calls_c, launches, wall_c), \
-                (rep_h, files_h, calls_h, _, wall_h) = out["card"], out["cpu"]
-            if rep_c != rep_h:
-                raise AssertionError(f"{tool}: the reports differ:\n{rep_c}"
-                                     f"\n---\n{rep_h}")
-            if sorted(files_c) != sorted(files_h) or not files_c:
-                raise AssertionError(f"{tool}: output files {sorted(files_c)}"
-                                     f" on the card, {sorted(files_h)} on "
-                                     f"the CPU")
-            for name in files_c:
-                if files_c[name] != files_h[name]:
-                    raise AssertionError(f"{tool}: {name} differs between "
-                                         f"device={device} and device=cpu")
-            if calls_c != calls_h:
-                raise AssertionError(f"{tool}: kcount calls {calls_c} on the "
-                                     f"card, {calls_h} on the CPU")
-            res[tool] = {"files": len(files_c),
-                         "bytes": sum(len(v) for v in files_c.values()),
-                         "kcount_calls": calls_c, "wall_s": wall_c,
-                         "wall_cpu_s": wall_h}
-            if tool == "decontaminate":
-                res[tool]["launches"] = launches
-        for tool in ("bbnorm", "ecc", "kmercoverage", "decontaminate"):
-            if not res[tool]["kcount_calls"]["increment"]:
-                raise AssertionError(f"{tool}: no kcount increment ran")
-        fl = (d / "rqcfilter_card" / "file-list.txt").read_text()
-        for want in ("filtered_fastq_2=clean2.fq", "ihist=ihist.txt",
-                     "khist=khist.txt"):
-            if want not in fl:
-                raise AssertionError(f"rqcfilter: {want} not in its "
-                                     f"file-list: {fl!r}")
-        c1, c2 = (d / "rqcfilter_card" / n for n in ("clean1.fq",
-                                                     "clean2.fq"))
-        m1 = [ln.split(b"/")[0] for ln in c1.read_bytes().split(b"\n")[::4]
-              if ln]
-        m2 = [ln.split(b"/")[0] for ln in c2.read_bytes().split(b"\n")[::4]
-              if ln]
-        if m1 != m2 or not m1:
-            raise AssertionError(f"rqcfilter: out2 does not hold the mates "
-                                 f"of out ({len(m1)} and {len(m2)} reads)")
-        cov = (d / "decontaminate_card" / "libA_covstats1.txt").read_text()
-        clean = (d / "decontaminate_card" / "libA_clean.fasta").read_text()
-        dirty = (d / "decontaminate_card" / "libA_dirty.fasta").read_text()
-        if ">libA_main" not in clean or ">libA_junk" not in dirty:
-            raise AssertionError(f"decontaminate: the main contig is not "
-                                 f"clean or the junk not dirty:\n{cov}")
-        res["decontaminate"]["covstats_libA"] = cov.splitlines()[1:]
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    def pairs(name, n, start, span, seed):
+        r1 = genome_reads(gbases, n, start, span, seed, 0.005)
+        r2 = genome_reads(gbases, n, start, span, seed + 1, 0.005)
+        q = rng.integers(20, 41, (2, n, L))
+        _fastq(d / f"{name}1.fq", [f"{name}{i}/1" for i in range(n)],
+               r1, q[0])
+        _fastq(d / f"{name}2.fq", [f"{name}{i}/2" for i in range(n)],
+               r2, q[1])
+    pairs("norm", N_NORM_PAIRS, 1_000_000, NORM_WINDOW, 51)
+    pairs("ecc", N_ECC_PAIRS, 2_000_000, ECC_WINDOW, 53)
+    kr = genome_reads(gbases, N_KCOV_READS, 1_000_000, NORM_WINDOW, 55,
+                      0.005)
+    _fastq(d / "kcov.fq", [f"k{i}" for i in range(N_KCOV_READS)], kr,
+           rng.integers(20, 41, kr.shape))
+    adapters, _ = duk_inputs(0)
+    artifacts = [bytes(rng.choice(acgt, 80)) for _ in range(4)]
+    with open(d / "adapters.fa", "w") as fh:
+        for i, s in enumerate(adapters):
+            fh.write(f">adapter{i}\n{s.decode()}\n")
+    with open(d / "artifacts.fa", "w") as fh:
+        for i, s in enumerate(artifacts):
+            fh.write(f">artifact{i}\n{s.decode()}\n")
+    r1, r2, q1, q2 = _cli_pairs(rng, N_RQC_PAIRS, L, 60, 300,
+                                adapters[0], adapters[1])
+    hit = np.nonzero(rng.random(N_RQC_PAIRS) < 0.05)[0]
+    for i in hit:                         # artifact-bearing pairs
+        p = int(rng.integers(0, L - 80))
+        r1[i, p:p + 80] = np.frombuffer(artifacts[i % 4], np.uint8)
+    _fastq(d / "rqc1.fq", [f"q{i}/1" for i in range(N_RQC_PAIRS)], r1,
+           q1)
+    _fastq(d / "rqc2.fq", [f"q{i}/2" for i in range(N_RQC_PAIRS)], r2,
+           q2)
+    for j, lib in enumerate(("libA", "libB")):
+        at = 3_000_000 + j * 100_000
+        write_fasta(d / f"{lib}.fa", f"{lib}_main",
+                    gbases[at:at + DECON_REF_BP])
+        with open(d / f"{lib}.fa", "ab") as fh:
+            fh.write(f">{lib}_junk\n".encode()
+                     + rng.choice(acgt, DECON_JUNK_BP).tobytes() + b"\n")
+        lr = genome_reads(gbases, N_DECON_READS, at, DECON_REF_BP,
+                          61 + j, 0.005)
+        _fastq(d / f"{lib}.fq", [f"{lib}r{i}" for i in
+                                 range(N_DECON_READS)], lr,
+               rng.integers(20, 41, lr.shape))
+    return {
+        "bbnorm": ["in={d}/norm1.fq", "in2={d}/norm2.fq",
+                   "out={o}/n1.fq", "out2={o}/n2.fq",
+                   "outt={o}/tossed.fq", "target=20", "mindepth=3",
+                   "khist={o}/khist.txt"],
+        "ecc": ["in={d}/ecc1.fq", "in2={d}/ecc2.fq", "out={o}/e1.fq",
+                "out2={o}/e2.fq"],
+        "kmercoverage": ["in={d}/kcov.fq", "out={o}/cov.fq",
+                         "hist={o}/hist.txt"],
+        "rqcfilter": ["in={d}/rqc1.fq", "in2={d}/rqc2.fq",
+                      "out=clean1.fq", "out2=clean2.fq", "path={o}",
+                      "ref={d}/adapters.fa",
+                      "artifactdb={d}/artifacts.fa", "phix=f",
+                      "ihist=ihist.txt", "khist=t"],
+        "decontaminate": ["reads={d}/libA.fq,{d}/libB.fq",
+                          "ref={d}/libA.fa,{d}/libB.fa", "outdir={o}",
+                          "tmpdir={t}", "minc=3", "minp=20",
+                          "minl=500"]}
+
+
+# rqcfilter's files that carry time stamps and the command line
+KMER_CLI_UNCOMPARED = ("status.log", "reproduce.sh")
+
+
+def kmer_cli(device, d: Path, runs: dict, cpu_runs: dict) -> dict:
+    """The CLIs of ``kmer_cli_inputs`` on the card in this process, each
+    held to its CPU run (``cpu_runs``: tool -> ``CpuRun`` with
+    ``device=cpu`` that reports kcount's calls, started beforehand in
+    processes of their own): every output file byte-equal between the two
+    (``KMER_CLI_UNCOMPARED`` left out), the reports too once the lines with
+    a wall time are dropped; the card's runs seen in kcount's calls, equal
+    to the CPU's, and, for decontaminate, in the kernels' launches
+    (returned as ``launches``)."""
+    res = {}
+    for tool, template in runs.items():
+        o, t = d / f"{tool}_card", d / f"{tool}_card_tmp"
+        card = cli_card(device, o, tool,
+                        [a.format(d=d, o=o, t=t) for a in template],
+                        tags={"{o}": o, "{t}": t})
+        cpu = cpu_runs[tool].finish(900)
+        for r in (card, cpu):
+            for name in KMER_CLI_UNCOMPARED:
+                r["files"].pop(name, None)
+        cmp = cli_compare(tool, card, cpu)
+        if card["kcount_calls"] != cpu["kcount_calls"]:
+            raise AssertionError(f"{tool}: kcount calls "
+                                 f"{card['kcount_calls']} on the card, "
+                                 f"{cpu['kcount_calls']} on the CPU")
+        res[tool] = {"files": cmp["files"], "bytes": cmp["bytes"],
+                     "kcount_calls": card["kcount_calls"],
+                     "wall_s": cmp["wall_s"], "wall_cpu_s": cmp["wall_cpu_s"]}
+        if tool == "decontaminate":
+            res[tool]["launches"] = card["launches"]
+    for tool in ("bbnorm", "ecc", "kmercoverage", "decontaminate"):
+        if not res[tool]["kcount_calls"]["increment"]:
+            raise AssertionError(f"{tool}: no kcount increment ran")
+    fl = (d / "rqcfilter_card" / "file-list.txt").read_text()
+    for want in ("filtered_fastq_2=clean2.fq", "ihist=ihist.txt",
+                 "khist=khist.txt"):
+        if want not in fl:
+            raise AssertionError(f"rqcfilter: {want} not in its "
+                                 f"file-list: {fl!r}")
+    c1, c2 = (d / "rqcfilter_card" / n for n in ("clean1.fq",
+                                                 "clean2.fq"))
+    m1 = [ln.split(b"/")[0] for ln in c1.read_bytes().split(b"\n")[::4]
+          if ln]
+    m2 = [ln.split(b"/")[0] for ln in c2.read_bytes().split(b"\n")[::4]
+          if ln]
+    if m1 != m2 or not m1:
+        raise AssertionError(f"rqcfilter: out2 does not hold the mates "
+                             f"of out ({len(m1)} and {len(m2)} reads)")
+    cov = (d / "decontaminate_card" / "libA_covstats1.txt").read_text()
+    clean = (d / "decontaminate_card" / "libA_clean.fasta").read_text()
+    dirty = (d / "decontaminate_card" / "libA_dirty.fasta").read_text()
+    if ">libA_main" not in clean or ">libA_junk" not in dirty:
+        raise AssertionError(f"decontaminate: the main contig is not "
+                             f"clean or the junk not dirty:\n{cov}")
+    res["decontaminate"]["covstats_libA"] = cov.splitlines()[1:]
     say("kmer tools CLI: " + json.dumps(res))
     return res
 
 
-def kmer_tools_phase(device, gbases) -> tuple:
+def kmer_cli_start(d: Path, gbases, cpu_runs: dict) -> dict:
+    """Write ``kmer_cli_inputs`` into ``d`` and start each CLI's CPU run
+    (a ``CpuRun`` that reports kcount's calls) into ``cpu_runs``, which the
+    caller stops. Returns the runs' argument templates."""
+    runs = kmer_cli_inputs(d, gbases)
+    for tool, template in runs.items():
+        (d / f"{tool}_card").mkdir()
+        o, t = d / f"{tool}_cpu", d / f"{tool}_cpu_tmp"
+        o.mkdir()
+        cpu_runs[tool] = CpuRun(
+            o, tool, [a.format(d=d, o=o, t=t) for a in template],
+            tags={"{o}": o, "{t}": t}, calls=d / f"{tool}.calls.json")
+    return runs
+
+
+def kmer_tools_phase(device, gbases, d: Path, runs: dict,
+                     cpu_runs: dict) -> tuple:
     """The counting Bloom filter at bbnorm's size, then the k-mer tool
-    CLIs byte-equal between the card and the CPU: the results of
-    kmer_count and kmer_cli."""
-    return kmer_count(device, gbases), kmer_cli(device, gbases)
+    CLIs byte-equal between the card and the CPU (their CPU runs started
+    by ``kmer_cli_start`` beforehand, beside the card's work): the results
+    of kmer_count and kmer_cli."""
+    return kmer_count(device, gbases), kmer_cli(device, d, runs, cpu_runs)
 
 
 # ---------------------------------------------------------------------------
@@ -3183,36 +3371,60 @@ def _files(o: Path) -> dict:
     return {p.name: p.read_bytes() for p in sorted(o.iterdir())}
 
 
-def cli_card(device, o: Path, tool: str, args) -> dict:
+def cli_card(device, o: Path, tool: str, args, tags: dict = None) -> dict:
     """``tool`` on the card in this process: its report (without wall
-    times), output files, wall and every kernel's launches."""
+    times, each path of ``tags``, by default {"{o}": o}, replaced by its
+    tag), output files, wall, kcount's calls and every kernel's
+    launches."""
+    from bbmap_tpu_torch.index import kcount
     reset_counts()
+    kcount.reset_calls()
     w = time.time()
     rc, report = run_tool(tool, list(args) + [f"device={device}"])
     _sync(device)
     wall = time.time() - w
     if rc != 0:
         raise AssertionError(f"{tool} device={device} exited {rc}: {report}")
-    return {"report": _report_lines(report, {"{o}": o}), "files": _files(o),
-            "wall_s": wall,
-            "launches": launch_counts()}
+    return {"report": _report_lines(report, tags or {"{o}": o}),
+            "files": _files(o), "wall_s": wall,
+            "kcount_calls": dict(kcount.calls), "launches": launch_counts()}
+
+
+# a CLI run on the CPU that also writes kcount's calls (argv[1]) as JSON
+_COUNTED_CLI = """
+import json, sys
+from bbmap_tpu_torch.__main__ import main
+from bbmap_tpu_torch.index import kcount
+calls, sys.argv = sys.argv[1], ["bbmap_tpu_torch", *sys.argv[2:]]
+try:
+    rc = main()
+finally:
+    with open(calls, "w") as fh:
+        json.dump(dict(kcount.calls), fh)
+raise SystemExit(rc)
+"""
 
 
 class CpuRun:
     """``python -m bbmap_tpu_torch <tool> ... device=cpu`` in a process of
     its own (one thread, no card), started now; ``finish`` waits for it and
-    returns what ``cli_card`` returns but the launches."""
+    returns what ``cli_card`` returns but the launches, and kcount's calls
+    only where ``calls`` names the file the process writes them to."""
 
-    def __init__(self, o: Path, tool: str, args):
+    def __init__(self, o: Path, tool: str, args, tags: dict = None,
+                 calls: Path = None):
         import threading
-        self.o, self.tool = o, tool
+        self.o, self.tool, self.calls = o, tool, calls
+        self.tags = tags or {"{o}": o}
         env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1",
                    MKL_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+        head = ["-m", "bbmap_tpu_torch"] if calls is None \
+            else ["-c", _COUNTED_CLI, str(calls)]
         self.t0 = time.time()
         self.proc = subprocess.Popen(
-            [sys.executable, "-m", "bbmap_tpu_torch", tool, *args,
-             "device=cpu"], cwd=ROOT, env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True)
+            [sys.executable, *head, tool, *args, "device=cpu"], cwd=ROOT,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
         self.done = {}
         self.waiter = threading.Thread(target=self._wait, daemon=True)
         self.waiter.start()
@@ -3236,8 +3448,11 @@ class CpuRun:
         note = native.__name__ + ":"
         report = "\n".join(ln for ln in err.splitlines()
                            if not ln.startswith(("Time:", note)))
-        return {"report": _report_lines(report, {"{o}": self.o}),
-                "files": _files(self.o), "wall_s": self.done["t1"] - self.t0}
+        out = {"report": _report_lines(report, self.tags),
+               "files": _files(self.o), "wall_s": self.done["t1"] - self.t0}
+        if self.calls is not None:
+            out["kcount_calls"] = json.loads(self.calls.read_text())
+        return out
 
     def stop(self) -> None:
         if self.proc.poll() is None:
@@ -4809,18 +5024,32 @@ def main() -> int:
     say(smi)
     say(f"phase device facts: {time.time() - t:.2f} s")
 
-    from bbmap_tpu_torch.ops import _build
+    from concurrent.futures import ThreadPoolExecutor
+    from bbmap_tpu_torch.ops import _build, msa_selftest
     t = time.time()
-    libs = _build.build_all([*_build.SOURCES, *_build.VARIANTS])
-    for name in _build.SOURCES:
-        _build.load(name)
-    say(f"phase build: {time.time() - t:.2f} s "
-        f"({', '.join(p.name for p in libs)})")
+    with ThreadPoolExecutor(1) as pool:
+        # the self-test's oracle (host numpy) beside the nvcc processes
+        oracle = pool.submit(lambda: (msa_selftest.selftest_cases(),
+                                      time.time() - t))
+        libs = _build.build_all([*_build.SOURCES, *_build.VARIANTS])
+        for name in _build.SOURCES:
+            _build.load(name)
+        say(f"phase build: {time.time() - t:.2f} s "
+            f"({', '.join(p.name for p in libs)})")
+        cases, oracle_s = oracle.result()
 
     if "--paired" in sys.argv[1:]:
         return paired(sys.argv[sys.argv.index("--paired") + 1])
     if "--dedupe-split" in sys.argv[1:]:
         return dedupe_split(sys.argv[sys.argv.index("--dedupe-split") + 1])
+
+    t = time.time()
+    st = selftest_phase(device, cases)
+    say(f"phase kernel selftest: {time.time() - t:.2f} s; kernel_selftest "
+        f"{st['ok']}: K2, K3 and the fused fill + walk equal to the numpy "
+        f"oracle on {st['cases']} cases ({', '.join(st['profiles'])}) in "
+        f"{st['wall_s']:.2f} s, launches {st['launches']} (the oracle "
+        f"{oracle_s:.2f} s beside the build); card {smi}")
 
     from bbmap_tpu_torch import workload
     t = time.time()
@@ -4849,6 +5078,20 @@ def main() -> int:
     say(f"phase SAM: {n_lines} lines, {time.time() - t:.2f} s")
 
     t = time.time()
+    ib = index_build_phase(device, gbases, first, smi)
+    say(f"phase index build: {time.time() - t:.1f} s; build_index_device "
+        f"on the card equal to the host build_index at "
+        f"{ib['bench']['G']} bp, k={INDEX_K}, without and with N bases "
+        f"({ib['with_n']['n_bases']} N, 2 chroms): host build "
+        f"{ib['bench']['host_build_s']:.3f} s, analyze_index "
+        f"{ib['aligner']['analyze_s']:.3f} s, device build warm "
+        f"{min(ib['bench']['device_build_warm_s']):.3f} s (the device CSR "
+        f"{ib['bench']['device_csr_ms']:.3f} ms, bound "
+        f"{ib['bench']['bound_ms']:.4f} ms), peak "
+        f"{ib['bench']['device_peak_bytes']} B; the warmup batch on the "
+        f"device-built index equal to the host-built run; card {smi}")
+
+    t = time.time()
     lres = long_phase(device, gbases)
     say(f"phase long reads: {time.time() - t:.1f} s; {N_LONG} reads of "
         f"{L_LONG} bp: reads/s {lres['reads_per_s']:.3f}, bases/s "
@@ -4858,9 +5101,24 @@ def main() -> int:
         f"{lres['strict_correct']:.4f}; launches {lres['launches']}; "
         f"peak memory {lres['max_memory_allocated']} B; card {smi}")
 
-    t = time.time()
-    duk, seal, merge, cli = tools_phase(device)
-    say(f"phase tools: {time.time() - t:.1f} s; bbduk reads/s "
+    kd = Path(tempfile.mkdtemp(prefix="chip_smoke_kmer"))
+    kmer_cpu = {}
+    try:
+        # the kmer tools' CLI runs on the CPU start now, beside the tools
+        # phase: decontaminate's takes ~2 minutes on one thread
+        kmer_runs = kmer_cli_start(kd, gbases, kmer_cpu)
+        t = time.time()
+        duk, seal, merge, cli = tools_phase(device)
+        tools_s = time.time() - t
+        t = time.time()
+        kcnt, kcli = kmer_tools_phase(device, gbases, kd, kmer_runs,
+                                      kmer_cpu)
+        kmer_s = time.time() - t
+    finally:
+        for r in kmer_cpu.values():
+            r.stop()
+        shutil.rmtree(kd, ignore_errors=True)
+    say(f"phase tools: {tools_s:.1f} s; bbduk reads/s "
         f"{duk['reads_per_s']:.1f} ({duk['reads']} reads, "
         f"{duk['reads_with_hit']} with a hit); seal reads/s "
         f"{seal['reads_per_s']:.1f} (matched {seal['matched_fraction']:.4f})"
@@ -4870,9 +5128,7 @@ def main() -> int:
         f"{merge['ratio']['merged_fraction']:.4f}); CLIs byte-equal between "
         f"the card and the CPU; card {smi}")
 
-    t = time.time()
-    kcnt, kcli = kmer_tools_phase(device, gbases)
-    say(f"phase kmer tools: {time.time() - t:.1f} s; counting Bloom filter "
+    say(f"phase kmer tools: {kmer_s:.1f} s; counting Bloom filter "
         f"({KCA_HASHES} x {KCA_CELLS} cells of {KCA_BITS} bits, k="
         f"{KCA_K}) over {kcnt['reads']} reads: increment "
         f"{kcnt['count_kmers_per_s']:.1f} k-mers/s, "
@@ -5064,6 +5320,8 @@ def main() -> int:
     print(json.dumps({"parallel": {
         k: ({f: v for f, v in r.items() if f != "launches"}
             if k == "mesh" else r) for k, r in par.items()}}), flush=True)
+    print(json.dumps({"kernel_selftest": st, "card": smi}), flush=True)
+    print(json.dumps({"index_build": ib, "card": smi}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

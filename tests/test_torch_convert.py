@@ -7,6 +7,7 @@ workload generators of the port give the reference's outputs on a seeded
 
 import dataclasses
 import importlib
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -282,7 +283,17 @@ PORT_ADDED = {
     "parallel.sharded": {"torch", "dataclasses", "Dict", "List",
                          "Sequence", "DeviceLike", "resolve_device",
                          "msa_kernels", "seed_host", "_shard_finalize",
-                         "_allgather", "dryrun_multichip"}}
+                         "_allgather", "dryrun_multichip"},
+    # build_device is a torch rewrite: it takes a device, and fills
+    # starts by a binary search over the keyspace in chunks of
+    # SEARCH_CHUNK keys (I32 / I64 are its dtypes)
+    "index.build_device": {"torch", "DeviceLike", "resolve_device", "I32",
+                           "I64", "SEARCH_CHUNK"},
+    # msa_selftest checks the CUDA kernels (kernel_selftest, which takes a
+    # device) in place of the Pallas kernels, and its oracle's answers can
+    # be computed beforehand (selftest_cases), with no device
+    "ops.msa_selftest": {"torch", "DeviceLike", "resolve_device",
+                         "selftest_cases", "kernel_selftest"}}
 # names a copy leaves out on purpose: rqcfilter's default reference paths
 # under the machine's reference directory (the port takes every reference
 # from the command line); kcount's rewritten device class needs no
@@ -306,7 +317,12 @@ PORT_DROPPED = {
     "parallel.multihost": {"jax", "_merge_shards_concat", "List"},
     "parallel.sharded": {"jax", "jnp", "NamedSharding", "P", "msa_jax",
                          "shard_batch", "_shard_worker", "functools",
-                         "Tuple"}}
+                         "Tuple"},
+    # build_device imports MODULO and reverse_complement_key and uses
+    # neither (the modulo mode is build_index's); pallas_selftest is the
+    # Pallas kernels' check, kernel_selftest the CUDA kernels'
+    "index.build_device": {"MODULO", "reverse_complement_key"},
+    "ops.msa_selftest": {"pallas_selftest"}}
 
 
 @pytest.mark.parametrize("mod", [
@@ -325,7 +341,8 @@ PORT_DROPPED = {
     "tools.recluster", "tools.idtools", "tools.removesmartbell",
     "tools.smalltools", "tools.synth", "tools.barcodes", "tools.sorttools",
     "tools.callvariants", "tools.misc", "tools.pacbio", "tools.textutils",
-    "tools.liftover", "parallel.multihost", "parallel.sharded"])
+    "tools.liftover", "parallel.multihost", "parallel.sharded",
+    "align.search_oracle", "index.build_device", "ops.msa_selftest"])
 def test_copied_module_has_the_reference_names(mod):
     """Each copied module defines what the reference module defines, less
     what it leaves out on purpose, and beside it only what the port added
@@ -338,6 +355,17 @@ def test_copied_module_has_the_reference_names(mod):
     assert names and sorted(names) == sorted(
         n for n in vars(p)
         if not n.startswith("__") and n not in PORT_ADDED.get(mod, ()))
+
+
+# modules the port holds as verbatim copies of the JAX package's file
+VERBATIM = ("align/search_oracle.py",)
+
+
+@pytest.mark.parametrize("path", VERBATIM)
+def test_verbatim_copy_is_byte_equal(path):
+    root = Path(__file__).resolve().parent.parent
+    assert (root / "bbmap_tpu_torch" / path).read_bytes() == \
+        (root / "bbmap_tpu" / path).read_bytes()
 
 
 @pytest.mark.parametrize("multi", [False, True])

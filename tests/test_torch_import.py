@@ -22,7 +22,10 @@ import bbmap_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(bbmap_tpu_torch.__path__,
                                                "bbmap_tpu_torch.")]
 assert {"bbmap_tpu_torch.parallel.multihost",
-        "bbmap_tpu_torch.parallel.sharded"} <= set(names), names
+        "bbmap_tpu_torch.parallel.sharded",
+        "bbmap_tpu_torch.index.build_device",
+        "bbmap_tpu_torch.ops.msa_selftest",
+        "bbmap_tpu_torch.align.search_oracle"} <= set(names), names
 for n in names:
     if n != "bbmap_tpu_torch.__main__":
         importlib.import_module(n)
