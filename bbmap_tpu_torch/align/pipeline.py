@@ -238,7 +238,6 @@ def _bucket_pad(n: int) -> int:
     return p
 
 
-RESCUE_CHUNK = 1024   # fixed rescue-kernel job budget (one program)
 DP_CHUNK = 8192       # device batch for fill+traceback DP jobs
 
 
@@ -1703,15 +1702,6 @@ class BBMapAligner:
                 mbx.match_is_row[i] = False
                 mbx.match_override[i] = r.match
 
-    def _rescue_programs(self, Lm: int, R: int):
-        from ..ops import rescue_device
-        key = ("rescue", Lm, R)
-        f = self._fused_cache.get(key)
-        if f is None:
-            f = rescue_device.build_rescue(self.dindex, Lm, R)
-            self._fused_cache[key] = f
-        return f
-
     def _rescue_columnar(self, b1, b2, L1: int, L2: int,
                          mb1: MappedBatch, mb2: MappedBatch) -> None:
         self._rescue_apply(self._rescue_dispatch(b1, b2, L1, L2,
@@ -1793,33 +1783,16 @@ class BBMapAligner:
                 host_jobs.append(j)
         pending_dev = None
         if dev_jobs:
-            # ONE fixed program size (chunked when jobs overflow it) so
-            # steady state never meets a fresh compile
-            R = RESCUE_CHUNK
-            rescue = self._rescue_programs(Lm, R)
-            nchunks = (len(dev_jobs) + R - 1) // R
-            outs = []
-            lo_all = np.zeros(nchunks * R, np.int32)
-            for c0 in range(nchunks):
-                sub = dev_jobs[c0 * R:(c0 + 1) * R]
-                reads_c = np.full((R, Lm), 4, np.uint8)
-                lo_a = np.zeros(R, np.int32)
-                n_a = np.zeros(R, np.int32)
-                ik_a = np.zeros(R, np.int32)
-                rt_a = np.zeros(R, bool)
-                mm_a = np.full(R, -1, np.int32)
-                for t, (which, row, mate_read, lo_t, n_t, ik, right,
-                        max_mm, mstrand) in enumerate(sub):
-                    reads_c[t] = _B2C[mate_read]
-                    lo_a[t] = lo_t
-                    n_a[t] = n_t
-                    ik_a[t] = ik
-                    rt_a[t] = right
-                    mm_a[t] = max_mm
-                outs.append(rescue.dispatch(reads_c, lo_a, n_a, ik_a,
-                                            rt_a, mm_a))
-                lo_all[c0 * R:(c0 + 1) * R] = lo_a
-            pending_dev = (outs, lo_all)
+            # exactly the device jobs, one upload and one launch
+            from ..ops import rescue_device
+            reads_c = _B2C[np.stack([j[2] for j in dev_jobs])]
+            lo_a, n_a, ik_a, mm_a = np.array(
+                [(j[3], j[4], j[5], j[7]) for j in dev_jobs], np.int32).T
+            rt_a = np.array([j[6] for j in dev_jobs], bool)
+            jobs_d = rescue_device.upload_jobs(reads_c, lo_a, n_a, ik_a,
+                                               rt_a, mm_a, self.dindex.device)
+            pending_dev = (rescue_device.rescue_scan(self.dindex, *jobs_d,
+                                                     Lm, N_OFF), lo_a)
         return (mb1, mb2, Lm, dev_jobs, host_jobs, pending_dev)
 
     def _rescue_apply(self, pend) -> None:
@@ -1837,9 +1810,8 @@ class BBMapAligner:
         mb1, mb2, Lm, dev_jobs, host_jobs, pending_dev = pend
         results = {}   # (which, row) -> (job, start_flat, mm)
         if pending_dev is not None:
-            outs, lo_a = pending_dev
-            best_k = np.concatenate([o[0].cpu().numpy() for o in outs])
-            min_mm = np.concatenate([o[1].cpu().numpy() for o in outs])
+            (best_k, min_mm), lo_a = pending_dev
+            best_k, min_mm = best_k.cpu().numpy(), min_mm.cpu().numpy()
             for t, job in enumerate(dev_jobs):
                 which, row = job[0], job[1]
                 bk = int(best_k[t])

@@ -28,6 +28,8 @@ descending sort. Float32 steps stay separate eager ops in the JAX order.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import os
 from typing import Dict, NamedTuple, Optional
 
@@ -40,6 +42,7 @@ from ..core import constants as K
 from ..index.build import KmerIndex
 
 from ..backend import DeviceLike, resolve_device
+from ..ops import _build
 from .gapless import score_match_sub_vec
 
 MAX_SITES_CAP = 32     # upper bound on the adaptive per-key site-list cap
@@ -455,8 +458,8 @@ def quality_offsets_stage(cfg: QmConfig, qual: torch.Tensor,
     pc_tab = torch.as_tensor(seed_host.PROB_CORRECT.astype(np.float32),
                              device=qual.device)
     pc = pc_tab[q.long()]
-    return _quality_offsets_core(cfg, q, pc, density, max_density,
-                                 return_weights)
+    out = quality_offsets_kernel(cfg, q, pc, density, max_density)
+    return out if return_weights else out[0]
 
 
 def pack_quality_host(quality: np.ndarray, L: int):
@@ -499,12 +502,29 @@ def quality_offsets_stage_packed(cfg: QmConfig, qpack, palette, pcpal,
                                  density: float, max_density: float,
                                  return_weights: bool = False):
     q, pc = unpack_quality_device(qpack, palette, pcpal, cfg.L)
-    return _quality_offsets_core(cfg, q, pc, density, max_density,
-                                 return_weights)
+    out = quality_offsets_kernel(cfg, q, pc, density, max_density)
+    return out if return_weights else out[0]
+
+
+def _offset_tables_np(L: int, k: int, nk: int, max_density: float):
+    """The two divisions of the quality offsets as host tables, exactly as
+    the JAX package resolves them: d2_tab (L + 1,) int32 = ceil(u *
+    max_density / k) in float64, div_tab (m, nk) float32 = span /
+    max(desired - 1, 1) in true float32 division."""
+    m = L - k + 1
+    d2_tab = np.ceil(np.arange(L + 1, dtype=np.float64) * float(max_density)
+                     / float(k)).astype(np.int32)
+    div_tab = (np.arange(m, dtype=np.float32)[:, None]
+               / np.maximum(np.arange(nk, dtype=np.float32)[None, :],
+                            np.float32(1.0))).astype(np.float32)
+    return d2_tab, div_tab
 
 
 def _quality_offsets_core(cfg: QmConfig, q, pc, density: float,
                           max_density: float, return_weights: bool = False):
+    """Plain version of ``quality_offsets_kernel``: keyProbs, the
+    makeOffsets3 ladder a step at a time over the batch, and with
+    ``return_weights`` the Solver weights and the reject flag."""
     dev = q.device
     k, L = cfg.k, cfg.L
     m = L - k + 1
@@ -537,22 +557,16 @@ def _quality_offsets_core(cfg: QmConfig, q, pc, density: float,
     valid_read = any1 & (potential > 0) & (right >= left)
     usable = right - left + k
     slots_u = usable - k + 1
-    # both divisions resolve through host tables, exactly as the JAX
-    # package does (d2 in float64, interval in true float32 division)
-    d2_tab = torch.as_tensor(np.ceil(
-        np.arange(L + 1, dtype=np.float64) * float(max_density)
-        / float(k)).astype(np.int32), device=dev)
+    d2_np, div_np = _offset_tables_np(L, k, nk, max_density)
+    d2_tab = torch.as_tensor(d2_np, device=dev)
     d2 = d2_tab[torch.clamp(usable, 0, L).long()]
     d2 = torch.minimum(slots_u, torch.clamp(d2, min=2))
     desired = torch.where(usable < L, torch.clamp(d2, max=nk),
                           torch.full_like(d2, nk))
     desired = torch.clamp(torch.minimum(desired, potential), min=1)
-    div_tab = (np.arange(m, dtype=np.float32)[:, None]
-               / np.maximum(np.arange(nk, dtype=np.float32)[None, :],
-                            np.float32(1.0))).astype(np.float32)
     span = torch.clamp(right - left, 0, m - 1)
     dm1 = torch.clamp(desired - 1, 0, nk - 1)
-    interval = torch.as_tensor(div_tab.ravel(), device=dev)[
+    interval = torch.as_tensor(div_np.ravel(), device=dev)[
         (span * nk + dm1).long()]
     interval_int = interval.to(I32) + 1
 
@@ -608,6 +622,94 @@ def _quality_offsets_core(cfg: QmConfig, q, pc, density: float,
         pae = pae * pmask[:, i]
     reject = valid_read & (pae > f32(0.5))
     return out_off, wts, reject
+
+
+# keyProbs thresholds (ok1, ok2), float32 as the plain version holds them
+_L1, _L2 = np.float32(0.94), np.float32(0.9999)
+
+
+def _quality_lib() -> ctypes.CDLL:
+    lib = _build.load("quality_offsets")
+    if not getattr(lib, "_bbmap_typed", False):
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.quality_offsets_launch.argtypes = [
+            vp, vp, ci, ci, ci, ci, vp, vp, vp, cf, cf, ci, cf, cf, vp, vp,
+            vp, vp]
+        lib.quality_offsets_launch.restype = ci
+        lib.quality_offsets_smem.argtypes = [ci, ci, ci]
+        lib.quality_offsets_smem.restype = ctypes.c_longlong
+        lib._bbmap_typed = True
+    return lib
+
+
+@functools.lru_cache(maxsize=8)
+def _offset_tables(L: int, k: int, offsets: tuple, max_density: float,
+                   device: torch.device):
+    """The kernel's operands that depend only on the configuration, on
+    ``device``: d2_tab, div_tab (``_offset_tables_np``) and the fixed
+    ladder."""
+    d2_tab, div_tab = _offset_tables_np(L, k, len(offsets), max_density)
+    return (torch.as_tensor(d2_tab, device=device),
+            torch.as_tensor(div_tab, device=device),
+            torch.as_tensor(np.asarray(offsets, np.int32), device=device))
+
+
+def quality_offsets_kernel(cfg: QmConfig, q: torch.Tensor, pc: torch.Tensor,
+                           density: float, max_density: float):
+    """Quality-driven key offsets of B reads from q (B, L) int32 phred and
+    pc (B, L) float32 (its probability correct). Returns (offsets (B, nk)
+    int32, weights (B, nk) float32, reject (B,) bool). CPU tensors: the
+    plain version (``_quality_offsets_core``). CUDA tensors: one launch of
+    ``csrc/quality_offsets.cu``; a failed launch raises."""
+    k, L = cfg.k, cfg.L
+    nk = len(cfg.offsets_list)
+    B = q.shape[0]
+    if q.shape != (B, L) or pc.shape != (B, L):
+        raise ValueError(f"q and pc (B, {L}) expected, got "
+                         f"{tuple(q.shape)} and {tuple(pc.shape)}")
+    if q.dtype != I32 or pc.dtype != F32:
+        raise TypeError("q must be int32 and pc float32")
+    if q.device != pc.device:
+        raise ValueError("q and pc must share one device")
+    if q.device.type == "cpu":
+        return _quality_offsets_core(cfg, q, pc, density, max_density, True)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"the quality offsets kernel runs on CUDA tensors "
+                           f"(got {q.device})")
+    dev = q.device
+    out_off = torch.empty((B, nk), dtype=I32, device=dev)
+    wts = torch.empty((B, nk), dtype=F32, device=dev)
+    reject = torch.empty(B, dtype=torch.bool, device=dev)
+    if B == 0:
+        return out_off, wts, reject
+    lib = _quality_lib()
+    smem = lib.quality_offsets_smem(L, k, nk)
+    if L - k + 1 < 1 or smem > 232448:
+        raise ValueError(f"reads of {L} bp (k={k}, {nk} keys) take {smem} B "
+                         f"of shared memory a block, past 227 KB")
+    d2_tab, div_tab, ladder = _offset_tables(
+        L, k, tuple(cfg.offsets_list), float(max_density), dev)
+    q, pc = q.contiguous(), pc.contiguous()
+    a = 100 * k
+    base_ks = a // 8
+    err = lib.quality_offsets_launch(
+        q.data_ptr(), pc.data_ptr(), B, L, k, nk, d2_tab.data_ptr(),
+        div_tab.data_ptr(), ladder.data_ptr(), float(_L1), float(_L2),
+        base_ks, float(np.float32(a - base_ks)),
+        float(np.float32(1.0) / np.float32(a)), out_off.data_ptr(),
+        wts.data_ptr(), reject.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"quality_offsets_launch failed: cudaError {err}")
+    quality_offsets_kernel.launches += 1
+    return out_off, wts, reject
+
+
+def reset_launches() -> None:
+    quality_offsets_kernel.launches = 0
+
+
+reset_launches()
 
 
 def _stable_desc(x: torch.Tensor, dim: int = -1):

@@ -26,7 +26,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 SOURCES = ("msa_dp", "msa_dp_warp", "msa_dp_pipe", "msa_dp_band",
-           "msa_walk", "msa_fill_walk", "banded_edit")
+           "msa_walk", "msa_fill_walk", "banded_edit", "rescue_scan",
+           "quality_offsets")
 # Libraries built from a source with other flags, by name: (source, extra
 # nvcc flags). The "_dpx" builds turn dp_cell's DPX form on in mappings
 # that keep the plain form (chip_smoke.py times them beside the default);

@@ -11,7 +11,8 @@ Phases, each timed on its own line:
 2. build: one nvcc for each source in ``bbmap_tpu_torch/csrc/``
    (``msa_dp.cu``, ``msa_dp_warp.cu``, ``msa_dp_pipe.cu``,
    ``msa_dp_band.cu``, ``msa_walk.cu``, ``msa_fill_walk.cu``,
-   ``banded_edit.cu``) and for each build of ``_build.VARIANTS`` (the
+   ``banded_edit.cu``, ``rescue_scan.cu``, ``quality_offsets.cu``) and
+   for each build of ``_build.VARIANTS`` (the
    DPX cell in the mappings that keep the plain one), all started
    together, into
    ``build/torch_kernels/``
@@ -90,7 +91,19 @@ Phases, each timed on its own line:
    launched, when the merged score launch did not run once a batch (the
    fused program scores its narrow and wide passes in one launch), or
    when a fill or a walk took the two-kernel route; the quality offsets are computed on the
-   card;
+   card, every call through the quality offsets kernel
+   (``csrc/quality_offsets.cu``), and the mate rescue scans a batch's
+   jobs in one launch of the rescue kernel (``csrc/rescue_scan.cu``):
+   fails when either never launched or the rescue kernel launched more
+   often than there were batches. The first call of each is recorded,
+   and after the SAM phase both kernels are held to their plain versions
+   on the card, tolerance 0: the rescue scan on the warmup batch's jobs
+   and on 1,024 edge jobs (both directions, n = 1, 2 and 1,536, N bases
+   in reads and windows, windows past the genome's ends, max_mm -1 and
+   0, ties on a repeat) on a 200 kbp genome with N runs, the quality
+   offsets on the warmup batch's 65,536 x 150 and on 32 x 6,000 at
+   randomreads' PacBio quality (k = 12, 750 keys); each timed beside its
+   plain version and its bound;
 7. SAM: ``emit_sam`` on the first 1,000 pairs;
 8. index build: ``index/build_device.build_index_device`` on the card
    (k = 13, torch operations: one stable sort, a binary search a key)
@@ -241,8 +254,9 @@ from a checkout of the repository.
 
 ``python3 chip_smoke.py --profile`` runs no check: it prints where the
 time goes (one short-read batch under torch.profiler, 32 long reads under
-cProfile and under torch.profiler, one chunk of bbduk, of seal and of
-each bbmerge mode under torch.profiler) and no ``ok`` line.
+cProfile, with the quality and rescue stages' cumulative host time, and
+under torch.profiler, one chunk of bbduk, of seal and of each bbmerge
+mode under torch.profiler) and no ``ok`` line.
 
 ``python3 chip_smoke.py --dedupe-split <dir>`` runs dedupe e=2 ac=t over
 the dedupe phase's 50,000-read library with the checkout in <dir> (the
@@ -284,6 +298,9 @@ _K1, _K2, _K3 = ("bbmap_tpu/ops/msa_pallas.py:243",
                  "bbmap_tpu/ops/msa_pallas.py:588")
 _WALK = "bbmap_tpu/ops/msa_jax.py:451"
 _BANDED = "bbmap_tpu/ops/banded_device.py:34 (_program, an XLA scan)"
+_RESCUE = "bbmap_tpu/ops/rescue_device.py:37 (_rescue_stage, two XLA scans)"
+_QUALITY = ("bbmap_tpu/align/quickmap_device.py:781 (_quality_offsets_core, "
+            "an XLA program)")
 # the fused fill + walk's variants (ops/msa_kernels.FILL_WALK_VARIANTS)
 FILL_WALK = {v: f"msa_fill_walk_{v}" for v in ("row", "row_packed")}
 REPLACES = {"msa_score_rows": _K1, "msa_score": _K2, "msa_score_row": _K2,
@@ -294,6 +311,7 @@ REPLACES = {"msa_score_rows": _K1, "msa_score": _K2, "msa_score_row": _K2,
             "contained_any": _BANDED,
             "msa_score_pipe": _K2, "msa_fill_pipe": _K3,
             "msa_score_rows_pipe": _K1,
+            "rescue_scan": _RESCUE, "quality_offsets": _QUALITY,
             **{n: f"{_K3} + {_WALK}" for n in FILL_WALK.values()}}
 CSRC = "bbmap_tpu_torch/csrc/"
 SOURCE = {"msa_score_rows": CSRC + "msa_dp_warp.cu",
@@ -312,6 +330,8 @@ SOURCE = {"msa_score_rows": CSRC + "msa_dp_warp.cu",
           "msa_score_pipe": CSRC + "msa_dp_pipe.cu",
           "msa_fill_pipe": CSRC + "msa_dp_pipe.cu",
           "msa_score_rows_pipe": CSRC + "msa_dp_pipe.cu",
+          "rescue_scan": CSRC + "rescue_scan.cu",
+          "quality_offsets": CSRC + "quality_offsets.cu",
           **{n: CSRC + "msa_fill_walk.cu" for n in FILL_WALK.values()}}
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 # Each of an SM's four schedulers starts one warp instruction (32 lanes) a
@@ -1761,9 +1781,12 @@ def grade(aligner, graded, t1, t2, n_pairs: int) -> dict:
 
 def reset_counts() -> None:
     """Every kernel wrapper's launch count to 0."""
-    from bbmap_tpu_torch.ops import banded_device, msa_kernels
+    from bbmap_tpu_torch.align import quickmap_device
+    from bbmap_tpu_torch.ops import banded_device, msa_kernels, rescue_device
     msa_kernels.reset_launches()
     banded_device.reset_launches()
+    rescue_device.reset_launches()
+    quickmap_device.reset_launches()
 
 
 def launch_counts() -> dict:
@@ -1775,8 +1798,10 @@ def launch_counts() -> dict:
     "banded_edit_warp"), the block kernel's as "banded_any" and by mode
     ("banded_any_class", "banded_any_triangle"), the containment kernel's
     as "contained_any" and by mapping ("contained_any_thread",
-    "contained_any_warp")."""
-    from bbmap_tpu_torch.ops import banded_device, msa_kernels
+    "contained_any_warp"), the rescue kernel's as "rescue_scan" and the
+    quality offsets kernel's as "quality_offsets"."""
+    from bbmap_tpu_torch.align import quickmap_device
+    from bbmap_tpu_torch.ops import banded_device, msa_kernels, rescue_device
     out = {k.__name__: k.launches for k in msa_kernels.KERNELS}
     for k in msa_kernels.DP_KERNELS:
         for mapping in msa_kernels.MAPPINGS:
@@ -1793,6 +1818,8 @@ def launch_counts() -> dict:
     out["contained_any"] = banded_device.contained_any.launches
     for mapping, n in banded_device.contained_any.launches_by.items():
         out[f"contained_any_{mapping}"] = n
+    out["rescue_scan"] = rescue_device.rescue_scan.launches
+    out["quality_offsets"] = quickmap_device.quality_offsets_kernel.launches
     return out
 
 
@@ -1897,7 +1924,233 @@ def main_path(device, n_pairs: int = N_PAIRS, n_steady: int = N_STEADY,
         if launches["msa_fill"] or launches["msa_walk"]:
             raise AssertionError(f"a short fill or walk left the fused "
                                  f"kernel: {launches}")
+        # every quality-offsets call goes through its kernel, and the mate
+        # rescue scans a batch's jobs in one launch
+        if not (launches["quality_offsets"] and launches["rescue_scan"]):
+            raise AssertionError(f"the quality offsets or the rescue "
+                                 f"kernel never launched: {launches}")
+        if launches["rescue_scan"] > n_batches:
+            raise AssertionError(f"{launches['rescue_scan']} rescue "
+                                 f"launches for {n_batches} batches")
     return res, (mk(r1, q1, 0), mk(r2, q2, 0), out0, aligner)
+
+
+@contextlib.contextmanager
+def first_call(module, name: str):
+    """Record the arguments of the first call of ``module.<name>`` while
+    inside (a list that gets one (args, kwargs) pair). The recording
+    wrapper shares the function's attributes, its launch count among
+    them."""
+    orig = getattr(module, name)
+    calls = []
+
+    def rec(*args, **kw):
+        if not calls:
+            calls.append((args, kw))
+        return orig(*args, **kw)
+
+    rec.__dict__ = orig.__dict__
+    setattr(module, name, rec)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, orig)
+
+
+N_OFF = 1536                  # the rescue scan's offsets (pipeline's)
+RESCUE_EDGE_JOBS = 1024
+QUALITY_LONG = (32, L_LONG, 12)   # reads, length, k of the long path
+PACBIO_Q = (28, 35)           # randomreads' quality range (minq, maxq)
+# the rescue edge genome's repeat and N runs (rescue_edge_index)
+REPEAT_AT, N_RUNS = 100_000, (40_000, 120_000, 180_000)
+
+
+def rescue_edge_jobs(codes, R: int, Lm: int, seed: int):
+    """R seeded rescue jobs on a genome's codes (0..3, 4 = N): both scan
+    directions; n = 1, 2, random and N_OFF; max_mm -1, 0 and up to 20;
+    reads with substitutions and N bases; windows over N runs, past the
+    genome's end and before its start; ideal starts between two copies of
+    a repeat (ties in score and absdif). Returns the numpy arguments of
+    ``rescue_device.upload_jobs``."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    G = len(codes)
+    reads = np.empty((R, Lm), np.uint8)
+    lo, n, ik, mm = (np.empty(R, np.int64) for _ in range(4))
+    right = rng.random(R) < 0.5
+    kinds = rng.integers(0, 6, R)
+    for t in range(R):
+        n_t = int(rng.choice([1, 2, N_OFF, int(rng.integers(3, N_OFF))]))
+        if kinds[t] == 0:                      # near the genome's end
+            src = G - Lm - int(rng.integers(0, 40))
+        elif kinds[t] == 1:                    # near its start
+            src = int(rng.integers(0, 40))
+        elif kinds[t] == 2:                    # on the repeat
+            src = int(rng.integers(REPEAT_AT, REPEAT_AT + 1600 - Lm))
+        elif kinds[t] == 3:                    # over an N run
+            src = int(rng.choice(N_RUNS)) - int(rng.integers(0, Lm))
+        else:
+            src = int(rng.integers(0, G - Lm))
+        read = codes[src:src + Lm].copy()
+        for _ in range(int(rng.integers(0, 4))):
+            read[rng.integers(0, Lm)] = rng.integers(0, 4)
+        if rng.random() < 0.2:
+            read[rng.integers(0, Lm, 2)] = 4
+        off = int(rng.integers(0, n_t))
+        lo[t] = src - off if right[t] else src + off - (n_t - 1)
+        ik[t] = src - lo[t] + int(rng.choice([0, 0, 8, -8, 3]))
+        n[t] = n_t
+        mm[t] = int(rng.choice([-1, 0, 3, 20]))
+        reads[t] = read
+    return (reads, lo.astype(np.int32), n.astype(np.int32),
+            ik.astype(np.int32), right, mm.astype(np.int32))
+
+
+
+def rescue_edge_index(device):
+    """A 200 kbp genome with N runs (``N_RUNS``) and a period-16 repeat
+    of 1,600 bp at ``REPEAT_AT``, indexed (k = 13) on the card."""
+    import numpy as np
+    from bbmap_tpu_torch.align.quickmap_device import DeviceIndex
+    from bbmap_tpu_torch.core.genome import Genome, Scaffold
+    from bbmap_tpu_torch.index.build import build_index
+    rng = np.random.default_rng(29)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    g = rng.choice(acgt, 200_000).astype(np.uint8)
+    for at in N_RUNS:
+        g[at:at + 30] = ord("N")
+    g[REPEAT_AT:REPEAT_AT + 1600] = np.tile(rng.choice(acgt, 16), 100)
+    genome = Genome(chroms=[g], scaffolds=[Scaffold(
+        chrom=1, sid=1, start=0, length=len(g), name="edges")]).finalize()
+    return DeviceIndex(build_index(genome, 13), device)
+
+
+def _rescue_bound(dix, n, Lm: int, clock: float):
+    """The rescue scan's bound for jobs of n offsets: the window codes it
+    must read (2-bit words, and the N mask's where the genome has N), the
+    reads, job arrays and outputs once; n x Lm compares and n walk steps
+    a job."""
+    import numpy as np
+    used = np.clip(n.astype(np.int64), 0, N_OFF)
+    span = np.where(used > 0, used + Lm - 1, 0)
+    words = (-(-span // 16)).sum() * 8
+    if dix.has_n:
+        words += (-(-span // 32)).sum() * 8
+    R = len(n)
+    return bound_ms(words + R * Lm + 17 * R + 8 * R,
+                    float((used * Lm + used).sum()), clock)
+
+
+def _quality_bound(B: int, L: int, k: int, nk: int, clock: float):
+    """The quality offsets' bound: q and pc read once (8 B a base), the
+    offsets, weights and flags written once; B x m x k multiplies and nk
+    ladder steps a read."""
+    m = L - k + 1
+    return bound_ms(8 * B * L + 8 * B * nk + B, float(B * (m * k + nk)),
+                    clock)
+
+
+def rescue_quality_phase(device, rescue_call, quality_call,
+                         clock: float) -> dict:
+    """The rescue kernel and the quality offsets kernel against their
+    plain versions on the card, tolerance 0: the rescue scan on the main
+    path's warmup jobs (``rescue_call``, its first call's arguments) and on
+    ``RESCUE_EDGE_JOBS`` edge jobs on a genome with N runs; the quality
+    offsets on the warmup batch's 65,536 x 150 (``quality_call``, the
+    fused program's palette route) and on 32 reads of 6 kbp with the
+    quality randomreads gives PacBio reads (raw route, the long path's
+    shape). Each timed beside its plain version and its bound. Returns
+    the ``kernels`` line's entries of both kernels."""
+    import numpy as np
+    import torch
+    from bbmap_tpu_torch.align import quickmap_device as qd
+    from bbmap_tpu_torch.align import seed
+    from bbmap_tpu_torch.ops import rescue_device as rd
+
+    out = {}
+    (dix, reads, lo, n, ik, rt, mm, Lm, n_off), _ = rescue_call
+    if n_off != N_OFF:
+        raise AssertionError(f"the main path's rescue scans {n_off} offsets")
+
+    def rescue_err(args):
+        got = rd.rescue_scan(*args)
+        d, rr = args[0], args[1]
+        want = rd._rescue_stage(d, rr, rr > 3, *args[2:])
+        _sync(device)
+        return max(_diff(got[0], want[0]), _diff(got[1], want[1])), got
+
+    args = (dix, reads, lo, n, ik, rt, mm, Lm, N_OFF)
+    e_main, got = rescue_err(args)
+    ms, _ = _cuda_ms(lambda: rd.rescue_scan(*args), 20)
+    plain_ms, _ = _cuda_ms(
+        lambda: rd._rescue_stage(dix, reads, reads > 3, lo, n, ik, rt, mm,
+                                 Lm, N_OFF), 1, warm=False)
+    b_ms, b_by = _rescue_bound(dix, n.cpu().numpy(), Lm, clock)
+    found = int((got[0] >= 0).sum())
+    edix = rescue_edge_index(device)
+    edge = rd.upload_jobs(*rescue_edge_jobs(
+        edix.index.genome_codes, RESCUE_EDGE_JOBS, Lm, 31), device)
+    e_edge, got_e = rescue_err((edix, *edge, Lm, N_OFF))
+    say(f"kernel rescue_scan: the warmup batch's {len(n)} jobs (Lm {Lm}, "
+        f"N_OFF {N_OFF}, {found} found) max_abs_err {e_main}, {ms:.4f} ms "
+        f"(plain {plain_ms:.3f} ms, bound {b_ms:.6f} ms by {b_by}); "
+        f"{RESCUE_EDGE_JOBS} edge jobs max_abs_err {e_edge} "
+        f"({int((got_e[0] >= 0).sum())} found)")
+    out["rescue_scan"] = {
+        "max_abs_err": max(e_main, e_edge), "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "shape": {"jobs": len(n), "Lm": Lm, "N_OFF": N_OFF,
+                  "found": found},
+        "edge_jobs": RESCUE_EDGE_JOBS, "max_abs_err_edge": e_edge}
+
+    def quality_err(args):
+        got = qd.quality_offsets_kernel(*args)
+        want = qd._quality_offsets_core(*args, True)
+        _sync(device)
+        return max(float(_diff(got[0], want[0])),
+                   float((got[1] - want[1]).abs().max()),
+                   float(_diff(got[2], want[2])))
+
+    (cfg, q, pc, den2, den3), _ = quality_call
+    shapes = {}
+    B, L_q = q.shape
+    if (B, L_q) != (2 * N_PAIRS, L):
+        raise AssertionError(f"the main path's quality offsets ran at "
+                             f"{(B, L_q)}")
+    rng = np.random.default_rng(37)
+    nl, ll, kl = QUALITY_LONG
+    cfg_l = qd.QmConfig(k=kl, L=ll, S=2, chain_dist=400, min_score=0,
+                        offsets_list=tuple(int(o) for o in
+                                           seed.make_offsets(ll, kl)), G=0)
+    ql = torch.as_tensor(rng.integers(PACBIO_Q[0], PACBIO_Q[1] + 1, (nl, ll)),
+                         dtype=torch.int32, device=device)
+    pcl = torch.as_tensor(seed.PROB_CORRECT, device=device)[ql.long()]
+    cases = (("main", (cfg, q, pc, den2, den3), 3),
+             ("long", (cfg_l, ql, pcl, *seed.key_density_ladder(ll, kl)), 1))
+    for tag, qargs, plain_reps in cases:
+        err = quality_err(qargs)
+        ms, _ = _cuda_ms(lambda: qd.quality_offsets_kernel(*qargs), 20)
+        plain_ms, _ = _cuda_ms(
+            lambda: qd._quality_offsets_core(*qargs, True), plain_reps,
+            warm=False)
+        c, qq = qargs[0], qargs[1]
+        nk = len(c.offsets_list)
+        b_ms, b_by = _quality_bound(qq.shape[0], c.L, c.k, nk, clock)
+        shapes[tag] = {"reads": qq.shape[0], "L": c.L, "k": c.k, "nk": nk,
+                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": b_ms, "bound_by": b_by}
+        say(f"kernel quality_offsets at {qq.shape[0]} x {c.L} (k {c.k}, nk "
+            f"{nk}): max_abs_err {err}, {ms:.4f} ms (plain {plain_ms:.3f} "
+            f"ms, bound {b_ms:.6f} ms by {b_by})")
+    m = shapes["main"]
+    out["quality_offsets"] = {
+        "max_abs_err": max(s_["max_abs_err"] for s_ in shapes.values()),
+        "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+        "bound_by": m["bound_by"], "library_ms": None, "shapes": shapes}
+    if any(v["max_abs_err"] != 0 for v in out.values()):
+        raise AssertionError(f"a kernel disagrees with its plain version: "
+                             f"{out}")
+    return out
 
 
 def sam_phase(first, n: int = 1000) -> int:
@@ -4814,10 +5067,19 @@ def profile_paths(device, gbases) -> None:
     long_phase(device, gbases, n_reads=32, check=False)
     pr.disable()
     buf = io.StringIO()
-    pstats.Stats(pr, stream=buf).sort_stats("cumulative").print_stats(28)
+    stats = pstats.Stats(pr, stream=buf)
+    stats.sort_stats("cumulative").print_stats(28)
     for ln in buf.getvalue().splitlines():
         if ln.strip():
             say("  cprofile: " + ln.rstrip()[:150])
+    # the quality stage's share of the long run (host time: a launch
+    # returns before the card is done)
+    total = max(st[3] for st in stats.stats.values())
+    for (_f, _ln, fn), st in stats.stats.items():
+        if fn in ("quality_offsets_stage", "quality_offsets_kernel",
+                  "_quality_offsets_core", "rescue_scan", "_rescue_stage"):
+            say(f"  cprofile {fn}: {st[1]} calls, cumulative {st[3]:.3f} s "
+                f"of {total:.3f} s ({100 * st[3] / total:.1f} %)")
     _device_profile(lambda: long_phase(device, gbases, n_reads=32,
                                        check=False),
                     "32 long reads (wall: the CLI's mapping time)", map_ms)
@@ -5064,8 +5326,12 @@ def main() -> int:
     k1 = k1_entry(gbases, device)
     say(f"phase K1 entry point: {time.time() - t:.1f} s")
 
+    from bbmap_tpu_torch.align import quickmap_device
+    from bbmap_tpu_torch.ops import rescue_device
     t = time.time()
-    res, first = main_path(device, genome_bases=gbases)
+    with first_call(rescue_device, "rescue_scan") as rescue_call, \
+            first_call(quickmap_device, "quality_offsets_kernel") as q_call:
+        res, first = main_path(device, genome_bases=gbases)
     say(f"phase main path: {time.time() - t:.1f} s; reads/s "
         f"{res['reads_per_s']:.1f} over {N_STEADY} steady batches of "
         f"{N_PAIRS} pairs; sensitivity {res['sensitivity']:.4f}, mapped "
@@ -5076,6 +5342,24 @@ def main() -> int:
     t = time.time()
     n_lines = sam_phase(first)
     say(f"phase SAM: {n_lines} lines, {time.time() - t:.2f} s")
+
+    t = time.time()
+    rq = rescue_quality_phase(device, rescue_call[0], q_call[0],
+                              max_sm_clock_hz())
+    ktimes.update(rq)
+    del rescue_call, q_call
+    say(f"phase rescue and quality offsets kernels: {time.time() - t:.1f} "
+        f"s; rescue_scan and quality_offsets equal to their plain versions "
+        f"(max_abs_err 0) on the warmup batch's inputs and on edge cases; "
+        f"rescue_scan {rq['rescue_scan']['ms']:.4f} ms at "
+        f"{rq['rescue_scan']['shape']['jobs']} jobs (plain "
+        f"{rq['rescue_scan']['plain_ms']:.3f} ms), quality_offsets "
+        f"{rq['quality_offsets']['ms']:.4f} ms at {2 * N_PAIRS} x {L} (plain "
+        f"{rq['quality_offsets']['plain_ms']:.3f} ms), "
+        f"{rq['quality_offsets']['shapes']['long']['ms']:.4f} ms at "
+        f"{QUALITY_LONG[0]} x {QUALITY_LONG[1]} (plain "
+        f"{rq['quality_offsets']['shapes']['long']['plain_ms']:.3f} ms); "
+        f"card {smi}")
 
     t = time.time()
     ib = index_build_phase(device, gbases, first, smi)
@@ -5239,7 +5523,9 @@ def main() -> int:
                "msa_fill_pipe": "msa_fill_pipe",
                "msa_score_rows_pipe": "msa_score_rows_pipe",
                "banded_edit": "banded_edit", "banded_any": "banded_any",
-               "contained_any": "contained_any"}
+               "contained_any": "contained_any",
+               "rescue_scan": "rescue_scan",
+               "quality_offsets": "quality_offsets"}
     home = {"msa_score_rows": "k1_entry", "msa_walk": "long",
             "msa_score_long": "long", "msa_fill_long": "long",
             "msa_score_strided": "long", "msa_fill_strided": "long",

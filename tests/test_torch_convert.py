@@ -293,7 +293,24 @@ PORT_ADDED = {
     # device) in place of the Pallas kernels, and its oracle's answers can
     # be computed beforehand (selftest_cases), with no device
     "ops.msa_selftest": {"torch", "DeviceLike", "resolve_device",
-                         "selftest_cases", "kernel_selftest"}}
+                         "selftest_cases", "kernel_selftest"},
+    # rescue_device: the rescue kernel's wrapper (rescue_scan) with its
+    # launch count, library and checks, and the one-copy upload of a
+    # batch's jobs; the index is the port's DeviceIndex
+    "ops.rescue_device": {"torch", "ctypes", "DeviceIndex", "_build",
+                          "_lib", "_check", "rescue_scan", "reset_launches",
+                          "upload_jobs"},
+    # quickmap_device: the device index as an nn.Module with its device
+    # checks, int64 / int32 helpers for torch's missing uint32 shifts and
+    # JAX's argmax / top_k ties, and the quality-offsets kernel's wrapper
+    # (quality_offsets_kernel, its launch count, library, the device copies
+    # of its host tables and its float32 thresholds)
+    "align.quickmap_device": {"torch", "nn", "ctypes", "DeviceIndex",
+                              "DeviceLike", "resolve_device", "F32", "I64",
+                              "_first_true", "_stable_desc", "_wrap32",
+                              "_build", "_L1", "_L2", "_quality_lib",
+                              "_offset_tables", "_offset_tables_np",
+                              "quality_offsets_kernel", "reset_launches"}}
 # names a copy leaves out on purpose: rqcfilter's default reference paths
 # under the machine's reference directory (the port takes every reference
 # from the command line); kcount's rewritten device class needs no
@@ -322,7 +339,18 @@ PORT_DROPPED = {
     # neither (the modulo mode is build_index's); pallas_selftest is the
     # Pallas kernels' check, kernel_selftest the CUDA kernels'
     "index.build_device": {"MODULO", "reverse_complement_key"},
-    "ops.msa_selftest": {"pallas_selftest"}}
+    "ops.msa_selftest": {"pallas_selftest"},
+    # the JAX programs' device arrays and gathers: the port's DeviceIndex
+    # holds the arrays (device_arrays, scnt_array, ccnt_array), torch
+    # gathers directly (take_flat, take_along_flat, onehot_take_rows,
+    # _gather_words and their lookup tables), and uint32 words are int64
+    "ops.rescue_device": {"jax", "jnp", "Optional", "device_arrays"},
+    "align.quickmap_device": {"jax", "jnp", "U32", "device_arrays",
+                              "scnt_array", "ccnt_array", "take_flat",
+                              "take_along_flat", "onehot_take_rows",
+                              "_gather_words", "BASE_TO_NUMBER",
+                              "_COMP_TABLE", "_UNPACK_LUT", "_a", "_b",
+                              "_s"}}
 
 
 @pytest.mark.parametrize("mod", [
@@ -342,7 +370,8 @@ PORT_DROPPED = {
     "tools.smalltools", "tools.synth", "tools.barcodes", "tools.sorttools",
     "tools.callvariants", "tools.misc", "tools.pacbio", "tools.textutils",
     "tools.liftover", "parallel.multihost", "parallel.sharded",
-    "align.search_oracle", "index.build_device", "ops.msa_selftest"])
+    "align.search_oracle", "index.build_device", "ops.msa_selftest",
+    "ops.rescue_device", "align.quickmap_device"])
 def test_copied_module_has_the_reference_names(mod):
     """Each copied module defines what the reference module defines, less
     what it leaves out on purpose, and beside it only what the port added

@@ -129,6 +129,34 @@ def test_cpu_wrappers_do_not_count_launches():
         assert not any(k.launches_by.values()), k.__name__
 
 
+def test_cpu_rescue_and_quality_wrappers_do_not_count(tiny):
+    """rescue_scan and quality_offsets_kernel run their plain versions on
+    CPU tensors and count nothing."""
+    from bbmap_tpu_torch.align import quickmap_device as qd
+    from bbmap_tpu_torch.align import seed
+    from bbmap_tpu_torch.ops import rescue_device
+    g, index = tiny
+    dix = qd.DeviceIndex(index, "cpu")
+    rescue_device.reset_launches()
+    qd.reset_launches()
+    rng = np.random.default_rng(2)
+    R, Lm, N_OFF = 5, 40, 64
+    reads = index.genome_codes[100:100 + Lm][None, :].repeat(R, 0)
+    up = rescue_device.upload_jobs(
+        reads, np.full(R, 90, np.int32), np.full(R, 30, np.int32),
+        np.full(R, 10, np.int32), rng.random(R) < 0.5,
+        np.full(R, 4, np.int32), "cpu")
+    best_k, min_mm = rescue_device.rescue_scan(dix, *up, Lm, N_OFF)
+    assert (min_mm == 0).all() and (best_k >= 0).all()
+    cfg = qd.make_config(dix, 60)
+    q = torch.from_numpy(rng.integers(2, 41, (4, 60)).astype(np.int32))
+    pc = torch.from_numpy(seed.PROB_CORRECT[q.numpy()])
+    offs, wts, rej = qd.quality_offsets_kernel(cfg, q, pc, 1.5, 2.5)
+    assert offs.shape == wts.shape == (4, len(cfg.offsets_list))
+    assert rescue_device.rescue_scan.launches == 0
+    assert qd.quality_offsets_kernel.launches == 0
+
+
 @pytest.fixture(scope="module")
 def tiny():
     rng = np.random.default_rng(1)
