@@ -10,12 +10,14 @@ buffers of a :class:`DeviceIndex`; a batch of reads flows through
 1. key extraction at the seed offsets (both strands)
 2. bounded site-list gather with over-long-list exclusion and staged
    re-admission (or the reference-faithful retention of
-   ``_ref_retention``), packed into a per-(read, strand) slot budget
+   ``_ref_retention``, on the card one launch of ``ref_retention_kernel``),
+   packed into a per-(read, strand) slot budget
 3. diagonal sort + chain segmentation + distinct-offset votes + modal
-   diagonal
+   diagonal (``_chain_segments``)
 4. top-K candidates per read
-5. gapless streak scoring of every candidate at its modal diagonal and
-   best/second selection.
+5. gapless streak scoring of every candidate at its modal diagonal (on
+   the card one launch of ``gapless_scores_kernel``) and best/second
+   selection.
 
 Bit-exactness notes. torch has no shifts on uint32, so packed words are
 held in int64 (genome words, key reversal) or as int32 bit patterns
@@ -43,7 +45,7 @@ from ..index.build import KmerIndex
 
 from ..backend import DeviceLike, resolve_device
 from ..ops import _build
-from .gapless import score_match_sub_vec
+from .gapless import _points, score_match_sub_vec
 
 MAX_SITES_CAP = 32     # upper bound on the adaptive per-key site-list cap
 SLOT_BUDGET = 64       # total site slots per (read, strand)
@@ -447,6 +449,67 @@ def _ref_retention(cfg: QmConfig, kp, off_p, ccnt, weights=None):
     return alive
 
 
+def _retention_lib() -> ctypes.CDLL:
+    lib = _build.load("ref_retention")
+    if not getattr(lib, "_bbmap_typed", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.ref_retention_launch.argtypes = [
+            vp, vp, vp, vp, ci, ci, ctypes.POINTER(ci), ci, ci, ci, ci, ci,
+            ci, ci, vp, vp]
+        lib.ref_retention_launch.restype = ci
+        lib._bbmap_typed = True
+    return lib
+
+
+def ref_retention_kernel(cfg: QmConfig, kp: torch.Tensor,
+                         off_p: torch.Tensor, ccnt: torch.Tensor,
+                         weights: Optional[torch.Tensor] = None):
+    """Key retention of B reads (``_ref_retention``'s function): kp, off_p,
+    ccnt (B, nk) int32, weights (B, nk) float32 or None. Returns alive
+    (B, nk) bool. CPU tensors: the plain version (``_ref_retention``).
+    CUDA tensors: one launch of ``csrc/ref_retention.cu``, no host sync; a
+    failed launch raises (past 227 KB of shared memory a block, nk ~
+    3,400, as cudaErrorInvalidValue)."""
+    B, nk = kp.shape
+    for name, t in (("off_p", off_p), ("ccnt", ccnt), ("weights", weights)):
+        if t is not None and t.shape != (B, nk):
+            raise ValueError(f"{name} {tuple(t.shape)} against kp "
+                             f"{(B, nk)}")
+    if kp.dtype != I32 or off_p.dtype != I32 or ccnt.dtype != I32:
+        raise TypeError("kp, off_p and ccnt must be int32")
+    if weights is not None and weights.dtype != F32:
+        raise TypeError("weights must be float32")
+    if any(t is not None and t.device != kp.device
+           for t in (off_p, ccnt, weights)):
+        raise ValueError("the operands must share one device")
+    if kp.device.type == "cpu":
+        return _ref_retention(cfg, kp, off_p, ccnt, weights)
+    if kp.device.type != "cuda":
+        raise RuntimeError(f"the retention kernel runs on CUDA tensors "
+                           f"(got {kp.device})")
+    alive = torch.empty((B, nk), dtype=torch.bool, device=kp.device)
+    if B == 0:
+        return alive
+    lib = _retention_lib()
+    kp, off_p, ccnt = kp.contiguous(), off_p.contiguous(), ccnt.contiguous()
+    if weights is not None:
+        weights = weights.contiguous()
+    maxLen = cfg.max_usable_length
+    tiers = (ctypes.c_int * 5)(*(min(t, 2 ** 31 - 1) for t in (
+        maxLen, (maxLen * 3) // 2, maxLen * 2, maxLen * 3, maxLen * 5)))
+    pps = cfg.points_per_site
+    err = lib.ref_retention_launch(
+        kp.data_ptr(), off_p.data_ptr(), ccnt.data_ptr(),
+        None if weights is None else weights.data_ptr(), B, nk, tiers,
+        (3 * nk) // 4, max(20, cfg.limit_shortest), max(20, cfg.limit_avg),
+        max(20, cfg.limit_avg2), pps, (2 ** 30) // max(1, -pps), cfg.k,
+        alive.data_ptr(), torch.cuda.current_stream(kp.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ref_retention_launch failed: cudaError {err}")
+    ref_retention_kernel.launches += 1
+    return alive
+
+
 def quality_offsets_stage(cfg: QmConfig, qual: torch.Tensor,
                           density: float, max_density: float,
                           return_weights: bool = False):
@@ -705,17 +768,83 @@ def quality_offsets_kernel(cfg: QmConfig, q: torch.Tensor, pc: torch.Tensor,
     return out_off, wts, reject
 
 
-def reset_launches() -> None:
-    quality_offsets_kernel.launches = 0
-
-
-reset_launches()
-
-
 def _stable_desc(x: torch.Tensor, dim: int = -1):
     """Stable descending sort (ties keep index order, as lax.top_k and
     argsort(-x, stable=True))."""
     return torch.sort(x, dim=dim, descending=True, stable=True)
+
+
+def _chain_segments(flat: torch.Tensor, toff: torch.Tensor,
+                    chain_dist: int, nk: int):
+    """Chain segmentation, distinct-offset votes and the modal run over
+    each (read, strand) row of diagonals sorted ascending (flat (R2, W)
+    int32, 2**30 past the row's valid slots; toff their key slots).
+    Returns (last_idx, seg_start, gmax, size), each (R2, W) int32: a
+    chain's last slot, its first slot, the running max of the packed
+    (chain ordinal, run size, offset in chain) and the chain's distinct
+    key count at its first slot."""
+    R2, W = flat.shape
+    dev = flat.device
+    valid_f = flat < 2 ** 30
+    dd = flat[:, 1:] - flat[:, :-1]
+    ones_col = torch.ones((R2, 1), dtype=torch.bool, device=dev)
+    new_chain = torch.cat([ones_col, dd > chain_dist], dim=1) & valid_f
+    idx = torch.arange(W, dtype=I32, device=dev)[None, :].expand(R2, W)
+    Wcol = torch.full((R2, 1), W, dtype=I32, device=dev)
+    boundary = new_chain | ~valid_f
+    bidx = torch.where(boundary, idx, W)
+    nxt = torch.cummin(bidx.flip(1), dim=1).values.flip(1)
+    next_start = torch.cat([nxt[:, 1:], Wcol], dim=1)
+    last_idx = torch.clamp(next_start - 1, 0, W - 1)
+    seg_start0 = torch.cummax(torch.where(new_chain, idx, 0), dim=1).values
+
+    # distinct-offset votes: segmented prefix-OR of key-slot bitmasks
+    n_groups = (nk + 31) // 32
+    toff64 = toff.to(I64)
+    mbits = [torch.where(valid_f & ((toff >> 5) == gi),
+                         torch.ones_like(toff64) << (toff64 & 31), 0)
+             for gi in range(n_groups)]
+    incls = list(mbits)
+    s = 1
+    while s < W:
+        prev_ok = idx - s >= seg_start0
+        for gi in range(n_groups):
+            shifted = torch.cat([torch.zeros((R2, s), dtype=I64,
+                                             device=dev),
+                                 incls[gi][:, :-s]], dim=1)
+            incls[gi] = incls[gi] | torch.where(prev_ok, shifted, 0)
+        s <<= 1
+    in_seg = idx - 1 >= seg_start0
+    is_new = valid_f
+    for gi in range(n_groups):
+        seen_excl = torch.cat([torch.zeros((R2, 1), dtype=I64, device=dev),
+                               incls[gi][:, :-1]], dim=1)
+        seen_excl = torch.where(in_seg, seen_excl, 0)
+        is_new = is_new & ((seen_excl & mbits[gi]) == 0)
+    c = torch.cumsum(is_new.to(I32), dim=1, dtype=I32)
+    cbase = torch.cummax(torch.where(new_chain, c - is_new.to(I32), -1),
+                         dim=1).values
+    dcnt = c - torch.clamp(cbase, min=0)
+    seg_ord0 = torch.cumsum(new_chain.to(I32), dim=1, dtype=I32)
+    packed_dc = ((W + 1 - seg_ord0) << 16) | torch.where(valid_f, dcnt, 0)
+    rmax = torch.cummax(packed_dc.flip(1), dim=1).values.flip(1)
+    chain_distinct = rmax & 0xFFFF
+    size = torch.where(new_chain, chain_distinct, 0).to(I32)
+
+    # modal diagonal: longest equal-diag run in the chain, ties -> lowest
+    dd_eq = torch.cat([ones_col, dd != 0], dim=1)
+    new_run = (dd_eq | new_chain) & valid_f
+    ridx = torch.where(new_run | ~valid_f, idx, W)
+    rnxt = torch.cummin(ridx.flip(1), dim=1).values.flip(1)
+    rnext = torch.cat([rnxt[:, 1:], Wcol], dim=1)
+    run_size = torch.where(new_run, rnext - idx, 0)
+    seg_start = torch.cummax(torch.where(new_chain, idx, -1), dim=1).values
+    in_chain_off = torch.clamp(idx - seg_start, 0, 255)
+    meta = (torch.clamp(run_size, 0, 255) << 8) | (255 - in_chain_off)
+    seg_ord = torch.cumsum(new_chain.to(I32), dim=1, dtype=I32)
+    glob = (seg_ord << 16) | torch.where(new_run, meta, 0)
+    gmax = torch.cummax(glob.to(I32), dim=1).values
+    return last_idx, seg_start, gmax, size
 
 
 def candidate_stage(cfg: QmConfig, bases, dindex: DeviceIndex,
@@ -782,8 +911,8 @@ def candidate_stage(cfg: QmConfig, bases, dindex: DeviceIndex,
     if cfg.ref_admit and dindex.ccnt is not None:
         ccnt_p = dindex.ccnt[torch.where(kp < 0, 0, kp).long()]
         ccnt_p = torch.where(kp < 0, 0, ccnt_p)
-        alive = _ref_retention(cfg, kp, off_p.to(I32), ccnt_p,
-                               weights=weights_dyn)
+        alive = ref_retention_kernel(cfg, kp, off_p.to(I32), ccnt_p,
+                                     weights=weights_dyn)
         admit = alive[:, None, :].expand(B, 2, nk)
         gadm = torch.where(admit, ccnt_p[:, None, :], 0)
     else:
@@ -871,69 +1000,9 @@ def candidate_stage(cfg: QmConfig, bases, dindex: DeviceIndex,
     key = torch.sort(key, dim=1).values
     flat = (key >> 16).to(I32)
     toff = (key & 0xFFFF).to(I32)
-    valid_f = flat < INVALID
-
-    W = WB
-    nseg = W
-    R2 = B * 2
-    dd = flat[:, 1:] - flat[:, :-1]
-    ones_col = torch.ones((R2, 1), dtype=torch.bool, device=dev)
-    new_chain = torch.cat([ones_col, dd > chain_dist], dim=1) & valid_f
-    idx = torch.arange(W, dtype=I32, device=dev)[None, :].expand(R2, W)
-    Wcol = torch.full((R2, 1), W, dtype=I32, device=dev)
-    boundary = new_chain | ~valid_f
-    bidx = torch.where(boundary, idx, W)
-    nxt = torch.cummin(bidx.flip(1), dim=1).values.flip(1)
-    next_start = torch.cat([nxt[:, 1:], Wcol], dim=1)
-    last_idx = torch.clamp(next_start - 1, 0, W - 1)
-    seg_start0 = torch.cummax(torch.where(new_chain, idx, 0), dim=1).values
-
-    # distinct-offset votes: segmented prefix-OR of key-slot bitmasks
-    n_groups = (nk + 31) // 32
-    toff64 = toff.to(I64)
-    mbits = [torch.where(valid_f & ((toff >> 5) == gi),
-                         torch.ones_like(toff64) << (toff64 & 31), 0)
-             for gi in range(n_groups)]
-    incls = list(mbits)
-    s = 1
-    while s < W:
-        prev_ok = idx - s >= seg_start0
-        for gi in range(n_groups):
-            shifted = torch.cat([torch.zeros((R2, s), dtype=I64,
-                                             device=dev),
-                                 incls[gi][:, :-s]], dim=1)
-            incls[gi] = incls[gi] | torch.where(prev_ok, shifted, 0)
-        s <<= 1
-    in_seg = idx - 1 >= seg_start0
-    is_new = valid_f
-    for gi in range(n_groups):
-        seen_excl = torch.cat([torch.zeros((R2, 1), dtype=I64, device=dev),
-                               incls[gi][:, :-1]], dim=1)
-        seen_excl = torch.where(in_seg, seen_excl, 0)
-        is_new = is_new & ((seen_excl & mbits[gi]) == 0)
-    c = torch.cumsum(is_new.to(I32), dim=1, dtype=I32)
-    cbase = torch.cummax(torch.where(new_chain, c - is_new.to(I32), -1),
-                         dim=1).values
-    dcnt = c - torch.clamp(cbase, min=0)
-    seg_ord0 = torch.cumsum(new_chain.to(I32), dim=1, dtype=I32)
-    packed_dc = ((W + 1 - seg_ord0) << 16) | torch.where(valid_f, dcnt, 0)
-    rmax = torch.cummax(packed_dc.flip(1), dim=1).values.flip(1)
-    chain_distinct = rmax & 0xFFFF
-    size = torch.where(new_chain, chain_distinct, 0).to(I32)
-
-    # modal diagonal: longest equal-diag run in the chain, ties -> lowest
-    dd_eq = torch.cat([ones_col, dd != 0], dim=1)
-    new_run = (dd_eq | new_chain) & valid_f
-    ridx = torch.where(new_run | ~valid_f, idx, W)
-    rnxt = torch.cummin(ridx.flip(1), dim=1).values.flip(1)
-    rnext = torch.cat([rnxt[:, 1:], Wcol], dim=1)
-    run_size = torch.where(new_run, rnext - idx, 0)
-    seg_start = torch.cummax(torch.where(new_chain, idx, -1), dim=1).values
-    in_chain_off = torch.clamp(idx - seg_start, 0, 255)
-    meta = (torch.clamp(run_size, 0, 255) << 8) | (255 - in_chain_off)
-    seg_ord = torch.cumsum(new_chain.to(I32), dim=1, dtype=I32)
-    glob = (seg_ord << 16) | torch.where(new_run, meta, 0)
-    gmax = torch.cummax(glob.to(I32), dim=1).values
+    nseg = WB
+    last_idx, seg_start, gmax, size = _chain_segments(
+        flat, toff, chain_dist, nk)
 
     votes = size.reshape(B, 2 * nseg)
     topv, topi = _stable_desc(votes, dim=1)
@@ -966,13 +1035,117 @@ def candidate_stage(cfg: QmConfig, bases, dindex: DeviceIndex,
     return rcodes, cand
 
 
+def _on_strand(cfg: QmConfig, rcodes, mode, strand, dindex: DeviceIndex):
+    """The read's codes on each candidate's strand (minus: complemented
+    and reversed) and the genome's codes and N flags (N or off the
+    genome) at the candidate's diagonal. rcodes (B, L); mode, strand of
+    shape (B,) or (B, K). Returns three (..., L) tensors."""
+    ref_codes, ref_n = extract_ref_codes(dindex.gpack, dindex.nmask, mode,
+                                         cfg.L, cfg.G, has_n=cfg.has_n)
+    rc = torch.where(rcodes <= 3, 3 - rcodes, rcodes).flip(1)
+    row = (slice(None),) + (None,) * (mode.dim() - 1)
+    codes = torch.where((strand == 0)[..., None], rcodes[row], rc[row])
+    return codes, ref_codes, ref_n
+
+
+def _gapless_scores_plain(cfg: QmConfig, rcodes, cd_mode, cd_strand,
+                          dindex: DeviceIndex):
+    """Plain version of ``gapless_scores_kernel``: the (B, K, L) reference
+    windows at each candidate's modal diagonal, the read's codes on the
+    candidate's strand, and ``score_match_sub_vec``'s closed form."""
+    cand_codes, ref_codes, ref_n = _on_strand(cfg, rcodes, cd_mode,
+                                              cd_strand, dindex)
+    read_n = cand_codes > 3
+    eq = (cand_codes == ref_codes) & ~ref_n
+    is_match = eq & ~read_n
+    is_sub = ~eq & ~read_n & ~ref_n
+    return score_match_sub_vec(is_match, is_sub, cfg.profile)
+
+
+def _gapless_lib() -> ctypes.CDLL:
+    lib = _build.load("gapless_score")
+    if not getattr(lib, "_bbmap_typed", False):
+        vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.gapless_score_launch.argtypes = [
+            vp, ci, ci, ci, vp, vp, vp, cll, vp, cll, cll, ci, ci, ci, ci,
+            ci, ci, ci, vp, vp]
+        lib.gapless_score_launch.restype = ci
+        lib._bbmap_typed = True
+    return lib
+
+
+def gapless_scores_kernel(cfg: QmConfig, rcodes: torch.Tensor,
+                          cd_mode: torch.Tensor, cd_strand: torch.Tensor,
+                          dindex: DeviceIndex) -> torch.Tensor:
+    """Gapless streak scores of the candidate table: rcodes (B, L) uint8
+    codes, cd_mode / cd_strand (B, K) int32 (modal diagonal, strand).
+    Returns (B, K) int32 scores, before the valid-candidate mask. CPU
+    tensors: the plain version (``_gapless_scores_plain``). CUDA tensors:
+    one launch of ``csrc/gapless_score.cu``; a failed launch raises."""
+    B, K = cd_mode.shape
+    if rcodes.shape != (B, cfg.L) or cd_strand.shape != (B, K):
+        raise ValueError(f"rcodes (B, {cfg.L}) and cd_strand {(B, K)} "
+                         f"expected, got {tuple(rcodes.shape)} and "
+                         f"{tuple(cd_strand.shape)}")
+    if rcodes.dtype != torch.uint8 or cd_mode.dtype != I32 \
+            or cd_strand.dtype != I32:
+        raise TypeError("rcodes must be uint8, cd_mode and cd_strand int32")
+    dev = rcodes.device
+    if cd_mode.device != dev or cd_strand.device != dev \
+            or dindex.device != dev:
+        raise ValueError("the operands and the index must share one device")
+    if dev.type == "cpu":
+        return _gapless_scores_plain(cfg, rcodes, cd_mode, cd_strand, dindex)
+    if dev.type != "cuda":
+        raise RuntimeError(f"the gapless kernel runs on CUDA tensors "
+                           f"(got {dev})")
+    scores = torch.empty((B, K), dtype=I32, device=dev)
+    if B * K == 0:
+        return scores
+    lib = _gapless_lib()
+    rcodes, cd_mode = rcodes.contiguous(), cd_mode.contiguous()
+    cd_strand = cd_strand.contiguous()
+    PM, PM2, PS, PS2, PS3, LIM3 = _points(cfg.profile)
+    err = lib.gapless_score_launch(
+        rcodes.data_ptr(), B, cfg.L, K, cd_mode.data_ptr(),
+        cd_strand.data_ptr(), dindex.gpack.data_ptr(), dindex.gpack.shape[0],
+        dindex.nmask.data_ptr(), dindex.nmask.shape[0], cfg.G,
+        int(cfg.has_n), PM, PM2, PS, PS2, PS3, LIM3, scores.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"gapless_score_launch failed: cudaError {err}")
+    gapless_scores_kernel.launches += 1
+    return scores
+
+
+def reset_launches() -> None:
+    quality_offsets_kernel.launches = 0
+    ref_retention_kernel.launches = 0
+    gapless_scores_kernel.launches = 0
+
+
+reset_launches()
+
+
+def _best_sym(cfg: QmConfig, rcodes, mode, strand, dindex: DeviceIndex):
+    """(B, L) match symbols (0=m 1=S 2=N) of each read against the genome
+    at ``mode`` (B,) on ``strand`` (B,): the winner's row of the
+    candidate table."""
+    codes, ref_codes, ref_n = _on_strand(cfg, rcodes, mode, strand, dindex)
+    eq = (codes == ref_codes) & ~ref_n
+    return torch.where((codes > 3) | ref_n, 2,
+                       torch.where(eq, 0, 1)).to(torch.uint8)
+
+
 def finalize_stage(cfg: QmConfig, rcodes, cand, dindex: DeviceIndex,
                    return_scores: bool = False, boost_fn=None):
     """Steps 6-7: gapless scoring of the candidate table at each modal
     diagonal + best/second selection + the best site's match symbols.
     Returns (out_i32 (B, N_META[+1] + 5K), best_sym (B, L) uint8 codes
-    0=m 1=S 2=N[, scores (B, K)[, sel (B, K)]])."""
-    L, G, min_score = cfg.L, cfg.G, cfg.min_score
+    0=m 1=S 2=N[, scores (B, K)[, sel (B, K)]]). The scores come from
+    ``gapless_scores_kernel`` (one launch on the card), the symbols from
+    the winner's row alone."""
+    min_score = cfg.min_score
     B = rcodes.shape[0]
     cd_votes = cand["votes"]
     cd_mode = cand["mode"]
@@ -981,16 +1154,7 @@ def finalize_stage(cfg: QmConfig, rcodes, cand, dindex: DeviceIndex,
     cd_spread = cand["spread"]
     cd_valid = cd_votes > 0
 
-    ref_codes, ref_n = extract_ref_codes(dindex.gpack, dindex.nmask,
-                                         cd_mode, L, G, has_n=cfg.has_n)
-    rc = torch.where(rcodes <= 3, 3 - rcodes, rcodes).flip(1)
-    cand_codes = torch.where((cd_strand == 0)[..., None],
-                             rcodes[:, None, :], rc[:, None, :])
-    read_n = cand_codes > 3
-    eq = (cand_codes == ref_codes) & ~ref_n
-    is_match = eq & ~read_n
-    is_sub = ~eq & ~read_n & ~ref_n
-    scores = score_match_sub_vec(is_match, is_sub, cfg.profile)
+    scores = gapless_scores_kernel(cfg, rcodes, cd_mode, cd_strand, dindex)
     scores = torch.where(cd_valid, scores, -(2 ** 30)).to(I32)
 
     sel = scores if boost_fn is None else boost_fn(scores)
@@ -1004,10 +1168,8 @@ def finalize_stage(cfg: QmConfig, rcodes, cand, dindex: DeviceIndex,
     best_score = g1(scores, o0)
     second_score = g1(sel, o1)
     n_good = torch.sum(scores >= min_score, dim=1, dtype=I32)
-    sym2 = torch.where(read_n | ref_n, 2,
-                       torch.where(eq, 0, 1)).to(torch.uint8)
-    best_sym = torch.gather(
-        sym2, 1, o0[..., None].expand(B, 1, L))[:, 0]
+    best_sym = _best_sym(cfg, rcodes, g1(cd_mode, o0), g1(cd_strand, o0),
+                         dindex)
     meta_cols = [best_score.to(I32), g1(cd_mode, o0), g1(cd_strand, o0),
                  g1(cd_start, o0), g1(cd_spread, o0).to(I32),
                  second_score.to(I32), n_good]

@@ -11,7 +11,8 @@ Phases, each timed on its own line:
 2. build: one nvcc for each source in ``bbmap_tpu_torch/csrc/``
    (``msa_dp.cu``, ``msa_dp_warp.cu``, ``msa_dp_pipe.cu``,
    ``msa_dp_band.cu``, ``msa_walk.cu``, ``msa_fill_walk.cu``,
-   ``banded_edit.cu``, ``rescue_scan.cu``, ``quality_offsets.cu``) and
+   ``banded_edit.cu``, ``rescue_scan.cu``, ``quality_offsets.cu``,
+   ``ref_retention.cu``, ``gapless_score.cu``) and
    for each build of ``_build.VARIANTS`` (the
    DPX cell in the mappings that keep the plain one), all started
    together, into
@@ -95,7 +96,11 @@ Phases, each timed on its own line:
    (``csrc/quality_offsets.cu``), and the mate rescue scans a batch's
    jobs in one launch of the rescue kernel (``csrc/rescue_scan.cu``):
    fails when either never launched or the rescue kernel launched more
-   often than there were batches. The first call of each is recorded,
+   often than there were batches; the candidate stage's key retention
+   (``csrc/ref_retention.cu``, no host sync) and the finalize stage's
+   gapless score (``csrc/gapless_score.cu``) launch once a call: fails
+   when either launched less than once a batch. The first call of each is
+   recorded,
    and after the SAM phase both kernels are held to their plain versions
    on the card, tolerance 0: the rescue scan on the warmup batch's jobs
    and on 1,024 edge jobs (both directions, n = 1, 2 and 1,536, N bases
@@ -121,7 +126,19 @@ Phases, each timed on its own line:
    CLI on the card, graded by gradesam (strict = within 400 bp); fails
    below mapped 0.98 or strict 0.65, when the band K2 or K3 or the walk
    kernel was never launched, or when a strided kernel was; the fill
-   chunk the card's memory allows is printed beside the launches;
+   chunk the card's memory allows is printed beside the launches; the
+   first calls of the key retention and the gapless score are recorded
+   here too. Then both kernels against their plain versions on the card,
+   tolerance 0, on the main path's first calls (65,536 reads of 18 keys
+   with quality weights; 65,536 x 8 candidates of 150 bp) and on the long
+   path's cut to 32 reads (750 keys with weights; 8 candidates of 6,000
+   bp), each timed beside its plain version and its bound; the scalar
+   reads of a device value (``aten::_local_scalar_dense``) under
+   torch.profiler in one call of the kernel (none) and of the plain trim
+   (one a round and one more: the counter's check); the plain versions'
+   times at the main path's shapes and the chain segmentation's
+   (``_chain_segments``, torch ops, on its first call) printed as the
+   split of the eager scans;
 10. tools: the read-preprocessing tools at ``bench_tools.py``'s sizes on
    seeded synthetic data. bbduk's k-mer scan (k=23, hdist=1, 200 adapters
    of 34-66 bp) over 1,000,000 reads of 150 bp and seal (k=31,
@@ -253,10 +270,12 @@ and exits non-zero without the final ``ok`` line. It exits 2 when no CUDA device
 from a checkout of the repository.
 
 ``python3 chip_smoke.py --profile`` runs no check: it prints where the
-time goes (one short-read batch under torch.profiler, 32 long reads under
-cProfile, with the quality and rescue stages' cumulative host time, and
-under torch.profiler, one chunk of bbduk, of seal and of each bbmerge
-mode under torch.profiler) and no ``ok`` line.
+time goes (one short-read batch under torch.profiler, with its scalar
+reads of a device value, its device-to-host copies and its kernels'
+launches, 32 long reads under cProfile, with the quality and rescue
+stages' cumulative host time, and under torch.profiler, one chunk of
+bbduk, of seal and of each bbmerge mode under torch.profiler) and no
+``ok`` line.
 
 ``python3 chip_smoke.py --dedupe-split <dir>`` runs dedupe e=2 ac=t over
 the dedupe phase's 50,000-read library with the checkout in <dir> (the
@@ -301,6 +320,10 @@ _BANDED = "bbmap_tpu/ops/banded_device.py:34 (_program, an XLA scan)"
 _RESCUE = "bbmap_tpu/ops/rescue_device.py:37 (_rescue_stage, two XLA scans)"
 _QUALITY = ("bbmap_tpu/align/quickmap_device.py:781 (_quality_offsets_core, "
             "an XLA program)")
+_RETENTION = ("bbmap_tpu/align/quickmap_device.py:513 (_ref_retention, its "
+              "greedy trim an XLA while_loop)")
+_GAPLESS = ("bbmap_tpu/align/quickmap_device.py:1291 (finalize_stage's "
+            "gapless score: extract_ref_codes + score_match_sub_vec, XLA)")
 # the fused fill + walk's variants (ops/msa_kernels.FILL_WALK_VARIANTS)
 FILL_WALK = {v: f"msa_fill_walk_{v}" for v in ("row", "row_packed")}
 REPLACES = {"msa_score_rows": _K1, "msa_score": _K2, "msa_score_row": _K2,
@@ -312,6 +335,7 @@ REPLACES = {"msa_score_rows": _K1, "msa_score": _K2, "msa_score_row": _K2,
             "msa_score_pipe": _K2, "msa_fill_pipe": _K3,
             "msa_score_rows_pipe": _K1,
             "rescue_scan": _RESCUE, "quality_offsets": _QUALITY,
+            "ref_retention": _RETENTION, "gapless_score": _GAPLESS,
             **{n: f"{_K3} + {_WALK}" for n in FILL_WALK.values()}}
 CSRC = "bbmap_tpu_torch/csrc/"
 SOURCE = {"msa_score_rows": CSRC + "msa_dp_warp.cu",
@@ -332,6 +356,8 @@ SOURCE = {"msa_score_rows": CSRC + "msa_dp_warp.cu",
           "msa_score_rows_pipe": CSRC + "msa_dp_pipe.cu",
           "rescue_scan": CSRC + "rescue_scan.cu",
           "quality_offsets": CSRC + "quality_offsets.cu",
+          "ref_retention": CSRC + "ref_retention.cu",
+          "gapless_score": CSRC + "gapless_score.cu",
           **{n: CSRC + "msa_fill_walk.cu" for n in FILL_WALK.values()}}
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 # Each of an SM's four schedulers starts one warp instruction (32 lanes) a
@@ -1798,8 +1824,10 @@ def launch_counts() -> dict:
     "banded_edit_warp"), the block kernel's as "banded_any" and by mode
     ("banded_any_class", "banded_any_triangle"), the containment kernel's
     as "contained_any" and by mapping ("contained_any_thread",
-    "contained_any_warp"), the rescue kernel's as "rescue_scan" and the
-    quality offsets kernel's as "quality_offsets"."""
+    "contained_any_warp"), the rescue kernel's as "rescue_scan", the
+    quality offsets kernel's as "quality_offsets", the key-retention
+    kernel's as "ref_retention" and the gapless kernel's as
+    "gapless_score"."""
     from bbmap_tpu_torch.align import quickmap_device
     from bbmap_tpu_torch.ops import banded_device, msa_kernels, rescue_device
     out = {k.__name__: k.launches for k in msa_kernels.KERNELS}
@@ -1820,6 +1848,8 @@ def launch_counts() -> dict:
         out[f"contained_any_{mapping}"] = n
     out["rescue_scan"] = rescue_device.rescue_scan.launches
     out["quality_offsets"] = quickmap_device.quality_offsets_kernel.launches
+    out["ref_retention"] = quickmap_device.ref_retention_kernel.launches
+    out["gapless_score"] = quickmap_device.gapless_scores_kernel.launches
     return out
 
 
@@ -1932,6 +1962,13 @@ def main_path(device, n_pairs: int = N_PAIRS, n_steady: int = N_STEADY,
         if launches["rescue_scan"] > n_batches:
             raise AssertionError(f"{launches['rescue_scan']} rescue "
                                  f"launches for {n_batches} batches")
+        # the candidate stage's key retention and the finalize stage's
+        # gapless score: one launch a call, at least one a batch
+        if launches["ref_retention"] < n_batches or \
+                launches["gapless_score"] < n_batches:
+            raise AssertionError(f"the retention or the gapless kernel "
+                                 f"launched less than once a batch: "
+                                 f"{launches}")
     return res, (mk(r1, q1, 0), mk(r2, q2, 0), out0, aligner)
 
 
@@ -2150,6 +2187,250 @@ def rescue_quality_phase(device, rescue_call, quality_call,
     if any(v["max_abs_err"] != 0 for v in out.values()):
         raise AssertionError(f"a kernel disagrees with its plain version: "
                              f"{out}")
+    return out
+
+
+RETENTION_LONG_READS = 32      # the long path's first call, cut to these
+RETENTION_MAX_LENS = (4000, 100)   # crafted counts' maxLen: trimmed, kept
+RETENTION_CRAFTED_ROWS = 4096  # rows crafted, then tiled to the shape
+
+
+def crafted_counts(rng, B: int, nk: int, max_len: int, offsets):
+    """Key counts that reach every re-admission tier and the trim's
+    branches (``tests/retention_counts.crafted``, the retention kernel's
+    CPU tests' generator) for B reads: at most ``RETENTION_CRAFTED_ROWS``
+    rows crafted, tiled to B. Returns kp, off, ccnt (B, nk) int32 numpy."""
+    import numpy as np
+    from tests.retention_counts import crafted
+    n = min(B, RETENTION_CRAFTED_ROWS)
+    reps = -(-B // n)
+    return tuple(np.ascontiguousarray(np.tile(a, (reps, 1))[:B], np.int32)
+                 for a in crafted(rng, n, nk, max_len, offsets))
+
+
+def gapless_table(codes, B: int, L: int, rng):
+    """B reads from a genome's codes (4 = N) with 3 % substitutions, half
+    of them reverse-complemented, and a candidate table of 8 a read: the
+    true diagonal and shifted ones on random strands, one off the genome's
+    start, one past its end, one anywhere. Returns (reads (B, L) uint8,
+    mode, strand (B, 8) int32) numpy."""
+    import numpy as np
+    G = len(codes)
+    src = rng.integers(0, G - L, B)
+    reads = np.minimum(codes[src[:, None] + np.arange(L)], 4).astype(np.uint8)
+    sub = rng.random((B, L)) < 0.03
+    reads[sub] = rng.integers(0, 4, int(sub.sum()))
+    minus = rng.random(B) < 0.5
+    reads[minus] = np.where(reads[minus] <= 3, 3 - reads[minus],
+                            reads[minus])[:, ::-1]
+    mode = src[:, None] + rng.integers(-3, 4, (B, 8))
+    mode[:, 0] = src
+    mode[:, 2] = -rng.integers(1, L, B)
+    mode[:, 3] = G - rng.integers(1, L, B)
+    mode[:, 4] = rng.integers(-2 * L, G + L, B)
+    strand = np.where(rng.random((B, 8)) < 0.5, 1, 0)
+    strand[:, 0] = minus
+    return reads, mode.astype(np.int32), strand.astype(np.int32)
+
+
+def _retention_bound(kp, weights, clock: float):
+    """The key retention's bound: keys, offsets, counts (and weights) read
+    once, 4 B each, the flags written; one operation a key."""
+    B, nk = kp.shape
+    n_bytes = B * nk * (12 + (4 if weights is not None else 0) + 1)
+    return bound_ms(n_bytes, float(B * nk), clock)
+
+
+def _words_read(mode, L: int, G: int, per: int, n_words: int) -> int:
+    """The distinct words of ``per`` bases that hold a genome position of
+    some candidate's window [mode, mode + L) (positions off the genome
+    are in no word)."""
+    import torch
+    m = mode.reshape(-1).to(torch.int64)
+    lo, hi = m.clamp(0, G), (m + L).clamp(0, G)
+    keep = hi > lo
+    first, last = lo[keep] // per, (hi[keep] - 1) // per
+    one = torch.ones_like(first, dtype=torch.int32)
+    d = torch.zeros(n_words + 1, dtype=torch.int32, device=mode.device)
+    d.index_add_(0, first, one)
+    d.index_add_(0, last + 1, -one)
+    return int((d.cumsum(0)[:n_words] > 0).sum())
+
+
+def _gapless_bound(mode, L: int, dindex, cfg, clock: float):
+    """The gapless score's bound: the read codes (1 B a base), the
+    candidates' modes and strands and the scores (12 B a candidate) once,
+    and each genome word under some candidate's window once (16 bases a
+    word, and 32 a word of the N mask where the genome has N, at the
+    index's bytes a word); one operation a position."""
+    B, K = mode.shape
+    n_bytes = B * L + 12 * B * K + dindex.gpack.element_size() * _words_read(
+        mode, L, cfg.G, 16, dindex.gpack.shape[0])
+    if cfg.has_n:
+        n_bytes += dindex.nmask.element_size() * _words_read(
+            mode, L, cfg.G, 32, dindex.nmask.shape[0])
+    return bound_ms(n_bytes, float(B * K * L), clock)
+
+
+def _chain_bound(flat, clock: float):
+    """The chain segmentation's bound: the sorted diagonals and key slots
+    read once and its four int32 outputs written once (24 B a slot); one
+    operation a slot for each of its 12 scans."""
+    R2, W = flat.shape
+    return bound_ms(24 * R2 * W, float(12 * R2 * W), clock)
+
+
+def retention_gapless_phase(device, main_calls: dict, long_calls: dict,
+                            clock: float) -> dict:
+    """The key-retention kernel (``ref_retention_kernel``) and the gapless
+    streak-score kernel (``gapless_scores_kernel``) against their plain
+    versions on the card, tolerance 0, on their first calls on the main
+    path (the warmup batch's fused program: 65,536 reads, 18 keys with
+    quality weights; 65,536 x 8 candidates of 150 bp) and on the long
+    path's first calls cut to ``RETENTION_LONG_READS`` reads (6,000 bp,
+    750 keys with weights; 8 candidates). Each timed beside its plain
+    version and its bound; the plain versions at the main path's shapes,
+    and the candidate stage's chain segmentation (``_chain_segments``,
+    torch ops) on its first call, give the split of the eager scans these
+    kernels replaced. Then the retention kernel on counts crafted across
+    the tiers and the trim's branches (``crafted_counts``) at both shapes,
+    and the gapless kernel on a genome with N runs at the main path's
+    shape. At the main path's shape, torch.profiler counts the scalar
+    reads of a device value in one call of the retention kernel (it must
+    make none) and of the plain trim (it must make one at least, or the
+    counter reads nothing). Returns the ``kernels`` line's entries of both
+    kernels and the chain segmentation's timing."""
+    import numpy as np
+    import torch
+    from bbmap_tpu_torch.align import quickmap_device as qd
+
+    def cut(a, n):
+        return a[:n] if isinstance(a, torch.Tensor) else a
+
+    out = {"ref_retention": {"shapes": {}}, "gapless_score": {"shapes": {}}}
+    for tag, calls in (("main", main_calls), ("long", long_calls)):
+        n = None if tag == "main" else RETENTION_LONG_READS
+        (args, kw), = calls["ref_retention_kernel"]
+        cfg, kp, off_p, ccnt = (cut(a, n) for a in args)
+        w = cut(kw.get("weights"), n)
+        if tag == "long" and (cfg.L, kp.shape[1]) != (L_LONG, 750):
+            raise AssertionError(f"the long path's retention ran at L "
+                                 f"{cfg.L} with {kp.shape[1]} keys")
+        got = qd.ref_retention_kernel(cfg, kp, off_p, ccnt, w)
+        want = qd._ref_retention(cfg, kp, off_p, ccnt, w)
+        _sync(device)
+        err = _diff(got.int(), want.int())
+        ms, _ = _cuda_ms(lambda: qd.ref_retention_kernel(cfg, kp, off_p,
+                                                         ccnt, w), 20)
+        plain_ms, _ = _cuda_ms(lambda: qd._ref_retention(cfg, kp, off_p,
+                                                         ccnt, w),
+                               3 if tag == "main" else 1, warm=False)
+        b_ms, b_by = _retention_bound(kp, w, clock)
+        out["ref_retention"]["shapes"][tag] = {
+            "reads": kp.shape[0], "L": cfg.L, "nk": kp.shape[1],
+            "weights": w is not None, "kept": int(got.sum()),
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by}
+        say(f"kernel ref_retention at {kp.shape[0]} x {kp.shape[1]} keys (L "
+            f"{cfg.L}, weights {w is not None}): max_abs_err {err}, "
+            f"{ms:.4f} ms (plain {plain_ms:.3f} ms, bound {b_ms:.6f} ms by "
+            f"{b_by})")
+        if tag == "main":
+            reads = {name: _device_profile(
+                fn, f"{name} at {kp.shape[0]} x {kp.shape[1]} keys", t,
+                top=0)["scalar_reads"] for name, fn, t in (
+                    ("ref_retention_kernel", lambda: qd.ref_retention_kernel(
+                        cfg, kp, off_p, ccnt, w), ms),
+                    ("_ref_retention", lambda: qd._ref_retention(
+                        cfg, kp, off_p, ccnt, w), plain_ms))}
+            out["ref_retention"]["scalar_reads"] = reads
+            if reads["ref_retention_kernel"] != 0 \
+                    or reads["_ref_retention"] < 1:
+                raise AssertionError(f"scalar reads of a device value: "
+                                     f"{reads} (the kernel must make none, "
+                                     f"the plain trim one a round)")
+
+        (args, _kw), = calls["gapless_scores_kernel"]
+        cfg, rcodes, mode, strand, dix = (cut(a, n) for a in args)
+        got = qd.gapless_scores_kernel(cfg, rcodes, mode, strand, dix)
+        want = qd._gapless_scores_plain(cfg, rcodes, mode, strand, dix)
+        _sync(device)
+        err = _diff(got, want)
+        ms, _ = _cuda_ms(lambda: qd.gapless_scores_kernel(
+            cfg, rcodes, mode, strand, dix), 20)
+        plain_ms, _ = _cuda_ms(lambda: qd._gapless_scores_plain(
+            cfg, rcodes, mode, strand, dix), 3, warm=False)
+        B, K = mode.shape
+        b_ms, b_by = _gapless_bound(mode, cfg.L, dix, cfg, clock)
+        out["gapless_score"]["shapes"][tag] = {
+            "reads": B, "candidates": K, "L": cfg.L, "has_n": cfg.has_n,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by}
+        say(f"kernel gapless_score at {B} x {K} x {cfg.L} (has_n "
+            f"{cfg.has_n}): max_abs_err {err}, {ms:.4f} ms (plain "
+            f"{plain_ms:.3f} ms, bound {b_ms:.6f} ms by {b_by})")
+    # crafted counts at both shapes (many more trim rounds than the paths'
+    # reads give) and the gapless score on a genome with N runs at the
+    # main path's shape (the bench genome has none)
+    rng = np.random.default_rng(41)
+    for tag, calls in (("main", main_calls), ("long", long_calls)):
+        (args, _kw), = calls["ref_retention_kernel"]
+        cfg = args[0]
+        B = 2 * N_PAIRS if tag == "main" else RETENTION_LONG_READS
+        nk = len(cfg.offsets_list)
+        for max_len in RETENTION_MAX_LENS:
+            c = cfg._replace(max_usable_length=max_len)
+            kp, off_p, ccnt = (torch.as_tensor(a, device=device) for a in
+                               crafted_counts(rng, B, nk, max_len,
+                                              cfg.offsets_list))
+            w = torch.as_tensor(rng.uniform(0.2, 1.0, (B, nk)),
+                                dtype=torch.float32, device=device)
+            got = qd.ref_retention_kernel(c, kp, off_p, ccnt, w)
+            want = qd._ref_retention(c, kp, off_p, ccnt, w)
+            _sync(device)
+            err = _diff(got.int(), want.int())
+            ms, _ = _cuda_ms(lambda: qd.ref_retention_kernel(
+                c, kp, off_p, ccnt, w), 5)
+            key = f"{tag}_crafted_{max_len}"
+            out["ref_retention"]["shapes"][key] = {
+                "reads": B, "nk": nk, "max_len": max_len,
+                "max_abs_err": err, "ms": ms}
+            say(f"kernel ref_retention on crafted counts at {B} x {nk} keys "
+                f"(maxLen {max_len}, weights): max_abs_err {err}, {ms:.4f} "
+                f"ms")
+    edix = rescue_edge_index(device)
+    ecfg = qd.make_config(edix, L)
+    reads, mode, strand = (torch.as_tensor(a, device=device) for a in
+                           gapless_table(edix.index.genome_codes, 2 * N_PAIRS,
+                                         L, rng))
+    got = qd.gapless_scores_kernel(ecfg, reads, mode, strand, edix)
+    want = qd._gapless_scores_plain(ecfg, reads, mode, strand, edix)
+    _sync(device)
+    err = _diff(got, want)
+    ms, _ = _cuda_ms(lambda: qd.gapless_scores_kernel(
+        ecfg, reads, mode, strand, edix), 20)
+    out["gapless_score"]["shapes"]["main_with_n"] = {
+        "reads": 2 * N_PAIRS, "candidates": 8, "L": L,
+        "has_n": ecfg.has_n, "max_abs_err": err, "ms": ms}
+    say(f"kernel gapless_score at {2 * N_PAIRS} x 8 x {L} on a genome with N "
+        f"runs (has_n {ecfg.has_n}): max_abs_err {err}, {ms:.4f} ms")
+    for name in ("ref_retention", "gapless_score"):
+        e = out[name]
+        m = e["shapes"]["main"]
+        e.update(max_abs_err=max(v["max_abs_err"]
+                                 for v in e["shapes"].values()),
+                 ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
+                 bound_by=m["bound_by"], library_ms=None)
+    if any(out[k]["max_abs_err"] != 0 for k in ("ref_retention",
+                                                "gapless_score")):
+        raise AssertionError(f"a kernel disagrees with its plain version: "
+                             f"{out}")
+    (args, _kw), = main_calls["_chain_segments"]
+    chain_ms, _ = _cuda_ms(lambda: qd._chain_segments(*args), 3)
+    b_ms, b_by = _chain_bound(args[0], clock)
+    out["chain_segments"] = {"rows": args[0].shape[0],
+                             "slots": args[0].shape[1], "ms": chain_ms,
+                             "bound_ms": b_ms, "bound_by": b_by}
     return out
 
 
@@ -5010,12 +5291,17 @@ def parallel_phase(device, gbases, first, d: Path, smi: str) -> dict:
     return res
 
 
-def _device_profile(fn, tag: str, wall_ms: float, top: int = 12) -> None:
+def _device_profile(fn, tag: str, wall_ms: float, top: int = 12) -> dict:
     """Run fn under torch.profiler (CPU + CUDA activities) and print the
     number of kernels, their summed device time, the host time inside
-    cudaLaunchKernel, the idle share (1 - device time / ``wall_ms``, the
-    same work's wall time without the profiler) and the ``top`` kernels
-    by device time."""
+    cudaLaunchKernel, the scalar reads of a device value
+    (``aten::_local_scalar_dense``: ``bool()``, ``int()``, ``.item()``,
+    each a host sync), the device-to-host copies (``.cpu()``,
+    ``.tolist()``, ``.numpy()`` of a device tensor, and the copy under
+    each scalar read: a sync unless asynchronous into pinned memory), the
+    idle share (1 - device time / ``wall_ms``, the same work's wall time
+    without the profiler) and the ``top`` kernels by device time. Returns
+    those counts."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -5024,7 +5310,7 @@ def _device_profile(fn, tag: str, wall_ms: float, top: int = 12) -> None:
         fn()
         torch.cuda.synchronize()
     kernels = {}
-    launch_us = n_launch_calls = 0
+    launch_us = n_launch_calls = n_scalar = 0
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             n, us = kernels.get(ev.name, (0, 0.0))
@@ -5032,15 +5318,22 @@ def _device_profile(fn, tag: str, wall_ms: float, top: int = 12) -> None:
         elif ev.name == "cudaLaunchKernel":
             n_launch_calls += 1
             launch_us += ev.cpu_time
+        elif ev.name == "aten::_local_scalar_dense":
+            n_scalar += 1
     n_kernels = sum(n for n, _ in kernels.values())
+    n_dtoh = sum(n for name, (n, _) in kernels.items() if "DtoH" in name)
     dev_ms = sum(us for _, us in kernels.values()) / 1e3
     say(f"profile {tag}: wall {wall_ms:.1f} ms without the profiler, "
         f"{n_kernels} device kernels and copies, device time {dev_ms:.3f} "
         f"ms, idle share {100 * (1 - dev_ms / wall_ms):.1f} %, "
-        f"cudaLaunchKernel {n_launch_calls} calls {launch_us / 1e3:.1f} ms")
+        f"cudaLaunchKernel {n_launch_calls} calls {launch_us / 1e3:.1f} ms, "
+        f"{n_scalar} scalar reads of a device value, {n_dtoh} "
+        f"device-to-host copies")
     for name, (n, us) in sorted(kernels.items(),
                                 key=lambda kv: -kv[1][1])[:top]:
         say(f"  {us / 1e3:10.3f} ms {n:8d} x {name[:90]}")
+    return {"kernels": n_kernels, "device_ms": dev_ms,
+            "scalar_reads": n_scalar, "dtoh_copies": n_dtoh}
 
 
 def profile_paths(device, gbases) -> None:
@@ -5056,9 +5349,11 @@ def profile_paths(device, gbases) -> None:
     t0 = time.time()
     aligner.map_pairs_columnar(b1, b2)
     _sync(device)
+    wall_ms = 1e3 * (time.time() - t0)
+    reset_counts()
     _device_profile(lambda: aligner.map_pairs_columnar(b1, b2),
-                    f"short batch of {N_PAIRS} pairs",
-                    1e3 * (time.time() - t0))
+                    f"short batch of {N_PAIRS} pairs", wall_ms)
+    say(f"profile short batch launches: {launch_counts()}")
     del aligner
     map_ms = 1e3 * long_phase(device, gbases, n_reads=32,
                               check=False)["map_s"]
@@ -5329,8 +5624,14 @@ def main() -> int:
     from bbmap_tpu_torch.align import quickmap_device
     from bbmap_tpu_torch.ops import rescue_device
     t = time.time()
+    scans = ("ref_retention_kernel", "gapless_scores_kernel",
+             "_chain_segments")
     with first_call(rescue_device, "rescue_scan") as rescue_call, \
-            first_call(quickmap_device, "quality_offsets_kernel") as q_call:
+            first_call(quickmap_device, "quality_offsets_kernel") as q_call, \
+            contextlib.ExitStack() as stack:
+        main_scans = {name: stack.enter_context(first_call(quickmap_device,
+                                                           name))
+                      for name in scans}
         res, first = main_path(device, genome_bases=gbases)
     say(f"phase main path: {time.time() - t:.1f} s; reads/s "
         f"{res['reads_per_s']:.1f} over {N_STEADY} steady batches of "
@@ -5376,7 +5677,11 @@ def main() -> int:
         f"device-built index equal to the host-built run; card {smi}")
 
     t = time.time()
-    lres = long_phase(device, gbases)
+    with contextlib.ExitStack() as stack:
+        long_scans = {name: stack.enter_context(first_call(quickmap_device,
+                                                           name))
+                      for name in scans[:2]}
+        lres = long_phase(device, gbases)
     say(f"phase long reads: {time.time() - t:.1f} s; {N_LONG} reads of "
         f"{L_LONG} bp: reads/s {lres['reads_per_s']:.3f}, bases/s "
         f"{lres['bases_per_s']:.1f} (mapping {lres['map_s']:.1f} s, wall "
@@ -5384,6 +5689,35 @@ def main() -> int:
         f"{lres['mapped_fraction']:.4f}, strict "
         f"{lres['strict_correct']:.4f}; launches {lres['launches']}; "
         f"peak memory {lres['max_memory_allocated']} B; card {smi}")
+
+    t = time.time()
+    rg = retention_gapless_phase(device, main_scans, long_scans,
+                                 max_sm_clock_hz())
+    chain = rg.pop("chain_segments")
+    ktimes.update(rg)
+    del main_scans, long_scans
+    rr, gg = rg["ref_retention"]["shapes"], rg["gapless_score"]["shapes"]
+    say(f"phase retention and gapless kernels: {time.time() - t:.1f} s; "
+        f"ref_retention and gapless_score equal to their plain versions "
+        f"(max_abs_err 0) on the main path's and the long path's first "
+        f"calls; ref_retention {rr['main']['ms']:.4f} ms at "
+        f"{rr['main']['reads']} x {rr['main']['nk']} (plain "
+        f"{rr['main']['plain_ms']:.3f} ms), {rr['long']['ms']:.4f} ms at "
+        f"{rr['long']['reads']} x {rr['long']['nk']} (plain "
+        f"{rr['long']['plain_ms']:.3f} ms); gapless_score "
+        f"{gg['main']['ms']:.4f} ms at {gg['main']['reads']} x "
+        f"{gg['main']['candidates']} x {gg['main']['L']} (plain "
+        f"{gg['main']['plain_ms']:.3f} ms), {gg['long']['ms']:.4f} ms at "
+        f"{gg['long']['reads']} x {gg['long']['candidates']} x "
+        f"{gg['long']['L']} (plain {gg['long']['plain_ms']:.3f} ms); card "
+        f"{smi}")
+    say(f"split of the short batch's eager scans, each plain version alone "
+        f"at the main path's shape: the trim loop (_ref_retention) "
+        f"{rr['main']['plain_ms']:.3f} ms, the gapless score "
+        f"(_gapless_scores_plain) {gg['main']['plain_ms']:.3f} ms, the chain "
+        f"segmentation (_chain_segments, torch ops, {chain['rows']} x "
+        f"{chain['slots']}) {chain['ms']:.3f} ms (bound "
+        f"{chain['bound_ms']:.6f} ms by {chain['bound_by']}); card {smi}")
 
     kd = Path(tempfile.mkdtemp(prefix="chip_smoke_kmer"))
     kmer_cpu = {}
@@ -5525,7 +5859,9 @@ def main() -> int:
                "banded_edit": "banded_edit", "banded_any": "banded_any",
                "contained_any": "contained_any",
                "rescue_scan": "rescue_scan",
-               "quality_offsets": "quality_offsets"}
+               "quality_offsets": "quality_offsets",
+               "ref_retention": "ref_retention",
+               "gapless_score": "gapless_score"}
     home = {"msa_score_rows": "k1_entry", "msa_walk": "long",
             "msa_score_long": "long", "msa_fill_long": "long",
             "msa_score_strided": "long", "msa_fill_strided": "long",
@@ -5608,6 +5944,10 @@ def main() -> int:
             if k == "mesh" else r) for k, r in par.items()}}), flush=True)
     print(json.dumps({"kernel_selftest": st, "card": smi}), flush=True)
     print(json.dumps({"index_build": ib, "card": smi}), flush=True)
+    print(json.dumps({"retention_gapless": {
+        "ref_retention": rg["ref_retention"]["shapes"],
+        "gapless_score": rg["gapless_score"]["shapes"],
+        "chain_segments": chain}, "card": smi}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -304,13 +304,24 @@ PORT_ADDED = {
     # checks, int64 / int32 helpers for torch's missing uint32 shifts and
     # JAX's argmax / top_k ties, and the quality-offsets kernel's wrapper
     # (quality_offsets_kernel, its launch count, library, the device copies
-    # of its host tables and its float32 thresholds)
+    # of its host tables and its float32 thresholds); the key-retention
+    # kernel's wrapper and library; the gapless kernel's wrapper, library,
+    # plain version (_gapless_scores_plain) and points (_points), the
+    # read on a candidate's strand against the genome (_on_strand, which
+    # both the plain version and _best_sym use), the winner's match
+    # symbols (_best_sym); the chain segmentation as a
+    # function of its own (_chain_segments)
     "align.quickmap_device": {"torch", "nn", "ctypes", "DeviceIndex",
                               "DeviceLike", "resolve_device", "F32", "I64",
                               "_first_true", "_stable_desc", "_wrap32",
                               "_build", "_L1", "_L2", "_quality_lib",
                               "_offset_tables", "_offset_tables_np",
-                              "quality_offsets_kernel", "reset_launches"}}
+                              "quality_offsets_kernel", "reset_launches",
+                              "_retention_lib", "ref_retention_kernel",
+                              "_gapless_lib", "gapless_scores_kernel",
+                              "_gapless_scores_plain", "_points",
+                              "_on_strand", "_best_sym",
+                              "_chain_segments"}}
 # names a copy leaves out on purpose: rqcfilter's default reference paths
 # under the machine's reference directory (the port takes every reference
 # from the command line); kcount's rewritten device class needs no

@@ -157,6 +157,36 @@ def test_cpu_rescue_and_quality_wrappers_do_not_count(tiny):
     assert qd.quality_offsets_kernel.launches == 0
 
 
+def test_cpu_retention_and_gapless_wrappers_do_not_count(tiny, monkeypatch):
+    """A quickmap batch with quality on CPU tensors goes through
+    ref_retention_kernel and gapless_scores_kernel, which run their plain
+    versions and count nothing; both CUDA sources are in the build."""
+    from bbmap_tpu_torch.align import quickmap_device as qd
+    from bbmap_tpu_torch.ops import _build
+    assert {"ref_retention", "gapless_score"} <= set(_build.SOURCES)
+    g, index = tiny
+    dix = qd.DeviceIndex(index, "cpu")
+    run = qd.build_quickmap(dix, 60)
+    assert run.cfg.ref_admit
+    rng = np.random.default_rng(3)
+    starts = rng.integers(0, 4900, 6)
+    bases = np.stack([g.chroms[0][s:s + 60] for s in starts])
+    q = rng.integers(10, 41, (6, 60)).astype(np.int8)
+    calls = {"ref_retention_kernel": 0, "gapless_scores_kernel": 0}
+    qd.reset_launches()
+    for name in calls:
+        def counted(*a, _orig=getattr(qd, name), _name=name, **k):
+            calls[_name] += 1
+            return _orig(*a, **k)
+        monkeypatch.setattr(qd, name, counted)
+    d = run(bases, q).host()
+    assert calls == {"ref_retention_kernel": 1, "gapless_scores_kernel": 1}
+    assert (d["best_start"] == starts).mean() > 0.5
+    monkeypatch.undo()
+    assert qd.ref_retention_kernel.launches == 0
+    assert qd.gapless_scores_kernel.launches == 0
+
+
 @pytest.fixture(scope="module")
 def tiny():
     rng = np.random.default_rng(1)
