@@ -11,10 +11,12 @@ buffers of a :class:`DeviceIndex`; a batch of reads flows through
 2. bounded site-list gather with over-long-list exclusion and staged
    re-admission (or the reference-faithful retention of
    ``_ref_retention``, on the card one launch of ``ref_retention_kernel``),
-   packed into a per-(read, strand) slot budget
+   packed into a per-(read, strand) slot budget (on the card one launch
+   of ``slot_pack_kernel``)
 3. diagonal sort + chain segmentation + distinct-offset votes + modal
-   diagonal (``_chain_segments``)
-4. top-K candidates per read
+   diagonal (``_sort_rows``, ``_chain_segments``)
+4. top-K candidates per read (``_candidate_table``; steps 3-4 on the
+   card one launch of ``chain_candidates_kernel``)
 5. gapless streak scoring of every candidate at its modal diagonal (on
    the card one launch of ``gapless_scores_kernel``) and best/second
    selection.
@@ -847,6 +849,228 @@ def _chain_segments(flat: torch.Tensor, toff: torch.Tensor,
     return last_idx, seg_start, gmax, size
 
 
+def _slot_counts(gadm: torch.Tensor, cnt_local: torch.Tensor,
+                 admit: torch.Tensor, budget: int) -> torch.Tensor:
+    """The shortest-first greedy slot budget: key j precedes key k iff
+    (len_j, j) < (len_k, k), with len = ``gadm`` and BIG for a length of
+    0; k fits iff its inclusive prefix length in that order is within
+    ``budget``. Returns cnt (..., nk) int32: ``cnt_local`` where the key
+    is admitted, fits and has a length, else 0."""
+    g1 = torch.where(gadm > 0, gadm, BIG)
+    order = torch.argsort(g1, dim=-1, stable=True)
+    g_sorted = torch.gather(gadm, -1, order)
+    csum_sorted = torch.cumsum(g_sorted, dim=-1, dtype=I32)
+    fits = torch.empty_like(csum_sorted, dtype=torch.bool)
+    fits.scatter_(-1, order, csum_sorted <= budget)
+    return torch.where(admit & fits & (gadm > 0), cnt_local, 0)
+
+
+def _slot_pack_plain(cfg: QmConfig, gadm, cnt_local, s0, offadj, admit,
+                     n_sites: int):
+    """Plain version of ``slot_pack_kernel``: the greedy budget
+    (``_slot_counts``), then each of the W = ``cfg.slot_budget`` slots
+    of a (read, strand) row given to its owning key #{t : cum_t <= w}
+    (cum the inclusive prefix sum of the counts), clamped to nk - 1."""
+    B, _two, nk = gadm.shape
+    dev = gadm.device
+    WB = cfg.slot_budget
+    cnt = _slot_counts(gadm, cnt_local, admit, WB)
+    cum = torch.cumsum(cnt, dim=-1, dtype=I32)              # (B, 2, nk)
+    wslot = torch.arange(WB, dtype=I32, device=dev)
+    t_of = torch.searchsorted(
+        cum, wslot.expand(B, 2, WB).contiguous(), right=True)
+    t_clip = torch.clamp(t_of, 0, nk - 1)
+    cum_prev_k = torch.cat([torch.zeros((B, 2, 1), dtype=I32, device=dev),
+                            cum[:, :, :-1]], dim=-1)
+    base = torch.gather((s0 - cum_prev_k).to(I32), -1, t_clip)
+    offadj_slot = torch.gather(offadj, -1, t_clip)
+    toff_slot = t_clip.to(I32)
+    valid_slot = wslot < cum[..., -1:]
+    gather_idx = torch.clamp(base + wslot, 0, n_sites - 1).long()
+    return gather_idx, offadj_slot, toff_slot, valid_slot, cum[..., -1]
+
+
+def _slot_pack_lib() -> ctypes.CDLL:
+    lib = _build.load("slot_pack")
+    if not getattr(lib, "_bbmap_typed", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.slot_pack_launch.argtypes = [
+            vp, vp, vp, vp, vp, ctypes.c_longlong, ci, ci, ci, vp, vp, vp,
+            vp, vp, vp]
+        lib.slot_pack_launch.restype = ci
+        lib._bbmap_typed = True
+    return lib
+
+
+def slot_pack_kernel(cfg: QmConfig, gadm: torch.Tensor,
+                     cnt_local: torch.Tensor, s0: torch.Tensor,
+                     offadj: torch.Tensor, admit: torch.Tensor,
+                     n_sites: int):
+    """The slot budget and the slot-to-key assignment of B reads: gadm
+    (the lengths the budget ranks by), cnt_local (the lengths gathered),
+    s0 (the lists' first sites), offadj (B, 2, nk) int32 and admit
+    (B, 2, nk) bool. Returns the gather index into the ``n_sites`` sites
+    (B, 2, W) int64, offadj_slot and toff_slot (B, 2, W) int32,
+    valid_slot (B, 2, W) bool and the row total (B, 2) int32. CPU
+    tensors: the plain version (``_slot_pack_plain``). CUDA tensors: one
+    launch of ``csrc/slot_pack.cu``, no host sync; a failed launch
+    raises."""
+    B, two, nk = gadm.shape
+    if two != 2 or nk < 1:
+        raise ValueError(f"gadm (B, 2, nk >= 1) expected, got "
+                         f"{tuple(gadm.shape)}")
+    for name, t in (("cnt_local", cnt_local), ("s0", s0),
+                    ("offadj", offadj), ("admit", admit)):
+        if t.shape != gadm.shape:
+            raise ValueError(f"{name} {tuple(t.shape)} against gadm "
+                             f"{tuple(gadm.shape)}")
+    if any(t.dtype != I32 for t in (gadm, cnt_local, s0, offadj)) \
+            or admit.dtype != torch.bool:
+        raise TypeError("gadm, cnt_local, s0 and offadj must be int32, "
+                        "admit bool")
+    dev = gadm.device
+    if any(t.device != dev for t in (cnt_local, s0, offadj, admit)):
+        raise ValueError("the operands must share one device")
+    if dev.type == "cpu":
+        return _slot_pack_plain(cfg, gadm, cnt_local, s0, offadj, admit,
+                                n_sites)
+    if dev.type != "cuda":
+        raise RuntimeError(f"the slot pack kernel runs on CUDA tensors "
+                           f"(got {dev})")
+    WB = cfg.slot_budget
+    gather_idx = torch.empty((B, 2, WB), dtype=I64, device=dev)
+    offadj_slot = torch.empty((B, 2, WB), dtype=I32, device=dev)
+    toff_slot = torch.empty((B, 2, WB), dtype=I32, device=dev)
+    valid_slot = torch.empty((B, 2, WB), dtype=torch.bool, device=dev)
+    total = torch.empty((B, 2), dtype=I32, device=dev)
+    if B == 0:
+        return gather_idx, offadj_slot, toff_slot, valid_slot, total
+    lib = _slot_pack_lib()
+    ins = [t.contiguous() for t in (gadm, cnt_local, s0, offadj, admit)]
+    err = lib.slot_pack_launch(
+        *(t.data_ptr() for t in ins), 2 * B, nk, WB,
+        max(-1, min(n_sites - 1, 2 ** 31 - 1)), gather_idx.data_ptr(),
+        offadj_slot.data_ptr(), toff_slot.data_ptr(), valid_slot.data_ptr(),
+        total.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"slot_pack_launch failed: cudaError {err}")
+    slot_pack_kernel.launches += 1
+    return gather_idx, offadj_slot, toff_slot, valid_slot, total
+
+
+def _sort_rows(diag: torch.Tensor, toff_slot: torch.Tensor):
+    """Each (read, strand) row of (B, 2, W) diagonals and key slots
+    sorted by (diagonal, key slot): the int64 key diag * 65536 + slot.
+    Returns (flat, toff), each (2B, W) int32."""
+    B, _two, WB = diag.shape
+    key = diag.reshape(B * 2, WB).to(I64) * 65536 \
+        + toff_slot.reshape(B * 2, WB).to(I64)
+    key = torch.sort(key, dim=1).values
+    return (key >> 16).to(I32), (key & 0xFFFF).to(I32)
+
+
+def _candidate_table(flat, last_idx, seg_start, gmax, size):
+    """The top-K table of each read over its 2W slots (strand 0 first):
+    the K most-voted slots, ties to the lowest slot, as the stable sort
+    gives them, and each one's start, stop, modal diagonal (the chain's
+    packed modal run read back from ``gmax`` at its last slot) and
+    spread. Inputs (2B, W) int32 from ``_sort_rows`` and
+    ``_chain_segments``."""
+    R2, nseg = flat.shape
+    B = R2 // 2
+    votes = size.reshape(B, 2 * nseg)
+    topv, topi = _stable_desc(votes, dim=1)
+    topv = topv[:, :MAX_CANDIDATES]
+    topi = topi[:, :MAX_CANDIDATES]
+    half = (topi >= nseg).to(I32)
+    strand_off = half * nseg
+    flat2 = flat.reshape(B, 2 * nseg)
+    last2 = last_idx.reshape(B, 2 * nseg)
+    segs2 = seg_start.reshape(B, 2 * nseg)
+    gmax2 = gmax.reshape(B, 2 * nseg)
+    cd_start = torch.gather(flat2, 1, topi)
+    last_raw = torch.gather(last2, 1, topi)
+    segs_raw = torch.gather(segs2, 1, topi)
+    cd_last = torch.clamp(last_raw + strand_off, 0, 2 * nseg - 1).long()
+    cd_stop = torch.gather(flat2, 1, cd_last)
+    win = torch.gather(gmax2, 1, cd_last)
+    win_off = 255 - (win & 0xFF)
+    cd_mode_idx = torch.clamp(segs_raw + win_off, 0, nseg - 1)
+    cd_mode = torch.gather(
+        flat2, 1,
+        torch.clamp(cd_mode_idx + strand_off, 0, 2 * nseg - 1).long())
+    cd_votes = topv
+    cd_valid = cd_votes > 0
+    cd_spread = torch.where(cd_valid, cd_stop - cd_start, 0).to(I32)
+    return {"votes": cd_votes, "mode": cd_mode, "strand": half,
+            "start": cd_start, "spread": cd_spread}
+
+
+def _chain_candidates_plain(cfg: QmConfig, diag, toff_slot):
+    """Plain version of ``chain_candidates_kernel``: ``_sort_rows``,
+    ``_chain_segments``, ``_candidate_table``."""
+    flat, toff = _sort_rows(diag, toff_slot)
+    last_idx, seg_start, gmax, size = _chain_segments(
+        flat, toff, cfg.chain_dist, len(cfg.offsets_list))
+    return _candidate_table(flat, last_idx, seg_start, gmax, size)
+
+
+def _chain_lib() -> ctypes.CDLL:
+    lib = _build.load("chain_candidates")
+    if not getattr(lib, "_bbmap_typed", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.chain_candidates_launch.argtypes = [
+            vp, vp, ci, ci, ci, ci, vp, vp, vp, vp, vp, vp]
+        lib.chain_candidates_launch.restype = ci
+        lib._bbmap_typed = True
+    return lib
+
+
+def chain_candidates_kernel(cfg: QmConfig, diag: torch.Tensor,
+                            toff_slot: torch.Tensor) -> Dict[str,
+                                                             torch.Tensor]:
+    """The candidate table of B reads from their unsorted slots: diag
+    (B, 2, W) int32 (2**30 past a row's valid slots) and toff_slot
+    (B, 2, W) int32 key slots. Returns the ``cand`` dict of (B, K) int32
+    tensors (votes, mode, strand, start, spread). CPU tensors: the plain
+    version (``_chain_candidates_plain``). CUDA tensors: one launch of
+    ``csrc/chain_candidates.cu``, no host sync; a failed launch raises,
+    and so does a row the launch refuses (2W < K, W >= 32,768 or past
+    the block's shared memory)."""
+    B, two, WB = diag.shape
+    if two != 2 or toff_slot.shape != diag.shape:
+        raise ValueError(f"diag and toff_slot (B, 2, W) expected, got "
+                         f"{tuple(diag.shape)} and "
+                         f"{tuple(toff_slot.shape)}")
+    if diag.dtype != I32 or toff_slot.dtype != I32:
+        raise TypeError("diag and toff_slot must be int32")
+    dev = diag.device
+    if toff_slot.device != dev:
+        raise ValueError("the operands must share one device")
+    if dev.type == "cpu":
+        return _chain_candidates_plain(cfg, diag, toff_slot)
+    if dev.type != "cuda":
+        raise RuntimeError(f"the chain kernel runs on CUDA tensors "
+                           f"(got {dev})")
+    K = MAX_CANDIDATES
+    outs = torch.empty((5, B, K), dtype=I32, device=dev)
+    cand = dict(zip(("votes", "mode", "strand", "start", "spread"),
+                    outs.unbind(0)))
+    if B == 0:
+        return cand
+    lib = _chain_lib()
+    diag, toff_slot = diag.contiguous(), toff_slot.contiguous()
+    err = lib.chain_candidates_launch(
+        diag.data_ptr(), toff_slot.data_ptr(), B, WB, cfg.chain_dist, K,
+        *(t.data_ptr() for t in outs.unbind(0)),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"chain_candidates_launch failed: cudaError "
+                           f"{err}")
+    chain_candidates_kernel.launches += 1
+    return cand
+
+
 def candidate_stage(cfg: QmConfig, bases, dindex: DeviceIndex,
                     offsets_dyn=None, rcodes=None, two_tier: bool = False,
                     weights_dyn=None, reject=None, gcnt_d=None):
@@ -863,7 +1087,6 @@ def candidate_stage(cfg: QmConfig, bases, dindex: DeviceIndex,
     BBIndex.find:421-440) consult the global length to make the
     whole index's decisions; None uses the local (= global) count."""
     k, L, S = cfg.k, cfg.L, cfg.S
-    chain_dist = cfg.chain_dist
     offsets_list = cfg.offsets_list
     nk = len(offsets_list)
     sites_d = dindex.sites
@@ -934,32 +1157,10 @@ def candidate_stage(cfg: QmConfig, bases, dindex: DeviceIndex,
         admit = gcnt <= Tsel
         gadm = torch.where(valid & admit, gcnt, 0)
     gadm = gadm.to(I32)
-    # shortest-first greedy slot budget: key j precedes key k iff
-    # (len_j, j) < (len_k, k); k fits iff its inclusive prefix length is
-    # within budget
-    SB = cfg.slot_budget
-    g1 = torch.where(gadm > 0, gadm, BIG)
-    order = torch.argsort(g1, dim=-1, stable=True)
-    g_sorted = torch.gather(gadm, -1, order)
-    csum_sorted = torch.cumsum(g_sorted, dim=-1, dtype=I32)
-    fits = torch.empty_like(csum_sorted, dtype=torch.bool)
-    fits.scatter_(-1, order, csum_sorted <= SB)
-    cnt = torch.where(valid & admit & fits & (gadm > 0), cnt_local, 0)
-
     WB = cfg.slot_budget
-    cum = torch.cumsum(cnt, dim=-1, dtype=I32)              # (B, 2, nk)
-    wslot = torch.arange(WB, dtype=I32, device=dev)
-    # owning key of slot w: #{t : cum_t <= w} (cum is non-decreasing)
-    t_of = torch.searchsorted(
-        cum, wslot.expand(B, 2, WB).contiguous(), right=True)
-    t_clip = torch.clamp(t_of, 0, nk - 1)
-    cum_prev_k = torch.cat([torch.zeros((B, 2, 1), dtype=I32, device=dev),
-                            cum[:, :, :-1]], dim=-1)
-    base = torch.gather((s0 - cum_prev_k).to(I32), -1, t_clip)
-    offadj_slot = torch.gather(offadj, -1, t_clip)
-    toff_slot = t_clip.to(I32)
-    valid_slot = wslot < cum[..., -1:]
-    gather_idx = torch.clamp(base + wslot, 0, sites_d.shape[0] - 1).long()
+    gather_idx, offadj_slot, toff_slot, valid_slot, total = slot_pack_kernel(
+        cfg, gadm, cnt_local.to(I32), s0.to(I32), offadj, valid & admit,
+        sites_d.shape[0])
     hi_over = None
     if not two_tier:
         site = sites_d[gather_idx]
@@ -969,7 +1170,7 @@ def candidate_stage(cfg: QmConfig, bases, dindex: DeviceIndex,
         LO = WB // 2
         R2 = B * 2
         site_lo = sites_d[gather_idx[:, :, :LO]]
-        need_hi = (cum[:, :, -1] > LO).reshape(R2)
+        need_hi = (total > LO).reshape(R2)
         HB = hi_budget(R2)
         pri = torch.where(need_hi, torch.arange(R2, dtype=I32, device=dev),
                           INVALID)
@@ -993,43 +1194,7 @@ def candidate_stage(cfg: QmConfig, bases, dindex: DeviceIndex,
         hi_over = (need_hi & ~covered).reshape(B, 2).any(dim=1)
         site = torch.cat([site_lo, site_hi.reshape(B, 2, LO)], dim=-1)
     diag = torch.where(valid_slot, site - offadj_slot, INVALID).to(I32)
-
-    # sort diagonals within each (read, strand) by (diag, key slot)
-    key = diag.reshape(B * 2, WB).to(I64) * 65536 \
-        + toff_slot.reshape(B * 2, WB).to(I64)
-    key = torch.sort(key, dim=1).values
-    flat = (key >> 16).to(I32)
-    toff = (key & 0xFFFF).to(I32)
-    nseg = WB
-    last_idx, seg_start, gmax, size = _chain_segments(
-        flat, toff, chain_dist, nk)
-
-    votes = size.reshape(B, 2 * nseg)
-    topv, topi = _stable_desc(votes, dim=1)
-    topv = topv[:, :MAX_CANDIDATES]
-    topi = topi[:, :MAX_CANDIDATES]
-    half = (topi >= nseg).to(I32)
-    strand_off = half * nseg
-    flat2 = flat.reshape(B, 2 * nseg)
-    last2 = last_idx.reshape(B, 2 * nseg)
-    segs2 = seg_start.reshape(B, 2 * nseg)
-    gmax2 = gmax.reshape(B, 2 * nseg)
-    cd_start = torch.gather(flat2, 1, topi)
-    last_raw = torch.gather(last2, 1, topi)
-    segs_raw = torch.gather(segs2, 1, topi)
-    cd_last = torch.clamp(last_raw + strand_off, 0, 2 * nseg - 1).long()
-    cd_stop = torch.gather(flat2, 1, cd_last)
-    win = torch.gather(gmax2, 1, cd_last)
-    win_off = 255 - (win & 0xFF)
-    cd_mode_idx = torch.clamp(segs_raw + win_off, 0, nseg - 1)
-    cd_mode = torch.gather(
-        flat2, 1,
-        torch.clamp(cd_mode_idx + strand_off, 0, 2 * nseg - 1).long())
-    cd_votes = topv
-    cd_valid = cd_votes > 0
-    cd_spread = torch.where(cd_valid, cd_stop - cd_start, 0).to(I32)
-    cand = {"votes": cd_votes, "mode": cd_mode, "strand": half,
-            "start": cd_start, "spread": cd_spread}
+    cand = chain_candidates_kernel(cfg, diag, toff_slot)
     if hi_over is not None:
         cand["hi_over"] = hi_over
     return rcodes, cand
@@ -1121,6 +1286,8 @@ def gapless_scores_kernel(cfg: QmConfig, rcodes: torch.Tensor,
 def reset_launches() -> None:
     quality_offsets_kernel.launches = 0
     ref_retention_kernel.launches = 0
+    slot_pack_kernel.launches = 0
+    chain_candidates_kernel.launches = 0
     gapless_scores_kernel.launches = 0
 
 

@@ -27,7 +27,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 SOURCES = ("msa_dp", "msa_dp_warp", "msa_dp_pipe", "msa_dp_band",
            "msa_walk", "msa_fill_walk", "banded_edit", "rescue_scan",
-           "quality_offsets", "ref_retention", "gapless_score")
+           "quality_offsets", "ref_retention", "gapless_score", "slot_pack",
+           "chain_candidates")
 # Libraries built from a source with other flags, by name: (source, extra
 # nvcc flags). The "_dpx" builds turn dp_cell's DPX form on in mappings
 # that keep the plain form (chip_smoke.py times them beside the default);

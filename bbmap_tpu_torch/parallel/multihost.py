@@ -26,6 +26,14 @@ from typing import Iterable, Iterator, Optional
 # how long init and every collective wait for a peer before the run fails
 INIT_TIMEOUT_S = 600.0
 
+# rank 0's store server at each address it has served, kept after the
+# group is left, so that a rank that leaves a group and joins the next one
+# at the same address reaches the server of the next group: were each
+# group to make its own, such a rank could reach the old one before rank
+# 0 closed it, and both ranks would fail (rank 0 waiting for a client,
+# the other on a reset connection).
+_SERVERS: dict = {}
+
 
 def init(coordinator_address: Optional[str] = None,
          num_processes: Optional[int] = None,
@@ -47,20 +55,43 @@ def init(coordinator_address: Optional[str] = None,
             "BBMAP_TPU_COORDINATOR", "localhost:9911")
     import torch.distributed as dist
     shutdown()
-    if coordinator_address.rsplit(":", 1)[0] in ("localhost", "127.0.0.1"):
+    host, port = coordinator_address.rsplit(":", 1)
+    if host in ("localhost", "127.0.0.1"):
         # every rank on this machine: gloo's pairs on the loopback
         # device, whatever the host name resolves to
         os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
-    dist.init_process_group(
-        "gloo", init_method=f"tcp://{coordinator_address}",
-        world_size=num_processes, rank=process_id,
-        timeout=datetime.timedelta(seconds=timeout))
+    wait = datetime.timedelta(seconds=timeout)
+    if process_id == 0:
+        store = _SERVERS.get(coordinator_address)
+        if store is None:
+            store = dist.TCPStore(host, int(port), num_processes, True, wait,
+                                  wait_for_workers=False)
+        store.set_timeout(wait)
+    else:
+        store = dist.TCPStore(host, int(port), num_processes, False, wait,
+                              wait_for_workers=False)
+    # the ordinal of this group among those of its size at the address:
+    # every rank of one group arrives before any rank of the next, since
+    # a group forms only once all its ranks are in it
+    tag = f"multihost/{num_processes}"
+    group = (store.add(f"{tag}/arrived", 1) - 1) // num_processes
+    try:
+        dist.init_process_group(
+            "gloo", store=dist.PrefixStore(f"{tag}/{group}", store),
+            world_size=num_processes, rank=process_id, timeout=wait)
+    except BaseException:
+        # a group that did not form leaves the count of arrivals off
+        _SERVERS.pop(coordinator_address, None)
+        raise
+    if process_id == 0:
+        _SERVERS[coordinator_address] = store
     return process_id
 
 
 def shutdown() -> None:
     """Leave the process group, if this process is in one, so that a
-    later ``init`` in the same process starts clean."""
+    later ``init`` in the same process starts clean. Rank 0 goes on
+    serving the address's store, which the next group there uses."""
     import torch.distributed as dist
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()

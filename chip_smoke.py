@@ -12,7 +12,8 @@ Phases, each timed on its own line:
    (``msa_dp.cu``, ``msa_dp_warp.cu``, ``msa_dp_pipe.cu``,
    ``msa_dp_band.cu``, ``msa_walk.cu``, ``msa_fill_walk.cu``,
    ``banded_edit.cu``, ``rescue_scan.cu``, ``quality_offsets.cu``,
-   ``ref_retention.cu``, ``gapless_score.cu``) and
+   ``ref_retention.cu``, ``gapless_score.cu``, ``slot_pack.cu``,
+   ``chain_candidates.cu``) and
    for each build of ``_build.VARIANTS`` (the
    DPX cell in the mappings that keep the plain one), all started
    together, into
@@ -97,9 +98,10 @@ Phases, each timed on its own line:
    jobs in one launch of the rescue kernel (``csrc/rescue_scan.cu``):
    fails when either never launched or the rescue kernel launched more
    often than there were batches; the candidate stage's key retention
-   (``csrc/ref_retention.cu``, no host sync) and the finalize stage's
-   gapless score (``csrc/gapless_score.cu``) launch once a call: fails
-   when either launched less than once a batch. The first call of each is
+   (``csrc/ref_retention.cu``, no host sync), slot pack
+   (``csrc/slot_pack.cu``) and chain step (``csrc/chain_candidates.cu``)
+   and the finalize stage's gapless score (``csrc/gapless_score.cu``)
+   launch once a call: fails when one launched less than once a batch. The first call of each is
    recorded,
    and after the SAM phase both kernels are held to their plain versions
    on the card, tolerance 0: the rescue scan on the warmup batch's jobs
@@ -135,10 +137,19 @@ Phases, each timed on its own line:
    bp), each timed beside its plain version and its bound; the scalar
    reads of a device value (``aten::_local_scalar_dense``) under
    torch.profiler in one call of the kernel (none) and of the plain trim
-   (one a round and one more: the counter's check); the plain versions'
-   times at the main path's shapes and the chain segmentation's
-   (``_chain_segments``, torch ops, on its first call) printed as the
-   split of the eager scans;
+   (one a round and one more: the counter's check). Then the candidate
+   stage's slot pack (``csrc/slot_pack.cu``) and chain step
+   (``csrc/chain_candidates.cu``: the rows' sort, the chain segmentation,
+   the distinct-key votes, the modal run and the top-8 table), whose
+   first calls on both paths are recorded too, against their plain
+   versions on the card, tolerance 0 on every output, on the main path's
+   first calls (65,536 reads, 2 x 18 keys, W 64) and the long path's cut
+   to 32 reads (2 x 750 keys, W 512), each timed beside its plain version
+   and its bound, and on rows crafted for their edges
+   (``tests/candidate_rows.py``) at both shapes; torch.profiler counts
+   the scans and the scalar reads of a device value in one call of each
+   kernel (none) and of each plain version; the plain versions' times at
+   the main path's shapes printed as the split of the former eager scans;
 10. tools: the read-preprocessing tools at ``bench_tools.py``'s sizes on
    seeded synthetic data. bbduk's k-mer scan (k=23, hdist=1, 200 adapters
    of 34-66 bp) over 1,000,000 reads of 150 bp and seal (k=31,
@@ -324,6 +335,10 @@ _RETENTION = ("bbmap_tpu/align/quickmap_device.py:513 (_ref_retention, its "
               "greedy trim an XLA while_loop)")
 _GAPLESS = ("bbmap_tpu/align/quickmap_device.py:1291 (finalize_stage's "
             "gapless score: extract_ref_codes + score_match_sub_vec, XLA)")
+_SLOT_PACK = ("bbmap_tpu/align/quickmap_device.py:1036-1104 (candidate_stage's"
+              " slot budget and slot assignment, XLA)")
+_CHAIN = ("bbmap_tpu/align/quickmap_device.py:1150-1288 (candidate_stage's "
+          "sort, chain segmentation, votes, modal run and top_k, XLA)")
 # the fused fill + walk's variants (ops/msa_kernels.FILL_WALK_VARIANTS)
 FILL_WALK = {v: f"msa_fill_walk_{v}" for v in ("row", "row_packed")}
 REPLACES = {"msa_score_rows": _K1, "msa_score": _K2, "msa_score_row": _K2,
@@ -336,6 +351,7 @@ REPLACES = {"msa_score_rows": _K1, "msa_score": _K2, "msa_score_row": _K2,
             "msa_score_rows_pipe": _K1,
             "rescue_scan": _RESCUE, "quality_offsets": _QUALITY,
             "ref_retention": _RETENTION, "gapless_score": _GAPLESS,
+            "slot_pack": _SLOT_PACK, "chain_candidates": _CHAIN,
             **{n: f"{_K3} + {_WALK}" for n in FILL_WALK.values()}}
 CSRC = "bbmap_tpu_torch/csrc/"
 SOURCE = {"msa_score_rows": CSRC + "msa_dp_warp.cu",
@@ -358,6 +374,8 @@ SOURCE = {"msa_score_rows": CSRC + "msa_dp_warp.cu",
           "quality_offsets": CSRC + "quality_offsets.cu",
           "ref_retention": CSRC + "ref_retention.cu",
           "gapless_score": CSRC + "gapless_score.cu",
+          "slot_pack": CSRC + "slot_pack.cu",
+          "chain_candidates": CSRC + "chain_candidates.cu",
           **{n: CSRC + "msa_fill_walk.cu" for n in FILL_WALK.values()}}
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 # Each of an SM's four schedulers starts one warp instruction (32 lanes) a
@@ -1826,8 +1844,9 @@ def launch_counts() -> dict:
     as "contained_any" and by mapping ("contained_any_thread",
     "contained_any_warp"), the rescue kernel's as "rescue_scan", the
     quality offsets kernel's as "quality_offsets", the key-retention
-    kernel's as "ref_retention" and the gapless kernel's as
-    "gapless_score"."""
+    kernel's as "ref_retention", the gapless kernel's as "gapless_score",
+    the slot pack's as "slot_pack" and the chain step's as
+    "chain_candidates"."""
     from bbmap_tpu_torch.align import quickmap_device
     from bbmap_tpu_torch.ops import banded_device, msa_kernels, rescue_device
     out = {k.__name__: k.launches for k in msa_kernels.KERNELS}
@@ -1850,6 +1869,8 @@ def launch_counts() -> dict:
     out["quality_offsets"] = quickmap_device.quality_offsets_kernel.launches
     out["ref_retention"] = quickmap_device.ref_retention_kernel.launches
     out["gapless_score"] = quickmap_device.gapless_scores_kernel.launches
+    out["slot_pack"] = quickmap_device.slot_pack_kernel.launches
+    out["chain_candidates"] = quickmap_device.chain_candidates_kernel.launches
     return out
 
 
@@ -1962,13 +1983,14 @@ def main_path(device, n_pairs: int = N_PAIRS, n_steady: int = N_STEADY,
         if launches["rescue_scan"] > n_batches:
             raise AssertionError(f"{launches['rescue_scan']} rescue "
                                  f"launches for {n_batches} batches")
-        # the candidate stage's key retention and the finalize stage's
-        # gapless score: one launch a call, at least one a batch
-        if launches["ref_retention"] < n_batches or \
-                launches["gapless_score"] < n_batches:
-            raise AssertionError(f"the retention or the gapless kernel "
-                                 f"launched less than once a batch: "
-                                 f"{launches}")
+        # the candidate stage's key retention, slot pack and chain step
+        # and the finalize stage's gapless score: one launch a call, at
+        # least one a batch
+        low = [n for n in ("ref_retention", "slot_pack", "chain_candidates",
+                           "gapless_score") if launches[n] < n_batches]
+        if low:
+            raise AssertionError(f"{', '.join(low)} launched less than once "
+                                 f"a batch: {launches}")
     return res, (mk(r1, q1, 0), mk(r2, q2, 0), out0, aligner)
 
 
@@ -2272,12 +2294,30 @@ def _gapless_bound(mode, L: int, dindex, cfg, clock: float):
     return bound_ms(n_bytes, float(B * K * L), clock)
 
 
-def _chain_bound(flat, clock: float):
-    """The chain segmentation's bound: the sorted diagonals and key slots
-    read once and its four int32 outputs written once (24 B a slot); one
-    operation a slot for each of its 12 scans."""
-    R2, W = flat.shape
-    return bound_ms(24 * R2 * W, float(12 * R2 * W), clock)
+def _slot_pack_bound(gadm, W: int, clock: float):
+    """The slot pack's bound: its (rows, nk) inputs read once (four int32
+    and a flag: 17 B a key) and its (rows, W) outputs written once (the
+    int64 gather index, two int32 and a flag: 17 B a slot) with the row
+    totals; one operation a key for each compare-exchange of a sort of
+    its row (nk log2 nk) and for each of its two scans, and one a slot
+    for each step of its search (log2 nk)."""
+    B, two, nk = gadm.shape
+    rows, lg = B * two, max(1, (nk - 1).bit_length())
+    return bound_ms(rows * (17 * nk + 17 * W + 4),
+                    float(rows * (nk * lg + 2 * nk + W * lg)), clock)
+
+
+def _chain_bound(diag, K: int, clock: float):
+    """The chain step's bound: the diagonals and key slots read once (8 B
+    a slot) and the (B, K) table written once (five int32); one operation
+    a slot for each compare-exchange of a sort of its row (W log2 W), for
+    each of the chain segmentation's 12 scans and for the top K's pass
+    over the read."""
+    B, two, W = diag.shape
+    slots = B * two * W
+    return bound_ms(8 * slots + 20 * B * K,
+                    float(slots * (max(1, (W - 1).bit_length()) + 13)),
+                    clock)
 
 
 def retention_gapless_phase(device, main_calls: dict, long_calls: dict,
@@ -2289,10 +2329,9 @@ def retention_gapless_phase(device, main_calls: dict, long_calls: dict,
     quality weights; 65,536 x 8 candidates of 150 bp) and on the long
     path's first calls cut to ``RETENTION_LONG_READS`` reads (6,000 bp,
     750 keys with weights; 8 candidates). Each timed beside its plain
-    version and its bound; the plain versions at the main path's shapes,
-    and the candidate stage's chain segmentation (``_chain_segments``,
-    torch ops) on its first call, give the split of the eager scans these
-    kernels replaced. Then the retention kernel on counts crafted across
+    version and its bound; the plain versions at the main path's shapes
+    give the split of the eager scans these kernels replaced. Then the
+    retention kernel on counts crafted across
     the tiers and the trim's branches (``crafted_counts``) at both shapes,
     and the gapless kernel on a genome with N runs at the main path's
     shape. At the main path's shape, torch.profiler counts the scalar
@@ -2425,12 +2464,127 @@ def retention_gapless_phase(device, main_calls: dict, long_calls: dict,
                                                 "gapless_score")):
         raise AssertionError(f"a kernel disagrees with its plain version: "
                              f"{out}")
-    (args, _kw), = main_calls["_chain_segments"]
-    chain_ms, _ = _cuda_ms(lambda: qd._chain_segments(*args), 3)
-    b_ms, b_by = _chain_bound(args[0], clock)
-    out["chain_segments"] = {"rows": args[0].shape[0],
-                             "slots": args[0].shape[1], "ms": chain_ms,
-                             "bound_ms": b_ms, "bound_by": b_by}
+    return out
+
+
+CANDIDATE_CRAFTED_READS = 2048   # crafted reads, then tiled to the shape
+
+
+def _tiled(arrays, B: int, device):
+    """numpy arrays of (n, ...) tiled along the first axis to B rows, on
+    ``device``."""
+    import torch
+    return [torch.as_tensor(a, device=device).repeat(
+        -(-B // a.shape[0]), *(1,) * (a.ndim - 1))[:B] for a in arrays]
+
+
+def candidate_kernels_phase(device, main_calls: dict, long_calls: dict,
+                            clock: float) -> dict:
+    """The candidate stage's slot pack (``slot_pack_kernel``) and chain
+    step (``chain_candidates_kernel``) against their plain versions
+    (``_slot_pack_plain``, ``_chain_candidates_plain``) on the card,
+    tolerance 0 on every output, on their first calls on the main path
+    (the warmup batch's fused program: 65,536 reads, 2 x 18 keys, W 64)
+    and on the long path's first calls cut to ``RETENTION_LONG_READS``
+    reads (2 x 750 keys, W 512), each timed beside its plain version and
+    its bound; then on rows crafted for their edges
+    (``tests/candidate_rows``: ``slot_rows``, ``chain_rows``) at both
+    shapes. At the main path's shape, torch.profiler counts the scans
+    (``aten::cummax`` / ``cummin`` / ``cumsum``) and the scalar reads of a
+    device value in one call of each kernel (none of either) and of each
+    plain version (the plain chain step's 10 scans at least: the
+    counter's check). Returns the ``kernels`` line's entries of both."""
+    import numpy as np
+    from bbmap_tpu_torch.align import quickmap_device as qd
+    from tests.candidate_rows import chain_rows, slot_rows
+
+    def cut(a, n):
+        return a[:n] if hasattr(a, "shape") else a
+
+    def outputs(x):
+        return list(x.values()) if isinstance(x, dict) else list(x)
+
+    def held(kernel, plain, args):
+        got, want = outputs(kernel(*args)), outputs(plain(*args))
+        _sync(device)
+        return max(_diff(g, w) + int(g.dtype != w.dtype)
+                   for g, w in zip(got, want))
+
+    K = qd.MAX_CANDIDATES
+    names = {"slot_pack": ("slot_pack_kernel", qd.slot_pack_kernel,
+                           qd._slot_pack_plain),
+             "chain_candidates": ("chain_candidates_kernel",
+                                  qd.chain_candidates_kernel,
+                                  qd._chain_candidates_plain)}
+    out = {name: {"shapes": {}} for name in names}
+    for tag, calls in (("main", main_calls), ("long", long_calls)):
+        n = None if tag == "main" else RETENTION_LONG_READS
+        for name, (rec, kernel, plain) in names.items():
+            (args, _kw), = calls[rec]
+            args = [cut(a, n) for a in args]
+            cfg, x = args[0], args[1]
+            if tag == "long" and cfg.L != L_LONG:
+                raise AssertionError(f"the long path's {name} ran at L "
+                                     f"{cfg.L}")
+            err = held(kernel, plain, args)
+            ms, _ = _cuda_ms(lambda: kernel(*args), 20)
+            plain_ms, _ = _cuda_ms(lambda: plain(*args), 3, warm=False)
+            if name == "slot_pack":
+                b_ms, b_by = _slot_pack_bound(x, cfg.slot_budget, clock)
+                shape = {"reads": x.shape[0], "nk": x.shape[2],
+                         "W": cfg.slot_budget}
+            else:
+                b_ms, b_by = _chain_bound(x, K, clock)
+                shape = {"reads": x.shape[0], "W": x.shape[2]}
+            out[name]["shapes"][tag] = {
+                **shape, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b_ms, "bound_by": b_by}
+            say(f"kernel {name} at {shape}: max_abs_err {err}, {ms:.4f} ms "
+                f"(plain {plain_ms:.3f} ms, bound {b_ms:.6f} ms by {b_by})")
+            if tag == "main":
+                counts = {f: _device_profile(
+                    lambda f=f: f(*args), f"{f.__name__} at {shape}", t,
+                    top=0) for f, t in ((kernel, ms), (plain, plain_ms))}
+                seen = {f.__name__: {k: c[k] for k in ("scans",
+                                                        "scalar_reads")}
+                        for f, c in counts.items()}
+                out[name]["profile"] = seen
+                if any(seen[kernel.__name__].values()) or (
+                        name == "chain_candidates"
+                        and seen[plain.__name__]["scans"] < 10):
+                    raise AssertionError(f"{name}: scans or scalar reads "
+                                         f"{seen} (the kernel must make "
+                                         f"none, the plain chain step 10 "
+                                         f"scans at least)")
+    rng = np.random.default_rng(43)
+    for tag, calls in (("main", main_calls), ("long", long_calls)):
+        (args, _kw), = calls["slot_pack_kernel"]
+        cfg = args[0]
+        B = args[1].shape[0] if tag == "main" else RETENTION_LONG_READS
+        W, nk = cfg.slot_budget, len(cfg.offsets_list)
+        n_sites = int(args[6])
+        m = min(B, CANDIDATE_CRAFTED_READS)
+        sargs = [cfg, *_tiled(slot_rows(rng, m, nk, W, n_sites), B, device),
+                 n_sites]
+        cargs = [cfg, *_tiled(chain_rows(rng, m, W, nk, cfg.chain_dist), B,
+                              device)]
+        for name, a in (("slot_pack", sargs), ("chain_candidates", cargs)):
+            _rec, kernel, plain = names[name]
+            err = held(kernel, plain, a)
+            ms, _ = _cuda_ms(lambda: kernel(*a), 5)
+            out[name]["shapes"][f"{tag}_crafted"] = {
+                "reads": B, "W": W, "nk": nk, "max_abs_err": err, "ms": ms}
+            say(f"kernel {name} on crafted rows at {B} reads, W {W}, {nk} "
+                f"keys: max_abs_err {err}, {ms:.4f} ms")
+    for name, e in out.items():
+        m = e["shapes"]["main"]
+        e.update(max_abs_err=max(v["max_abs_err"]
+                                 for v in e["shapes"].values()),
+                 ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
+                 bound_by=m["bound_by"], library_ms=None)
+    if any(e["max_abs_err"] != 0 for e in out.values()):
+        raise AssertionError(f"a kernel disagrees with its plain version: "
+                             f"{out}")
     return out
 
 
@@ -5294,7 +5448,8 @@ def parallel_phase(device, gbases, first, d: Path, smi: str) -> dict:
 def _device_profile(fn, tag: str, wall_ms: float, top: int = 12) -> dict:
     """Run fn under torch.profiler (CPU + CUDA activities) and print the
     number of kernels, their summed device time, the host time inside
-    cudaLaunchKernel, the scalar reads of a device value
+    cudaLaunchKernel, the scans (``aten::cummax``, ``aten::cummin``,
+    ``aten::cumsum``), the scalar reads of a device value
     (``aten::_local_scalar_dense``: ``bool()``, ``int()``, ``.item()``,
     each a host sync), the device-to-host copies (``.cpu()``,
     ``.tolist()``, ``.numpy()`` of a device tensor, and the copy under
@@ -5310,7 +5465,7 @@ def _device_profile(fn, tag: str, wall_ms: float, top: int = 12) -> dict:
         fn()
         torch.cuda.synchronize()
     kernels = {}
-    launch_us = n_launch_calls = n_scalar = 0
+    launch_us = n_launch_calls = n_scalar = n_scans = 0
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             n, us = kernels.get(ev.name, (0, 0.0))
@@ -5320,6 +5475,8 @@ def _device_profile(fn, tag: str, wall_ms: float, top: int = 12) -> dict:
             launch_us += ev.cpu_time
         elif ev.name == "aten::_local_scalar_dense":
             n_scalar += 1
+        elif ev.name in ("aten::cummax", "aten::cummin", "aten::cumsum"):
+            n_scans += 1
     n_kernels = sum(n for n, _ in kernels.values())
     n_dtoh = sum(n for name, (n, _) in kernels.items() if "DtoH" in name)
     dev_ms = sum(us for _, us in kernels.values()) / 1e3
@@ -5327,12 +5484,12 @@ def _device_profile(fn, tag: str, wall_ms: float, top: int = 12) -> dict:
         f"{n_kernels} device kernels and copies, device time {dev_ms:.3f} "
         f"ms, idle share {100 * (1 - dev_ms / wall_ms):.1f} %, "
         f"cudaLaunchKernel {n_launch_calls} calls {launch_us / 1e3:.1f} ms, "
-        f"{n_scalar} scalar reads of a device value, {n_dtoh} "
-        f"device-to-host copies")
+        f"{n_scans} scans, {n_scalar} scalar reads of a device value, "
+        f"{n_dtoh} device-to-host copies")
     for name, (n, us) in sorted(kernels.items(),
                                 key=lambda kv: -kv[1][1])[:top]:
         say(f"  {us / 1e3:10.3f} ms {n:8d} x {name[:90]}")
-    return {"kernels": n_kernels, "device_ms": dev_ms,
+    return {"kernels": n_kernels, "device_ms": dev_ms, "scans": n_scans,
             "scalar_reads": n_scalar, "dtoh_copies": n_dtoh}
 
 
@@ -5625,7 +5782,7 @@ def main() -> int:
     from bbmap_tpu_torch.ops import rescue_device
     t = time.time()
     scans = ("ref_retention_kernel", "gapless_scores_kernel",
-             "_chain_segments")
+             "slot_pack_kernel", "chain_candidates_kernel")
     with first_call(rescue_device, "rescue_scan") as rescue_call, \
             first_call(quickmap_device, "quality_offsets_kernel") as q_call, \
             contextlib.ExitStack() as stack:
@@ -5680,7 +5837,7 @@ def main() -> int:
     with contextlib.ExitStack() as stack:
         long_scans = {name: stack.enter_context(first_call(quickmap_device,
                                                            name))
-                      for name in scans[:2]}
+                      for name in scans}
         lres = long_phase(device, gbases)
     say(f"phase long reads: {time.time() - t:.1f} s; {N_LONG} reads of "
         f"{L_LONG} bp: reads/s {lres['reads_per_s']:.3f}, bases/s "
@@ -5693,9 +5850,7 @@ def main() -> int:
     t = time.time()
     rg = retention_gapless_phase(device, main_scans, long_scans,
                                  max_sm_clock_hz())
-    chain = rg.pop("chain_segments")
     ktimes.update(rg)
-    del main_scans, long_scans
     rr, gg = rg["ref_retention"]["shapes"], rg["gapless_score"]["shapes"]
     say(f"phase retention and gapless kernels: {time.time() - t:.1f} s; "
         f"ref_retention and gapless_score equal to their plain versions "
@@ -5711,13 +5866,35 @@ def main() -> int:
         f"{gg['long']['reads']} x {gg['long']['candidates']} x "
         f"{gg['long']['L']} (plain {gg['long']['plain_ms']:.3f} ms); card "
         f"{smi}")
-    say(f"split of the short batch's eager scans, each plain version alone "
-        f"at the main path's shape: the trim loop (_ref_retention) "
+
+    t = time.time()
+    ck = candidate_kernels_phase(device, main_scans, long_scans,
+                                 max_sm_clock_hz())
+    ktimes.update(ck)
+    del main_scans, long_scans
+    sp, cc = ck["slot_pack"]["shapes"], ck["chain_candidates"]["shapes"]
+    say(f"phase slot pack and chain kernels: {time.time() - t:.1f} s; "
+        f"slot_pack and chain_candidates equal to their plain versions "
+        f"(max_abs_err 0) on the main path's and the long path's first "
+        f"calls and on crafted rows; slot_pack {sp['main']['ms']:.4f} ms at "
+        f"{sp['main']['reads']} x 2 x {sp['main']['nk']} keys, W "
+        f"{sp['main']['W']} (plain {sp['main']['plain_ms']:.3f} ms), "
+        f"{sp['long']['ms']:.4f} ms at {sp['long']['reads']} x 2 x "
+        f"{sp['long']['nk']}, W {sp['long']['W']} (plain "
+        f"{sp['long']['plain_ms']:.3f} ms); chain_candidates "
+        f"{cc['main']['ms']:.4f} ms at {cc['main']['reads']} x 2 x "
+        f"{cc['main']['W']} (plain {cc['main']['plain_ms']:.3f} ms), "
+        f"{cc['long']['ms']:.4f} ms at {cc['long']['reads']} x 2 x "
+        f"{cc['long']['W']} (plain {cc['long']['plain_ms']:.3f} ms); scans "
+        f"and scalar reads in one call {ck['slot_pack']['profile']} "
+        f"{ck['chain_candidates']['profile']}; card {smi}")
+    say(f"split of the short batch's former eager scans, each plain version "
+        f"alone at the main path's shape: the trim loop (_ref_retention) "
         f"{rr['main']['plain_ms']:.3f} ms, the gapless score "
-        f"(_gapless_scores_plain) {gg['main']['plain_ms']:.3f} ms, the chain "
-        f"segmentation (_chain_segments, torch ops, {chain['rows']} x "
-        f"{chain['slots']}) {chain['ms']:.3f} ms (bound "
-        f"{chain['bound_ms']:.6f} ms by {chain['bound_by']}); card {smi}")
+        f"(_gapless_scores_plain) {gg['main']['plain_ms']:.3f} ms, the slot "
+        f"pack (_slot_pack_plain) {sp['main']['plain_ms']:.3f} ms, the chain "
+        f"step (_chain_candidates_plain: sort, _chain_segments, table) "
+        f"{cc['main']['plain_ms']:.3f} ms; card {smi}")
 
     kd = Path(tempfile.mkdtemp(prefix="chip_smoke_kmer"))
     kmer_cpu = {}
@@ -5861,7 +6038,9 @@ def main() -> int:
                "rescue_scan": "rescue_scan",
                "quality_offsets": "quality_offsets",
                "ref_retention": "ref_retention",
-               "gapless_score": "gapless_score"}
+               "gapless_score": "gapless_score",
+               "slot_pack": "slot_pack",
+               "chain_candidates": "chain_candidates"}
     home = {"msa_score_rows": "k1_entry", "msa_walk": "long",
             "msa_score_long": "long", "msa_fill_long": "long",
             "msa_score_strided": "long", "msa_fill_strided": "long",
@@ -5946,8 +6125,11 @@ def main() -> int:
     print(json.dumps({"index_build": ib, "card": smi}), flush=True)
     print(json.dumps({"retention_gapless": {
         "ref_retention": rg["ref_retention"]["shapes"],
-        "gapless_score": rg["gapless_score"]["shapes"],
-        "chain_segments": chain}, "card": smi}), flush=True)
+        "gapless_score": rg["gapless_score"]["shapes"]}, "card": smi}),
+        flush=True)
+    print(json.dumps({"candidate_kernels": {
+        name: {k: e[k] for k in ("shapes", "profile")}
+        for name, e in ck.items()}, "card": smi}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -268,11 +268,13 @@ PORT_ADDED = {
     "index.kcount": {"Dict", "torch", "backend", "_signed", "_SALTS",
                      "_FINAL", "ROUTES", "calls", "reset_calls"},
     "tools.rqcfilter": {"_reference", "_deinterleave"},
-    # the process group: its timeout and the call that leaves it; the end
+    # the process group: its timeout, rank 0's store servers kept from one
+    # group to the next (_SERVERS) and the call that leaves it; the end
     # of a striped run that every striped tool shares (sidecar of counts,
     # barrier, merge and sum on host 0), with its two helpers
-    "parallel.multihost": {"datetime", "INIT_TIMEOUT_S", "shutdown",
-                           "finish_stripes", "_plain", "_add", "Iterable"},
+    "parallel.multihost": {"datetime", "INIT_TIMEOUT_S", "_SERVERS",
+                           "shutdown", "finish_stripes", "_plain", "_add",
+                           "Iterable"},
     # sharded: the Mesh of torch devices is a class of the module (the
     # JAX module imports jax's), and its builders take a device; the
     # shard_map body (_shard_worker) is the candidate stage, the gather
@@ -310,7 +312,12 @@ PORT_ADDED = {
     # read on a candidate's strand against the genome (_on_strand, which
     # both the plain version and _best_sym use), the winner's match
     # symbols (_best_sym); the chain segmentation as a
-    # function of its own (_chain_segments)
+    # function of its own (_chain_segments); the slot pack's wrapper,
+    # library, plain version and its budget (slot_pack_kernel,
+    # _slot_pack_lib, _slot_pack_plain, _slot_counts), and the chain
+    # step's wrapper, library, plain version and its sort and table
+    # (chain_candidates_kernel, _chain_lib, _chain_candidates_plain,
+    # _sort_rows, _candidate_table)
     "align.quickmap_device": {"torch", "nn", "ctypes", "DeviceIndex",
                               "DeviceLike", "resolve_device", "F32", "I64",
                               "_first_true", "_stable_desc", "_wrap32",
@@ -321,7 +328,11 @@ PORT_ADDED = {
                               "_gapless_lib", "gapless_scores_kernel",
                               "_gapless_scores_plain", "_points",
                               "_on_strand", "_best_sym",
-                              "_chain_segments"}}
+                              "_chain_segments", "slot_pack_kernel",
+                              "_slot_pack_lib", "_slot_pack_plain",
+                              "_slot_counts", "chain_candidates_kernel",
+                              "_chain_lib", "_chain_candidates_plain",
+                              "_sort_rows", "_candidate_table"}}
 # names a copy leaves out on purpose: rqcfilter's default reference paths
 # under the machine's reference directory (the port takes every reference
 # from the command line); kcount's rewritten device class needs no

@@ -187,6 +187,55 @@ def test_cpu_retention_and_gapless_wrappers_do_not_count(tiny, monkeypatch):
     assert qd.gapless_scores_kernel.launches == 0
 
 
+_IMPORT_CANDIDATE_WRAPPERS = """
+import sys
+from bbmap_tpu_torch.align.quickmap_device import (
+    _chain_candidates_plain, _chain_lib, _slot_pack_lib, _slot_pack_plain,
+    chain_candidates_kernel, slot_pack_kernel)
+from bbmap_tpu_torch.ops import _build
+assert {"slot_pack", "chain_candidates"} <= set(_build.SOURCES)
+foreign = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "jaxlib", "bbmap_tpu"))
+assert not foreign, foreign
+print("imported the candidate stage's wrappers")
+"""
+
+
+def test_candidate_kernel_wrappers_import_clean():
+    """Importing the slot pack's and the chain step's wrappers, plain
+    versions and library loaders loads neither jax nor the JAX package
+    (and builds nothing); both CUDA sources are in the build."""
+    p = _run(_IMPORT_CANDIDATE_WRAPPERS)
+    assert p.returncode == 0, p.stderr
+    assert "imported the candidate stage's wrappers" in p.stdout
+
+
+def test_cpu_slot_pack_and_chain_wrappers_do_not_count(tiny, monkeypatch):
+    """A quickmap batch on CPU tensors goes through slot_pack_kernel and
+    chain_candidates_kernel once each; they run their plain versions and
+    count nothing."""
+    from bbmap_tpu_torch.align import quickmap_device as qd
+    g, index = tiny
+    dix = qd.DeviceIndex(index, "cpu")
+    run = qd.build_quickmap(dix, 60)
+    rng = np.random.default_rng(4)
+    starts = rng.integers(0, 4900, 6)
+    bases = np.stack([g.chroms[0][s:s + 60] for s in starts])
+    calls = {"slot_pack_kernel": 0, "chain_candidates_kernel": 0}
+    qd.reset_launches()
+    for name in calls:
+        def counted(*a, _orig=getattr(qd, name), _name=name, **k):
+            calls[_name] += 1
+            return _orig(*a, **k)
+        monkeypatch.setattr(qd, name, counted)
+    d = run(bases).host()
+    assert calls == {"slot_pack_kernel": 1, "chain_candidates_kernel": 1}
+    assert (d["best_start"] == starts).mean() > 0.5
+    monkeypatch.undo()
+    assert qd.slot_pack_kernel.launches == 0
+    assert qd.chain_candidates_kernel.launches == 0
+
+
 @pytest.fixture(scope="module")
 def tiny():
     rng = np.random.default_rng(1)

@@ -209,12 +209,14 @@ def test_init_one_host_is_a_noop():
 
 _TWO_RANKS = r"""
 import sys
+import time
 import numpy as np
 import torch.distributed as dist
 from bbmap_tpu_torch.parallel import multihost, sharded
 addr, rank = sys.argv[1], int(sys.argv[2])
+linger = float(sys.argv[3]) if len(sys.argv) > 3 else 0.0
 for round_ in range(2):          # the second init starts clean
-    assert multihost.init(addr, 2, rank, timeout=60) == rank
+    assert multihost.init(addr, 2, rank, timeout=240) == rank
     assert dist.get_world_size() == 2 and dist.get_rank() == rank
     assert sharded.crosshost_mesh("cpu").shape == {"data": 1, "index": 2}
     flat = np.arange(3 + 4 * rank, dtype=np.int64) * (rank + 1)
@@ -224,6 +226,8 @@ for round_ in range(2):          # the second init starts clean
         list(range(3)), [2 * i for i in range(7)]], flats
     assert lens_all.tolist() == [[1, 2], [2, 5]], lens_all
     multihost.barrier("t", rank, 2)
+    if rank == 0:
+        time.sleep(linger)       # rank 0 last to leave
     multihost.shutdown()
     assert not dist.is_initialized()
 print("RANK_OK", rank)
@@ -235,8 +239,24 @@ def test_two_ranks_init_gather_and_restart():
     lengths in rank order, pass the group's barrier, leave, and join a
     second time."""
     addr = f"localhost:{free_port()}"
+    # the store waits up to 240 s for the second rank, well inside the
+    # ranks' 300 s deadline: under many test workers a rank can take
+    # more than a minute to start
     res = run_ranks([["-c", _TWO_RANKS, addr, str(r)] for r in range(2)],
-                    timeout=120)
+                    timeout=300)
+    assert [r[0] for r in res] == [0, 0], [r[2][-2000:] for r in res]
+    assert [r[1].split() for r in res] == [["RANK_OK", "0"],
+                                           ["RANK_OK", "1"]]
+
+
+def test_restart_while_rank0_lingers():
+    """Rank 0 stays 3 s in the first group after the barrier, so the other
+    rank joins the second round at the same address before rank 0 has
+    left the first: it must reach the second group's store, not the
+    first's."""
+    addr = f"localhost:{free_port()}"
+    res = run_ranks([["-c", _TWO_RANKS, addr, str(r), "3"]
+                     for r in range(2)], timeout=300)
     assert [r[0] for r in res] == [0, 0], [r[2][-2000:] for r in res]
     assert [r[1].split() for r in res] == [["RANK_OK", "0"],
                                            ["RANK_OK", "1"]]
