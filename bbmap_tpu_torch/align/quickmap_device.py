@@ -566,8 +566,8 @@ def unpack_quality_device(qpack: torch.Tensor, palette: torch.Tensor,
 def quality_offsets_stage_packed(cfg: QmConfig, qpack, palette, pcpal,
                                  density: float, max_density: float,
                                  return_weights: bool = False):
-    q, pc = unpack_quality_device(qpack, palette, pcpal, cfg.L)
-    out = quality_offsets_kernel(cfg, q, pc, density, max_density)
+    out = quality_offsets_packed_kernel(cfg, qpack, palette, pcpal, density,
+                                        max_density)
     return out if return_weights else out[0]
 
 
@@ -701,6 +701,10 @@ def _quality_lib() -> ctypes.CDLL:
             vp, vp, ci, ci, ci, ci, vp, vp, vp, cf, cf, ci, cf, cf, vp, vp,
             vp, vp]
         lib.quality_offsets_launch.restype = ci
+        lib.quality_offsets_packed_launch.argtypes = [
+            vp, ci, vp, vp, ci, ci, ci, ci, vp, vp, vp, cf, cf, ci, cf, cf,
+            vp, vp, vp, vp]
+        lib.quality_offsets_packed_launch.restype = ci
         lib.quality_offsets_smem.argtypes = [ci, ci, ci]
         lib.quality_offsets_smem.restype = ctypes.c_longlong
         lib._bbmap_typed = True
@@ -725,7 +729,8 @@ def quality_offsets_kernel(cfg: QmConfig, q: torch.Tensor, pc: torch.Tensor,
     pc (B, L) float32 (its probability correct). Returns (offsets (B, nk)
     int32, weights (B, nk) float32, reject (B,) bool). CPU tensors: the
     plain version (``_quality_offsets_core``). CUDA tensors: one launch of
-    ``csrc/quality_offsets.cu``; a failed launch raises."""
+    ``csrc/quality_offsets.cu``, keys of 1-32 bases (the index's are far
+    shorter; ValueError past that); a failed launch raises."""
     k, L = cfg.k, cfg.L
     nk = len(cfg.offsets_list)
     B = q.shape[0]
@@ -741,33 +746,96 @@ def quality_offsets_kernel(cfg: QmConfig, q: torch.Tensor, pc: torch.Tensor,
     if q.device.type != "cuda":
         raise RuntimeError(f"the quality offsets kernel runs on CUDA tensors "
                            f"(got {q.device})")
-    dev = q.device
-    out_off = torch.empty((B, nk), dtype=I32, device=dev)
-    wts = torch.empty((B, nk), dtype=F32, device=dev)
-    reject = torch.empty(B, dtype=torch.bool, device=dev)
+    lib, outs, consts = _quality_launch_args(cfg, q.device, B,
+                                             max_density)
     if B == 0:
-        return out_off, wts, reject
-    lib = _quality_lib()
-    smem = lib.quality_offsets_smem(L, k, nk)
-    if L - k + 1 < 1 or smem > 232448:
-        raise ValueError(f"reads of {L} bp (k={k}, {nk} keys) take {smem} B "
-                         f"of shared memory a block, past 227 KB")
-    d2_tab, div_tab, ladder = _offset_tables(
-        L, k, tuple(cfg.offsets_list), float(max_density), dev)
+        return outs
     q, pc = q.contiguous(), pc.contiguous()
-    a = 100 * k
-    base_ks = a // 8
     err = lib.quality_offsets_launch(
-        q.data_ptr(), pc.data_ptr(), B, L, k, nk, d2_tab.data_ptr(),
-        div_tab.data_ptr(), ladder.data_ptr(), float(_L1), float(_L2),
-        base_ks, float(np.float32(a - base_ks)),
-        float(np.float32(1.0) / np.float32(a)), out_off.data_ptr(),
-        wts.data_ptr(), reject.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        q.data_ptr(), pc.data_ptr(), B, L, k, nk, *consts,
+        *(t.data_ptr() for t in outs),
+        torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"quality_offsets_launch failed: cudaError {err}")
     quality_offsets_kernel.launches += 1
-    return out_off, wts, reject
+    return outs
+
+
+def _quality_launch_args(cfg: QmConfig, dev: torch.device, B: int,
+                         max_density: float):
+    """The quality kernels' library, their empty outputs (offsets (B, nk)
+    int32, weights (B, nk) float32, reject (B,) bool) on ``dev`` and the
+    launch's constant operands (the tables, thresholds and weight
+    constants). Raises for reads the kernels do not take."""
+    k, L = cfg.k, cfg.L
+    nk = len(cfg.offsets_list)
+    outs = (torch.empty((B, nk), dtype=I32, device=dev),
+            torch.empty((B, nk), dtype=F32, device=dev),
+            torch.empty(B, dtype=torch.bool, device=dev))
+    if B == 0:
+        return None, outs, None
+    lib = _quality_lib()
+    smem = lib.quality_offsets_smem(L, k, nk)
+    if L - k + 1 < 1 or not 1 <= k <= 32 or smem > 232448:
+        raise ValueError(f"reads of {L} bp (k={k}, {nk} keys) take {smem} B "
+                         f"of shared memory a read (past 227 KB) or k is "
+                         f"past 1-32")
+    d2_tab, div_tab, ladder = _offset_tables(
+        L, k, tuple(cfg.offsets_list), float(max_density), dev)
+    a = 100 * k
+    base_ks = a // 8
+    return lib, outs, (
+        d2_tab.data_ptr(), div_tab.data_ptr(), ladder.data_ptr(), float(_L1),
+        float(_L2), base_ks, float(np.float32(a - base_ks)),
+        float(np.float32(1.0) / np.float32(a)))
+
+
+def quality_offsets_packed_kernel(cfg: QmConfig, qpack: torch.Tensor,
+                                  palette: torch.Tensor, pcpal: torch.Tensor,
+                                  density: float, max_density: float):
+    """``quality_offsets_kernel`` on the palette-packed qualities of
+    ``pack_quality_host``: qpack (B, ceil(L / 8)) uint32 words held in
+    int64, palette (16,) int32 phred, pcpal (16,) float32 its
+    probability correct. Returns (offsets, weights, reject) as
+    ``quality_offsets_kernel``. CPU tensors: the plain version
+    (``unpack_quality_device``, then ``_quality_offsets_core``). CUDA
+    tensors: one launch of ``csrc/quality_offsets.cu``'s packed entry,
+    which reads the words itself, keys of 1-32 bases as
+    ``quality_offsets_kernel``; a failed launch raises."""
+    L = cfg.L
+    B = qpack.shape[0]
+    if qpack.dim() != 2 or qpack.shape[1] * 8 < L:
+        raise ValueError(f"qpack (B, >= {-(-L // 8)}) expected, got "
+                         f"{tuple(qpack.shape)}")
+    if qpack.dtype != I64:
+        raise TypeError("qpack must hold its uint32 words in int64")
+    if palette.shape != (16,) or pcpal.shape != (16,):
+        raise ValueError("palette and pcpal (16,) expected")
+    palette, pcpal = palette.to(I32), pcpal.to(F32)
+    dev = qpack.device
+    if palette.device != dev or pcpal.device != dev:
+        raise ValueError("qpack, palette and pcpal must share one device")
+    if dev.type == "cpu":
+        q, pc = unpack_quality_device(qpack, palette, pcpal, L)
+        return _quality_offsets_core(cfg, q, pc, density, max_density, True)
+    if dev.type != "cuda":
+        raise RuntimeError(f"the quality offsets kernel runs on CUDA tensors "
+                           f"(got {dev})")
+    lib, outs, consts = _quality_launch_args(cfg, dev, B, max_density)
+    if B == 0:
+        return outs
+    qpack = qpack.contiguous()
+    err = lib.quality_offsets_packed_launch(
+        qpack.data_ptr(), qpack.shape[1],
+        palette.contiguous().data_ptr(), pcpal.contiguous().data_ptr(), B, L,
+        cfg.k, len(cfg.offsets_list), *consts,
+        *(t.data_ptr() for t in outs),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"quality_offsets_packed_launch failed: cudaError "
+                           f"{err}")
+    quality_offsets_packed_kernel.launches += 1
+    return outs
 
 
 def _stable_desc(x: torch.Tensor, dim: int = -1):
@@ -1019,22 +1087,45 @@ def _chain_lib() -> ctypes.CDLL:
     lib = _build.load("chain_candidates")
     if not getattr(lib, "_bbmap_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.chain_candidates_launch.argtypes = [
-            vp, vp, ci, ci, ci, ci, vp, vp, vp, vp, vp, vp]
-        lib.chain_candidates_launch.restype = ci
+        for fn in (lib.chain_candidates_launch,
+                   lib.chain_candidates_regs_launch):
+            fn.argtypes = [vp, vp, ci, ci, ci, ci, vp, vp, vp, vp, vp, vp]
+            fn.restype = ci
         lib._bbmap_typed = True
     return lib
 
 
+# The chain kernel's mappings (csrc/chain_candidates.cu): "regs", a row's
+# slots in its warp's registers, up to CHAIN_REGS_MAX_W slots a row (the
+# short path's W = 64); "smem", the rows in shared memory, any W (the long
+# path's W = 512).
+CHAIN_MAPPINGS = ("regs", "smem")
+CHAIN_REGS_MAX_W = 128
+
+
+def chain_mapping(W: int, mapping: Optional[str] = None) -> str:
+    """The chain kernel's mapping for rows of W slots: ``mapping`` where
+    it holds W (a ValueError where not), else "regs" up to
+    CHAIN_REGS_MAX_W slots and "smem" past them."""
+    if mapping is None:
+        return "regs" if W <= CHAIN_REGS_MAX_W else "smem"
+    if mapping not in CHAIN_MAPPINGS or (
+            mapping == "regs" and W > CHAIN_REGS_MAX_W):
+        raise ValueError(f"chain mapping {mapping!r} cannot take W={W}")
+    return mapping
+
+
 def chain_candidates_kernel(cfg: QmConfig, diag: torch.Tensor,
-                            toff_slot: torch.Tensor) -> Dict[str,
-                                                             torch.Tensor]:
+                            toff_slot: torch.Tensor,
+                            mapping: Optional[str] = None
+                            ) -> Dict[str, torch.Tensor]:
     """The candidate table of B reads from their unsorted slots: diag
     (B, 2, W) int32 (2**30 past a row's valid slots) and toff_slot
-    (B, 2, W) int32 key slots. Returns the ``cand`` dict of (B, K) int32
-    tensors (votes, mode, strand, start, spread). CPU tensors: the plain
-    version (``_chain_candidates_plain``). CUDA tensors: one launch of
-    ``csrc/chain_candidates.cu``, no host sync; a failed launch raises,
+    (B, 2, W) int32 key slots (0 <= slot < 65,536). Returns the ``cand``
+    dict of (B, K) int32 tensors (votes, mode, strand, start, spread).
+    CPU tensors: the plain version (``_chain_candidates_plain``). CUDA
+    tensors: one launch of ``csrc/chain_candidates.cu`` in the mapping of
+    ``chain_mapping(W, mapping)``, no host sync; a failed launch raises,
     and so does a row the launch refuses (2W < K, W >= 32,768 or past
     the block's shared memory)."""
     B, two, WB = diag.shape
@@ -1047,6 +1138,7 @@ def chain_candidates_kernel(cfg: QmConfig, diag: torch.Tensor,
     dev = diag.device
     if toff_slot.device != dev:
         raise ValueError("the operands must share one device")
+    how = chain_mapping(WB, mapping)
     if dev.type == "cpu":
         return _chain_candidates_plain(cfg, diag, toff_slot)
     if dev.type != "cuda":
@@ -1060,14 +1152,17 @@ def chain_candidates_kernel(cfg: QmConfig, diag: torch.Tensor,
         return cand
     lib = _chain_lib()
     diag, toff_slot = diag.contiguous(), toff_slot.contiguous()
-    err = lib.chain_candidates_launch(
+    launch = (lib.chain_candidates_regs_launch if how == "regs"
+              else lib.chain_candidates_launch)
+    err = launch(
         diag.data_ptr(), toff_slot.data_ptr(), B, WB, cfg.chain_dist, K,
         *(t.data_ptr() for t in outs.unbind(0)),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"chain_candidates_launch failed: cudaError "
-                           f"{err}")
+        raise RuntimeError(f"chain_candidates ({how}) launch failed: "
+                           f"cudaError {err}")
     chain_candidates_kernel.launches += 1
+    chain_candidates_kernel.launches_by[how] += 1
     return cand
 
 
@@ -1285,9 +1380,11 @@ def gapless_scores_kernel(cfg: QmConfig, rcodes: torch.Tensor,
 
 def reset_launches() -> None:
     quality_offsets_kernel.launches = 0
+    quality_offsets_packed_kernel.launches = 0
     ref_retention_kernel.launches = 0
     slot_pack_kernel.launches = 0
     chain_candidates_kernel.launches = 0
+    chain_candidates_kernel.launches_by = dict.fromkeys(CHAIN_MAPPINGS, 0)
     gapless_scores_kernel.launches = 0
 
 

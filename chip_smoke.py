@@ -93,22 +93,27 @@ Phases, each timed on its own line:
    launched, when the merged score launch did not run once a batch (the
    fused program scores its narrow and wide passes in one launch), or
    when a fill or a walk took the two-kernel route; the quality offsets are computed on the
-   card, every call through the quality offsets kernel
-   (``csrc/quality_offsets.cu``), and the mate rescue scans a batch's
+   card, every batch's call through the quality offsets kernel's packed
+   entry (``csrc/quality_offsets.cu``, reading the palette-packed words:
+   fails when a batch did not, or when the words were unpacked by torch
+   ops), and the mate rescue scans a batch's
    jobs in one launch of the rescue kernel (``csrc/rescue_scan.cu``):
    fails when either never launched or the rescue kernel launched more
    often than there were batches; the candidate stage's key retention
    (``csrc/ref_retention.cu``, no host sync), slot pack
    (``csrc/slot_pack.cu``) and chain step (``csrc/chain_candidates.cu``)
    and the finalize stage's gapless score (``csrc/gapless_score.cu``)
-   launch once a call: fails when one launched less than once a batch. The first call of each is
+   launch once a call: fails when one launched less than once a batch,
+   or when the chain step took another mapping than "regs" (the rows in
+   registers) at the path's W = 64. The first call of each is
    recorded,
    and after the SAM phase both kernels are held to their plain versions
    on the card, tolerance 0: the rescue scan on the warmup batch's jobs
    and on 1,024 edge jobs (both directions, n = 1, 2 and 1,536, N bases
    in reads and windows, windows past the genome's ends, max_mm -1 and
    0, ties on a repeat) on a 200 kbp genome with N runs, the quality
-   offsets on the warmup batch's 65,536 x 150 and on 32 x 6,000 at
+   offsets' packed entry on the warmup batch's words (65,536 x 150) and
+   its raw entry on the same reads unpacked, both entries on 32 x 6,000 at
    randomreads' PacBio quality (k = 12, 750 keys); each timed beside its
    plain version and its bound;
 7. SAM: ``emit_sam`` on the first 1,000 pairs;
@@ -143,9 +148,10 @@ Phases, each timed on its own line:
    the distinct-key votes, the modal run and the top-8 table), whose
    first calls on both paths are recorded too, against their plain
    versions on the card, tolerance 0 on every output, on the main path's
-   first calls (65,536 reads, 2 x 18 keys, W 64) and the long path's cut
-   to 32 reads (2 x 750 keys, W 512), each timed beside its plain version
-   and its bound, and on rows crafted for their edges
+   first calls (65,536 reads, 2 x 18 keys, W 64; the chain step in both
+   of its mappings, "regs" and "smem", timed in turns) and the long path's
+   cut to 32 reads (2 x 750 keys, W 512), each timed beside its plain
+   version and its bound, and on rows crafted for their edges
    (``tests/candidate_rows.py``) at both shapes; torch.profiler counts
    the scans and the scalar reads of a device value in one call of each
    kernel (none) and of each plain version; the plain versions' times at
@@ -294,6 +300,11 @@ parent) and with this tree, in the order parent, change, change, parent,
 and prints each run's reads/s and the banded kernels' launches by call
 site (store check, containment check); no ``ok`` line.
 
+``python3 chip_smoke.py --candidate-only`` runs the main path and the
+long reads, then only the phases of the candidate stage's kernels (rescue
+and quality offsets; slot pack and chain step) against their plain
+versions, for a quick look at them; no ``ok`` line.
+
 ``python3 chip_smoke.py --paired <dir>`` runs the main path and the long
 reads of the checkout in <dir> (the parent commit, unpacked with ``git
 archive``) and of this tree, each in a process of its own, in the order
@@ -339,6 +350,11 @@ _SLOT_PACK = ("bbmap_tpu/align/quickmap_device.py:1036-1104 (candidate_stage's"
               " slot budget and slot assignment, XLA)")
 _CHAIN = ("bbmap_tpu/align/quickmap_device.py:1150-1288 (candidate_stage's "
           "sort, chain segmentation, votes, modal run and top_k, XLA)")
+# the quality offsets' two entries and the chain step's two mappings:
+# their ``kernels`` line names and the paths whose shapes they are timed at
+QUALITY_ENTRIES = {"quality_offsets": "long",
+                   "quality_offsets_packed": "main"}
+CHAIN_NAMES = {"regs": "chain_candidates", "smem": "chain_candidates_smem"}
 # the fused fill + walk's variants (ops/msa_kernels.FILL_WALK_VARIANTS)
 FILL_WALK = {v: f"msa_fill_walk_{v}" for v in ("row", "row_packed")}
 REPLACES = {"msa_score_rows": _K1, "msa_score": _K2, "msa_score_row": _K2,
@@ -351,7 +367,9 @@ REPLACES = {"msa_score_rows": _K1, "msa_score": _K2, "msa_score_row": _K2,
             "msa_score_rows_pipe": _K1,
             "rescue_scan": _RESCUE, "quality_offsets": _QUALITY,
             "ref_retention": _RETENTION, "gapless_score": _GAPLESS,
+            "quality_offsets_packed": _QUALITY,
             "slot_pack": _SLOT_PACK, "chain_candidates": _CHAIN,
+            "chain_candidates_smem": _CHAIN,
             **{n: f"{_K3} + {_WALK}" for n in FILL_WALK.values()}}
 CSRC = "bbmap_tpu_torch/csrc/"
 SOURCE = {"msa_score_rows": CSRC + "msa_dp_warp.cu",
@@ -372,10 +390,12 @@ SOURCE = {"msa_score_rows": CSRC + "msa_dp_warp.cu",
           "msa_score_rows_pipe": CSRC + "msa_dp_pipe.cu",
           "rescue_scan": CSRC + "rescue_scan.cu",
           "quality_offsets": CSRC + "quality_offsets.cu",
+          "quality_offsets_packed": CSRC + "quality_offsets.cu",
           "ref_retention": CSRC + "ref_retention.cu",
           "gapless_score": CSRC + "gapless_score.cu",
           "slot_pack": CSRC + "slot_pack.cu",
           "chain_candidates": CSRC + "chain_candidates.cu",
+          "chain_candidates_smem": CSRC + "chain_candidates.cu",
           **{n: CSRC + "msa_fill_walk.cu" for n in FILL_WALK.values()}}
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 # Each of an SM's four schedulers starts one warp instruction (32 lanes) a
@@ -410,7 +430,7 @@ LONG_CMP_JOBS = 2               # jobs at (6,000, 6,456) the plain versions run
 # The band mapping's edge cases past 1,023 rows: (tag, profile, jobs, R, C,
 # seed, error rate, rows a lane compared, gap and N columns). Their plain
 # fills cost a wave at a time whatever the job count (37,931 waves in
-# all), so they run in a CPU process of their own (``PlainFills``)
+# all), so they run in CPU processes of their own (``PlainFills``)
 # beside the card's work and are compared when they are done.
 EDGE_CASES = (
     ("pacbio past 1,023 rows", "PB", 1, 1024, 1100, 13, 0.12, (2, 4, 8),
@@ -576,46 +596,58 @@ def edge_jobs(genome, case, device):
 _PLAIN_FILLS = """
 import os, sys, torch
 sys.path.insert(0, ".")
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 import chip_smoke as cs
 from bbmap_tpu_torch import workload
 from bbmap_tpu_torch.core.constants import PACBIO_PROFILE, SHORT_PROFILE
 from bbmap_tpu_torch.ops import msa_kernels as mk
 genome = workload.make_genome()
-for i, case in enumerate(cs.EDGE_CASES):
+for i in map(int, sys.argv[2].split(",")):
+    case = cs.EDGE_CASES[i]
     P = SHORT_PROFILE if case[1] == "S" else PACBIO_PROFILE
     out, prevs, lay = mk.msa_fill_plain(*cs.edge_jobs(genome, case, "cpu"), P)
     tmp = os.path.join(sys.argv[1], f"{i}.tmp")
     torch.save((out, prevs, tuple(lay)), tmp)
     os.replace(tmp, os.path.join(sys.argv[1], f"{i}.pt"))
 """
+# the edge cases' plain fills split over CPU processes, one a group: their
+# cost is a wave at a time (16,383 / 12,024 / 9,524 waves), and one process
+# for all of them kept the phase waiting on it after the card's work
+PLAIN_FILL_GROUPS = ((4,), (3,), (0, 1, 2))
 
 
 class PlainFills:
-    """The plain fills of ``EDGE_CASES`` in a CPU process of its own
-    (no card, two threads), started now; ``get(i, device)`` waits for case
-    i's and returns (out, prevs, layout) on ``device``; ``stop`` ends the
-    process and removes its files."""
+    """The plain fills of ``EDGE_CASES`` in CPU processes of their own (no
+    card, one thread each, a process a group of ``PLAIN_FILL_GROUPS``),
+    started now; ``get(i, device)`` waits for case i's and returns (out,
+    prevs, layout) on ``device``; ``stop`` ends the processes and removes
+    their files."""
 
     def __init__(self):
         self.dir = Path(tempfile.mkdtemp(prefix="chip_smoke_plain"))
-        env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="2",
+        env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1",
                    CUDA_VISIBLE_DEVICES="")
-        self.err = open(self.dir / "stderr.txt", "w")
-        self.proc = subprocess.Popen(
-            [sys.executable, "-c", _PLAIN_FILLS, str(self.dir)], cwd=ROOT,
-            env=env, stdout=subprocess.DEVNULL, stderr=self.err)
+        self.errs, self.procs = [], {}
+        for n, group in enumerate(PLAIN_FILL_GROUPS):
+            err = open(self.dir / f"stderr{n}.txt", "w")
+            proc = subprocess.Popen(
+                [sys.executable, "-c", _PLAIN_FILLS, str(self.dir),
+                 ",".join(map(str, group))], cwd=ROOT, env=env,
+                stdout=subprocess.DEVNULL, stderr=err)
+            self.errs.append(err)
+            self.procs.update({i: (proc, err.name) for i in group})
 
     def get(self, i: int, device, timeout: float = 900.0):
         import torch
         from bbmap_tpu_torch.ops import msa
         path = self.dir / f"{i}.pt"
+        proc, err = self.procs[i]
         t0 = time.time()
         while not path.exists():
-            if self.proc.poll() is not None and not path.exists():
+            if proc.poll() is not None and not path.exists():
                 raise AssertionError(
-                    "the CPU process of plain fills ended early: "
-                    + (self.dir / "stderr.txt").read_text()[-2000:])
+                    "a CPU process of plain fills ended early: "
+                    + Path(err).read_text()[-2000:])
             if time.time() - t0 > timeout:
                 raise AssertionError(f"no plain fill of edge case {i} in "
                                      f"{timeout:.0f} s")
@@ -625,10 +657,12 @@ class PlainFills:
         return out.to(device), prevs.to(device), msa.PrevLayout(*lay)
 
     def stop(self) -> None:
-        if self.proc.poll() is None:
-            self.proc.kill()
-        self.proc.wait()
-        self.err.close()
+        for proc, _err in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+        for err in self.errs:
+            err.close()
         shutil.rmtree(self.dir, ignore_errors=True)
 
 
@@ -834,8 +868,8 @@ def bound_ms(n_bytes: float, n_instructions: float, clock_hz: float):
 
 
 def kernel_phase(genome, device) -> dict:
-    """``kernel_phases`` with the edge cases' plain fills computed in a CPU
-    process beside it (``PlainFills``)."""
+    """``kernel_phases`` with the edge cases' plain fills computed in CPU
+    processes beside it (``PlainFills``)."""
     plain = PlainFills()
     try:
         return kernel_phases(genome, device, plain)
@@ -1843,10 +1877,11 @@ def launch_counts() -> dict:
     ("banded_any_class", "banded_any_triangle"), the containment kernel's
     as "contained_any" and by mapping ("contained_any_thread",
     "contained_any_warp"), the rescue kernel's as "rescue_scan", the
-    quality offsets kernel's as "quality_offsets", the key-retention
-    kernel's as "ref_retention", the gapless kernel's as "gapless_score",
-    the slot pack's as "slot_pack" and the chain step's as
-    "chain_candidates"."""
+    quality offsets kernel's as "quality_offsets" (its raw entry) and
+    "quality_offsets_packed", the key-retention kernel's as
+    "ref_retention", the gapless kernel's as "gapless_score", the slot
+    pack's as "slot_pack" and the chain step's as "chain_candidates" and
+    by mapping ("chain_candidates_regs", "chain_candidates_smem")."""
     from bbmap_tpu_torch.align import quickmap_device
     from bbmap_tpu_torch.ops import banded_device, msa_kernels, rescue_device
     out = {k.__name__: k.launches for k in msa_kernels.KERNELS}
@@ -1867,10 +1902,15 @@ def launch_counts() -> dict:
         out[f"contained_any_{mapping}"] = n
     out["rescue_scan"] = rescue_device.rescue_scan.launches
     out["quality_offsets"] = quickmap_device.quality_offsets_kernel.launches
+    out["quality_offsets_packed"] = \
+        quickmap_device.quality_offsets_packed_kernel.launches
     out["ref_retention"] = quickmap_device.ref_retention_kernel.launches
     out["gapless_score"] = quickmap_device.gapless_scores_kernel.launches
     out["slot_pack"] = quickmap_device.slot_pack_kernel.launches
-    out["chain_candidates"] = quickmap_device.chain_candidates_kernel.launches
+    chain = quickmap_device.chain_candidates_kernel
+    out["chain_candidates"] = chain.launches
+    for mapping, n in chain.launches_by.items():
+        out[f"chain_candidates_{mapping}"] = n
     return out
 
 
@@ -1913,17 +1953,20 @@ def main_path(device, n_pairs: int = N_PAIRS, n_steady: int = N_STEADY,
     on_card = torch.device(device).type == "cuda"
     if on_card:
         torch.cuda.reset_peak_memory_stats()
+    from bbmap_tpu_torch.align import quickmap_device
     reset_counts()
-    tw = time.time()
-    out0 = aligner.map_pairs_columnar(mk(r1, q1, 0), mk(r2, q2, 0))
-    warm_s = time.time() - tw
-    say(f"warmup batch: {warm_s:.2f} s")
-    ts = time.time()
-    outs = list(aligner.map_pairs_columnar_stream(
-        (mk(r1, q1, b), mk(r2, q2, b)) for b in range(1, n_batches)))
-    _sync(device)
-    dt = time.time() - ts
+    with call_count(quickmap_device, "unpack_quality_device") as unpack:
+        tw = time.time()
+        out0 = aligner.map_pairs_columnar(mk(r1, q1, 0), mk(r2, q2, 0))
+        warm_s = time.time() - tw
+        say(f"warmup batch: {warm_s:.2f} s")
+        ts = time.time()
+        outs = list(aligner.map_pairs_columnar_stream(
+            (mk(r1, q1, b), mk(r2, q2, b)) for b in range(1, n_batches)))
+        _sync(device)
+        dt = time.time() - ts
     launches = launch_counts()
+    unpacks = unpack[0]
     res = grade(aligner, [(0, out0)] + [(b + 1, o)
                                         for b, o in enumerate(outs)],
                 t1, t2, n_pairs)
@@ -1935,6 +1978,7 @@ def main_path(device, n_pairs: int = N_PAIRS, n_steady: int = N_STEADY,
         torch.cuda.max_memory_allocated() if on_card else None
     res["n_esc_rows"] = aligner._n_esc_rows
     res["n_fallback_rows"] = aligner._n_fallback_rows
+    res["unpack_quality_calls"] = unpacks
 
     # per-stage decomposition on one more batch, stage by stage
     b1x, b2x = mk(r1, q1, 1), mk(r2, q2, 1)
@@ -1975,11 +2019,17 @@ def main_path(device, n_pairs: int = N_PAIRS, n_steady: int = N_STEADY,
         if launches["msa_fill"] or launches["msa_walk"]:
             raise AssertionError(f"a short fill or walk left the fused "
                                  f"kernel: {launches}")
-        # every quality-offsets call goes through its kernel, and the mate
-        # rescue scans a batch's jobs in one launch
-        if not (launches["quality_offsets"] and launches["rescue_scan"]):
-            raise AssertionError(f"the quality offsets or the rescue "
+        # every batch's quality offsets go through the kernel's packed
+        # entry (no torch unpack of the words), and the mate rescue scans
+        # a batch's jobs in one launch
+        if launches["quality_offsets_packed"] < n_batches \
+                or not launches["rescue_scan"]:
+            raise AssertionError(f"the quality offsets' packed entry ran "
+                                 f"less than once a batch or the rescue "
                                  f"kernel never launched: {launches}")
+        if unpacks:
+            raise AssertionError(f"unpack_quality_device ran {unpacks} "
+                                 f"times on the main path")
         if launches["rescue_scan"] > n_batches:
             raise AssertionError(f"{launches['rescue_scan']} rescue "
                                  f"launches for {n_batches} batches")
@@ -1991,7 +2041,29 @@ def main_path(device, n_pairs: int = N_PAIRS, n_steady: int = N_STEADY,
         if low:
             raise AssertionError(f"{', '.join(low)} launched less than once "
                                  f"a batch: {launches}")
+        if launches["chain_candidates_regs"] != launches["chain_candidates"]:
+            raise AssertionError(f"the chain step left the register mapping "
+                                 f"at W {quickmap_device.SLOT_BUDGET}: "
+                                 f"{launches}")
     return res, (mk(r1, q1, 0), mk(r2, q2, 0), out0, aligner)
+
+
+@contextlib.contextmanager
+def call_count(module, name: str):
+    """Count the calls of ``module.<name>`` while inside (a one-item
+    list)."""
+    orig = getattr(module, name)
+    n = [0]
+
+    def counted(*args, **kw):
+        n[0] += 1
+        return orig(*args, **kw)
+
+    setattr(module, name, counted)
+    try:
+        yield n
+    finally:
+        setattr(module, name, orig)
 
 
 @contextlib.contextmanager
@@ -2019,6 +2091,7 @@ def first_call(module, name: str):
 N_OFF = 1536                  # the rescue scan's offsets (pipeline's)
 RESCUE_EDGE_JOBS = 1024
 QUALITY_LONG = (32, L_LONG, 12)   # reads, length, k of the long path
+QUALITY_ROWS = 4096           # edge-case quality rows made, then tiled
 PACBIO_Q = (28, 35)           # randomreads' quality range (minq, maxq)
 # the rescue edge genome's repeat and N runs (rescue_edge_index)
 REPEAT_AT, N_RUNS = 100_000, (40_000, 120_000, 180_000)
@@ -2100,31 +2173,41 @@ def _rescue_bound(dix, n, Lm: int, clock: float):
                     float((used * Lm + used).sum()), clock)
 
 
-def _quality_bound(B: int, L: int, k: int, nk: int, clock: float):
-    """The quality offsets' bound: q and pc read once (8 B a base), the
-    offsets, weights and flags written once; B x m x k multiplies and nk
-    ladder steps a read."""
+def _quality_bound(in_bytes: int, B: int, L: int, k: int, nk: int,
+                   clock: float):
+    """The quality offsets' bound: the qualities read once (``in_bytes``:
+    q and pc, 8 B a base, or the packed words, 4 B a word of 8 nibbles
+    whatever their dtype, with the palette and its probabilities), the
+    offsets, weights and flags written once;
+    B x m x k multiplies and nk ladder steps a read."""
     m = L - k + 1
-    return bound_ms(8 * B * L + 8 * B * nk + B, float(B * (m * k + nk)),
+    return bound_ms(in_bytes + 8 * B * nk + B, float(B * (m * k + nk)),
                     clock)
 
 
 def rescue_quality_phase(device, rescue_call, quality_call,
                          clock: float) -> dict:
-    """The rescue kernel and the quality offsets kernel against their
-    plain versions on the card, tolerance 0: the rescue scan on the main
-    path's warmup jobs (``rescue_call``, its first call's arguments) and on
-    ``RESCUE_EDGE_JOBS`` edge jobs on a genome with N runs; the quality
-    offsets on the warmup batch's 65,536 x 150 (``quality_call``, the
-    fused program's palette route) and on 32 reads of 6 kbp with the
-    quality randomreads gives PacBio reads (raw route, the long path's
-    shape). Each timed beside its plain version and its bound. Returns
-    the ``kernels`` line's entries of both kernels."""
+    """The rescue kernel and the quality offsets kernel's two entries
+    against their plain versions on the card, tolerance 0: the rescue scan
+    on the main path's warmup jobs (``rescue_call``, its first call's
+    arguments) and on ``RESCUE_EDGE_JOBS`` edge jobs on a genome with N
+    runs; the quality offsets' packed entry on the warmup batch's words
+    (``quality_call``, the fused program's palette route: 65,536 x 150)
+    and the raw entry on the same reads unpacked, then both entries on 32
+    reads of 6 kbp with the quality randomreads gives PacBio reads (the
+    long path's shape), and both entries on the ladder's edge cases
+    (``tests/quality_rows``) at both shapes. Each timed beside its plain
+    version (the packed entry's: ``unpack_quality_device``, then
+    ``_quality_offsets_core``) and its bound. Returns the ``kernels``
+    line's entries: "rescue_scan", "quality_offsets" (the raw entry, timed
+    at the long path's shape) and "quality_offsets_packed" (at the main
+    path's)."""
     import numpy as np
     import torch
     from bbmap_tpu_torch.align import quickmap_device as qd
     from bbmap_tpu_torch.align import seed
     from bbmap_tpu_torch.ops import rescue_device as rd
+    from tests.quality_rows import qualities
 
     out = {}
     (dix, reads, lo, n, ik, rt, mm, Lm, n_off), _ = rescue_call
@@ -2162,50 +2245,101 @@ def rescue_quality_phase(device, rescue_call, quality_call,
                   "found": found},
         "edge_jobs": RESCUE_EDGE_JOBS, "max_abs_err_edge": e_edge}
 
-    def quality_err(args):
-        got = qd.quality_offsets_kernel(*args)
-        want = qd._quality_offsets_core(*args, True)
+    def quality_plain_packed(cfg, words, pal, pcp, den2, den3):
+        return qd._quality_offsets_core(
+            cfg, *qd.unpack_quality_device(words, pal, pcp, cfg.L), den2,
+            den3, True)
+
+    def quality_err(kernel, plain, args):
+        got, want = kernel(*args), plain(*args)
         _sync(device)
         return max(float(_diff(got[0], want[0])),
                    float((got[1] - want[1]).abs().max()),
                    float(_diff(got[2], want[2])))
 
-    (cfg, q, pc, den2, den3), _ = quality_call
-    shapes = {}
-    B, L_q = q.shape
+    (cfg, words, pal, pcp, den2, den3), _ = quality_call
+    B, L_q = words.shape[0], cfg.L
     if (B, L_q) != (2 * N_PAIRS, L):
         raise AssertionError(f"the main path's quality offsets ran at "
                              f"{(B, L_q)}")
+    q, pc = qd.unpack_quality_device(words, pal, pcp, cfg.L)
     rng = np.random.default_rng(37)
     nl, ll, kl = QUALITY_LONG
     cfg_l = qd.QmConfig(k=kl, L=ll, S=2, chain_dist=400, min_score=0,
                         offsets_list=tuple(int(o) for o in
                                            seed.make_offsets(ll, kl)), G=0)
-    ql = torch.as_tensor(rng.integers(PACBIO_Q[0], PACBIO_Q[1] + 1, (nl, ll)),
-                         dtype=torch.int32, device=device)
+    ql_np = rng.integers(PACBIO_Q[0], PACBIO_Q[1] + 1, (nl, ll))
+    ql = torch.as_tensor(ql_np, dtype=torch.int32, device=device)
     pcl = torch.as_tensor(seed.PROB_CORRECT, device=device)[ql.long()]
-    cases = (("main", (cfg, q, pc, den2, den3), 3),
-             ("long", (cfg_l, ql, pcl, *seed.key_density_ladder(ll, kl)), 1))
-    for tag, qargs, plain_reps in cases:
-        err = quality_err(qargs)
-        ms, _ = _cuda_ms(lambda: qd.quality_offsets_kernel(*qargs), 20)
-        plain_ms, _ = _cuda_ms(
-            lambda: qd._quality_offsets_core(*qargs, True), plain_reps,
-            warm=False)
-        c, qq = qargs[0], qargs[1]
+    wl, pall, pcpl = qd.pack_quality_host(ql_np, ll)
+    if wl is None:
+        raise AssertionError("the long reads' qualities did not pack")
+    packed_l = [torch.as_tensor(a, device=device)
+                for a in (wl.astype(np.int64), pall, pcpl)]
+    dens_l = seed.key_density_ladder(ll, kl)
+    cases = (("main", "raw", (cfg, q, pc, den2, den3), 3),
+             ("main", "packed", (cfg, words, pal, pcp, den2, den3), 3),
+             ("long", "raw", (cfg_l, ql, pcl, *dens_l), 1),
+             ("long", "packed", (cfg_l, *packed_l, *dens_l), 1))
+    entries = {"raw": ("quality_offsets", qd.quality_offsets_kernel,
+                       lambda *a: qd._quality_offsets_core(*a, True)),
+               "packed": ("quality_offsets_packed",
+                          qd.quality_offsets_packed_kernel,
+                          quality_plain_packed)}
+    for name, _kernel, _plain in entries.values():
+        out[name] = {"shapes": {}}
+    for tag, entry, qargs, plain_reps in cases:
+        name, kernel, plain = entries[entry]
+        err = quality_err(kernel, plain, qargs)
+        ms, _ = _cuda_ms(lambda: kernel(*qargs), 20)
+        plain_ms, _ = _cuda_ms(lambda: plain(*qargs), plain_reps,
+                               warm=False)
+        c, x = qargs[0], qargs[1]
         nk = len(c.offsets_list)
-        b_ms, b_by = _quality_bound(qq.shape[0], c.L, c.k, nk, clock)
-        shapes[tag] = {"reads": qq.shape[0], "L": c.L, "k": c.k, "nk": nk,
-                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                       "bound_ms": b_ms, "bound_by": b_by}
-        say(f"kernel quality_offsets at {qq.shape[0]} x {c.L} (k {c.k}, nk "
-            f"{nk}): max_abs_err {err}, {ms:.4f} ms (plain {plain_ms:.3f} "
-            f"ms, bound {b_ms:.6f} ms by {b_by})")
-    m = shapes["main"]
-    out["quality_offsets"] = {
-        "max_abs_err": max(s_["max_abs_err"] for s_ in shapes.values()),
-        "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-        "bound_by": m["bound_by"], "library_ms": None, "shapes": shapes}
+        in_bytes = (8 * x.shape[0] * c.L if entry == "raw" else
+                    4 * x.numel() + 16 * 8)
+        b_ms, b_by = _quality_bound(in_bytes, x.shape[0], c.L, c.k, nk,
+                                    clock)
+        out[name]["shapes"][tag] = {
+            "reads": x.shape[0], "L": c.L, "k": c.k, "nk": nk,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "bytes_read": in_bytes}
+        say(f"kernel {name} at {x.shape[0]} x {c.L} (k {c.k}, nk {nk}): "
+            f"max_abs_err {err}, {ms:.4f} ms (plain {plain_ms:.3f} ms, "
+            f"bound {b_ms:.6f} ms by {b_by})")
+    # the ladder's edge cases (tests/quality_rows: all-zero reads, no
+    # usable window, q = 0 runs, a rejected read, desired clamped by
+    # potential) at both shapes, binned to <= 16 values: both entries
+    for tag, c, dens, seed_ in (("main", cfg, (den2, den3), 41),
+                                ("long", cfg_l, dens_l, 42)):
+        Bq = B if tag == "main" else nl
+        qr = qualities(min(Bq, QUALITY_ROWS), c.L, seed_)
+        qr = np.tile(qr, (-(-Bq // len(qr)), 1))[:Bq]
+        qi = torch.as_tensor(qr.astype(np.int32), device=device)
+        pci = torch.as_tensor(seed.PROB_CORRECT, device=device)[qi.long()]
+        wr, palr, pcpr = qd.pack_quality_host(qr, c.L)
+        if wr is None:
+            raise AssertionError("the edge-case qualities did not pack")
+        packed_r = [torch.as_tensor(a, device=device)
+                    for a in (wr.astype(np.int64), palr, pcpr)]
+        for entry, qargs in (("raw", (c, qi, pci, *dens)),
+                             ("packed", (c, *packed_r, *dens))):
+            name, kernel, plain = entries[entry]
+            err = quality_err(kernel, plain, qargs)
+            ms, _ = _cuda_ms(lambda: kernel(*qargs), 5)
+            out[name]["shapes"][f"{tag}_edge"] = {
+                "reads": Bq, "L": c.L, "max_abs_err": err, "ms": ms}
+            say(f"kernel {name} on the ladder's edge cases at {Bq} x "
+                f"{c.L}: max_abs_err {err}, {ms:.4f} ms")
+    for name, e in out.items():
+        if name == "rescue_scan":
+            continue
+        home = e["shapes"][QUALITY_ENTRIES[name]]
+        e.update(max_abs_err=max(v["max_abs_err"]
+                                 for v in e["shapes"].values()),
+                 ms=home["ms"], plain_ms=home["plain_ms"],
+                 bound_ms=home["bound_ms"], bound_by=home["bound_by"],
+                 library_ms=None)
     if any(v["max_abs_err"] != 0 for v in out.values()):
         raise AssertionError(f"a kernel disagrees with its plain version: "
                              f"{out}")
@@ -2487,13 +2621,18 @@ def candidate_kernels_phase(device, main_calls: dict, long_calls: dict,
     (the warmup batch's fused program: 65,536 reads, 2 x 18 keys, W 64)
     and on the long path's first calls cut to ``RETENTION_LONG_READS``
     reads (2 x 750 keys, W 512), each timed beside its plain version and
-    its bound; then on rows crafted for their edges
-    (``tests/candidate_rows``: ``slot_rows``, ``chain_rows``) at both
-    shapes. At the main path's shape, torch.profiler counts the scans
-    (``aten::cummax`` / ``cummin`` / ``cumsum``) and the scalar reads of a
-    device value in one call of each kernel (none of either) and of each
-    plain version (the plain chain step's 10 scans at least: the
-    counter's check). Returns the ``kernels`` line's entries of both."""
+    its bound; the chain step at the main path's shape in both mappings,
+    in turns (regs, smem, smem, regs), each held to the plain version;
+    then on rows crafted for their edges (``tests/candidate_rows``:
+    ``slot_rows``, ``chain_rows``) at both shapes, the chain step at W 64
+    in both mappings. At the main path's shape, torch.profiler counts the
+    scans (``aten::cummax`` / ``cummin`` / ``cumsum``) and the scalar reads
+    of a device value in one call of each kernel (none of either) and of
+    each plain version (the plain chain step's 10 scans at least: the
+    counter's check). Returns the ``kernels`` line's entries: "slot_pack",
+    "chain_candidates" (the regs mapping, timed at the main path's shape)
+    and "chain_candidates_smem" (the smem mapping, at the long path's)."""
+    import functools
     import numpy as np
     from bbmap_tpu_torch.align import quickmap_device as qd
     from tests.candidate_rows import chain_rows, slot_rows
@@ -2510,13 +2649,17 @@ def candidate_kernels_phase(device, main_calls: dict, long_calls: dict,
         return max(_diff(g, w) + int(g.dtype != w.dtype)
                    for g, w in zip(got, want))
 
+    def chain_in(mapping):
+        return functools.partial(qd.chain_candidates_kernel, mapping=mapping)
+
     K = qd.MAX_CANDIDATES
     names = {"slot_pack": ("slot_pack_kernel", qd.slot_pack_kernel,
                            qd._slot_pack_plain),
              "chain_candidates": ("chain_candidates_kernel",
                                   qd.chain_candidates_kernel,
                                   qd._chain_candidates_plain)}
-    out = {name: {"shapes": {}} for name in names}
+    out = {name: {"shapes": {}} for name in ("slot_pack",
+                                             *CHAIN_NAMES.values())}
     for tag, calls in (("main", main_calls), ("long", long_calls)):
         n = None if tag == "main" else RETENTION_LONG_READS
         for name, (rec, kernel, plain) in names.items():
@@ -2526,25 +2669,48 @@ def candidate_kernels_phase(device, main_calls: dict, long_calls: dict,
             if tag == "long" and cfg.L != L_LONG:
                 raise AssertionError(f"the long path's {name} ran at L "
                                      f"{cfg.L}")
-            err = held(kernel, plain, args)
-            ms, _ = _cuda_ms(lambda: kernel(*args), 20)
             plain_ms, _ = _cuda_ms(lambda: plain(*args), 3, warm=False)
             if name == "slot_pack":
                 b_ms, b_by = _slot_pack_bound(x, cfg.slot_budget, clock)
                 shape = {"reads": x.shape[0], "nk": x.shape[2],
                          "W": cfg.slot_budget}
+                turns = ((None, kernel),)
             else:
                 b_ms, b_by = _chain_bound(x, K, clock)
                 shape = {"reads": x.shape[0], "W": x.shape[2]}
-            out[name]["shapes"][tag] = {
-                **shape, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": b_ms, "bound_by": b_by}
-            say(f"kernel {name} at {shape}: max_abs_err {err}, {ms:.4f} ms "
-                f"(plain {plain_ms:.3f} ms, bound {b_ms:.6f} ms by {b_by})")
+                turns = tuple((m, chain_in(m)) for m in (
+                    ("regs", "smem", "smem", "regs") if tag == "main"
+                    else ("smem",)))
+            times = {}
+            for mapping, fn in turns:
+                err = held(fn, plain, args)
+                ms, _ = _cuda_ms(lambda: fn(*args), 20)
+                key = name if mapping is None else CHAIN_NAMES[mapping]
+                times.setdefault(key, []).append((err, ms))
+            for key, runs in times.items():
+                err = max(e for e, _ in runs)
+                ms = sum(t for _, t in runs) / len(runs)
+                out[key]["shapes"][tag] = {
+                    **shape, "max_abs_err": err, "ms": ms,
+                    "turns_ms": [t for _, t in runs], "plain_ms": plain_ms,
+                    "bound_ms": b_ms, "bound_by": b_by}
+                say(f"kernel {key} at {shape}: max_abs_err {err}, "
+                    f"{ms:.4f} ms (turns {[round(t, 4) for _, t in runs]};"
+                    f" plain {plain_ms:.3f} ms, bound {b_ms:.6f} ms by "
+                    f"{b_by})")
+            if name == "chain_candidates" and tag == "main":
+                regs = out["chain_candidates"]["shapes"]["main"]["turns_ms"]
+                smem = out["chain_candidates_smem"]["shapes"]["main"][
+                    "turns_ms"]
+                say(f"chain mappings at the main path's shape, in turns "
+                    f"(regs, smem, smem, regs): regs faster in every turn: "
+                    f"{max(regs) < min(smem)} ({regs} against {smem} ms)")
             if tag == "main":
                 counts = {f: _device_profile(
                     lambda f=f: f(*args), f"{f.__name__} at {shape}", t,
-                    top=0) for f, t in ((kernel, ms), (plain, plain_ms))}
+                    top=0) for f, t in (
+                        (kernel, out[name]["shapes"][tag]["ms"]),
+                        (plain, plain_ms))}
                 seen = {f.__name__: {k: c[k] for k in ("scans",
                                                         "scalar_reads")}
                         for f, c in counts.items()}
@@ -2568,16 +2734,22 @@ def candidate_kernels_phase(device, main_calls: dict, long_calls: dict,
                  n_sites]
         cargs = [cfg, *_tiled(chain_rows(rng, m, W, nk, cfg.chain_dist), B,
                               device)]
-        for name, a in (("slot_pack", sargs), ("chain_candidates", cargs)):
-            _rec, kernel, plain = names[name]
+        runs = [("slot_pack", qd.slot_pack_kernel, qd._slot_pack_plain,
+                 sargs)]
+        for mapping in (CHAIN_NAMES if W <= qd.CHAIN_REGS_MAX_W
+                        else ("smem",)):
+            runs.append((CHAIN_NAMES[mapping], chain_in(mapping),
+                         qd._chain_candidates_plain, cargs))
+        for key, kernel, plain, a in runs:
             err = held(kernel, plain, a)
             ms, _ = _cuda_ms(lambda: kernel(*a), 5)
-            out[name]["shapes"][f"{tag}_crafted"] = {
+            out[key]["shapes"][f"{tag}_crafted"] = {
                 "reads": B, "W": W, "nk": nk, "max_abs_err": err, "ms": ms}
-            say(f"kernel {name} on crafted rows at {B} reads, W {W}, {nk} "
+            say(f"kernel {key} on crafted rows at {B} reads, W {W}, {nk} "
                 f"keys: max_abs_err {err}, {ms:.4f} ms")
     for name, e in out.items():
-        m = e["shapes"]["main"]
+        m = e["shapes"]["long" if name == "chain_candidates_smem"
+                        else "main"]
         e.update(max_abs_err=max(v["max_abs_err"]
                                  for v in e["shapes"].values()),
                  ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
@@ -5445,7 +5617,8 @@ def parallel_phase(device, gbases, first, d: Path, smi: str) -> dict:
     return res
 
 
-def _device_profile(fn, tag: str, wall_ms: float, top: int = 12) -> dict:
+def _device_profile(fn, tag: str, wall_ms: float, top: int = 12,
+                    always=()) -> dict:
     """Run fn under torch.profiler (CPU + CUDA activities) and print the
     number of kernels, their summed device time, the host time inside
     cudaLaunchKernel, the scans (``aten::cummax``, ``aten::cummin``,
@@ -5455,8 +5628,9 @@ def _device_profile(fn, tag: str, wall_ms: float, top: int = 12) -> dict:
     ``.tolist()``, ``.numpy()`` of a device tensor, and the copy under
     each scalar read: a sync unless asynchronous into pinned memory), the
     idle share (1 - device time / ``wall_ms``, the same work's wall time
-    without the profiler) and the ``top`` kernels by device time. Returns
-    those counts."""
+    without the profiler) and the ``top`` kernels by device time, and
+    below them every other kernel whose name holds one of ``always``.
+    Returns those counts."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -5486,9 +5660,10 @@ def _device_profile(fn, tag: str, wall_ms: float, top: int = 12) -> dict:
         f"cudaLaunchKernel {n_launch_calls} calls {launch_us / 1e3:.1f} ms, "
         f"{n_scans} scans, {n_scalar} scalar reads of a device value, "
         f"{n_dtoh} device-to-host copies")
-    for name, (n, us) in sorted(kernels.items(),
-                                key=lambda kv: -kv[1][1])[:top]:
-        say(f"  {us / 1e3:10.3f} ms {n:8d} x {name[:90]}")
+    ranked = sorted(kernels.items(), key=lambda kv: -kv[1][1])
+    for rank, (name, (n, us)) in enumerate(ranked):
+        if rank < top or any(a in name for a in always):
+            say(f"  {us / 1e3:10.3f} ms {n:8d} x {name[:90]}")
     return {"kernels": n_kernels, "device_ms": dev_ms, "scans": n_scans,
             "scalar_reads": n_scalar, "dtoh_copies": n_dtoh}
 
@@ -5509,7 +5684,8 @@ def profile_paths(device, gbases) -> None:
     wall_ms = 1e3 * (time.time() - t0)
     reset_counts()
     _device_profile(lambda: aligner.map_pairs_columnar(b1, b2),
-                    f"short batch of {N_PAIRS} pairs", wall_ms)
+                    f"short batch of {N_PAIRS} pairs", wall_ms,
+                    always=PROFILE_ALWAYS)
     say(f"profile short batch launches: {launch_counts()}")
     del aligner
     map_ms = 1e3 * long_phase(device, gbases, n_reads=32,
@@ -5529,7 +5705,8 @@ def profile_paths(device, gbases) -> None:
     total = max(st[3] for st in stats.stats.values())
     for (_f, _ln, fn), st in stats.stats.items():
         if fn in ("quality_offsets_stage", "quality_offsets_kernel",
-                  "_quality_offsets_core", "rescue_scan", "_rescue_stage"):
+                  "quality_offsets_packed_kernel", "_quality_offsets_core",
+                  "rescue_scan", "_rescue_stage"):
             say(f"  cprofile {fn}: {st[1]} calls, cumulative {st[3]:.3f} s "
                 f"of {total:.3f} s ({100 * st[3] / total:.1f} %)")
     _device_profile(lambda: long_phase(device, gbases, n_reads=32,
@@ -5572,16 +5749,33 @@ def tools_profile(device) -> None:
         _device_profile(fn, tag, 1e3 * (time.time() - t0))
 
 
+# The kernels whose rows every profile of the fused program prints,
+# whatever their rank
+PROFILE_ALWAYS = ("chain_candidates", "quality_offsets")
+# the rows of the fused program's profile that ``--paired`` prints: the
+# top ones by device time, and every row of ``PROFILE_ALWAYS``
+PAIRED_TOP = 30
+# One paired run of the checkout in the working directory: its own
+# main_path, long_phase and _device_profile (every kernel's row printed),
+# and the calls of unpack_quality_device on the main path counted.
 _PAIRED_RUN = """
 import json, statistics, sys, time, torch
 sys.path.insert(0, '.')
 import chip_smoke as cs
 from bbmap_tpu_torch import workload
+from bbmap_tpu_torch.align import quickmap_device as qd
 from bbmap_tpu_torch.ops import _build
 _build.build_all()
 dev = torch.device('cuda', 0)
 g = workload.make_genome()
+unpacks = [0]
+_unpack = qd.unpack_quality_device
+def counted(*a, **k):
+    unpacks[0] += 1
+    return _unpack(*a, **k)
+qd.unpack_quality_device = counted
 r, (b1, b2, _, aligner) = cs.main_path(dev, genome_bases=g)
+main_unpacks = unpacks[0]
 reps = []
 for _ in range(8):
     t = time.time()
@@ -5590,13 +5784,14 @@ for _ in range(8):
     reps.append(1e3 * (time.time() - t))
 r['stages']['fused_device_ms_reps'] = reps
 cs._device_profile(lambda: aligner._fused_pair_dispatch(b1, b2, cs.L),
-                   'fused program', statistics.median(reps), top=30)
+                   'fused program', statistics.median(reps), top=1 << 30)
 lr = cs.long_phase(dev, g)
 keep = ('reads_per_s', 'sensitivity', 'mapped_fraction', 'pair_rate',
         'stages', 'launches', 'max_memory_allocated')
 print('PAIRED ' + json.dumps({'short': {k: r[k] for k in keep}, 'long': {
     k: lr[k] for k in ('map_s', 'reads_per_s', 'mapped_fraction',
-                       'strict_correct')}}))
+                       'strict_correct')},
+    'unpack_quality_calls_main_path': main_unpacks}))
 """
 
 
@@ -5607,9 +5802,12 @@ def paired(parent: str) -> int:
     parent, change, change, parent; one line a run, no ``ok`` line. Each
     tree runs its own ``chip_smoke.main_path`` and ``long_phase``, times
     its fused program 8 more times on the warmup batch
-    (``fused_device_ms_reps``) and runs it once more under torch.profiler:
-    its device kernels by device time, and its idle share against the
-    median of the 8 (``profile fused program`` lines)."""
+    (``fused_device_ms_reps``) and runs it once more under its own
+    ``_device_profile``: its device kernels by device time (the top
+    ``PAIRED_TOP`` and the rows of ``PROFILE_ALWAYS`` printed here), and
+    its idle share against the median of the 8 (``profile fused program``
+    lines); each run counts its main path's calls of
+    ``unpack_quality_device``."""
     here = str(ROOT)
     for tag, tree in (("parent", parent), ("change", here),
                       ("change", here), ("parent", parent)):
@@ -5625,10 +5823,12 @@ def paired(parent: str) -> int:
         lines = p.stdout.splitlines()
         at = next(i for i, ln in enumerate(lines)
                   if ln.startswith("profile fused program"))
-        for ln in lines[at:]:
-            if not (ln is lines[at] or ln.startswith("  ")):
+        say(f"paired {tag} {lines[at].strip()}")
+        for rank, ln in enumerate(lines[at + 1:]):
+            if not ln.startswith("  "):
                 break
-            say(f"paired {tag} {ln.strip()}")
+            if rank < PAIRED_TOP or any(a in ln for a in PROFILE_ALWAYS):
+                say(f"paired {tag} {ln.strip()}")
     return 0
 
 
@@ -5771,12 +5971,16 @@ def main() -> int:
     if "--profile" in sys.argv[1:]:
         profile_paths(device, gbases)
         return 0
-    ktimes = kernel_phase(gbases, device)
-    say(f"phase kernel vs plain: {time.time() - t:.1f} s")
-
-    t = time.time()
-    k1 = k1_entry(gbases, device)
-    say(f"phase K1 entry point: {time.time() - t:.1f} s")
+    # --candidate-only: the candidate stage's kernels on the main path's
+    # and the long path's first calls, nothing else checked, no ok line
+    quick = "--candidate-only" in sys.argv[1:]
+    ktimes = {}
+    if not quick:
+        ktimes = kernel_phase(gbases, device)
+        say(f"phase kernel vs plain: {time.time() - t:.1f} s")
+        t = time.time()
+        k1 = k1_entry(gbases, device)
+        say(f"phase K1 entry point: {time.time() - t:.1f} s")
 
     from bbmap_tpu_torch.align import quickmap_device
     from bbmap_tpu_torch.ops import rescue_device
@@ -5784,7 +5988,8 @@ def main() -> int:
     scans = ("ref_retention_kernel", "gapless_scores_kernel",
              "slot_pack_kernel", "chain_candidates_kernel")
     with first_call(rescue_device, "rescue_scan") as rescue_call, \
-            first_call(quickmap_device, "quality_offsets_kernel") as q_call, \
+            first_call(quickmap_device,
+                       "quality_offsets_packed_kernel") as q_call, \
             contextlib.ExitStack() as stack:
         main_scans = {name: stack.enter_context(first_call(quickmap_device,
                                                            name))
@@ -5807,31 +6012,34 @@ def main() -> int:
     ktimes.update(rq)
     del rescue_call, q_call
     say(f"phase rescue and quality offsets kernels: {time.time() - t:.1f} "
-        f"s; rescue_scan and quality_offsets equal to their plain versions "
-        f"(max_abs_err 0) on the warmup batch's inputs and on edge cases; "
-        f"rescue_scan {rq['rescue_scan']['ms']:.4f} ms at "
+        f"s; rescue_scan and quality_offsets' raw and packed entries equal "
+        f"to their plain versions (max_abs_err 0) on the warmup batch's "
+        f"inputs and on edge cases; rescue_scan "
+        f"{rq['rescue_scan']['ms']:.4f} ms at "
         f"{rq['rescue_scan']['shape']['jobs']} jobs (plain "
-        f"{rq['rescue_scan']['plain_ms']:.3f} ms), quality_offsets "
-        f"{rq['quality_offsets']['ms']:.4f} ms at {2 * N_PAIRS} x {L} (plain "
-        f"{rq['quality_offsets']['plain_ms']:.3f} ms), "
-        f"{rq['quality_offsets']['shapes']['long']['ms']:.4f} ms at "
-        f"{QUALITY_LONG[0]} x {QUALITY_LONG[1]} (plain "
-        f"{rq['quality_offsets']['shapes']['long']['plain_ms']:.3f} ms); "
-        f"card {smi}")
+        f"{rq['rescue_scan']['plain_ms']:.3f} ms); "
+        + "; ".join(
+            f"{name} {e['ms']:.4f} ms at {e['reads']} x {e['L']} (plain "
+            f"{e['plain_ms']:.3f} ms, bound {e['bound_ms']:.6f} ms)"
+            for name in QUALITY_ENTRIES
+            for tag, e in rq[name]["shapes"].items()
+            if not tag.endswith("_edge"))
+        + f"; card {smi}")
 
     t = time.time()
-    ib = index_build_phase(device, gbases, first, smi)
-    say(f"phase index build: {time.time() - t:.1f} s; build_index_device "
-        f"on the card equal to the host build_index at "
-        f"{ib['bench']['G']} bp, k={INDEX_K}, without and with N bases "
-        f"({ib['with_n']['n_bases']} N, 2 chroms): host build "
-        f"{ib['bench']['host_build_s']:.3f} s, analyze_index "
-        f"{ib['aligner']['analyze_s']:.3f} s, device build warm "
-        f"{min(ib['bench']['device_build_warm_s']):.3f} s (the device CSR "
-        f"{ib['bench']['device_csr_ms']:.3f} ms, bound "
-        f"{ib['bench']['bound_ms']:.4f} ms), peak "
-        f"{ib['bench']['device_peak_bytes']} B; the warmup batch on the "
-        f"device-built index equal to the host-built run; card {smi}")
+    ib = None if quick else index_build_phase(device, gbases, first, smi)
+    if ib is not None:
+        say(f"phase index build: {time.time() - t:.1f} s; build_index_device "
+            f"on the card equal to the host build_index at "
+            f"{ib['bench']['G']} bp, k={INDEX_K}, without and with N bases "
+            f"({ib['with_n']['n_bases']} N, 2 chroms): host build "
+            f"{ib['bench']['host_build_s']:.3f} s, analyze_index "
+            f"{ib['aligner']['analyze_s']:.3f} s, device build warm "
+            f"{min(ib['bench']['device_build_warm_s']):.3f} s (the device CSR "
+            f"{ib['bench']['device_csr_ms']:.3f} ms, bound "
+            f"{ib['bench']['bound_ms']:.4f} ms), peak "
+            f"{ib['bench']['device_peak_bytes']} B; the warmup batch on the "
+            f"device-built index equal to the host-built run; card {smi}")
 
     t = time.time()
     with contextlib.ExitStack() as stack:
@@ -5847,25 +6055,26 @@ def main() -> int:
         f"{lres['strict_correct']:.4f}; launches {lres['launches']}; "
         f"peak memory {lres['max_memory_allocated']} B; card {smi}")
 
-    t = time.time()
-    rg = retention_gapless_phase(device, main_scans, long_scans,
-                                 max_sm_clock_hz())
-    ktimes.update(rg)
-    rr, gg = rg["ref_retention"]["shapes"], rg["gapless_score"]["shapes"]
-    say(f"phase retention and gapless kernels: {time.time() - t:.1f} s; "
-        f"ref_retention and gapless_score equal to their plain versions "
-        f"(max_abs_err 0) on the main path's and the long path's first "
-        f"calls; ref_retention {rr['main']['ms']:.4f} ms at "
-        f"{rr['main']['reads']} x {rr['main']['nk']} (plain "
-        f"{rr['main']['plain_ms']:.3f} ms), {rr['long']['ms']:.4f} ms at "
-        f"{rr['long']['reads']} x {rr['long']['nk']} (plain "
-        f"{rr['long']['plain_ms']:.3f} ms); gapless_score "
-        f"{gg['main']['ms']:.4f} ms at {gg['main']['reads']} x "
-        f"{gg['main']['candidates']} x {gg['main']['L']} (plain "
-        f"{gg['main']['plain_ms']:.3f} ms), {gg['long']['ms']:.4f} ms at "
-        f"{gg['long']['reads']} x {gg['long']['candidates']} x "
-        f"{gg['long']['L']} (plain {gg['long']['plain_ms']:.3f} ms); card "
-        f"{smi}")
+    if not quick:
+        t = time.time()
+        rg = retention_gapless_phase(device, main_scans, long_scans,
+                                     max_sm_clock_hz())
+        ktimes.update(rg)
+        rr, gg = rg["ref_retention"]["shapes"], rg["gapless_score"]["shapes"]
+        say(f"phase retention and gapless kernels: {time.time() - t:.1f} s; "
+            f"ref_retention and gapless_score equal to their plain versions "
+            f"(max_abs_err 0) on the main path's and the long path's first "
+            f"calls; ref_retention {rr['main']['ms']:.4f} ms at "
+            f"{rr['main']['reads']} x {rr['main']['nk']} (plain "
+            f"{rr['main']['plain_ms']:.3f} ms), {rr['long']['ms']:.4f} ms at "
+            f"{rr['long']['reads']} x {rr['long']['nk']} (plain "
+            f"{rr['long']['plain_ms']:.3f} ms); gapless_score "
+            f"{gg['main']['ms']:.4f} ms at {gg['main']['reads']} x "
+            f"{gg['main']['candidates']} x {gg['main']['L']} (plain "
+            f"{gg['main']['plain_ms']:.3f} ms), {gg['long']['ms']:.4f} ms at "
+            f"{gg['long']['reads']} x {gg['long']['candidates']} x "
+            f"{gg['long']['L']} (plain {gg['long']['plain_ms']:.3f} ms); card "
+            f"{smi}")
 
     t = time.time()
     ck = candidate_kernels_phase(device, main_scans, long_scans,
@@ -5873,6 +6082,7 @@ def main() -> int:
     ktimes.update(ck)
     del main_scans, long_scans
     sp, cc = ck["slot_pack"]["shapes"], ck["chain_candidates"]["shapes"]
+    cs_ = ck["chain_candidates_smem"]["shapes"]
     say(f"phase slot pack and chain kernels: {time.time() - t:.1f} s; "
         f"slot_pack and chain_candidates equal to their plain versions "
         f"(max_abs_err 0) on the main path's and the long path's first "
@@ -5883,11 +6093,15 @@ def main() -> int:
         f"{sp['long']['nk']}, W {sp['long']['W']} (plain "
         f"{sp['long']['plain_ms']:.3f} ms); chain_candidates "
         f"{cc['main']['ms']:.4f} ms at {cc['main']['reads']} x 2 x "
-        f"{cc['main']['W']} (plain {cc['main']['plain_ms']:.3f} ms), "
-        f"{cc['long']['ms']:.4f} ms at {cc['long']['reads']} x 2 x "
-        f"{cc['long']['W']} (plain {cc['long']['plain_ms']:.3f} ms); scans "
+        f"{cc['main']['W']} in registers (the smem mapping "
+        f"{cs_['main']['ms']:.4f} ms there, plain "
+        f"{cc['main']['plain_ms']:.3f} ms), {cs_['long']['ms']:.4f} ms at "
+        f"{cs_['long']['reads']} x 2 x {cs_['long']['W']} in shared memory "
+        f"(plain {cs_['long']['plain_ms']:.3f} ms); scans "
         f"and scalar reads in one call {ck['slot_pack']['profile']} "
         f"{ck['chain_candidates']['profile']}; card {smi}")
+    if quick:
+        return 0
     say(f"split of the short batch's former eager scans, each plain version "
         f"alone at the main path's shape: the trim loop (_ref_retention) "
         f"{rr['main']['plain_ms']:.3f} ms, the gapless score "
@@ -6017,8 +6231,10 @@ def main() -> int:
     # in-process mesh's batch with sharded_score_step ("parallel");
     # "launches" is the count on the path whose shape the entry is timed
     # at: the band kernels and the walk kernel (short fills and walks take
-    # the fused kernel) on the long-read path, K1 at its entry point, the
-    # banded kernel on dedupe's, the rest on the main path; the strided
+    # the fused kernel), the quality offsets' raw entry (the fused
+    # program reads the packed words) and the chain step's smem mapping
+    # (W 512) on the long-read path, K1 at its entry point, the banded
+    # kernel on dedupe's, the rest on the main path; the strided
     # kernels, which the band kernels replaced, run on no path, and the
     # pipe kernels, the default from 700 rows, on none of these paths
     counted = {"msa_score_rows": "msa_score_rows_warp",
@@ -6037,10 +6253,12 @@ def main() -> int:
                "contained_any": "contained_any",
                "rescue_scan": "rescue_scan",
                "quality_offsets": "quality_offsets",
+               "quality_offsets_packed": "quality_offsets_packed",
                "ref_retention": "ref_retention",
                "gapless_score": "gapless_score",
                "slot_pack": "slot_pack",
-               "chain_candidates": "chain_candidates"}
+               "chain_candidates": "chain_candidates_regs",
+               "chain_candidates_smem": "chain_candidates_smem"}
     home = {"msa_score_rows": "k1_entry", "msa_walk": "long",
             "msa_score_long": "long", "msa_fill_long": "long",
             "msa_score_strided": "long", "msa_fill_strided": "long",
@@ -6049,7 +6267,8 @@ def main() -> int:
             "msa_score_row": "mapper_variants",
             "msa_score_pipe": "mapper_variants",
             "msa_fill_pipe": "mapper_variants",
-            "msa_score_rows_pipe": "k1_entry"}
+            "msa_score_rows_pipe": "k1_entry",
+            "quality_offsets": "long", "chain_candidates_smem": "long"}
     ktimes["banded_edit"] = bkt
     ktimes["banded_any"] = bany
     ktimes["contained_any"] = bcont
@@ -6128,7 +6347,7 @@ def main() -> int:
         "gapless_score": rg["gapless_score"]["shapes"]}, "card": smi}),
         flush=True)
     print(json.dumps({"candidate_kernels": {
-        name: {k: e[k] for k in ("shapes", "profile")}
+        name: {k: e[k] for k in ("shapes", "profile") if k in e}
         for name, e in ck.items()}, "card": smi}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -317,7 +317,11 @@ PORT_ADDED = {
     # _slot_pack_lib, _slot_pack_plain, _slot_counts), and the chain
     # step's wrapper, library, plain version and its sort and table
     # (chain_candidates_kernel, _chain_lib, _chain_candidates_plain,
-    # _sort_rows, _candidate_table)
+    # _sort_rows, _candidate_table), the chain kernel's two mappings and
+    # its choice between them (CHAIN_MAPPINGS, CHAIN_REGS_MAX_W,
+    # chain_mapping); the packed quality entry's wrapper and the launch
+    # operands both quality entries share (quality_offsets_packed_kernel,
+    # _quality_launch_args)
     "align.quickmap_device": {"torch", "nn", "ctypes", "DeviceIndex",
                               "DeviceLike", "resolve_device", "F32", "I64",
                               "_first_true", "_stable_desc", "_wrap32",
@@ -332,7 +336,11 @@ PORT_ADDED = {
                               "_slot_pack_lib", "_slot_pack_plain",
                               "_slot_counts", "chain_candidates_kernel",
                               "_chain_lib", "_chain_candidates_plain",
-                              "_sort_rows", "_candidate_table"}}
+                              "_sort_rows", "_candidate_table",
+                              "CHAIN_MAPPINGS", "CHAIN_REGS_MAX_W",
+                              "chain_mapping",
+                              "quality_offsets_packed_kernel",
+                              "_quality_launch_args"}}
 # names a copy leaves out on purpose: rqcfilter's default reference paths
 # under the machine's reference directory (the port takes every reference
 # from the command line); kcount's rewritten device class needs no

@@ -1,16 +1,21 @@
 """The port's quality-driven key offsets (bbmap_tpu_torch/align/
 quickmap_device.py: ``_quality_offsets_core``, the plain version that
 ``quality_offsets_kernel`` runs on CPU tensors, through both stage entry
-points) against the JAX package's ``_quality_offsets_core``, on seeded
-qualities: L = 150 (k = 13, nk = 18) raw and palette-packed, and L = 6,000
-(k = 12, nk = 750), with all-zero reads, q = 0 runs, reads with no usable
-window, low-quality ends (usable < L) and high-quality islands (desired
-clamped by potential). A numpy emulation of ``csrc/quality_offsets.cu``'s
-order (probs, the ok2 bitmask, the ladder on one thread with the backward
-candidate from the highest set bit and the forward one from the lowest,
-the weights and the ordered reject product) is held to the plain version.
-Tolerance: exact, the float32 weights included (every float32 operation
-rounds alone, in the JAX order)."""
+points, and the packed entry ``quality_offsets_packed_kernel``, whose plain
+version unpacks the words first) against the JAX package's
+``_quality_offsets_core`` and ``quality_offsets_stage_packed``, on seeded
+qualities (``tests/quality_rows``): L = 150 (k = 13, nk = 18) raw and
+palette-packed, and L = 6,000 (k = 12, nk = 750), with all-zero reads, q = 0
+runs, reads with no usable window, low-quality ends (usable < L) and
+high-quality islands (desired clamped by potential). A numpy emulation of
+``csrc/quality_offsets.cu``'s order (probs, the ok2 ballot words and their
+highest / lowest index tables, the ladder's positions as a prefix max past
+the float additions, each step's candidates looked up from the tables, the
+prev chain, the weights and the ordered reject product) is held to the
+plain version, and shown to fail without either search; a model of its
+q == 0 window test (one funnel shift, k <= 32) is held to the direct
+check. Tolerance: exact, the float32 weights included (every
+float32 operation rounds alone, in the JAX order)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +28,7 @@ from bbmap_tpu.core.genome import Genome, Scaffold
 from bbmap_tpu.index.build import build_index
 from bbmap_tpu_torch import convert
 from bbmap_tpu_torch.align import quickmap_device as tqd
+from tests.quality_rows import qualities
 
 torch.set_num_threads(2)
 
@@ -47,30 +53,6 @@ def configs():
         out[name] = (cj, ct, *seed_host.key_density_ladder(L, k))
     assert len(out["long"][1].offsets_list) == 750
     return out
-
-
-def qualities(B, L, seed):
-    """Seeded phred rows over the ladder's cases; binned to <= 16 values
-    so that the palette-packed route takes them."""
-    rng = np.random.default_rng(seed)
-    levels = np.array([0, 2, 5, 9, 12, 16, 22, 27, 32, 37], np.int8)
-    q = levels[rng.integers(4, 10, (B, L))]
-    q[0] = 0                                   # all zero: no key
-    q[1] = 2                                   # no usable window
-    q[2, :L // 3] = 2                          # low-quality ends
-    q[2, -L // 4:] = 2
-    q[3] = 2                                   # high-quality islands
-    for at in rng.integers(0, L - 20, 3):
-        q[3, at:at + 18] = 37
-    q[4, L // 2:L // 2 + 9] = 0                # a q = 0 run
-    q[5::3, rng.integers(0, L, 4)] = 0         # scattered zeros
-    q[6::5, :20] = 5
-    q[7] = 9                                   # uniformly middling
-    dips = rng.random((B, L)) < 0.03
-    q[8:][dips[8:]] = 2
-    q[5] = 2                                   # one short island: its keys'
-    q[5, L // 2:L // 2 + 12] = 12              # error product > 0.5, reject
-    return q
 
 
 def _jax(cj, q, den2, den3):
@@ -130,9 +112,16 @@ def test_long_plain_matches_jax(configs):
 
 
 def kernel_emulation(ct, q, pc, max_density, mutation=None):
-    """numpy model of csrc/quality_offsets.cu, a read at a time.
-    ``mutation`` breaks it on purpose: "forward_only" / "backward_only"
-    drop the backward / forward candidate."""
+    """numpy model of csrc/quality_offsets.cu, a read at a time: the
+    windows 32 key positions a chunk, the ok1 / ok2 ballot words, the ok2
+    words' prefix max of their highest set index (hw) and suffix min of
+    their lowest (lw), the ladder's positions j_i as a prefix max past the
+    float additions, each step's candidates from those tables (T: j where
+    bit j is set, else the highest ok2 index at or below j - 1; U: j, else
+    the lowest at or above j + 1 if below lim), the prev chain, the
+    weights and the ordered reject product. ``mutation`` breaks it on
+    purpose: "forward_only" / "backward_only" drop the backward / forward
+    candidate."""
     k, L = ct.k, ct.L
     nk = len(ct.offsets_list)
     m = L - k + 1
@@ -145,27 +134,17 @@ def kernel_emulation(ct, q, pc, max_density, mutation=None):
     rng = np.float32(a - base_ks)
     inv = np.float32(1.0) / np.float32(a)
     B = q.shape[0]
+    big = 2 ** 31 - 1
     offs_out = np.empty((B, nk), np.int32)
     wts_out = np.empty((B, nk), np.float32)
     rej_out = np.empty(B, bool)
 
-    def highest_in(words, lo, hi):
-        if lo > hi:
-            return -1
-        for w in range(hi >> 5, (lo >> 5) - 1, -1):
-            bits = words[w] & _bits_in(w, lo, hi)
-            if bits:
-                return (w << 5) + bits.bit_length() - 1
-        return -1
-
-    def lowest_in(words, lo, hi):
-        if lo > hi:
-            return -1
-        for w in range(lo >> 5, (hi >> 5) + 1):
-            bits = words[w] & _bits_in(w, lo, hi)
-            if bits:
-                return (w << 5) + (bits & -bits).bit_length() - 1
-        return -1
+    def ballots(flags):
+        bits = np.zeros(nw * 32, bool)
+        bits[:m] = flags
+        return [int(x) for x in np.packbits(bits.reshape(nw, 32), axis=1,
+                                            bitorder="little").view(
+                                                np.uint32).ravel()]
 
     for b in range(B):
         prob = pc[b, :m].copy()
@@ -174,15 +153,16 @@ def kernel_emulation(ct, q, pc, max_density, mutation=None):
             prob = (prob * pc[b, j:m + j]).astype(np.float32)
             zero |= q[b, j:m + j] == 0
         probs = np.where(zero, one, (one - prob).astype(np.float32))
-        ok1 = probs < l1
-        bits2 = np.zeros(nw * 32, bool)
-        bits2[:m] = probs < l2
-        words = [int(x) for x in np.packbits(
-            bits2.reshape(nw, 32), axis=1, bitorder="little").view(
-                np.uint32).ravel()]
-        any1 = bool(ok1.any())
-        left = int(np.argmax(ok1)) if any1 else 0
-        right = int(m - 1 - np.argmax(ok1[::-1])) if any1 else m - 1
+        b1, words = ballots(probs < l1), ballots(probs < l2)
+        hit1 = [w for w in range(nw) if b1[w]]
+        any1 = bool(hit1)
+        left = hit1[0] * 32 + _ffs(b1[hit1[0]]) - 1 if any1 else 0
+        right = hit1[-1] * 32 + b1[hit1[-1]].bit_length() - 1 if any1 \
+            else m - 1
+        hw = np.maximum.accumulate([w * 32 + x.bit_length() - 1 if x else -1
+                                    for w, x in enumerate(words)])
+        lw = np.minimum.accumulate([w * 32 + _ffs(x) - 1 if x else big
+                                    for w, x in enumerate(words)][::-1])[::-1]
         pot = sum(bin(words[w] & _bits_in(w, left, right)).count("1")
                   for w in range(nw))
         valid = any1 and pot > 0 and right >= left
@@ -196,32 +176,42 @@ def kernel_emulation(ct, q, pc, max_density, mutation=None):
             span = min(max(right - left, 0), m - 1)
             interval = div_tab[span, min(max(desired - 1, 0), nk - 1)]
             iint = int(interval) + 1
-            f = np.float32(left)
-            prev, j = -1, left
+            # j_i = min(i + max(left, fl_t - t for t <= i), m - 1): the
+            # float additions in order, the positions a prefix max
+            f, terms = np.float32(left), [left]
+            for i in range(1, desired):
+                f = np.float32(f + interval)
+                terms.append(int(np.floor(np.float32(f + half))) - i)
+            run = np.maximum.accumulate(terms)
+            js = [min(i + int(run[i]), m - 1) for i in range(desired)]
+            ts, us = [], []
+            for j in js:
+                xh, xl = min(j - 1, m - 1), j + 1
+                hi_f = min(min(j + iint, right) - 1, m - 1)
+                wh, wl = max(xh, 0) >> 5, min(xl, m - 1) >> 5
+                bh = words[wh] & (0xFFFFFFFF >> (31 - (max(xh, 0) & 31)))
+                bl = words[wl] & ((0xFFFFFFFF << (min(xl, m - 1) & 31))
+                                  & 0xFFFFFFFF)
+                h = wh * 32 + bh.bit_length() - 1 if bh else (
+                    hw[wh - 1] if wh > 0 else -1)
+                if xh < 0 or mutation == "forward_only":
+                    h = -1
+                lo = wl * 32 + _ffs(bl) - 1 if bl else (
+                    lw[wl + 1] if wl + 1 < nw else big)
+                if xl > hi_f or lo > hi_f or mutation == "backward_only":
+                    lo = -1
+                hit = (words[j >> 5] >> (j & 31)) & 1
+                ts.append(j if hit else int(h))
+                us.append(j if hit else int(lo))
+            prev = -1
             for i in range(nk):
                 if i >= desired:
                     offs[i] = -1
                     continue
-                x = -1
-                if prev < j:
-                    if probs[min(max(j, 0), m - 1)] < l2:
-                        x = j
-                    else:
-                        xb = highest_in(words, max(prev + 3, 0),
-                                        min(j - 1, m - 1))
-                        lim = min(j + iint, right)
-                        xc = lowest_in(words, max(j + 1, 0),
-                                       min(lim - 1, m - 1))
-                        if mutation == "forward_only":
-                            xb = -1
-                        elif mutation == "backward_only":
-                            xc = -1
-                        x = xb if xb >= 0 else xc
+                j, t, u = js[i], ts[i], us[i]
+                x = (t if t >= prev + 3 else u) if prev < j else -1
                 offs[i] = x
                 prev = x if x > -1 else max(prev, j - 2)
-                f = np.float32(f + interval)
-                fl = int(np.floor(np.float32(f + half)))
-                j = min(max(j + 1, fl), m - 1)
         psel = np.array([probs[min(max(o, 0), m - 1)] if o > -1 else one
                          for o in offs], np.float32)
         t = (rng * (one - psel).astype(np.float32)).astype(np.float32)
@@ -236,10 +226,46 @@ def kernel_emulation(ct, q, pc, max_density, mutation=None):
     return offs_out, wts_out, rej_out
 
 
+def _ffs(x: int) -> int:
+    return (x & -x).bit_length()
+
+
 def _bits_in(w, lo, hi):
     a = max(lo - (w << 5), 0)
     b = min(hi - (w << 5), 31)
     return 0 if a > b else ((1 << (b + 1)) - 1) & ~((1 << a) - 1)
+
+
+def zero_windows(zflags, k, masked=True):
+    """numpy model of csrc/quality_offsets.cu's q == 0 test of every key
+    window of one read: the flags as 32-bit words with a spare word of 0,
+    a window's 32 flags from position i by one funnel shift of two words,
+    masked to its k (so k <= 32). ``masked=False`` drops the mask (a broken
+    model below k = 32)."""
+    L = len(zflags)
+    nz = (L + 31) // 32
+    bits = np.zeros((nz + 1) * 32, bool)
+    bits[:L] = zflags
+    zw = [int(x) for x in np.packbits(bits.reshape(nz + 1, 32), axis=1,
+                                      bitorder="little").view(
+                                          np.uint32).ravel()]
+    kmask = 0xFFFFFFFF if k >= 32 or not masked else (1 << k) - 1
+    return np.array([(((zw[i >> 5] | zw[(i >> 5) + 1] << 32) >> (i & 31))
+                      & kmask) != 0 for i in range(L - k + 1)])
+
+
+@pytest.mark.parametrize("k", [1, 12, 13, 31, 32])
+def test_zero_window_word(k):
+    """The kernel's q == 0 test of a key window, one funnel shift and the
+    key's mask, equals the window's direct check at every k it takes
+    (1-32); without the mask it fails below 32."""
+    rng = np.random.default_rng(k)
+    zf = rng.random(400) < 0.01
+    zf[150:159] = True
+    direct = np.array([zf[i:i + k].any() for i in range(400 - k + 1)])
+    assert (zero_windows(zf, k) == direct).all()
+    if k < 32:
+        assert (zero_windows(zf, k, masked=False) != direct).any()
 
 
 @pytest.mark.parametrize("shape", ["short", "long"])
@@ -293,3 +319,48 @@ def test_kernel_equals_plain_on_the_card(configs, shape):
     assert tqd.quality_offsets_kernel.launches == 1
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("shape", ["short", "long"])
+def test_packed_entry_plain_matches_jax(configs, shape):
+    """The packed entry on CPU tensors (its plain version: the words
+    unpacked, then ``_quality_offsets_core``) against the JAX package's
+    ``quality_offsets_stage_packed`` on the same words."""
+    cj, ct, den2, den3 = configs[shape]
+    L = ct.L
+    q = qualities(64 if shape == "short" else 8, L, 11)
+    qpack, pal, pcp = tqd.pack_quality_host(q, L)
+    assert qpack is not None
+    want = [np.asarray(x) for x in jqd.quality_offsets_stage_packed(
+        cj, jnp.asarray(qpack), jnp.asarray(pal), jnp.asarray(pcp), den2,
+        den3, return_weights=True)]
+    got = tqd.quality_offsets_packed_kernel(
+        ct, torch.from_numpy(qpack.astype(np.int64)), torch.from_numpy(pal),
+        torch.from_numpy(pcp), den2, den3)
+    _equal(got, want)
+    assert (want[0] > -1).any() and want[2].any()
+
+
+def test_packed_wrapper_checks_and_counts(configs):
+    _cj, ct, den2, den3 = configs["short"]
+    q = qualities(8, ct.L, 5)
+    qpack, pal, pcp = (torch.from_numpy(a) for a in
+                       tqd.pack_quality_host(q, ct.L))
+    words = qpack.to(torch.int64)
+    tqd.reset_launches()
+    got = tqd.quality_offsets_stage_packed(ct, words, pal, pcp, den2, den3,
+                                           return_weights=True)
+    assert tqd.quality_offsets_packed_kernel.launches == 0   # CPU: plain
+    assert tqd.quality_offsets_kernel.launches == 0
+    want = tqd.quality_offsets_stage(ct, torch.from_numpy(q), den2, den3,
+                                     return_weights=True)
+    _equal(got, [w.numpy() for w in want])
+    with pytest.raises(TypeError):
+        tqd.quality_offsets_packed_kernel(ct, words.to(torch.int32), pal,
+                                          pcp, den2, den3)
+    with pytest.raises(ValueError):
+        tqd.quality_offsets_packed_kernel(ct, words[:, :5], pal, pcp, den2,
+                                          den3)
+    with pytest.raises(ValueError):
+        tqd.quality_offsets_packed_kernel(ct, words, pal[:8], pcp, den2,
+                                          den3)
