@@ -457,22 +457,47 @@ def _retention_lib() -> ctypes.CDLL:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.ref_retention_launch.argtypes = [
             vp, vp, vp, vp, ci, ci, ctypes.POINTER(ci), ci, ci, ci, ci, ci,
-            ci, ci, vp, vp]
+            ci, ci, ci, vp, vp]
         lib.ref_retention_launch.restype = ci
         lib._bbmap_typed = True
     return lib
 
 
+# The retention kernel's mappings (csrc/ref_retention.cu): "regs", a warp a
+# read with a key a lane, up to RETENTION_REGS_MAX_NK keys (the short
+# path's 18); "block", a block a read with up to 8 keys a thread, up to
+# RETENTION_BLOCK_MAX_NK keys (the long path's 750).
+RETENTION_MAPPINGS = ("regs", "block")
+RETENTION_REGS_MAX_NK = 32
+RETENTION_BLOCK_MAX_NK = 8192
+
+
+def retention_mapping(nk: int, mapping: Optional[str] = None) -> str:
+    """The retention kernel's mapping for reads of nk keys: ``mapping``
+    where it holds nk (a ValueError where not), else "regs" up to
+    RETENTION_REGS_MAX_NK keys and "block" past them."""
+    if mapping is None:
+        mapping = "regs" if nk <= RETENTION_REGS_MAX_NK else "block"
+    if mapping not in RETENTION_MAPPINGS or nk > (
+            RETENTION_REGS_MAX_NK if mapping == "regs"
+            else RETENTION_BLOCK_MAX_NK):
+        raise ValueError(f"retention mapping {mapping!r} cannot take "
+                         f"nk={nk}")
+    return mapping
+
+
 def ref_retention_kernel(cfg: QmConfig, kp: torch.Tensor,
                          off_p: torch.Tensor, ccnt: torch.Tensor,
-                         weights: Optional[torch.Tensor] = None):
+                         weights: Optional[torch.Tensor] = None,
+                         mapping: Optional[str] = None):
     """Key retention of B reads (``_ref_retention``'s function): kp, off_p,
     ccnt (B, nk) int32, weights (B, nk) float32 or None. Returns alive
     (B, nk) bool. CPU tensors: the plain version (``_ref_retention``).
-    CUDA tensors: one launch of ``csrc/ref_retention.cu``, no host sync; a
-    failed launch raises (past 227 KB of shared memory a block, nk ~
-    3,400, as cudaErrorInvalidValue)."""
+    CUDA tensors: one launch of ``csrc/ref_retention.cu`` in the mapping of
+    ``retention_mapping(nk, mapping)`` ("regs" up to 32 keys, "block" up
+    to 8,192), no host sync; a failed launch raises."""
     B, nk = kp.shape
+    how = retention_mapping(nk, mapping)
     for name, t in (("off_p", off_p), ("ccnt", ccnt), ("weights", weights)):
         if t is not None and t.shape != (B, nk):
             raise ValueError(f"{name} {tuple(t.shape)} against kp "
@@ -505,10 +530,13 @@ def ref_retention_kernel(cfg: QmConfig, kp: torch.Tensor,
         None if weights is None else weights.data_ptr(), B, nk, tiers,
         (3 * nk) // 4, max(20, cfg.limit_shortest), max(20, cfg.limit_avg),
         max(20, cfg.limit_avg2), pps, (2 ** 30) // max(1, -pps), cfg.k,
-        alive.data_ptr(), torch.cuda.current_stream(kp.device).cuda_stream)
+        RETENTION_MAPPINGS.index(how), alive.data_ptr(),
+        torch.cuda.current_stream(kp.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"ref_retention_launch failed: cudaError {err}")
+        raise RuntimeError(f"ref_retention_launch ({how}) failed: "
+                           f"cudaError {err}")
     ref_retention_kernel.launches += 1
+    ref_retention_kernel.launches_by[how] += 1
     return alive
 
 
@@ -1328,21 +1356,54 @@ def _gapless_lib() -> ctypes.CDLL:
         vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.gapless_score_launch.argtypes = [
             vp, ci, ci, ci, vp, vp, vp, cll, vp, cll, cll, ci, ci, ci, ci,
-            ci, ci, ci, vp, vp]
+            ci, ci, ci, ci, vp, vp]
         lib.gapless_score_launch.restype = ci
         lib._bbmap_typed = True
     return lib
 
 
+# The gapless kernel's mappings (csrc/gapless_score.cu): "thread", a thread
+# a candidate walking its window a word of 16 positions at a time; "warp",
+# a warp a candidate (up to GAPLESS_WARP_MAX_K candidates a read), its
+# lanes' chunks of words joined in order by a tree. The rule takes "warp"
+# below GAPLESS_WARP_BELOW candidates, where a thread a candidate leaves
+# most of the card idle (the long path's batches of at most 256 x 8), and
+# "thread" from there (the CLIs' batches of 65,536, the main path's
+# 524,288); chip_smoke.py's sweep found the two level at 8,192 candidates
+# of 150 bp.
+GAPLESS_MAPPINGS = ("thread", "warp")
+GAPLESS_WARP_BELOW = 8192
+GAPLESS_WARP_MAX_K = 8
+
+
+def gapless_mapping(n_candidates: int, mapping: Optional[str] = None) -> str:
+    """The gapless kernel's mapping for ``n_candidates`` (reads x K):
+    ``mapping`` where given (a ValueError for an unknown one), else "warp"
+    below GAPLESS_WARP_BELOW candidates and "thread" from there."""
+    if mapping is None:
+        return "warp" if n_candidates < GAPLESS_WARP_BELOW else "thread"
+    if mapping not in GAPLESS_MAPPINGS:
+        raise ValueError(f"gapless mapping {mapping!r}: one of "
+                         f"{GAPLESS_MAPPINGS}")
+    return mapping
+
+
 def gapless_scores_kernel(cfg: QmConfig, rcodes: torch.Tensor,
                           cd_mode: torch.Tensor, cd_strand: torch.Tensor,
-                          dindex: DeviceIndex) -> torch.Tensor:
+                          dindex: DeviceIndex,
+                          mapping: Optional[str] = None) -> torch.Tensor:
     """Gapless streak scores of the candidate table: rcodes (B, L) uint8
     codes, cd_mode / cd_strand (B, K) int32 (modal diagonal, strand).
     Returns (B, K) int32 scores, before the valid-candidate mask. CPU
     tensors: the plain version (``_gapless_scores_plain``). CUDA tensors:
-    one launch of ``csrc/gapless_score.cu``; a failed launch raises."""
+    one launch of ``csrc/gapless_score.cu`` in the mapping of
+    ``gapless_mapping(B * K, mapping)`` ("warp" holds up to
+    GAPLESS_WARP_MAX_K candidates a read, where "thread" holds 256;
+    LIMIT_FOR_COST_3 in 1..15); a failed launch raises."""
     B, K = cd_mode.shape
+    how = gapless_mapping(B * K, mapping)
+    if K > (GAPLESS_WARP_MAX_K if how == "warp" else 256):
+        raise ValueError(f"gapless mapping {how!r} cannot take K={K}")
     if rcodes.shape != (B, cfg.L) or cd_strand.shape != (B, K):
         raise ValueError(f"rcodes (B, {cfg.L}) and cd_strand {(B, K)} "
                          f"expected, got {tuple(rcodes.shape)} and "
@@ -1366,15 +1427,21 @@ def gapless_scores_kernel(cfg: QmConfig, rcodes: torch.Tensor,
     rcodes, cd_mode = rcodes.contiguous(), cd_mode.contiguous()
     cd_strand = cd_strand.contiguous()
     PM, PM2, PS, PS2, PS3, LIM3 = _points(cfg.profile)
+    if not 1 <= LIM3 <= 15:
+        raise ValueError(f"the gapless kernel takes LIMIT_FOR_COST_3 in "
+                         f"1..15 (got {LIM3})")
     err = lib.gapless_score_launch(
         rcodes.data_ptr(), B, cfg.L, K, cd_mode.data_ptr(),
         cd_strand.data_ptr(), dindex.gpack.data_ptr(), dindex.gpack.shape[0],
         dindex.nmask.data_ptr(), dindex.nmask.shape[0], cfg.G,
-        int(cfg.has_n), PM, PM2, PS, PS2, PS3, LIM3, scores.data_ptr(),
+        int(cfg.has_n), PM, PM2, PS, PS2, PS3, LIM3,
+        GAPLESS_MAPPINGS.index(how), scores.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"gapless_score_launch failed: cudaError {err}")
+        raise RuntimeError(f"gapless_score_launch ({how}) failed: "
+                           f"cudaError {err}")
     gapless_scores_kernel.launches += 1
+    gapless_scores_kernel.launches_by[how] += 1
     return scores
 
 
@@ -1382,10 +1449,12 @@ def reset_launches() -> None:
     quality_offsets_kernel.launches = 0
     quality_offsets_packed_kernel.launches = 0
     ref_retention_kernel.launches = 0
+    ref_retention_kernel.launches_by = dict.fromkeys(RETENTION_MAPPINGS, 0)
     slot_pack_kernel.launches = 0
     chain_candidates_kernel.launches = 0
     chain_candidates_kernel.launches_by = dict.fromkeys(CHAIN_MAPPINGS, 0)
     gapless_scores_kernel.launches = 0
+    gapless_scores_kernel.launches_by = dict.fromkeys(GAPLESS_MAPPINGS, 0)
 
 
 reset_launches()

@@ -105,7 +105,9 @@ Phases, each timed on its own line:
    and the finalize stage's gapless score (``csrc/gapless_score.cu``)
    launch once a call: fails when one launched less than once a batch,
    or when the chain step took another mapping than "regs" (the rows in
-   registers) at the path's W = 64. The first call of each is
+   registers) at the path's W = 64, the retention another than "regs" (a
+   key a lane) at 18 keys or the gapless score another than "thread" (a
+   thread a candidate) at 524,288 candidates. The first call of each is
    recorded,
    and after the SAM phase both kernels are held to their plain versions
    on the card, tolerance 0: the rescue scan on the warmup batch's jobs
@@ -132,14 +134,21 @@ Phases, each timed on its own line:
    genome (``randomreads pacbio=t``) through the port's ``mappacbio``
    CLI on the card, graded by gradesam (strict = within 400 bp); fails
    below mapped 0.98 or strict 0.65, when the band K2 or K3 or the walk
-   kernel was never launched, or when a strided kernel was; the fill
-   chunk the card's memory allows is printed beside the launches; the
-   first calls of the key retention and the gapless score are recorded
-   here too. Then both kernels against their plain versions on the card,
+   kernel was never launched, or when a strided kernel was, or when the
+   retention took another mapping than "block" or the gapless score
+   another than "warp"; the fill chunk the card's memory allows is
+   printed beside the launches; the first calls of the key retention and
+   the gapless score are recorded here too. Then both kernels in each of
+   their mappings, forced, against their plain versions on the card,
    tolerance 0, on the main path's first calls (65,536 reads of 18 keys
-   with quality weights; 65,536 x 8 candidates of 150 bp) and on the long
-   path's cut to 32 reads (750 keys with weights; 8 candidates of 6,000
-   bp), each timed beside its plain version and its bound; the scalar
+   with quality weights: "regs" and "block"; 65,536 x 8 candidates of 150
+   bp: "thread" and "warp") and on the long path's cut to 32 reads (750
+   keys with weights: "block"; 8 candidates of 6,000 bp: both), two
+   mappings timed in turns beside the plain version and the bound; the
+   gapless mappings also at 256, 1,024 and 8,192 reads of the main call (the
+   sweep behind ``gapless_mapping``'s rule); crafted counts and crafted
+   gapless rows (``tests/gapless_rows.py``: word and lane edges, N, windows
+   off the genome) at both shapes; the scalar
    reads of a device value (``aten::_local_scalar_dense``) under
    torch.profiler in one call of the kernel (none) and of the plain trim
    (one a round and one more: the counter's check). Then the candidate
@@ -302,8 +311,9 @@ site (store check, containment check); no ``ok`` line.
 
 ``python3 chip_smoke.py --candidate-only`` runs the main path and the
 long reads, then only the phases of the candidate stage's kernels (rescue
-and quality offsets; slot pack and chain step) against their plain
-versions, for a quick look at them; no ``ok`` line.
+and quality offsets; retention and gapless score; slot pack and chain
+step) against their plain versions, for a quick look at them; no ``ok``
+line.
 
 ``python3 chip_smoke.py --paired <dir>`` runs the main path and the long
 reads of the checkout in <dir> (the parent commit, unpacked with ``git
@@ -366,7 +376,8 @@ REPLACES = {"msa_score_rows": _K1, "msa_score": _K2, "msa_score_row": _K2,
             "msa_score_pipe": _K2, "msa_fill_pipe": _K3,
             "msa_score_rows_pipe": _K1,
             "rescue_scan": _RESCUE, "quality_offsets": _QUALITY,
-            "ref_retention": _RETENTION, "gapless_score": _GAPLESS,
+            "ref_retention": _RETENTION, "ref_retention_block": _RETENTION,
+            "gapless_score": _GAPLESS, "gapless_score_warp": _GAPLESS,
             "quality_offsets_packed": _QUALITY,
             "slot_pack": _SLOT_PACK, "chain_candidates": _CHAIN,
             "chain_candidates_smem": _CHAIN,
@@ -392,7 +403,9 @@ SOURCE = {"msa_score_rows": CSRC + "msa_dp_warp.cu",
           "quality_offsets": CSRC + "quality_offsets.cu",
           "quality_offsets_packed": CSRC + "quality_offsets.cu",
           "ref_retention": CSRC + "ref_retention.cu",
+          "ref_retention_block": CSRC + "ref_retention.cu",
           "gapless_score": CSRC + "gapless_score.cu",
+          "gapless_score_warp": CSRC + "gapless_score.cu",
           "slot_pack": CSRC + "slot_pack.cu",
           "chain_candidates": CSRC + "chain_candidates.cu",
           "chain_candidates_smem": CSRC + "chain_candidates.cu",
@@ -515,6 +528,21 @@ def _cuda_ms(fn, reps: int, warm: bool = True):
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps, out
+
+
+def _kernel_device_ms(fn) -> float:
+    """The device time (ms) of the kernels one call of fn launches, from
+    torch.profiler: the kernels alone, without the host's time between
+    launches, which a loop of short launches measured between CUDA events
+    is bound by."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(ev.device_time for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3
 
 
 def _pb_errors(rng, src, n: int, err: float):
@@ -1879,7 +1907,9 @@ def launch_counts() -> dict:
     "contained_any_warp"), the rescue kernel's as "rescue_scan", the
     quality offsets kernel's as "quality_offsets" (its raw entry) and
     "quality_offsets_packed", the key-retention kernel's as
-    "ref_retention", the gapless kernel's as "gapless_score", the slot
+    "ref_retention" and by mapping ("ref_retention_regs",
+    "ref_retention_block"), the gapless kernel's as "gapless_score" and by
+    mapping ("gapless_score_thread", "gapless_score_warp"), the slot
     pack's as "slot_pack" and the chain step's as "chain_candidates" and
     by mapping ("chain_candidates_regs", "chain_candidates_smem")."""
     from bbmap_tpu_torch.align import quickmap_device
@@ -1904,8 +1934,12 @@ def launch_counts() -> dict:
     out["quality_offsets"] = quickmap_device.quality_offsets_kernel.launches
     out["quality_offsets_packed"] = \
         quickmap_device.quality_offsets_packed_kernel.launches
-    out["ref_retention"] = quickmap_device.ref_retention_kernel.launches
-    out["gapless_score"] = quickmap_device.gapless_scores_kernel.launches
+    for name, k in (("ref_retention", quickmap_device.ref_retention_kernel),
+                    ("gapless_score",
+                     quickmap_device.gapless_scores_kernel)):
+        out[name] = k.launches
+        for mapping, n in k.launches_by.items():
+            out[f"{name}_{mapping}"] = n
     out["slot_pack"] = quickmap_device.slot_pack_kernel.launches
     chain = quickmap_device.chain_candidates_kernel
     out["chain_candidates"] = chain.launches
@@ -2044,6 +2078,12 @@ def main_path(device, n_pairs: int = N_PAIRS, n_steady: int = N_STEADY,
         if launches["chain_candidates_regs"] != launches["chain_candidates"]:
             raise AssertionError(f"the chain step left the register mapping "
                                  f"at W {quickmap_device.SLOT_BUDGET}: "
+                                 f"{launches}")
+        if launches["ref_retention_regs"] != launches["ref_retention"] \
+                or launches["gapless_score_thread"] \
+                != launches["gapless_score"]:
+            raise AssertionError(f"the retention left the register mapping "
+                                 f"or the gapless score the thread mapping: "
                                  f"{launches}")
     return res, (mk(r1, q1, 0), mk(r2, q2, 0), out0, aligner)
 
@@ -2454,68 +2494,119 @@ def _chain_bound(diag, K: int, clock: float):
                     clock)
 
 
+# the retention and gapless kernels' mappings: their ``kernels`` line
+# names (the first of each timed at the main path's shape, the second at
+# the long path's) and the reads of 150 bp the gapless mappings are swept
+# over (K = 8), cut from the main path's first call
+RETENTION_NAMES = {"regs": "ref_retention", "block": "ref_retention_block"}
+GAPLESS_NAMES = {"thread": "gapless_score", "warp": "gapless_score_warp"}
+GAPLESS_SWEEP_READS = (256, 1024, 8192)
+GAPLESS_ROWS = 4096            # crafted gapless rows made, then tiled
+
+
 def retention_gapless_phase(device, main_calls: dict, long_calls: dict,
                             clock: float) -> dict:
     """The key-retention kernel (``ref_retention_kernel``) and the gapless
-    streak-score kernel (``gapless_scores_kernel``) against their plain
-    versions on the card, tolerance 0, on their first calls on the main
-    path (the warmup batch's fused program: 65,536 reads, 18 keys with
-    quality weights; 65,536 x 8 candidates of 150 bp) and on the long
-    path's first calls cut to ``RETENTION_LONG_READS`` reads (6,000 bp,
-    750 keys with weights; 8 candidates). Each timed beside its plain
-    version and its bound; the plain versions at the main path's shapes
-    give the split of the eager scans these kernels replaced. Then the
-    retention kernel on counts crafted across
-    the tiers and the trim's branches (``crafted_counts``) at both shapes,
-    and the gapless kernel on a genome with N runs at the main path's
-    shape. At the main path's shape, torch.profiler counts the scalar
-    reads of a device value in one call of the retention kernel (it must
-    make none) and of the plain trim (it must make one at least, or the
-    counter reads nothing). Returns the ``kernels`` line's entries of both
-    kernels and the chain segmentation's timing."""
+    streak-score kernel (``gapless_scores_kernel``) in each of their
+    mappings, forced, against their plain versions on the card, tolerance
+    0: on their first calls on the main path (the warmup batch's fused
+    program: 65,536 reads, 18 keys with quality weights; 65,536 x 8
+    candidates of 150 bp) and on the long path's first calls cut to
+    ``RETENTION_LONG_READS`` reads (6,000 bp, 750 keys with weights; 8
+    candidates), each mapping timed there beside the plain version and the
+    bound, two mappings in turns (A B B A); the gapless mappings also at
+    ``GAPLESS_SWEEP_READS`` reads of the main call, with the mapping
+    ``gapless_mapping`` picks beside the one whose kernel ran faster
+    under torch.profiler (at these sizes a loop of launches between CUDA
+    events can measure the host's launch rate). Then the retention
+    kernel on counts crafted across the tiers and the trim's branches
+    (``crafted_counts``) at both shapes, and the gapless kernel on rows
+    crafted for its word and lane edges (``tests/gapless_rows``) on a
+    genome with N runs at both shapes, each mapping. At the main path's
+    shape, torch.profiler counts the scalar reads of a device value in one
+    call of the retention kernel (it must make none) and of the plain trim
+    (it must make one at least, or the counter reads nothing). Returns the
+    ``kernels`` line's entries of both kernels' mappings
+    (``RETENTION_NAMES``, ``GAPLESS_NAMES``) and the sweep."""
+    import functools
     import numpy as np
     import torch
     from bbmap_tpu_torch.align import quickmap_device as qd
+    from tests.gapless_rows import gapless_rows
 
     def cut(a, n):
         return a[:n] if isinstance(a, torch.Tensor) else a
 
-    out = {"ref_retention": {"shapes": {}}, "gapless_score": {"shapes": {}}}
+    def held(fn, plain, args):
+        got, want = fn(*args), plain(*args)
+        _sync(device)
+        return _diff(got.int(), want.int())
+
+    def turns(maps):
+        return (*maps, *maps[::-1])
+
+    def timed(names, kernel, plain, args, maps, tag, shape, plain_ms, bound):
+        """Each mapping of ``maps`` in turns: held to the plain version,
+        timed between CUDA events (``ms``) and one call's kernel time
+        under torch.profiler (``device_ms``); recorded under its name at
+        ``tag``. Returns {mapping: device_ms}."""
+        runs = {}
+        for m in turns(maps):
+            fn = functools.partial(kernel, mapping=m)
+            err = held(fn, plain, args)
+            ms, _ = _cuda_ms(lambda: fn(*args), 20)
+            runs.setdefault(m, []).append(
+                (err, ms, _kernel_device_ms(lambda: fn(*args))))
+        for m, r in runs.items():
+            e = {**shape, "max_abs_err": max(x[0] for x in r),
+                 "ms": sum(x[1] for x in r) / len(r),
+                 "turns_ms": [x[1] for x in r],
+                 "device_ms": sum(x[2] for x in r) / len(r),
+                 "device_turns_ms": [x[2] for x in r]}
+            if plain_ms is not None:
+                e.update(plain_ms=plain_ms, bound_ms=bound[0],
+                         bound_by=bound[1])
+            out[names[m]]["shapes"][tag] = e
+            say(f"kernel {names[m]} at {shape}: max_abs_err "
+                f"{e['max_abs_err']}, {e['ms']:.4f} ms (turns "
+                f"{[round(t, 4) for t in e['turns_ms']]}; device "
+                f"{e['device_ms']:.4f} ms, turns "
+                f"{[round(t, 4) for t in e['device_turns_ms']]}"
+                + (f"; plain {plain_ms:.3f} ms, bound {bound[0]:.6f} ms by "
+                   f"{bound[1]})" if plain_ms is not None else ")"))
+        return {m: out[names[m]]["shapes"][tag]["device_ms"] for m in runs}
+
+    out = {name: {"shapes": {}} for name in (*RETENTION_NAMES.values(),
+                                              *GAPLESS_NAMES.values())}
+    sweep = []
     for tag, calls in (("main", main_calls), ("long", long_calls)):
         n = None if tag == "main" else RETENTION_LONG_READS
         (args, kw), = calls["ref_retention_kernel"]
         cfg, kp, off_p, ccnt = (cut(a, n) for a in args)
         w = cut(kw.get("weights"), n)
-        if tag == "long" and (cfg.L, kp.shape[1]) != (L_LONG, 750):
+        nk = kp.shape[1]
+        if tag == "long" and (cfg.L, nk) != (L_LONG, 750):
             raise AssertionError(f"the long path's retention ran at L "
-                                 f"{cfg.L} with {kp.shape[1]} keys")
-        got = qd.ref_retention_kernel(cfg, kp, off_p, ccnt, w)
-        want = qd._ref_retention(cfg, kp, off_p, ccnt, w)
-        _sync(device)
-        err = _diff(got.int(), want.int())
-        ms, _ = _cuda_ms(lambda: qd.ref_retention_kernel(cfg, kp, off_p,
-                                                         ccnt, w), 20)
-        plain_ms, _ = _cuda_ms(lambda: qd._ref_retention(cfg, kp, off_p,
-                                                         ccnt, w),
+                                 f"{cfg.L} with {nk} keys")
+        rargs = (cfg, kp, off_p, ccnt, w)
+        plain_ms, _ = _cuda_ms(lambda: qd._ref_retention(*rargs),
                                3 if tag == "main" else 1, warm=False)
-        b_ms, b_by = _retention_bound(kp, w, clock)
-        out["ref_retention"]["shapes"][tag] = {
-            "reads": kp.shape[0], "L": cfg.L, "nk": kp.shape[1],
-            "weights": w is not None, "kept": int(got.sum()),
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by}
-        say(f"kernel ref_retention at {kp.shape[0]} x {kp.shape[1]} keys (L "
-            f"{cfg.L}, weights {w is not None}): max_abs_err {err}, "
-            f"{ms:.4f} ms (plain {plain_ms:.3f} ms, bound {b_ms:.6f} ms by "
-            f"{b_by})")
+        maps = tuple(m for m in qd.RETENTION_MAPPINGS
+                     if nk <= qd.RETENTION_REGS_MAX_NK or m != "regs")
+        rt = timed(RETENTION_NAMES, qd.ref_retention_kernel,
+                   qd._ref_retention, rargs, maps, tag,
+                   {"reads": kp.shape[0], "L": cfg.L, "nk": nk,
+                    "weights": w is not None,
+                    "kept": int(qd._ref_retention(*rargs).sum())},
+                   plain_ms, _retention_bound(kp, w, clock))
         if tag == "main":
             reads = {name: _device_profile(
-                fn, f"{name} at {kp.shape[0]} x {kp.shape[1]} keys", t,
+                fn, f"{name} at {kp.shape[0]} x {nk} keys", t,
                 top=0)["scalar_reads"] for name, fn, t in (
-                    ("ref_retention_kernel", lambda: qd.ref_retention_kernel(
-                        cfg, kp, off_p, ccnt, w), ms),
-                    ("_ref_retention", lambda: qd._ref_retention(
-                        cfg, kp, off_p, ccnt, w), plain_ms))}
+                    ("ref_retention_kernel",
+                     lambda: qd.ref_retention_kernel(*rargs), rt["regs"]),
+                    ("_ref_retention", lambda: qd._ref_retention(*rargs),
+                     plain_ms))}
             out["ref_retention"]["scalar_reads"] = reads
             if reads["ref_retention_kernel"] != 0 \
                     or reads["_ref_retention"] < 1:
@@ -2524,28 +2615,41 @@ def retention_gapless_phase(device, main_calls: dict, long_calls: dict,
                                      f"the plain trim one a round)")
 
         (args, _kw), = calls["gapless_scores_kernel"]
-        cfg, rcodes, mode, strand, dix = (cut(a, n) for a in args)
-        got = qd.gapless_scores_kernel(cfg, rcodes, mode, strand, dix)
-        want = qd._gapless_scores_plain(cfg, rcodes, mode, strand, dix)
-        _sync(device)
-        err = _diff(got, want)
-        ms, _ = _cuda_ms(lambda: qd.gapless_scores_kernel(
-            cfg, rcodes, mode, strand, dix), 20)
-        plain_ms, _ = _cuda_ms(lambda: qd._gapless_scores_plain(
-            cfg, rcodes, mode, strand, dix), 3, warm=False)
+        gargs = tuple(cut(a, n) for a in args)
+        cfg, rcodes, mode = gargs[:3]
+        dix = gargs[4]
+        plain_ms, _ = _cuda_ms(lambda: qd._gapless_scores_plain(*gargs), 3,
+                               warm=False)
         B, K = mode.shape
-        b_ms, b_by = _gapless_bound(mode, cfg.L, dix, cfg, clock)
-        out["gapless_score"]["shapes"][tag] = {
-            "reads": B, "candidates": K, "L": cfg.L, "has_n": cfg.has_n,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by}
-        say(f"kernel gapless_score at {B} x {K} x {cfg.L} (has_n "
-            f"{cfg.has_n}): max_abs_err {err}, {ms:.4f} ms (plain "
-            f"{plain_ms:.3f} ms, bound {b_ms:.6f} ms by {b_by})")
+        gt = timed(GAPLESS_NAMES, qd.gapless_scores_kernel,
+                   qd._gapless_scores_plain, gargs, qd.GAPLESS_MAPPINGS, tag,
+                   {"reads": B, "candidates": K, "L": cfg.L,
+                    "has_n": cfg.has_n}, plain_ms,
+                   _gapless_bound(mode, cfg.L, dix, cfg, clock))
+        sweep.append((B, K, cfg.L, gt))
+        if tag == "main":
+            for nb in GAPLESS_SWEEP_READS:
+                sargs = tuple(cut(a, nb) for a in gargs)
+                sweep.append((nb, K, cfg.L, timed(
+                    GAPLESS_NAMES, qd.gapless_scores_kernel,
+                    qd._gapless_scores_plain, sargs, qd.GAPLESS_MAPPINGS,
+                    f"main_{nb}", {"reads": nb, "candidates": K,
+                                   "L": cfg.L}, None, None)))
+    sweep = [{"reads": B, "candidates": B * K, "L": Lr, **{
+        f"{m}_device_ms": t for m, t in gt.items()},
+        "rule": qd.gapless_mapping(B * K),
+        "faster": min(gt, key=gt.get)} for B, K, Lr, gt in sweep]
+    for e in sweep:
+        say(f"gapless sweep at {e['reads']} x 8 x {e['L']} "
+            f"({e['candidates']} candidates), device time: thread "
+            f"{e['thread_device_ms']:.4f} ms, warp "
+            f"{e['warp_device_ms']:.4f} ms; the rule picks {e['rule']}, the "
+            f"faster is {e['faster']}")
     # crafted counts at both shapes (many more trim rounds than the paths'
-    # reads give) and the gapless score on a genome with N runs at the
-    # main path's shape (the bench genome has none)
+    # reads give) and crafted gapless rows on a genome with N runs at both
+    # shapes (the bench genome has none), each mapping that holds them
     rng = np.random.default_rng(41)
+    edix = rescue_edge_index(device)
     for tag, calls in (("main", main_calls), ("long", long_calls)):
         (args, _kw), = calls["ref_retention_kernel"]
         cfg = args[0]
@@ -2558,44 +2662,34 @@ def retention_gapless_phase(device, main_calls: dict, long_calls: dict,
                                               cfg.offsets_list))
             w = torch.as_tensor(rng.uniform(0.2, 1.0, (B, nk)),
                                 dtype=torch.float32, device=device)
-            got = qd.ref_retention_kernel(c, kp, off_p, ccnt, w)
-            want = qd._ref_retention(c, kp, off_p, ccnt, w)
-            _sync(device)
-            err = _diff(got.int(), want.int())
-            ms, _ = _cuda_ms(lambda: qd.ref_retention_kernel(
-                c, kp, off_p, ccnt, w), 5)
-            key = f"{tag}_crafted_{max_len}"
-            out["ref_retention"]["shapes"][key] = {
-                "reads": B, "nk": nk, "max_len": max_len,
-                "max_abs_err": err, "ms": ms}
-            say(f"kernel ref_retention on crafted counts at {B} x {nk} keys "
-                f"(maxLen {max_len}, weights): max_abs_err {err}, {ms:.4f} "
-                f"ms")
-    edix = rescue_edge_index(device)
-    ecfg = qd.make_config(edix, L)
-    reads, mode, strand = (torch.as_tensor(a, device=device) for a in
-                           gapless_table(edix.index.genome_codes, 2 * N_PAIRS,
-                                         L, rng))
-    got = qd.gapless_scores_kernel(ecfg, reads, mode, strand, edix)
-    want = qd._gapless_scores_plain(ecfg, reads, mode, strand, edix)
-    _sync(device)
-    err = _diff(got, want)
-    ms, _ = _cuda_ms(lambda: qd.gapless_scores_kernel(
-        ecfg, reads, mode, strand, edix), 20)
-    out["gapless_score"]["shapes"]["main_with_n"] = {
-        "reads": 2 * N_PAIRS, "candidates": 8, "L": L,
-        "has_n": ecfg.has_n, "max_abs_err": err, "ms": ms}
-    say(f"kernel gapless_score at {2 * N_PAIRS} x 8 x {L} on a genome with N "
-        f"runs (has_n {ecfg.has_n}): max_abs_err {err}, {ms:.4f} ms")
-    for name in ("ref_retention", "gapless_score"):
-        e = out[name]
-        m = e["shapes"]["main"]
+            timed(RETENTION_NAMES, qd.ref_retention_kernel,
+                  qd._ref_retention, (c, kp, off_p, ccnt, w),
+                  tuple(m for m in qd.RETENTION_MAPPINGS
+                        if nk <= qd.RETENTION_REGS_MAX_NK or m != "regs"),
+                  f"{tag}_crafted_{max_len}",
+                  {"reads": B, "nk": nk, "max_len": max_len}, None, None)
+        (args, _kw), = calls["gapless_scores_kernel"]
+        ecfg = qd.make_config(edix, args[0].L, profile=args[0].profile)
+        lim3 = qd._points(ecfg.profile)[5]
+        m = min(B, GAPLESS_ROWS)
+        reads, mode, strand = _tiled(gapless_rows(
+            edix.index.genome_codes, m, ecfg.L, lim3, rng), B, device)
+        timed(GAPLESS_NAMES, qd.gapless_scores_kernel,
+              qd._gapless_scores_plain, (ecfg, reads, mode, strand, edix),
+              qd.GAPLESS_MAPPINGS, f"{tag}_rows",
+              {"reads": B, "candidates": mode.shape[1], "L": ecfg.L,
+               "has_n": ecfg.has_n}, None, None)
+    for name, e in out.items():
+        m = e["shapes"]["long" if name in ("ref_retention_block",
+                                           "gapless_score_warp")
+                        else "main"]
         e.update(max_abs_err=max(v["max_abs_err"]
                                  for v in e["shapes"].values()),
-                 ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
-                 bound_by=m["bound_by"], library_ms=None)
-    if any(out[k]["max_abs_err"] != 0 for k in ("ref_retention",
-                                                "gapless_score")):
+                 ms=m["ms"], device_ms=m["device_ms"], plain_ms=m["plain_ms"],
+                 bound_ms=m["bound_ms"], bound_by=m["bound_by"],
+                 library_ms=None)
+    out["gapless_score"]["sweep"] = sweep
+    if any(e["max_abs_err"] != 0 for e in out.values()):
         raise AssertionError(f"a kernel disagrees with its plain version: "
                              f"{out}")
     return out
@@ -3080,6 +3174,13 @@ def long_phase(device, genome_bases, n_reads: int = N_LONG,
         if launches["msa_score_strided"] or launches["msa_fill_strided"]:
             raise AssertionError(f"a strided kernel launched on the "
                                  f"long-read path: {launches}")
+        if not launches["ref_retention"] or launches["ref_retention_block"] \
+                != launches["ref_retention"] or not launches[
+                    "gapless_score"] or launches["gapless_score_warp"] \
+                != launches["gapless_score"]:
+            raise AssertionError(f"the long-read path's retention left the "
+                                 f"block mapping or its gapless score the "
+                                 f"warp mapping: {launches}")
     return res
 
 
@@ -5751,7 +5852,8 @@ def tools_profile(device) -> None:
 
 # The kernels whose rows every profile of the fused program prints,
 # whatever their rank
-PROFILE_ALWAYS = ("chain_candidates", "quality_offsets")
+PROFILE_ALWAYS = ("chain_candidates", "quality_offsets", "gapless",
+                  "retention")
 # the rows of the fused program's profile that ``--paired`` prints: the
 # top ones by device time, and every row of ``PROFILE_ALWAYS``
 PAIRED_TOP = 30
@@ -6055,26 +6157,29 @@ def main() -> int:
         f"{lres['strict_correct']:.4f}; launches {lres['launches']}; "
         f"peak memory {lres['max_memory_allocated']} B; card {smi}")
 
-    if not quick:
-        t = time.time()
-        rg = retention_gapless_phase(device, main_scans, long_scans,
-                                     max_sm_clock_hz())
-        ktimes.update(rg)
-        rr, gg = rg["ref_retention"]["shapes"], rg["gapless_score"]["shapes"]
-        say(f"phase retention and gapless kernels: {time.time() - t:.1f} s; "
-            f"ref_retention and gapless_score equal to their plain versions "
-            f"(max_abs_err 0) on the main path's and the long path's first "
-            f"calls; ref_retention {rr['main']['ms']:.4f} ms at "
-            f"{rr['main']['reads']} x {rr['main']['nk']} (plain "
-            f"{rr['main']['plain_ms']:.3f} ms), {rr['long']['ms']:.4f} ms at "
-            f"{rr['long']['reads']} x {rr['long']['nk']} (plain "
-            f"{rr['long']['plain_ms']:.3f} ms); gapless_score "
-            f"{gg['main']['ms']:.4f} ms at {gg['main']['reads']} x "
-            f"{gg['main']['candidates']} x {gg['main']['L']} (plain "
-            f"{gg['main']['plain_ms']:.3f} ms), {gg['long']['ms']:.4f} ms at "
-            f"{gg['long']['reads']} x {gg['long']['candidates']} x "
-            f"{gg['long']['L']} (plain {gg['long']['plain_ms']:.3f} ms); card "
-            f"{smi}")
+    t = time.time()
+    rg = retention_gapless_phase(device, main_scans, long_scans,
+                                 max_sm_clock_hz())
+    ktimes.update(rg)
+    rr, gg = rg["ref_retention"]["shapes"], rg["gapless_score"]["shapes"]
+    rb = rg["ref_retention_block"]["shapes"]
+    gw = rg["gapless_score_warp"]["shapes"]
+    say(f"phase retention and gapless kernels: {time.time() - t:.1f} s; "
+        f"ref_retention and gapless_score in each mapping equal to their "
+        f"plain versions (max_abs_err 0) on the main path's and the long "
+        f"path's first calls, crafted counts and crafted rows; "
+        f"ref_retention regs {rr['main']['ms']:.4f} ms at "
+        f"{rr['main']['reads']} x {rr['main']['nk']} (block "
+        f"{rb['main']['ms']:.4f}, plain {rr['main']['plain_ms']:.3f} ms), "
+        f"block {rb['long']['ms']:.4f} ms at {rb['long']['reads']} x "
+        f"{rb['long']['nk']} (plain {rb['long']['plain_ms']:.3f} ms); "
+        f"gapless_score thread {gg['main']['ms']:.4f} ms at "
+        f"{gg['main']['reads']} x {gg['main']['candidates']} x "
+        f"{gg['main']['L']} (warp {gw['main']['ms']:.4f}, plain "
+        f"{gg['main']['plain_ms']:.3f} ms), warp {gw['long']['ms']:.4f} ms "
+        f"at {gw['long']['reads']} x {gw['long']['candidates']} x "
+        f"{gw['long']['L']} (thread {gg['long']['ms']:.4f}, plain "
+        f"{gw['long']['plain_ms']:.3f} ms); card {smi}")
 
     t = time.time()
     ck = candidate_kernels_phase(device, main_scans, long_scans,
@@ -6254,8 +6359,10 @@ def main() -> int:
                "rescue_scan": "rescue_scan",
                "quality_offsets": "quality_offsets",
                "quality_offsets_packed": "quality_offsets_packed",
-               "ref_retention": "ref_retention",
-               "gapless_score": "gapless_score",
+               "ref_retention": "ref_retention_regs",
+               "ref_retention_block": "ref_retention_block",
+               "gapless_score": "gapless_score_thread",
+               "gapless_score_warp": "gapless_score_warp",
                "slot_pack": "slot_pack",
                "chain_candidates": "chain_candidates_regs",
                "chain_candidates_smem": "chain_candidates_smem"}
@@ -6268,7 +6375,8 @@ def main() -> int:
             "msa_score_pipe": "mapper_variants",
             "msa_fill_pipe": "mapper_variants",
             "msa_score_rows_pipe": "k1_entry",
-            "quality_offsets": "long", "chain_candidates_smem": "long"}
+            "quality_offsets": "long", "chain_candidates_smem": "long",
+            "ref_retention_block": "long", "gapless_score_warp": "long"}
     ktimes["banded_edit"] = bkt
     ktimes["banded_any"] = bany
     ktimes["contained_any"] = bcont
@@ -6302,9 +6410,9 @@ def main() -> int:
                         "bound_ms": kt["bound_ms"],
                         "bound_by": kt["bound_by"],
                         "library_ms": kt["library_ms"]})
-        if "max_abs_err_at_cli_shapes" in kt:
-            kernels[-1]["max_abs_err_at_cli_shapes"] = \
-                kt["max_abs_err_at_cli_shapes"]
+        for extra in ("max_abs_err_at_cli_shapes", "device_ms"):
+            if extra in kt:
+                kernels[-1][extra] = kt[extra]
         if name in cli_shapes:
             kernels[-1]["launch_shapes"] = cli_shapes[name]
         say(f"launches {name}: {by_path}")
@@ -6343,8 +6451,9 @@ def main() -> int:
     print(json.dumps({"kernel_selftest": st, "card": smi}), flush=True)
     print(json.dumps({"index_build": ib, "card": smi}), flush=True)
     print(json.dumps({"retention_gapless": {
-        "ref_retention": rg["ref_retention"]["shapes"],
-        "gapless_score": rg["gapless_score"]["shapes"]}, "card": smi}),
+        **{name: rg[name]["shapes"] for name in (*RETENTION_NAMES.values(),
+                                                 *GAPLESS_NAMES.values())},
+        "gapless_sweep": rg["gapless_score"]["sweep"]}, "card": smi}),
         flush=True)
     print(json.dumps({"candidate_kernels": {
         name: {k: e[k] for k in ("shapes", "profile") if k in e}

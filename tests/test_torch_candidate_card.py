@@ -10,8 +10,12 @@ crafted rows of ``tests/candidate_rows`` at the short path's shape (W = 64,
 reads), rows the register mapping's 32-bit sort key cannot hold, and on
 the qualities of ``tests/quality_rows`` at 65,536 x 150 (k 13), 32 x 6,000
 (k 12), 200 x 2,000 (k 13) and 512 x 400 at the longest key the kernel
-takes (k 32; past it both entries refuse). Every test skips where there is
-no CUDA device.
+takes (k 32; past it both entries refuse); the key retention
+(``ref_retention_kernel``, csrc/ref_retention.cu: "regs", a key a lane,
+and "block", a block a read) on crafted counts from 18 to 4,000 keys, and
+the gapless score (``gapless_scores_kernel``, csrc/gapless_score.cu:
+"thread" and "warp") on the crafted rows of ``tests/gapless_rows`` at 150
+and 6,000 bp. Every test skips where there is no CUDA device.
 This file imports neither jax nor the JAX package, so it runs on a machine
 without them: ``python -m pytest --noconftest
 tests/test_torch_candidate_card.py``."""
@@ -24,6 +28,7 @@ from bbmap_tpu_torch.align import quickmap_device as tqd
 from bbmap_tpu_torch.align import seed
 from tests.candidate_rows import INVALID, chain_rows, slot_rows
 from tests.quality_rows import qualities
+from tests.retention_counts import crafted
 
 
 def _card():
@@ -170,3 +175,64 @@ def test_chain_regs_wide_rows_equal_plain(wide):
     got = tqd.chain_candidates_kernel(cfg, diag, toff, mapping="regs")
     for k, w in want.items():
         assert torch.equal(got[k], w), k
+
+
+@pytest.mark.parametrize("nk,B,max_len,mapping", [
+    (18, 65536, 4000, "regs"), (18, 65536, 100, "block"),
+    (18, 4096, 4000, "block"), (32, 4096, 4000, "regs"),
+    (40, 300, 3000, "block"), (750, 32, 3000, "block"),
+    (1500, 16, 3000, "block"), (4000, 4, 9000, "block")])
+def test_retention_mappings_equal_plain(nk, B, max_len, mapping):
+    """The key retention in each mapping on counts crafted across its tiers
+    and branches (``tests/retention_counts``), with weights: one or more
+    keys a thread of the block mapping (750 and 40: one, 1,500: two,
+    4,000: four)."""
+    dev = _card()
+    rng = np.random.default_rng(nk + B)
+    offsets = tuple(range(0, 8 * nk, 8))
+    kp, off, ccnt = (torch.as_tensor(np.tile(a, (-(-B // len(a)), 1))[:B],
+                                     device=dev)
+                     for a in crafted(rng, min(B, 1024), nk, max_len,
+                                      offsets))
+    w = torch.as_tensor(rng.uniform(0.2, 1.0, (B, nk)), dtype=torch.float32,
+                        device=dev)
+    cfg = _cfg(64, nk)._replace(max_usable_length=max_len)
+    for weights in (None, w):
+        want = tqd._ref_retention(cfg, kp, off, ccnt, weights)
+        tqd.reset_launches()
+        got = tqd.ref_retention_kernel(cfg, kp, off, ccnt, weights,
+                                       mapping=mapping)
+        torch.cuda.synchronize()
+        assert tqd.ref_retention_kernel.launches_by[mapping] == 1
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("L,B", [(150, 65536), (150, 1024), (6000, 32)])
+@pytest.mark.parametrize("mapping", ["thread", "warp"])
+def test_gapless_mappings_equal_plain(L, B, mapping):
+    """The gapless score in each mapping on the crafted rows of
+    ``tests/gapless_rows`` (word and lane edges, N, windows off the
+    genome) on a 200 kbp genome with N runs."""
+    from bbmap_tpu_torch.core.genome import Genome, Scaffold
+    from bbmap_tpu_torch.index.build import build_index
+    from tests.gapless_rows import gapless_rows
+    dev = _card()
+    rng = np.random.default_rng(L + B)
+    g = rng.choice(np.frombuffer(b"ACGT", np.uint8), 200_000).astype(
+        np.uint8)
+    for at in rng.integers(0, len(g) - 200, 40):
+        g[at:at + int(rng.integers(1, 120))] = ord("N")
+    genome = Genome(chroms=[g], scaffolds=[Scaffold(
+        chrom=1, sid=1, start=0, length=len(g), name="c1")]).finalize()
+    dix = tqd.DeviceIndex(build_index(genome, 13), dev)
+    cfg = tqd.make_config(dix, L)
+    rows = gapless_rows(dix.index.genome_codes, min(B, 4096), L, 5, rng)
+    reads, mode, strand = (torch.as_tensor(a, device=dev).repeat(
+        -(-B // len(a)), 1)[:B] for a in rows)
+    want = tqd._gapless_scores_plain(cfg, reads, mode, strand, dix)
+    tqd.reset_launches()
+    got = tqd.gapless_scores_kernel(cfg, reads, mode, strand, dix,
+                                    mapping=mapping)
+    torch.cuda.synchronize()
+    assert tqd.gapless_scores_kernel.launches_by[mapping] == 1
+    assert torch.equal(got, want)

@@ -317,7 +317,9 @@ PORT_ADDED = {
     # _slot_pack_lib, _slot_pack_plain, _slot_counts), and the chain
     # step's wrapper, library, plain version and its sort and table
     # (chain_candidates_kernel, _chain_lib, _chain_candidates_plain,
-    # _sort_rows, _candidate_table), the chain kernel's two mappings and
+    # _sort_rows, _candidate_table), the retention and gapless kernels'
+    # mappings and their rules (RETENTION_*, retention_mapping, GAPLESS_*,
+    # gapless_mapping), the chain kernel's two mappings and
     # its choice between them (CHAIN_MAPPINGS, CHAIN_REGS_MAX_W,
     # chain_mapping); the packed quality entry's wrapper and the launch
     # operands both quality entries share (quality_offsets_packed_kernel,
@@ -338,7 +340,11 @@ PORT_ADDED = {
                               "_chain_lib", "_chain_candidates_plain",
                               "_sort_rows", "_candidate_table",
                               "CHAIN_MAPPINGS", "CHAIN_REGS_MAX_W",
-                              "chain_mapping",
+                              "chain_mapping", "RETENTION_MAPPINGS",
+                              "RETENTION_REGS_MAX_NK",
+                              "RETENTION_BLOCK_MAX_NK", "retention_mapping",
+                              "GAPLESS_MAPPINGS", "GAPLESS_WARP_BELOW",
+                              "GAPLESS_WARP_MAX_K", "gapless_mapping",
                               "quality_offsets_packed_kernel",
                               "_quality_launch_args"}}
 # names a copy leaves out on purpose: rqcfilter's default reference paths

@@ -1,17 +1,22 @@
 """The key-retention kernel (bbmap_tpu_torch/csrc/ref_retention.cu, wrapper
-``quickmap_device.ref_retention_kernel``): a numpy emulation of its
-per-read algorithm, in the kernel's order (a read's own loop that ends when
-its cond fails or it stops; the warp scans as sequential loops over pieces
-of 32 keys with a carry: the backward suffix min, the forward prefix max,
-alive rank, running min, first trigger by piece and argmin with the
-lowest index on ties; int32 sums and products wrapped as unsigned), held to
-the plain version (``_ref_retention``) and to the JAX package's
-``_ref_retention`` on the repeat-heavy genome of
+``quickmap_device.ref_retention_kernel``): a numpy emulation of both its
+mappings, in the kernel's order (a read's own loop that ends when its cond
+fails or it stops; "regs", a key a lane: ballots for the tier counts, lane
+r holding the r-th admitted key's weight, the warp's prefix max and suffix
+min of the alive offsets, the alive rank by popcount, the running min, the
+first trigger by ballot and the argmin as the warp's min then its lowest
+lane; "block", KPT keys a thread: each thread's own keys, warp scans over
+the threads, the warp totals combined after each barrier, the argmin's and
+the first trigger's ties to the lowest warp; int32 sums and products
+wrapped as unsigned), held to the plain version (``_ref_retention``) and to
+the JAX package's ``_ref_retention`` on the repeat-heavy genome of
 tests/test_torch_search_oracle.py without and with quality weights, on key
 counts crafted across the re-admission tiers and the trim's branches (ties,
-the early-termination trigger, kills), and at nk = 750 (L = 6,000, k = 12).
-Mutations the emulation must fail: an argmin that keeps the last index on
-ties, and a read that stops one round early. Tolerance: exact."""
+the early-termination trigger, kills), and at nk = 750 (L = 6,000, k = 12)
+and 40. Mutations the emulation must fail: an argmin that keeps the last
+index on ties, a block argmin that keeps the last warp's index on ties, and
+a read that stops one round early. The mapping rule
+(``retention_mapping``). Tolerance: exact."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -71,151 +76,278 @@ def long_cfg():
     return cj, ct
 
 
-def retention_emulation(cfg, kp, off, ccnt, weights=None, mutation=None,
-                        max_rounds=None):
-    """numpy model of csrc/ref_retention.cu, a read at a time. Returns
-    (alive (B, nk) bool, rounds (B,) int32: the rounds whose cond held).
-    ``mutation``: "last_tie" (the argmin keeps the last index on ties);
-    ``max_rounds`` (B,) caps each read's rounds (a read that stops
-    early)."""
-    B, nk = kp.shape
+def _keys_a_thread(nk):
+    """The block mapping's keys a thread (csrc/ref_retention.cu
+    keys_a_thread)."""
+    return next(kpt for kpt in (1, 2, 4, 8) if nk <= kpt * 1024)
+
+
+def _key_value(o, offL, nxt, l, w, first_or_last, numl, off_last, lim):
+    """A key's value in a round (unsigned wraps as int32)."""
+    is_first, is_last = offL == -1, nxt == BIG
+    offR = off_last + 1 if is_last else nxt
+    vp = 30000 + 60000 // numl + 300000 // max(l, 1)
+    if first_or_last:
+        vp += 40000
+    oldL, oldR, newS = o - offL, offR - o, offR - offL
+    space = ((oldL * oldL + oldR * oldR) - newS * newS) * -30
+    if is_first:
+        uc = offR - o
+    elif is_last:
+        uc = o - offL
+    else:
+        uc = max(_i32(offR - (offL + lim["chunk"])), 0)
+    tail = (11500 if is_first or is_last else 6000) * uc
+    vp_final = _i32(vp + 11500 * lim["chunk"] if numl == 1
+                    else vp + space + tail)
+    vpw = vp_final if w is None else int(np.float32(vp_final) * w)
+    return _i32(vpw + lim["pps"] * min(l, lim["vm_cap"]))
+
+
+def _limits(cfg, nk):
     maxLen = cfg.max_usable_length
-    tiers = [min(t, INT_MAX) for t in (maxLen, (maxLen * 3) // 2, maxLen * 2,
-                                       maxLen * 3, maxLen * 5)]
-    trig = (3 * nk) // 4
-    limit3 = max(20, cfg.limit_shortest)
-    limit_avg = max(20, cfg.limit_avg)
-    limit2 = max(20, cfg.limit_avg2)
     pps = cfg.points_per_site
-    vm_cap = (2 ** 30) // max(1, -pps)
-    chunk = cfg.k
-    npieces = (nk + 31) // 32
+    return {"tiers": [min(t, INT_MAX) for t in (
+                maxLen, (maxLen * 3) // 2, maxLen * 2, maxLen * 3,
+                maxLen * 5)],
+            "trig": (3 * nk) // 4, "limit3": max(20, cfg.limit_shortest),
+            "limit_avg": max(20, cfg.limit_avg),
+            "limit2": max(20, cfg.limit_avg2), "pps": pps,
+            "vm_cap": (2 ** 30) // max(1, -pps), "chunk": cfg.k}
+
+
+def _admission_tier(n, lim):
+    tier, num = lim["tiers"][0], n[0]
+    for t, need in ((1, 4), (2, 3), (3, 3), (4, 2)):
+        if n[0] > 0 and num < need and num < lim["trig"]:
+            num, tier = n[t], lim["tiers"][t]
+    return tier
+
+
+def _trims(hits, total, initial, lim):
+    max_lists = max(int(np.float32(0.85) * np.float32(initial)), 6)
+    return hits >= 1 and (total > _i32(lim["limit_avg"] * initial)
+                          or total // max(initial, 1) > lim["limit2"]
+                          or hits > max_lists)
+
+
+def _regs_read(o, c, ok, w, lim, mutation, max_rounds):
+    """One read in the "regs" mapping: a key a lane (nk <= 32), ballots,
+    warp scans and __reduce_min_sync. Returns (alive, rounds)."""
+    nk = len(o)
+    lanes = range(32)
+    inn = [ln < nk for ln in lanes]
+    o = o + [0] * (32 - nk)
+    c = c + [0] * (32 - nk)
+    ok = ok + [False] * (32 - nk)
+    n = [sum(ok[ln] and c[ln] < t for ln in lanes) for t in lim["tiers"]]
+    tier = _admission_tier(n, lim)
+    adm = [ok[ln] and c[ln] < tier for ln in lanes]
+    ball = [ln for ln in lanes if adm[ln]]
+    initial = len(ball)
+    total0 = _i32(sum(c[ln] for ln in ball))
+    shortest = min([c[ln] for ln in ball] or [BIG])
+    first_adm = ball[0] if ball else 0
+    last_adm = ball[-1] if ball else nk - 1
+    off_last = o[last_adm]
+    # lane r: the r-th admitted key's weight (nth_set of the ballot)
+    wc = [None if w is None else w[ball[r]] if r < initial else None
+          for r in lanes]
+    kill = initial >= 1 and shortest > lim["limit3"]
+    alive = [a and not kill for a in adm]
+    hits = 0 if kill else initial
+    total = 0 if kill else total0
+    rounds = 0
+    while _trims(hits, total, initial, lim):
+        if max_rounds is not None and rounds >= max_rounds:
+            break
+        rounds += 1
+        numl = max(hits, 1)
+        ab = [ln for ln in lanes if alive[ln]]
+        first_alive = ab[0] if ab else 0
+        pmax, smin = [], [BIG] * 32
+        m = -1
+        for ln in lanes:                     # inclusive prefix max
+            m = max(m, o[ln] if alive[ln] else -1)
+            pmax.append(m)
+        m = BIG
+        for ln in reversed(lanes):           # inclusive suffix min
+            m = min(m, o[ln] if alive[ln] else BIG)
+            smin[ln] = m
+        val = [BIG if inn[ln] else INT_MAX for ln in lanes]
+        for ln in ab:
+            rank = sum(1 for x in ab if x < ln)
+            val[ln] = _key_value(
+                o[ln], pmax[ln - 1] if ln else -1,
+                smin[ln + 1] if ln < 31 else BIG, c[ln],
+                wc[rank], ln in (first_adm, last_adm), numl, off_last, lim)
+        before, m = [], INT_MAX
+        for ln in lanes:                     # the running min before it
+            before.append(min(m if ln else BIG, BIG))
+            m = min(m, val[ln])
+        tb = [ln for ln in ab if val[ln] < before[ln]
+              and before[ln] < tqd.EARLY_TERMINATION_SCORE
+              and ln != first_alive]
+        vmin = min(val)
+        mb = [ln for ln in lanes if val[ln] == vmin]
+        worst = tb[0] if tb else (mb[-1] if mutation == "last_tie"
+                                  else mb[0])
+        worst_len = c[worst] if alive[worst] else 0
+        total = _i32(total - worst_len)
+        if val[worst] > 0 or worst_len < 20:
+            break
+        alive[worst] = False
+        hits -= 1
+    return alive[:nk], rounds
+
+
+def _block_read(o, c, ok, w, lim, mutation, max_rounds):
+    """One read in the "block" mapping: KPT keys a thread, warp scans over
+    the threads' own results, the warp totals combined after each barrier
+    (lowest warp on ties). Returns (alive, rounds)."""
+    nk = len(o)
+    kpt = _keys_a_thread(nk)
+    nthreads = -(-(-(-nk // kpt)) // 32) * 32
+    nwarps = nthreads // 32
+    keys = [range(t * kpt, min(t * kpt + kpt, nk)) for t in range(nthreads)]
+    n = [sum(ok[j] and c[j] < t for j in range(nk)) for t in lim["tiers"]]
+    tier = _admission_tier(n, lim)
+    adm = [ok[j] and c[j] < tier for j in range(nk)]
+    # admitted ranks: the warps' counts before, the lanes' before, the keys
+    cnt = [sum(adm[j] for j in ks) for ks in keys]
+    wtot = [sum(cnt[32 * wp:32 * wp + 32]) for wp in range(nwarps)]
+    initial = sum(wtot)
+    wc = [None] * nk
+    for t, ks in enumerate(keys):
+        wp, lane = divmod(t, 32)
+        r = sum(wtot[:wp]) + sum(cnt[32 * wp:t])
+        for j in ks:
+            if adm[j] and w is not None:
+                wc[r] = w[j]
+            r += adm[j]
+    admitted = [j for j in range(nk) if adm[j]]
+    total0 = _i32(sum(c[j] for j in admitted))
+    shortest = min([c[j] for j in admitted] or [BIG])
+    first_adm = admitted[0] if admitted else 0
+    last_adm = admitted[-1] if admitted else nk - 1
+    off_last = o[last_adm]
+    kill = initial >= 1 and shortest > lim["limit3"]
+    alive = [a and not kill for a in adm]
+    hits = 0 if kill else initial
+    total = 0 if kill else total0
+    rounds = 0
+    vals, lens = [0] * nk, [0] * nk
+    while _trims(hits, total, initial, lim):
+        if max_rounds is not None and rounds >= max_rounds:
+            break
+        rounds += 1
+        numl = max(hits, 1)
+        # A: the threads' alive counts and offsets' max and min
+        ca = [sum(alive[j] for j in ks) for ks in keys]
+        lmax = [max([o[j] for j in ks if alive[j]] or [-1]) for ks in keys]
+        lmin = [min([o[j] for j in ks if alive[j]] or [BIG]) for ks in keys]
+        s_cnt, s_max, s_min = [0] * nthreads, [0] * nthreads, [0] * nthreads
+        for wp in range(nwarps):
+            ts = range(32 * wp, 32 * wp + 32)
+            acc_c, acc_m = 0, -1
+            for t in ts:
+                acc_c, acc_m = acc_c + ca[t], max(acc_m, lmax[t])
+                s_cnt[t], s_max[t] = acc_c, acc_m
+            acc = BIG
+            for t in reversed(ts):
+                acc = min(acc, lmin[t])
+                s_min[t] = acc
+        a_count = [s_cnt[32 * wp + 31] for wp in range(nwarps)]
+        a_max = [s_max[32 * wp + 31] for wp in range(nwarps)]
+        a_min = [s_min[32 * wp] for wp in range(nwarps)]
+        alive_keys = [j for j in range(nk) if alive[j]]
+        first_alive = alive_keys[0] if alive_keys else 0
+        lrmin = [INT_MAX] * nthreads
+        for t, ks in enumerate(keys):
+            wp, lane = divmod(t, 32)
+            rank = sum(a_count[:wp]) + (s_cnt[t - 1] if lane else 0)
+            offL = max([-1] + a_max[:wp] + ([s_max[t - 1]] if lane else []))
+            nxt = min([BIG] + a_min[wp + 1:]
+                      + ([s_min[t + 1]] if lane < 31 else []))
+            nexts = {}
+            for j in reversed(ks):
+                nexts[j] = nxt
+                if alive[j]:
+                    nxt = min(nxt, o[j])
+            for j in ks:
+                val = BIG
+                if alive[j]:
+                    val = _key_value(o[j], offL, nexts[j], c[j],
+                                     None if w is None else wc[rank],
+                                     j in (first_adm, last_adm), numl,
+                                     off_last, lim)
+                    offL = max(offL, o[j])
+                    rank += 1
+                vals[j], lens[j] = val, c[j] if alive[j] else 0
+                lrmin[t] = min(lrmin[t], val)
+        # B: the warps' running mins and argmins, then the block's
+        b_min, b_idx, s_rmin = [], [], [0] * nthreads
+        for wp in range(nwarps):
+            ts = range(32 * wp, 32 * wp + 32)
+            acc = INT_MAX
+            for t in ts:
+                acc = min(acc, lrmin[t])
+                s_rmin[t] = acc
+            wv = min(lrmin[t] for t in ts)
+            holder = [t for t in ts if lrmin[t] == wv]
+            t = holder[-1] if mutation == "last_tie" else holder[0]
+            ks = [j for j in keys[t] if vals[j] == wv]
+            b_min.append(wv)
+            b_idx.append((ks[-1] if mutation == "last_tie" else ks[0])
+                         if ks else INT_MAX)
+        vmin = min(b_min)
+        holders = [wp for wp in range(nwarps) if b_min[wp] == vmin]
+        argmin = b_idx[holders[-1] if mutation == "last_warp"
+                       else holders[0]]
+        # C: the first key to set a new running min below the early
+        # termination score (not the first alive key)
+        first_trig = BIG
+        for t, ks in enumerate(keys):
+            wp, lane = divmod(t, 32)
+            before = min([INT_MAX] + b_min[:wp]
+                         + ([s_rmin[t - 1]] if lane else []) + [BIG])
+            for j in ks:
+                if alive[j] and vals[j] < before \
+                        and before < tqd.EARLY_TERMINATION_SCORE \
+                        and j != first_alive:
+                    first_trig = min(first_trig, j)
+                    break
+                before = min(before, vals[j])
+        worst = first_trig if first_trig != BIG else argmin
+        total = _i32(total - lens[worst])
+        if vals[worst] > 0 or lens[worst] < 20:
+            break
+        alive[worst] = False
+        hits -= 1
+    return alive, rounds
+
+
+def retention_emulation(cfg, kp, off, ccnt, weights=None, mutation=None,
+                        max_rounds=None, mapping=None):
+    """numpy model of csrc/ref_retention.cu in ``mapping`` (the wrapper's
+    rule when None), a read at a time. Returns (alive (B, nk) bool, rounds
+    (B,) int32: the rounds whose cond held). ``mutation``: "last_tie" (the
+    argmin keeps the last lane, and key, on ties), "last_warp" (the block
+    argmin keeps the last warp's on ties); ``max_rounds`` (B,) caps each
+    read's rounds (a read that stops early)."""
+    B, nk = kp.shape
+    mapping = tqd.retention_mapping(nk, mapping)
+    lim = _limits(cfg, nk)
+    read = _regs_read if mapping == "regs" else _block_read
     alive_out = np.zeros((B, nk), bool)
     rounds_out = np.zeros(B, np.int32)
     for b in range(B):
-        o = [int(x) for x in off[b]]
         c = [int(x) for x in ccnt[b]]
         ok = [int(kp[b, j]) >= 0 and c[j] > 0 for j in range(nk)]
-        n = [sum(ok[j] and c[j] < t for j in range(nk)) for t in tiers]
-        sel, num = 0, n[0]
-        for t, need in ((1, 4), (2, 3), (3, 3), (4, 2)):
-            if n[0] > 0 and num < need and num < trig:
-                sel, num = t, n[t]
-        alive = [ok[j] and c[j] < tiers[sel] for j in range(nk)]
-        wc = [None] * nk
-        initial = total0 = 0
-        shortest, first_adm, last_adm = BIG, -1, -1
-        for p in range(npieces):
-            ball = [j for j in range(32 * p, min(32 * p + 32, nk))
-                    if alive[j]]
-            for r, j in enumerate(ball):
-                total0 += c[j]
-                shortest = min(shortest, c[j])
-                if weights is not None:
-                    wc[initial + r] = np.float32(weights[b, j])
-            if ball:
-                if first_adm < 0:
-                    first_adm = ball[0]
-                last_adm = ball[-1]
-            initial += len(ball)
-        first_adm = max(first_adm, 0)
-        if last_adm < 0:
-            last_adm = nk - 1
-        off_last = o[last_adm]
-        kill = initial >= 1 and shortest > limit3
-        if kill:
-            alive = [False] * nk
-        limit = _i32(limit_avg * initial)
-        max_lists = max(int(np.float32(0.85) * np.float32(initial)), 6)
-        hits = 0 if kill else initial
-        total = 0 if kill else _i32(total0)
-        active = not kill and initial >= 1
-        rounds = 0
-        while active:
-            cond = hits >= 1 and (total > limit
-                                  or total // max(initial, 1) > limit2
-                                  or hits > max_lists)
-            if not cond:
-                break
-            if max_rounds is not None and rounds >= max_rounds[b]:
-                break
-            rounds += 1
-            numl = max(hits, 1)
-            row = [0] * nk
-            carry, first_alive = BIG, 0
-            for p in range(npieces - 1, -1, -1):
-                js = range(32 * p, min(32 * p + 32, nk))
-                for j in reversed(js):          # exclusive suffix min
-                    row[j] = carry
-                    if alive[j]:
-                        carry = min(carry, o[j])
-                lanes = [j for j in js if alive[j]]
-                if lanes:
-                    first_alive = lanes[0]
-            cmax, crank, cmin, first_trig = -1, 0, BIG, -1
-            best_val, best_idx = INT_MAX, INT_MAX
-            vals = [BIG] * nk
-            for p in range(npieces):
-                js = range(32 * p, min(32 * p + 32, nk))
-                trig_lanes, piece = [], []
-                for j in js:
-                    offL = cmax
-                    if alive[j]:
-                        cmax = max(cmax, o[j])
-                        crank += 1
-                    rank = crank - 1
-                    val = BIG
-                    if alive[j]:
-                        nxt = row[j]
-                        is_first, is_last = offL == -1, nxt == BIG
-                        offR = off_last + 1 if is_last else nxt
-                        vp = 30000 + 60000 // numl + 300000 // max(c[j], 1)
-                        if j in (first_adm, last_adm):
-                            vp += 40000
-                        oldL, oldR, newS = o[j] - offL, offR - o[j], \
-                            offR - offL
-                        space = ((oldL * oldL + oldR * oldR)
-                                 - newS * newS) * -30
-                        if is_first:
-                            uc = offR - o[j]
-                        elif is_last:
-                            uc = o[j] - offL
-                        else:
-                            uc = max(_i32(offR - (offL + chunk)), 0)
-                        tail = (11500 if is_first or is_last else 6000) * uc
-                        vp_final = _i32(vp + 11500 * chunk if numl == 1
-                                        else vp + space + tail)
-                        vpw = vp_final
-                        if weights is not None:
-                            w = wc[min(max(rank, 0), nk - 1)]
-                            vpw = int(np.float32(vp_final) * w)
-                        val = _i32(vpw + pps * min(c[j], vm_cap))
-                    before = cmin
-                    cmin = min(cmin, val)
-                    if alive[j] and val < before \
-                            and before < tqd.EARLY_TERMINATION_SCORE \
-                            and j != first_alive:
-                        trig_lanes.append(j)
-                    piece.append((val, j))
-                    vals[j] = val
-                if first_trig < 0 and trig_lanes:
-                    first_trig = trig_lanes[0]
-                if mutation == "last_tie":
-                    bv, bi = min(piece, key=lambda vj: (vj[0], -vj[1]))
-                    if bv <= best_val:
-                        best_val, best_idx = bv, bi
-                else:
-                    bv, bi = min(piece)
-                    if (bv, bi) < (best_val, best_idx):
-                        best_val, best_idx = bv, bi
-            worst = first_trig if first_trig >= 0 else best_idx
-            worst_value = vals[worst]
-            worst_len = c[worst] if alive[worst] else 0
-            total = _i32(total - worst_len)
-            if worst_value > 0 or worst_len < 20:
-                break
-            alive[worst] = False
-            hits -= 1
+        w = None if weights is None else [np.float32(x) for x in weights[b]]
+        alive, rounds = read(
+            [int(x) for x in off[b]], c, ok, w, lim, mutation,
+            None if max_rounds is None else int(max_rounds[b]))
         alive_out[b] = alive
         rounds_out[b] = rounds
     return alive_out, rounds_out
@@ -242,6 +374,9 @@ def _three_way(cj, ct, kp, off, ccnt, weights=None):
     np.testing.assert_array_equal(got, want)
     emu = retention_emulation(ct, kp, off, ccnt, weights)
     np.testing.assert_array_equal(emu[0], want)
+    if kp.shape[1] <= tqd.RETENTION_REGS_MAX_NK:       # "block" holds it too
+        np.testing.assert_array_equal(retention_emulation(
+            ct, kp, off, ccnt, weights, mapping="block")[0], want)
     return emu
 
 
@@ -346,6 +481,61 @@ def test_mutations_fail(repeat):
     assert (early != want).any()
 
 
+def _tie_rows(nk):
+    """Two reads whose seven admitted keys (count 20, the rest unused) lie
+    in seven warps of the block mapping at 750 keys, evenly spaced, with
+    small equal weights: the five inner keys tie below 0, and one round
+    removes one of them (hits 7 > max_lists 6, then the total is at the
+    limit)."""
+    kp = np.full((2, nk), -1, np.int32)
+    ccnt = np.zeros((2, nk), np.int32)
+    off = np.zeros((2, nk), np.int32)
+    for b, keys in enumerate(([10, 150, 290, 430, 570, 710, 740],
+                              [3, 140, 300, 420, 560, 700, 749])):
+        kp[b, keys] = 7
+        ccnt[b, keys] = 20
+        off[b] = np.arange(nk) * 8
+        off[b, keys] = 6 * np.arange(1, 8)
+    return kp, off, ccnt, np.full((2, nk), 0.01, np.float32)
+
+
+def test_block_last_warp_mutation_fails(long_cfg):
+    """At 750 keys (24 warps, a key a thread) inner keys tie across
+    warps: a block argmin that keeps the last warp's key removes another
+    key than the plain version; on crafted counts at 750 and at 40 keys
+    (two warps) the block mapping holds the plain version."""
+    cj, ct = (c._replace(max_usable_length=3000) for c in long_cfg)
+    args = _tie_rows(750)
+    want = _plain(ct, *args)
+    np.testing.assert_array_equal(_jax(cj, *args), want)
+    alive, rounds = retention_emulation(ct, *args)
+    np.testing.assert_array_equal(alive, want)
+    assert (rounds == 1).all() and (want.sum(1) == 6).all()
+    got = retention_emulation(ct, *args, mutation="last_warp")[0]
+    assert (got != want).any()
+    for nk, seed in ((750, 11), (40, 12)):
+        kp, off, ccnt = crafted(np.random.default_rng(seed), 6, nk, 3000,
+                                ct.offsets_list[:nk])
+        w = np.random.default_rng(13).uniform(0.3, 1, kp.shape).astype(
+            np.float32)
+        np.testing.assert_array_equal(retention_emulation(
+            ct, kp, off, ccnt, w)[0], _plain(ct, kp, off, ccnt, w))
+
+
+def test_mapping_rule():
+    """"regs" up to 32 keys, "block" past them and up to 8,192; a mapping
+    given is kept where it holds nk, refused where not."""
+    assert tqd.retention_mapping(18) == "regs"
+    assert tqd.retention_mapping(32) == "regs"
+    assert tqd.retention_mapping(33) == "block"
+    assert tqd.retention_mapping(750) == "block"
+    assert tqd.retention_mapping(18, "block") == "block"
+    for nk, mapping in ((33, "regs"), (8193, None), (8193, "block"),
+                        (18, "lanes")):
+        with pytest.raises(ValueError):
+            tqd.retention_mapping(nk, mapping)
+
+
 def test_wrapper_checks_and_counts(repeat):
     _g, _a, _d, _cj, ct = repeat
     kp, off, ccnt, w = _repeat_inputs(repeat, 16, 3, True)
@@ -363,13 +553,20 @@ def test_wrapper_checks_and_counts(repeat):
         tqd.ref_retention_kernel(ct, args[0], args[1], args[2][:, :5])
     with pytest.raises(ValueError):
         tqd.ref_retention_kernel(ct, args[0], args[1].to("meta"), args[2])
+    with pytest.raises(ValueError):
+        tqd.ref_retention_kernel(ct, *args[:3], mapping="warp")
+    np.testing.assert_array_equal(tqd.ref_retention_kernel(
+        ct, *args[:3], weights=args[3], mapping="block").numpy(), got.numpy())
+    assert tqd.ref_retention_kernel.launches_by == {"regs": 0, "block": 0}
 
 
-@pytest.mark.parametrize("shape", ["short", "long"])
-def test_kernel_equals_plain_on_the_card(repeat, long_cfg, shape):
-    """The CUDA kernel, one launch, against the plain version on the card
-    (chip_smoke.py does this on the main path's warmup batch and at
-    32 x 6,000)."""
+@pytest.mark.parametrize("shape,mapping", [("short", "regs"),
+                                           ("short", "block"),
+                                           ("long", "block")])
+def test_kernel_equals_plain_on_the_card(repeat, long_cfg, shape, mapping):
+    """The CUDA kernel in each mapping that holds the shape, one launch,
+    against the plain version on the card (chip_smoke.py does this on the
+    main path's warmup batch and at 32 x 6,000)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda", 0)
@@ -385,6 +582,8 @@ def test_kernel_equals_plain_on_the_card(repeat, long_cfg, shape):
     args = [torch.from_numpy(a).to(dev) for a in (kp, off, ccnt, w)]
     want = tqd._ref_retention(ct, *args[:3], args[3])
     tqd.reset_launches()
-    got = tqd.ref_retention_kernel(ct, *args[:3], weights=args[3])
+    got = tqd.ref_retention_kernel(ct, *args[:3], weights=args[3],
+                                   mapping=mapping)
     assert tqd.ref_retention_kernel.launches == 1
+    assert tqd.ref_retention_kernel.launches_by[mapping] == 1
     assert torch.equal(got, want)
