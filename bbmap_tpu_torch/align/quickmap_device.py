@@ -991,17 +991,48 @@ def _slot_pack_lib() -> ctypes.CDLL:
     if not getattr(lib, "_bbmap_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.slot_pack_launch.argtypes = [
-            vp, vp, vp, vp, vp, ctypes.c_longlong, ci, ci, ci, vp, vp, vp,
-            vp, vp, vp]
+            vp, vp, vp, vp, vp, ctypes.c_longlong, ci, ci, ci, ci, vp, vp,
+            vp, vp, vp, vp]
         lib.slot_pack_launch.restype = ci
         lib._bbmap_typed = True
     return lib
 
 
+# The slot pack's mappings (csrc/slot_pack.cu): "warp", a warp a (read,
+# strand) row ranking by a pairwise count, up to SLOT_PACK_WARP_MAX_NK keys
+# (the short path's 18; its shared memory holds ~3,600); "block", a block a
+# row ranking by a bitonic sort, up to SLOT_PACK_BLOCK_MAX_NK keys (the
+# long path's 750). The rule takes "warp" below SLOT_PACK_BLOCK_FROM keys
+# and "block" from there: chip_smoke.py's sweep (18-750 keys at 32 and
+# 4,096 reads) found the warp mapping faster through 96 keys at 4,096
+# reads and the block mapping from 128 (at 32 reads the block mapping is
+# faster from 64 keys, by at most 0.007 ms below 128). The JAX package's
+# own branch, pairwise rank-sum to argsort, is at 64
+# (bbmap_tpu/align/quickmap_device.py:1038).
+SLOT_PACK_MAPPINGS = ("warp", "block")
+SLOT_PACK_BLOCK_FROM = 128
+SLOT_PACK_WARP_MAX_NK = 3632
+SLOT_PACK_BLOCK_MAX_NK = 8192
+
+
+def slot_pack_mapping(nk: int, mapping: Optional[str] = None) -> str:
+    """The slot pack's mapping for rows of nk keys: ``mapping`` where it
+    holds nk (a ValueError where not), else "warp" below
+    SLOT_PACK_BLOCK_FROM keys and "block" from there."""
+    if mapping is None:
+        mapping = "warp" if nk < SLOT_PACK_BLOCK_FROM else "block"
+    if mapping not in SLOT_PACK_MAPPINGS or nk > (
+            SLOT_PACK_WARP_MAX_NK if mapping == "warp"
+            else SLOT_PACK_BLOCK_MAX_NK):
+        raise ValueError(f"slot pack mapping {mapping!r} cannot take "
+                         f"nk={nk}")
+    return mapping
+
+
 def slot_pack_kernel(cfg: QmConfig, gadm: torch.Tensor,
                      cnt_local: torch.Tensor, s0: torch.Tensor,
                      offadj: torch.Tensor, admit: torch.Tensor,
-                     n_sites: int):
+                     n_sites: int, mapping: Optional[str] = None):
     """The slot budget and the slot-to-key assignment of B reads: gadm
     (the lengths the budget ranks by), cnt_local (the lengths gathered),
     s0 (the lists' first sites), offadj (B, 2, nk) int32 and admit
@@ -1009,12 +1040,14 @@ def slot_pack_kernel(cfg: QmConfig, gadm: torch.Tensor,
     (B, 2, W) int64, offadj_slot and toff_slot (B, 2, W) int32,
     valid_slot (B, 2, W) bool and the row total (B, 2) int32. CPU
     tensors: the plain version (``_slot_pack_plain``). CUDA tensors: one
-    launch of ``csrc/slot_pack.cu``, no host sync; a failed launch
-    raises."""
+    launch of ``csrc/slot_pack.cu`` in the mapping of
+    ``slot_pack_mapping(nk, mapping)`` ("warp" below 128 keys, "block"
+    from there), no host sync; a failed launch raises."""
     B, two, nk = gadm.shape
     if two != 2 or nk < 1:
         raise ValueError(f"gadm (B, 2, nk >= 1) expected, got "
                          f"{tuple(gadm.shape)}")
+    how = slot_pack_mapping(nk, mapping)
     for name, t in (("cnt_local", cnt_local), ("s0", s0),
                     ("offadj", offadj), ("admit", admit)):
         if t.shape != gadm.shape:
@@ -1045,12 +1078,15 @@ def slot_pack_kernel(cfg: QmConfig, gadm: torch.Tensor,
     ins = [t.contiguous() for t in (gadm, cnt_local, s0, offadj, admit)]
     err = lib.slot_pack_launch(
         *(t.data_ptr() for t in ins), 2 * B, nk, WB,
-        max(-1, min(n_sites - 1, 2 ** 31 - 1)), gather_idx.data_ptr(),
+        max(-1, min(n_sites - 1, 2 ** 31 - 1)),
+        SLOT_PACK_MAPPINGS.index(how), gather_idx.data_ptr(),
         offadj_slot.data_ptr(), toff_slot.data_ptr(), valid_slot.data_ptr(),
         total.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"slot_pack_launch failed: cudaError {err}")
+        raise RuntimeError(f"slot_pack_launch ({how}) failed: "
+                           f"cudaError {err}")
     slot_pack_kernel.launches += 1
+    slot_pack_kernel.launches_by[how] += 1
     return gather_idx, offadj_slot, toff_slot, valid_slot, total
 
 
@@ -1451,6 +1487,7 @@ def reset_launches() -> None:
     ref_retention_kernel.launches = 0
     ref_retention_kernel.launches_by = dict.fromkeys(RETENTION_MAPPINGS, 0)
     slot_pack_kernel.launches = 0
+    slot_pack_kernel.launches_by = dict.fromkeys(SLOT_PACK_MAPPINGS, 0)
     chain_candidates_kernel.launches = 0
     chain_candidates_kernel.launches_by = dict.fromkeys(CHAIN_MAPPINGS, 0)
     gapless_scores_kernel.launches = 0

@@ -11,9 +11,11 @@ shrink) exactly as the host oracle ``pipeline._quick_rescue``.
 
 - ``rescue_scan`` is the kernel's wrapper. Given CUDA tensors it makes
   one launch of ``csrc/rescue_scan.cu`` (a block a job: the window and
-  the read staged in shared memory, the offsets over the threads, the
-  walk on one thread) and adds one to ``rescue_scan.launches``; given CPU
-  tensors it runs the plain version and counts nothing.
+  the read staged as 2-bit words in shared memory, the offsets over the
+  threads a word of 16 positions a step, cut once their misses pass
+  max_mm + 1, the walk on one warp by ballots, 32 steps a round) and adds
+  one to ``rescue_scan.launches``; given CPU tensors it runs the plain
+  version and counts nothing.
 - ``_rescue_stage`` is the plain version: the per-offset statistics
   accumulate in a loop over read positions; the acceptance walk is a loop
   over scan positions in ascending order, with the per-offset arrays

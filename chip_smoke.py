@@ -106,14 +106,19 @@ Phases, each timed on its own line:
    launch once a call: fails when one launched less than once a batch,
    or when the chain step took another mapping than "regs" (the rows in
    registers) at the path's W = 64, the retention another than "regs" (a
-   key a lane) at 18 keys or the gapless score another than "thread" (a
+   key a lane) at 18 keys, the slot pack another than "warp" (a warp a
+   row) at 18 keys or the gapless score another than "thread" (a
    thread a candidate) at 524,288 candidates. The first call of each is
    recorded,
    and after the SAM phase both kernels are held to their plain versions
    on the card, tolerance 0: the rescue scan on the warmup batch's jobs
    and on 1,024 edge jobs (both directions, n = 1, 2 and 1,536, N bases
    in reads and windows, windows past the genome's ends, max_mm -1 and
-   0, ties on a repeat) on a 200 kbp genome with N runs, the quality
+   0, ties on a repeat) on a 200 kbp genome with N runs, each timed
+   between CUDA events from an idle card and from a queue behind a spin
+   (device time; and once by torch.profiler), then the rescue kernel's
+   device time at 52, 256, 1,024 and 4,096 edge jobs
+   (``rescue sweep`` lines); the quality
    offsets' packed entry on the warmup batch's words (65,536 x 150) and
    its raw entry on the same reads unpacked, both entries on 32 x 6,000 at
    randomreads' PacBio quality (k = 12, 750 keys); each timed beside its
@@ -135,10 +140,10 @@ Phases, each timed on its own line:
    CLI on the card, graded by gradesam (strict = within 400 bp); fails
    below mapped 0.98 or strict 0.65, when the band K2 or K3 or the walk
    kernel was never launched, or when a strided kernel was, or when the
-   retention took another mapping than "block" or the gapless score
-   another than "warp"; the fill chunk the card's memory allows is
-   printed beside the launches; the first calls of the key retention and
-   the gapless score are recorded here too. Then both kernels in each of
+   retention or the slot pack took another mapping than "block" or the
+   gapless score another than "warp"; the fill chunk the card's memory
+   allows is printed beside the launches; the first calls of the key
+   retention and the gapless score are recorded here too. Then both kernels in each of
    their mappings, forced, against their plain versions on the card,
    tolerance 0, on the main path's first calls (65,536 reads of 18 keys
    with quality weights: "regs" and "block"; 65,536 x 8 candidates of 150
@@ -159,9 +164,16 @@ Phases, each timed on its own line:
    versions on the card, tolerance 0 on every output, on the main path's
    first calls (65,536 reads, 2 x 18 keys, W 64; the chain step in both
    of its mappings, "regs" and "smem", timed in turns) and the long path's
-   cut to 32 reads (2 x 750 keys, W 512), each timed beside its plain
-   version and its bound, and on rows crafted for their edges
-   (``tests/candidate_rows.py``) at both shapes; torch.profiler counts
+   cut to 32 reads (2 x 750 keys, W 512), the slot pack in both of its
+   mappings ("warp" and "block") in turns at both, with each launch's
+   device time (a loop queued behind a spin), each timed beside its plain
+   version
+   and its bound, and on rows crafted for their edges
+   (``tests/candidate_rows.py``, length sums that wrap among them) at both
+   shapes, the slot pack in both mappings; the slot pack's mappings swept
+   over 18 to 750 keys at 32 and 4,096 reads and at the long path's whole
+   first launch (``slot sweep`` lines: the rule's pick and the faster by
+   device time); torch.profiler counts
    the scans and the scalar reads of a device value in one call of each
    kernel (none) and of each plain version; the plain versions' times at
    the main path's shapes printed as the split of the former eager scans;
@@ -379,7 +391,8 @@ REPLACES = {"msa_score_rows": _K1, "msa_score": _K2, "msa_score_row": _K2,
             "ref_retention": _RETENTION, "ref_retention_block": _RETENTION,
             "gapless_score": _GAPLESS, "gapless_score_warp": _GAPLESS,
             "quality_offsets_packed": _QUALITY,
-            "slot_pack": _SLOT_PACK, "chain_candidates": _CHAIN,
+            "slot_pack": _SLOT_PACK, "slot_pack_block": _SLOT_PACK,
+            "chain_candidates": _CHAIN,
             "chain_candidates_smem": _CHAIN,
             **{n: f"{_K3} + {_WALK}" for n in FILL_WALK.values()}}
 CSRC = "bbmap_tpu_torch/csrc/"
@@ -407,6 +420,7 @@ SOURCE = {"msa_score_rows": CSRC + "msa_dp_warp.cu",
           "gapless_score": CSRC + "gapless_score.cu",
           "gapless_score_warp": CSRC + "gapless_score.cu",
           "slot_pack": CSRC + "slot_pack.cu",
+          "slot_pack_block": CSRC + "slot_pack.cu",
           "chain_candidates": CSRC + "chain_candidates.cu",
           "chain_candidates_smem": CSRC + "chain_candidates.cu",
           **{n: CSRC + "msa_fill_walk.cu" for n in FILL_WALK.values()}}
@@ -530,19 +544,59 @@ def _cuda_ms(fn, reps: int, warm: bool = True):
     return e0.elapsed_time(e1) / reps, out
 
 
-def _kernel_device_ms(fn) -> float:
-    """The device time (ms) of the kernels one call of fn launches, from
-    torch.profiler: the kernels alone, without the host's time between
-    launches, which a loop of short launches measured between CUDA events
-    is bound by."""
+PROFILE_TRIES = 4   # profiler runs that may record no kernel before a NaN
+SPIN_MS = 5.0       # the spin ahead of a device-time loop, at first
+
+
+def _kernel_device_ms(fn, reps: int = 20) -> float:
+    """The device time (ms) of one call of fn's kernels: ``reps`` calls
+    queued behind a spin kernel (``torch.cuda._sleep``), so that the card
+    runs them back to back while the host is still queueing, between CUDA
+    events, over ``reps``: the kernels and the gaps between them on the
+    device, without the host's launch rate, which a loop of short launches
+    timed from an idle card is bound by. Where the host's queueing
+    outlasted the spin, the spin is lengthened and the loop run again
+    (NaN after 4 tries). (torch.profiler's kernel records, the earlier
+    source of this time, missed the hand kernels' launches in most runs
+    after the long-read phase: ``_kernel_profile_ms``.)"""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    spin_ms = SPIN_MS
+    for _ in range(4):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(spin_ms * 2e6))   # >= spin_ms at <= 2 GHz
+        t = time.perf_counter()
+        e0.record()
+        for _ in range(reps):
+            fn()
+        e1.record()
+        host_ms = 1e3 * (time.perf_counter() - t)
+        torch.cuda.synchronize()
+        if host_ms < 0.8 * spin_ms:
+            return e0.elapsed_time(e1) / reps
+        spin_ms = 2 * host_ms
+    return float("nan")
+
+
+def _kernel_profile_ms(fn) -> float:
+    """The kernel time (ms) torch.profiler records for one call of fn (the
+    kernels' own durations, no gaps), run again where it recorded no
+    kernel, up to PROFILE_TRIES times; then NaN ("not measured")."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(PROFILE_TRIES):
         torch.cuda.synchronize()
-    return sum(ev.device_time for ev in prof.events()
-               if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        times = [ev.device_time for ev in prof.events()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA]
+        if times:
+            return sum(times) / 1e3
+    say(f"profile: no kernel recorded in {PROFILE_TRIES} runs: not measured")
+    return float("nan")
 
 
 def _pb_errors(rng, src, n: int, err: float):
@@ -1910,8 +1964,9 @@ def launch_counts() -> dict:
     "ref_retention" and by mapping ("ref_retention_regs",
     "ref_retention_block"), the gapless kernel's as "gapless_score" and by
     mapping ("gapless_score_thread", "gapless_score_warp"), the slot
-    pack's as "slot_pack" and the chain step's as "chain_candidates" and
-    by mapping ("chain_candidates_regs", "chain_candidates_smem")."""
+    pack's as "slot_pack" and by mapping ("slot_pack_warp",
+    "slot_pack_block") and the chain step's as "chain_candidates" and by
+    mapping ("chain_candidates_regs", "chain_candidates_smem")."""
     from bbmap_tpu_torch.align import quickmap_device
     from bbmap_tpu_torch.ops import banded_device, msa_kernels, rescue_device
     out = {k.__name__: k.launches for k in msa_kernels.KERNELS}
@@ -1941,6 +1996,8 @@ def launch_counts() -> dict:
         for mapping, n in k.launches_by.items():
             out[f"{name}_{mapping}"] = n
     out["slot_pack"] = quickmap_device.slot_pack_kernel.launches
+    for mapping, n in quickmap_device.slot_pack_kernel.launches_by.items():
+        out[f"slot_pack_{mapping}"] = n
     chain = quickmap_device.chain_candidates_kernel
     out["chain_candidates"] = chain.launches
     for mapping, n in chain.launches_by.items():
@@ -2081,9 +2138,11 @@ def main_path(device, n_pairs: int = N_PAIRS, n_steady: int = N_STEADY,
                                  f"{launches}")
         if launches["ref_retention_regs"] != launches["ref_retention"] \
                 or launches["gapless_score_thread"] \
-                != launches["gapless_score"]:
-            raise AssertionError(f"the retention left the register mapping "
-                                 f"or the gapless score the thread mapping: "
+                != launches["gapless_score"] \
+                or launches["slot_pack_warp"] != launches["slot_pack"]:
+            raise AssertionError(f"the retention left the register mapping, "
+                                 f"the gapless score the thread mapping or "
+                                 f"the slot pack the warp mapping: "
                                  f"{launches}")
     return res, (mk(r1, q1, 0), mk(r2, q2, 0), out0, aligner)
 
@@ -2130,6 +2189,7 @@ def first_call(module, name: str):
 
 N_OFF = 1536                  # the rescue scan's offsets (pipeline's)
 RESCUE_EDGE_JOBS = 1024
+RESCUE_SWEEP_JOBS = (52, 256, 1024, 4096)   # edge jobs, device time each
 QUALITY_LONG = (32, L_LONG, 12)   # reads, length, k of the long path
 QUALITY_ROWS = 4096           # edge-case quality rows made, then tiled
 PACBIO_Q = (28, 35)           # randomreads' quality range (minq, maxq)
@@ -2264,26 +2324,55 @@ def rescue_quality_phase(device, rescue_call, quality_call,
     args = (dix, reads, lo, n, ik, rt, mm, Lm, N_OFF)
     e_main, got = rescue_err(args)
     ms, _ = _cuda_ms(lambda: rd.rescue_scan(*args), 20)
+    dev_ms = _kernel_device_ms(lambda: rd.rescue_scan(*args))
+    prof_ms = _kernel_profile_ms(lambda: rd.rescue_scan(*args))
     plain_ms, _ = _cuda_ms(
         lambda: rd._rescue_stage(dix, reads, reads > 3, lo, n, ik, rt, mm,
                                  Lm, N_OFF), 1, warm=False)
     b_ms, b_by = _rescue_bound(dix, n.cpu().numpy(), Lm, clock)
     found = int((got[0] >= 0).sum())
     edix = rescue_edge_index(device)
-    edge = rd.upload_jobs(*rescue_edge_jobs(
-        edix.index.genome_codes, RESCUE_EDGE_JOBS, Lm, 31), device)
+    edge_np = rescue_edge_jobs(edix.index.genome_codes,
+                               max(RESCUE_SWEEP_JOBS), Lm, 31)
+    edge = rd.upload_jobs(*(a[:RESCUE_EDGE_JOBS] for a in edge_np), device)
     e_edge, got_e = rescue_err((edix, *edge, Lm, N_OFF))
+    e_args = (edix, *edge, Lm, N_OFF)
+    e_ms, _ = _cuda_ms(lambda: rd.rescue_scan(*e_args), 20)
+    e_dev = _kernel_device_ms(lambda: rd.rescue_scan(*e_args))
+    e_prof = _kernel_profile_ms(lambda: rd.rescue_scan(*e_args))
+    e_bound = _rescue_bound(edix, edge[2].cpu().numpy(), Lm, clock)
     say(f"kernel rescue_scan: the warmup batch's {len(n)} jobs (Lm {Lm}, "
-        f"N_OFF {N_OFF}, {found} found) max_abs_err {e_main}, {ms:.4f} ms "
-        f"(plain {plain_ms:.3f} ms, bound {b_ms:.6f} ms by {b_by}); "
+        f"N_OFF {N_OFF}, {found} found) max_abs_err {e_main}, {ms:.4f} ms, "
+        f"device {dev_ms:.4f} ms (profiler {prof_ms:.4f}; plain "
+        f"{plain_ms:.3f} ms, bound {b_ms:.6f} ms by {b_by}); "
         f"{RESCUE_EDGE_JOBS} edge jobs max_abs_err {e_edge} "
-        f"({int((got_e[0] >= 0).sum())} found)")
+        f"({int((got_e[0] >= 0).sum())} found), {e_ms:.4f} ms, device "
+        f"{e_dev:.4f} ms (profiler {e_prof:.4f}; bound {e_bound[0]:.6f} ms "
+        f"by {e_bound[1]})")
+    # the device time over the job count: a wave of 132 SMs and past it
+    sweep = []
+    for jobs in RESCUE_SWEEP_JOBS:
+        sw = rd.upload_jobs(*(a[:jobs] for a in edge_np), device)
+        s_args = (edix, *sw, Lm, N_OFF)
+        rd.rescue_scan(*s_args)
+        sweep.append({"jobs": jobs,
+                      "device_ms": _kernel_device_ms(
+                          lambda: rd.rescue_scan(*s_args)),
+                      "bound_ms": _rescue_bound(edix, sw[2].cpu().numpy(),
+                                                Lm, clock)[0]})
+        say(f"rescue sweep at {jobs} edge jobs: device "
+            f"{sweep[-1]['device_ms']:.4f} ms (bound "
+            f"{sweep[-1]['bound_ms']:.6f} ms)")
     out["rescue_scan"] = {
-        "max_abs_err": max(e_main, e_edge), "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "max_abs_err": max(e_main, e_edge), "ms": ms, "device_ms": dev_ms,
+        "profiler_ms": prof_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": None,
         "shape": {"jobs": len(n), "Lm": Lm, "N_OFF": N_OFF,
                   "found": found},
-        "edge_jobs": RESCUE_EDGE_JOBS, "max_abs_err_edge": e_edge}
+        "edge_jobs": RESCUE_EDGE_JOBS, "max_abs_err_edge": e_edge,
+        "edge": {"ms": e_ms, "device_ms": e_dev, "profiler_ms": e_prof,
+                 "bound_ms": e_bound[0],
+                 "bound_by": e_bound[1]}, "sweep": sweep}
 
     def quality_plain_packed(cfg, words, pal, pcp, den2, den3):
         return qd._quality_offsets_core(
@@ -2517,8 +2606,9 @@ def retention_gapless_phase(device, main_calls: dict, long_calls: dict,
     bound, two mappings in turns (A B B A); the gapless mappings also at
     ``GAPLESS_SWEEP_READS`` reads of the main call, with the mapping
     ``gapless_mapping`` picks beside the one whose kernel ran faster
-    under torch.profiler (at these sizes a loop of launches between CUDA
-    events can measure the host's launch rate). Then the retention
+    by device time (``_kernel_device_ms``: at these sizes a loop of
+    launches between CUDA events from an idle card can measure the host's
+    launch rate). Then the retention
     kernel on counts crafted across the tiers and the trim's branches
     (``crafted_counts``) at both shapes, and the gapless kernel on rows
     crafted for its word and lane edges (``tests/gapless_rows``) on a
@@ -2547,8 +2637,8 @@ def retention_gapless_phase(device, main_calls: dict, long_calls: dict,
 
     def timed(names, kernel, plain, args, maps, tag, shape, plain_ms, bound):
         """Each mapping of ``maps`` in turns: held to the plain version,
-        timed between CUDA events (``ms``) and one call's kernel time
-        under torch.profiler (``device_ms``); recorded under its name at
+        timed between CUDA events (``ms``) and by its device time
+        (``device_ms``, ``_kernel_device_ms``); recorded under its name at
         ``tag``. Returns {mapping: device_ms}."""
         runs = {}
         for m in turns(maps):
@@ -2696,6 +2786,12 @@ def retention_gapless_phase(device, main_calls: dict, long_calls: dict,
 
 
 CANDIDATE_CRAFTED_READS = 2048   # crafted reads, then tiled to the shape
+# the slot pack's mappings by their ``kernels`` line names (the first timed
+# at the main path's shape, the second at the long path's) and the sweep
+# behind ``slot_pack_mapping``'s rule
+SLOT_NAMES = {"warp": "slot_pack", "block": "slot_pack_block"}
+SLOT_SWEEP_NK = (18, 32, 64, 65, 75, 96, 128, 256, 750)
+SLOT_SWEEP_READS = (32, 4096)
 
 
 def _tiled(arrays, B: int, device):
@@ -2729,7 +2825,7 @@ def candidate_kernels_phase(device, main_calls: dict, long_calls: dict,
     import functools
     import numpy as np
     from bbmap_tpu_torch.align import quickmap_device as qd
-    from tests.candidate_rows import chain_rows, slot_rows
+    from tests.candidate_rows import chain_rows, slot_rows, wrap_slot_rows
 
     def cut(a, n):
         return a[:n] if hasattr(a, "shape") else a
@@ -2746,13 +2842,16 @@ def candidate_kernels_phase(device, main_calls: dict, long_calls: dict,
     def chain_in(mapping):
         return functools.partial(qd.chain_candidates_kernel, mapping=mapping)
 
+    def slot_in(mapping):
+        return functools.partial(qd.slot_pack_kernel, mapping=mapping)
+
     K = qd.MAX_CANDIDATES
     names = {"slot_pack": ("slot_pack_kernel", qd.slot_pack_kernel,
                            qd._slot_pack_plain),
              "chain_candidates": ("chain_candidates_kernel",
                                   qd.chain_candidates_kernel,
                                   qd._chain_candidates_plain)}
-    out = {name: {"shapes": {}} for name in ("slot_pack",
+    out = {name: {"shapes": {}} for name in (*SLOT_NAMES.values(),
                                              *CHAIN_NAMES.values())}
     for tag, calls in (("main", main_calls), ("long", long_calls)):
         n = None if tag == "main" else RETENTION_LONG_READS
@@ -2768,29 +2867,37 @@ def candidate_kernels_phase(device, main_calls: dict, long_calls: dict,
                 b_ms, b_by = _slot_pack_bound(x, cfg.slot_budget, clock)
                 shape = {"reads": x.shape[0], "nk": x.shape[2],
                          "W": cfg.slot_budget}
-                turns = ((None, kernel),)
+                turns = tuple((SLOT_NAMES[m], slot_in(m)) for m in (
+                    "warp", "block", "block", "warp"))
             else:
                 b_ms, b_by = _chain_bound(x, K, clock)
                 shape = {"reads": x.shape[0], "W": x.shape[2]}
-                turns = tuple((m, chain_in(m)) for m in (
+                turns = tuple((CHAIN_NAMES[m], chain_in(m)) for m in (
                     ("regs", "smem", "smem", "regs") if tag == "main"
                     else ("smem",)))
             times = {}
-            for mapping, fn in turns:
+            for key, fn in turns:
                 err = held(fn, plain, args)
                 ms, _ = _cuda_ms(lambda: fn(*args), 20)
-                key = name if mapping is None else CHAIN_NAMES[mapping]
-                times.setdefault(key, []).append((err, ms))
+                dev = (_kernel_device_ms(lambda: fn(*args))
+                       if name == "slot_pack" else None)
+                times.setdefault(key, []).append((err, ms, dev))
             for key, runs in times.items():
-                err = max(e for e, _ in runs)
-                ms = sum(t for _, t in runs) / len(runs)
-                out[key]["shapes"][tag] = {
+                err = max(r[0] for r in runs)
+                ms = sum(r[1] for r in runs) / len(runs)
+                e = out[key]["shapes"][tag] = {
                     **shape, "max_abs_err": err, "ms": ms,
-                    "turns_ms": [t for _, t in runs], "plain_ms": plain_ms,
+                    "turns_ms": [r[1] for r in runs], "plain_ms": plain_ms,
                     "bound_ms": b_ms, "bound_by": b_by}
+                if name == "slot_pack":
+                    e["device_ms"] = sum(r[2] for r in runs) / len(runs)
+                    e["device_turns_ms"] = [r[2] for r in runs]
                 say(f"kernel {key} at {shape}: max_abs_err {err}, "
-                    f"{ms:.4f} ms (turns {[round(t, 4) for _, t in runs]};"
-                    f" plain {plain_ms:.3f} ms, bound {b_ms:.6f} ms by "
+                    f"{ms:.4f} ms (turns {[round(r[1], 4) for r in runs]}"
+                    + (f"; device {e['device_ms']:.4f} ms, turns "
+                       f"{[round(r[2], 4) for r in runs]}"
+                       if name == "slot_pack" else "")
+                    + f"; plain {plain_ms:.3f} ms, bound {b_ms:.6f} ms by "
                     f"{b_by})")
             if name == "chain_candidates" and tag == "main":
                 regs = out["chain_candidates"]["shapes"]["main"]["turns_ms"]
@@ -2824,12 +2931,13 @@ def candidate_kernels_phase(device, main_calls: dict, long_calls: dict,
         W, nk = cfg.slot_budget, len(cfg.offsets_list)
         n_sites = int(args[6])
         m = min(B, CANDIDATE_CRAFTED_READS)
-        sargs = [cfg, *_tiled(slot_rows(rng, m, nk, W, n_sites), B, device),
+        sargs = [cfg, *_tiled(wrap_slot_rows(slot_rows(rng, m, nk, W,
+                                                       n_sites)), B, device),
                  n_sites]
         cargs = [cfg, *_tiled(chain_rows(rng, m, W, nk, cfg.chain_dist), B,
                               device)]
-        runs = [("slot_pack", qd.slot_pack_kernel, qd._slot_pack_plain,
-                 sargs)]
+        runs = [(SLOT_NAMES[mapping], slot_in(mapping), qd._slot_pack_plain,
+                 sargs) for mapping in qd.SLOT_PACK_MAPPINGS]
         for mapping in (CHAIN_NAMES if W <= qd.CHAIN_REGS_MAX_W
                         else ("smem",)):
             runs.append((CHAIN_NAMES[mapping], chain_in(mapping),
@@ -2841,17 +2949,69 @@ def candidate_kernels_phase(device, main_calls: dict, long_calls: dict,
                 "reads": B, "W": W, "nk": nk, "max_abs_err": err, "ms": ms}
             say(f"kernel {key} on crafted rows at {B} reads, W {W}, {nk} "
                 f"keys: max_abs_err {err}, {ms:.4f} ms")
+    out["slot_pack"]["sweep"] = slot_sweep(device, long_calls, rng)
     for name, e in out.items():
-        m = e["shapes"]["long" if name == "chain_candidates_smem"
-                        else "main"]
+        m = e["shapes"]["long" if name in ("chain_candidates_smem",
+                                           "slot_pack_block") else "main"]
         e.update(max_abs_err=max(v["max_abs_err"]
                                  for v in e["shapes"].values()),
                  ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
                  bound_by=m["bound_by"], library_ms=None)
+        if "device_ms" in m:
+            e["device_ms"] = m["device_ms"]
     if any(e["max_abs_err"] != 0 for e in out.values()):
         raise AssertionError(f"a kernel disagrees with its plain version: "
                              f"{out}")
     return out
+
+
+def slot_sweep(device, long_calls: dict, rng) -> list:
+    """The slot pack's two mappings over the key count, each launch's
+    device time (``_kernel_device_ms``): crafted rows (``slot_rows``) of
+    ``SLOT_SWEEP_NK`` keys at each of ``SLOT_SWEEP_READS`` reads, W as
+    the path's config takes it (64 to 75 keys, reads to 600 bp; 512 past
+    that), and the long path's first launch whole (its reads, 750 keys, W
+    512). Each point held to the plain version as well; the mapping
+    ``slot_pack_mapping`` picks beside the faster one."""
+    import functools
+    from bbmap_tpu_torch.align import quickmap_device as qd
+    from tests.candidate_rows import slot_rows
+    (args, _kw), = long_calls["slot_pack_kernel"]
+    points = [(f"{nb} reads", nk, 64 if nk <= 75 else 512, nb)
+              for nb in SLOT_SWEEP_READS for nk in SLOT_SWEEP_NK]
+    points.append(("the long path's first launch", args[1].shape[2],
+                   args[0].slot_budget, args[1].shape[0]))
+    sweep = []
+    for what, nk, W, nb in points:
+        if what.startswith("the long"):
+            cfg, sargs = args[0], list(args)
+        else:
+            cfg = args[0]._replace(slot_budget=W,
+                                   offsets_list=tuple(range(nk)))
+            n_sites = int(args[6])
+            sargs = [cfg, *_tiled(slot_rows(rng, min(nb, 2048), nk, W,
+                                            n_sites), nb, device), n_sites]
+        want = qd._slot_pack_plain(*sargs)
+        times = {}
+        for m in qd.SLOT_PACK_MAPPINGS:
+            fn = functools.partial(qd.slot_pack_kernel, mapping=m)
+            got = fn(*sargs)
+            _sync(device)
+            if any(_diff(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"slot pack {m} at {nk} keys, {nb} "
+                                     f"reads disagrees with the plain "
+                                     f"version")
+            times[m] = _kernel_device_ms(lambda: fn(*sargs))
+        e = {"what": what, "reads": nb, "nk": nk, "W": W,
+             **{f"{m}_device_ms": t for m, t in times.items()},
+             "rule": qd.slot_pack_mapping(nk),
+             "faster": min(times, key=times.get)}
+        sweep.append(e)
+        say(f"slot sweep at {what}: {nb} x 2 x {nk} keys, W {W}, device "
+            f"time: warp {e['warp_device_ms']:.4f} ms, block "
+            f"{e['block_device_ms']:.4f} ms; the rule picks {e['rule']}, "
+            f"the faster is {e['faster']}")
+    return sweep
 
 
 def sam_phase(first, n: int = 1000) -> int:
@@ -3177,10 +3337,12 @@ def long_phase(device, genome_bases, n_reads: int = N_LONG,
         if not launches["ref_retention"] or launches["ref_retention_block"] \
                 != launches["ref_retention"] or not launches[
                     "gapless_score"] or launches["gapless_score_warp"] \
-                != launches["gapless_score"]:
-            raise AssertionError(f"the long-read path's retention left the "
-                                 f"block mapping or its gapless score the "
-                                 f"warp mapping: {launches}")
+                != launches["gapless_score"] or not launches["slot_pack"] \
+                or launches["slot_pack_block"] != launches["slot_pack"]:
+            raise AssertionError(f"the long-read path's retention or slot "
+                                 f"pack left the block mapping or its "
+                                 f"gapless score the warp mapping: "
+                                 f"{launches}")
     return res
 
 
@@ -5734,11 +5896,15 @@ def _device_profile(fn, tag: str, wall_ms: float, top: int = 12,
     Returns those counts."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(PROFILE_TRIES):   # again where it recorded no kernel
         torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        if any(ev.device_type == torch.autograd.DeviceType.CUDA
+               for ev in prof.events()):
+            break
     kernels = {}
     launch_us = n_launch_calls = n_scalar = n_scans = 0
     for ev in prof.events():
@@ -5755,9 +5921,10 @@ def _device_profile(fn, tag: str, wall_ms: float, top: int = 12,
     n_kernels = sum(n for n, _ in kernels.values())
     n_dtoh = sum(n for name, (n, _) in kernels.items() if "DtoH" in name)
     dev_ms = sum(us for _, us in kernels.values()) / 1e3
+    idle = 100 * (1 - dev_ms / wall_ms) if wall_ms > 0 else float("nan")
     say(f"profile {tag}: wall {wall_ms:.1f} ms without the profiler, "
         f"{n_kernels} device kernels and copies, device time {dev_ms:.3f} "
-        f"ms, idle share {100 * (1 - dev_ms / wall_ms):.1f} %, "
+        f"ms, idle share {idle:.1f} %, "
         f"cudaLaunchKernel {n_launch_calls} calls {launch_us / 1e3:.1f} ms, "
         f"{n_scans} scans, {n_scalar} scalar reads of a device value, "
         f"{n_dtoh} device-to-host copies")
@@ -6117,9 +6284,12 @@ def main() -> int:
         f"s; rescue_scan and quality_offsets' raw and packed entries equal "
         f"to their plain versions (max_abs_err 0) on the warmup batch's "
         f"inputs and on edge cases; rescue_scan "
-        f"{rq['rescue_scan']['ms']:.4f} ms at "
+        f"{rq['rescue_scan']['ms']:.4f} ms, device "
+        f"{rq['rescue_scan']['device_ms']:.4f} ms at "
         f"{rq['rescue_scan']['shape']['jobs']} jobs (plain "
-        f"{rq['rescue_scan']['plain_ms']:.3f} ms); "
+        f"{rq['rescue_scan']['plain_ms']:.3f} ms), device "
+        f"{rq['rescue_scan']['edge']['device_ms']:.4f} ms at "
+        f"{RESCUE_EDGE_JOBS} edge jobs; "
         + "; ".join(
             f"{name} {e['ms']:.4f} ms at {e['reads']} x {e['L']} (plain "
             f"{e['plain_ms']:.3f} ms, bound {e['bound_ms']:.6f} ms)"
@@ -6187,16 +6357,20 @@ def main() -> int:
     ktimes.update(ck)
     del main_scans, long_scans
     sp, cc = ck["slot_pack"]["shapes"], ck["chain_candidates"]["shapes"]
+    sb = ck["slot_pack_block"]["shapes"]
     cs_ = ck["chain_candidates_smem"]["shapes"]
     say(f"phase slot pack and chain kernels: {time.time() - t:.1f} s; "
-        f"slot_pack and chain_candidates equal to their plain versions "
-        f"(max_abs_err 0) on the main path's and the long path's first "
-        f"calls and on crafted rows; slot_pack {sp['main']['ms']:.4f} ms at "
-        f"{sp['main']['reads']} x 2 x {sp['main']['nk']} keys, W "
-        f"{sp['main']['W']} (plain {sp['main']['plain_ms']:.3f} ms), "
-        f"{sp['long']['ms']:.4f} ms at {sp['long']['reads']} x 2 x "
-        f"{sp['long']['nk']}, W {sp['long']['W']} (plain "
-        f"{sp['long']['plain_ms']:.3f} ms); chain_candidates "
+        f"slot_pack in both mappings and chain_candidates equal to their "
+        f"plain versions (max_abs_err 0) on the main path's and the long "
+        f"path's first calls and on crafted rows; slot_pack warp "
+        f"{sp['main']['ms']:.4f} ms, device {sp['main']['device_ms']:.4f} "
+        f"at {sp['main']['reads']} x 2 x {sp['main']['nk']} keys, W "
+        f"{sp['main']['W']} (block {sb['main']['device_ms']:.4f}, plain "
+        f"{sp['main']['plain_ms']:.3f} ms), block {sb['long']['ms']:.4f} ms, "
+        f"device {sb['long']['device_ms']:.4f} at {sb['long']['reads']} x 2 "
+        f"x {sb['long']['nk']}, W {sb['long']['W']} (warp "
+        f"{sp['long']['device_ms']:.4f}, plain {sb['long']['plain_ms']:.3f} "
+        f"ms); chain_candidates "
         f"{cc['main']['ms']:.4f} ms at {cc['main']['reads']} x 2 x "
         f"{cc['main']['W']} in registers (the smem mapping "
         f"{cs_['main']['ms']:.4f} ms there, plain "
@@ -6363,7 +6537,8 @@ def main() -> int:
                "ref_retention_block": "ref_retention_block",
                "gapless_score": "gapless_score_thread",
                "gapless_score_warp": "gapless_score_warp",
-               "slot_pack": "slot_pack",
+               "slot_pack": "slot_pack_warp",
+               "slot_pack_block": "slot_pack_block",
                "chain_candidates": "chain_candidates_regs",
                "chain_candidates_smem": "chain_candidates_smem"}
     home = {"msa_score_rows": "k1_entry", "msa_walk": "long",
@@ -6376,7 +6551,8 @@ def main() -> int:
             "msa_fill_pipe": "mapper_variants",
             "msa_score_rows_pipe": "k1_entry",
             "quality_offsets": "long", "chain_candidates_smem": "long",
-            "ref_retention_block": "long", "gapless_score_warp": "long"}
+            "ref_retention_block": "long", "gapless_score_warp": "long",
+            "slot_pack_block": "long"}
     ktimes["banded_edit"] = bkt
     ktimes["banded_any"] = bany
     ktimes["contained_any"] = bcont
@@ -6456,8 +6632,10 @@ def main() -> int:
         "gapless_sweep": rg["gapless_score"]["sweep"]}, "card": smi}),
         flush=True)
     print(json.dumps({"candidate_kernels": {
-        name: {k: e[k] for k in ("shapes", "profile") if k in e}
-        for name, e in ck.items()}, "card": smi}), flush=True)
+        name: {k: e[k] for k in ("shapes", "profile", "sweep") if k in e}
+        for name, e in ck.items()}, "rescue_scan": {
+            k: rq["rescue_scan"][k] for k in ("edge", "sweep")},
+        "card": smi}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -5,7 +5,8 @@ kernels on the card. numpy only.
 ``slot_rows`` gives the slot pack's per-key inputs: ties in the budget's
 lengths, zero lengths, lists longer than the budget, sums landing exactly
 on it, local lengths apart from the global ones, rows with nothing
-admitted, first sites near the end of the sites. ``chain_rows`` gives the
+admitted, first sites near the end of the sites; ``wrap_slot_rows`` adds
+lengths whose int32 prefix sums wrap. ``chain_rows`` gives the
 chain step's unsorted slots: all-invalid rows, steps exactly at and one
 past ``chain_dist``, negative diagonals, a key slot repeated within a
 chain, modal-run ties, runs longer than 255 slots and runs that start past
@@ -64,6 +65,22 @@ def slot_rows(rng, B: int, nk: int, W: int, n_sites: int):
     offadj = rng.integers(-200, 200, shape)
     return (gadm.astype(np.int32), cnt.astype(np.int32),
             s0.astype(np.int32), offadj.astype(np.int32), admit)
+
+
+def wrap_slot_rows(arrays):
+    """``slot_rows``' arrays with lengths whose int32 prefix sums wrap: on
+    every fourth read's plus strand every key 2^30 + 7 (the sum passes 2^31
+    at the second key and wraps to <= W again past the fourth), on the
+    next read's minus strand up to six lengths near 2^31 among the
+    crafted ones."""
+    gadm, cnt = arrays[0].copy(), arrays[1].copy()
+    nk = gadm.shape[2]
+    gadm[::4, 0, :] = 2 ** 30 + 7
+    cnt[::4, 0, :] = np.arange(nk) % 5 + 1
+    big = min(nk, 6)
+    gadm[1::4, 1, :big] = 2 ** 31 - 1 - np.arange(big)
+    cnt[1::4, 1, :big] = 3
+    return (gadm, cnt, *arrays[2:])
 
 
 def _row(rng, kind: int, W: int, nk: int, cd: int):

@@ -1,5 +1,7 @@
 """The candidate stage's kernels on the card: ``slot_pack_kernel``
-(csrc/slot_pack.cu), ``chain_candidates_kernel`` (csrc/chain_candidates.cu,
+(csrc/slot_pack.cu, both mappings: "warp", a warp a row, and "block", a
+block a row, on crafted rows with wrapping length sums too, from 18 to
+8,192 keys), ``chain_candidates_kernel (csrc/chain_candidates.cu,
 both mappings: "regs", the rows in registers, and "smem", the rows in
 shared memory) and the quality offsets' two entries
 (``quality_offsets_kernel`` on q and pc, ``quality_offsets_packed_kernel``
@@ -26,7 +28,8 @@ import torch
 
 from bbmap_tpu_torch.align import quickmap_device as tqd
 from bbmap_tpu_torch.align import seed
-from tests.candidate_rows import INVALID, chain_rows, slot_rows
+from tests.candidate_rows import INVALID, chain_rows, slot_rows, \
+    wrap_slot_rows
 from tests.quality_rows import qualities
 from tests.retention_counts import crafted
 
@@ -58,6 +61,36 @@ def test_slot_pack_equals_plain(W, nk, B):
     got = tqd.slot_pack_kernel(cfg, *args, n_sites)
     torch.cuda.synchronize()
     assert tqd.slot_pack_kernel.launches == 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("W,nk,B,mapping", [
+    (64, 18, 65536, "warp"), (64, 18, 65536, "block"),
+    (64, 64, 4096, "warp"), (64, 65, 4096, "block"), (64, 65, 4096, "warp"),
+    (512, 750, 32, "warp"), (512, 750, 32, "block"),
+    (512, 750, 4096, "block"), (512, 1100, 16, "block"),
+    (512, 2100, 8, "block"), (128, 8192, 4, "block"),
+    (64, 3632, 4, "warp")])
+def test_slot_pack_mappings_equal_plain(W, nk, B, mapping):
+    """Each mapping, forced, on crafted rows with lengths whose int32 sums
+    wrap: one launch counted under its mapping, every output equal to the
+    plain version's (1, 2, 4 and 8 keys a thread in the block mapping; the
+    warp mapping up to its shared memory's 3,632 keys)."""
+    dev = _card()
+    n_sites = 10_000
+    rng = np.random.default_rng(W + nk + B)
+    rows = wrap_slot_rows(slot_rows(rng, min(B, 2048), nk, W, n_sites))
+    args = [torch.from_numpy(a).to(dev) for a in rows]
+    reps = -(-B // args[0].shape[0])
+    args = [a.repeat(reps, 1, 1)[:B] for a in args]
+    cfg = _cfg(W, nk)
+    want = tqd._slot_pack_plain(cfg, *args, n_sites)
+    tqd.reset_launches()
+    got = tqd.slot_pack_kernel(cfg, *args, n_sites, mapping=mapping)
+    torch.cuda.synchronize()
+    assert tqd.slot_pack_kernel.launches_by == {
+        m: int(m == mapping) for m in tqd.SLOT_PACK_MAPPINGS}
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
 

@@ -345,6 +345,9 @@ PORT_ADDED = {
                               "RETENTION_BLOCK_MAX_NK", "retention_mapping",
                               "GAPLESS_MAPPINGS", "GAPLESS_WARP_BELOW",
                               "GAPLESS_WARP_MAX_K", "gapless_mapping",
+                              "SLOT_PACK_MAPPINGS", "SLOT_PACK_BLOCK_FROM",
+                              "SLOT_PACK_WARP_MAX_NK",
+                              "SLOT_PACK_BLOCK_MAX_NK", "slot_pack_mapping",
                               "quality_offsets_packed_kernel",
                               "_quality_launch_args"}}
 # names a copy leaves out on purpose: rqcfilter's default reference paths

@@ -2,12 +2,16 @@
 against the JAX package's program (bbmap_tpu/ops/rescue_device.py), on a
 genome with N runs: the plain version (``_rescue_stage``, what
 ``rescue_scan`` runs on CPU tensors) bit-equal to the JAX scan on seeded
-edge cases, a numpy emulation of ``csrc/rescue_scan.cu``'s loop order
-(the window staged with bad bases as 4 and read N as 5, only the offsets
-the walk reads scanned, the walk on one thread stopping at min(n, N_OFF)
-or past klim) bit-equal to the plain version, the unpadded launch against
-the 1,024-row padding the JAX program cache needs, and the one-copy
-upload. Tolerance: exact (integers)."""
+edge cases; a numpy emulation of ``csrc/rescue_scan.cu``'s order (the
+window and the read as 2-bit words with bad and ok bits, only the offsets
+the walk reads scanned, a word of 16 positions a step with the run carried
+from word to word, the walk on one warp by ballots 32 steps a chunk,
+stopping at min(n, N_OFF) or past klim) bit-equal to the plain version at
+the JAX tests' read length and at lengths that end inside a word, with
+mutations of the walk that must fail (a tie taken at an equal absdif, the
+highest voter accepted); the unpadded launch against the 1,024-row
+padding the JAX program cache needs, and the one-copy upload. Tolerance:
+exact (integers)."""
 
 import numpy as np
 import pytest
@@ -45,15 +49,15 @@ def setup():
 
 
 def _job(rng, codes, src, right, n, ideal_off, max_mm, subs=0, n_read=0,
-         ideal_delta=0):
+         ideal_delta=0, lm=LM):
     """One job reading the genome at ``src`` (mate-oriented codes), the
     scan window placed so that the source lies ``ideal_off`` scan steps
     in, the ideal start ``ideal_delta`` bases past it."""
-    read = codes[max(0, src):src + LM].copy()
-    read = np.concatenate([read, np.full(LM - len(read), 4, np.uint8)])
+    read = codes[max(0, src):src + lm].copy()
+    read = np.concatenate([read, np.full(lm - len(read), 4, np.uint8)])
     for _ in range(subs):
-        read[rng.integers(0, LM)] = rng.integers(0, 4)
-    read[rng.integers(0, LM, n_read)] = 4
+        read[rng.integers(0, lm)] = rng.integers(0, 4)
+    read[rng.integers(0, lm, n_read)] = 4
     if right:
         lo = src - ideal_off
     else:
@@ -61,7 +65,7 @@ def _job(rng, codes, src, right, n, ideal_off, max_mm, subs=0, n_read=0,
     return read, lo, n, src - lo + ideal_delta, right, max_mm
 
 
-def edge_jobs(codes, seed=5):
+def edge_jobs(codes, seed=5, lm=LM):
     """Seeded jobs over the cases the kernel must hold: both directions;
     n = 1, n < N_OFF and n = N_OFF; N bases in the read and in the window;
     windows past the genome's end and before its start; max_mm 0 and -1;
@@ -76,28 +80,29 @@ def edge_jobs(codes, seed=5):
                 src = int(rng.integers(2_000, 25_000))
                 off = int(rng.integers(0, n))
                 jobs.append(_job(rng, codes, src, right, n, off, max_mm,
-                                 subs=int(rng.integers(0, 3))))
+                                 subs=int(rng.integers(0, 3)), lm=lm))
         # N bases in the read, and windows over the N run
         jobs.append(_job(rng, codes, 12_000, right, 900, 400, 10,
-                         subs=1, n_read=3))
-        jobs.append(_job(rng, codes, 9_020, right, 500, 250, 20))
-        jobs.append(_job(rng, codes, 9_480, right, N_OFF, 700, 12, n_read=1))
+                         subs=1, n_read=3, lm=lm))
+        jobs.append(_job(rng, codes, 9_020, right, 500, 250, 20, lm=lm))
+        jobs.append(_job(rng, codes, 9_480, right, N_OFF, 700, 12, n_read=1,
+                         lm=lm))
         # the genome's end and start: windows reach past both
-        jobs.append(_job(rng, codes, G - LM, right, 800, 799 if right else 0,
-                         6))
-        jobs.append(_job(rng, codes, G - LM - 3, right, N_OFF,
-                         N_OFF - 10 if right else 5, 6))
+        jobs.append(_job(rng, codes, G - lm, right, 800, 799 if right else 0,
+                         6, lm=lm))
+        jobs.append(_job(rng, codes, G - lm - 3, right, N_OFF,
+                         N_OFF - 10 if right else 5, 6, lm=lm))
         jobs.append(_job(rng, codes, 10, right, 300, 200 if right else 100,
-                         6))
+                         6, lm=lm))
         # ties on the repeat: equal scores every 16 offsets, the ideal
         # start on a match, between two (equal absdif) or nearer one
         for shift, delta in ((0, 0), (3, 8), (5, 5), (11, -8)):
             jobs.append(_job(rng, codes, 15_200 + shift, right, 600, 300, 4,
-                             ideal_delta=delta))
+                             ideal_delta=delta, lm=lm))
     reads, lo, n, ik, rt, mm = (np.array(x) for x in zip(*jobs))
     # padding rows, as the JAX program's fixed budget fills them
     pad = 4
-    reads = np.concatenate([reads, np.full((pad, LM), 4, np.uint8)])
+    reads = np.concatenate([reads, np.full((pad, lm), 4, np.uint8)])
     lo = np.concatenate([lo, np.zeros(pad, np.int64)])
     n = np.concatenate([n, np.zeros(pad, np.int64)])
     ik = np.concatenate([ik, np.zeros(pad, np.int64)])
@@ -107,58 +112,151 @@ def edge_jobs(codes, seed=5):
             ik.astype(np.int32), rt.astype(bool), mm.astype(np.int32))
 
 
-def kernel_emulation(codes, reads, lo, n, ik, right, max_mm,
-                     mutation=None):
-    """numpy model of csrc/rescue_scan.cu, a job at a time: the staged
-    window (bad = 4) and read (N = 5), per-offset statistics for t <
-    min(n, N_OFF) only, and the walk of thread 0 with its early stops.
-    ``mutation="tie_le"`` breaks it on purpose: a tie in score at an
-    equal absdif replaces the match found first. (The klim stop changes
-    no result: past kref + a every absdif is larger than a.)"""
+EVEN = np.uint64(0x55555555)       # bit 2i: base i of a 16-base word
+M32 = np.uint64(0xffffffff)
+
+
+def _words(vals):
+    """(16 w,) values 0..3 to (w,) words of 16 bases, 2 bits a base
+    (uint64 holding uint32)."""
+    sh = np.arange(16, dtype=np.uint64) * np.uint64(2)
+    return (vals.reshape(-1, 16).astype(np.uint64) << sh).sum(1).astype(
+        np.uint64)
+
+
+def _popc(x):
+    x = x.astype(np.uint64)
+    return np.array([bin(int(v)).count("1") for v in x], np.int64)
+
+
+def _scan_words(codes, read, lo, used, lm, lim=None):
+    """mism, score of offsets t < used as csrc/rescue_scan.cu scans them:
+    the window staged as words of 2-bit codes aligned to lo with a bad bit
+    at each base's even bit, the read's codes and ok bits; a word of 16
+    positions a step (funnel shift, XOR, fold), the misses by popcounts,
+    stopped once they pass ``lim`` (max_mm + 1: such an offset is never
+    accepted, and keeps that partial count), then for the offsets within
+    it the longest run, the trailing run carried from word to word and the
+    runs inside a word counted by shifting where the popcount could beat
+    the best so far. ``lim`` None: no offset stops."""
     G = len(codes)
+    nw = -(-lm // 16)
+    staged = ((used - 1) >> 4) + nw + 1
+    pos = lo + np.arange(16 * staged)
+    inside = (pos >= 0) & (pos < G)
+    code = np.zeros(len(pos), np.int64)
+    code[inside] = codes[pos[inside]]
+    cw = _words(np.where(code > 3, 0, code))
+    bw = _words((~inside | (code > 3)).astype(np.int64))
+    rd = np.full(16 * nw, 4, np.int64)
+    rd[:lm] = read
+    rw = _words(np.where(rd > 3, 0, rd))
+    ok = _words((rd <= 3).astype(np.int64))
+    t = np.arange(used)
+    q = t >> 4
+    sh = ((t & 15) * 2).astype(np.uint64)
+    lim = np.iinfo(np.int64).max if lim is None else lim
+
+    def good_word(j):
+        c = ((cw[q + j] | (cw[q + j + 1] << np.uint64(32))) >> sh) & M32
+        b = ((bw[q + j] | (bw[q + j + 1] << np.uint64(32))) >> sh) & M32
+        x = c ^ rw[j]
+        return ok[j] & ~(x | (x >> np.uint64(1)) | b) & M32
+
+    miss = np.full(used, -(16 * nw - lm), np.int64)
+    for j in range(nw):
+        miss += np.where(miss <= lim, _popc(~good_word(j) & EVEN), 0)
+    cur = np.zeros(used, np.int64)
+    best = np.zeros(used, np.int64)
+    for j in range(nw):
+        g = np.where(miss <= lim, good_word(j), np.uint64(0))
+        pc = _popc(g)
+        full = g == EVEN
+        ng = ~g & EVEN
+        low = ng & (~ng + np.uint64(1))                 # the lowest bad
+        lead = _popc(low - np.uint64(1)) >> 1
+        best = np.where(full, best, np.maximum(best, cur + lead))
+        inner = np.zeros(used, np.int64)
+        y = np.where(~full & (pc > best), g, np.uint64(0))
+        while y.any():
+            inner += y != 0
+            y = y & (y >> np.uint64(2))
+        best = np.maximum(best, inner)
+        hi = np.frexp(np.maximum(ng, np.uint64(1)).astype(np.float64))[1] - 1
+        cur = np.where(full, cur + 16, (31 - hi) >> 1)
+    best = np.where(miss <= lim, np.maximum(best, cur), 0)
+    return miss, (lm - miss) + best
+
+
+def kernel_emulation(codes, reads, lo, n, ik, right, max_mm,
+                     mutation=None, lm=LM, rounds=None):
+    """numpy model of csrc/rescue_scan.cu, a job at a time: the offsets t <
+    min(n, N_OFF) scanned a word of 16 positions a step, cut at max_mm + 1
+    (``_scan_words``); a mark for each walk step whose offset stayed within
+    that bound, a word a chunk of 32 steps; then the walk on one warp over
+    the marked chunks in order: each round the marked lanes whose step
+    dominates the state vote and the lowest voter is accepted; the walk
+    stops at min(n, N_OFF) or once a chunk starts past klim. Mutations:
+    ``"tie_le"``, a tie in score at an equal absdif replaces the match
+    found first (its walk drops the lanes at or before an accept, or the
+    accepted lane would vote again); ``"highest"``, a round accepts the
+    highest voter; ``"lim_low"``, the scan cuts at max_mm in place of
+    max_mm + 1. The variant ``"mask"`` drops the lanes at or before an
+    accept from the chunk's later rounds (the kernel does not need to). (The klim stop changes no result: past kref + a every
+    absdif is larger than a.) ``rounds``, a list, gets each job's ballot
+    rounds."""
     R = len(reads)
     best_k = np.empty(R, np.int32)
     min_mm_out = np.empty(R, np.int32)
+    lane = np.arange(32)
     for b in range(R):
         used = max(0, min(int(n[b]), N_OFF))
-        staged = used + LM - 1 if used else 0
-        pos = int(lo[b]) + np.arange(staged)
-        inside = (pos >= 0) & (pos < G)
-        win = np.full(staged, 4, np.uint8)
-        win[inside] = codes[pos[inside]]
-        win[win > 3] = 4
-        rd = np.where(reads[b] > 3, 5, reads[b]).astype(np.uint8)
-        mism = np.zeros(used, np.int64)
-        cur = np.zeros(used, np.int64)
-        best = np.zeros(used, np.int64)
-        for j in range(LM):
-            good = win[j:j + used] == rd[j]
-            mism += ~good
-            cur = np.where(good, cur + 1, 0)
-            best = np.maximum(best, cur)
-        score = (LM - mism) + best
+        lim = int(max_mm[b]) + 1
+        mism = score = np.zeros(0, np.int64)
+        if used:
+            mism, score = _scan_words(codes, reads[b], int(lo[b]), used, lm,
+                                      lim - (mutation == "lim_low"))
         nb, ib = int(n[b]), int(ik[b])
         rt = bool(right[b])
         kref = ib if rt else (nb - 1) - ib
-        mn, bs, ba, bk, klim = int(max_mm[b]) + 1, 0, 2 ** 30, -1, N_OFF
-        k = 0
-        while k < used and k <= klim:
-            t = k if rt else (nb - 1) - k
-            ts = min(t, N_OFF - 1)
-            m, s, a = int(mism[ts]), int(score[ts]), abs(t - ib)
-            better = a <= ba if mutation == "tie_le" else a < ba
-            if m <= mn and (s > bs or (s == bs and better)):
-                mn, bs, ba, bk = m, s, a, k
-                if m == 0:
-                    klim = min(klim, kref + a)
-            k += 1
+        mn, bs, ba, bk, klim = lim, 0, 2 ** 30, -1, N_OFF
+        n_rounds = 0
+        for k0 in range(0, used, 32):
+            if k0 > klim:
+                break
+            k = k0 + lane
+            inn = k < used
+            t = np.where(rt, k, (nb - 1) - k)
+            ts = np.clip(t, 0, N_OFF - 1)
+            m = np.where(inn, mism[np.minimum(ts, used - 1)], 0)
+            s = np.where(inn, score[np.minimum(ts, used - 1)], 0)
+            a = np.abs(t - ib)
+            left = inn & (m <= lim)            # the chunk's marks
+            if not left.any():
+                continue
+            while True:
+                n_rounds += 1
+                better = a <= ba if mutation == "tie_le" else a < ba
+                dom = left & (k <= klim) & (m <= mn) & (
+                    (s > bs) | ((s == bs) & better))
+                if not dom.any():
+                    break
+                at = int(np.flatnonzero(dom)[-1 if mutation == "highest"
+                                                else 0])
+                mn, bs, ba, bk = int(m[at]), int(s[at]), int(a[at]), k0 + at
+                if mn == 0:
+                    klim = min(klim, kref + ba)
+                if mutation in ("mask", "tie_le"):   # the order not strict
+                    left &= lane > at
+        if rounds is not None:
+            rounds.append(n_rounds)
         best_k[b], min_mm_out[b] = bk, mn
     return best_k, min_mm_out
 
 
-def _plain(dix, jobs):
+def _plain(dix, jobs, lm=LM):
     up = trd.upload_jobs(*jobs, "cpu")
-    return [x.numpy() for x in trd.rescue_scan(dix, *up, LM, N_OFF)]
+    return [x.numpy() for x in trd.rescue_scan(dix, *up, lm, N_OFF)]
 
 
 def test_plain_matches_jax_on_edge_cases(setup):
@@ -205,6 +303,108 @@ def test_edge_cases_catch_a_broken_tie_rule(setup):
     got = kernel_emulation(index.genome_codes, *jobs, mutation="tie_le")
     apart = got[0] != want[0]
     assert (apart & jobs[4]).any() and (apart & ~jobs[4]).any()
+
+
+@pytest.mark.parametrize("mutation", ["highest", "lim_low"])
+def test_edge_cases_catch_a_broken_walk(setup, mutation):
+    """A walk whose round accepts the highest voting lane of a chunk in
+    place of the lowest (a later step that also dominates the state), and
+    a scan that cuts offsets at max_mm where an offset of max_mm + 1
+    misses can still be accepted, give other rows, in both directions."""
+    index, dix = setup
+    jobs = edge_jobs(index.genome_codes, seed=9)
+    want = _plain(dix, jobs)
+    got = kernel_emulation(index.genome_codes, *jobs, mutation=mutation)
+    apart = (got[0] != want[0]) | (got[1] != want[1])
+    assert (apart & jobs[4]).any() and (apart & ~jobs[4]).any()
+
+
+def test_walk_mask_changes_no_round(setup):
+    """The lanes at or before an accept cannot vote again, so the kernel
+    does not mask them out: the accept test is a strict lexicographic
+    order on (score, -absdif) with bounds that only tighten, so a step
+    that did not dominate the state before an accept does not dominate the
+    state after it, nor does the accepted step dominate itself. With the
+    mask the walk gives the same rows in the same number of rounds."""
+    index, dix = setup
+    jobs = edge_jobs(index.genome_codes, seed=9)
+    masked, unmasked = [], []
+    got = kernel_emulation(index.genome_codes, *jobs, mutation="mask",
+                           rounds=masked)
+    loose = kernel_emulation(index.genome_codes, *jobs, rounds=unmasked)
+    np.testing.assert_array_equal(got[0], loose[0])
+    np.testing.assert_array_equal(got[1], loose[1])
+    assert masked == unmasked
+    # rounds = accepts + marked chunks: far fewer than the serial walk's
+    # steps
+    steps = np.minimum(np.maximum(jobs[2], 0), N_OFF).sum()
+    assert sum(masked) < steps / 20
+
+
+def _byte_scan(codes, read, lo, used, lm):
+    """mism, score of offsets t < used a base at a time: the window's codes
+    with bad bases as 4, the read's N as 5, one compare a base."""
+    G = len(codes)
+    pos = lo + np.arange(used + lm - 1)
+    inside = (pos >= 0) & (pos < G)
+    win = np.full(len(pos), 4, np.int64)
+    win[inside] = np.minimum(codes[pos[inside]], 4)
+    rd = np.where(read > 3, 5, read)
+    mism = np.zeros(used, np.int64)
+    cur = np.zeros(used, np.int64)
+    best = np.zeros(used, np.int64)
+    for j in range(lm):
+        good = win[j:j + used] == rd[j]
+        mism += ~good
+        cur = np.where(good, cur + 1, 0)
+        best = np.maximum(best, cur)
+    return mism, (lm - mism) + best
+
+
+@pytest.mark.parametrize("lm", [64, 150, 37, 16])
+def test_word_scan_equals_byte_scan(setup, lm):
+    """Every scanned offset's mism and score, a word of 16 positions a step
+    (runs carried across words, counted inside a word only where they
+    could beat the best), equal to a count a base at a time, on the edge
+    jobs (N runs, the genome's ends, the repeat); with the scan cut at
+    max_mm + 1, the offsets within it equal and every offset cut past it
+    with a stored mism past it too."""
+    index, _ = setup
+    codes = index.genome_codes
+    reads, lo, n, _ik, _rt, max_mm = edge_jobs(codes, seed=lm + 1, lm=lm)
+    runs = cut = 0
+    for b in range(len(reads)):
+        used = max(0, min(int(n[b]), N_OFF))
+        if not used:
+            continue
+        got = _scan_words(codes, reads[b], int(lo[b]), used, lm)
+        want = _byte_scan(codes, reads[b], int(lo[b]), used, lm)
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+        runs += int((want[1] - (lm - want[0]) >= min(lm, 20)).sum())
+        lim = int(max_mm[b]) + 1
+        cm, cs_ = _scan_words(codes, reads[b], int(lo[b]), used, lm, lim)
+        within = want[0] <= lim
+        np.testing.assert_array_equal(cm[within], want[0][within])
+        np.testing.assert_array_equal(cs_[within], want[1][within])
+        assert (cm[~within] > lim).all()
+        cut += int((cm[~within] < want[0][~within]).sum())
+    # long runs, and counts cut short where a read has a word to skip
+    assert runs > 0 and (cut > 0 or lm <= 16)
+
+
+@pytest.mark.parametrize("lm", [150, 37, 16, 1])
+def test_kernel_emulation_at_other_lengths(setup, lm):
+    """The kernel's order bit-equal to the plain version at reads that end
+    inside a word (37), on a word's edge (16), of one base (1) and of the
+    main path's 150 bp."""
+    index, dix = setup
+    jobs = edge_jobs(index.genome_codes, seed=lm, lm=lm)
+    want = _plain(dix, jobs, lm)
+    got = kernel_emulation(index.genome_codes, *jobs, lm=lm)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    assert (want[0] >= 0).sum() > 20
 
 
 def test_unpadded_equals_padded(setup):
