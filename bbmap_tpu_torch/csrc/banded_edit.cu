@@ -42,6 +42,13 @@
 //   handed from one chunk to the next, and the window slides by a shuffle
 //   with one new byte a row. Past 32 chunks the band lives in a scratch
 //   row a pair in device memory (no cap on E).
+// - four pairs a thread (quad_pairs, 2E + 1 <= 15: dedupe's e=2 and its
+//   in-block containment check's E = 4), where the launcher is asked for
+//   it and the operands allow it: the four pairs in the byte lanes of a
+//   word, each cell's value as a run of low bits (a min is an OR, + 1 a
+//   shift), b read a word of four pairs a position. Both modes and every
+//   length of thread_pair, the same results; the setup a pair and the
+//   operations a cell fall about four times.
 //
 // The block mapping (banded_block_kernel, dedupe's store check): many
 // queries against one length class of kept sequences in one launch, where
@@ -61,7 +68,11 @@
 // class sizes (10^3 to 10^5 sequences). A second mode runs the queries
 // against each other: the lower triangle j < i, d(query i, query j) <= E
 // as a (Q, Q) byte matrix. Where a tile and its group would not fit a
-// block's shared memory (contigs), the same loop reads them in place.
+// block's shared memory (contigs), the same loop reads them in place. On
+// the four-lane body (banded_block_quad_kernel) a thread takes four
+// neighbouring sequences of a tile of kQuadTile = 512, whose bytes at a
+// position are one aligned word of the position-major class, read in
+// place, against the query's byte repeated in the four lanes.
 //
 // The containment mapping (banded_contained_kernel, dedupe's containment
 // check): a block of reads against the windows that the host cut from the
@@ -240,6 +251,235 @@ __global__ void __launch_bounds__(kThreads)
   p.out[t] = thread_pair<W>(p.a + t * p.a_pp, p.a_ps, p.la[t * p.la_pp],
                             p.La, p.b + t * p.b_pp, p.b_ps,
                             p.lb[t * p.lb_pp], p.Lb, p.E, p.infix);
+}
+
+// ---------------------------------------------------------------------
+// Four pairs a thread, one in each byte lane of a word (2E + 1 <= 15
+// cells, E <= 7). A cell's value x in 0..BIG (BIG = E + 1 <= 8) is held as
+// its headroom D(x) = (1 << (BIG - x)) - 1, the low BIG - x bits of its
+// lane (BIG is 0). On that code min(x, y) is D(x) | D(y), x + 1 saturated
+// at BIG is (D(x) >> 1) within the lane, the clamp at BIG costs nothing and
+// x <= E is bit 0: a cell of four pairs is a few logic operations, a min
+// of four lanes one OR. b is read
+// a word a position: four pairs' bytes at one position, from pair-minor
+// operands whose words are 4-byte aligned. A cell whose column lies
+// outside a lane's b (j < 1 or j > lb) is BIG whatever its bytes, so the
+// window needs no 255 there; bytes past Lb read 255 (a lane's lb may pass
+// Lb, as in thread_pair).
+// ---------------------------------------------------------------------
+constexpr int kQuadMaxCells = 15;
+constexpr uint32_t kOnes = 0x01010101u;
+constexpr uint32_t kLow7 = 0x7f7f7f7fu;
+constexpr uint32_t kHigh = 0x80808080u;
+
+// 0xff in each byte lane whose top bit is set in x, else 0 (prmt replicates
+// a selected byte's sign bit where its selector nibble has bit 3 set)
+__device__ __forceinline__ uint32_t spread_top(uint32_t x) {
+  uint32_t r;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(r) : "r"(x), "r"(0u),
+      "r"(0xba98u));
+  return r;
+}
+
+// 0xff in each byte lane where x is not zero
+__device__ __forceinline__ uint32_t nonzero_lanes(uint32_t x) {
+  return spread_top(((x & kLow7) + kLow7) | x);
+}
+
+// 0xff in each byte lane where x >= y (both below 128 in every lane)
+__device__ __forceinline__ uint32_t ge_lanes(uint32_t x, uint32_t y) {
+  return spread_top((x | kHigh) - y);
+}
+
+// 0xff in each lane of live whose value v[q] is > at
+__device__ __forceinline__ uint32_t lanes_above(const int (&v)[4], int at,
+                                                uint32_t live) {
+  uint32_t m = 0;
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    if (v[q] > at) m |= 0xffu << (8 * q);
+  return m & live;
+}
+
+
+// Four pairs' bytes of a, position after position from 0: one word of
+// four pairs (pair-minor, 4-byte aligned) or, with a pair stride of 0, one
+// byte every pair shares.
+struct AWord {
+  const uint8_t* a;
+  long long ps;
+  __device__ uint32_t next() {
+    const uint32_t w = *reinterpret_cast<const uint32_t*>(a);
+    a += ps;
+    return w;
+  }
+};
+
+struct AByte {
+  const uint8_t* a;
+  long long ps;
+  __device__ uint32_t next() {
+    const uint32_t w = *a * kOnes;
+    a += ps;
+    return w;
+  }
+};
+
+// Four pairs' bytes of b, position after position from 0, 255 past Lb
+// (``left`` positions before it).
+struct BWord {
+  const uint8_t* b;
+  long long ps;
+  int left;
+  __device__ uint32_t next() {
+    const uint32_t w = left > 0 ? *reinterpret_cast<const uint32_t*>(b)
+                                : 0xffffffffu;
+    b += ps;
+    --left;
+    return w;
+  }
+};
+
+// The four results, each lane's D of its distance, from the last band:
+// global v[lb - la + E]; infix the min of v[d] over la - E + d in [0, lb].
+template <int W>
+__device__ __forceinline__ uint32_t quad_pick(const uint32_t (&v)[W],
+                                              const int (&la)[4],
+                                              const int (&lb)[4], int E,
+                                              int infix) {
+  uint32_t pick = 0;
+  if (!infix) {
+    uint32_t df = 0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      df |= static_cast<uint32_t>((lb[q] - la[q] + E) & 0xff) << (8 * q);
+#pragma unroll
+    for (int d = 0; d < W; ++d)
+      pick |= v[d] & ~nonzero_lanes(df ^ (d * kOnes));
+  } else {
+    uint32_t lo = 0, hi = 0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int h = min(W - 1, lb[q] + E - la[q]);
+      lo |= (h < 0 ? 16u : static_cast<uint32_t>(max(0, E - la[q])))
+            << (8 * q);
+      hi |= static_cast<uint32_t>(max(h, 0)) << (8 * q);
+    }
+#pragma unroll
+    for (int d = 0; d < W; ++d)
+      pick |= v[d] & ge_lanes(d * kOnes, lo) & ge_lanes(hi, d * kOnes);
+  }
+  return pick;
+}
+
+// The distances of four pairs (W = 2E + 1 cells): lane q (byte q of the
+// words the readers a and b give, position after position, each read
+// once) is pair (a of length la[q], b of length lb[q]);
+// lanes: 0xff in each byte lane that holds a pair. Returns each lane's D of
+// its distance (0: BIG, or no pair); distance = BIG - popc(byte), and <= E
+// where bit 0 is set. FREEZE: the lanes' rows differ, and a lane past its
+// last row keeps its band (a byte-lane select a cell). The scan stops once
+// every live lane's band is BIG, thread_pair's exact stop taken lane by
+// lane.
+template <int W, bool FREEZE, class A, class B>
+__device__ __forceinline__ uint32_t quad_pairs(A a, B b,
+                                               const int (&la)[4],
+                                               const int (&lb)[4],
+                                               uint32_t lanes, int La,
+                                               int E, int infix) {
+  const int BIG = E + 1;
+  int rows[4];
+  uint32_t alive = 0, lbc = 0;
+  int last = 0, rows_min = 0x7fffffff, lb_min = 0x7fffffff;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    rows[q] = min(la[q], La);
+    const uint32_t m = 0xffu << (8 * q);
+    if ((lanes & m) && (infix || abs(lb[q] - la[q]) <= E)) {
+      alive |= m;
+      last = max(last, rows[q]);
+      rows_min = min(rows_min, rows[q]);
+      lb_min = min(lb_min, lb[q]);
+    }
+    lbc |= static_cast<uint32_t>(min(lb[q], 127)) << (8 * q);
+  }
+  if (!alive) return 0;
+  // row 0, and the window of row 1: win[d] holds b at i - E - 1 + d, valid
+  // (vwin) where 0 <= i - E - 1 + d < lb
+  uint32_t v[W], win[W], vwin[W];
+#pragma unroll
+  for (int d = 0; d < W; ++d) {
+    const int j = d - E;
+    v[d] = j < 0 ? 0u
+                 : ((infix ? (1u << BIG) - 1 : (1u << (W - d)) - 1) * kOnes)
+                       & ge_lanes(lbc, j * kOnes) & alive;
+    vwin[d] = j < 0 ? 0u : ge_lanes(lbc, (j + 1) * kOnes);
+    win[d] = j < 0 ? 0xffffffffu : b.next();
+  }
+  uint32_t aw = last >= 1 ? a.next() : 0u;
+  uint32_t nb = b.next();                 // enters the window after row 1
+  for (int i = 1; i <= last; ++i) {
+    const uint32_t a_next = i < last ? a.next() : 0u;
+    const uint32_t nb_next = b.next();    // b at i + 1 + E
+    const uint32_t act = FREEZE && i > rows_min
+                             ? lanes_above(rows, i - 1, alive) : alive;
+    uint32_t r = 0, any = 0, s = (v[0] >> 1) & kLow7;
+#pragma unroll
+    for (int d = 0; d < W; ++d) {
+      // up: v[d + 1] + 1, s: v[d] + 1 (the previous row's)
+      const uint32_t up = d + 1 < W ? (v[d + 1] >> 1) & kLow7 : 0u;
+      const uint32_t ne = nonzero_lanes(win[d] ^ aw);
+      const uint32_t c = ((v[d] & ~ne) | s | up) & vwin[d];
+      r = c | ((r >> 1) & kLow7);
+      v[d] = FREEZE ? (r & act) | (v[d] & ~act) : r;
+      any |= r;
+      s = up;
+    }
+#pragma unroll
+    for (int d = 0; d + 1 < W; ++d) {
+      win[d] = win[d + 1];
+      vwin[d] = vwin[d + 1];
+    }
+    win[W - 1] = nb;
+    vwin[W - 1] = i + E < lb_min ? 0xffffffffu : lanes_above(lb, i + E,
+                                                             alive);
+    nb = nb_next;
+    aw = a_next;
+    if (!(any & act & kOnes)) break;
+  }
+  return quad_pick<W>(v, la, lb, E, infix) & alive;
+}
+
+// A thread four consecutive pairs: b pair-minor with a pair stride of 1 and
+// 4-byte aligned words; a the same (AWORD) or one query (a pair stride of
+// 0); FREEZE where la has a pair stride (the pairs' rows may differ).
+template <int W, bool AWORD, bool FREEZE>
+__global__ void __launch_bounds__(kThreads)
+    banded_thread_quad_kernel(Pairs p) {
+  const long long k0 = 4 * (blockIdx.x * (long long)blockDim.x +
+                            threadIdx.x);
+  if (k0 >= p.n) return;
+  const int cnt = static_cast<int>(min(4LL, p.n - k0));
+  int la[4], lb[4];
+  uint32_t lanes = 0;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    la[q] = q < cnt ? p.la[(k0 + q) * p.la_pp] : 0;
+    lb[q] = q < cnt ? p.lb[(k0 + q) * p.lb_pp] : 0;
+    if (q < cnt) lanes |= 0xffu << (8 * q);
+  }
+  const BWord b{p.b + k0, p.b_ps, p.Lb};
+  uint32_t pick;
+  if constexpr (AWORD)
+    pick = quad_pairs<W, FREEZE>(AWord{p.a + k0, p.a_ps}, b, la, lb, lanes,
+                                 p.La, p.E, p.infix);
+  else
+    pick = quad_pairs<W, FREEZE>(AByte{p.a, p.a_ps}, b, la, lb, lanes,
+                                 p.La, p.E, p.infix);
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    if (q < cnt)
+      p.out[k0 + q] = p.E + 1 - __popc((pick >> (8 * q)) & 0xffu);
 }
 
 // One chunk of 32 cells of a row in the warp mapping: x is the cell before
@@ -483,6 +723,63 @@ __global__ void __launch_bounds__(kTile) banded_block_kernel(Block p) {
   }
 }
 
+// The block mapping on the four-lane body: a thread four neighbouring
+// sequences of a tile of kQuadTile, their bytes at a position one aligned
+// word of the position-major class, read in place (the cache serves a
+// tile's words to the group's queries: staging the tile in shared memory,
+// as the thread body does, ran slower, two blocks an SM against the
+// registers' sixteen), against the query's byte shared by the four.
+constexpr int kQuadThreads = 128;
+constexpr int kQuadTile = 4 * kQuadThreads;
+
+template <int W>
+__global__ void __launch_bounds__(kQuadThreads)
+    banded_block_quad_kernel(Block p) {
+  const int t = threadIdx.x;
+  const int j0 = blockIdx.x * kQuadTile;
+  const int g0 = blockIdx.y * p.group;
+  const int ng = min(p.group, p.Q - g0);
+  const int j = j0 + 4 * t;
+  int lb[4];
+  uint32_t seqs = 0;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    lb[q] = j + q < p.k ? p.ls[j + q] : 0;
+    if (j + q < p.k) seqs |= 0xffu << (8 * q);
+  }
+  const BWord b{p.s + j, p.s_ps, p.Ls};
+  for (int g = 0; g < ng; ++g) {
+    const int i = g0 + g;
+    uint32_t lanes = seqs;
+    if (p.tri) {                           // the lower triangle, j < i
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (j + q >= i) lanes &= ~(0xffu << (8 * q));
+    }
+    const int l = p.lq[i];
+    const int la[4] = {l, l, l, l};
+    const uint32_t hits = lanes ? quad_pairs<W, false>(
+        AByte{p.q + i, p.q_ps}, b, la, lb, lanes, p.Lq, p.E, 0) & kOnes
+                                  : 0u;
+    if (p.tri) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (lanes & (0xffu << (8 * q)))
+          p.out[static_cast<size_t>(i) * p.Q + j + q] = (hits >> (8 * q)) & 1;
+    } else if (__any_sync(kFull, hits != 0) && (t & 31) == 0) {
+      p.out[i] = 1;
+    }
+  }
+}
+
+template <int W>
+cudaError_t launch_block_quad(const Block& p, cudaStream_t stream) {
+  const dim3 grid((p.k + kQuadTile - 1) / kQuadTile,
+                  (p.Q + p.group - 1) / p.group);
+  banded_block_quad_kernel<W><<<grid, kQuadThreads, 0, stream>>>(p);
+  return cudaGetLastError();
+}
+
 template <int W>
 cudaError_t launch_block(const Block& p, bool staged, size_t smem,
                          cudaStream_t stream) {
@@ -508,6 +805,35 @@ cudaError_t launch_thread(const Pairs& p, cudaStream_t stream) {
   const int blocks = (p.n + kThreads - 1) / kThreads;
   banded_thread_kernel<W><<<blocks, kThreads, 0, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <int W>
+cudaError_t launch_thread_quad(const Pairs& p, cudaStream_t stream) {
+  const int blocks = ((p.n + 3) / 4 + kThreads - 1) / kThreads;
+  if (p.a_pp == 0 && p.la_pp == 0)
+    banded_thread_quad_kernel<W, false, false><<<blocks, kThreads, 0,
+                                                 stream>>>(p);
+  else if (p.a_pp == 0)
+    banded_thread_quad_kernel<W, false, true><<<blocks, kThreads, 0,
+                                                stream>>>(p);
+  else if (p.la_pp == 0)
+    banded_thread_quad_kernel<W, true, false><<<blocks, kThreads, 0,
+                                                stream>>>(p);
+  else
+    banded_thread_quad_kernel<W, true, true><<<blocks, kThreads, 0,
+                                               stream>>>(p);
+  return cudaGetLastError();
+}
+
+// Pairs whose operands the four-lane body reads a word at a time: b
+// pair-minor with a pair stride of 1, a the same or shared (a pair stride of
+// 0), rows and bases 4-byte aligned.
+bool quad_layout(const Pairs& p) {
+  const auto aligned = [](const void* x, long long ps) {
+    return reinterpret_cast<uintptr_t>(x) % 4 == 0 && ps % 4 == 0;
+  };
+  return p.b_pp == 1 && aligned(p.b, p.b_ps) &&
+         (p.a_pp == 0 || (p.a_pp == 1 && aligned(p.a, p.a_ps)));
 }
 
 template <int NC>
@@ -648,22 +974,42 @@ long long banded_edit_scratch_ints(int E) {
 // pair up to it and a warp a pair past it.
 int banded_edit_thread_max_cells() { return kThreadMaxCells; }
 
+// The widest band the four-lane body holds (E <= 7).
+int banded_edit_quad_max_cells() { return kQuadMaxCells; }
+
 // n pairs; a byte (pos, pair) at a + pos * a_ps + pair * a_pp (La
 // positions), b likewise (Lb positions), la / lb int32 at pair * stride.
 // scratch holds n * banded_edit_scratch_ints(E) ints where that is > 0.
-// out (n,) int32, saturated at E + 1.
+// out (n,) int32, saturated at E + 1. quad: four pairs a thread on the
+// four-lane body (2E + 1 <= 15, b pair-minor with a pair stride of 1, a
+// the same or shared, rows and bases 4-byte aligned, and each row's bytes
+// up to n rounded up to 4 readable), else a thread a pair to 64 cells, a
+// warp a pair past that.
 cudaError_t banded_edit_launch(const uint8_t* a, long long a_ps,
                                long long a_pp, const int* la,
                                long long la_pp, const uint8_t* b,
                                long long b_ps, long long b_pp, const int* lb,
                                long long lb_pp, int n, int La, int Lb, int E,
-                               int infix, int* out, int* scratch,
+                               int infix, int quad, int* out, int* scratch,
                                cudaStream_t stream) {
   if (n <= 0) return cudaSuccess;
   if (E < 0 || La < 0 || Lb < 0) return cudaErrorInvalidValue;
   const Pairs p{a, a_ps, a_pp, la, la_pp, b, b_ps, b_pp, lb, lb_pp,
                 n, La, Lb, E, infix ? 1 : 0, out};
   const int w = 2 * E + 1;
+  if (quad) {
+    if (w > kQuadMaxCells || !quad_layout(p)) return cudaErrorInvalidValue;
+    switch (w) {
+      case 1: return launch_thread_quad<1>(p, stream);
+      case 3: return launch_thread_quad<3>(p, stream);
+      case 5: return launch_thread_quad<5>(p, stream);
+      case 7: return launch_thread_quad<7>(p, stream);
+      case 9: return launch_thread_quad<9>(p, stream);
+      case 11: return launch_thread_quad<11>(p, stream);
+      case 13: return launch_thread_quad<13>(p, stream);
+      default: return launch_thread_quad<15>(p, stream);
+    }
+  }
   if (w <= kThreadMaxCells) {
     switch (w) {
       case 1: return launch_thread<1>(p, stream);
@@ -704,29 +1050,50 @@ cudaError_t banded_edit_launch(const uint8_t* a, long long a_ps,
 // Q), the caller zeroes it, row i column j < i = d(query i, query j) <= E.
 // group: queries a block. staged: copy the tile and the group into shared
 // memory (s_ps a multiple of 16 and at least k rounded up to 128, s 16-byte
-// aligned), else read them in place. 2E + 1 <= 64.
+// aligned), else read them in place. 2E + 1 <= 64. quad: the four-lane body
+// instead, a tile of kQuadTile sequences a block read in place (staged is
+// not taken): 2E + 1 <= 15, s_ps a multiple of 4, s 4-byte aligned and
+// each row's bytes up to k rounded up to 4 readable.
 int banded_block_smem(int Ls, int Lq, int group) {
   return Ls * kTile + Lq * group;
 }
+
+// The sequences a block of the block mapping takes.
+int banded_block_tile(int quad) { return quad ? kQuadTile : kTile; }
 
 cudaError_t banded_block_launch(const uint8_t* q, long long q_ps,
                                 const int* lq, int Q, int Lq,
                                 const uint8_t* s, long long s_ps,
                                 const int* ls, int k, int Ls, int E, int tri,
-                                int group, int staged, uint8_t* out,
-                                cudaStream_t stream) {
+                                int group, int staged, int quad,
+                                uint8_t* out, cudaStream_t stream) {
   if (Q <= 0 || k <= 0) return cudaSuccess;
   const int w = 2 * E + 1;
-  if (E < 0 || w > kThreadMaxCells || group <= 0 || Lq < 0 || Ls < 0)
+  if (E < 0 || w > (quad ? kQuadMaxCells : kThreadMaxCells) || group <= 0 ||
+      Lq < 0 || Ls < 0)
     return cudaErrorInvalidValue;
+  const Block p{q, q_ps, lq, Q, Lq, s, s_ps, ls, k, Ls, E, tri ? 1 : 0,
+                group, out};
+  if (quad) {
+    if (s_ps % 4 != 0 || reinterpret_cast<uintptr_t>(s) % 4 != 0)
+      return cudaErrorInvalidValue;
+    switch (w) {
+      case 1: return launch_block_quad<1>(p, stream);
+      case 3: return launch_block_quad<3>(p, stream);
+      case 5: return launch_block_quad<5>(p, stream);
+      case 7: return launch_block_quad<7>(p, stream);
+      case 9: return launch_block_quad<9>(p, stream);
+      case 11: return launch_block_quad<11>(p, stream);
+      case 13: return launch_block_quad<13>(p, stream);
+      default: return launch_block_quad<15>(p, stream);
+    }
+  }
   const size_t smem = staged ? static_cast<size_t>(
       banded_block_smem(Ls, Lq, group)) : 0;
   if (staged && (s_ps % 16 != 0 || s_ps < (k + kTile - 1) / kTile * kTile ||
                  reinterpret_cast<uintptr_t>(s) % 16 != 0 ||
                  smem > 232448))
     return cudaErrorInvalidValue;
-  const Block p{q, q_ps, lq, Q, Lq, s, s_ps, ls, k, Ls, E, tri ? 1 : 0,
-                group, out};
   const bool st = staged != 0;
   switch (w) {
     case 1: return launch_block<1>(p, st, smem, stream);

@@ -7,11 +7,13 @@ The JAX package runs it as one jitted ``lax.scan`` over the rows with
 the band (2*maxEdits+1 diagonals) on the lanes. Here:
 
 - ``banded_edit`` is the kernel's wrapper. Given CUDA tensors it makes
-  one launch of the hand-written kernel ``csrc/banded_edit.cu`` (a thread
-  a pair for bands of up to 64 cells, a warp a pair past that: the
-  launcher picks from E) and adds one to ``banded_edit.launches`` (and
-  ``launches_by[mapping]``); given CPU tensors it runs the plain version
-  and counts nothing.
+  one launch of the hand-written kernel ``csrc/banded_edit.cu`` (four
+  pairs a thread in the byte lanes of a word, the "quad" body, for bands
+  of up to 15 cells whose operands it can read a word at a time; else a
+  thread a pair for bands of up to 64 cells, a warp a pair past that: the
+  wrapper picks from E and the layout) and adds one to
+  ``banded_edit.launches`` (and ``launches_by[mapping]``); given CPU
+  tensors it runs the plain version and counts nothing.
 - ``banded_edit_batch_plain`` is the plain version: the JAX row scan as
   torch ops on any device, the insertion sweep closed into ``cummin``.
   It drops a pair once its whole band is past max_edits (the rest of the
@@ -22,7 +24,9 @@ the band (2*maxEdits+1 diagonals) on the lanes. Here:
   queries against each other (the lower triangle of ``d <= E``);
   ``banded_any_plain`` is its plain version (``banded_edit_batch_plain``
   over every pair, then ``any``). Its launches count in
-  ``banded_any.launches`` and ``launches_by["class" | "triangle"]``.
+  ``banded_any.launches``, ``launches_by["class" | "triangle"]`` and by
+  band body in ``launches_by_body["quad" | "thread"]``: four kept
+  sequences a thread (2E + 1 <= 15, the class's words aligned) or one.
 - ``contained_any`` is the containment mapping's wrapper (dedupe's
   containment check, ``csrc/banded_edit.cu``): a block of queries against
   the windows cut for them from kept containers, named by a pair table
@@ -60,7 +64,11 @@ from ..core.bases import COMP_ASCII
 from . import _build
 
 I32 = torch.int32
-MAPPINGS = ("thread", "warp")
+# banded_edit's mappings: four pairs a thread, a thread a pair, a warp a
+# pair; the containment kernel's; the block kernel's band bodies
+MAPPINGS = ("quad", "thread", "warp")
+CONTAINED_MAPPINGS = ("thread", "warp")
+BODIES = ("quad", "thread")
 # who made a banded_edit launch (banded_edit's ``site=``): a containment
 # check a read (contained_distances), dedupe's check of a read against the
 # containers kept earlier in its own block, or another caller (the store
@@ -68,14 +76,17 @@ MAPPINGS = ("thread", "warp")
 SITES = ("containment", "containment_in_block", "other")
 # rows of the plain scan between two looks for saturated pairs
 PLAIN_CHECK_ROWS = 8
-# The block mapping (banded_any): class sequences a block (a thread each),
-# the widest E its thread band holds (2E + 1 <= 64 cells), the queries a
-# block at most, the blocks an SM its query groups aim for, and the shared
-# memory a block may stage (two blocks an SM) before it reads in place.
+# The block mapping (banded_any): class sequences a block on the thread
+# body (a thread each; the store's capacities and upload_block's pitch are
+# multiples of it) and on the quad body (four a thread), the widest E its
+# thread band holds (2E + 1 <= 64 cells), the queries a block at most, the
+# blocks an SM its query groups aim for, and the shared memory a block of
+# the thread body may stage (two blocks an SM) before it reads in place.
 BLOCK_TILE = 128
+BLOCK_QUAD_TILE = 512
 BLOCK_MAX_E = 31
 BLOCK_MAX_GROUP = 64
-BLOCK_AIM_PER_SM = 8
+BLOCK_AIM_PER_SM = 16
 BLOCK_STAGE_MAX = 96 * 1024
 # pairs a call of the plain version takes at once (bounded scratch)
 PLAIN_ANY_PAIRS = 1 << 21
@@ -87,16 +98,20 @@ def _lib() -> ctypes.CDLL:
         vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.banded_edit_launch.argtypes = [
             vp, ll, ll, vp, ll, vp, ll, ll, vp, ll,
-            ci, ci, ci, ci, ci, vp, vp, vp]
+            ci, ci, ci, ci, ci, ci, vp, vp, vp]
         lib.banded_edit_launch.restype = ci
         lib.banded_edit_scratch_ints.argtypes = [ci]
         lib.banded_edit_scratch_ints.restype = ll
         lib.banded_edit_thread_max_cells.restype = ci
+        lib.banded_edit_quad_max_cells.restype = ci
         lib.banded_block_launch.argtypes = [
-            vp, ll, vp, ci, ci, vp, ll, vp, ci, ci, ci, ci, ci, ci, vp, vp]
+            vp, ll, vp, ci, ci, vp, ll, vp, ci, ci, ci, ci, ci, ci, ci, vp,
+            vp]
         lib.banded_block_launch.restype = ci
         lib.banded_block_smem.argtypes = [ci, ci, ci]
         lib.banded_block_smem.restype = ci
+        lib.banded_block_tile.argtypes = [ci]
+        lib.banded_block_tile.restype = ci
         lib.banded_contained_launch.argtypes = [
             vp, ll, vp, ci, vp, ll, ci, vp, ci, ci, vp, vp, vp]
         lib.banded_contained_launch.restype = ci
@@ -220,15 +235,52 @@ def _on_cuda(t: torch.Tensor) -> None:
             f"the banded kernel runs on CUDA tensors (got {t.device})")
 
 
+def words_fit(x: torch.Tensor, n: int) -> bool:
+    """Whether x (L, n) uint8, position-major with a pair stride of 1, can
+    be read in aligned 4-byte words of four pairs (the four-lane body): its
+    base and row pitch multiples of 4 and every row's bytes up to n
+    rounded up to 4 within its storage."""
+    ps = x.stride(0)
+    if x.stride(1) != 1 or ps % 4 or x.data_ptr() % 4:
+        return False
+    end = x.storage_offset() + (x.shape[0] - 1) * ps + -(-n // 4) * 4
+    return x.shape[0] == 0 or end <= x.untyped_storage().nbytes()
+
+
+def _quad_layout(a: torch.Tensor, b: torch.Tensor, n: int) -> bool:
+    """b and a readable a word of four pairs a position (a may be shared:
+    one query, or a pair stride of 0)."""
+    return words_fit(b, n) and (a.dim() == 1 or a.stride(1) == 0
+                                or words_fit(a, n))
+
+
+def _pick(mapping: Optional[str], quad_ok: bool, widest: str) -> str:
+    """The band body: ``mapping`` where given ("quad" or "thread", for a
+    comparison on the card; the quad body only where ``quad_ok``), else
+    the quad body where it applies, else ``widest``."""
+    if mapping is None:
+        return "quad" if quad_ok else widest
+    if mapping not in BODIES or (mapping == "quad" and not quad_ok) or (
+            mapping == "thread" and widest != "thread"):
+        raise ValueError(f"mapping={mapping!r} does not apply here (the "
+                         f"quad body: {quad_ok}; else {widest})")
+    return mapping
+
+
 def banded_edit(a: torch.Tensor, la: torch.Tensor, b: torch.Tensor,
                 lb: torch.Tensor, max_edits: int,
-                infix: bool = False, site: str = "other") -> torch.Tensor:
+                infix: bool = False, site: str = "other",
+                mapping: Optional[str] = None) -> torch.Tensor:
     """Banded edit distance of n pairs, in the layout of
     ``banded_edit_batch_plain`` (any strides; a pair stride of 0 shares a
     query or a length). CPU tensors: the plain version. CUDA tensors: one
-    launch of ``csrc/banded_edit.cu``, a thread a pair where 2E + 1 <= 64
-    cells, else a warp a pair; a failed launch raises. ``site`` (one of
-    ``SITES``) names the caller in ``launches_by_site``."""
+    launch of ``csrc/banded_edit.cu``: four pairs a thread where 2E + 1 <=
+    15 cells and b (and a, unless shared) are pair-minor with a pair stride
+    of 1 and readable a 4-byte word at a time (``words_fit``), else a
+    thread a pair where 2E + 1 <= 64 cells, else a warp a pair; a failed
+    launch raises. ``mapping`` ("quad" or "thread") forces a body where it
+    applies. ``site`` (one of ``SITES``) names the caller in
+    ``launches_by_site``."""
     _check(a, la, b, lb)
     if b.device.type == "cpu":
         return banded_edit_batch_plain(a, la, b, lb, max_edits, infix)
@@ -241,8 +293,10 @@ def banded_edit(a: torch.Tensor, la: torch.Tensor, b: torch.Tensor,
     if n == 0:
         return out
     lib = _lib()
-    mapping = "thread" if 2 * E + 1 <= lib.banded_edit_thread_max_cells() \
-        else "warp"
+    mapping = _pick(mapping, 2 * E + 1 <= lib.banded_edit_quad_max_cells()
+                    and _quad_layout(a, b, n),
+                    "thread" if 2 * E + 1 <= lib.banded_edit_thread_max_cells()
+                    else "warp")
     ints = lib.banded_edit_scratch_ints(E)
     scratch = torch.empty(n * ints if ints else 1, dtype=I32,
                           device=b.device)
@@ -250,8 +304,8 @@ def banded_edit(a: torch.Tensor, la: torch.Tensor, b: torch.Tensor,
     err = lib.banded_edit_launch(
         a.data_ptr(), a_ps, a_pp, la.data_ptr(), la.stride(0), b.data_ptr(),
         b.stride(0), b.stride(1), lb.data_ptr(), lb.stride(0), n,
-        a.shape[0], b.shape[0], E, int(bool(infix)), out.data_ptr(),
-        scratch.data_ptr(),
+        a.shape[0], b.shape[0], E, int(bool(infix)), int(mapping == "quad"),
+        out.data_ptr(), scratch.data_ptr(),
         torch.cuda.current_stream(b.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"banded_edit_launch failed: cudaError {err}")
@@ -267,8 +321,9 @@ def reset_launches() -> None:
     banded_edit.launches_by_site = dict.fromkeys(SITES, 0)
     banded_any.launches = 0
     banded_any.launches_by = dict.fromkeys(ANY_MODES, 0)
+    banded_any.launches_by_body = dict.fromkeys(BODIES, 0)
     contained_any.launches = 0
-    contained_any.launches_by = dict.fromkeys(MAPPINGS, 0)
+    contained_any.launches_by = dict.fromkeys(CONTAINED_MAPPINGS, 0)
     contained_any.pairs = 0
 
 
@@ -328,25 +383,30 @@ def banded_any_plain(q: torch.Tensor, lq: torch.Tensor,
     return out
 
 
-def block_groups(Q: int, k: int, device) -> int:
+def block_groups(Q: int, k: int, device, tile: int = BLOCK_QUAD_TILE) -> int:
     """Queries a block of the block kernel takes: as many as leave
-    ``BLOCK_AIM_PER_SM`` blocks an SM over the class's tiles, at most
-    ``BLOCK_MAX_GROUP``."""
+    ``BLOCK_AIM_PER_SM`` blocks an SM over the class's tiles of ``tile``
+    sequences, at most ``BLOCK_MAX_GROUP``."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    tiles = -(-k // BLOCK_TILE)
+    tiles = -(-k // tile)
     groups = max(1, min(Q, -(-BLOCK_AIM_PER_SM * sms // tiles)))
     return min(BLOCK_MAX_GROUP, max(1, Q // groups))
 
 
 def banded_any(q: torch.Tensor, lq: torch.Tensor, s: Optional[torch.Tensor],
                ls: Optional[torch.Tensor], max_edits: int,
-               tri: bool = False) -> torch.Tensor:
+               tri: bool = False,
+               mapping: Optional[str] = None) -> torch.Tensor:
     """Many queries against one class of sequences in one launch (the
     layout and result of ``banded_any_plain``; ``tri``: the queries
     against each other). CPU tensors: the plain version. CUDA tensors: one
     launch of the block mapping of ``csrc/banded_edit.cu`` for E up to
-    ``BLOCK_MAX_E``, the tile staged in shared memory where the class's
-    pitch and a block's bytes allow. Past that E (dedupe's ``e=`` above
+    ``BLOCK_MAX_E``: on the quad body (four sequences a thread, tiles of
+    ``BLOCK_QUAD_TILE``, read in place) where 2E + 1 <= 15 and the class
+    reads a 4-byte word at a time (``words_fit``), else on the thread body
+    (tiles of ``BLOCK_TILE``, staged in shared memory where the class's
+    pitch and a block's bytes allow); ``mapping`` ("quad" or "thread")
+    forces one where it applies. Past ``BLOCK_MAX_E`` (dedupe's ``e=`` above
     31) the block design does not apply: a ``banded_edit`` launch a query
     (a warp a pair), looped here, so the launches grow with the reads
     again. A failed launch raises."""
@@ -379,19 +439,24 @@ def banded_any(q: torch.Tensor, lq: torch.Tensor, s: Optional[torch.Tensor],
                 out[i] = (d <= E).any().to(torch.uint8)
         return out
     lib = _lib()
-    group = block_groups(Q, k, q.device)
+    body = _pick(mapping, 2 * E + 1 <= lib.banded_edit_quad_max_cells()
+                 and words_fit(s, k), "thread")
+    quad = int(body == "quad")
+    group = block_groups(Q, k, q.device, lib.banded_block_tile(quad))
     Lq, Ls = q.shape[0], s.shape[0]
-    staged = (s.stride(0) % 16 == 0 and s.data_ptr() % 16 == 0
-              and s.stride(0) >= -(-k // BLOCK_TILE) * BLOCK_TILE
-              and lib.banded_block_smem(Ls, Lq, group) <= BLOCK_STAGE_MAX)
+    staged = not quad and s.stride(0) % 16 == 0 and s.data_ptr() % 16 == 0 \
+        and s.stride(0) >= -(-k // BLOCK_TILE) * BLOCK_TILE \
+        and lib.banded_block_smem(Ls, Lq, group) <= BLOCK_STAGE_MAX
     err = lib.banded_block_launch(
         q.data_ptr(), q.stride(0), lq.data_ptr(), Q, Lq, s.data_ptr(),
         s.stride(0), ls.data_ptr(), k, Ls, E, int(tri), group, int(staged),
-        out.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream)
+        quad, out.data_ptr(),
+        torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"banded_block_launch failed: cudaError {err}")
     banded_any.launches += 1
     banded_any.launches_by["triangle" if tri else "class"] += 1
+    banded_any.launches_by_body[body] += 1
     return out
 
 
@@ -525,15 +590,16 @@ def banded_edit_batch(a: np.ndarray, la: np.ndarray, b: np.ndarray,
     b (free start/end in b) — Dedupe's contained-with-edits
     verification (reference: Dedupe containment via
     BandedAligner.alignForward from a candidate offset). Staged
-    position-major and run on ``device`` (the kernel on cuda, the plain
-    version on cpu)."""
+    position-major (``_pair_minor``) and run on ``device`` (the kernel on
+    cuda, the plain version on cpu)."""
     dev = backend.resolve_device(device)
 
     def up(x, dt):
         return torch.from_numpy(np.ascontiguousarray(x, dt)).to(dev)
-    d = banded_edit(up(np.asarray(a).T, np.uint8), up(la, np.int32),
-                    up(np.asarray(b).T, np.uint8), up(lb, np.int32),
-                    max_edits, infix)
+    d = banded_edit(_pair_minor(np.asarray(a, np.uint8), dev),
+                    up(la, np.int32),
+                    _pair_minor(np.asarray(b, np.uint8), dev),
+                    up(lb, np.int32), max_edits, infix)
     return d.cpu().numpy()
 
 
@@ -544,15 +610,25 @@ def _pad_rows(seqs: List[np.ndarray], width: int) -> np.ndarray:
     return out
 
 
+def _pair_minor(rows: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """rows (n, L) uint8 on ``dev`` position-major: an (L, n) view whose
+    row pitch is n rounded up to 4, so that the kernel reads four pairs'
+    bytes at a position as one aligned word (``words_fit``)."""
+    n, L = rows.shape
+    host = np.zeros((L, -(-n // 4) * 4), np.uint8)
+    host[:, :n] = rows.T
+    return torch.from_numpy(host).to(dev)[:, :n]
+
+
 def _vs_query(query: np.ndarray, seqs: List[np.ndarray], E: int,
               infix: bool, dev: torch.device,
               site: str = "other") -> np.ndarray:
     """One query against every sequence of ``seqs``: the query uploaded
-    once (every pair reads it), the sequences position-major."""
+    once (every pair reads it), the sequences position-major at a pitch of
+    a multiple of 4 (``_pair_minor``)."""
     q = torch.from_numpy(np.array(query, np.uint8)).to(dev)
     la = torch.tensor([len(query)], dtype=I32, device=dev).expand(len(seqs))
-    b = torch.from_numpy(np.ascontiguousarray(
-        _pad_rows(seqs, max(len(s) for s in seqs)).T)).to(dev)
+    b = _pair_minor(_pad_rows(seqs, max(len(s) for s in seqs)), dev)
     lb = torch.tensor([len(s) for s in seqs], dtype=I32, device=dev)
     return banded_edit(q, la, b, lb, E, infix, site).cpu().numpy()
 

@@ -366,9 +366,9 @@ def main(argv: List[str]) -> int:
             _os.environ.get("BBMAP_TPU_HOST_ID", "0")))
     if k > 31:
         # a k-mer is one 64-bit word: BBDuk takes k <= 31 and emulates
-        # longer k-mers with kbig= (not ported)
-        print(f"bbduk: k={k} is above the limit of k <= 31; longer k-mers "
-              f"(kbig=) are not supported", file=sys.stderr)
+        # longer k-mers with kbig= (runs of consecutive k-mer hits)
+        print(f"bbduk: k={k} is above the limit of k <= 31; for longer "
+              f"k-mers use k=31 kbig={k}", file=sys.stderr)
         return 1
 
     seqs: List[bytes] = []

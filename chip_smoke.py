@@ -218,17 +218,23 @@ Phases, each timed on its own line:
 12. dedupe and mapper variants: the banded edit distance kernel
    (``csrc/banded_edit.cu``) against its plain version, tolerance 0, at
    65,536 pairs of 150 bp from the genome (0-6 substitutions and indels)
-   at E = 0, 2, 4, 31 (a thread a pair), E = 40 (a warp a pair) and E =
-   520 on 1,024 pairs (the band in device memory), global and infix, one
-   query against all 65,536, 1,024 contigs of 5,000 bp at E = 8, and the
-   first 1,000 pairs at E = 2 against the numpy band sweep, each timed
-   beside its bound; the block kernel (``banded_any``, both modes, staged
-   and in place) at 256 queries against the 65,536 reads, and 512
-   queries against 15,000 and 1,000 of them, E = 0 and 2, against its
-   plain version and timed beside its bound; the containment kernel
+   at E = 0, 2, 4 (four pairs a thread), 31 (a thread a pair), E = 40 (a
+   warp a pair) and E = 520 on 1,024 pairs (the band in device memory),
+   global and infix, one query against all 65,536, 1,024 contigs of
+   5,000 bp at E = 8, and the first 1,000 pairs at E = 2 against the
+   numpy band sweep, each timed beside its bound (at the least SASS count
+   a cell and at the thread body's); the block kernel (``banded_any``,
+   both modes, staged and in place) at 256 queries against the 65,536
+   reads, and 512 queries against 15,000 and 1,000 of them, E = 0 and 2,
+   against its plain version and timed beside its bound, and at every E
+   of the four-lane body (0-7) at 512 x 15,000; at 65,536 x 150 bp, 256
+   x 65,536 and 512 x 15,000 (E = 2) both band bodies forced ("quad" and
+   "thread") in turns, each held to the plain version and timed by
+   events and by device time; the containment kernel
    (``contained_any``) on a block of 512 reads with 64 fragments and 4
    windows each at tol 2 (a thread an orientation of a pair) and tol 16
-   (the warp body), against its plain version, timed beside its bound;
+   (the warp body), against its plain version, timed beside its bound,
+   by events and by device time;
    the ``dedupe`` (e=2; s=2 ac=t; fo=t c=t mo=100 with
    cluster stats, graph and cluster files) and ``dedupe2 nam=2`` CLIs
    over 2,000 reads, and ``bbmapacc``, ``bbmap5``, ``bbmapskimmer`` and
@@ -237,9 +243,10 @@ Phases, each timed on its own line:
    every file and report byte-equal; bbmap on the card before and after
    bbmapacc in this process, the same SAM; then on the card alone dedupe
    e=2 ac=t over 50,000 reads (reads/s, the store check's launches of
-   the block kernel, the containment check's launches by site: the
-   containment kernel a block, at most one a block, and the in-block
-   checks' ``banded_edit``; the containment kernel held to its plain
+   the block kernel, every one on the four-lane body, the containment
+   check's launches by site: the containment kernel a block, at most one
+   a block, and the in-block checks' ``banded_edit``, every one on the
+   four-lane body; the containment kernel held to its plain
    version on the run's median block and timed there, a block's check
    against all kept reads, a block's containment check and an in-block
    check timed, the kernels' share of the wall)
@@ -319,7 +326,7 @@ bbduk, of seal and of each bbmerge mode under torch.profiler) and no
 the dedupe phase's 50,000-read library with the checkout in <dir> (the
 parent) and with this tree, in the order parent, change, change, parent,
 and prints each run's reads/s and the banded kernels' launches by call
-site (store check, containment check); no ``ok`` line.
+site (store check, containment check) and by band body; no ``ok`` line.
 
 ``python3 chip_smoke.py --candidate-only`` runs the main path and the
 long reads, then only the phases of the candidate stage's kernels (rescue
@@ -384,6 +391,7 @@ REPLACES = {"msa_score_rows": _K1, "msa_score": _K2, "msa_score_row": _K2,
             "msa_score_long": _K2, "msa_score_strided": _K2,
             "msa_fill": _K3, "msa_fill_long": _K3, "msa_fill_strided": _K3,
             "msa_walk": _WALK, "banded_edit": _BANDED, "banded_any": _BANDED,
+            "banded_edit_quad": _BANDED, "banded_any_quad": _BANDED,
             "contained_any": _BANDED,
             "msa_score_pipe": _K2, "msa_fill_pipe": _K3,
             "msa_score_rows_pipe": _K1,
@@ -408,6 +416,8 @@ SOURCE = {"msa_score_rows": CSRC + "msa_dp_warp.cu",
           "msa_walk": CSRC + "msa_walk.cu",
           "banded_edit": CSRC + "banded_edit.cu",
           "banded_any": CSRC + "banded_edit.cu",
+          "banded_edit_quad": CSRC + "banded_edit.cu",
+          "banded_any_quad": CSRC + "banded_edit.cu",
           "contained_any": CSRC + "banded_edit.cu",
           "msa_score_pipe": CSRC + "msa_dp_pipe.cu",
           "msa_fill_pipe": CSRC + "msa_dp_pipe.cu",
@@ -1954,9 +1964,10 @@ def launch_counts() -> dict:
     DP kernel's by mapping as well: "<name>_warp", "<name>_row",
     "<name>_band" and "<name>_strided", the fused fill + walk's by
     variant ("msa_fill_walk_<variant>"), the banded kernel's as
-    "banded_edit" and by mapping ("banded_edit_thread",
-    "banded_edit_warp"), the block kernel's as "banded_any" and by mode
-    ("banded_any_class", "banded_any_triangle"), the containment kernel's
+    "banded_edit" and by mapping ("banded_edit_quad", "banded_edit_thread",
+    "banded_edit_warp"), the block kernel's as "banded_any", by mode
+    ("banded_any_class", "banded_any_triangle") and by band body
+    ("banded_any_quad", "banded_any_thread"), the containment kernel's
     as "contained_any" and by mapping ("contained_any_thread",
     "contained_any_warp"), the rescue kernel's as "rescue_scan", the
     quality offsets kernel's as "quality_offsets" (its raw entry) and
@@ -1982,6 +1993,8 @@ def launch_counts() -> dict:
     out["banded_any"] = banded_device.banded_any.launches
     for mode, n in banded_device.banded_any.launches_by.items():
         out[f"banded_any_{mode}"] = n
+    for body, n in banded_device.banded_any.launches_by_body.items():
+        out[f"banded_any_{body}"] = n
     out["contained_any"] = banded_device.contained_any.launches
     for mapping, n in banded_device.contained_any.launches_by.items():
         out[f"contained_any_{mapping}"] = n
@@ -4115,6 +4128,9 @@ BANDED_NUMPY_PAIRS = 1_000
 # reads), and dedupe's block against a class of about its 150 bp class's
 # size at 50,000 reads
 BLOCK_QUERIES_TABLE, BLOCK_QUERIES, DEDUPE_CLASS = 256, 512, 15_000
+# the band bodies a kernel of csrc/banded_edit.cu is timed on in turns:
+# four pairs a thread in the byte lanes of a word, and a pair a thread
+BANDED_BODIES = ("quad", "thread")
 # the containment kernel at dedupe's block: fragments with windows in a
 # block of BLOCK_QUERIES reads (4 windows each)
 CONTAINED_FRAGMENTS = 64
@@ -4153,40 +4169,58 @@ def banded_instructions() -> tuple:
     """Instructions a band cell of each instantiation of
     ``csrc/banded_edit.cu`` from its SASS: a thread's row loop over its W
     cells, a warp's over 32 NC cells (each of the 32 lanes runs the loop),
-    and the least of them, which the bound is reckoned with."""
+    a four-lane thread's over 4 W cells (four pairs' W cells); the least
+    of them, which the bound is reckoned with, and the least of the
+    bodies that take a pair a thread or a warp (11.2: the bound at that
+    count keeps the yardstick of the rows timed before the four-lane
+    body)."""
     import re
     from bbmap_tpu_torch.ops import _build
     per = {}
     for name, (tot, loop) in sass_counts(
             _build.library_path("banded_edit")).items():
-        m = re.search(r"banded_(thread|warp|block|contained|contained_warp)"
-                      r"_kernelILi(\d+)E", name)
+        m = re.search(r"banded_(thread_quad|block_quad|thread|warp|block|"
+                      r"contained|contained_warp)_kernelILi(\d+)E", name)
         if m and m.group(2) != "0":
-            warp = m.group(1).endswith("warp")
-            cells = int(m.group(2)) * (32 if warp else 1)
-            key = f"{m.group(1)} {m.group(2)}"
-            if m.group(1) == "block":
-                key += " staged" if "ELb1E" in name else " in place"
-            per[key] = 32 * loop / cells if warp else loop / cells
+            kind = m.group(1)
+            lanes = 32 if kind.endswith("warp") else \
+                4 if kind.endswith("quad") else 1
+            key = f"{kind} {m.group(2)}"
+            if kind.startswith("block"):
+                key += " staged" if re.search(r"ILi\d+ELb1E", name) \
+                    else " in place"
+            if kind == "thread_quad":
+                f = re.search(r"ILi\d+ELb(\d)ELb(\d)E", name)
+                key += f" a{'word' if f.group(1) == '1' else 'byte'}" + (
+                    " freeze" if f.group(2) == "1" else "")
+            cells = int(m.group(2)) * lanes
+            per[key] = (32 if lanes == 32 else 1) * loop / cells
     if not per:
         raise AssertionError("no banded kernel in the library's SASS")
     least = min(per.values())
+    least_one = min(v for k, v in per.items() if "quad" not in k)
     say("sass banded_edit a cell: " + ", ".join(
         f"{k} {v:.1f}" for k, v in sorted(per.items())) +
-        f"; the function needs at most {least:.1f}")
-    return per, least
+        f"; the function needs at most {least:.1f} (the bodies a pair a "
+        f"thread or a warp: {least_one:.1f})")
+    return per, least, least_one
 
 
 def banded_check(what: str, device, a, la, b, lb, E: int, infix: bool,
-                 per_cell: float, clock: float, reps: int = 20) -> dict:
+                 per_cell: float, clock: float, reps: int = 20, *,
+                 per_one: float) -> dict:
     """The kernel against its plain version on the same tensors (the
     layout of ``ops/banded_device``), tolerance 0, timed; the bound from
     the cells the data needs (each pair's rows to saturation or its end,
-    from the plain version) and the bytes read and written once."""
+    from the plain version) and the bytes read and written once, also at
+    the thread body's count a cell ``per_one``."""
     import torch
     from bbmap_tpu_torch.ops import banded_device as bd
     n = lb.shape[0]
+    before = dict(bd.banded_edit.launches_by)
     ms, got = _cuda_ms(lambda: bd.banded_edit(a, la, b, lb, E, infix), reps)
+    body = next(m for m, k in bd.banded_edit.launches_by.items()
+                if k > before[m])
     plain_ms, want = _cuda_ms(lambda: bd.banded_edit_batch_plain(
         a, la, b, lb, E, infix), 1, warm=False)
     rows = torch.zeros(n, dtype=torch.int32, device=device)
@@ -4195,14 +4229,18 @@ def banded_check(what: str, device, a, la, b, lb, E: int, infix: bool,
     cells = (2 * E + 1) * int(rows.long().sum())
     n_bytes = a.numel() + b.numel() + 12 * n
     bms, by = bound_ms(n_bytes, cells * per_cell, clock)
-    res = {"pairs": n, "E": E, "infix": infix, "max_abs_err": err,
+    bms_one = bound_ms(n_bytes, cells * per_one, clock)[0]
+    res = {"pairs": n, "E": E, "infix": infix, "mapping": body,
+           "max_abs_err": err,
            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+           "bound_ms_thread_body": bms_one,
            "share": bms / ms, "cells": cells,
            "at_most_E": int((got <= E).sum())}
     say(f"kernel banded_edit {what}: {n} pairs, E={E}, "
-        f"{'infix' if infix else 'global'}: max_abs_err {err}, kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bms:.4f} ms "
-        f"({by}), share {100 * bms / ms:.1f} %, {cells} cells, "
+        f"{'infix' if infix else 'global'}, {body}: max_abs_err {err}, "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bms:.4f} ms "
+        f"({by}; {bms_one:.4f} at the thread body's count), share "
+        f"{100 * bms / ms:.1f} %, {cells} cells, "
         f"{res['at_most_E']} pairs within E")
     if err != 0:
         raise AssertionError(f"banded_edit {what} E={E} disagrees with its "
@@ -4210,15 +4248,19 @@ def banded_check(what: str, device, a, la, b, lb, E: int, infix: bool,
     return res
 
 
-def banded_phase(device, gbases, clock: float) -> dict:
+def banded_phase(device, gbases, clock: float) -> tuple:
     """The banded kernel against its plain version on the card at every
-    shape of the phase's list; returns the ``kernels`` line's entry (the
-    E = 2 global shape, dedupe's) with every shape's result."""
+    shape of the phase's list (the body the wrapper picks), both band
+    bodies forced in turns at 65,536 x 150 bp, at 256 queries x 65,536 and
+    at dedupe's 512 x 15,000 (E = 2), and the four-lane body at every E
+    (0-7) at dedupe's shape; returns the ``kernels`` line's entries of
+    banded_edit and of banded_any on each body ("thread" / "quad"), the
+    first of each with every shape's result."""
     import numpy as np
     import torch
     from bbmap_tpu_torch.ops import banded_device as bd
     from bbmap_tpu_torch.ops.banded import banded_edit_distance
-    _, per_cell = banded_instructions()
+    _, per_cell, per_one = banded_instructions()
     rng = np.random.default_rng(71)
 
     def stage(A, la, B, lb):
@@ -4235,18 +4277,20 @@ def banded_phase(device, gbases, clock: float) -> dict:
     for E in BANDED_ES:
         for infix in (False, True):
             shapes.append(banded_check(f"{L} bp", device, *args, E, infix,
-                                       per_cell, clock))
+                                       per_cell, clock, per_one=per_one))
     for infix in (False, True):
         shapes.append(banded_check(f"{L} bp warp", device, *args,
-                                   BANDED_WARP_E, infix, per_cell, clock))
+                                   BANDED_WARP_E, infix, per_cell, clock,
+                                   per_one=per_one))
         shapes.append(banded_check(
             f"{L} bp warp, band in memory", device,
             *(x[..., :BANDED_MEM_PAIRS] for x in args), BANDED_MEM_E,
-            infix, per_cell, clock, reps=3))
+            infix, per_cell, clock, reps=3, per_one=per_one))
     # dedupe's call: one query (stride 0) against every b
     q, lq = args[0][:, 0].contiguous(), args[1][:1].expand(BANDED_PAIRS)
     shapes.append(banded_check(f"{L} bp one query", device, q, lq,
-                               *args[2:], 2, False, per_cell, clock))
+                               *args[2:], 2, False, per_cell, clock,
+                               per_one=per_one))
     cw = np.lib.stride_tricks.sliding_window_view(gbases, CONTIG_L)
     CA = cw[rng.integers(0, len(cw), CONTIG_PAIRS)]
     CB, clb = mutate_pairs(rng, CA, 2 * CONTIG_E)
@@ -4254,7 +4298,7 @@ def banded_phase(device, gbases, clock: float) -> dict:
     for infix in (False, True):
         shapes.append(banded_check(f"{CONTIG_L} bp contigs", device,
                                    *cargs, CONTIG_E, infix, per_cell, clock,
-                                   reps=5))
+                                   reps=5, per_one=per_one))
     # the first pairs at E = 2 against the numpy band sweep
     got = bd.banded_edit(*(x[..., :BANDED_NUMPY_PAIRS] for x in args), 2)
     sweep = np.array([min(banded_edit_distance(A[t], B[t, :lb[t]], 2), 3)
@@ -4265,7 +4309,12 @@ def banded_phase(device, gbases, clock: float) -> dict:
     if err != 0:
         raise AssertionError("banded_edit disagrees with the numpy sweep")
     main = shapes[2]                     # E = 2, global: dedupe's e=2
-    blocks = []
+    # both band bodies forced in turns at the table's three shapes
+    turns = {"pairs": body_turns(
+        f"banded_edit {BANDED_PAIRS} x {L} bp, E=2",
+        lambda m: bd.banded_edit(*args, 2, mapping=m),
+        bd.banded_edit_batch_plain(*args, 2), main)}
+    blocks, sweep = [], []
     for k, Q, what in ((BANDED_PAIRS, BLOCK_QUERIES_TABLE, "the table's"),
                        (DEDUPE_CLASS, BLOCK_QUERIES, "dedupe's"),
                        (1_000, BLOCK_QUERIES, "a small class")):
@@ -4283,31 +4332,88 @@ def banded_phase(device, gbases, clock: float) -> dict:
                 blocks.append(block_check(
                     f"{what} shape, {Q} queries x {k}", device, q, lq,
                     None if tri else s_, None if tri else ls, E, tri,
-                    per_cell, clock, reps=3 if E in wide else 20))
+                    per_cell, clock, reps=3 if E in wide else 20,
+                    per_one=per_one))
             if E == 2:
                 blocks.append(block_check(
                     f"{what} shape, {Q} queries x {k}, in place", device, q,
-                    lq, s_.contiguous(), ls, E, False, per_cell, clock))
-    table = blocks[2]                    # the table's shape, E = 2, class
-    any_entry = {"max_abs_err": max(b["max_abs_err"] for b in blocks),
-                 "ms": table["ms"], "plain_ms": table["plain_ms"],
-                 "bound_ms": table["bound_ms"],
-                 "bound_by": table["bound_by"], "library_ms": None,
-                 "shapes": blocks}
-    return {"max_abs_err": max(s["max_abs_err"] for s in shapes),
-            "ms": main["ms"], "plain_ms": main["plain_ms"],
-            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "library_ms": None, "shapes": shapes}, any_entry
+                    lq, s_.contiguous(), ls, E, False, per_cell, clock,
+                    per_one=per_one))
+                if k != 1_000:
+                    turns[what] = body_turns(
+                        f"banded_any {Q} queries x {k}, E=2",
+                        lambda m: bd.banded_any(q, lq, s_, ls, 2, mapping=m),
+                        bd.banded_any_plain(q, lq, s_, ls, 2), blocks[-3])
+        if what == "dedupe's":
+            # every E of the four-lane body at dedupe's shape
+            sweep = [block_check(f"E sweep, {Q} queries x {k}", device, q,
+                                 lq, s_, ls, E, False, per_cell, clock,
+                                 reps=10, per_one=per_one)
+                     for E in range(8)]
+    edit_shapes = shapes + [turns["pairs"]]
+    any_shapes = blocks + sweep + [turns["the table's"], turns["dedupe's"]]
+    err = max(x["max_abs_err"] for x in edit_shapes + any_shapes)
+
+    def entry(turn, body, shapes_):
+        r = turn[body]
+        return {"max_abs_err": err, "ms": r["ms"], "device_ms": r["device_ms"],
+                "plain_ms": turn["plain_ms"], "bound_ms": turn["bound_ms"],
+                "bound_by": turn["bound_by"], "library_ms": None,
+                "shapes": shapes_}
+    # the kernels line: each body at the table's E = 2 shape (banded_edit
+    # at 65,536 x 150 bp, banded_any at 256 queries x 65,536)
+    return (entry(turns["pairs"], "thread", edit_shapes),
+            entry(turns["pairs"], "quad", []),
+            entry(turns["the table's"], "thread", any_shapes),
+            entry(turns["the table's"], "quad", []))
+
+
+def body_turns(what: str, run, want, check: dict) -> dict:
+    """A kernel's two band bodies forced on the same inputs in turns (run
+    ("quad") and run ("thread"): quad, thread, thread, quad, events over 20
+    launches each), then each one's device time (``_kernel_device_ms``),
+    every result held to the plain version's ``want`` (tolerance 0); the
+    bound, the plain version's time and the cells from ``check``, the
+    shape's entry of ``banded_check`` / ``block_check``."""
+    res = {m: {"ms_turns": [], "max_abs_err": 0} for m in BANDED_BODIES}
+    for m in ("quad", "thread", "thread", "quad"):
+        ms, got = _cuda_ms(lambda: run(m), 20)
+        res[m]["ms_turns"].append(ms)
+        res[m]["max_abs_err"] = max(res[m]["max_abs_err"], _diff(got, want))
+    for m, r in res.items():
+        r["ms"] = sum(r["ms_turns"]) / len(r["ms_turns"])
+        r["device_ms"] = _kernel_device_ms(lambda: run(m))
+        say(f"turns {what}, {m}: max_abs_err {r['max_abs_err']}, ms "
+            + " / ".join(f"{x:.4f}" for x in r["ms_turns"])
+            + f", device {r['device_ms']:.4f} ms; bound "
+            f"{check['bound_ms']:.4f} ms ({check['bound_by']}), "
+            f"{check['bound_ms_thread_body']:.4f} at the thread body's count"
+            f"; share {100 * check['bound_ms'] / r['device_ms']:.1f} % by "
+            f"device time")
+    if any(r["max_abs_err"] for r in res.values()):
+        raise AssertionError(f"{what}: a body disagrees with the plain "
+                             f"version")
+    return {"what": what, "max_abs_err": max(r["max_abs_err"]
+                                             for r in res.values()),
+            **{k: check[k] for k in ("plain_ms", "bound_ms", "bound_by",
+                                     "bound_ms_thread_body", "cells")},
+            **res}
 
 
 def block_check(what: str, device, q, lq, s, ls, E: int, tri: bool,
-                per_cell: float, clock: float, reps: int = 20) -> dict:
+                per_cell: float, clock: float, reps: int = 20, *,
+                per_one: float) -> dict:
     """The block kernel (``banded_any``) against its plain version on the
     same tensors, tolerance 0, timed; the bound from the cells the data
     needs (each pair's rows to saturation or its end, from the plain
-    version, over the band width) and the bytes read and written once."""
+    version, over the band width) and the bytes read and written once,
+    also at the thread body's count a cell ``per_one``; the body the
+    launch took."""
     from bbmap_tpu_torch.ops import banded_device as bd
+    before = dict(bd.banded_any.launches_by_body)
     ms, got = _cuda_ms(lambda: bd.banded_any(q, lq, s, ls, E, tri), reps)
+    body = next((m for m, k in bd.banded_any.launches_by_body.items()
+                 if k > before[m]), "a banded_edit launch a query")
     rows = []
     plain_ms, want = _cuda_ms(lambda: bd.banded_any_plain(
         q, lq, s, ls, E, tri, rows_out=rows), 1, warm=False)
@@ -4317,15 +4423,17 @@ def block_check(what: str, device, q, lq, s, ls, E: int, tri: bool,
     n_bytes = q.shape[0] * Q + 4 * Q + want.numel() + (
         0 if tri else s.shape[0] * s.shape[1] + 4 * s.shape[1])
     bms, by = bound_ms(n_bytes, cells * per_cell, clock)
+    bms_one = bound_ms(n_bytes, cells * per_one, clock)[0]
     mode = "triangle" if tri else "class"
-    res = {"what": what, "mode": mode, "queries": Q,
+    res = {"what": what, "mode": mode, "body": body, "queries": Q,
            "sequences": Q if tri else s.shape[1], "E": E,
            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": bms, "bound_by": by, "share": bms / ms,
-           "cells": cells, "hits": int(want.sum())}
-    say(f"kernel banded_any {mode} {what}, E={E}: max_abs_err {err}, kernel"
-        f" {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by}),"
-        f" share {100 * bms / ms:.1f} %, {cells} cells, {res['hits']} hits")
+           "bound_ms": bms, "bound_by": by, "bound_ms_thread_body": bms_one,
+           "share": bms / ms, "cells": cells, "hits": int(want.sum())}
+    say(f"kernel banded_any {mode} {what}, E={E}, {body}: max_abs_err "
+        f"{err}, kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{bms:.4f} ms ({by}; {bms_one:.4f} at the thread body's count), "
+        f"share {100 * bms / ms:.1f} %, {cells} cells, {res['hits']} hits")
     if err != 0:
         raise AssertionError(f"banded_any {what} E={E} disagrees with its "
                              f"plain version")
@@ -4352,15 +4460,19 @@ def contained_check(what: str, device, q, lq, w, table, tol: int,
     n_bytes = int(lq[cols].long().sum()) + int(table[2].long().sum()) + \
         table.numel() * 4 + q.shape[1]
     bms, by = bound_ms(n_bytes, cells * per_cell, clock)
+    dev_ms = _kernel_device_ms(
+        lambda: bd.contained_any(q, lq, w, table, tol))
     res = {"what": what, "queries": q.shape[1], "queries_with_pairs":
            int(cols.numel()), "pairs": P, "tol": tol, "max_abs_err": err,
-           "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-           "share": bms / ms, "cells": cells, "flagged": int(want.sum())}
+           "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+           "bound_ms": bms, "bound_by": by, "share": bms / dev_ms,
+           "cells": cells, "flagged": int(want.sum())}
     say(f"kernel contained_any {what}: {q.shape[1]} queries "
         f"({res['queries_with_pairs']} with pairs), {P} pairs x 2 "
         f"orientations, tol={tol}: max_abs_err {err}, kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.3f} ms, bound {bms:.6f} ms ({by}), share "
-        f"{100 * bms / ms:.2f} %, {cells} cells, {res['flagged']} flagged")
+        f"device {dev_ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{bms:.6f} ms ({by}), share {100 * bms / dev_ms:.2f} % by device "
+        f"time, {cells} cells, {res['flagged']} flagged")
     if err != 0:
         raise AssertionError(f"contained_any {what} tol={tol} disagrees with "
                              f"its plain version")
@@ -4401,7 +4513,7 @@ def contained_phase(device, gbases, clock: float) -> list:
     dedupe's block shape, tol 2 (a thread an orientation of a pair, 9 band
     cells) and tol 16 (the warp body, 65 cells); the shapes' results."""
     import numpy as np
-    _, per_cell = banded_instructions()
+    _, per_cell, per_one = banded_instructions()
     rng = np.random.default_rng(73)
     return [contained_check(f"{BLOCK_QUERIES}-read block, {n} fragments",
                             device, *contained_block(gbases, rng, tol, n,
@@ -4680,12 +4792,18 @@ def dedupe_big(device, d: Path, clock: float) -> dict:
     if launches["banded_edit"] != by_site["containment_in_block"]:
         raise AssertionError(f"banded_edit launched by another caller than "
                              f"the in-block containment check: {by_site}")
+    # e=2 (5 band cells) and the in-block check's E = 4 (9): every launch
+    # on the four-lane body
+    if launches["banded_any_quad"] != launches["banded_any"] or \
+            launches["banded_edit_quad"] != launches["banded_edit"]:
+        raise AssertionError(f"a banded launch off the four-lane body: "
+                             f"{launches}")
     if not 0 < launches["contained_any"] <= n_blocks:
         raise AssertionError(f"{launches['contained_any']} launches of the "
                              f"containment kernel in {n_blocks} blocks")
     pairs = sorted((c[3].shape[1], k) for k, c in enumerate(calls))
     median = calls[pairs[len(pairs) // 2][1]]
-    _, per_cell = banded_instructions()
+    _, per_cell, per_one = banded_instructions()
     cont = contained_check(f"dedupe's median block ({len(calls)} launches)",
                            device, *median, per_cell, clock)
     del calls
@@ -4737,6 +4855,10 @@ def dedupe_big(device, d: Path, clock: float) -> dict:
            + launches["contained_any"],
            "store_check_launches": launches["banded_any"],
            "store_check_by_mode": by_mode,
+           "store_check_by_body": {b: launches[f"banded_any_{b}"]
+                                   for b in BANDED_BODIES},
+           "in_block_by_body": {b: launches[f"banded_edit_{b}"]
+                                for b in BANDED_BODIES},
            "containment_launches": {"block": launches["contained_any"],
                                     "in_block": in_block},
            "containment_pairs": cont_pairs,
@@ -4752,10 +4874,12 @@ def dedupe_big(device, d: Path, clock: float) -> dict:
     say(f"dedupe e=2 ac=t at {N_DEDUPE_BIG} reads on the card: "
         f"{big['reads_per_s']:.1f} reads/s ({wall:.2f} s), blocks of "
         f"{dedupe.BLOCK}: store check {launches['banded_any']} launches "
-        f"{big['store_check_by_mode']}; containment check "
+        f"{big['store_check_by_mode']} {big['store_check_by_body']}; "
+        f"containment check "
         f"{launches['contained_any']} block launches "
         f"({cont_pairs} pairs) and {in_block} in-block banded_edit launches"
-        f" (before the block mapping: {CONTAINMENT_BEFORE['launches']} "
+        f" {big['in_block_by_body']} (before the block mapping: "
+        f"{CONTAINMENT_BEFORE['launches']} "
         f"launches); {len(kept)} kept "
         f"in {len(store.classes)} length classes ({held} B on the card for "
         f"{big['kept_bytes']} B of reads); a block's check against every "
@@ -4899,9 +5023,9 @@ def dedupe_variants_phase(device, gbases, clock: float) -> tuple:
     before and after bbmapacc (the same SAM). Then, with those processes
     ended: the banded kernel against its plain version at every shape of
     the phase's list, dedupe over N_DEDUPE_BIG reads and the variants over
-    N_VARIANT_BIG pairs on the card. Returns (the banded kernel's, the
-    block kernel's and the containment kernel's entries, {dedupe runs,
-    "big"}, {variant runs, "big"})."""
+    N_VARIANT_BIG pairs on the card. Returns (the banded kernel's entries
+    on the thread and the quad body, the block kernel's on each, the
+    containment kernel's, {dedupe runs, "big"}, {variant runs, "big"})."""
     tmp = tempfile.mkdtemp(prefix="chip_smoke_dedupe")
     cpu_runs = {}
     try:
@@ -4964,7 +5088,7 @@ def dedupe_variants_phase(device, gbases, clock: float) -> tuple:
                                      f"{sorted(card[key]['files'])}")
             (dd if src == dd_in else vv)[key] = res
         cpu_runs["index"].finish(900)
-        kt, kany = banded_phase(device, gbases, clock)
+        kt, ktq, kany, kanyq = banded_phase(device, gbases, clock)
         kcont = contained_phase(device, gbases, clock)
         dd["big"] = dedupe_big(device, dd_in, clock)
         vv["big"] = variants_big(device, vv_in)
@@ -4978,10 +5102,11 @@ def dedupe_variants_phase(device, gbases, clock: float) -> tuple:
     # beside the kernel phase's shapes
     c = dd["big"]["contained_check"]
     kcont = {"max_abs_err": max(x["max_abs_err"] for x in [c, *kcont]),
-             "ms": c["ms"], "plain_ms": c["plain_ms"],
+             "ms": c["ms"], "device_ms": c["device_ms"],
+             "plain_ms": c["plain_ms"],
              "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
              "library_ms": None, "shapes": [*kcont, c]}
-    return kt, kany, kcont, dd, vv
+    return kt, ktq, kany, kanyq, kcont, dd, vv
 
 
 def onerow_at_cli_shapes(device, gbases, big: dict) -> tuple:
@@ -6139,6 +6264,8 @@ print("SPLIT " + json.dumps({
     "rc": rc, "wall_s": wall, "reads_per_s": cs.N_DEDUPE_BIG / wall,
     "banded_edit": bd.banded_edit.launches, "banded_edit_by_site": split,
     "banded_any": dict(block.launches_by) if block else None,
+    "banded_any_by_body": getattr(block, "launches_by_body", None),
+    "banded_edit_by_mapping": getattr(bd.banded_edit, "launches_by", None),
     "contained_any": cont.launches if cont else None,
     "report": rep.splitlines()[-3:]}), flush=True)
 """
@@ -6433,22 +6560,24 @@ def main() -> int:
                          "decontaminate")) + f"; card {smi}")
 
     t = time.time()
-    bkt, bany, bcont, dd, vv = dedupe_variants_phase(device, gbases,
-                                                     max_sm_clock_hz())
+    bkt, bktq, bany, banyq, bcont, dd, vv = dedupe_variants_phase(
+        device, gbases, max_sm_clock_hz())
     vb = vv["big"]
     say(f"phase dedupe and mapper variants: {time.time() - t:.1f} s; "
-        f"banded_edit at {BANDED_PAIRS} x {L} bp, E=2: {bkt['ms']:.4f} ms "
-        f"(plain {bkt['plain_ms']:.3f} ms, bound {bkt['bound_ms']:.4f} ms, "
-        f"share {100 * bkt['bound_ms'] / bkt['ms']:.1f} %), every shape "
-        f"equal to its plain version; banded_any at {BLOCK_QUERIES_TABLE} "
-        f"queries x {BANDED_PAIRS}, E=2: {bany['ms']:.4f} ms (bound "
-        f"{bany['bound_ms']:.4f} ms, share "
-        f"{100 * bany['bound_ms'] / bany['ms']:.1f} %); contained_any at "
-        f"dedupe's median block: {bcont['ms']:.4f} ms (bound "
+        f"banded_edit at {BANDED_PAIRS} x {L} bp, E=2, device ms: quad "
+        f"{bktq['device_ms']:.4f}, thread {bkt['device_ms']:.4f} (plain "
+        f"{bkt['plain_ms']:.3f} ms, bound {bkt['bound_ms']:.4f} ms), every "
+        f"shape equal to its plain version; banded_any at "
+        f"{BLOCK_QUERIES_TABLE} queries x {BANDED_PAIRS}, E=2, device ms: "
+        f"quad {banyq['device_ms']:.4f}, thread {bany['device_ms']:.4f} "
+        f"(bound {bany['bound_ms']:.4f} ms); contained_any at "
+        f"dedupe's median block: {bcont['ms']:.4f} ms, device "
+        f"{bcont['device_ms']:.4f} ms (bound "
         f"{bcont['bound_ms']:.6f} ms); dedupe e=2 ac=t at "
         f"{N_DEDUPE_BIG} reads {dd['big']['reads_per_s']:.1f} reads/s, "
         f"store check {dd['big']['store_check_launches']} launches "
-        f"{dd['big']['store_check_by_mode']}, containment check "
+        f"{dd['big']['store_check_by_mode']} "
+        f"{dd['big']['store_check_by_body']}, containment check "
         f"{dd['big']['containment_launches']}, kernels <= "
         f"{100 * dd['big']['kernel_share']:.1f} % of the wall; at "
         f"{N_VARIANT_BIG} pairs "
@@ -6528,7 +6657,10 @@ def main() -> int:
                "msa_score_pipe": "msa_score_pipe",
                "msa_fill_pipe": "msa_fill_pipe",
                "msa_score_rows_pipe": "msa_score_rows_pipe",
-               "banded_edit": "banded_edit", "banded_any": "banded_any",
+               "banded_edit": "banded_edit_thread",
+               "banded_edit_quad": "banded_edit_quad",
+               "banded_any": "banded_any_thread",
+               "banded_any_quad": "banded_any_quad",
                "contained_any": "contained_any",
                "rescue_scan": "rescue_scan",
                "quality_offsets": "quality_offsets",
@@ -6545,6 +6677,7 @@ def main() -> int:
             "msa_score_long": "long", "msa_fill_long": "long",
             "msa_score_strided": "long", "msa_fill_strided": "long",
             "banded_edit": "dedupe", "banded_any": "dedupe",
+            "banded_edit_quad": "dedupe", "banded_any_quad": "dedupe",
             "contained_any": "dedupe",
             "msa_score_row": "mapper_variants",
             "msa_score_pipe": "mapper_variants",
@@ -6554,7 +6687,9 @@ def main() -> int:
             "ref_retention_block": "long", "gapless_score_warp": "long",
             "slot_pack_block": "long"}
     ktimes["banded_edit"] = bkt
+    ktimes["banded_edit_quad"] = bktq
     ktimes["banded_any"] = bany
+    ktimes["banded_any_quad"] = banyq
     ktimes["contained_any"] = bcont
     # K2 at the CLIs' one-row shapes, held to its plain version there too
     for name, e in vv["cli_shapes_max_abs_err"].items():

@@ -3,10 +3,13 @@ package's jitted scan (bbmap_tpu/ops/banded_device.py, run on the CPU
 with BBMAP_DEVICE_BANDED=1) and the numpy band sweep, value by value
 (tolerance 0); a numpy emulation of the CUDA kernel's two mappings
 (csrc/banded_edit.cu: the packed sliding window, the chunked lane scan
-with its carry, the early stop at saturation), of the block mapping and of
-the containment mapping (the pair table, the reverse complement read in
-place) against the plain version; the kernel itself against the plain
-version where there is a card."""
+with its carry, the early stop at saturation), of the four-lane body (four
+pairs in the byte lanes of a word, in the thread and the block mapping,
+with the rows it runs), of the block mapping and of the containment
+mapping (the pair table, the reverse complement read in place) against
+the plain version; the kernel itself against the plain version where
+there is a card (both band bodies forced: tests/test_torch_banded_card.py,
+which runs without JAX)."""
 
 import numpy as np
 import pytest
@@ -16,46 +19,8 @@ from bbmap_tpu.core.bases import COMP_ASCII
 from bbmap_tpu.ops import banded_device as jbd
 from bbmap_tpu.ops.banded import banded_edit_distance
 from bbmap_tpu_torch.ops import banded_device as tbd
-
-BYTES = np.frombuffer(b"ACGTNacgt", np.uint8)
-
-
-def _mutate(rng, a, n_ops):
-    b = a.copy()
-    for _ in range(n_ops):
-        op = int(rng.integers(0, 3))
-        p = int(rng.integers(0, max(1, len(b))))
-        if op == 0 and len(b):
-            b[p] = BYTES[int(rng.integers(0, len(BYTES)))]
-        elif op == 1:
-            b = np.insert(b, p, BYTES[int(rng.integers(0, len(BYTES)))])
-        elif len(b) > 1:
-            b = np.delete(b, p)
-    return b
-
-
-def _pairs(seed, n, E, max_len=300):
-    """Unrelated pairs, mutated copies (up to 2E + 2 edits), lengths that
-    differ by more than E, empty sides, and a far longer than b."""
-    rng = np.random.default_rng(seed)
-    out = []
-    for k in range(n):
-        la = int(rng.integers(0, max_len + 1))
-        a = rng.choice(BYTES, la).astype(np.uint8)
-        kind = k % 6
-        if kind == 0:
-            b = rng.choice(BYTES, int(rng.integers(0, max_len + 1)))
-        elif kind == 1:
-            b = a[:max(0, la - E - 1 - int(rng.integers(0, 5)))]
-        elif kind == 2:
-            b = a[:int(rng.integers(0, 4))]
-        elif kind == 3 and k % 12 == 3:
-            a, b = a[:0], rng.choice(BYTES, int(rng.integers(0, E + 2)))
-        else:
-            b = _mutate(rng, a, int(rng.integers(0, 2 * E + 3)))
-        out.append((a, np.asarray(b, np.uint8)))
-    return out
-
+from tests.banded_cases import BYTES, class_case as _class_case, \
+    mutate as _mutate, quad_words as _quad_words, random_pairs as _pairs
 
 def _stack(pairs):
     W = max(1, max(max(len(a), len(b)) for a, b in pairs))
@@ -401,33 +366,6 @@ def _emulate_block(qT, lq, sT, ls, E, tri, group, tile=8, warp=4):
     return out
 
 
-def _class_case(seed, E, n_q, n_s):
-    """Queries and one class of sequences at the edges of a length class
-    (144..159 around 150 bp and past it), copies within and past E edits
-    of each other, and the queries' own near copies (for the triangle)."""
-    rng = np.random.default_rng(seed)
-    base = [rng.choice(BYTES[:4], int(rng.integers(144, 160))).astype(
-        np.uint8) for _ in range(4)]
-    seqs = [_mutate(rng, base[int(rng.integers(0, 4))],
-                    int(rng.integers(0, 2 * E + 2))) for _ in range(n_s)]
-    seqs = [x[:159] for x in seqs if len(x) >= 144]
-    qs = [_mutate(rng, base[int(rng.integers(0, 4))],
-                  int(rng.integers(0, 2 * E + 2))) for _ in range(n_q)]
-    qs += [qs[0].copy(), _mutate(rng, qs[1], 1),
-           rng.choice(BYTES, 150).astype(np.uint8), base[0][:143],
-           np.concatenate([base[1], BYTES[:4]])[:160]]
-    W = max(len(x) for x in seqs)
-    sT = np.zeros((W, len(seqs)), np.uint8)
-    for j, x in enumerate(seqs):
-        sT[:len(x), j] = x
-    Lq = max(len(x) for x in qs)
-    qT = np.zeros((Lq, len(qs)), np.uint8)
-    for i, x in enumerate(qs):
-        qT[:len(x), i] = x
-    return (qT, np.array([len(x) for x in qs], np.int32), sT,
-            np.array([len(x) for x in seqs], np.int32))
-
-
 @pytest.mark.parametrize("E", [0, 1, 2])
 @pytest.mark.parametrize("group", [1, 3, 16])
 def test_block_emulation_equals_plain(E, group):
@@ -459,26 +397,307 @@ def test_block_emulation_equals_plain(E, group):
 
 
 def test_block_groups_fill_the_card(monkeypatch):
-    """Queries a block: several blocks an SM over the class's tiles, at
-    most BLOCK_MAX_GROUP a block, never more than the queries."""
+    """Queries a block: several blocks an SM over the class's tiles (of
+    the thread body's 128 sequences and of the quad body's 512), at most
+    BLOCK_MAX_GROUP a block, never more than the queries."""
     class Props:
         multi_processor_count = 132
     monkeypatch.setattr(torch.cuda, "get_device_properties",
                         lambda dev: Props)
-    for Q, k in ((512, 1_000), (512, 15_000), (512, 100_000), (3, 50),
-                 (1, 10**6)):
-        g = tbd.block_groups(Q, k, "cuda")
-        blocks = -(-k // tbd.BLOCK_TILE) * -(-Q // g)
-        assert 1 <= g <= min(Q, tbd.BLOCK_MAX_GROUP)
-        assert blocks >= min(tbd.BLOCK_AIM_PER_SM * 132,
-                             -(-k // tbd.BLOCK_TILE) * Q) or \
-            g == tbd.BLOCK_MAX_GROUP
+    for tile in (tbd.BLOCK_TILE, tbd.BLOCK_QUAD_TILE):
+        for Q, k in ((512, 1_000), (512, 15_000), (512, 100_000), (3, 50),
+                     (1, 10**6)):
+            g = tbd.block_groups(Q, k, "cuda", tile)
+            blocks = -(-k // tile) * -(-Q // g)
+            assert 1 <= g <= min(Q, tbd.BLOCK_MAX_GROUP)
+            assert blocks >= min(tbd.BLOCK_AIM_PER_SM * 132,
+                                 -(-k // tile) * Q) or \
+                g == tbd.BLOCK_MAX_GROUP
+    assert tbd.block_groups(512, 15_000, "cuda") == \
+        tbd.block_groups(512, 15_000, "cuda", tbd.BLOCK_QUAD_TILE)
+
+
+# ---------------------------------------------------------------------------
+# The four-lane body (quad_pairs): four pairs in the byte lanes of a word,
+# each cell's value x as its headroom D(x) = (1 << (E + 1 - x)) - 1, a min
+# an OR, + 1 a shift within the lane. The same word operations in the same
+# order on Python ints, against the plain version, with the rows it runs.
+# ---------------------------------------------------------------------------
+
+M32, ONES, LOW7, HIGH = 0xFFFFFFFF, 0x01010101, 0x7F7F7F7F, 0x80808080
+
+
+def _spread_top(x):
+    """prmt.b32 x, 0, 0xba98: each byte lane's top bit replicated."""
+    return sum(0xFF << 8 * q for q in range(4) if (x >> (8 * q + 7)) & 1)
+
+
+def _nonzero_lanes(x):
+    return _spread_top((((x & LOW7) + LOW7) | x) & M32)
+
+
+def _ge_lanes(x, y):
+    return _spread_top(((x | HIGH) - y) & M32)
+
+
+def _lanes_above(v, at, live):
+    return sum(0xFF << 8 * q for q in range(4) if v[q] > at) & live
+
+
+def _quad_pick(v, la, lb, E, infix):
+    W, pick = len(v), 0
+    if not infix:
+        df = sum(((lb[q] - la[q] + E) & 0xFF) << 8 * q for q in range(4))
+        for d in range(W):
+            pick |= v[d] & ~_nonzero_lanes(df ^ (d * ONES)) & M32
+    else:
+        lo = hi = 0
+        for q in range(4):
+            h = min(W - 1, lb[q] + E - la[q])
+            lo |= (16 if h < 0 else max(0, E - la[q])) << 8 * q
+            hi |= max(h, 0) << 8 * q
+        for d in range(W):
+            pick |= v[d] & _ge_lanes(d * ONES, lo) & _ge_lanes(hi, d * ONES)
+    return pick
+
+
+def _emulate_quad(a_word, b_word, la, lb, lanes, La, E, infix, freeze):
+    """quad_pairs<W = 2E + 1, FREEZE> for the four lanes of ``lanes``:
+    a_word(pos) / b_word(pos) the four lanes' bytes at a position (b_word
+    255 past Lb). Returns (each lane's D of its distance, the rows run)."""
+    W, BIG = 2 * E + 1, E + 1
+    rows = [min(x, La) for x in la]
+    alive = lbc = last = 0
+    rows_min = lb_min = 1 << 31
+    for q in range(4):
+        m = 0xFF << 8 * q
+        if lanes & m and (infix or abs(lb[q] - la[q]) <= E):
+            alive |= m
+            last = max(last, rows[q])
+            rows_min = min(rows_min, rows[q])
+            lb_min = min(lb_min, lb[q])
+        lbc |= min(lb[q], 127) << 8 * q
+    if not alive:
+        return 0, 0
+    v, win, vwin = [0] * W, [0] * W, [0] * W
+    for d in range(W):
+        j = d - E
+        if j >= 0:
+            d0 = (1 << BIG) - 1 if infix else (1 << (W - d)) - 1
+            v[d] = (d0 * ONES) & _ge_lanes(lbc, j * ONES) & alive
+            vwin[d] = _ge_lanes(lbc, (j + 1) * ONES)
+        win[d] = b_word(j) if j >= 0 else M32
+    aw = a_word(0) if last >= 1 else 0
+    nb = b_word(1 + E)
+    ran = 0
+    for i in range(1, last + 1):
+        ran = i
+        a_next = a_word(i) if i < last else 0
+        nb_next = b_word(i + 1 + E)
+        act = _lanes_above(rows, i - 1, alive) if freeze and i > rows_min \
+            else alive
+        r = any_ = 0
+        s = (v[0] >> 1) & LOW7
+        for d in range(W):
+            up = (v[d + 1] >> 1) & LOW7 if d + 1 < W else 0
+            ne = _nonzero_lanes(win[d] ^ aw)
+            c = ((v[d] & ~ne) | s | up) & vwin[d]
+            r = c | ((r >> 1) & LOW7)
+            v[d] = (r & act) | (v[d] & ~act & M32) if freeze else r
+            any_ |= r
+            s = up
+        win = win[1:] + [nb]
+        vwin = vwin[1:] + [M32 if i + E < lb_min
+                           else _lanes_above(lb, i + E, alive)]
+        nb, aw = nb_next, a_next
+        if not any_ & act & ONES:
+            break
+    return _quad_pick(v, la, lb, E, infix) & alive, ran
+
+
+def _lane_word(col, pos, k0, n):
+    """Bytes (pos, k0 .. k0 + 3) of a pair-minor column block as a word
+    (bytes past n are the padding's zeros)."""
+    return sum(int(col[pos, k0 + q]) << 8 * q
+               for q in range(4) if k0 + q < n)
+
+
+def _emulate_thread_quad(A, la, B, lb, E, infix, La, Lb, shared=False):
+    """banded_thread_quad_kernel on numpy arrays: A (La, n) or, shared,
+    (La,) one query; B (Lb, n); la, lb (n,). A thread pairs 4t .. 4t + 3;
+    FREEZE where the lengths of a are the pairs' own. Returns (the
+    distances, each thread's rows run, its four pairs)."""
+    n = len(lb)
+    out, runs = [], []
+    for k0 in range(0, n, 4):
+        cnt = min(4, n - k0)
+        la4 = [int(la[k0 + q]) if q < cnt else 0 for q in range(4)]
+        lb4 = [int(lb[k0 + q]) if q < cnt else 0 for q in range(4)]
+        lanes = sum(0xFF << 8 * q for q in range(cnt))
+        if shared:
+            def a_word(pos):
+                return int(A[pos]) * ONES
+        else:
+            def a_word(pos, k0=k0):
+                return _lane_word(A, pos, k0, n)
+
+        def b_word(pos, k0=k0):
+            return _lane_word(B, pos, k0, n) if pos < Lb else M32
+        pick, ran = _emulate_quad(a_word, b_word, la4, lb4, lanes, La, E,
+                                  infix, freeze=len(set(la4[:cnt])) > 1)
+        out += [E + 1 - bin((pick >> 8 * q) & 0xFF).count("1")
+                for q in range(cnt)]
+        runs.append((ran, list(range(k0, k0 + cnt))))
+    return np.array(out, np.int32), runs
+
+
+def _check_rows(runs, rows, freeze_ok):
+    """A thread runs to its four pairs' last row the plain scan needs (one
+    more where the pairs' rows differ and the last live pair's ended)."""
+    for ran, ks in runs:
+        need = max(int(rows[k]) for k in ks)
+        assert need <= ran <= need + (1 if freeze_ok else 0), (ran, need, ks)
+
+
+@pytest.mark.parametrize("infix", [False, True], ids=["global", "infix"])
+@pytest.mark.parametrize("E", list(range(8)))
+def test_quad_emulation_equals_plain(E, infix):
+    """The four-lane body, emulated word by word (banded_thread_quad_kernel
+    with its per-pair lengths and with a shared query), equals the plain
+    version for E = 0-7, global and infix, on words whose four lanes
+    differ in la and lb (a lane that ends early, an empty side, |lb - la|
+    = E + 1), N, IUPAC and lowercase bytes, n not a multiple of 4; and each
+    thread runs exactly the rows its pairs need."""
+    for seed, n in ((E, 37), (50 + E, 42)):
+        pairs = _quad_words(seed, E, n) + _pairs(900 + seed, 9, E, 50)
+        A, la, B, lb = _stack(pairs)
+        AT, BT = A.T.copy(), B.T.copy()
+        rows = torch.zeros(len(pairs), dtype=torch.int32)
+        want = _plain(A, la, B, lb, E, infix, rows_out=rows)
+        got, runs = _emulate_thread_quad(AT, la, BT, lb, E, infix,
+                                         AT.shape[0], BT.shape[0])
+        np.testing.assert_array_equal(got, want)
+        _check_rows(runs, rows, True)
+        assert want.min() <= E < want.max()
+        # one query against every b, as _vs_query stages it
+        q = AT[:, 0]
+        lq = np.full(len(pairs), la[0], np.int32)
+        rows = torch.zeros(len(pairs), dtype=torch.int32)
+        want = tbd.banded_edit_batch_plain(
+            torch.from_numpy(q.copy()), torch.from_numpy(lq),
+            torch.from_numpy(BT), torch.from_numpy(lb), E, infix,
+            rows_out=rows).numpy()
+        got, runs = _emulate_thread_quad(q, lq, BT, lb, E, infix,
+                                         AT.shape[0], BT.shape[0], True)
+        np.testing.assert_array_equal(got, want)
+        _check_rows(runs, rows, False)
+
+
+def _emulate_block_quad(qT, lq, sT, ls, E, tri, group, threads=4, warp=2):
+    """banded_block_quad_kernel on numpy arrays, ``threads`` threads a
+    block (a tile of 4 x threads sequences) and ``warp`` threads a vote in
+    place of 128 and 32: blocks in a random order; a thread's four
+    sequences against each query of the group on the four-lane body, the
+    query's byte in every lane; a warp's vote sets a query's flag, or a
+    thread writes its lanes' cells of the triangle. Returns (out, [(rows
+    run, [(i, j), ...])])."""
+    Q, Lq = qT.shape[1], qT.shape[0]
+    if tri:
+        sT, ls = qT, lq
+    k, Ls = sT.shape[1], sT.shape[0]
+    tile = 4 * threads
+    out = np.zeros((Q, Q) if tri else Q, np.uint8)
+    blocks = [(bx, by) for bx in range(-(-k // tile))
+              for by in range(-(-Q // group))]
+    rng = np.random.default_rng(len(blocks))
+    runs = []
+    for bx, by in (blocks[i] for i in rng.permutation(len(blocks))):
+        j0, g0 = bx * tile, by * group
+        for g in range(min(group, Q - g0)):
+            i = g0 + g
+            hits = []
+            for t in range(threads):
+                j = j0 + 4 * t
+                lanes = sum(0xFF << 8 * q for q in range(4)
+                            if j + q < k and (not tri or j + q < i))
+                lb4 = [int(ls[j + q]) if j + q < k else 0 for q in range(4)]
+                la4 = [int(lq[i])] * 4
+
+                def b_word(pos, j=j):
+                    return _lane_word(sT, pos, j, k) if pos < Ls else M32
+                pick, ran = _emulate_quad(
+                    lambda pos, i=i: int(qT[pos, i]) * ONES, b_word, la4,
+                    lb4, lanes, Lq, E, False, False) if lanes else (0, 0)
+                runs.append((ran, [(i, j + q) for q in range(4)
+                                   if lanes >> 8 * q & 1]))
+                hits.append(pick & ONES)
+                if tri:
+                    for q in range(4):
+                        if lanes >> 8 * q & 1:
+                            out[i, j + q] = pick >> 8 * q & 1
+            if not tri and any(any(hits[w:w + warp])
+                               for w in range(0, threads, warp)):
+                out[i] = 1
+    return out, runs
+
+
+@pytest.mark.parametrize("E", [0, 1, 2, 5, 7])
+@pytest.mark.parametrize("group", [1, 3, 16])
+def test_quad_block_emulation_equals_plain(E, group):
+    """The block mapping on the four-lane body, emulated block by block in
+    a random order (tiles of four sequences a thread, query groups, the
+    warp vote, the triangle's lanes j < i), equals banded_any_plain; query
+    and class counts that are not multiples of 4 or of the tile; each
+    thread runs exactly the rows its four pairs need."""
+    qT, lq, sT, ls = _class_case(70 + E + group, E, 13, 23)
+    args = [torch.from_numpy(x) for x in (qT, lq, sT, ls)]
+    assert qT.shape[1] % 4 and sT.shape[1] % 4
+    for tri in (False, True):
+        rows = []
+        want = tbd.banded_any_plain(*args[:2], *(args[2:] if not tri else
+                                                 (None, None)), E, tri)
+        got, runs = _emulate_block_quad(qT, lq, sT, ls, E, tri, group)
+        np.testing.assert_array_equal(got, want.numpy())
+        assert 0 < want.sum() < want.numel()
+        sT_, ls_ = (qT, lq) if tri else (sT, ls)
+        for ran, ij in runs:
+            if not ij:
+                continue
+            ii = torch.tensor([x for x, _ in ij])
+            jj = torch.tensor([x for _, x in ij])
+            rows = torch.zeros(len(ij), dtype=torch.int32)
+            tbd.banded_edit_batch_plain(
+                args[0][:, ii], args[1][ii], torch.from_numpy(sT_)[:, jj],
+                torch.from_numpy(ls_)[jj], E, rows_out=rows)
+            assert ran == int(rows.max()), (ran, rows.tolist())
+
+
+def test_pair_minor_pitch_reads_words():
+    """The numpy entry points stage a and b at a pitch of a multiple of 4
+    (so the four-lane body reads a word of four pairs), values unchanged;
+    words_fit takes such a view and refuses strides, pitches and bases it
+    cannot read a word at a time."""
+    rng = np.random.default_rng(2)
+    rows = rng.choice(BYTES, (7, 11)).astype(np.uint8)
+    x = tbd._pair_minor(rows, torch.device("cpu"))
+    assert x.shape == (11, 7) and x.stride() == (8, 1)
+    np.testing.assert_array_equal(x.numpy(), rows.T)
+    assert tbd.words_fit(x, 7) and not tbd.words_fit(x[:, 1:], 6)
+    full = torch.zeros((11, 64), dtype=torch.uint8)
+    assert tbd.words_fit(full, 64) and tbd.words_fit(full[:, :61], 61)
+    assert not tbd.words_fit(full[:, 1:], 63)          # the base
+    assert not tbd.words_fit(full[:, :61].contiguous(), 61)   # the pitch
+    assert not tbd.words_fit(full.T, 11)               # a pair stride
+    tail = torch.zeros(10 * 64 + 61, dtype=torch.uint8)  # the last row
+    assert not tbd.words_fit(tail.as_strided((11, 61), (64, 1)), 61)
+    assert tbd.words_fit(tail.as_strided((11, 60), (64, 1)), 60)
 
 
 def test_kernel_equals_plain_on_the_card():
-    """The kernel in the mapping the launcher picks (a thread a pair to
-    E = 31, a warp a pair past it, the band in memory at E = 520) against
-    the plain version on the card (chip_smoke.py does this at full size)."""
+    """The kernel in the mapping the launcher picks (four pairs a thread to
+    E = 7 where the words align, as here, a thread a pair to E = 31, a
+    warp a pair past it, the band in memory at E = 520) against the plain
+    version on the card (chip_smoke.py does this at full size)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda", 0)
@@ -490,7 +709,7 @@ def test_kernel_equals_plain_on_the_card():
             want = tbd.banded_edit_batch_plain(*args, E, infix)
             tbd.reset_launches()
             got = tbd.banded_edit(*args, E, infix)
-            mapping = "thread" if E <= 31 else "warp"
+            mapping = "quad" if E <= 7 else "thread" if E <= 31 else "warp"
             assert tbd.banded_edit.launches_by[mapping] == 1
             assert torch.equal(got, want), (E, infix)
 

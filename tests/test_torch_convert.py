@@ -248,6 +248,9 @@ PORT_ADDED = {
                           "length_class", "class_width", "SITES",
                           "BLOCK_TILE", "BLOCK_MAX_E", "BLOCK_MAX_GROUP",
                           "BLOCK_AIM_PER_SM", "BLOCK_STAGE_MAX",
+                          "BLOCK_QUAD_TILE", "CONTAINED_MAPPINGS", "BODIES",
+                          "words_fit", "_quad_layout", "_pick",
+                          "_pair_minor",
                           "PLAIN_ANY_PAIRS", "ANY_MODES", "_check_any",
                           "banded_any_plain", "banded_any", "block_groups",
                           "upload_block", "COMP_ASCII",
