@@ -52,6 +52,9 @@ from .gapless import _points, score_match_sub_vec
 MAX_SITES_CAP = 32     # upper bound on the adaptive per-key site-list cap
 SLOT_BUDGET = 64       # total site slots per (read, strand)
 MAX_CANDIDATES = 8
+# the packed ``start << 8 | count`` table holds 24-bit starts: indexes of
+# this many sites or more take the two-gather lookup of starts instead
+SCNT_MAX_SITES = 1 << 24
 I32 = torch.int32
 I64 = torch.int64
 F32 = torch.float32
@@ -134,7 +137,7 @@ class DeviceIndex(nn.Module):
         self.register_buffer("gpack", gpack)
         self.register_buffer("nmask", nmask)
         scnt = None
-        if len(index.sites) < (1 << 24):
+        if len(index.sites) < SCNT_MAX_SITES:
             st = index.starts.astype(np.int64)
             cnt8 = np.minimum(np.diff(st), 255).astype(np.uint32)
             packed = (st[:-1].astype(np.uint32) << np.uint32(8)) | cnt8

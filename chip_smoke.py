@@ -47,7 +47,8 @@ Phases, each timed on its own line:
    (6,000, 6,456) over the row-major and over the wave-major block (its
    timed shape, the long-read path's; at (6,000, 6,456) the kernels run
    at the full job counts and the plain versions, timed, on the first
-   ``LONG_CMP_JOBS`` jobs, which are the ones compared), on
+   ``LONG_CMP_JOBS`` jobs, which are the ones compared, in CPU processes
+   started before the build (``long_plain``)), on
    the last 16 jobs of 64-job fills whose prev codes pass 2**31 bytes in
    either layout, from the fill's own columns and states and from
    shifted ones, so that cut walks are among them; kernel, plain and
@@ -134,7 +135,20 @@ Phases, each timed on its own line:
    path's warmup batch through a ``BBMapAligner`` on the device-built
    index after ``analyze_index``: every ``MappedBatch`` field and match
    equal to the main path's, and which aligner took the device arrays
-   the build left on the index;
+   the build left on the index; then the large genome's first half
+   (``large_genome_start``, 40 scaffolds of 1 Mbp of uniform bases, k =
+   13, past 2**24 sites): the device build timed with its peak memory, a
+   spot check of its CSR against the host's rolling keys, and
+   ``analyze_index`` started in a process of its own (timed there), whose
+   second half (``large_genome_finish``) runs after the kmer tools (11):
+   ``DeviceIndex.scnt`` None, the two-gather lookup, index bytes a base; the JAX scale test's 32,768 single-end reads and
+   four batches of 32,768 pairs (gates: mapped > 0.98 and within 20 bp >
+   0.97; every kernel of the path launched, the rescue kernel where a
+   mate needed rescue); 1,024 pairs on the card and on the CPU (every
+   field, match and SAM byte equal); each hand kernel's first call held
+   to its plain version with its device time and mapping, the chain
+   step's reads on its int64 sort key, the rescue scan on scaffold-end
+   jobs and the chain step on rows past its 32-bit key;
 9. long reads: 400 PacBio-model reads of 6 kbp at 12 % error on the same
    genome (``randomreads pacbio=t``) through the port's ``mappacbio``
    CLI on the card, graded by gradesam (strict = within 400 bp); fails
@@ -328,6 +342,10 @@ parent) and with this tree, in the order parent, change, change, parent,
 and prints each run's reads/s and the banded kernels' launches by call
 site (store check, containment check) and by band body; no ``ok`` line.
 
+``python3 chip_smoke.py --large`` runs only the large genome phase, at
+the JAX scale test's 300 Mbp (40 scaffolds of 7.5 Mbp), and prints its
+JSON ``large_genome`` line; no ``ok`` line.
+
 ``python3 chip_smoke.py --candidate-only`` runs the main path and the
 long reads, then only the phases of the candidate stage's kernels (rescue
 and quality offsets; retention and gapless score; slot pack and chain
@@ -344,6 +362,7 @@ device kernels from torch.profiler; no ``ok`` line.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import io
 import json
@@ -686,7 +705,7 @@ def edge_jobs(genome, case, device):
 
 
 _PLAIN_FILLS = """
-import os, sys, torch
+import os, sys, time, torch
 sys.path.insert(0, ".")
 torch.set_num_threads(1)
 import chip_smoke as cs
@@ -694,32 +713,88 @@ from bbmap_tpu_torch import workload
 from bbmap_tpu_torch.core.constants import PACBIO_PROFILE, SHORT_PROFILE
 from bbmap_tpu_torch.ops import msa_kernels as mk
 genome = workload.make_genome()
-for i in map(int, sys.argv[2].split(",")):
-    case = cs.EDGE_CASES[i]
+
+
+def save(name, obj):
+    tmp = os.path.join(sys.argv[1], f"{name}.tmp")
+    torch.save(obj, tmp)
+    os.replace(tmp, os.path.join(sys.argv[1], f"{name}.pt"))
+
+
+for item in sys.argv[2].split(","):
+    if item in cs.LONG_PLAIN:
+        save(item, cs.long_plain(genome, item))
+        continue
+    case = cs.EDGE_CASES[int(item)]
     P = SHORT_PROFILE if case[1] == "S" else PACBIO_PROFILE
     out, prevs, lay = mk.msa_fill_plain(*cs.edge_jobs(genome, case, "cpu"), P)
-    tmp = os.path.join(sys.argv[1], f"{i}.tmp")
-    torch.save((out, prevs, tuple(lay)), tmp)
-    os.replace(tmp, os.path.join(sys.argv[1], f"{i}.pt"))
+    save(item, (out, prevs, tuple(lay)))
 """
 # the edge cases' plain fills split over CPU processes, one a group: their
 # cost is a wave at a time (16,383 / 12,024 / 9,524 waves), and one process
-# for all of them kept the phase waiting on it after the card's work
-PLAIN_FILL_GROUPS = ((4,), (3,), (0, 1, 2))
+# for all of them kept the phase waiting on it after the card's work; and
+# the plain score and the plain fill + walks of the compared jobs at the
+# long reads' (6,000, 6,456) (12,456 waves each), which took 57-105 s of
+# the card's phase (smoke21f) and now run beside it
+PLAIN_FILL_GROUPS = ((4,), (3,), (0, 1, 2), ("long_score",),
+                     ("long_fill_walk",))
+LONG_PLAIN = ("long_score", "long_fill_walk")
+
+
+def long_jobs(genome, what: str, device):
+    """The jobs at (L_LONG, LONG_C) the plain versions run: the first
+    LONG_CMP_JOBS of the score jobs ("long_score", seed 19) or of the 16
+    fill jobs ("long_fill_walk", seed 20), as ``kernel_phases`` draws
+    them."""
+    if what == "long_score":
+        n, seed = max(LONG_SWEEP_JOBS), 19
+    else:
+        n, seed = LONG_FILL_JOBS[0], 20
+    return tuple(x[:LONG_CMP_JOBS] for x in dp_jobs(
+        genome, n, L_LONG, LONG_C, seed, device, pb_err=0.12))
+
+
+def long_plain(genome, what: str):
+    """The plain versions at (L_LONG, LONG_C) on the CPU: "long_score",
+    (out, seconds) of ``msa_score_plain``; "long_fill_walk", ((out, prevs,
+    layout), fill seconds, walks, walk seconds): ``msa_fill_plain`` and
+    ``msa_walk_plain`` from the fill's own columns and states, then from
+    the shifted starts ``kernel_phases.walk_starts`` draws (seed 33 over
+    the 16 fill jobs), in one call."""
+    import torch
+    from bbmap_tpu_torch.core.constants import PACBIO_PROFILE
+    from bbmap_tpu_torch.ops import msa_kernels as mk
+    job = long_jobs(genome, what, "cpu")
+    t = time.time()
+    if what == "long_score":
+        return mk.msa_score_plain(*job, PACBIO_PROFILE), time.time() - t
+    out, prevs, lay = mk.msa_fill_plain(*job, PACBIO_PROFILE)
+    fill_s = time.time() - t
+    g = torch.Generator(device="cpu").manual_seed(33)
+    n = LONG_FILL_JOBS[0]
+    col = torch.randint(1, LONG_C + 1, (n,), generator=g, dtype=torch.int32)
+    st = torch.randint(0, 3, (n,), generator=g, dtype=torch.int32)
+    two = slice(0, LONG_CMP_JOBS)
+    both = (torch.cat([prevs, prevs]), *(torch.cat([x, x]) for x in job[:2]),
+            torch.cat([out[1], col[two]]), torch.cat([out[2], st[two]]))
+    t = time.time()
+    walks = mk.msa_walk_plain(*both, L_LONG, LONG_C)
+    return (out, prevs, tuple(lay)), fill_s, walks, time.time() - t
 
 
 class PlainFills:
-    """The plain fills of ``EDGE_CASES`` in CPU processes of their own (no
-    card, one thread each, a process a group of ``PLAIN_FILL_GROUPS``),
-    started now; ``get(i, device)`` waits for case i's and returns (out,
-    prevs, layout) on ``device``; ``stop`` ends the processes and removes
-    their files."""
+    """The plain fills of ``EDGE_CASES`` and the plain versions of
+    ``LONG_PLAIN`` in CPU processes of their own (no card, one thread
+    each, a process a group of ``PLAIN_FILL_GROUPS``), started now;
+    ``get(i, device)`` waits for edge case i's and returns (out, prevs,
+    layout) on ``device``, ``result(name)`` waits for ``long_plain``'s;
+    ``stop`` ends the processes and removes their files."""
 
     def __init__(self):
         self.dir = Path(tempfile.mkdtemp(prefix="chip_smoke_plain"))
         env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1",
                    CUDA_VISIBLE_DEVICES="")
-        self.errs, self.procs = [], {}
+        self.errs, self.procs, self.waited = [], {}, {}
         for n, group in enumerate(PLAIN_FILL_GROUPS):
             err = open(self.dir / f"stderr{n}.txt", "w")
             proc = subprocess.Popen(
@@ -729,24 +804,33 @@ class PlainFills:
             self.errs.append(err)
             self.procs.update({i: (proc, err.name) for i in group})
 
-    def get(self, i: int, device, timeout: float = 900.0):
+    def _wait(self, i, timeout: float):
         import torch
-        from bbmap_tpu_torch.ops import msa
         path = self.dir / f"{i}.pt"
         proc, err = self.procs[i]
         t0 = time.time()
         while not path.exists():
             if proc.poll() is not None and not path.exists():
                 raise AssertionError(
-                    "a CPU process of plain fills ended early: "
+                    "a CPU process of plain versions ended early: "
                     + Path(err).read_text()[-2000:])
             if time.time() - t0 > timeout:
-                raise AssertionError(f"no plain fill of edge case {i} in "
+                raise AssertionError(f"no plain result {i} in "
                                      f"{timeout:.0f} s")
             time.sleep(0.2)
-        out, prevs, lay = torch.load(path)
+        self.waited[i] = time.time() - t0
+        obj = torch.load(path)
         path.unlink()
+        return obj
+
+    def get(self, i: int, device, timeout: float = 900.0):
+        from bbmap_tpu_torch.ops import msa
+        out, prevs, lay = self._wait(i, timeout)
         return out.to(device), prevs.to(device), msa.PrevLayout(*lay)
+
+    def result(self, name: str, timeout: float = 900.0):
+        """The CPU tensors of ``long_plain(genome, name)``."""
+        return self._wait(name, timeout)
 
     def stop(self) -> None:
         for proc, _err in self.procs.values():
@@ -959,10 +1043,11 @@ def bound_ms(n_bytes: float, n_instructions: float, clock_hz: float):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def kernel_phase(genome, device) -> dict:
-    """``kernel_phases`` with the edge cases' plain fills computed in CPU
-    processes beside it (``PlainFills``)."""
-    plain = PlainFills()
+def kernel_phase(genome, device, plain=None) -> dict:
+    """``kernel_phases`` with the edge cases' plain fills and the long
+    reads' plain versions computed in CPU processes beside it
+    (``plain``, a ``PlainFills`` started earlier, or one started now)."""
+    plain = PlainFills() if plain is None else plain
     try:
         return kernel_phases(genome, device, plain)
     finally:
@@ -1125,12 +1210,20 @@ def kernel_phases(genome, device, plain) -> dict:
     # (150, 606)) and PACBIO (300, 360) are timed in both mappings.
     out = {}
 
-    def timed(name, kern, plain, reps, plain_warm=True, other=None):
+    def timed(name, kern, plain, reps, plain_warm=True, other=None,
+              plain_cpu=None):
         """Time a kernel and its plain version; ``other`` = (key, fn)
-        times the other mapping beside it."""
+        times the other mapping beside it; ``plain_cpu`` = (the plain
+        version's result, its ms) from a CPU process instead of a plain
+        run on the card."""
         ms, k = _cuda_ms(kern, reps)
-        plain_ms, p = _cuda_ms(plain, 1, warm=plain_warm)
+        if plain_cpu is None:
+            plain_ms, p = _cuda_ms(plain, 1, warm=plain_warm)
+        else:
+            p, plain_ms = plain_cpu
         out[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": None}
+        if plain_cpu is not None:
+            out[name]["plain_on"] = "cpu"
         if other is not None:
             out[name][other[0]] = _cuda_ms(other[1], reps)[0]
         return k, p
@@ -1304,14 +1397,17 @@ def kernel_phases(genome, device, plain) -> dict:
     # At (6,000, 6,456) the kernels run at the full job counts and the
     # plain versions on the first LONG_CMP_JOBS of them (row counts and
     # error profile as drawn), the comparisons on those jobs: the plain
-    # runs on all of them took minutes of the script's limit.
+    # runs on all of them took minutes of the script's limit, and on
+    # those jobs on the card 57-105 s, so they run in the CPU processes
+    # (``long_plain``) and their times there are the plain ms.
     Cl = LONG_C
     two = slice(0, LONG_CMP_JOBS)
     most = jobs(max(LONG_SWEEP_JOBS), L_LONG, Cl, 19, 0.12)
     job = rd, rf, rw = tuple(x[:LONG_SCORE_JOBS] for x in most)
     job2 = tuple(x[two] for x in job)
+    p, p_s = plain.result("long_score")
     k, p = timed("msa_score_long", lambda: mk.msa_score(rd, rf, rw, PB),
-                 lambda: mk.msa_score_plain(*job2, PB), 2, False,
+                 None, 2, plain_cpu=(p.to(device), 1e3 * p_s),
                  other=("strided_ms",
                         lambda: mk.msa_score(rd, rf, rw, PB, "strided")))
     out["msa_score_long"]["plain_jobs"] = LONG_CMP_JOBS
@@ -1335,10 +1431,16 @@ def kernel_phases(genome, device, plain) -> dict:
     n16 = LONG_FILL_JOBS[0]
     job = rd, rf, rw = jobs(n16, L_LONG, Cl, 20, 0.12)
     job2 = tuple(x[two] for x in job)
+    (p_out, p_prevs, p_lay), p_s, pw, pw_s = plain.result("long_fill_walk")
     k, p = timed("msa_fill_long", lambda: mk.msa_fill(rd, rf, rw, PB),
-                 lambda: mk.msa_fill_plain(*job2, PB), 2, False,
+                 None, 2, plain_cpu=((p_out.to(device), p_prevs.to(device),
+                                      msa.PrevLayout(*p_lay)), 1e3 * p_s),
                  other=("strided_ms",
                         lambda: mk.msa_fill(rd, rf, rw, PB, "strided")))
+    del p_out, p_prevs
+    say(f"the card waited {plain.waited['long_score']:.1f} s and "
+        f"{plain.waited['long_fill_walk']:.1f} s for the plain score and "
+        f"fill + walks at ({L_LONG}, {Cl}) from the CPU processes")
     out["msa_fill_long"]["plain_jobs"] = LONG_CMP_JOBS
     dp_bound("msa_fill_long", job, True)
     strided_beside("msa_fill_long")
@@ -1347,20 +1449,16 @@ def kernel_phases(genome, device, plain) -> dict:
     cmp_fill("pacbio long read", PB, job2, p=p, mapping="strided")
     (col0, st0), shifted = walk_starts(k[0], Cl, 33)
     # the walk kernel's entry: the long-read path's walk, full length, from
-    # the fill's own starts and from shifted ones; the plain version walks
+    # the fill's own starts and from shifted ones; the plain version walked
     # the compared jobs from both in one call (its time is a step's, not a
-    # job's) over the plain fill's wave-major block
+    # job's) over the plain fill's wave-major block, in the CPU process
     ms_l, kw = _cuda_ms(lambda: mk.msa_walk(k[1], rd, rf, col0, st0, L_LONG,
                                             Cl, 0, k[2]), 2)
     kw_s = mk.msa_walk(k[1], rd, rf, *shifted, L_LONG, Cl, 0, k[2])
-    both = (torch.cat([p[1], p[1]]), *(torch.cat([x, x]) for x in job2[:2]),
-            torch.cat([col0[two], shifted[0][two]]),
-            torch.cat([st0[two], shifted[1][two]]))
-    plain_ms, pw = _cuda_ms(lambda: mk.msa_walk_plain(*both, L_LONG, Cl), 1,
-                            warm=False)
+    pw = tuple(x.to(device) for x in pw)
     ms_b, by = walk_bound(float(kw[1].sum()), len(rw), L_LONG + Cl)
-    out["msa_walk"] = {"ms": ms_l, "plain_ms": plain_ms, "library_ms": None,
-                       "bound_ms": ms_b, "bound_by": by,
+    out["msa_walk"] = {"ms": ms_l, "plain_ms": 1e3 * pw_s, "plain_on": "cpu",
+                       "library_ms": None, "bound_ms": ms_b, "bound_by": by,
                        "plain_jobs": 2 * LONG_CMP_JOBS}
     nc = LONG_CMP_JOBS
     for what, kk, half in (("", kw, slice(0, nc)),
@@ -1374,7 +1472,7 @@ def kernel_phases(genome, device, plain) -> dict:
     # the compared jobs' walks from their own starts: the reference of the
     # 64- and 400-job blocks below, which hold the same jobs
     ref_walk = tuple(x[two] for x in kw)
-    del kw, kw_s, pw, both
+    del kw, kw_s, pw
     if cmp_walk(f"pacbio long read, cut at {L_LONG + 50} steps", job, k[1],
                 col0, st0, L_LONG + 50, k[2], part=two) == 0:
         raise AssertionError("no long walk was cut")
@@ -1501,8 +1599,9 @@ def kernel_phases(genome, device, plain) -> dict:
             row = f", warp mapping {t['warp_ms']:.3f} ms"
         if "strided_ms" in t:
             row = f", strided mapping {t['strided_ms']:.3f} ms"
+        cpu = (" in a CPU process" if t.get("plain_on") == "cpu" else "")
         say(f"time {name} at {shapes[name]}: kernel {t['ms']:.3f} ms{row}, "
-            f"plain {t['plain_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms "
+            f"plain {t['plain_ms']:.3f} ms{cpu}, bound {t['bound_ms']:.4f} ms "
             f"by {t['bound_by']} ({100 * t['bound_ms'] / t['ms']:.1f} % of "
             f"the bound reached; bound at {t['function_per_cell']:.1f} "
             f"instructions a cell, this kernel {t['per_cell']:.1f})")
@@ -2085,24 +2184,8 @@ def main_path(device, n_pairs: int = N_PAIRS, n_steady: int = N_STEADY,
     res["unpack_quality_calls"] = unpacks
 
     # per-stage decomposition on one more batch, stage by stage
-    b1x, b2x = mk(r1, q1, 1), mk(r2, q2, 1)
-    stages = {}
-    st = time.time()
-    f = aligner._fused_pair_dispatch(b1x, b2x, L)
-    _sync(device)
-    stages["fused_device_ms"] = 1e3 * (time.time() - st)
-    st = time.time()
-    dd = f.host()
-    stages["fetch_ms"] = 1e3 * (time.time() - st)
-    st = time.time()
-    mid = aligner._pair_phase1(b1x, b2x, L, dd)
-    _sync(device)
-    stages["host_assemble_ms"] = 1e3 * (time.time() - st)
-    st = time.time()
-    aligner._pair_phase2(mid)
-    _sync(device)
-    stages["rescue_ms"] = 1e3 * (time.time() - st)
-    res["stages"] = stages
+    res["stages"] = pair_stages(aligner, mk(r1, q1, 1), mk(r2, q2, 1),
+                                device)
     say("main path: " + json.dumps({k: v for k, v in res.items()}))
     if check:
         if res["sensitivity"] < SENS_MIN or \
@@ -2158,6 +2241,29 @@ def main_path(device, n_pairs: int = N_PAIRS, n_steady: int = N_STEADY,
                                  f"the slot pack the warp mapping: "
                                  f"{launches}")
     return res, (mk(r1, q1, 0), mk(r2, q2, 0), out0, aligner)
+
+
+def pair_stages(aligner, b1, b2, device) -> dict:
+    """One more pair batch through the aligner stage by stage, each
+    synchronised and timed (ms): the fused program, its fetch, the host
+    assembly (``_pair_phase1``, refits included) and the rescue."""
+    stages = {}
+    st = time.time()
+    f = aligner._fused_pair_dispatch(b1, b2, L)
+    _sync(device)
+    stages["fused_device_ms"] = 1e3 * (time.time() - st)
+    st = time.time()
+    dd = f.host()
+    stages["fetch_ms"] = 1e3 * (time.time() - st)
+    st = time.time()
+    mid = aligner._pair_phase1(b1, b2, L, dd)
+    _sync(device)
+    stages["host_assemble_ms"] = 1e3 * (time.time() - st)
+    st = time.time()
+    aligner._pair_phase2(mid)
+    _sync(device)
+    stages["rescue_ms"] = 1e3 * (time.time() - st)
+    return stages
 
 
 @contextlib.contextmanager
@@ -3198,19 +3304,9 @@ def index_build_phase(device, gbases, first, smi: str) -> dict:
     _sync(device)
     map_s = time.time() - t
     launches = {k: v for k, v in launch_counts().items() if v}
-    fields = ("mapped", "strand", "chrom", "start", "stop", "score",
-              "ambiguous", "perfect", "paired", "rescued", "n_sites")
     for mate, (a, b) in enumerate(zip(got, (mb1, mb2))):
-        for f in fields:
-            if not np.array_equal(getattr(a, f), getattr(b, f)):
-                raise AssertionError(f"index build: mate {mate + 1}'s {f} on "
-                                     f"the device-built index differs from "
-                                     f"the host-built run's")
-        bad = [i for i in range(a.size) if a.match(i) != b.match(i)]
-        if bad:
-            raise AssertionError(f"index build: mate {mate + 1}: "
-                                 f"{len(bad)} match strings differ, first "
-                                 f"at read {bad[0]}")
+        _mb_fields_equal(f"index build, mate {mate + 1} on the device-built "
+                         f"index against the host-built run", a, b)
     res["aligner"] = {"pairs": b1.size, "map_s": map_s,
                       "analyze_s": analyze_s, "compacted": compacted,
                       "seeded_device_built": al.dindex.seeded,
@@ -3224,6 +3320,708 @@ def index_build_phase(device, gbases, first, smi: str) -> dict:
         f"index's aligner: {al.dindex.seeded}, by the main path's "
         f"(host-built) aligner: {main_aligner.dindex.seeded}; card {smi}")
     del al, built
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the large genome: past 2**24 index sites
+# ---------------------------------------------------------------------------
+
+# tests/test_large_genome.py's genome (the JAX package's scale test): 40
+# scaffolds of uniform ACGT from default_rng(17), k = 13; its single-end
+# batch of error-free reads; the paired batches of workload.make_pairs
+# drawn scaffold by scaffold
+# (the JAX test's 300 Mbp under ``--large``; the default run takes 40
+# scaffolds of 1 Mbp, past 2**24 sites too, to stay within its time)
+LARGE_BP, LARGE_DEFAULT_BP = 300_000_000, 40_000_000
+LARGE_SCAFFOLDS, LARGE_K, LARGE_SEED = 40, 13, 17
+LARGE_SE_READS = 32768
+LARGE_SPOT_KEYS, LARGE_EDGE, LARGE_SPOT_THREADS = 4096, 16, 4
+LARGE_RESCUE_JOBS = 1024       # rescue jobs over the scaffolds' ends
+LARGE_CMP_PAIRS = 1024
+LARGE_MAPPED_MIN, LARGE_SENS_MIN = 0.98, 0.97    # the JAX test's limits
+# the hand kernels of the main path whose first call on the large genome
+# is held to its plain version: (module, wrapper) -> the kernels-line name
+LARGE_KERNELS = {
+    ("msa_kernels", "msa_score_segments"): "msa_score_segments",
+    ("msa_kernels", "msa_fill_walk"): "msa_fill_walk",
+    ("rescue_device", "rescue_scan"): "rescue_scan",
+    ("quickmap_device", "quality_offsets_packed_kernel"):
+        "quality_offsets_packed",
+    ("quickmap_device", "ref_retention_kernel"): "ref_retention",
+    ("quickmap_device", "slot_pack_kernel"): "slot_pack",
+    ("quickmap_device", "chain_candidates_kernel"): "chain_candidates",
+    ("quickmap_device", "gapless_scores_kernel"): "gapless_score"}
+
+
+def large_genome(gsize: int):
+    """(Genome, rng): LARGE_SCAFFOLDS scaffolds of gsize // LARGE_SCAFFOLDS
+    uniform bases, each its own chrom, from default_rng(LARGE_SEED), and the
+    generator after them (the single-end reads continue its stream)."""
+    import numpy as np
+    from bbmap_tpu_torch.core.genome import Genome, Scaffold
+    rng = np.random.default_rng(LARGE_SEED)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    per = gsize // LARGE_SCAFFOLDS
+    chroms = [rng.choice(bases, size=per).astype(np.uint8)
+              for _ in range(LARGE_SCAFFOLDS)]
+    scafs = [Scaffold(chrom=i + 1, sid=i + 1, start=0, length=per,
+                      name=f"scaf{i}") for i in range(LARGE_SCAFFOLDS)]
+    return Genome(chroms=chroms, scaffolds=scafs).finalize(), rng
+
+
+def csr_spot_check(starts, sites, k: int, genome, rng) -> dict:
+    """The device-built CSR (``starts``, ``sites``) against the host's
+    keys: ``starts`` monotone, ``starts[-1]`` the site count, and for
+    LARGE_SPOT_KEYS seeded random keys and every key of each scaffold's
+    first and last LARGE_EDGE positions, the site list equal to the flat
+    positions where ``index/build.rolling_keys`` gives that key, computed
+    scaffold by scaffold (each scaffold's codes and the k - 1 codes after
+    it: the flat windows that start in it) on LARGE_SPOT_THREADS
+    threads."""
+    from concurrent.futures import ThreadPoolExecutor
+    import numpy as np
+    from bbmap_tpu_torch.index.build import rolling_keys
+    if not (np.diff(starts) >= 0).all():
+        raise AssertionError("large genome: starts is not monotone")
+    if int(starts[-1]) != len(sites):
+        raise AssertionError(f"large genome: starts[-1] {starts[-1]} is "
+                             f"not the site count {len(sites)}")
+    codes, offs = genome.packed_codes()
+    want = np.zeros(4 ** k, bool)
+    want[rng.integers(0, 4 ** k, LARGE_SPOT_KEYS)] = True
+    edge_keys = 0
+    for c in range(len(offs) - 1):
+        for lo in (int(offs[c]), int(offs[c + 1]) - LARGE_EDGE - k + 1):
+            kk, ok = rolling_keys(codes[lo:lo + LARGE_EDGE + k - 1], k)
+            want[kk[ok]] = True
+            edge_keys += int(ok.sum())
+
+    def scaffold(c):
+        lo, hi = int(offs[c]), int(offs[c + 1])
+        kk, ok = rolling_keys(codes[lo:hi + k - 1], k)
+        hit = np.nonzero(ok & want[kk])[0]
+        return lo + hit, kk[hit]
+
+    with ThreadPoolExecutor(LARGE_SPOT_THREADS) as pool:
+        pos, key = (np.concatenate(x) for x in zip(*pool.map(
+            scaffold, range(len(offs) - 1))))
+    order = np.argsort(key, kind="stable")
+    keys = np.nonzero(want)[0]
+    got = np.concatenate([sites[starts[x]:starts[x + 1]] for x in keys])
+    if not np.array_equal(got.astype(np.int64), pos[order]):
+        raise AssertionError("large genome: a spot-checked site list of the "
+                             "device-built index differs from the host's "
+                             "rolling keys")
+    return {"keys": len(keys), "edge_windows": edge_keys,
+            "sites_checked": len(got)}
+
+
+def scaffold_end_rescue_jobs(codes, offs, R: int, Lm: int, seed: int):
+    """R seeded rescue jobs whose windows reach over the ends of a
+    scaffold (each its own chrom: the flat codes run on into the next),
+    in turn: a read at a scaffold's end scanned to the right (into the
+    next), a read at its start scanned to the left (into the previous), a
+    read over the boundary, a read at the genome's last or first bases;
+    n = 1, 2, random and N_OFF, max_mm -1, 0, 3 and 20, 0-3 substitutions.
+    Returns the numpy arguments of ``rescue_device.upload_jobs``."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    G, nsc = len(codes), len(offs) - 1
+    reads = np.empty((R, Lm), np.uint8)
+    lo, n, ik, mm = (np.empty(R, np.int64) for _ in range(4))
+    right = np.empty(R, bool)
+    for t in range(R):
+        c = int(rng.integers(0, nsc))
+        j = int(rng.integers(0, 40))
+        kind = t % 4
+        if kind == 0:
+            src, right[t] = int(offs[c + 1]) - Lm - j, True
+        elif kind == 1:
+            src, right[t] = int(offs[c]) + j, False
+        elif kind == 2:
+            src, right[t] = int(offs[c + 1]) - Lm // 2 - j, rng.random() < .5
+        else:
+            src = G - Lm - j if t % 8 == 3 else j
+            right[t] = t % 8 == 3
+        src = min(max(src, 0), G - Lm)
+        n_t = int(rng.choice([1, 2, N_OFF, int(rng.integers(3, N_OFF))]))
+        read = codes[src:src + Lm].copy()
+        for _ in range(int(rng.integers(0, 4))):
+            read[rng.integers(0, Lm)] = rng.integers(0, 4)
+        off = int(rng.integers(0, n_t))
+        lo[t] = src - off if right[t] else src + off - (n_t - 1)
+        ik[t] = src - lo[t] + int(rng.choice([0, 0, 8, -8, 3]))
+        n[t] = n_t
+        mm[t] = int(rng.choice([-1, 0, 3, 20]))
+        reads[t] = read
+    return (reads, lo.astype(np.int32), n.astype(np.int32),
+            ik.astype(np.int32), right, mm.astype(np.int32))
+
+
+def chain_wide_reads(diag, toff) -> int:
+    """The reads of a chain-step call (diag, toff (B, 2, W)) that sort on
+    the int64 key in the register mapping: those whose rows its 32-bit
+    key does not hold (``tests/candidate_rows.int32_key_fits``)."""
+    from tests.candidate_rows import int32_key_fits
+    return int((~int32_key_fits(diag.cpu().numpy(),
+                                toff.cpu().numpy())).sum())
+
+
+def _flat_outputs(x) -> list:
+    if isinstance(x, dict):
+        return [t for v in x.values() for t in _flat_outputs(v)]
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in _flat_outputs(v)]
+    return [x]
+
+
+def _max_err(got, want) -> float:
+    import torch
+    err = 0.0
+    for g, w in zip(_flat_outputs(got), _flat_outputs(want)):
+        if not isinstance(g, torch.Tensor):
+            err = max(err, float(g != w))
+            continue
+        if g.shape != w.shape or g.dtype != w.dtype:
+            return float("inf")
+        if g.numel():
+            err = max(err, float((g.double() - w.double()).abs().max()))
+    return err
+
+
+def large_kernel_checks(device, calls: dict, dix) -> dict:
+    """Each hand kernel's first call on the large genome's paired batches
+    (``calls``: LARGE_KERNELS' wrappers recorded by ``first_call``) against
+    its plain version on the card, tolerance 0, its device time
+    (``_kernel_device_ms``) and the mapping its wrapper's rule picked;
+    the chain step's reads that took the int64 sort key; the rescue scan
+    also on LARGE_RESCUE_JOBS jobs over the scaffolds' ends of ``dix``
+    (``scaffold_end_rescue_jobs``; its only check where no mate of the
+    batches needed rescue); then the chain step in both mappings on rows
+    crafted past the 32-bit key's span
+    (``tests/candidate_rows.wide_chain_rows``). Returns {name: entry}."""
+    import functools
+    from bbmap_tpu_torch.align import quickmap_device as qd
+    from bbmap_tpu_torch.ops import msa_kernels as mk
+    from bbmap_tpu_torch.ops import rescue_device as rd
+
+    def seg_plain(segments, P):
+        return [mk.msa_score_plain(*s, P) for s in segments]
+
+    def quality_plain(cfg, words, pal, pcp, den2, den3):
+        return qd._quality_offsets_core(
+            cfg, *qd.unpack_quality_device(words, pal, pcp, cfg.L), den2,
+            den3, True)
+
+    def rescue_plain(d, reads, *rest):
+        return rd._rescue_stage(d, reads, reads > 3, *rest)
+
+    # name -> (the wrapper, its plain version)
+    pairs = {"msa_score_segments": (mk.msa_score_segments, seg_plain),
+             "msa_fill_walk": (mk.msa_fill_walk, mk.msa_fill_walk_plain),
+             "rescue_scan": (rd.rescue_scan, rescue_plain),
+             "quality_offsets_packed": (qd.quality_offsets_packed_kernel,
+                                        quality_plain),
+             "ref_retention": (qd.ref_retention_kernel, qd._ref_retention),
+             "slot_pack": (qd.slot_pack_kernel, qd._slot_pack_plain),
+             "chain_candidates": (qd.chain_candidates_kernel,
+                                  qd._chain_candidates_plain),
+             "gapless_score": (qd.gapless_scores_kernel,
+                               qd._gapless_scores_plain)}
+    ends_np = scaffold_end_rescue_jobs(
+        dix.index.genome_codes, dix.index.chrom_offsets, LARGE_RESCUE_JOBS,
+        L, 53)
+    ends = (dix, *rd.upload_jobs(*ends_np, device), L, N_OFF)
+    out = {}
+    for name in LARGE_KERNELS.values():
+        if name == "rescue_scan" and not calls[name]:
+            calls[name].append((ends, {}))
+            out_src = "scaffold-end jobs (no mate needed rescue)"
+        elif not calls[name]:
+            raise AssertionError(f"large genome: {name} was never called")
+        else:
+            out_src = "first call"
+        (args, kw), = calls[name]
+        kernel, plain = pairs[name]
+        got = kernel(*args, **kw)
+        want = plain(*args, **kw)
+        _sync(device)
+        err = _max_err(got, want)
+        plain_ms, _ = _cuda_ms(lambda: plain(*args, **kw), 1, warm=False)
+        dev_ms = _kernel_device_ms(lambda: kernel(*args, **kw))
+        e = {"max_abs_err": err, "device_ms": dev_ms, "plain_ms": plain_ms,
+             "call": out_src}
+        if name == "msa_score_segments":
+            e["shape"] = [list(s[0].shape) + [s[1].shape[1]]
+                          for s in args[0]]
+            e["mapping"] = "warp, segment table" if mk.segments_launch(
+                args[0]) is not None else "a launch a segment"
+        elif name == "msa_fill_walk":
+            rd_, rf_ = args[0], args[1]
+            e["shape"] = [rd_.shape[0], rd_.shape[1], rf_.shape[1]]
+            shp = mk.fill_walk_shape(rd_.shape[1], rf_.shape[1],
+                                     rd_.shape[0])
+            e["mapping"] = shp.variant if shp is not None else "fill + walk"
+        elif name == "rescue_scan":
+            e["shape"] = {"jobs": int(args[3].shape[0]), "Lm": args[7]}
+            e["mapping"] = "a block a job"
+            if args is not ends:
+                err_e = _max_err(rd.rescue_scan(*ends), rescue_plain(*ends))
+                e["scaffold_ends"] = {
+                    "jobs": LARGE_RESCUE_JOBS, "max_abs_err": err_e,
+                    "found": int((rd.rescue_scan(*ends)[0] >= 0).sum()),
+                    "device_ms": _kernel_device_ms(
+                        lambda: rd.rescue_scan(*ends))}
+                err = e["max_abs_err"] = max(err, err_e)
+            else:
+                e["found"] = int((rd.rescue_scan(*ends)[0] >= 0).sum())
+        elif name == "quality_offsets_packed":
+            e["shape"] = list(args[1].shape)
+            e["mapping"] = "a warp a read"
+        elif name == "ref_retention":
+            e["shape"] = list(args[1].shape)
+            e["mapping"] = qd.retention_mapping(args[1].shape[1])
+        elif name == "slot_pack":
+            e["shape"] = list(args[1].shape) + [args[0].slot_budget]
+            e["mapping"] = qd.slot_pack_mapping(args[1].shape[2])
+            e["S"] = args[0].S            # make_config's per-key list cap
+        elif name == "chain_candidates":
+            e["shape"] = list(args[1].shape)
+            e["mapping"] = qd.chain_mapping(args[1].shape[2])
+            e["int64_key_reads"] = chain_wide_reads(args[1], args[2])
+        else:
+            e["shape"] = list(args[2].shape)
+            e["mapping"] = qd.gapless_mapping(args[2].numel())
+        out[name] = e
+        say(f"large genome kernel {name} at {e['shape']} ({out_src}): "
+            f"mapping {e['mapping']}, max_abs_err {err}, device "
+            f"{dev_ms:.4f} ms (plain {plain_ms:.3f} ms)"
+            + (f"; scaffold-end jobs {e['scaffold_ends']}"
+               if "scaffold_ends" in e else "")
+            + (f"; found {e['found']}" if "found" in e else "")
+            + (f"; reads on the int64 sort key {e['int64_key_reads']} of "
+               f"{args[1].shape[0]}" if name == "chain_candidates" else ""))
+    # the chain step on rows crafted past the 32-bit key's span and at its
+    # limit, both mappings, against the plain version
+    import numpy as np
+    import torch
+    from tests.candidate_rows import wide_chain_rows
+    (args, _kw), = calls["chain_candidates"]
+    cfg = args[0]
+    W, nk = cfg.slot_budget, len(cfg.offsets_list)
+    rng = np.random.default_rng(47)
+    diag, toff = (torch.as_tensor(a, device=device) for a in
+                  wide_chain_rows(rng, 512, W, nk, cfg.chain_dist))
+    want = qd._chain_candidates_plain(cfg, diag, toff)
+    crafted = {"reads": 512, "W": W, "nk": nk,
+               "int64_key_reads": chain_wide_reads(diag, toff)}
+    for mapping in ("regs", "smem"):
+        got = qd.chain_candidates_kernel(cfg, diag, toff, mapping=mapping)
+        _sync(device)
+        crafted[f"max_abs_err_{mapping}"] = _max_err(got, want)
+    out["chain_candidates"]["crafted_wide"] = crafted
+    say(f"large genome kernel chain_candidates on crafted wide rows: "
+        f"{crafted}")
+    bad = {n: e["max_abs_err"] for n, e in out.items() if e["max_abs_err"]}
+    if bad or crafted["max_abs_err_regs"] or crafted["max_abs_err_smem"]:
+        raise AssertionError(f"large genome: a kernel disagrees with its "
+                             f"plain version: {bad} {crafted}")
+    return out
+
+
+def _mb_fields_equal(what: str, a, b) -> None:
+    import numpy as np
+    for f in ("mapped", "strand", "chrom", "start", "stop", "score",
+              "ambiguous", "perfect", "paired", "rescued", "n_sites"):
+        if not np.array_equal(getattr(a, f), getattr(b, f)):
+            raise AssertionError(f"{what}: {f} differs")
+    bad = [i for i in range(a.size) if a.match(i) != b.match(i)]
+    if bad:
+        raise AssertionError(f"{what}: {len(bad)} match strings differ, "
+                             f"first at read {bad[0]}")
+
+
+def _sam_bytes(genome, b1, b2, mb1, mb2) -> bytes:
+    from bbmap_tpu_torch.align.pipeline import MappedRead, emit_sam
+    from bbmap_tpu_torch.io.sam import sam_header
+    res1 = [MappedRead() for _ in range(mb1.size)]
+    res2 = [MappedRead() for _ in range(mb2.size)]
+    mb1.fill_objects(res1)
+    mb2.fill_objects(res2)
+    lines = sam_header(genome) + emit_sam(genome, b1, res1, res2, b2)
+    return ("\n".join(lines) + "\n").encode()
+
+
+# the large genome's ``analyze_index`` in a process of its own (host
+# numpy, one thread), so that the card's next phases run beside it:
+# argv[1] a directory holding the device build's starts.npy and
+# sites.npy, argv[2] k, argv[3] the fraction to exclude; it writes
+# analysis.npz (the seconds, the fields of ``LARGE_ANALYSIS``, and starts
+# and sites where the analysis compacted them)
+LARGE_ANALYSIS = ("counts_canonical", "max_usable_length",
+                  "max_usable_length2", "length_histogram", "limit_avg",
+                  "limit_avg2", "limit_shortest", "points_per_site")
+_ANALYZE = """
+import os, sys, time
+import numpy as np
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from bbmap_tpu_torch.index.build import KmerIndex, analyze_index
+d, k, frac = sys.argv[1], int(sys.argv[2]), float(sys.argv[3])
+idx = KmerIndex(k=k, starts=np.load(os.path.join(d, "starts.npy")),
+                sites=np.load(os.path.join(d, "sites.npy")),
+                genome_codes=np.zeros(0, np.uint8),
+                chrom_offsets=np.zeros(1, np.int64))
+n = len(idx.sites)
+t = time.time()
+analyze_index(idx, frac)
+out = {f: getattr(idx, f) for f in cs.LARGE_ANALYSIS}
+out["analyze_s"] = time.time() - t
+if len(idx.sites) != n:
+    out.update(starts=idx.starts, sites=idx.sites)
+np.savez(os.path.join(d, "analysis.tmp.npz"), **out)
+os.replace(os.path.join(d, "analysis.tmp.npz"),
+           os.path.join(d, "analysis.npz"))
+"""
+
+
+class LargeAnalysis:
+    """``_ANALYZE`` on an index's ``starts`` and ``sites``, started now in
+    a process of its own; ``apply(index)`` waits for it and sets the
+    analysis on the index as ``analyze_index`` would have (its seconds in
+    the process returned); ``stop`` ends the process and removes its
+    files."""
+
+    def __init__(self, index, frac: float):
+        import numpy as np
+        self.dir = Path(tempfile.mkdtemp(prefix="chip_smoke_large"))
+        np.save(self.dir / "starts.npy", index.starts)
+        np.save(self.dir / "sites.npy", index.sites)
+        self.err = open(self.dir / "stderr.txt", "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", _ANALYZE, str(self.dir), str(index.k),
+             repr(frac)], cwd=ROOT, stdout=subprocess.DEVNULL,
+            stderr=self.err, env=dict(os.environ, PYTHONPATH=str(ROOT),
+                                      CUDA_VISIBLE_DEVICES=""))
+
+    def apply(self, index, timeout: float = 900.0) -> float:
+        import numpy as np
+        try:
+            rc = self.proc.wait(timeout)
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"large genome: no analysis in {timeout} s")
+        if rc != 0:
+            err = (self.dir / "stderr.txt").read_text()[-2000:]
+            raise AssertionError(f"large genome: the analysis process "
+                                 f"failed: {err}")
+        with np.load(self.dir / "analysis.npz") as z:
+            for f in LARGE_ANALYSIS:
+                v = z[f]
+                setattr(index, f, v if v.ndim else int(v))
+            if "starts" in z:
+                index.starts, index.sites = z["starts"], z["sites"]
+                if hasattr(index, "_device_arrays"):
+                    del index._device_arrays
+            return float(z["analyze_s"])
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+        self.err.close()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def large_genome_phase(device, smi: str, gsize: int = LARGE_BP) -> dict:
+    """``large_genome_start`` then ``large_genome_finish``."""
+    return large_genome_finish(device, smi,
+                               large_genome_start(device, smi, gsize))
+
+
+def large_genome_start(device, smi: str, gsize: int) -> dict:
+    """The first half of the large genome phase: the genome
+    (``large_genome``: gsize bp in 40 scaffolds, k = 13), its index built
+    on the card (``build_index_device``, cold and warm, the device CSR
+    between CUDA events, peak bytes) past 2**24 sites, ``csr_spot_check``,
+    and ``analyze_index`` with ``set_fraction_to_exclude`` started in a
+    process of its own (``LargeAnalysis``, stopped at exit). The build's
+    device arrays are let go, so that the phases run between the halves
+    hold no memory of it on the card. Returns the state
+    ``large_genome_finish`` takes."""
+    import numpy as np
+    import torch
+    from bbmap_tpu_torch.align import quickmap_device
+    from bbmap_tpu_torch.index import build_device
+    from bbmap_tpu_torch.index.build import set_fraction_to_exclude
+
+    res = {"bp": gsize, "scaffolds": LARGE_SCAFFOLDS, "k": LARGE_K}
+    t = time.time()
+    g, rng = large_genome(gsize)
+    res["genome_s"] = time.time() - t
+    G = g.total_bases()
+
+    # the index, on the card
+    _sync(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    t = time.time()
+    idx = build_device.build_index_device(g, LARGE_K, device=device)
+    _sync(device)
+    res["build_cold_s"] = time.time() - t
+    res["build_peak_bytes"] = torch.cuda.max_memory_allocated(device) - base
+    t = time.time()
+    build_device.build_index_device(g, LARGE_K, device=device)
+    _sync(device)
+    res["build_warm_s"] = time.time() - t
+    _st, _si, gpack, nmask, _G = idx._device_arrays
+    res["csr_ms"] = _cuda_ms(lambda: build_device._device_csr(
+        gpack, nmask, G, LARGE_K), 1)[0]
+    del idx._device_arrays, _st, _si, gpack, nmask
+    n_sites = len(idx.sites)
+    res["sites"] = n_sites
+    if n_sites < quickmap_device.SCNT_MAX_SITES:
+        raise AssertionError(f"large genome: {n_sites} sites, below the "
+                             f"two-gather limit")
+    frac = res["fraction_to_exclude"] = set_fraction_to_exclude(G)
+    analysis = LargeAnalysis(idx, frac)
+    atexit.register(analysis.stop)
+    t = time.time()
+    res["spot_check"] = csr_spot_check(idx.starts, idx.sites, LARGE_K, g,
+                                       np.random.default_rng(29))
+    res["spot_check_s"] = time.time() - t
+    say(f"large genome: {G} bp in {LARGE_SCAFFOLDS} scaffolds ("
+        f"{res['genome_s']:.1f} s), {n_sites} sites; build_index_device "
+        f"cold {res['build_cold_s']:.3f} s, warm {res['build_warm_s']:.3f} "
+        f"s, the device CSR {res['csr_ms']:.3f} ms, peak "
+        f"{res['build_peak_bytes']} B above the {base} B held before; CSR "
+        f"spot check {res['spot_check']} equal ({res['spot_check_s']:.1f} "
+        f"s); analyze_index started in a process of its own; card {smi}")
+    return {"res": res, "genome": g, "rng": rng, "index": idx,
+            "analysis": analysis}
+
+
+def large_genome_finish(device, smi: str, state: dict) -> dict:
+    """The second half of the large genome phase (``large_genome_start``
+    made ``state``): the analysis set on the index (``analyze_index``'s
+    seconds in its process, and how long this half waited for it), a
+    ``BBMapAligner`` on it whose ``DeviceIndex`` has no packed ``scnt``
+    table (the candidate stage's two-gather lookup); the JAX test's
+    single-end batch through ``map_batch_columnar`` cold and warm (gates:
+    mapped > 0.98, within 20 bp > 0.97, every mapped start inside its
+    scaffold); paired batches from ``workload.make_pairs`` scaffold by
+    scaffold through ``map_pairs_columnar`` (one warmup batch) and
+    ``map_pairs_columnar_stream`` (N_STEADY batches of N_PAIRS), launches
+    counted from 0 (gates: both mates mapped > 0.98 and within 20 bp >
+    0.97), pairs refit counted, ``pair_stages`` of one more batch; 1,024
+    pairs of the warmup batch on the card and on the CPU (``device="cpu"``,
+    the plain versions) over the same host index, every MappedBatch field,
+    match and SAM byte equal; each hand kernel's first call held to its
+    plain version (``large_kernel_checks``)."""
+    import numpy as np
+    from bbmap_tpu_torch import workload
+    from bbmap_tpu_torch.align import quickmap_device
+    from bbmap_tpu_torch.align.pipeline import BBMapAligner
+    from bbmap_tpu_torch.core.batch import ReadBatch
+    from bbmap_tpu_torch.ops import msa_kernels, rescue_device
+
+    res, g, rng, idx = (state[k] for k in ("res", "genome", "rng", "index"))
+    G = g.total_bases()
+    t = time.time()
+    res["analyze_s"] = state["analysis"].apply(idx)
+    res["analysis_wait_s"] = time.time() - t
+    state["analysis"].stop()
+    frac = res["fraction_to_exclude"]
+    res["max_usable_length"] = int(idx.max_usable_length)
+    host_bytes = (idx.sites.nbytes + idx.starts.nbytes
+                  + idx.genome_codes.nbytes + idx.counts_canonical.nbytes)
+    t = time.time()
+    al = BBMapAligner(g, idx, device)
+    res["aligner_s"] = time.time() - t
+    dix = al.dindex
+    if dix.scnt is not None:
+        raise AssertionError("large genome: the DeviceIndex built the packed "
+                             "scnt table")
+    dev_bytes = sum(b.numel() * b.element_size() for b in dix.buffers())
+    res.update(host_bytes_per_base=host_bytes / G,
+               device_bytes_per_base=dev_bytes / G, scnt=None)
+    say(f"large genome: analyze_index {res['analyze_s']:.3f} s in its "
+        f"process (this half waited {res['analysis_wait_s']:.1f} s for it; "
+        f"fraction {frac}, max_usable_length {res['max_usable_length']}); "
+        f"index bytes a base: host {res['host_bytes_per_base']:.3f}, device "
+        f"{res['device_bytes_per_base']:.3f}; DeviceIndex.scnt None; "
+        f"aligner {res['aligner_s']:.1f} s; card {smi}")
+
+    # the JAX test's single-end batch
+    B = LARGE_SE_READS
+    flat = idx.genome_codes
+    starts = rng.integers(0, len(flat) - L - 1, size=4 * B)
+    wins = flat[starts[:, None] + np.arange(L)]
+    sel = np.nonzero(~(wins > 3).any(axis=1))[0][:B]
+    if len(sel) != B:
+        raise AssertionError("large genome: too few single-end windows")
+    code2ascii = np.frombuffer(b"ACGTN", np.uint8)
+    se = ReadBatch(bases=code2ascii[wins[sel]], quality=None,
+                   lengths=np.full(B, L, np.int32),
+                   ids=[str(i) for i in range(B)],
+                   numeric_ids=np.arange(B, dtype=np.int64))
+    truth = starts[sel]
+    del wins
+    walls = []
+    for _ in range(2):
+        t = time.time()
+        mb = al.map_batch_columnar(se)
+        _sync(device)
+        walls.append(time.time() - t)
+    flatpos = al.chrom_offsets[np.maximum(mb.chrom, 1) - 1] + mb.start
+    lens = np.diff(al.chrom_offsets)
+    m = mb.mapped
+    res["single_end"] = {
+        "reads": B, "cold_s": walls[0], "warm_s": walls[1],
+        "reads_per_s_warm": B / walls[1],
+        "mapped_fraction": float(m.mean()),
+        "sensitivity": float((m & (np.abs(flatpos - truth) <= 20)).mean()),
+        "starts_in_scaffold": bool(
+            ((mb.start[m] >= 0)
+             & (mb.start[m] < lens[mb.chrom[m] - 1])).all())}
+    s = res["single_end"]
+    say(f"large genome single-end: {B} reads cold {walls[0]:.2f} s, warm "
+        f"{walls[1]:.2f} s ({s['reads_per_s_warm']:.1f} reads/s); mapped "
+        f"{s['mapped_fraction']:.4f}, within 20 bp {s['sensitivity']:.4f}, "
+        f"every mapped start inside its scaffold {s['starts_in_scaffold']}; "
+        f"card {smi}")
+    if s["mapped_fraction"] <= LARGE_MAPPED_MIN or \
+            s["sensitivity"] <= LARGE_SENS_MIN or \
+            not s["starts_in_scaffold"]:
+        raise AssertionError(f"large genome single-end below the JAX "
+                             f"test's limits: {s}")
+    del se, mb
+
+    # paired batches, scaffold by scaffold
+    n_b = 1 + N_STEADY
+    n_all = N_PAIRS * n_b
+    per = -(-n_all // LARGE_SCAFFOLDS)
+    parts = []
+    t = time.time()
+    for c, chrom in enumerate(g.chroms):
+        r1, r2, q1, q2, t1, t2 = workload.make_pairs(
+            chrom, per, L=L, seed=11 + c, with_quality=True)
+        off = int(al.chrom_offsets[c])
+        parts.append((r1, r2, q1, q2, t1 + off, t2 + off))
+    order = np.random.default_rng(23).permutation(per * LARGE_SCAFFOLDS)
+    r1, r2, q1, q2, t1, t2 = (np.concatenate(x)[order][:n_all]
+                              for x in zip(*parts))
+    del parts
+    res["pairs_s"] = time.time() - t
+
+    def mk(rows, quals, b, n=N_PAIRS):
+        lo = b * N_PAIRS
+        return ReadBatch(
+            bases=rows[lo:lo + n], quality=quals[lo:lo + n],
+            lengths=np.full(n, L, np.int32),
+            ids=[str(i) for i in range(lo, lo + n)],
+            numeric_ids=np.arange(lo, lo + n, dtype=np.int64))
+
+    mods = {"msa_kernels": msa_kernels, "rescue_device": rescue_device,
+            "quickmap_device": quickmap_device}
+    # pairs refit through the unfused path (a slot-budget overflow of the
+    # fused program, hi_over, or its escalation budgets)
+    refit = {"calls": 0, "pairs": 0}
+    refit_pairs = al._refit_pairs
+
+    def counted_refit(b1, b2, L_, pair_ids, *rest):
+        refit["calls"] += 1
+        refit["pairs"] += len(pair_ids)
+        return refit_pairs(b1, b2, L_, pair_ids, *rest)
+
+    al._refit_pairs = counted_refit
+    reset_counts()
+    with contextlib.ExitStack() as stack:
+        calls = {name: stack.enter_context(first_call(mods[mod], fn))
+                 for (mod, fn), name in LARGE_KERNELS.items()}
+        t = time.time()
+        out0 = al.map_pairs_columnar(mk(r1, q1, 0), mk(r2, q2, 0))
+        _sync(device)
+        warm_s = time.time() - t
+        t = time.time()
+        outs = list(al.map_pairs_columnar_stream(
+            (mk(r1, q1, b), mk(r2, q2, b)) for b in range(1, n_b)))
+        _sync(device)
+        dt = time.time() - t
+        launches = launch_counts()
+        stages = pair_stages(al, mk(r1, q1, 1), mk(r2, q2, 1), device)
+    del al._refit_pairs
+    pr = grade(al, [(0, out0)] + [(b + 1, o) for b, o in enumerate(outs)],
+               t1, t2, N_PAIRS)
+    mates = []
+    for mi, truth_m in ((0, t1), (1, t2)):
+        mm = np.concatenate([o[mi].mapped for o in [out0] + outs])
+        fp = np.concatenate([
+            al.chrom_offsets[np.maximum(o[mi].chrom, 1) - 1] + o[mi].start
+            for o in [out0] + outs])
+        mates.append({"mapped_fraction": float(mm.mean()),
+                      "sensitivity": float(
+                          (mm & (np.abs(fp - truth_m) <= 20)).mean())})
+    pr.update(reads_per_s=2 * N_STEADY * N_PAIRS / dt, steady_s=dt,
+              warmup_s=warm_s, mates=mates, n_esc_rows=al._n_esc_rows,
+              n_fallback_rows=al._n_fallback_rows, refit=refit,
+              stages=stages, launches=launches,
+              bench_limits={"sensitivity": SENS_MIN,
+                            "mapped_fraction": MAPPED_MIN,
+                            "pair_rate": PAIR_MIN})
+    res["paired"] = pr
+    say(f"large genome paired: reads/s {pr['reads_per_s']:.1f} over "
+        f"{N_STEADY} steady batches of {N_PAIRS} pairs (warmup "
+        f"{warm_s:.2f} s, pairs made in {res['pairs_s']:.1f} s); "
+        f"sensitivity {pr['sensitivity']:.4f}, mapped "
+        f"{pr['mapped_fraction']:.4f}, pair rate {pr['pair_rate']:.4f} (the "
+        f"4.6 Mbp bench limits {SENS_MIN} / {MAPPED_MIN} / {PAIR_MIN}, not "
+        f"gated here); mates {mates}; n_esc_rows {al._n_esc_rows}, "
+        f"n_fallback_rows {al._n_fallback_rows}, pairs refit "
+        f"{refit['pairs']} in {refit['calls']} calls (the stage batch's "
+        f"among them); stages of one more batch {stages}; launches "
+        f"{ {k: v for k, v in launches.items() if v} }; card {smi}")
+    if any(x["mapped_fraction"] <= LARGE_MAPPED_MIN
+           or x["sensitivity"] <= LARGE_SENS_MIN for x in mates):
+        raise AssertionError(f"large genome paired below the JAX test's "
+                             f"limits: {mates}")
+    # the rescue kernel runs where a mate needs rescue; where none did it
+    # is held to its plain version on scaffold-end jobs alone
+    missing = [n for n in LARGE_KERNELS.values() if not launches.get(n)
+               and (n != "rescue_scan" or calls[n])]
+    if missing and torch_cuda(device):
+        raise AssertionError(f"large genome: {missing} never launched on "
+                             f"the paired path: {launches}")
+    del outs
+
+    # 1,024 pairs of the warmup batch on the card and on the CPU
+    n = LARGE_CMP_PAIRS
+    c1, c2 = mk(r1, q1, 0, n), mk(r2, q2, 0, n)
+    t = time.time()
+    card = BBMapAligner(g, idx, device).map_pairs_columnar(c1, c2)
+    _sync(device)
+    card_s = time.time() - t
+    t = time.time()
+    cpu = BBMapAligner(g, idx, "cpu").map_pairs_columnar(c1, c2)
+    cpu_s = time.time() - t
+    for mate in range(2):
+        _mb_fields_equal(f"large genome, mate {mate + 1} card against CPU",
+                         card[mate], cpu[mate])
+    sam_card = _sam_bytes(g, c1, c2, *card)
+    sam_cpu = _sam_bytes(g, c1, c2, *cpu)
+    if sam_card != sam_cpu:
+        raise AssertionError("large genome: the SAM of the card and the CPU "
+                             "differ")
+    res["cpu_parity"] = {"pairs": n, "card_s": card_s, "cpu_s": cpu_s,
+                         "sam_bytes": len(sam_card),
+                         "sq_lines": sam_card.count(b"@SQ\t")}
+    say(f"large genome card against CPU: {n} pairs, every MappedBatch "
+        f"field, match and SAM byte equal ({len(sam_card)} bytes, "
+        f"{res['cpu_parity']['sq_lines']} @SQ lines); card {card_s:.2f} s, "
+        f"CPU {cpu_s:.2f} s")
+    del cpu, card
+
+    res["kernels"] = large_kernel_checks(device, calls, al.dindex)
     return res
 
 
@@ -6336,6 +7134,15 @@ def main() -> int:
 
     from concurrent.futures import ThreadPoolExecutor
     from bbmap_tpu_torch.ops import _build, msa_selftest
+    # the default run's CPU processes of plain versions start before the
+    # build, so that the long reads' plain DP is done when the card's
+    # kernel phase reaches it
+    flags = ("--paired", "--dedupe-split", "--profile", "--candidate-only",
+             "--large")
+    plain = None
+    if not any(f in sys.argv[1:] for f in flags):
+        plain = PlainFills()
+        atexit.register(plain.stop)
     t = time.time()
     with ThreadPoolExecutor(1) as pool:
         # the self-test's oracle (host numpy) beside the nvcc processes
@@ -6352,6 +7159,13 @@ def main() -> int:
         return paired(sys.argv[sys.argv.index("--paired") + 1])
     if "--dedupe-split" in sys.argv[1:]:
         return dedupe_split(sys.argv[sys.argv.index("--dedupe-split") + 1])
+    if "--large" in sys.argv[1:]:
+        t = time.time()
+        lg = large_genome_phase(device, smi, LARGE_BP)
+        say(f"phase large genome: {time.time() - t:.1f} s at "
+            f"{LARGE_BP} bp; card {smi}")
+        print(json.dumps({"large_genome": lg, "card": smi}), flush=True)
+        return 0
 
     t = time.time()
     st = selftest_phase(device, cases)
@@ -6372,7 +7186,7 @@ def main() -> int:
     quick = "--candidate-only" in sys.argv[1:]
     ktimes = {}
     if not quick:
-        ktimes = kernel_phase(gbases, device)
+        ktimes = kernel_phase(gbases, device, plain)
         say(f"phase kernel vs plain: {time.time() - t:.1f} s")
         t = time.time()
         k1 = k1_entry(gbases, device)
@@ -6439,6 +7253,14 @@ def main() -> int:
             f"{ib['bench']['bound_ms']:.4f} ms), peak "
             f"{ib['bench']['device_peak_bytes']} B; the warmup batch on the "
             f"device-built index equal to the host-built run; card {smi}")
+
+    # the large genome's first half; its analyze_index runs in a process
+    # of its own beside the phases up to the kmer tools', after which the
+    # second half runs
+    t = time.time()
+    large = None if quick else large_genome_start(device, smi,
+                                                  LARGE_DEFAULT_BP)
+    large_s = time.time() - t
 
     t = time.time()
     with contextlib.ExitStack() as stack:
@@ -6558,6 +7380,28 @@ def main() -> int:
             f"{kcli[tool]['wall_cpu_s']:.2f} s)"
             for tool in ("bbnorm", "ecc", "kmercoverage", "rqcfilter",
                          "decontaminate")) + f"; card {smi}")
+
+    t = time.time()
+    lg = large_genome_finish(device, smi, large)
+    lp, ls = lg["paired"], lg["single_end"]
+    say(f"phase large genome: {large_s + time.time() - t:.1f} s in two halves "
+        f"(the first {large_s:.1f} s after the index build); {lg['bp']} bp in "
+        f"{lg['scaffolds']} scaffolds, {lg['sites']} sites (past 2**24: "
+        f"DeviceIndex.scnt None, the two-gather lookup); "
+        f"build_index_device cold {lg['build_cold_s']:.3f} s, warm "
+        f"{lg['build_warm_s']:.3f} s, CSR {lg['csr_ms']:.3f} ms, peak "
+        f"{lg['build_peak_bytes']} B, spot check equal; analyze_index "
+        f"{lg['analyze_s']:.3f} s (its own process); bytes a base host "
+        f"{lg['host_bytes_per_base']:.3f}, device "
+        f"{lg['device_bytes_per_base']:.3f}; single-end mapped "
+        f"{ls['mapped_fraction']:.4f}, within 20 bp "
+        f"{ls['sensitivity']:.4f}; paired reads/s "
+        f"{lp['reads_per_s']:.1f}, sensitivity {lp['sensitivity']:.4f}, "
+        f"mapped {lp['mapped_fraction']:.4f}, pair rate "
+        f"{lp['pair_rate']:.4f}, pairs refit {lp['refit']['pairs']}; "
+        f"{LARGE_CMP_PAIRS} pairs card against CPU equal to the SAM "
+        f"byte; every kernel's first call equal to its plain version; "
+        f"card {smi}")
 
     t = time.time()
     bkt, bktq, bany, banyq, bcont, dd, vv = dedupe_variants_phase(
@@ -6706,7 +7550,14 @@ def main() -> int:
              "dedupe": dd["big"]["kernel_launches"],
              "mapper_variants": vb["bbmapskimmer"]["launches"],
              "host_tools": hb["launches"],
-             "parallel": par["mesh"]["launches"]}
+             "parallel": par["mesh"]["launches"],
+             "large_genome": lg["paired"]["launches"]}
+    # the large genome's first calls, under the kernels-line names
+    large_by = {}
+    for name, e in lg["kernels"].items():
+        if name == "msa_fill_walk":
+            name = FILL_WALK.get(e["mapping"], name)
+        large_by[name] = e
     kernels = []
     for name, key in counted.items():
         kt = ktimes[name]
@@ -6721,9 +7572,13 @@ def main() -> int:
                         "bound_ms": kt["bound_ms"],
                         "bound_by": kt["bound_by"],
                         "library_ms": kt["library_ms"]})
-        for extra in ("max_abs_err_at_cli_shapes", "device_ms"):
+        for extra in ("max_abs_err_at_cli_shapes", "device_ms", "plain_on"):
             if extra in kt:
                 kernels[-1][extra] = kt[extra]
+        if name in large_by:
+            kernels[-1]["large_genome"] = large_by[name]
+            kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"],
+                                             large_by[name]["max_abs_err"])
         if name in cli_shapes:
             kernels[-1]["launch_shapes"] = cli_shapes[name]
         say(f"launches {name}: {by_path}")
@@ -6761,6 +7616,9 @@ def main() -> int:
             if k == "mesh" else r) for k, r in par.items()}}), flush=True)
     print(json.dumps({"kernel_selftest": st, "card": smi}), flush=True)
     print(json.dumps({"index_build": ib, "card": smi}), flush=True)
+    print(json.dumps({"large_genome": {k: v for k, v in lg.items()
+                                       if k != "kernels"}, "card": smi}),
+          flush=True)
     print(json.dumps({"retention_gapless": {
         **{name: rg[name]["shapes"] for name in (*RETENTION_NAMES.values(),
                                                  *GAPLESS_NAMES.values())},

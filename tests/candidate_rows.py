@@ -11,7 +11,10 @@ chain step's unsorted slots: all-invalid rows, steps exactly at and one
 past ``chain_dist``, negative diagonals, a key slot repeated within a
 chain, modal-run ties, runs longer than 255 slots and runs that start past
 offset 255 of their chain (at W = 512), reads with fewer than 8 chains,
-and the same chains on both strands (vote ties across strands)."""
+and the same chains on both strands (vote ties across strands);
+``wide_chain_rows`` gives reads whose diagonals span more than the chain
+kernel's 32-bit sort key holds and reads at that key's limit, and
+``int32_key_fits`` says which reads the key holds."""
 import numpy as np
 
 INVALID = 2 ** 30
@@ -162,6 +165,83 @@ def chain_rows(rng, B: int, W: int, nk: int, chain_dist: int):
             rows.append(_row(rng, kind, W, nk, chain_dist))
         for h, (d, t) in enumerate(rows):
             at = rng.permutation(W)[:len(d)] if b % 4 else np.arange(len(d))
+            diag[b, h, at] = d
+            toff[b, h, at] = t
+    return diag.astype(np.int32), toff.astype(np.int32)
+
+
+def int32_key_fits(diag, toff):
+    """(B,) bool: the reads whose rows the register mapping of
+    csrc/chain_candidates.cu sorts on its 32-bit key (diag - the row's
+    least) << tb | toff: every invalid slot's diagonal 2^30 exactly, every
+    valid slot's key slot >= 0, and each row's valid diagonals spanning
+    less than 2^(32 - tb) - 1, tb the bit length of the read's largest
+    valid key slot. The other reads sort on the int64 key."""
+    d = np.asarray(diag, np.int64)
+    t = np.asarray(toff, np.int64)
+    valid = d < INVALID
+    odd = ((~valid) & (d != INVALID)).reshape(len(d), -1).any(1)
+    tv = np.where(valid, t, 0).reshape(len(d), -1)
+    tb = np.array([int(x).bit_length() for x in tv.max(1, initial=0)],
+                  np.int64)
+    big = np.iinfo(np.int64).max
+    lo = np.where(valid, d, big).min(2, initial=big)
+    hi = np.where(valid, d, -big).max(2, initial=-big)
+    lim = (np.int64(1) << (32 - tb)) - 1
+    fits = (hi < lo) | (hi - lo < lim[:, None])
+    return ~odd & (tv.min(1, initial=0) >= 0) & fits.all(1)
+
+
+def _wide_row(rng, n: int, nk: int, cd: int, lo: int, span: int):
+    """n >= 2 valid slots whose diagonals run from lo to lo + span exactly,
+    in chains of 1-6 slots (steps of 0 to cd), key slots random with the
+    largest (nk - 1) among them."""
+    d = [lo, lo + span]
+    while len(d) < n:
+        c = int(rng.integers(lo, lo + span + 1))
+        for _ in range(int(rng.integers(1, 7))):
+            if len(d) >= n:
+                break
+            d.append(min(c, lo + span))
+            c += int(rng.integers(0, cd + 1))
+    t = rng.integers(0, nk, len(d))
+    t[0] = nk - 1
+    return d, t
+
+
+def wide_chain_rows(rng, B: int, W: int, nk: int, chain_dist: int):
+    """diag, toff (B, 2, W) int32 as ``chain_rows`` lays them out (valid
+    slots shuffled among invalid ones), with the spans of a genome past
+    2^27 bases: by read, in turn, both rows spanning from past the limit
+    below (and at least 2^27) to ~2^30 from a start at or below 0; one
+    row exactly at the 32-bit key's limit (2^(32 - tb) - 2, tb the bit
+    length of nk - 1: the key holds it) and the other short; one row one
+    past the limit (the int64 key); one row empty and the other wide.
+    nk >= 9, so that the limit lies below 2^28."""
+    if nk < 9:
+        raise ValueError("wide_chain_rows needs nk >= 9")
+    lim = (1 << (32 - (nk - 1).bit_length())) - 1
+    top = INVALID - 4096
+    diag = np.full((B, 2, W), INVALID, np.int64)
+    toff = rng.integers(0, nk, (B, 2, W))
+    for b in range(B):
+        kind = b % 4
+        rows = []
+        for h in range(2):
+            n = int(rng.integers(2, W + 1))
+            lo = -int(rng.integers(0, 2000))
+            if kind == 0 or (kind == 3 and h == 1):
+                span = int(rng.integers(max(1 << 27, lim), top - lo))
+            elif kind == 3:
+                rows.append(([], []))
+                continue
+            elif h == 0:
+                span = lim - 1 if kind == 1 else lim
+            else:
+                span = int(rng.integers(0, 10 * chain_dist + 64))
+            rows.append(_wide_row(rng, n, nk, chain_dist, lo, span))
+        for h, (d, t) in enumerate(rows):
+            at = rng.permutation(W)[:len(d)]
             diag[b, h, at] = d
             toff[b, h, at] = t
     return diag.astype(np.int32), toff.astype(np.int32)

@@ -326,7 +326,8 @@ PORT_ADDED = {
     # its choice between them (CHAIN_MAPPINGS, CHAIN_REGS_MAX_W,
     # chain_mapping); the packed quality entry's wrapper and the launch
     # operands both quality entries share (quality_offsets_packed_kernel,
-    # _quality_launch_args)
+    # _quality_launch_args); the packed table's site limit as a constant
+    # that tests set to force the two-gather lookup (SCNT_MAX_SITES)
     "align.quickmap_device": {"torch", "nn", "ctypes", "DeviceIndex",
                               "DeviceLike", "resolve_device", "F32", "I64",
                               "_first_true", "_stable_desc", "_wrap32",
@@ -352,7 +353,7 @@ PORT_ADDED = {
                               "SLOT_PACK_WARP_MAX_NK",
                               "SLOT_PACK_BLOCK_MAX_NK", "slot_pack_mapping",
                               "quality_offsets_packed_kernel",
-                              "_quality_launch_args"}}
+                              "_quality_launch_args", "SCNT_MAX_SITES"}}
 # names a copy leaves out on purpose: rqcfilter's default reference paths
 # under the machine's reference directory (the port takes every reference
 # from the command line); kcount's rewritten device class needs no
