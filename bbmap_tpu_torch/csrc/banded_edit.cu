@@ -4,9 +4,9 @@
 // (bbmap_tpu/ops/banded_device.py:34-90, a jitted lax.scan over the rows
 // with the band of 2E+1 diagonals on the lanes), which Dedupe runs once for
 // each read it checks with e= and twice for each containment check (here:
-// the block mapping below for the first, the thread mapping for the
-// second). The function, per pair (a of length la, b of length lb, E = max_edits,
-// BIG = E + 1, band cell d at column j = i - E + d of row i):
+// the block mapping below for the first, the containment mapping for the
+// second). The function, per pair (a of length la, b of length lb, E =
+// max_edits, BIG = E + 1, band cell d at column j = i - E + d of row i):
 //
 //   row 0:  global  v[d] = j        where 0 <= j <= lb, else BIG
 //           infix   v[d] = 0        where 0 <= j <= lb, else BIG
@@ -74,25 +74,40 @@
 // position are one aligned word of the position-major class, read in
 // place, against the query's byte repeated in the four lanes.
 //
-// The containment mapping (banded_contained_kernel, dedupe's containment
-// check): a block of reads against the windows that the host cut from the
-// containers kept before the block, in one launch, where the thread
-// mapping made two launches and a fetch a read. The work is a few
-// thousand band cells a read (E = 2 tol, infix), far below a microsecond
-// of the card's rate; what bounded it was the launch and the
-// synchronisation. A pair table (query column, window column, window
-// length) names the pairs; pair p runs on threads 2p (the read) and 2p + 1
-// (its reverse complement), so that a query's pairs sit on neighbouring
-// threads. The reverse complement is read in place: the forward column
-// backward, each byte through the complement table (kComp, core/bases
-// COMP_ASCII: ACGTacgt complemented, every other byte as it is), which a
-// block stages in shared memory beside an identity table, so that both
-// orientations run the same instructions. Each distance is thread_pair's
-// (the band in registers, the same early stop). A query's flag, any(d <=
-// tol), is one warp vote among the lanes of that query (__match_any_sync,
-// __ballot_sync) and a plain store of 1 into flags the caller zeroed:
-// order-free. Past 64 band cells (tol >= 16) the same table runs in the
-// same launch on the warp body, a warp an orientation of a pair.
+// The containment mapping (dedupe's containment check): a block of reads
+// against the windows that the host cut from the containers kept before
+// the block, in one launch. A pair table (query column, window column,
+// window length) names the pairs; each pair runs forward and as its
+// reverse complement, read from the forward column backward with each
+// byte through the complement table (kComp, core/bases COMP_ASCII: ACGTacgt
+// complemented, every other byte as it is), which a block stages in shared
+// memory beside an identity table, so that both orientations run the same
+// instructions. A query's flag, any(d <= tol) at E = 2 tol (infix), is a
+// warp vote and a plain store of 1 into flags the caller zeroed:
+// order-free. The work is a few thousand band cells a read, far below a
+// microsecond of the card's rate; what bounds it is the chain of up to
+// ~150 dependent rows a pair, a row of 9 cells (tol 2) ~100 instructions
+// that wait on each other. Five mappings, which the caller picks
+// (banded_device.contained_mapping, from the pair count, tol and the
+// operands' lengths):
+// - "split" (4 tol + 1 <= 13, below ~2,300 pairs, where the card is
+//   nearly empty): a warp a pair, a half-warp an orientation, the row
+//   chain split over the lanes as min-plus maps composed in registers and
+//   joined down the lanes (banded_contained_split_kernel, below);
+// - "staged" (4 tol + 1 <= 64 cells, a block's rows within kStageMax
+//   bytes): a thread an orientation of a pair, the block's 64 pairs' query
+//   columns and windows copied to shared memory pair-major first, then
+//   thread_pair in groups of rows (no branch inside a group, the early
+//   stop at its end, so that rows overlap);
+// - "ring" (the same band past kStageMax: contigs): the same body read in
+//   place, each byte loaded a group of rows before its row;
+// - "warp" (past 64 cells, tol >= 16): a warp an orientation (warp_pair),
+//   its bytes from a ring across the lanes, a chunk of 32 rows ahead;
+// - "inplace" (every tol; taken only when forced): the first body, a
+//   thread (past 64 cells a warp) an orientation, read in place a row
+//   ahead, the early stop tested every row.
+// Past 32 chunks (tol >= 256) "warp" and "inplace" keep the band in a
+// scratch row of device memory.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -170,12 +185,54 @@ __device__ __forceinline__ unsigned a_byte(const uint8_t* a, long long off,
 }
 
 // ---------------------------------------------------------------------
+// One row i of a thread's band (W >= 2E + 1 cells, w = 2E + 1 of them
+// live): v the band, win the window (byte d is b[i - E - 1 + d]), ai =
+// a[i - 1] and nb the byte that enters the window after the row. Returns
+// the row's least cell.
+// ---------------------------------------------------------------------
+template <int W>
+__device__ __forceinline__ int band_row(int (&v)[W],
+                                        uint32_t (&win)[(W + 3) / 4],
+                                        unsigned ai, unsigned nb, int i,
+                                        int E, int w, int lb) {
+  constexpr int NW = (W + 3) / 4;
+  const int BIG = E + 1;
+  const uint32_t rep = ai * 0x01010101u;
+  uint32_t m[NW];
+#pragma unroll
+  for (int j = 0; j < NW; ++j) m[j] = __vcmpne4(win[j], rep);
+  const int dlo = E + 1 - i, dhi = min(lb + E - i, w - 1);
+  int r = BIG, rowmin = BIG;
+#pragma unroll
+  for (int d = 0; d < W; ++d) {
+    const int ne = (m[d >> 2] >> (8 * (d & 3))) & 1;
+    const int up = (d + 1 < W ? v[d + 1] : BIG) + 1;
+    int c = min(v[d] + ne, up);
+    c = (d >= dlo && d <= dhi) ? c : BIG;
+    r = min(c, r + 1);
+    v[d] = min(r, BIG);
+    rowmin = min(rowmin, v[d]);
+  }
+#pragma unroll
+  for (int j = 0; j + 1 < NW; ++j)
+    win[j] = __funnelshift_r(win[j], win[j + 1], 8);
+  win[NW - 1] = (win[NW - 1] >> 8) | (nb << 24);
+  return rowmin;
+}
+
+// ---------------------------------------------------------------------
 // A thread a pair, W >= 2E + 1 band cells in registers: one pair's
 // distance, a (la <= La bytes) and b (Lb bytes, 255 past them) read at a
 // stride of a_ps / b_ps bytes a position (a_ps may be negative), in device
-// or shared memory; MAP: a's bytes through the 256-byte table tab.
+// or shared memory; MAP: a's bytes through the 256-byte table tab. The
+// rows run in groups of K (unrolled, no branch inside a group, so that the
+// next row's first cells can start while this one's sweep runs on), the
+// early stop tested at a group's end (a band that saturated stays so: the
+// same result), each byte loaded K rows before its row (a ring of K bytes
+// of a and K of b in registers); K = 1: a row at a time, its bytes loaded
+// during the row before.
 // ---------------------------------------------------------------------
-template <int W, bool MAP = false>
+template <int W, bool MAP = false, int K = 1>
 __device__ __forceinline__ int thread_pair(const uint8_t* a, long long a_ps,
                                            int la, int La, const uint8_t* b,
                                            long long b_ps, int lb, int Lb,
@@ -199,35 +256,31 @@ __device__ __forceinline__ int thread_pair(const uint8_t* a, long long a_ps,
     win[k] = x;
   }
   const int rows = min(la, La);
-  // a[i-1] and the byte that enters the window at row i + 1
-  unsigned ai = rows >= 1 ? a_byte<MAP>(a, 0, tab) : 0u;
-  unsigned nb = byte_at(b, b_ps, 1 - E + TOP, Lb);
-  for (int i = 1; i <= rows; ++i) {
-    const unsigned ai_next = i < rows ? a_byte<MAP>(a, i * a_ps, tab) : 0u;
-    const unsigned nb_next = byte_at(b, b_ps, i + 1 - E + TOP, Lb);
-    const uint32_t rep = ai * 0x01010101u;
-    uint32_t m[NW];
+  // ra[k] / rb[k]: a[i - 1] (raw) and the byte that enters the window
+  // after row i, for the next row i of slot k ((i - 1) mod K)
+  unsigned ra[K], rb[K];
 #pragma unroll
-    for (int k = 0; k < NW; ++k) m[k] = __vcmpne4(win[k], rep);
-    const int dlo = E + 1 - i, dhi = min(lb + E - i, w - 1);
-    int r = BIG, rowmin = BIG;
+  for (int k = 0; k < K; ++k) {
+    ra[k] = k < rows ? a[k * a_ps] : 0u;
+    rb[k] = byte_at(b, b_ps, k + 1 - E + TOP, Lb);
+  }
+  int i = 1;
+  for (; i + K - 1 <= rows; i += K) {
+    int rowmin = BIG;
 #pragma unroll
-    for (int d = 0; d < W; ++d) {
-      const int ne = (m[d >> 2] >> (8 * (d & 3))) & 1;
-      const int up = (d + 1 < W ? v[d + 1] : BIG) + 1;
-      int c = min(v[d] + ne, up);
-      c = (d >= dlo && d <= dhi) ? c : BIG;
-      r = min(c, r + 1);
-      v[d] = min(r, BIG);
-      rowmin = min(rowmin, v[d]);
+    for (int k = 0; k < K; ++k) {
+      const unsigned ai = MAP ? tab[ra[k]] : ra[k], nb = rb[k];
+      ra[k] = i + k + K <= rows ? a[(i + k + K - 1) * a_ps] : 0u;
+      rb[k] = byte_at(b, b_ps, i + k + K - E + TOP, Lb);
+      rowmin = band_row<W>(v, win, ai, nb, i + k, E, w, lb);
     }
-#pragma unroll
-    for (int k = 0; k + 1 < NW; ++k)
-      win[k] = __funnelshift_r(win[k], win[k + 1], 8);
-    win[NW - 1] = (win[NW - 1] >> 8) | (nb << 24);
-    ai = ai_next;
-    nb = nb_next;
     if (rowmin > E) return BIG;
+  }
+  // the last rows, fewer than K
+#pragma unroll
+  for (int k = 0; k + 1 < K; ++k) {
+    if (i + k > rows) break;
+    band_row<W>(v, win, MAP ? tab[ra[k]] : ra[k], rb[k], i + k, E, w, lb);
   }
   int res = BIG;
   const int df = lb - la + E;
@@ -512,8 +565,13 @@ __device__ __forceinline__ int warp_min(int x) {
 // ---------------------------------------------------------------------
 // A warp a pair, NC chunks of 32 cells in registers: the pair's distance
 // on every lane, in the layout of thread_pair (MAP: a through tab).
+// RING: the bytes of a and the bytes that enter the window come from a
+// ring across the lanes, lane l holding those of row i0 + l for a chunk
+// of 32 rows from i0, with the next chunk's loads in flight (a byte is
+// loaded 32 to 63 rows before its row, and a row takes it by a shuffle);
+// else each row's bytes are loaded during the row before.
 // ---------------------------------------------------------------------
-template <int NC, bool MAP = false>
+template <int NC, bool MAP = false, bool RING = false>
 __device__ __forceinline__ int warp_pair(const uint8_t* a, long long a_ps,
                                          int la, int La, const uint8_t* b,
                                          long long b_ps, int lb, int Lb,
@@ -531,11 +589,34 @@ __device__ __forceinline__ int warp_pair(const uint8_t* a, long long a_ps,
     wb[c] = byte_at(b, b_ps, d - E, Lb);
   }
   const int rows = min(la, La);
-  unsigned ai = rows >= 1 ? a_byte<MAP>(a, 0, tab) : 0u;
-  unsigned nb = byte_at(b, b_ps, 1 - E + TOP, Lb);
+  unsigned ai = 0u, nb = 0u, ca = 0u, cb = 0u, na = 0u, nx = 0u;
+  if constexpr (RING) {
+    // this chunk (rows 1-32) and the next (rows 33-64)
+    ca = lane < rows ? a[lane * a_ps] : 0u;
+    cb = byte_at(b, b_ps, 1 + lane - E + TOP, Lb);
+    na = lane + 32 < rows ? a[(lane + 32) * a_ps] : 0u;
+    nx = byte_at(b, b_ps, 33 + lane - E + TOP, Lb);
+    if (MAP) ca = tab[ca];
+  } else {
+    ai = rows >= 1 ? a_byte<MAP>(a, 0, tab) : 0u;
+    nb = byte_at(b, b_ps, 1 - E + TOP, Lb);
+  }
   for (int i = 1; i <= rows; ++i) {
-    const unsigned ai_next = i < rows ? a_byte<MAP>(a, i * a_ps, tab) : 0u;
-    const unsigned nb_next = byte_at(b, b_ps, i + 1 - E + TOP, Lb);
+    unsigned ai_next = 0u, nb_next = 0u;
+    if constexpr (RING) {
+      const int k = (i - 1) & 31;
+      ai = __shfl_sync(kFull, ca, k);
+      nb = __shfl_sync(kFull, cb, k);
+      if (k == 31) {            // the chunk's last row: the next one's bytes
+        ca = MAP ? tab[na] : na;
+        cb = nx;
+        na = i + 32 + lane < rows ? a[(i + 32 + lane) * a_ps] : 0u;
+        nx = byte_at(b, b_ps, i + 33 + lane - E + TOP, Lb);
+      }
+    } else {
+      ai_next = i < rows ? a_byte<MAP>(a, i * a_ps, tab) : 0u;
+      nb_next = byte_at(b, b_ps, i + 1 - E + TOP, Lb);
+    }
     const int dlo = E + 1 - i, dhi = min(lb + E - i, w - 1);
     int carry = BIG, rowmin = BIG;
 #pragma unroll
@@ -861,6 +942,33 @@ struct Contained {
   uint8_t* flags;     // (Q,), zeroed by the caller
 };
 
+// The containment mappings, as the C entry's mapping codes
+// (ops/banded_device.CONTAINED_MAPPINGS names them).
+enum ContainedMapping : int {
+  kContainedInplace = 0,  // a thread (a warp) an orientation, read a row ahead
+  kContainedStaged = 1,   // a thread an orientation, operands in shared memory
+  kContainedRing = 2,     // a thread an orientation, a ring of bytes
+  kContainedWarp = 3,     // a warp an orientation past 64 cells, a lane ring
+  kContainedSplit = 4,    // a warp a pair, the rows split over the lanes
+};
+
+#ifdef BBMAP_CONTAINED_CLOCKS
+// The counting build: each (pair k, orientation rc) run's clocks in its
+// band and before it (the tables and, staged, the operands) at
+// g_contained_clocks[2 (2k + rc)] and [2 (2k + rc) + 1].
+__device__ long long* g_contained_clocks;
+#define CONTAINED_CLOCK(name) const long long name = clock64()
+#define CONTAINED_RECORD(k, rc, t0, t1)                                 \
+  do {                                                                  \
+    const long long t2_ = clock64();                                    \
+    g_contained_clocks[2 * (2 * (k) + (rc))] = t2_ - (t1);              \
+    g_contained_clocks[2 * (2 * (k) + (rc)) + 1] = (t1) - (t0);         \
+  } while (0)
+#else
+#define CONTAINED_CLOCK(name)
+#define CONTAINED_RECORD(k, rc, t0, t1)
+#endif
+
 // The identity (tab[0, 256)) and the complement (tab[256, 512)), staged by
 // the block.
 __device__ __forceinline__ void stage_tables(uint8_t* tab) {
@@ -888,23 +996,109 @@ __device__ __forceinline__ Operand operand(const Contained& p, long long k,
   return {a, rc ? -p.q_ps : p.q_ps, la, col};
 }
 
-template <int W>
+// The staged thread body: a block's kStagePairs pairs, the query and the
+// window of each in a row of shared memory (pair-major), at most
+// kStageMax bytes; a thread loads kStageBatch positions of each before it
+// stores them (2 kStageBatch loads in flight).
+constexpr int kStagePairs = kThreads / 2;
+constexpr int kStageMax = 48 * 1024 - 512;
+constexpr int kStageBatch = 16;
+
+// A staged row's pitch: L bytes rounded up to an odd number of words, so
+// that the rows of a warp's pairs at one position lie in distinct banks.
+__host__ __device__ inline int stage_pitch(int L) {
+  return 4 * (((L + 3) / 4) | 1);
+}
+
+__host__ __device__ inline int stage_bytes(int Lq, int Lw) {
+  return kStagePairs * (stage_pitch(Lq) + stage_pitch(Lw));
+}
+
+// The first la bytes of a query column (a position-major, a_ps a
+// position) into sa and the first lw of a window (b, b_ps) into sb, one
+// byte a position; the block's threads h = 0, 1 of a pair take positions
+// h, h + 2, ...
+__device__ __forceinline__ void stage_pair(uint8_t* sa, const uint8_t* a,
+                                           long long a_ps, int la,
+                                           uint8_t* sb, const uint8_t* b,
+                                           long long b_ps, int lb, int h) {
+  const int n = max(la, lb);
+  for (int p0 = h; p0 < n; p0 += 2 * kStageBatch) {
+    unsigned xa[kStageBatch], xb[kStageBatch];
+#pragma unroll
+    for (int j = 0; j < kStageBatch; ++j) {
+      const int pos = p0 + 2 * j;
+      xa[j] = pos < la ? __ldg(a + pos * a_ps) : 0u;
+      xb[j] = pos < lb ? __ldg(b + pos * b_ps) : 0u;
+    }
+#pragma unroll
+    for (int j = 0; j < kStageBatch; ++j) {
+      const int pos = p0 + 2 * j;
+      if (pos < la) sa[pos] = static_cast<uint8_t>(xa[j]);
+      if (pos < lb) sb[pos] = static_cast<uint8_t>(xb[j]);
+    }
+  }
+}
+
+// The rows of a group of the new thread bodies (thread_pair's K): enough
+// for a round trip to device memory between a byte's load and its row (a
+// row of 9 cells takes ~100 instructions, one of 64 ~600), and rows for
+// the scheduler to overlap, at ~W * 8 cells unrolled.
+__host__ __device__ constexpr int ring_depth(int W) {
+  return W <= 16 ? 8 : W <= 32 ? 4 : 2;
+}
+
+// A thread an orientation of a pair (thread 2p + rc of pair p, so that a
+// query's runs sit on neighbouring lanes) on thread_pair in groups of K
+// rows: STAGED, the block's pairs' query columns and windows copied to
+// shared memory first (a pair's bytes in a row); else read in place, K
+// rows ahead (K = 1: the first body, a row at a time, its bytes loaded
+// during the row before).
+template <int W, bool STAGED, int K>
 __global__ void __launch_bounds__(kThreads)
     banded_contained_kernel(Contained p) {
   __shared__ uint8_t tab[512];
+  extern __shared__ __align__(16) uint8_t staged[];
+  CONTAINED_CLOCK(t_start);
   stage_tables(tab);
   const long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   const long long k = t >> 1;
   const int rc = t & 1;
+  const int pq = stage_pitch(p.Lq), pw = stage_pitch(p.Lw);
+  if constexpr (STAGED) {
+    const int slot = threadIdx.x % kStagePairs;
+    const long long ks = blockIdx.x * (long long)kStagePairs + slot;
+    if (ks < p.P) {
+      const int col = p.table[ks];
+      stage_pair(staged + slot * pq, p.q + col, p.q_ps,
+                 min(p.lq[col], p.Lq), staged + kStagePairs * pq + slot * pw,
+                 p.w + p.table[p.P + ks], p.w_ps,
+                 min(p.table[2 * p.P + ks], p.Lw), threadIdx.x / kStagePairs);
+    }
+    __syncthreads();
+  }
+  CONTAINED_CLOCK(t_band);
   int col = -1;
   bool hit = false;
   if (k < p.P) {
     const Operand o = operand(p, k, rc);
     col = o.col;
-    hit = thread_pair<W, true>(o.a, o.a_ps, o.la, p.Lq,
-                               p.w + p.table[p.P + k], p.w_ps,
-                               p.table[2 * p.P + k], p.Lw, 2 * p.tol, 1,
-                               tab + 256 * rc) <= p.tol;
+    const int lb = p.table[2 * p.P + k];
+    int d;
+    if constexpr (STAGED) {
+      const int slot = threadIdx.x >> 1;
+      const uint8_t* sa = staged + slot * pq;
+      d = thread_pair<W, true, K>(rc && o.la > 0 ? sa + o.la - 1 : sa,
+                                  rc ? -1 : 1, o.la, p.Lq,
+                                  staged + kStagePairs * pq + slot * pw, 1,
+                                  lb, p.Lw, 2 * p.tol, 1, tab + 256 * rc);
+    } else {
+      d = thread_pair<W, true, K>(o.a, o.a_ps, o.la, p.Lq,
+                                  p.w + p.table[p.P + k], p.w_ps, lb, p.Lw,
+                                  2 * p.tol, 1, tab + 256 * rc);
+    }
+    hit = d <= p.tol;
+    CONTAINED_RECORD(k, rc, t_start, t_band);
   }
   // the lanes of one query vote; the lowest of them stores
   const unsigned peers = __match_any_sync(kFull, col);
@@ -914,13 +1108,16 @@ __global__ void __launch_bounds__(kThreads)
     p.flags[col] = 1;
 }
 
-// A warp an orientation of a pair: NC chunks in registers, or (NC == 0)
-// the band in scratch, 32 * warp_chunks(2 tol) ints a warp.
-template <int NC>
+// A warp an orientation of a pair: NC chunks in registers (RING: a and the
+// window's bytes from the lanes' ring), or (NC == 0) the band in scratch,
+// 32 * warp_chunks(2 tol) ints a warp.
+template <int NC, bool RING>
 __global__ void __launch_bounds__(kThreads)
     banded_contained_warp_kernel(Contained p, int* scratch) {
   __shared__ uint8_t tab[512];
+  CONTAINED_CLOCK(t_start);
   stage_tables(tab);
+  CONTAINED_CLOCK(t_band);
   const int lane = threadIdx.x & 31;
   const long long t = (blockIdx.x * (long long)blockDim.x + threadIdx.x) >> 5;
   const long long k = t >> 1;
@@ -931,31 +1128,238 @@ __global__ void __launch_bounds__(kThreads)
   const int lb = p.table[2 * p.P + k];
   int d;
   if constexpr (NC > 0) {
-    d = warp_pair<NC, true>(o.a, o.a_ps, o.la, p.Lq, b, p.w_ps, lb, p.Lw, E,
-                            1, lane, tab + 256 * rc);
+    d = warp_pair<NC, true, RING>(o.a, o.a_ps, o.la, p.Lq, b, p.w_ps, lb,
+                                  p.Lw, E, 1, lane, tab + 256 * rc);
   } else {
     d = warp_mem_pair<true>(o.a, o.a_ps, o.la, p.Lq, b, p.w_ps, lb, p.Lw,
                             E, 1, lane, scratch + t * 32 * warp_chunks(E),
                             tab + 256 * rc);
   }
-  if (lane == 0 && d <= p.tol) p.flags[o.col] = 1;
+  if (lane == 0) {
+    if (d <= p.tol) p.flags[o.col] = 1;
+    CONTAINED_RECORD(k, rc, t_start, t_band);
+  }
+}
+
+// ---------------------------------------------------------------------
+// The split mapping (4 tol + 1 <= kSplitMaxCells band cells): a warp a
+// pair, a half-warp (kSplitLanes lanes) an orientation, the chain of rows
+// split over the lanes. With every value capped at BIG (the band is
+// clamped there each row, and every value is >= 0, so an entry >= BIG acts
+// as no entry), a row of the band is a min-plus linear map of the band:
+// the mismatch, the cell above + 1 and the insertion sweep are its
+// entries, a cell outside the row's valid range a row of BIG. Maps
+// compose associatively, so lane j composes the map A_j of its run of rows
+// (r0 + 1 .. r1, with r0 = rows * j / 16, r1 = rows * (j + 1) / 16) by
+// running each row on every column of its map (the identity at first;
+// lane 0 starts from row 0's band in every column), a cell's columns four
+// to a word in the headroom code of quad_pairs (a value x <= BIG <= 7 as
+// (1 << (BIG - x)) - 1 in a byte lane: min is OR, + 1 a shift). The maps
+// then meet the final cells from the last lane down: lane 15 takes the
+// min of its map over the final cells, column by column (a row vector c),
+// and 15 steps hand c one lane down (__shfl_down_sync), each lane taking
+// c'[e] = min_d (c[d] + A_j[d][e]), for each d the words of A_j's row d
+// shifted down by c[d] in every byte lane, ORed. Lane 0's map holds row
+// r1's band in every column, so lane 0's c' is the distance in every
+// column. A band that saturates stays BIG under every later map: the
+// result is thread_pair's, without its early stop. A lane loads the bytes
+// of kSplitChunk rows at once (all in flight, one wait on device memory
+// a run) into a queue of words that shifts a byte a row. At dedupe's
+// 150 bp a lane runs <= 10 rows and the join 15 steps, where the thread
+// body runs up to 150 dependent rows.
+// ---------------------------------------------------------------------
+constexpr int kSplitLanes = 16;
+constexpr int kSplitChunk = 16;
+constexpr int kSplitMaxCells = 13;
+
+// x + 1 in each byte lane of a headroom word (0, BIG, stays 0)
+__device__ __forceinline__ uint32_t plus1(uint32_t x) {
+  return (x >> 1) & kLow7;
+}
+
+// One row i of the band run on every column of the map U (row d of the
+// map, its columns four to a word), the window's bytes win, a's byte ai.
+template <int W>
+__device__ __forceinline__ void split_row(uint32_t (&U)[W][(W + 3) / 4],
+                                          const uint32_t (&win)[(W + 3) / 4],
+                                          unsigned ai, int i, int lb) {
+  constexpr int E = (W - 1) / 2, NG = (W + 3) / 4;
+  const uint32_t rep = ai * kOnes;
+  uint32_t m[NG];
+#pragma unroll
+  for (int j = 0; j < NG; ++j) m[j] = __vcmpne4(win[j], rep);
+  const int dlo = E + 1 - i, dhi = min(lb + E - i, W - 1);
+  uint32_t r[NG], s[NG];
+#pragma unroll
+  for (int g = 0; g < NG; ++g) {
+    r[g] = 0u;
+    s[g] = plus1(U[0][g]);
+  }
+#pragma unroll
+  for (int d = 0; d < W; ++d) {
+    const uint32_t ne = 0u - ((m[d >> 2] >> (8 * (d & 3))) & 1u);
+    const uint32_t ok = (d >= dlo && d <= dhi) ? 0xffffffffu : 0u;
+#pragma unroll
+    for (int g = 0; g < NG; ++g) {
+      // s: this cell + 1 (the previous row's), up: the cell above + 1
+      const uint32_t up = d + 1 < W ? plus1(U[d + 1][g]) : 0u;
+      const uint32_t c = ((U[d][g] & ~ne) | (s[g] & ne) | up) & ok;
+      r[g] = c | plus1(r[g]);
+      U[d][g] = r[g];
+      s[g] = up;
+    }
+  }
 }
 
 template <int W>
-cudaError_t launch_contained(const Contained& p, cudaStream_t stream) {
+__global__ void __launch_bounds__(kThreads)
+    banded_contained_split_kernel(Contained p) {
+  constexpr int E = (W - 1) / 2, BIG = E + 1, NG = (W + 3) / 4;
+  constexpr int TOP = 4 * NG - 1;            // the window's last byte
+  constexpr int NQ = kSplitChunk / 4;
+  constexpr uint32_t kD0 = (1u << BIG) - 1;  // the code of 0
+  __shared__ uint8_t tab[512];
+  CONTAINED_CLOCK(t_start);
+  stage_tables(tab);
+  CONTAINED_CLOCK(t_band);
+  const int lane = threadIdx.x & 31, seg = lane % kSplitLanes;
+  const int rc = lane / kSplitLanes;
+  const long long k = (blockIdx.x * (long long)blockDim.x + threadIdx.x) >> 5;
+  if (k >= p.P) return;                       // the whole warp
+  const Operand o = operand(p, k, rc);
+  const uint8_t* tb = tab + 256 * rc;
+  const uint8_t* b = p.w + p.table[p.P + k];
+  const int lb = p.table[2 * p.P + k];
+  const int rows = min(o.la, p.Lq);
+  const int r0 = seg * rows / kSplitLanes;
+  const int r1 = (seg + 1) * rows / kSplitLanes;
+  uint32_t U[W][NG];
+#pragma unroll
+  for (int d = 0; d < W; ++d)
+#pragma unroll
+    for (int g = 0; g < NG; ++g)
+      U[d][g] = seg == 0
+          ? (row0_cell(d, W, E, lb, 1) == 0 ? kD0 * kOnes : 0u)
+          : (d >> 2 == g ? kD0 << (8 * (d & 3)) : 0u);
+  // byte d of the window at row i is b[i - E - 1 + d]; here i = r0 + 1
+  uint32_t win[NG];
+#pragma unroll
+  for (int j = 0; j < NG; ++j) {
+    uint32_t x = 0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      x |= byte_at(b, p.w_ps, r0 + 4 * j + q - E, p.Lw) << (8 * q);
+    win[j] = x;
+  }
+  for (int i0 = r0 + 1; i0 <= r1; i0 += kSplitChunk) {
+    // the run's a[i - 1] (through tb) and the bytes that enter the window
+    // after row i, loaded together, four rows to a word
+    unsigned xa[kSplitChunk], xb[kSplitChunk];
+#pragma unroll
+    for (int j = 0; j < kSplitChunk; ++j) {
+      const int i = i0 + j;
+      xa[j] = i <= r1 ? o.a[(i - 1) * o.a_ps] : 0u;
+      xb[j] = i <= r1 ? byte_at(b, p.w_ps, i - E + TOP, p.Lw) : 0u;
+    }
+    uint32_t qa[NQ], qb[NQ];
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+      qa[j] = 0u;
+      qb[j] = 0u;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        qa[j] |= static_cast<uint32_t>(tb[xa[4 * j + q]]) << (8 * q);
+        qb[j] |= xb[4 * j + q] << (8 * q);
+      }
+    }
+    const int end = min(r1, i0 + kSplitChunk - 1);
+    for (int i = i0; i <= end; ++i) {
+      split_row<W>(U, win, qa[0] & 0xffu, i, lb);
+#pragma unroll
+      for (int j = 0; j + 1 < NG; ++j)
+        win[j] = __funnelshift_r(win[j], win[j + 1], 8);
+      win[NG - 1] = (win[NG - 1] >> 8) | ((qb[0] & 0xffu) << 24);
+#pragma unroll
+      for (int j = 0; j + 1 < NQ; ++j) {
+        qa[j] = __funnelshift_r(qa[j], qa[j + 1], 8);
+        qb[j] = __funnelshift_r(qb[j], qb[j + 1], 8);
+      }
+      qa[NQ - 1] >>= 8;
+      qb[NQ - 1] >>= 8;
+    }
+  }
+  // c: the map's min over the final cells (la - E + d in [0, lb]), column
+  // by column; then down the lanes
+  uint32_t c[NG];
+#pragma unroll
+  for (int g = 0; g < NG; ++g) c[g] = 0u;
+#pragma unroll
+  for (int d = 0; d < W; ++d) {
+    const int jsf = o.la - E + d;
+    if (jsf >= 0 && jsf <= lb) {
+#pragma unroll
+      for (int g = 0; g < NG; ++g) c[g] |= U[d][g];
+    }
+  }
+  for (int step = 1; step < kSplitLanes; ++step) {
+    uint32_t in[NG];
+#pragma unroll
+    for (int g = 0; g < NG; ++g) {
+      in[g] = __shfl_down_sync(kFull, c[g], 1, kSplitLanes);
+      c[g] = 0u;
+    }
+#pragma unroll
+    for (int d = 0; d < W; ++d) {
+      const int x = BIG - __popc((in[d >> 2] >> (8 * (d & 3))) & 0xffu);
+      const uint32_t keep = (0xffu >> x) * kOnes;
+#pragma unroll
+      for (int g = 0; g < NG; ++g) c[g] |= (U[d][g] >> x) & keep;
+    }
+  }
+  const int dist = BIG - __popc(c[0] & 0xffu);
+  const unsigned hits = __ballot_sync(kFull, seg == 0 && dist <= p.tol);
+  if (lane == 0 && hits) p.flags[o.col] = 1;
+  if (seg == 0) CONTAINED_RECORD(k, rc, t_start, t_band);
+}
+
+template <int W>
+cudaError_t launch_contained(const Contained& p, int mapping,
+                             cudaStream_t stream) {
   const long long threads = 2LL * p.P;
   const int blocks = (int)((threads + kThreads - 1) / kThreads);
-  banded_contained_kernel<W><<<blocks, kThreads, 0, stream>>>(p);
+  if (mapping == kContainedStaged)
+    banded_contained_kernel<W, true, ring_depth(W)><<<
+        blocks, kThreads, stage_bytes(p.Lq, p.Lw), stream>>>(p);
+  else if (mapping == kContainedRing)
+    banded_contained_kernel<W, false, ring_depth(W)><<<blocks, kThreads, 0,
+                                                      stream>>>(p);
+  else
+    banded_contained_kernel<W, false, 1><<<blocks, kThreads, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <int NC>
-cudaError_t launch_contained_warp(const Contained& p, int* scratch,
-                                  cudaStream_t stream) {
+cudaError_t launch_contained_warp(const Contained& p, bool ring,
+                                  int* scratch, cudaStream_t stream) {
   const long long threads = 64LL * p.P;
   const int blocks = (int)((threads + kThreads - 1) / kThreads);
-  banded_contained_warp_kernel<NC><<<blocks, kThreads, 0, stream>>>(
+  if constexpr (NC > 0) {
+    if (ring) {
+      banded_contained_warp_kernel<NC, true><<<blocks, kThreads, 0, stream>>>(
+          p, scratch);
+      return cudaGetLastError();
+    }
+  }
+  banded_contained_warp_kernel<NC, false><<<blocks, kThreads, 0, stream>>>(
       p, scratch);
+  return cudaGetLastError();
+}
+
+template <int W>
+cudaError_t launch_contained_split(const Contained& p, cudaStream_t stream) {
+  const long long threads = 32LL * p.P;
+  const int blocks = (int)((threads + kThreads - 1) / kThreads);
+  banded_contained_split_kernel<W><<<blocks, kThreads, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -1112,47 +1516,89 @@ cudaError_t banded_block_launch(const uint8_t* q, long long q_ps,
 
 
 // The containment mapping. Queries: byte (pos, i) at q + pos * q_ps + i
-// (Lq positions), lengths lq (i), read forward and as their reverse
-// complement in place. Windows: byte (pos, c) at w + pos * w_ps + c (Lw
-// positions). table (3, P) int32: pair k is query table[k] against window
-// table[P + k] of length table[2P + k]. flags (Q,), which the caller
-// zeroes: set to 1 where, for some pair of the query, the infix distance
-// at E = 2 tol of the query or of its reverse complement is <= tol. A
-// thread an orientation of a pair where 4 tol + 1 <= 64 band cells, else a
-// warp; past 32 chunks the band lives in scratch, 2P *
+// (Lq positions), lengths lq (i) <= Lq, read forward and as their reverse
+// complement. Windows: byte (pos, c) at w + pos * w_ps + c (Lw positions).
+// table (3, P) int32: pair k is query table[k] against window table[P + k]
+// of length table[2P + k]. flags (Q,), which the caller zeroes: set to 1
+// where, for some pair of the query, the infix distance at E = 2 tol of
+// the query or of its reverse complement is <= tol. mapping (a
+// ContainedMapping; the caller picks it, banded_device.contained_mapping):
+// 4 "split" where 4 tol + 1 <= kSplitMaxCells, 1 "staged" where 4 tol + 1
+// <= 64 and stage_bytes(Lq, Lw) <= kStageMax, 2 "ring"
+// where 4 tol + 1 <= 64, 3 "warp" past 64 cells, 0 "inplace" everywhere;
+// another is refused (cudaErrorInvalidValue). Past 32 chunks (tol >= 256)
+// "warp" and "inplace" keep the band in scratch, 2P *
 // banded_edit_scratch_ints(2 tol) ints.
 cudaError_t banded_contained_launch(const uint8_t* q, long long q_ps,
                                     const int* lq, int Lq, const uint8_t* w,
                                     long long w_ps, int Lw, const int* table,
-                                    int P, int tol, uint8_t* flags,
-                                    int* scratch, cudaStream_t stream) {
+                                    int P, int tol, int mapping,
+                                    uint8_t* flags, int* scratch,
+                                    cudaStream_t stream) {
   if (P <= 0) return cudaSuccess;
   if (tol < 0 || Lq < 0 || Lw < 0) return cudaErrorInvalidValue;
   const Contained p{q, q_ps, lq, Lq, w, w_ps, Lw, table, P, tol, flags};
   const int E = 2 * tol, cells = 2 * E + 1;
+  switch (mapping) {
+    case kContainedSplit:
+      switch (cells) {
+        case 1: return launch_contained_split<1>(p, stream);
+        case 5: return launch_contained_split<5>(p, stream);
+        case 9: return launch_contained_split<9>(p, stream);
+        case 13: return launch_contained_split<13>(p, stream);
+        default: return cudaErrorInvalidValue;
+      }
+    case kContainedStaged:
+      if (stage_bytes(Lq, Lw) > kStageMax) return cudaErrorInvalidValue;
+      [[fallthrough]];
+    case kContainedRing:
+      if (cells > kThreadMaxCells) return cudaErrorInvalidValue;
+      break;
+    case kContainedWarp:
+      if (cells <= kThreadMaxCells) return cudaErrorInvalidValue;
+      break;
+    case kContainedInplace:
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
   if (cells <= kThreadMaxCells) {
     switch (cells) {
-      case 1: return launch_contained<1>(p, stream);
-      case 5: return launch_contained<5>(p, stream);
-      case 9: return launch_contained<9>(p, stream);
-      case 13: return launch_contained<13>(p, stream);
+      case 1: return launch_contained<1>(p, mapping, stream);
+      case 5: return launch_contained<5>(p, mapping, stream);
+      case 9: return launch_contained<9>(p, mapping, stream);
+      case 13: return launch_contained<13>(p, mapping, stream);
       default: break;
     }
-    if (cells <= 32) return launch_contained<32>(p, stream);
-    return launch_contained<64>(p, stream);
+    if (cells <= 32) return launch_contained<32>(p, mapping, stream);
+    return launch_contained<64>(p, mapping, stream);
   }
+  const bool ring = mapping == kContainedWarp;
   const int nc = warp_chunks(E);
-  if (nc <= 3) return launch_contained_warp<3>(p, scratch, stream);
-  if (nc <= 4) return launch_contained_warp<4>(p, scratch, stream);
-  if (nc <= 6) return launch_contained_warp<6>(p, scratch, stream);
-  if (nc <= 8) return launch_contained_warp<8>(p, scratch, stream);
-  if (nc <= 12) return launch_contained_warp<12>(p, scratch, stream);
-  if (nc <= 16) return launch_contained_warp<16>(p, scratch, stream);
-  if (nc <= 24) return launch_contained_warp<24>(p, scratch, stream);
-  if (nc <= kWarpRegChunks) return launch_contained_warp<32>(p, scratch,
-                                                             stream);
+  if (nc <= 3) return launch_contained_warp<3>(p, ring, scratch, stream);
+  if (nc <= 4) return launch_contained_warp<4>(p, ring, scratch, stream);
+  if (nc <= 6) return launch_contained_warp<6>(p, ring, scratch, stream);
+  if (nc <= 8) return launch_contained_warp<8>(p, ring, scratch, stream);
+  if (nc <= 12) return launch_contained_warp<12>(p, ring, scratch, stream);
+  if (nc <= 16) return launch_contained_warp<16>(p, ring, scratch, stream);
+  if (nc <= 24) return launch_contained_warp<24>(p, ring, scratch, stream);
+  if (nc <= kWarpRegChunks)
+    return launch_contained_warp<32>(p, ring, scratch, stream);
   if (scratch == nullptr) return cudaErrorInvalidValue;
-  return launch_contained_warp<0>(p, scratch, stream);
+  return launch_contained_warp<0>(p, ring, scratch, stream);
+}
+
+// The counting build (BBMAP_CONTAINED_CLOCKS): the containment kernels
+// write each run's clocks (band, before the band) to out, 4P long longs
+// (2 (2k + rc) and 2 (2k + rc) + 1); out stays until the next call.
+// Elsewhere cudaErrorNotSupported.
+cudaError_t banded_contained_clocks(long long* out) {
+#ifdef BBMAP_CONTAINED_CLOCKS
+  return cudaMemcpyToSymbol(g_contained_clocks, &out, sizeof(out));
+#else
+  (void)out;
+  return cudaErrorNotSupported;
+#endif
 }
 
 }  // extern "C"

@@ -32,10 +32,14 @@ SOURCES = ("msa_dp", "msa_dp_warp", "msa_dp_pipe", "msa_dp_band",
 # Libraries built from a source with other flags, by name: (source, extra
 # nvcc flags). The "_dpx" builds turn dp_cell's DPX form on in mappings
 # that keep the plain form (chip_smoke.py times them beside the default);
-# no path of the package loads them.
-VARIANTS = {f"{src}_dpx": (src, ("-DBBMAP_DPX_DEFAULT=1",))
-            for src in ("msa_dp", "msa_dp_warp", "msa_dp_band",
-                        "msa_fill_walk")}
+# "banded_edit_clocks" is the counting build of the containment kernels
+# (each run's clock64() cycles, banded_contained_clocks; chip_smoke.py's
+# clocks a row); no path of the package loads them.
+VARIANTS = {**{f"{src}_dpx": (src, ("-DBBMAP_DPX_DEFAULT=1",))
+               for src in ("msa_dp", "msa_dp_warp", "msa_dp_band",
+                           "msa_fill_walk")},
+            "banded_edit_clocks": ("banded_edit",
+                                   ("-DBBMAP_CONTAINED_CLOCKS=1",))}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -32,11 +32,20 @@ the band (2*maxEdits+1 diagonals) on the lanes. Here:
   the windows cut for them from kept containers, named by a pair table
   (``upload_windows``: the windows and the table in one pinned,
   non-blocking copy), both read orientations, the reverse complement read
-  in place, in one launch; one flag a query (any pair within tol,
-  E = 2 tol, infix). ``contained_any_plain`` is its plain version
-  (``banded_edit_batch_plain`` over the table in both orientations). Its
-  launches count in ``contained_any.launches`` and
-  ``launches_by["thread" | "warp"]``, its pairs in ``contained_any.pairs``.
+  from the forward column through the complement table, in one launch;
+  one flag a query (any pair within tol, E = 2 tol, infix).
+  ``contained_mapping`` picks the kernel's mapping from the pair count,
+  tol and the operands' lengths: "split" (a warp a pair, the rows split
+  over the lanes) below ``CONTAINED_SPLIT_BELOW`` pairs where 4 tol + 1 <=
+  ``CONTAINED_SPLIT_MAX_CELLS``, else a thread an orientation with the
+  block's operands staged in shared memory ("staged") or, past
+  ``CONTAINED_STAGE_MAX`` bytes, read in place through a ring of registers
+  ("ring"), and a warp an orientation past 64 band cells ("warp"); the
+  first body, read in place a row ahead ("inplace"), only where forced.
+  ``contained_any_plain`` is its plain version (``banded_edit_batch_plain``
+  over the table in both orientations). Its launches count in
+  ``contained_any.launches`` and ``launches_by[mapping]``, its pairs in
+  ``contained_any.pairs``.
 - ``banded_edit_batch``, ``contained_distances`` and
   ``edit_distances_vs_one`` are the JAX package's entry points on numpy
   arrays, with ``device=``; ``SequenceStore`` keeps Dedupe's kept
@@ -65,10 +74,25 @@ from . import _build
 
 I32 = torch.int32
 # banded_edit's mappings: four pairs a thread, a thread a pair, a warp a
-# pair; the containment kernel's; the block kernel's band bodies
+# pair; the block kernel's band bodies
 MAPPINGS = ("quad", "thread", "warp")
-CONTAINED_MAPPINGS = ("thread", "warp")
 BODIES = ("quad", "thread")
+# The containment kernel's mappings, by their codes in
+# banded_contained_launch, and the limits of its rule
+# (``contained_mapping``): "split" below CONTAINED_SPLIT_BELOW pairs (the
+# pair-count sweep of chip_smoke.py's containment phase) where 4 tol + 1 <=
+# CONTAINED_SPLIT_MAX_CELLS (the maps' values in a byte lane's headroom
+# code: BIG <= 7); the thread bodies to THREAD_MAX_CELLS band cells,
+# "staged" where a block's CONTAINED_STAGE_PAIRS pairs' rows take at most
+# CONTAINED_STAGE_MAX bytes of shared memory.
+CONTAINED_MAPPINGS = ("split", "staged", "ring", "warp", "inplace")
+_CONTAINED_CODES = {"inplace": 0, "staged": 1, "ring": 2, "warp": 3,
+                    "split": 4}
+CONTAINED_SPLIT_BELOW = 2304
+CONTAINED_SPLIT_MAX_CELLS = 13
+THREAD_MAX_CELLS = 64
+CONTAINED_STAGE_PAIRS = 64
+CONTAINED_STAGE_MAX = 48 * 1024 - 512
 # who made a banded_edit launch (banded_edit's ``site=``): a containment
 # check a read (contained_distances), dedupe's check of a read against the
 # containers kept earlier in its own block, or another caller (the store
@@ -113,8 +137,10 @@ def _lib() -> ctypes.CDLL:
         lib.banded_block_tile.argtypes = [ci]
         lib.banded_block_tile.restype = ci
         lib.banded_contained_launch.argtypes = [
-            vp, ll, vp, ci, vp, ll, ci, vp, ci, ci, vp, vp, vp]
+            vp, ll, vp, ci, vp, ll, ci, vp, ci, ci, ci, vp, vp, vp]
         lib.banded_contained_launch.restype = ci
+        lib.banded_contained_clocks.argtypes = [vp]
+        lib.banded_contained_clocks.restype = ci
         lib._bbmap_typed = True
     return lib
 
@@ -512,15 +538,53 @@ def contained_any_plain(q: torch.Tensor, lq: torch.Tensor, w: torch.Tensor,
     return out
 
 
+def contained_stage_bytes(Lq: int, Lw: int) -> int:
+    """Shared bytes of a block of the "staged" body: CONTAINED_STAGE_PAIRS
+    rows of each operand, a row's pitch Lq (Lw) rounded up to an odd
+    number of 4-byte words (``stage_pitch`` of ``csrc/banded_edit.cu``)."""
+    def pitch(L):
+        return 4 * ((-(-L // 4)) | 1)
+    return CONTAINED_STAGE_PAIRS * (pitch(Lq) + pitch(Lw))
+
+
+def contained_mapping(P: int, tol: int, Lq: int, Lw: int,
+                      mapping: Optional[str] = None) -> str:
+    """The containment kernel's mapping for P pairs at tol, queries of Lq
+    and windows of Lw positions: ``mapping`` where given and it applies
+    (a ValueError otherwise), else "split" below CONTAINED_SPLIT_BELOW
+    pairs where 4 tol + 1 <= CONTAINED_SPLIT_MAX_CELLS, else "staged" to
+    THREAD_MAX_CELLS band cells where ``contained_stage_bytes(Lq, Lw)`` <=
+    CONTAINED_STAGE_MAX, "ring" to THREAD_MAX_CELLS, "warp" past them.
+    "inplace" applies everywhere and is never picked."""
+    cells = 4 * int(tol) + 1
+    applies = {"split": cells <= CONTAINED_SPLIT_MAX_CELLS,
+               "staged": cells <= THREAD_MAX_CELLS and contained_stage_bytes(
+                   Lq, Lw) <= CONTAINED_STAGE_MAX,
+               "ring": cells <= THREAD_MAX_CELLS,
+               "warp": cells > THREAD_MAX_CELLS,
+               "inplace": True}
+    if mapping is None:
+        if applies["split"] and P < CONTAINED_SPLIT_BELOW:
+            return "split"
+        return next(m for m in ("staged", "ring", "warp") if applies[m])
+    if not applies.get(mapping, False):
+        raise ValueError(f"containment mapping {mapping!r} does not apply "
+                         f"at tol={tol}, Lq={Lq}, Lw={Lw}: one of "
+                         f"{[m for m, ok in applies.items() if ok]}")
+    return mapping
+
+
 def contained_any(q: torch.Tensor, lq: torch.Tensor, w: torch.Tensor,
-                  table: torch.Tensor, tol: int) -> torch.Tensor:
+                  table: torch.Tensor, tol: int,
+                  mapping: Optional[str] = None) -> torch.Tensor:
     """Dedupe's containment check of a block of queries in one launch (the
     layout and result of ``contained_any_plain``). CPU tensors: the plain
     version. CUDA tensors: one launch of the containment mapping of
-    ``csrc/banded_edit.cu``, a thread an orientation of a pair where 4 tol
-    + 1 <= 64 band cells, else a warp; queries and windows position-major
+    ``csrc/banded_edit.cu`` that ``contained_mapping`` picks (``mapping``
+    forces one where it applies); queries and windows position-major
     with a pair stride of 1, lengths and table contiguous, the table's
-    columns within q and w. A failed launch raises."""
+    columns within q and w, each query's length <= q's positions. A failed
+    launch raises."""
     _check_contained(q, lq, w, table)
     if q.device.type == "cpu":
         return contained_any_plain(q, lq, w, table, tol)
@@ -534,21 +598,22 @@ def contained_any(q: torch.Tensor, lq: torch.Tensor, w: torch.Tensor,
                          "stride of 1, lengths and table contiguous")
     flags = torch.zeros(q.shape[1], dtype=torch.uint8, device=q.device)
     P = table.shape[1]
+    mapping = contained_mapping(P, tol, q.shape[0], w.shape[0], mapping)
     if P == 0:
         return flags
     lib = _lib()
     E = 2 * tol
-    mapping = "thread" if 2 * E + 1 <= lib.banded_edit_thread_max_cells() \
-        else "warp"
     ints = lib.banded_edit_scratch_ints(E)
     scratch = torch.empty(2 * P * ints if ints else 1, dtype=I32,
                           device=q.device)
     err = lib.banded_contained_launch(
         q.data_ptr(), q.stride(0), lq.data_ptr(), q.shape[0], w.data_ptr(),
-        w.stride(0), w.shape[0], table.data_ptr(), P, tol, flags.data_ptr(),
-        scratch.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream)
+        w.stride(0), w.shape[0], table.data_ptr(), P, tol,
+        _CONTAINED_CODES[mapping], flags.data_ptr(), scratch.data_ptr(),
+        torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"banded_contained_launch failed: cudaError {err}")
+        raise RuntimeError(f"banded_contained_launch ({mapping}) failed: "
+                           f"cudaError {err}")
     contained_any.launches += 1
     contained_any.launches_by[mapping] += 1
     contained_any.pairs += P

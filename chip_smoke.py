@@ -246,9 +246,13 @@ Phases, each timed on its own line:
    "thread") in turns, each held to the plain version and timed by
    events and by device time; the containment kernel
    (``contained_any``) on a block of 512 reads with 64 fragments and 4
-   windows each at tol 2 (a thread an orientation of a pair) and tol 16
-   (the warp body), against its plain version, timed beside its bound,
-   by events and by device time;
+   windows each at tol 2 (the split mapping and the thread bodies) and
+   tol 16 (the warp bodies), every mapping that applies forced in turns
+   (events, device time, clocks a row from the counting build
+   ``banded_edit_clocks``) against its plain version, beside its bound
+   and the launch floor (an empty launch's device time), then the
+   pair-count sweep (16 to 8,192 pairs at tol 1, 2, 3, 7 and 16, every
+   mapping by device time, each held to the plain version);
    the ``dedupe`` (e=2; s=2 ac=t; fo=t c=t mo=100 with
    cluster stats, graph and cluster files) and ``dedupe2 nam=2`` CLIs
    over 2,000 reads, and ``bbmapacc``, ``bbmap5``, ``bbmapskimmer`` and
@@ -259,9 +263,10 @@ Phases, each timed on its own line:
    e=2 ac=t over 50,000 reads (reads/s, the store check's launches of
    the block kernel, every one on the four-lane body, the containment
    check's launches by site: the containment kernel a block, at most one
-   a block, and the in-block checks' ``banded_edit``, every one on the
-   four-lane body; the containment kernel held to its plain
-   version on the run's median block and timed there, a block's check
+   a block, each in the mapping the rule picks for it, and the in-block
+   checks' ``banded_edit``, every one on the four-lane body; the
+   containment kernel held to its plain version on the run's median
+   block, every mapping in turns, and timed there, a block's check
    against all kept reads, a block's containment check and an in-block
    check timed, the kernels' share of the wall)
    and bbmap, bbmapacc and bbmapskimmer over 32,768 pairs (reads/s over
@@ -364,6 +369,7 @@ from __future__ import annotations
 
 import atexit
 import contextlib
+import functools
 import io
 import json
 import os
@@ -398,6 +404,10 @@ _SLOT_PACK = ("bbmap_tpu/align/quickmap_device.py:1036-1104 (candidate_stage's"
               " slot budget and slot assignment, XLA)")
 _CHAIN = ("bbmap_tpu/align/quickmap_device.py:1150-1288 (candidate_stage's "
           "sort, chain segmentation, votes, modal run and top_k, XLA)")
+# the containment kernel's mappings (ops/banded_device.CONTAINED_MAPPINGS):
+# their ``kernels`` line names, beside "contained_any" (the rule's pick)
+CONTAINED_NAMES = {m: f"contained_any_{m}"
+                   for m in ("split", "staged", "ring", "warp", "inplace")}
 # the quality offsets' two entries and the chain step's two mappings:
 # their ``kernels`` line names and the paths whose shapes they are timed at
 QUALITY_ENTRIES = {"quality_offsets": "long",
@@ -412,6 +422,7 @@ REPLACES = {"msa_score_rows": _K1, "msa_score": _K2, "msa_score_row": _K2,
             "msa_walk": _WALK, "banded_edit": _BANDED, "banded_any": _BANDED,
             "banded_edit_quad": _BANDED, "banded_any_quad": _BANDED,
             "contained_any": _BANDED,
+            **{n: _BANDED for n in CONTAINED_NAMES.values()},
             "msa_score_pipe": _K2, "msa_fill_pipe": _K3,
             "msa_score_rows_pipe": _K1,
             "rescue_scan": _RESCUE, "quality_offsets": _QUALITY,
@@ -438,6 +449,7 @@ SOURCE = {"msa_score_rows": CSRC + "msa_dp_warp.cu",
           "banded_edit_quad": CSRC + "banded_edit.cu",
           "banded_any_quad": CSRC + "banded_edit.cu",
           "contained_any": CSRC + "banded_edit.cu",
+          **{n: CSRC + "banded_edit.cu" for n in CONTAINED_NAMES.values()},
           "msa_score_pipe": CSRC + "msa_dp_pipe.cu",
           "msa_fill_pipe": CSRC + "msa_dp_pipe.cu",
           "msa_score_rows_pipe": CSRC + "msa_dp_pipe.cu",
@@ -480,7 +492,7 @@ VARIANT = {("msa_score", "warp"): "msa_score",
 LONG_C = L_LONG + 456
 LONG_SCORE_JOBS = 256
 LONG_FILL_JOBS = (16, 64, 128, 256, 400)
-LONG_SWEEP_JOBS = (1, 16, 64, 100, 128, 200, 256, 400)
+LONG_SWEEP_JOBS = (1, 16, 64, 128, 256, 400)
 PAST_32_BITS = 2 ** 31          # bytes a 64-job block of prev codes passes
 LONG_CMP_JOBS = 2               # jobs at (6,000, 6,456) the plain versions run
 # The band mapping's edge cases past 1,023 rows: (tag, profile, jobs, R, C,
@@ -500,7 +512,7 @@ EDGE_CASES = (
     ("pacbio largest R", "PB", 2, 8191, 8192, 17, 0.12, (4, 8), False))
 # the one-row sweep's job counts, and the pipe mapping's checks: (jobs, R,
 # C, profile, tag); a window past 400 columns gets gap and N columns
-ONEROW_SWEEP_JOBS = (16, 64, 128, 256, 512, 768, 1024, 2048, 4096)
+ONEROW_SWEEP_JOBS = (16, 128, 512, 1024, 2048, 4096)
 PIPE_CHECKS = (
     (64, 31, 60, "S", "below 32 rows"), (40, 32, 70, "S", "33 rows"),
     (40, 63, 90, "S", "a band's edge"), (512, L, L + 24, "S", "narrow"),
@@ -881,6 +893,7 @@ def sass_loops(lib_path) -> dict:
     """``cuobjdump -sass`` of a built library: {mangled kernel name:
     (instructions, [(instructions, opcodes) of each loop])}, a loop being
     the span of a backward branch."""
+    import bisect
     import re
     from bbmap_tpu_torch.ops import _build
     tool = Path(_build.nvcc_path()).with_name("cuobjdump")
@@ -898,9 +911,11 @@ def sass_loops(lib_path) -> dict:
             t = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", ins)
             if t and int(t.group(1), 16) < addr:
                 branches.append((int(t.group(1), 16), addr))
+        addrs = [a for a, _ in code]          # ascending, as listed
         loops = []
         for lo, hi in branches:
-            ops = [op for a, op in code if lo <= a <= hi]
+            ops = [op for _, op in code[bisect.bisect_left(addrs, lo):
+                                        bisect.bisect_right(addrs, hi)]]
             loops.append((len(ops), frozenset(ops)))
         out[name] = (len(code), loops)
     return out
@@ -2067,8 +2082,9 @@ def launch_counts() -> dict:
     "banded_edit_warp"), the block kernel's as "banded_any", by mode
     ("banded_any_class", "banded_any_triangle") and by band body
     ("banded_any_quad", "banded_any_thread"), the containment kernel's
-    as "contained_any" and by mapping ("contained_any_thread",
-    "contained_any_warp"), the rescue kernel's as "rescue_scan", the
+    as "contained_any" and by mapping ("contained_any_split",
+    "contained_any_staged", "contained_any_ring", "contained_any_warp",
+    "contained_any_inplace"), the rescue kernel's as "rescue_scan", the
     quality offsets kernel's as "quality_offsets" (its raw entry) and
     "quality_offsets_packed", the key-retention kernel's as
     "ref_retention" and by mapping ("ref_retention_regs",
@@ -4963,6 +4979,7 @@ def mutate_pairs(rng, src, max_ops: int):
     return B, lb
 
 
+@functools.lru_cache(maxsize=None)
 def banded_instructions() -> tuple:
     """Instructions a band cell of each instantiation of
     ``csrc/banded_edit.cu`` from its SASS: a thread's row loop over its W
@@ -4974,16 +4991,22 @@ def banded_instructions() -> tuple:
     body)."""
     import re
     from bbmap_tpu_torch.ops import _build
-    per = {}
+    per, split = {}, {}
     for name, (tot, loop) in sass_counts(
             _build.library_path("banded_edit")).items():
         m = re.search(r"banded_(thread_quad|block_quad|thread|warp|block|"
-                      r"contained|contained_warp)_kernelILi(\d+)E", name)
+                      r"contained_split|contained|contained_warp)_kernel"
+                      r"ILi(\d+)E", name)
         if m and m.group(2) != "0":
             kind = m.group(1)
+            if kind == "contained_split":
+                # a row on every column of the map: a cell's W columns
+                split[f"{kind} {m.group(2)}"] = loop / int(m.group(2))
+                continue
             lanes = 32 if kind.endswith("warp") else \
                 4 if kind.endswith("quad") else 1
             key = f"{kind} {m.group(2)}"
+            rows = 1
             if kind.startswith("block"):
                 key += " staged" if re.search(r"ILi\d+ELb1E", name) \
                     else " in place"
@@ -4991,7 +5014,16 @@ def banded_instructions() -> tuple:
                 f = re.search(r"ILi\d+ELb(\d)ELb(\d)E", name)
                 key += f" a{'word' if f.group(1) == '1' else 'byte'}" + (
                     " freeze" if f.group(2) == "1" else "")
-            cells = int(m.group(2)) * lanes
+            if kind == "contained":
+                # <W, STAGED, K>: a loop of K rows
+                f = re.search(r"ILi\d+ELb(\d)ELi(\d+)E", name)
+                rows = int(f.group(2))
+                key += " staged" if f.group(1) == "1" else \
+                    " ring" if rows > 1 else " inplace"
+            if kind == "contained_warp":
+                key += " ring" if re.search(r"ILi\d+ELb1E", name) \
+                    else " inplace"
+            cells = int(m.group(2)) * lanes * rows
             per[key] = (32 if lanes == 32 else 1) * loop / cells
     if not per:
         raise AssertionError("no banded kernel in the library's SASS")
@@ -5000,7 +5032,9 @@ def banded_instructions() -> tuple:
     say("sass banded_edit a cell: " + ", ".join(
         f"{k} {v:.1f}" for k, v in sorted(per.items())) +
         f"; the function needs at most {least:.1f} (the bodies a pair a "
-        f"thread or a warp: {least_one:.1f})")
+        f"thread or a warp: {least_one:.1f}); the containment split a "
+        f"cell of a row over its W columns: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in sorted(split.items())))
     return per, least, least_one
 
 
@@ -5238,57 +5272,143 @@ def block_check(what: str, device, q, lq, s, ls, E: int, tri: bool,
     return res
 
 
+def launch_floor_ms() -> float:
+    """The device time of an empty launch (``torch.cuda._sleep(0)``) by
+    ``_kernel_device_ms``: what a launch of no work costs on this card."""
+    import torch
+    return _kernel_device_ms(lambda: torch.cuda._sleep(0))
+
+
+def contained_applies(mapping: str, tol: int, q, w) -> bool:
+    from bbmap_tpu_torch.ops import banded_device as bd
+    try:
+        bd.contained_mapping(1, tol, q.shape[0], w.shape[0], mapping)
+        return True
+    except ValueError:
+        return False
+
+
+def contained_clocks(q, lq, w, table, tol: int, mappings) -> dict:
+    """Clocks a row of each mapping from the counting build
+    (``banded_edit_clocks``: each (pair, orientation) run's clock64()
+    cycles in its band and before it), swapped in for one launch a
+    mapping: the longest run's band clocks over the rows of the longest
+    query (the chain a warp waits on: a thread's clock stops only when its
+    warp reconverges, so the runs' sum would count a warp's longest run
+    for each of its lanes), and the most clocks before a band (the tables
+    and, "staged", the operands' copy)."""
+    import torch
+    from bbmap_tpu_torch.ops import _build
+    from bbmap_tpu_torch.ops import banded_device as bd
+    P = table.shape[1]
+    longest = int(lq[table[0].long()].clamp(max=q.shape[0]).max())
+    saved = _build._libs.get("banded_edit")
+    _build._libs["banded_edit"] = _build.load("banded_edit_clocks")
+    out = {}
+    try:
+        buf = torch.zeros(4 * P, dtype=torch.int64, device=q.device)
+        err = bd._lib().banded_contained_clocks(buf.data_ptr())
+        if err != 0:
+            raise RuntimeError(f"banded_contained_clocks: cudaError {err}")
+        for m in mappings:
+            buf.zero_()
+            bd.contained_any(q, lq, w, table, tol, m)
+            torch.cuda.synchronize()
+            band, pre = buf[0::2].double(), buf[1::2].double()
+            out[m] = {"clocks_a_row": float(band.max()) / max(longest, 1),
+                      "clocks_before_band": float(pre.max()),
+                      "longest_rows": longest}
+    finally:
+        if saved is None:
+            _build._libs.pop("banded_edit", None)
+        else:
+            _build._libs["banded_edit"] = saved
+    return out
+
+
 def contained_check(what: str, device, q, lq, w, table, tol: int,
                     per_cell: float, clock: float, reps: int = 20) -> dict:
     """The containment kernel (``contained_any``) against its plain version
-    on the same tensors, tolerance 0, timed; the bound from the cells the
-    data needs (each pair's rows in each orientation to saturation or its
-    end, from the plain version, over the band width 4 tol + 1) and the
-    bytes read and written once (the queries the table names, the
-    windows, the table, the flags)."""
+    on the same tensors, tolerance 0: every mapping that applies forced in
+    turns (the rule's pick first, the others, then back: events over
+    ``reps`` launches each), then each one's device time
+    (``_kernel_device_ms``) and clocks a row (``contained_clocks``); the
+    bound from the cells the data needs (each pair's rows in each
+    orientation to saturation or its end, from the plain version, over the
+    band width 4 tol + 1) and the bytes read and written once (the
+    queries the table names, the windows, the table, the flags); the
+    launch floor (an empty launch's device time) beside it. The top-level
+    times are the pick's."""
     from bbmap_tpu_torch.ops import banded_device as bd
-    ms, got = _cuda_ms(lambda: bd.contained_any(q, lq, w, table, tol), reps)
     rows = []
     plain_ms, want = _cuda_ms(lambda: bd.contained_any_plain(
         q, lq, w, table, tol, rows_out=rows), 1, warm=False)
-    err = _diff(got, want)
     P = table.shape[1]
+    pick = bd.contained_mapping(P, tol, q.shape[0], w.shape[0])
+    maps = [pick] + [m for m in bd.CONTAINED_MAPPINGS
+                     if m != pick and contained_applies(m, tol, q, w)]
+    res = {m: {"ms_turns": [], "max_abs_err": 0} for m in maps}
+    for m in maps + maps[::-1]:
+        ms, got = _cuda_ms(lambda: bd.contained_any(q, lq, w, table, tol, m),
+                           reps)
+        res[m]["ms_turns"].append(ms)
+        res[m]["max_abs_err"] = max(res[m]["max_abs_err"], _diff(got, want))
+    clocks = contained_clocks(q, lq, w, table, tol, maps)
+    for m, r in res.items():
+        r["ms"] = sum(r["ms_turns"]) / len(r["ms_turns"])
+        r["device_ms"] = _kernel_device_ms(
+            lambda: bd.contained_any(q, lq, w, table, tol, m))
+        r.update(clocks[m])
     cols = table[0].long().unique()
     cells = (4 * tol + 1) * rows[-1]
     n_bytes = int(lq[cols].long().sum()) + int(table[2].long().sum()) + \
         table.numel() * 4 + q.shape[1]
     bms, by = bound_ms(n_bytes, cells * per_cell, clock)
-    dev_ms = _kernel_device_ms(
-        lambda: bd.contained_any(q, lq, w, table, tol))
-    res = {"what": what, "queries": q.shape[1], "queries_with_pairs":
-           int(cols.numel()), "pairs": P, "tol": tol, "max_abs_err": err,
-           "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-           "bound_ms": bms, "bound_by": by, "share": bms / dev_ms,
-           "cells": cells, "flagged": int(want.sum())}
+    floor = launch_floor_ms()
+    err = max(r["max_abs_err"] for r in res.values())
+    out = {"what": what, "queries": q.shape[1], "queries_with_pairs":
+           int(cols.numel()), "pairs": P, "tol": tol, "pick": pick,
+           "max_abs_err": err, "ms": res[pick]["ms"],
+           "device_ms": res[pick]["device_ms"], "plain_ms": plain_ms,
+           "bound_ms": bms, "bound_by": by, "launch_floor_ms": floor,
+           "share": bms / res[pick]["device_ms"], "cells": cells,
+           "rows_run": rows[-1], "flagged": int(want.sum()),
+           "mappings": res}
     say(f"kernel contained_any {what}: {q.shape[1]} queries "
-        f"({res['queries_with_pairs']} with pairs), {P} pairs x 2 "
-        f"orientations, tol={tol}: max_abs_err {err}, kernel {ms:.4f} ms, "
-        f"device {dev_ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
-        f"{bms:.6f} ms ({by}), share {100 * bms / dev_ms:.2f} % by device "
-        f"time, {cells} cells, {res['flagged']} flagged")
+        f"({out['queries_with_pairs']} with pairs), {P} pairs x 2 "
+        f"orientations, tol={tol}, Lq {q.shape[0]}, Lw {w.shape[0]}: the "
+        f"rule picks {pick}; plain {plain_ms:.3f} ms, bound {bms:.6f} ms "
+        f"({by}), launch floor {floor:.4f} ms (device), {cells} cells, "
+        f"{out['flagged']} flagged")
+    for m, r in res.items():
+        say(f"turns contained_any {what}, {m}: max_abs_err "
+            f"{r['max_abs_err']}, ms " + " / ".join(
+                f"{x:.4f}" for x in r["ms_turns"])
+            + f", device {r['device_ms']:.4f} ms, share "
+            f"{100 * bms / r['device_ms']:.2f} % by device time; clocks a "
+            f"row {r['clocks_a_row']:.1f} (the longest run over its "
+            f"{r['longest_rows']} rows), {r['clocks_before_band']:.0f} "
+            f"before the band")
     if err != 0:
         raise AssertionError(f"contained_any {what} tol={tol} disagrees with "
-                             f"its plain version")
-    return res
+                             f"its plain version: "
+                             f"{ {m: r['max_abs_err'] for m, r in res.items()} }")
+    return out
 
 
 def contained_block(gbases, rng, tol: int, n_frag: int, device):
     """A block as dedupe's containment check stages it: BLOCK_QUERIES reads
-    of L bp from the genome, the first n_frag of them fragments of 60-120
-    bp of other reads (half reverse-complemented, some with a
-    substitution or an indel), each with the window dedupe cuts around its
-    offset (+- tol, clipped at the container's ends) and three windows of
-    other reads at random offsets. Returns (q, lq, w, table) on device."""
+    (n_frag where more) of L bp from the genome, the first n_frag of them
+    fragments of 60-120 bp of other reads (half reverse-complemented, some
+    with a substitution or an indel), each with the window dedupe cuts
+    around its offset (+- tol, clipped at the container's ends) and three
+    windows of other reads at random offsets: 4 n_frag pairs. Returns (q,
+    lq, w, table) on device."""
     import numpy as np
     from bbmap_tpu_torch.core.bases import COMP_ASCII
     from bbmap_tpu_torch.ops import banded_device as bd
     win = np.lib.stride_tricks.sliding_window_view(gbases, L)
-    reads = list(win[rng.integers(0, len(win), BLOCK_QUERIES)])
+    reads = list(win[rng.integers(0, len(win), max(BLOCK_QUERIES, n_frag))])
     conts = win[rng.integers(0, len(win), 4 * n_frag)]
     cols, wins = [], []
     for r in range(n_frag):
@@ -5306,18 +5426,80 @@ def contained_block(gbases, rng, tol: int, n_frag: int, device):
     return (q, lq, *bd.upload_windows(cols, wins, device))
 
 
-def contained_phase(device, gbases, clock: float) -> list:
+# The containment kernel's pair-count sweep (contained_phase): blocks of
+# 4 pairs a fragment at each count, at tol 2 (dedupe's e=2 ac=t), 1 and 3
+# (the split mapping's other widths), 7 and 16 (the warp body); its device
+# times set ops/banded_device.CONTAINED_SPLIT_BELOW
+CONTAINED_SWEEP_PAIRS = (16, 32, 64, 128, 256, 512, 1024, 2048, 3072, 4096,
+                         8192)
+CONTAINED_SWEEP_TOLS = (1, 2, 3, 7, 16)
+
+
+def contained_sweep(device, gbases, rng) -> list:
+    """Every mapping that applies forced at each pair count of
+    CONTAINED_SWEEP_PAIRS and tol of CONTAINED_SWEEP_TOLS, held to the
+    plain version, timed in turns by events (the mappings, then back, 10
+    launches each) and then by device time; whether the rule's pick beat
+    the first body ("inplace") there."""
+    from bbmap_tpu_torch.ops import banded_device as bd
+    out = []
+    for tol in CONTAINED_SWEEP_TOLS:
+        for P in CONTAINED_SWEEP_PAIRS:
+            q, lq, w, table = contained_block(gbases, rng, tol, P // 4,
+                                              device)
+            want = bd.contained_any_plain(q, lq, w, table, tol)
+            pick = bd.contained_mapping(P, tol, q.shape[0], w.shape[0])
+            maps = [m for m in bd.CONTAINED_MAPPINGS
+                    if contained_applies(m, tol, q, w)]
+            point = {"tol": tol, "pairs": P, "pick": pick, "device_ms": {},
+                     "ms": dict.fromkeys(maps, 0.0),
+                     "max_abs_err": dict.fromkeys(maps, 0)}
+            for m in maps + maps[::-1]:
+                ms, got = _cuda_ms(
+                    lambda: bd.contained_any(q, lq, w, table, tol, m), 10)
+                point["ms"][m] += ms / 2
+                point["max_abs_err"][m] = max(point["max_abs_err"][m],
+                                              _diff(got, want))
+            for m in maps:
+                point["device_ms"][m] = _kernel_device_ms(
+                    lambda: bd.contained_any(q, lq, w, table, tol, m))
+            d = point["device_ms"]
+            point["pick_beats_inplace"] = d[pick] < d["inplace"]
+            say(f"sweep contained_any tol={tol} pairs={P}: pick {pick}; "
+                f"device ms " + ", ".join(f"{m} {t:.4f}"
+                                          for m, t in d.items())
+                + "; events ms " + ", ".join(
+                    f"{m} {t:.4f}" for m, t in point["ms"].items())
+                + f"; max_abs_err {point['max_abs_err']}")
+            if any(point["max_abs_err"].values()):
+                raise AssertionError(f"contained_any at tol={tol}, {P} pairs"
+                                     f" disagrees with its plain version: "
+                                     f"{point['max_abs_err']}")
+            out.append(point)
+    lost = [(p["tol"], p["pairs"]) for p in out if not p["pick_beats_inplace"]]
+    say(f"sweep contained_any: the rule's pick beat the first body at "
+        f"{len(out) - len(lost)} of {len(out)} points (not at {lost})")
+    return out
+
+
+def contained_phase(device, gbases, clock: float) -> dict:
     """The containment kernel against its plain version on the card at
-    dedupe's block shape, tol 2 (a thread an orientation of a pair, 9 band
-    cells) and tol 16 (the warp body, 65 cells); the shapes' results."""
+    dedupe's block shape, tol 2 (the split mapping and the thread bodies,
+    9 band cells) and tol 16 (the warp bodies, 65 cells), each mapping in
+    turns; then the pair-count sweep (``contained_sweep``)."""
     import numpy as np
     _, per_cell, per_one = banded_instructions()
     rng = np.random.default_rng(73)
-    return [contained_check(f"{BLOCK_QUERIES}-read block, {n} fragments",
-                            device, *contained_block(gbases, rng, tol, n,
-                                                     device), tol,
-                            per_cell, clock)
-            for tol, n in ((2, CONTAINED_FRAGMENTS), (16, CONTAINED_FRAGMENTS))]
+    blocks = [contained_check(f"{BLOCK_QUERIES}-read block, {n} fragments",
+                              device, *contained_block(gbases, rng, tol, n,
+                                                       device), tol,
+                              per_cell, clock)
+              for tol, n in ((2, CONTAINED_FRAGMENTS),
+                             (16, CONTAINED_FRAGMENTS))]
+    t = time.time()
+    sweep = contained_sweep(device, gbases, rng)
+    say(f"sweep contained_any: {time.time() - t:.1f} s")
+    return {"blocks": blocks, "sweep": sweep}
 
 
 def dedupe_reads(gbases, n: int, seed: int):
@@ -5563,9 +5745,9 @@ def dedupe_big(device, d: Path, clock: float) -> dict:
     reset_counts()
     real, calls = bd.contained_any, []
 
-    def spy(q, lq, w, table, tol):
+    def spy(q, lq, w, table, tol, mapping=None):
         calls.append((q, lq, w, table, tol))
-        return real(q, lq, w, table, tol)
+        return real(q, lq, w, table, tol, mapping)
     # the wrapper counts through its module name: the spy shares its counts
     spy.__dict__ = real.__dict__
     bd.contained_any = spy
@@ -5599,6 +5781,15 @@ def dedupe_big(device, d: Path, clock: float) -> dict:
     if not 0 < launches["contained_any"] <= n_blocks:
         raise AssertionError(f"{launches['contained_any']} launches of the "
                              f"containment kernel in {n_blocks} blocks")
+    # every containment launch took the mapping the rule picks for it
+    ruled = dict.fromkeys(bd.CONTAINED_MAPPINGS, 0)
+    for c in calls:
+        ruled[bd.contained_mapping(c[3].shape[1], c[4], c[0].shape[0],
+                                   c[2].shape[0])] += 1
+    took = {m: launches[f"contained_any_{m}"] for m in bd.CONTAINED_MAPPINGS}
+    if took != ruled:
+        raise AssertionError(f"containment launches by mapping {took}, the "
+                             f"rule's {ruled}")
     pairs = sorted((c[3].shape[1], k) for k, c in enumerate(calls))
     median = calls[pairs[len(pairs) // 2][1]]
     _, per_cell, per_one = banded_instructions()
@@ -5659,6 +5850,7 @@ def dedupe_big(device, d: Path, clock: float) -> dict:
                                 for b in BANDED_BODIES},
            "containment_launches": {"block": launches["contained_any"],
                                     "in_block": in_block},
+           "containment_launches_by_mapping": took,
            "containment_pairs": cont_pairs,
            "containment_before": CONTAINMENT_BEFORE,
            "kernel_launches": launches, "kept": len(kept),
@@ -5674,8 +5866,9 @@ def dedupe_big(device, d: Path, clock: float) -> dict:
         f"{dedupe.BLOCK}: store check {launches['banded_any']} launches "
         f"{big['store_check_by_mode']} {big['store_check_by_body']}; "
         f"containment check "
-        f"{launches['contained_any']} block launches "
-        f"({cont_pairs} pairs) and {in_block} in-block banded_edit launches"
+        f"{launches['contained_any']} block launches {took}, each the "
+        f"rule's mapping ({cont_pairs} pairs) and {in_block} in-block "
+        f"banded_edit launches"
         f" {big['in_block_by_body']} (before the block mapping: "
         f"{CONTAINMENT_BEFORE['launches']} "
         f"launches); {len(kept)} kept "
@@ -5896,15 +6089,32 @@ def dedupe_variants_phase(device, gbases, clock: float) -> tuple:
         for r in cpu_runs.values():
             r.stop()
         shutil.rmtree(tmp, ignore_errors=True)
-    # the containment kernel's entry: its check on dedupe's median block,
-    # beside the kernel phase's shapes
+    # the containment kernel's entries: "contained_any" as the rule runs it
+    # at dedupe's median block, and each mapping, the thread bodies and the
+    # split there, the warp bodies at the 512-read block at tol 16
     c = dd["big"]["contained_check"]
-    kcont = {"max_abs_err": max(x["max_abs_err"] for x in [c, *kcont]),
-             "ms": c["ms"], "device_ms": c["device_ms"],
-             "plain_ms": c["plain_ms"],
-             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
-             "library_ms": None, "shapes": [*kcont, c]}
-    return kt, ktq, kany, kanyq, kcont, dd, vv
+    c16 = kcont["blocks"][1]
+    shapes = [*kcont["blocks"], c]
+    err = {m: max([x["mappings"][m]["max_abs_err"] for x in shapes
+                   if m in x["mappings"]]
+                  + [p["max_abs_err"][m] for p in kcont["sweep"]
+                     if m in p["max_abs_err"]]) for m in CONTAINED_NAMES}
+
+    def entry(shape, m):
+        r = shape["mappings"][m]
+        return {"max_abs_err": err[m], "ms": r["ms"],
+                "device_ms": r["device_ms"], "plain_ms": shape["plain_ms"],
+                "bound_ms": shape["bound_ms"], "bound_by": shape["bound_by"],
+                "launch_floor_ms": shape["launch_floor_ms"],
+                "clocks_a_row": r["clocks_a_row"], "library_ms": None,
+                "shape": shape["what"], "tol": shape["tol"]}
+    kconts = {"contained_any": {**entry(c, c["pick"]), "mapping": c["pick"],
+                                "max_abs_err": max(err.values()),
+                                "shapes": shapes, "sweep": kcont["sweep"]}}
+    for m, name in CONTAINED_NAMES.items():
+        kconts[name] = entry(c16 if m == "warp" or m not in c["mappings"]
+                             else c, m)
+    return kt, ktq, kany, kanyq, kconts, dd, vv
 
 
 def onerow_at_cli_shapes(device, gbases, big: dict) -> tuple:
@@ -7065,6 +7275,7 @@ print("SPLIT " + json.dumps({
     "banded_any_by_body": getattr(block, "launches_by_body", None),
     "banded_edit_by_mapping": getattr(bd.banded_edit, "launches_by", None),
     "contained_any": cont.launches if cont else None,
+    "contained_any_by": getattr(cont, "launches_by", None),
     "report": rep.splitlines()[-3:]}), flush=True)
 """
 
@@ -7415,9 +7626,12 @@ def main() -> int:
         f"{BLOCK_QUERIES_TABLE} queries x {BANDED_PAIRS}, E=2, device ms: "
         f"quad {banyq['device_ms']:.4f}, thread {bany['device_ms']:.4f} "
         f"(bound {bany['bound_ms']:.4f} ms); contained_any at "
-        f"dedupe's median block: {bcont['ms']:.4f} ms, device "
-        f"{bcont['device_ms']:.4f} ms (bound "
-        f"{bcont['bound_ms']:.6f} ms); dedupe e=2 ac=t at "
+        f"dedupe's median block ({bcont['contained_any']['mapping']}): "
+        f"{bcont['contained_any']['ms']:.4f} ms, device "
+        f"{bcont['contained_any']['device_ms']:.4f} ms (first body "
+        f"{bcont['contained_any_inplace']['device_ms']:.4f}; bound "
+        f"{bcont['contained_any']['bound_ms']:.6f} ms, launch floor "
+        f"{bcont['contained_any']['launch_floor_ms']:.4f}); dedupe e=2 ac=t at "
         f"{N_DEDUPE_BIG} reads {dd['big']['reads_per_s']:.1f} reads/s, "
         f"store check {dd['big']['store_check_launches']} launches "
         f"{dd['big']['store_check_by_mode']} "
@@ -7506,6 +7720,7 @@ def main() -> int:
                "banded_any": "banded_any_thread",
                "banded_any_quad": "banded_any_quad",
                "contained_any": "contained_any",
+               **{n: n for n in CONTAINED_NAMES.values()},
                "rescue_scan": "rescue_scan",
                "quality_offsets": "quality_offsets",
                "quality_offsets_packed": "quality_offsets_packed",
@@ -7523,6 +7738,7 @@ def main() -> int:
             "banded_edit": "dedupe", "banded_any": "dedupe",
             "banded_edit_quad": "dedupe", "banded_any_quad": "dedupe",
             "contained_any": "dedupe",
+            **{n: "dedupe" for n in CONTAINED_NAMES.values()},
             "msa_score_row": "mapper_variants",
             "msa_score_pipe": "mapper_variants",
             "msa_fill_pipe": "mapper_variants",
@@ -7534,7 +7750,7 @@ def main() -> int:
     ktimes["banded_edit_quad"] = bktq
     ktimes["banded_any"] = bany
     ktimes["banded_any_quad"] = banyq
-    ktimes["contained_any"] = bcont
+    ktimes.update(bcont)
     # K2 at the CLIs' one-row shapes, held to its plain version there too
     for name, e in vv["cli_shapes_max_abs_err"].items():
         ktimes[name]["max_abs_err"] = max(ktimes[name]["max_abs_err"], e)
@@ -7572,7 +7788,8 @@ def main() -> int:
                         "bound_ms": kt["bound_ms"],
                         "bound_by": kt["bound_by"],
                         "library_ms": kt["library_ms"]})
-        for extra in ("max_abs_err_at_cli_shapes", "device_ms", "plain_on"):
+        for extra in ("max_abs_err_at_cli_shapes", "device_ms", "plain_on",
+                      "launch_floor_ms", "clocks_a_row", "mapping"):
             if extra in kt:
                 kernels[-1][extra] = kt[extra]
         if name in large_by:
@@ -7602,7 +7819,8 @@ def main() -> int:
                                for tool, r in kcli.items()}}}), flush=True)
     print(json.dumps({"dedupe_variants": {
         "banded_edit": bkt["shapes"], "banded_any": bany["shapes"],
-        "contained_any": bcont["shapes"],
+        "contained_any": bcont["contained_any"]["shapes"],
+        "contained_any_sweep": bcont["contained_any"]["sweep"],
         "dedupe": {k: {f: v for f, v in r.items() if f != "report"}
                    for k, r in dd.items()},
         "variants": {k: {f: v for f, v in r.items() if f != "report"}

@@ -1,14 +1,17 @@
 """Pairs and length classes for the banded edit distance's tests
 (``tests/test_torch_banded.py`` on the CPU, ``tests/test_torch_banded_card.py``
-on the card). numpy only.
+on the card). numpy and the port's complement table only.
 
 ``random_pairs`` gives unrelated pairs, mutated copies, lengths past E
 apart, empty sides and a far longer than b; ``quad_words`` gives pairs
 whose groups of four (a word of the four-lane body) mix their lanes: other
 la and lb, a lane that ends early, an empty side, |lb - la| = E + 1, N,
 IUPAC and lowercase bytes; ``class_case`` gives queries and one length
-class of sequences for the block mapping."""
+class of sequences for the block mapping; ``contained_case`` gives reads
+and the windows dedupe's containment check cuts for them."""
 import numpy as np
+
+from bbmap_tpu_torch.core.bases import COMP_ASCII
 
 BYTES = np.frombuffer(b"ACGTNacgt", np.uint8)
 
@@ -119,3 +122,39 @@ def class_case(seed, E, n_q, n_s):
         qT[:len(x), i] = x
     return (qT, np.array([len(x) for x in qs], np.int32), sT,
             np.array([len(x) for x in seqs], np.int32))
+
+
+def rc(x):
+    """The reverse complement (core/bases.COMP_ASCII) of x."""
+    return COMP_ASCII[np.asarray(x, np.uint8)][::-1].copy()
+
+
+def contained_case(seed, tol, n_q=12, n_c=6, long=False):
+    """Reads cut from containers (150-260 bp of ACGTNacgt) with up to 2 tol
+    + 1 edits, some reverse-complemented, and for each read the windows
+    dedupe cuts around its offsets in some containers (+- tol, clipped at
+    a container's ends: offsets at 0, at the end and past both), beside
+    unrelated windows and reads with no window; ``long``: every length ten
+    times (contigs). Returns (queries, [(read, window)])."""
+    rng = np.random.default_rng(seed)
+    x = 10 if long else 1
+    conts = [rng.choice(BYTES, int(rng.integers(150 * x, 261 * x))).astype(
+        np.uint8) for _ in range(n_c)]
+    reads, pairs = [], []
+    for r in range(n_q):
+        c = conts[int(rng.integers(0, n_c))]
+        n = int(rng.integers(40 * x, 121 * x))
+        q0 = (0, len(c) - n, int(rng.integers(0, len(c) - n + 1)))[r % 3]
+        read = mutate(rng, c[q0:q0 + n], int(rng.integers(0, 2 * tol + 2)))
+        if r % 4 == 1:
+            read = rc(read)
+        reads.append(read)
+        if r % 6 == 5:
+            continue                  # a read with no window
+        for off in (q0, q0 - 3, q0 + 2)[:1 + r % 3]:
+            lo, hi = max(0, off - tol), min(len(c), off + n + tol)
+            pairs.append((r, c[lo:hi]))
+        if r % 5 == 0:                # an unrelated window
+            pairs.append((r, rng.choice(BYTES, n + 2 * tol).astype(
+                np.uint8)))
+    return reads, pairs

@@ -20,7 +20,8 @@ from bbmap_tpu.ops import banded_device as jbd
 from bbmap_tpu.ops.banded import banded_edit_distance
 from bbmap_tpu_torch.ops import banded_device as tbd
 from tests.banded_cases import BYTES, class_case as _class_case, \
-    mutate as _mutate, quad_words as _quad_words, random_pairs as _pairs
+    contained_case as _contained_case, mutate as _mutate, \
+    quad_words as _quad_words, random_pairs as _pairs, rc as _rc
 
 def _stack(pairs):
     W = max(1, max(max(len(a), len(b)) for a, b in pairs))
@@ -104,8 +105,36 @@ def _final(v, w, E, la, lb, infix):
     return v[df] if 0 <= df < len(v) else E + 1
 
 
-def _emulate_thread(a, la, b, lb, E, infix, La, Lb):
-    """banded_thread_kernel<W> for one pair, W as the launcher picks it."""
+def _band_row_words(v, win, ai, nb, i, E, w, W, lb):
+    """band_row: one row of a thread's band on the packed window, in
+    place; returns the row's least cell."""
+    BIG, NW = E + 1, len(win)
+    m = []
+    for j in range(NW):                 # __vcmpne4
+        m.append(sum((0xFF if ((win[j] >> (8 * q)) & 0xFF) != ai else 0)
+                     << (8 * q) for q in range(4)))
+    dlo, dhi = E + 1 - i, min(lb + E - i, w - 1)
+    r = rowmin = BIG
+    for d in range(W):
+        ne = (m[d >> 2] >> (8 * (d & 3))) & 1
+        up = (v[d + 1] if d + 1 < W else BIG) + 1
+        c = min(v[d] + ne, up)
+        c = c if dlo <= d <= dhi else BIG
+        r = min(c, r + 1)
+        v[d] = min(r, BIG)
+        rowmin = min(rowmin, v[d])
+    for j in range(NW - 1):             # __funnelshift_r(lo, hi, 8)
+        win[j] = ((win[j] >> 8) | (win[j + 1] << 24)) & 0xFFFFFFFF
+    win[NW - 1] = (win[NW - 1] >> 8) | (nb << 24)
+    return rowmin
+
+
+def _emulate_thread(a, la, b, lb, E, infix, La, Lb, K=1):
+    """banded_thread_kernel<W> for one pair, W as the launcher picks it; K:
+    thread_pair's groups of K rows (the early stop at a group's end) and
+    its ring of K bytes of a and of b (slot (i - 1) mod K, each loaded K
+    rows before its row); K = 1 loads a row's bytes the row before. a is
+    read only at positions < min(la, La)."""
     w, BIG = 2 * E + 1, E + 1
     W = w if w in THREAD_EXACT else (32 if w <= 32 else 64)
     if not infix and abs(lb - la) > E:
@@ -116,37 +145,30 @@ def _emulate_thread(a, la, b, lb, E, infix, La, Lb):
     win = [sum(_byte(b, 4 * k + q - E, Lb) << (8 * q) for q in range(4))
            for k in range(NW)]
     rows = min(la, La)
-    ai = int(a[0]) if rows >= 1 else 0
-    nb = _byte(b, 1 - E + TOP, Lb)
-    for i in range(1, rows + 1):
-        ai_next = int(a[i]) if i < rows else 0
-        nb_next = _byte(b, i + 1 - E + TOP, Lb)
-        m = []
-        for k in range(NW):             # __vcmpne4
-            m.append(sum((0xFF if ((win[k] >> (8 * q)) & 0xFF) != ai else 0)
-                         << (8 * q) for q in range(4)))
-        dlo, dhi = E + 1 - i, min(lb + E - i, w - 1)
-        r = rowmin = BIG
-        for d in range(W):
-            ne = (m[d >> 2] >> (8 * (d & 3))) & 1
-            up = (v[d + 1] if d + 1 < W else BIG) + 1
-            c = min(v[d] + ne, up)
-            c = c if dlo <= d <= dhi else BIG
-            r = min(c, r + 1)
-            v[d] = min(r, BIG)
-            rowmin = min(rowmin, v[d])
-        for k in range(NW - 1):         # __funnelshift_r(lo, hi, 8)
-            win[k] = ((win[k] >> 8) | (win[k + 1] << 24)) & 0xFFFFFFFF
-        win[NW - 1] = (win[NW - 1] >> 8) | (nb << 24)
-        ai, nb = ai_next, nb_next
+    ra = [int(a[k]) if k < rows else 0 for k in range(K)]
+    rb = [_byte(b, k + 1 - E + TOP, Lb) for k in range(K)]
+    i = 1
+    while i + K - 1 <= rows:
+        for k in range(K):
+            ai, nb = ra[k], rb[k]
+            ra[k] = int(a[i + k + K - 1]) if i + k + K <= rows else 0
+            rb[k] = _byte(b, i + k + K - E + TOP, Lb)
+            rowmin = _band_row_words(v, win, ai, nb, i + k, E, w, W, lb)
         if rowmin > E:
             return BIG
+        i += K
+    for k in range(K - 1):              # the last rows, fewer than K
+        if i + k > rows:
+            break
+        _band_row_words(v, win, ra[k], rb[k], i + k, E, w, W, lb)
     return _final(v, w, E, la, lb, infix)
 
 
-def _emulate_warp(a, la, b, lb, E, infix, La, Lb, mem=False):
+def _emulate_warp(a, la, b, lb, E, infix, La, Lb, mem=False, ring=False):
     """banded_warp_kernel<NC> (mem: banded_warp_mem_kernel) for one pair,
-    the 32 lanes as a vector."""
+    the 32 lanes as a vector; ring: warp_pair's ring across the lanes
+    (lane l holds the bytes of row i0 + l for a chunk of 32 rows from i0,
+    the next chunk's in flight, a row's taken by a shuffle)."""
     w, BIG = 2 * E + 1, E + 1
     nc = -(-w // 32)
     NC = nc if mem else next(c for c in WARP_CHUNKS if c >= nc)
@@ -159,11 +181,26 @@ def _emulate_warp(a, la, b, lb, E, infix, La, Lb, mem=False):
     wb = [np.array([_byte(b, 32 * c + x - E, Lb) for x in lane])
           for c in range(NC)]
     rows = min(la, La)
-    ai = int(a[0]) if rows >= 1 else 0
-    nb = _byte(b, 1 - E + TOP, Lb)
+    if ring:
+        ca = [int(a[x]) if x < rows else 0 for x in lane]
+        cb = [_byte(b, 1 + x - E + TOP, Lb) for x in lane]
+        na = [int(a[x + 32]) if x + 32 < rows else 0 for x in lane]
+        nx = [_byte(b, 33 + x - E + TOP, Lb) for x in lane]
+    else:
+        ai = int(a[0]) if rows >= 1 else 0
+        nb = _byte(b, 1 - E + TOP, Lb)
     for i in range(1, rows + 1):
-        ai_next = int(a[i]) if i < rows else 0
-        nb_next = _byte(b, i + 1 - E + TOP, Lb)
+        if ring:
+            k = (i - 1) & 31                # __shfl_sync(ca / cb, k)
+            ai, nb = ca[k], cb[k]
+            if k == 31:
+                ca, cb = na, nx
+                na = [int(a[i + 32 + x]) if i + 32 + x < rows else 0
+                      for x in lane]
+                nx = [_byte(b, i + 33 + x - E + TOP, Lb) for x in lane]
+        else:
+            ai_next = int(a[i]) if i < rows else 0
+            nb_next = _byte(b, i + 1 - E + TOP, Lb)
         dlo, dhi = E + 1 - i, min(lb + E - i, w - 1)
         carry, rowmin = BIG, np.full(32, BIG)
         for c in range(NC):
@@ -193,7 +230,8 @@ def _emulate_warp(a, la, b, lb, E, infix, La, Lb, mem=False):
                 down = np.concatenate([wb[c][1:], wb[c][31:]])
                 down[31] = wb[c + 1][0] if c + 1 < NC else nb
                 wb[c] = down
-        ai, nb = ai_next, nb_next
+        if not ring:
+            ai, nb = ai_next, nb_next
         if (rowmin > E).all():
             return BIG
     return _final(np.concatenate(band), w, E, la, lb, infix)
@@ -741,40 +779,6 @@ def test_block_kernel_equals_plain_on_the_card():
 # check of a block of reads, a pair table, both orientations in place.
 # ---------------------------------------------------------------------------
 
-def _rc(x):
-    return COMP_ASCII[np.asarray(x, np.uint8)][::-1].copy()
-
-
-def _contained_case(seed, tol, n_q=12, n_c=6):
-    """Reads cut from containers (150-260 bp of ACGTNacgt) with up to 2 tol
-    + 1 edits, some reverse-complemented, and for each read the windows
-    dedupe cuts around its offsets in some containers (+- tol, clipped at
-    a container's ends: offsets at 0, at the end and past both), beside
-    unrelated windows and reads with no window. Returns (queries, [(read,
-    window)])."""
-    rng = np.random.default_rng(seed)
-    conts = [rng.choice(BYTES, int(rng.integers(150, 261))).astype(np.uint8)
-             for _ in range(n_c)]
-    reads, pairs = [], []
-    for r in range(n_q):
-        c = conts[int(rng.integers(0, n_c))]
-        n = int(rng.integers(40, 121))
-        q0 = (0, len(c) - n, int(rng.integers(0, len(c) - n + 1)))[r % 3]
-        read = _mutate(rng, c[q0:q0 + n], int(rng.integers(0, 2 * tol + 2)))
-        if r % 4 == 1:
-            read = _rc(read)
-        reads.append(read)
-        if r % 6 == 5:
-            continue                  # a read with no window
-        for off in (q0, q0 - 3, q0 + 2)[:1 + r % 3]:
-            lo, hi = max(0, off - tol), min(len(c), off + n + tol)
-            pairs.append((r, c[lo:hi]))
-        if r % 5 == 0:                # an unrelated window
-            pairs.append((r, rng.choice(BYTES, n + 2 * tol).astype(
-                np.uint8)))
-    return reads, pairs
-
-
 def _contained_block(reads, pairs):
     q, lq = tbd.upload_block(reads, "cpu")
     w, table = tbd.upload_windows([r for r, _ in pairs],
@@ -815,13 +819,17 @@ def test_contained_any_plain_equals_both_orientations(monkeypatch, tol):
 
 class _Strided:
     """A query column read as the kernel reads it: byte i at start + i *
-    step of the column, through a 256-byte table."""
+    step of the column, through a 256-byte table; ``n``: the positions of
+    the column the kernel may read (0 <= start + i * step < n)."""
 
-    def __init__(self, col, start, step, tab):
+    def __init__(self, col, start, step, tab, n=None):
         self.col, self.start, self.step, self.tab = col, start, step, tab
+        self.n = len(col) if n is None else n
 
     def __getitem__(self, i):
-        return int(self.tab[self.col[self.start + i * self.step]])
+        pos = self.start + i * self.step
+        assert 0 <= pos < self.n, (pos, self.n)
+        return int(self.tab[self.col[pos]])
 
 
 def _kernel_comp_table():
@@ -835,23 +843,65 @@ def _kernel_comp_table():
                     np.uint8)
 
 
-def _emulate_contained(q, lq, w, table, tol, warp=4, block=8):
-    """banded_contained_kernel (and, past 64 cells, the warp body) on numpy
-    arrays: thread t = 2k + rc runs pair k in orientation rc, the reverse
-    complement read from the forward column backward through the staged
-    complement table; a warp of ``warp`` lanes votes a query's flag among
-    its lanes of that query and the lowest of them stores 1; blocks of
-    ``block`` threads in a random order."""
+def _stage_pitch(L):
+    """stage_pitch of csrc/banded_edit.cu: L rounded up to an odd number of
+    words."""
+    return 4 * ((-(-L // 4)) | 1)
+
+
+def _ring_depth(W):
+    return 8 if W <= 16 else 4 if W <= 32 else 2
+
+
+def _emulate_contained(q, lq, w, table, tol, warp=4, block=8,
+                       mapping="inplace"):
+    """The containment mapping on numpy arrays. The thread bodies
+    ("inplace", "staged", "ring"; past 64 cells the warp bodies "inplace"
+    and "warp"): thread t = 2k + rc runs pair k in orientation rc, the
+    reverse complement read from the forward column backward through the
+    staged complement table; "staged" reads its operands only from an
+    emulated shared block (block // 2 pairs, a row of stage_pitch bytes
+    for each pair's query and window, random bytes outside what
+    stage_pair copies); "ring" reads through thread_pair's ring of
+    ring_depth(W) bytes; a warp of ``warp`` lanes votes a query's flag
+    among its lanes of that query and the lowest of them stores 1; blocks
+    of ``block`` threads in a random order. "split": a warp a pair, both
+    orientations by _emulate_split, one store where either hits."""
     comp = _kernel_comp_table()
     tabs = (np.arange(256, dtype=np.uint8), comp)
     qn, lqn, wn, tn = (x.numpy() for x in (q, lq, w, table))
     P, E = tn.shape[1], 2 * tol
-    thread_band = 2 * E + 1 <= 64
+    Lq, Lw = qn.shape[0], wn.shape[0]
+    w_ = 2 * E + 1
+    thread_band = w_ <= 64
+    W = w_ if w_ in THREAD_EXACT else (32 if w_ <= 32 else 64)
     flags = np.zeros(qn.shape[1], np.uint8)
+    rng = np.random.default_rng(P)
+    if mapping == "split":
+        for k in rng.permutation(P):
+            col, wc, lw = (int(x) for x in tn[:, k])
+            la = int(lqn[col])
+            d = [_emulate_split(_Strided(qn[:, col], la - 1 if rc and la
+                                         else 0, -1 if rc else 1, tabs[rc],
+                                         la), la, wn[:, wc], lw, tol, Lq,
+                                Lw) for rc in (0, 1)]
+            if min(d) <= tol:
+                flags[col] = 1
+        return flags
     n_threads = -(-2 * P // block) * block
     starts = list(range(0, n_threads, block))
-    rng = np.random.default_rng(P)
+    pq, pw, slots = _stage_pitch(Lq), _stage_pitch(Lw), block // 2
     for b0 in (starts[i] for i in rng.permutation(len(starts))):
+        if mapping == "staged":         # the block's rows, then stage_pair
+            sa = rng.choice(BYTES, (slots, pq)).astype(np.uint8)
+            sw = rng.choice(BYTES, (slots, pw)).astype(np.uint8)
+            for slot in range(slots):
+                ks = b0 // 2 + slot
+                if ks < P:
+                    col, wc, lw = (int(x) for x in tn[:, ks])
+                    n = min(int(lqn[col]), Lq)
+                    sa[slot, :n] = qn[:n, col]
+                    sw[slot, :min(lw, Lw)] = wn[:min(lw, Lw), wc]
         for w0 in range(b0, b0 + block, warp):
             cols, hits = [], []
             for t in range(w0, w0 + warp):
@@ -862,12 +912,22 @@ def _emulate_contained(q, lq, w, table, tol, warp=4, block=8):
                     continue
                 col, wc, lw = (int(x) for x in tn[:, k])
                 la = int(lqn[col])
-                a = _Strided(qn[:, col], la - 1 if rc and la else 0,
-                             -1 if rc else 1, tabs[rc])
-                args = (a, la, wn[:, wc], lw, E, True, qn.shape[0],
-                        wn.shape[0])
-                d = _emulate_thread(*args) if thread_band \
-                    else _emulate_warp(*args)
+                start = la - 1 if rc and la else 0
+                if mapping == "staged":
+                    slot = (t - b0) >> 1
+                    a = _Strided(sa[slot], start, -1 if rc else 1, tabs[rc],
+                                 la)
+                    bcol = sw[slot]
+                else:
+                    a = _Strided(qn[:, col], start, -1 if rc else 1,
+                                 tabs[rc], la)
+                    bcol = wn[:, wc]
+                args = (a, la, bcol, lw, E, True, Lq, Lw)
+                if thread_band:
+                    d = _emulate_thread(*args, K=_ring_depth(W) if
+                                        mapping == "ring" else 1)
+                else:
+                    d = _emulate_warp(*args, ring=mapping == "warp")
                 cols.append(col)
                 hits.append(d <= tol)
             for lane, col in enumerate(cols):
@@ -880,11 +940,12 @@ def _emulate_contained(q, lq, w, table, tol, warp=4, block=8):
 
 @pytest.mark.parametrize("tol", [1, 2, 4, 16])
 def test_contained_emulation_equals_plain(tol):
-    """The containment mapping, emulated thread by thread (the pair table's
-    walk, the reverse complement read in place through the kernel's own
-    complement table, the vote among a query's lanes, blocks in a random
-    order), equals contained_any_plain: the thread band to tol = 15, the
-    warp body from tol = 16. The kernel's table is core/bases.COMP_ASCII."""
+    """The containment mapping's first body ("inplace"), emulated thread by
+    thread (the pair table's walk, the reverse complement read in place
+    through the kernel's own complement table, the vote among a query's
+    lanes, blocks in a random order), equals contained_any_plain: the
+    thread band to tol = 15, the warp body from tol = 16. The kernel's
+    table is core/bases.COMP_ASCII."""
     np.testing.assert_array_equal(_kernel_comp_table(), COMP_ASCII)
     reads, pairs = _contained_case(80 + tol, tol, n_q=8 if tol > 4 else 12)
     args = _contained_block(reads, pairs)
@@ -893,20 +954,405 @@ def test_contained_emulation_equals_plain(tol):
     assert 0 < want.sum() < len(reads)
 
 
+# ---------------------------------------------------------------------------
+# The split mapping (banded_contained_split_kernel): each of 16 lanes
+# composes the min-plus map of its run of rows on the columns of a matrix
+# (the headroom code, four columns to a word), then the maps meet the
+# final cells from the last lane down.
+# ---------------------------------------------------------------------------
+
+def _plus1(x):
+    return (x >> 1) & LOW7
+
+
+def _vcmpne4(x, y):
+    return sum((0xFF if ((x >> (8 * q)) & 0xFF) != ((y >> (8 * q)) & 0xFF)
+                else 0) << (8 * q) for q in range(4))
+
+
+def _split_row(U, win, ai, i, lb, W):
+    """split_row: row i of the band on every column of U (U[d][g]: row d
+    of the map, columns 4g..4g+3 in the byte lanes, headroom code)."""
+    E, NG = (W - 1) // 2, (W + 3) // 4
+    rep = ai * ONES
+    m = [_vcmpne4(win[j], rep) for j in range(NG)]
+    dlo, dhi = E + 1 - i, min(lb + E - i, W - 1)
+    r = [0] * NG
+    s = [_plus1(U[0][g]) for g in range(NG)]
+    for d in range(W):
+        ne = M32 if (m[d >> 2] >> (8 * (d & 3))) & 1 else 0
+        ok = M32 if dlo <= d <= dhi else 0
+        for g in range(NG):
+            up = _plus1(U[d + 1][g]) if d + 1 < W else 0
+            c = ((U[d][g] & ~ne & M32) | (s[g] & ne) | up) & ok
+            r[g] = c | _plus1(r[g])
+            U[d][g] = r[g]
+            s[g] = up
+
+
+def _split_maps(a, la, b, lb, tol, La, Lb, lanes=16, chunk=16):
+    """Each lane's map after its rows, as banded_contained_split_kernel
+    composes them: lane j's rows rows * j // lanes + 1 .. rows * (j + 1) //
+    lanes, read a run of ``chunk`` rows at a time into a queue of words;
+    lane 0 from row 0's band in every column, the others from the
+    identity."""
+    W, E = 4 * tol + 1, 2 * tol
+    NG = (W + 3) // 4
+    TOP, D0 = 4 * NG - 1, (1 << (E + 1)) - 1
+    rows = min(la, La)
+    maps = []
+    for seg in range(lanes):
+        r0, r1 = seg * rows // lanes, (seg + 1) * rows // lanes
+        if seg == 0:
+            U = [[D0 * ONES if _row0(d, W, E, lb, True) == 0 else 0
+                  for _ in range(NG)] for d in range(W)]
+        else:
+            U = [[D0 << (8 * (d & 3)) if d >> 2 == g else 0
+                  for g in range(NG)] for d in range(W)]
+        win = [sum(_byte(b, r0 + 4 * j + q - E, Lb) << (8 * q)
+                   for q in range(4)) for j in range(NG)]
+        for i0 in range(r0 + 1, r1 + 1, chunk):
+            run = range(i0, i0 + chunk)
+            xa = [a[i - 1] if i <= r1 else 0 for i in run]
+            xb = [_byte(b, i - E + TOP, Lb) if i <= r1 else 0 for i in run]
+            qa = [sum(xa[4 * j + q] << (8 * q) for q in range(4))
+                  for j in range(chunk // 4)]
+            qb = [sum(xb[4 * j + q] << (8 * q) for q in range(4))
+                  for j in range(chunk // 4)]
+            for i in range(i0, min(r1, i0 + chunk - 1) + 1):
+                _split_row(U, win, qa[0] & 0xFF, i, lb, W)
+                for j in range(NG - 1):
+                    win[j] = ((win[j] >> 8) | (win[j + 1] << 24)) & M32
+                win[NG - 1] = (win[NG - 1] >> 8) | ((qb[0] & 0xFF) << 24)
+                for q_ in (qa, qb):
+                    for j in range(len(q_) - 1):
+                        q_[j] = ((q_[j] >> 8) | (q_[j + 1] << 24)) & M32
+                    q_[-1] >>= 8
+        maps.append(U)
+    return maps
+
+
+def _split_join(maps, la, lb, tol):
+    """The join: lane 15's min over the final cells (la - E + d in [0,
+    lb]), handed down the lanes, c'[e] = min_d (c[d] + A[d][e]) by shifts
+    of A's row words; the distance from lane 0's c."""
+    W, E = 4 * tol + 1, 2 * tol
+    BIG, NG = E + 1, (W + 3) // 4
+    c = [0] * NG
+    for d in range(W):
+        if 0 <= la - E + d <= lb:
+            c = [x | y for x, y in zip(c, maps[-1][d])]
+    for U in maps[-2::-1]:              # __shfl_down_sync, a lane a step
+        cc = [0] * NG
+        for d in range(W):
+            x = BIG - bin((c[d >> 2] >> (8 * (d & 3))) & 0xFF).count("1")
+            keep = (0xFF >> x) * ONES
+            cc = [y | ((U[d][g] >> x) & keep) for g, y in enumerate(cc)]
+        c = cc
+    return BIG - bin(c[0] & 0xFF).count("1")
+
+
+def _emulate_split(a, la, b, lb, tol, La, Lb, lanes=16):
+    """banded_contained_split_kernel for one orientation of a pair."""
+    return _split_join(_split_maps(a, la, b, lb, tol, La, Lb, lanes), la, lb,
+                       tol)
+
+
+def _band_row(v, win, ai, i, lb, E, W):
+    """thread_pair's row i on the band v (values), window bytes win[d] =
+    b[i - E - 1 + d]."""
+    BIG = E + 1
+    dlo, dhi = E + 1 - i, min(lb + E - i, W - 1)
+    out, r = list(v), BIG
+    for d in range(W):
+        up = (v[d + 1] if d + 1 < W else BIG) + 1
+        c = min(v[d] + (win[d] != ai), up) if dlo <= d <= dhi else BIG
+        r = min(c, r + 1)
+        out[d] = min(r, BIG)
+    return out
+
+
+def _row_maps(a, la, b, lb, E, Lb):
+    """The min-plus matrix of each row (column e: the row run on the unit
+    band, 0 at e and BIG elsewhere), entries capped at BIG."""
+    W, BIG = 2 * E + 1, E + 1
+    out = []
+    for i in range(1, la + 1):
+        win = [_byte(b, i - E - 1 + d, Lb) for d in range(W)]
+        cols = [_band_row([0 if d == e else BIG for d in range(W)], win,
+                          int(a[i - 1]), i, lb, E, W) for e in range(W)]
+        out.append(np.array(cols, np.int64).T)
+    return out
+
+
+def _mp(A, B, BIG):
+    """min-plus product capped at BIG"""
+    return np.minimum((A[:, :, None] + B[None, :, :]).min(1), BIG)
+
+
+def _mp_group(maps, rng, BIG):
+    """The product maps[-1] (x) ... (x) maps[0] in a random bracketing."""
+    if len(maps) == 1:
+        return maps[0]
+    cut = int(rng.integers(1, len(maps)))
+    return _mp(_mp_group(maps[cut:], rng, BIG), _mp_group(maps[:cut], rng,
+                                                           BIG), BIG)
+
+
+@pytest.mark.parametrize("tol", [0, 1, 2, 3])
+def test_contained_split_maps_compose(tol):
+    """The map algebra the split mapping rests on, on numpy seeds: each
+    row's min-plus matrix applied to random bands (values 0..BIG) equals
+    thread_pair's row; random bracketings of a pair's row matrices equal
+    the rows run one after another from row 0's band; each lane's map in
+    the kernel's headroom code (composed a row at a time on the identity)
+    decodes to the product of its rows' matrices, and lane 0's to its
+    band; the join in the kernel's lane order gives the band's infix
+    distance."""
+    E, W = 2 * tol, 4 * tol + 1
+    BIG = E + 1
+    rng = np.random.default_rng(40 + tol)
+    reads, pairs = _contained_case(140 + tol, tol, n_q=6)
+    for r, win_b in pairs[:8]:
+        a, la, lb = reads[r], len(reads[r]), len(win_b)
+        Lb = lb + 3
+        b = np.concatenate([win_b, rng.choice(BYTES, 3)]).astype(np.uint8)
+        M = _row_maps(a, la, b, lb, E, Lb)
+        v = np.array([_row0(d, W, E, lb, True) for d in range(W)])
+        bands = [v]
+        for i, Mi in enumerate(M, 1):
+            win = [_byte(b, i - E - 1 + d, Lb) for d in range(W)]
+            for _ in range(3):
+                x = rng.integers(0, BIG + 1, W)
+                np.testing.assert_array_equal(
+                    np.minimum((Mi + x[None, :]).min(1), BIG),
+                    _band_row(list(x), win, int(a[i - 1]), i, lb, E, W))
+            bands.append(np.array(_band_row(list(bands[-1]), win,
+                                            int(a[i - 1]), i, lb, E, W)))
+        for _ in range(4):
+            lo = int(rng.integers(0, la))
+            hi = int(rng.integers(lo + 1, la + 1))
+            prod = _mp_group(M[lo:hi], rng, BIG)
+            np.testing.assert_array_equal(
+                np.minimum((prod + bands[lo][None, :]).min(1), BIG),
+                bands[hi])
+        maps = _split_maps(_Strided(a, 0, 1, np.arange(256), la), la, b, lb,
+                           tol, la, Lb)
+        for seg, U in enumerate(maps):
+            r0, r1 = seg * la // 16, (seg + 1) * la // 16
+            dec = np.array([[BIG - bin((U[d][e >> 2] >> (8 * (e & 3)))
+                                       & 0xFF).count("1") for e in range(W)]
+                            for d in range(W)])
+            if seg == 0:
+                np.testing.assert_array_equal(
+                    dec, np.repeat(bands[r1][:, None], W, 1))
+            elif r1 > r0:
+                np.testing.assert_array_equal(dec, _mp_group(
+                    M[r0:r1], rng, BIG))
+            else:
+                np.testing.assert_array_equal(
+                    dec, np.where(np.eye(W, dtype=bool), 0, BIG))
+        want = _final(list(bands[-1]), W, E, la, lb, True)
+        assert _split_join(maps, la, lb, tol) == want
+
+
+@pytest.mark.parametrize("tol", [0, 1, 2, 3])
+def test_contained_split_row_counts(tol):
+    """The split mapping against the plain version pair by pair where the
+    rows do not fill the lanes evenly: 1, 5, 15, 16, 17, 31, 33 and 150
+    rows (fewer rows than lanes, counts that are not multiples of 16 or
+    32), a run past the 16-row queue (400 rows), queries longer than the
+    window, and bands that saturate in the first rows (unrelated
+    windows), both orientations."""
+    E = 2 * tol
+    rng = np.random.default_rng(60 + tol)
+    comp = _kernel_comp_table()
+    cases = []
+    for n in (1, 5, 15, 16, 17, 31, 33, 150, 400):
+        base = rng.choice(BYTES, n + 2 * tol + 4).astype(np.uint8)
+        read = _mutate(rng, base[tol:tol + n], int(rng.integers(0, tol + 2)))
+        cases += [(read, base), (read, base[:max(0, len(read) - tol - 1)]),
+                  (read, rng.choice(BYTES, n + 2 * tol).astype(np.uint8))]
+    for read, win_b in cases:
+        la, lb = len(read), len(win_b)
+        Lb = lb + 5
+        b = np.concatenate([win_b, rng.choice(BYTES, 5)]).astype(np.uint8)
+        for rc, (x, tab) in enumerate(((read, np.arange(256)), (read, comp))):
+            want = tbd.banded_edit_batch_plain(
+                torch.from_numpy(_rc(x) if rc else x.copy()),
+                torch.tensor([la], dtype=torch.int32),
+                torch.from_numpy(b[:, None].copy()),
+                torch.tensor([lb], dtype=torch.int32), E, True)[0]
+            a = _Strided(x, la - 1 if rc and la else 0, -1 if rc else 1,
+                         tab, la)
+            assert _emulate_split(a, la, b, lb, tol, la, Lb) == int(want), \
+                (la, lb, rc)
+
+
+@pytest.mark.parametrize("tol,mapping", [
+    (0, "split"), (1, "split"), (2, "split"), (3, "split"),
+    (1, "staged"), (2, "staged"), (4, "staged"), (7, "staged"),
+    (15, "staged"), (2, "ring"), (7, "ring"), (15, "ring"), (16, "warp"),
+    (2, "inplace")])
+def test_contained_mappings_emulation_equal_plain(tol, mapping):
+    """Each mapping of the containment kernel, emulated, equals
+    contained_any_plain on dedupe's block layout: windows clipped at a
+    container's ends (some shorter than the read less tol), N and
+    lowercase bytes through the kernel's complement table, queries of
+    different lengths in one block; "staged" reads its operands only from
+    the emulated shared block, random bytes outside what was staged; the
+    rule lets each mapping apply where it is emulated."""
+    reads, pairs = _contained_case(170 + tol, tol, n_q=8 if tol > 4 else 12)
+    # two windows cut short, as at a container's end: lb < la - tol
+    pairs += [(r, x[:len(reads[r]) - tol - 1 - k]) for k, (r, x) in
+              enumerate(pairs[:2])]
+    args = _contained_block(reads, pairs)
+    q, _, w, _ = args
+    assert tbd.contained_mapping(len(pairs), tol, q.shape[0], w.shape[0],
+                                 mapping) == mapping
+    assert len({len(x) for x in reads}) > 3
+    want = tbd.contained_any_plain(*args, tol).numpy()
+    np.testing.assert_array_equal(
+        _emulate_contained(*args, tol, mapping=mapping), want)
+    assert 0 < want.sum() < len(reads)
+
+
+def test_contained_no_pairs_and_one_pair():
+    """P = 0: no flag, every mapping's rule still answers; P = 1: the one
+    pair's flag in each mapping's emulation equals the plain version, hit
+    and miss."""
+    reads, pairs = _contained_case(211, 2, n_q=4)
+    q, lq, w, table = _contained_block(reads, pairs)
+    empty = table[:, :0].contiguous()
+    assert tbd.contained_any_plain(q, lq, w, empty, 2).sum() == 0
+    assert tbd.contained_any(q, lq, w, empty, 2).sum() == 0
+    assert tbd.contained_mapping(0, 2, q.shape[0], w.shape[0]) == "split"
+    seen = set()
+    for k in range(table.shape[1]):
+        one = table[:, k:k + 1].contiguous()
+        want = tbd.contained_any_plain(q, lq, w, one, 2).numpy()
+        seen.add(int(want.sum()))
+        for mapping in ("split", "staged", "ring", "inplace"):
+            np.testing.assert_array_equal(
+                _emulate_contained(q, lq, w, one, 2, mapping=mapping), want)
+    assert seen == {0, 1}
+
+
+def test_contained_mapping_rule():
+    """contained_mapping: "split" below CONTAINED_SPLIT_BELOW pairs where
+    4 tol + 1 <= 13, else "staged" where a block's rows fit its shared
+    bytes, "ring" where they do not, "warp" past 64 cells; a forced
+    mapping where it applies, a ValueError where not; "inplace" never
+    picked."""
+    below = tbd.CONTAINED_SPLIT_BELOW
+    for tol in range(0, 4):
+        assert tbd.contained_mapping(1, tol, 150, 154) == "split"
+        assert tbd.contained_mapping(below - 1, tol, 150, 154) == "split"
+        assert tbd.contained_mapping(below, tol, 150, 154) == "staged"
+        assert tbd.contained_mapping(below, tol, 5000, 5004) == "ring"
+    for tol in (4, 7, 15):
+        assert tbd.contained_mapping(1, tol, 150, 180) == "staged"
+        assert tbd.contained_mapping(1, tol, 2000, 2030) == "ring"
+        with pytest.raises(ValueError):
+            tbd.contained_mapping(1, tol, 150, 180, "split")
+    for tol in (16, 300):
+        assert tbd.contained_mapping(1, tol, 150, 182) == "warp"
+        for m in ("split", "staged", "ring"):
+            with pytest.raises(ValueError):
+                tbd.contained_mapping(1, tol, 150, 182, m)
+    assert tbd.contained_stage_bytes(150, 154) == 64 * (156 + 156)
+    assert tbd.contained_stage_bytes(376, 376) <= tbd.CONTAINED_STAGE_MAX
+    assert tbd.contained_stage_bytes(381, 381) > tbd.CONTAINED_STAGE_MAX
+    with pytest.raises(ValueError):
+        tbd.contained_mapping(1, 2, 150, 154, "quad")
+    for tol in (0, 2, 7, 16, 300):
+        assert _applies("inplace", tol)
+        assert all(tbd.contained_mapping(P, tol, L, L + 4 * tol) != "inplace"
+                   for P in (0, 1, below, 10**6) for L in (100, 5000))
+    assert set(tbd.CONTAINED_MAPPINGS) == set(tbd._CONTAINED_CODES)
+
+
+def _applies(mapping, tol, Lq=150, Lw=154):
+    try:
+        tbd.contained_mapping(1, tol, Lq, Lw, mapping)
+        return True
+    except ValueError:
+        return False
+
+
+def test_contained_launcher_interface():
+    """The wrapper and csrc/banded_edit.cu agree on the containment
+    launcher: its argument count, the mapping codes of ContainedMapping,
+    the split's widest band (kSplitMaxCells), the thread bodies' (64), the
+    staged block (kThreads / 2 pairs, kStageMax bytes, stage_pitch) and
+    the launcher's switch over the split's band widths."""
+    import re
+    from pathlib import Path
+    from types import SimpleNamespace
+    src = (Path(tbd.__file__).parent.parent / "csrc"
+           / "banded_edit.cu").read_text()
+
+    class Fake:
+        def __getattr__(self, name):
+            if name.startswith("_"):
+                raise AttributeError(name)
+            x = SimpleNamespace()
+            setattr(self, name, x)
+            return x
+    import bbmap_tpu_torch.ops._build as build
+    fake = Fake()
+    real = build.load
+    build.load = lambda name: fake
+    try:
+        tbd._lib()
+    finally:
+        build.load = real
+    n_args = len(re.search(r"cudaError_t banded_contained_launch\(([^)]*)\)",
+                           src).group(1).split(","))
+    assert n_args == len(fake.banded_contained_launch.argtypes) == 14
+    codes = dict(re.findall(r"kContained(\w+) = (\d+),", src))
+    assert {m: int(codes[m.capitalize()]) for m in tbd.CONTAINED_MAPPINGS} \
+        == tbd._CONTAINED_CODES
+    const = dict(re.findall(r"constexpr int (k\w+) = ([^;]+);", src))
+    assert int(const["kSplitMaxCells"]) == tbd.CONTAINED_SPLIT_MAX_CELLS
+    assert int(const["kThreadMaxCells"]) == tbd.THREAD_MAX_CELLS
+    assert const["kStagePairs"] == "kThreads / 2" and \
+        int(const["kThreads"]) // 2 == tbd.CONTAINED_STAGE_PAIRS
+    assert eval(const["kStageMax"]) == tbd.CONTAINED_STAGE_MAX
+    assert "return 4 * (((L + 3) / 4) | 1);" in src
+    split = src[src.index("case kContainedSplit:"):]
+    widths = [int(x) for x in re.findall(
+        r"case (\d+): return launch_contained_split",
+        split[:split.index("default")])]
+    assert widths == [4 * t + 1 for t in range(4)]
+    assert max(widths) == tbd.CONTAINED_SPLIT_MAX_CELLS
+
+
 def test_contained_kernel_equals_plain_on_the_card():
-    """The containment mapping against its plain version on the card, in
-    the thread band (tol 1, 2, 15) and on the warp body (tol 16), on
-    dedupe's block layout (chip_smoke.py does this at dedupe's shape)."""
+    """The containment mapping against its plain version on the card, each
+    mapping forced where it applies and the one the rule picks, in the
+    thread band (tol 1, 2, 3, 7, 15), on the warp body (tol 16) and, at
+    tol 2, on contigs too long for the staged block ("ring"), on dedupe's
+    block layout (chip_smoke.py does this at dedupe's shapes)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda", 0)
-    for tol in (1, 2, 15, 16):
-        reads, pairs = _contained_case(tol, tol, n_q=40)
+    cases = [(tol, _contained_case(tol, tol, n_q=40))
+             for tol in (1, 2, 3, 7, 15, 16)]
+    cases.append((2, _contained_case(5, 2, n_q=6, n_c=3, long=True)))
+    for tol, (reads, pairs) in cases:
         q, lq = tbd.upload_block(reads, dev)
         w, table = tbd.upload_windows([r for r, _ in pairs],
                                       [x for _, x in pairs], dev)
         want = tbd.contained_any_plain(q, lq, w, table, tol)
-        tbd.reset_launches()
-        got = tbd.contained_any(q, lq, w, table, tol)
-        assert tbd.contained_any.launches == 1
-        assert torch.equal(got, want), tol
+        for mapping in (None, *tbd.CONTAINED_MAPPINGS):
+            if mapping and not _applies(mapping, tol, q.shape[0],
+                                        w.shape[0]):
+                continue
+            tbd.reset_launches()
+            got = tbd.contained_any(q, lq, w, table, tol, mapping)
+            assert tbd.contained_any.launches == 1
+            picked = mapping or tbd.contained_mapping(
+                table.shape[1], tol, q.shape[0], w.shape[0])
+            assert tbd.contained_any.launches_by[picked] == 1
+            assert torch.equal(got, want), (tol, mapping)

@@ -7,8 +7,10 @@ global and infix, on the pairs of ``tests/banded_cases`` (words whose
 lanes differ in la and lb, lanes that end early, empty sides, IUPAC and
 lowercase bytes, counts that are not multiples of 4 or of the tile), with
 a per pair, with one query shared (a pair stride of 0), staged and in
-place, class and triangle. Every test skips where there is no CUDA
-device. This file imports neither jax nor the JAX package, so it runs on a
+place, class and triangle; and the containment kernel
+(``contained_any``) with each of its mappings forced, and the one its rule
+picks, against its plain version on dedupe's block layout. Every test
+skips where there is no CUDA device. This file imports neither jax nor the JAX package, so it runs on a
 machine without them: ``python -m pytest --noconftest
 tests/test_torch_banded_card.py``."""
 
@@ -17,7 +19,8 @@ import pytest
 import torch
 
 from bbmap_tpu_torch.ops import banded_device as tbd
-from tests.banded_cases import class_case, quad_words, random_pairs, stack
+from tests.banded_cases import class_case, contained_case, quad_words, \
+    random_pairs, stack
 
 
 def _card():
@@ -87,3 +90,34 @@ def test_quad_block_kernel_equals_plain_on_the_card(E):
     for mapping in ("quad", "thread"):
         assert torch.equal(tbd.banded_any(q, lqd, None, None, E, tri=True,
                                           mapping=mapping), want)
+
+
+@pytest.mark.parametrize("tol", [0, 1, 2, 3, 7, 15, 16])
+def test_contained_mappings_equal_plain_on_the_card(tol):
+    """contained_any with each mapping forced where it applies ("split" to
+    tol 3, "staged" and "ring" to tol 15, "warp" from 16, "inplace"
+    everywhere) and with the rule's pick, against contained_any_plain on
+    the same CUDA tensors, tolerance 0, one launch each, counted under its
+    mapping: reads of 40 to 120 bp and their windows (clipped at the
+    containers' ends, N and lowercase bytes, reverse complements), and
+    contigs ten times longer (past the staged block: "ring"); a pair count
+    of 1 too."""
+    dev = _card()
+    cases = [contained_case(tol, tol, n_q=40),
+             contained_case(5 + tol, tol, n_q=6, n_c=3, long=True)]
+    for reads, pairs in cases + [(cases[0][0], cases[0][1][:1])]:
+        q, lq = tbd.upload_block(reads, dev)
+        w, table = tbd.upload_windows([r for r, _ in pairs],
+                                      [x for _, x in pairs], dev)
+        want = tbd.contained_any_plain(q, lq, w, table, tol)
+        P = table.shape[1]
+        for mapping in (None, *tbd.CONTAINED_MAPPINGS):
+            try:
+                picked = tbd.contained_mapping(P, tol, q.shape[0], w.shape[0],
+                                               mapping)
+            except ValueError:
+                continue
+            tbd.reset_launches()
+            got = tbd.contained_any(q, lq, w, table, tol, mapping)
+            assert tbd.contained_any.launches_by[picked] == 1
+            assert torch.equal(got, want), (tol, mapping, P)

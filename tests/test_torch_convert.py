@@ -237,8 +237,9 @@ def test_sam_copy_matches(ref_state):
 # a torch rewrite: the plain version, the kernel's wrapper with its launch
 # counts and library, the block kernel's wrapper and plain version, and
 # the device store of dedupe's kept sequences, the containment kernel's
-# wrapper, plain version and staging; dedupe checks its reads in blocks and
-# splits the containment check into the functions the block calls
+# wrapper, its rule, plain version and staging; dedupe checks its reads in
+# blocks and splits the containment check into the functions the block
+# calls
 PORT_ADDED = {
     "ops.banded_device": {"banded_edit_batch_plain", "banded_edit",
                           "backend", "torch", "ctypes", "Optional",
@@ -249,6 +250,10 @@ PORT_ADDED = {
                           "BLOCK_TILE", "BLOCK_MAX_E", "BLOCK_MAX_GROUP",
                           "BLOCK_AIM_PER_SM", "BLOCK_STAGE_MAX",
                           "BLOCK_QUAD_TILE", "CONTAINED_MAPPINGS", "BODIES",
+                          "_CONTAINED_CODES", "CONTAINED_SPLIT_BELOW",
+                          "CONTAINED_SPLIT_MAX_CELLS", "THREAD_MAX_CELLS",
+                          "CONTAINED_STAGE_PAIRS", "CONTAINED_STAGE_MAX",
+                          "contained_stage_bytes", "contained_mapping",
                           "words_fit", "_quad_layout", "_pick",
                           "_pair_minor",
                           "PLAIN_ANY_PAIRS", "ANY_MODES", "_check_any",
